@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GraphSAGE serving path on one card.
+"""Drive the PyTorch/CUDA port's GraphSAGE serving and training paths on
+one card.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -17,7 +18,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              version on the same inputs on the card: bit-equal for the
              sampler (tiled and flat), the reindex and the gather, within
              1e-5 for the neighbor mean. Times are medians of CUDA-event
-             timed runs with the L2 cache flushed between runs;
+             timed runs with the L2 cache flushed between runs. Yardsticks:
+             index_select (K3), embedding_bag's weighted sum with weights
+             mask / count computed beforehand (K4); no one torch call
+             draws a k-subset per CSR row (K1) or dedups with the seeds
+             kept in their slots (K2);
 5. serve   — ServeEngine(max_batch=64) on the tiled sampler: warmup, then
              Zipf requests from 4 client threads; every kernel of the path
              must have launched (counts zeroed just before, read just
@@ -27,7 +32,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
              must agree within 1e-3;
 6. flat    — a shorter serve run on the flat layout (the flat sampling
              kernel's path), counts read the same way;
-7. report  — one JSON line of all kernels, the card line, then the
+7. kernels-2 — the training slice's kernels at the shapes a batch-1024
+             step gives them, against their plain versions: the
+             neighbor-mean backward (K4b) on layers 1 and 2 in the cols
+             and structural layouts, within 1e-5 of the plain version run
+             on a CPU copy of the inputs (it adds in the kernel's order;
+             the card's index_add_ does not) and bit-equal when run twice;
+             the full-graph mean (K10) over the whole graph at D = 100 and
+             256 within 1e-5; the tiered gather (K3t) of a real batch's
+             n_id at a 20% cache, bit-equal. Bounds as above; K3t's host
+             rows are charged at the link rate of one 1 GiB pinned copy
+             measured in the run. Yardsticks: index_add_ (K4b),
+             torch.sparse.mm with a CSR adjacency of ones (K10), none for
+             K3t (no one call reads two tiers);
+8. train   — 20 Adam steps at batch 1024 on each of four legs at full
+             width (sample_dense + lookup_padded on the resident table;
+             sample_dense + Feature[...] at a 20% cache; sample_and_gather_
+             fused; sample_and_gather_dedup), dropout 0.5 from a seeded
+             device generator, random labels from the seed: median step
+             ms, SEPS, first and last loss (finite), the leg's launches
+             (zeroed before its timed steps; every kernel of the leg must
+             have launched) and a profiled device-time split of 3 more
+             steps;
+9. learn   — the example (python -m quiver_tpu_torch.examples.reddit_sage)
+             at its defaults on the card: test and full-inference accuracy
+             must exceed 0.8, printed beside ACCURACY.json's recorded
+             ones; K10 must have launched;
+10. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a card. Needs one card.
@@ -38,24 +69,41 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # deterministic GEMMs
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from quiver_tpu_torch import GraphSAGE, GraphSageSampler, ServeConfig, ServeEngine, _kernels
+from quiver_tpu_torch import Feature, GraphSAGE, GraphSageSampler, ServeConfig, ServeEngine, _kernels
 from quiver_tpu_torch import random as qrandom
 from quiver_tpu_torch.datasets import PRODUCTS, powerlaw_csr
 from quiver_tpu_torch.feature import gather_rows, gather_rows_plain
-from quiver_tpu_torch.inference import batch_logits, bind_params
-from quiver_tpu_torch.models.sage import masked_mean_aggregate, masked_mean_aggregate_plain
+from quiver_tpu_torch.inference import (
+    batch_logits,
+    bind_params,
+    full_mean_aggregate,
+    full_mean_aggregate_plain,
+    strict_float32,
+)
+from quiver_tpu_torch.models.sage import (
+    masked_mean_aggregate,
+    masked_mean_aggregate_plain,
+    masked_mean_backward,
+    masked_mean_backward_plain,
+)
 from quiver_tpu_torch.ops import reindex, sample
+from quiver_tpu_torch.pyg.sage_sampler import sample_and_gather_dedup, sample_and_gather_fused
 from quiver_tpu_torch.serve import zipfian_trace
+from quiver_tpu_torch.shard_tensor import tiered_gather_plain
+from quiver_tpu_torch.trace import median_min_max, seps
 from quiver_tpu_torch.utils import CSRTopo
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -83,8 +131,15 @@ SOURCES = {
     "local_reindex": ("quiver_tpu_torch/csrc/reindex.cu", "quiver_tpu/ops/reindex.py:124"),
     "gather_rows": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/feature.py:141"),
     "masked_mean": ("quiver_tpu_torch/csrc/aggregate.cu", "quiver_tpu/models/sage.py:25"),
+    "masked_mean_backward": ("quiver_tpu_torch/csrc/aggregate.cu",
+                             "quiver_tpu/models/sage.py:25"),
+    "tiered_gather": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/shard_tensor.py:241"),
+    "full_mean": ("quiver_tpu_torch/csrc/full_mean.cu", "quiver_tpu/inference.py:30"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
+# the training slice: batch, timed steps a leg, the tiered leg's cache share
+TRAIN_BATCH, TRAIN_STEPS, CACHE_FRAC = 1024, 20, 0.2
+PRODUCTS_TRAIN = 196_615  # ogbn-products train nodes
 
 
 def log(*a):
@@ -150,6 +205,27 @@ def sample_bound(indptr, cur, cur_valid, k):
     return bound(n_bytes, n_draw * (k * (THREEFRY_INT_OPS + STEP_INT_OPS) + k * (k - 1) // 2))
 
 
+def record(rows, name, err, ms, plain_ms, b, lib_ms=None, shape="", report=True):
+    """Log one timed kernel call; with ``report`` also add it to the
+    kernel's row of the report line (sums over the calls of one pass)."""
+    log(json.dumps({"kernel": name, "shape": shape, "kernel_ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
+                    "max_abs_err": float(err)}))
+    if not report:
+        return
+    r = rows.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                   bound_by="bytes", library_ms=None, calls=0))
+    r["max_abs_err"] = max(r["max_abs_err"], float(err))
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["bound_ms"] += b[0]
+    if b[1] == "operations":
+        r["bound_by"] = "operations"
+    if lib_ms is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+    r["calls"] += 1
+
+
 # -- phases ----------------------------------------------------------------------
 
 def card_line() -> str:
@@ -210,20 +286,7 @@ def kernel_phase(topo, table, model, seeds):
     rows = {}
 
     def add(name, err, ms, plain_ms, b, lib_ms=None, shape=""):
-        r = rows.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                       bound_by="bytes", library_ms=None, calls=0))
-        r["max_abs_err"] = max(r["max_abs_err"], float(err))
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        r["bound_ms"] += b[0]
-        if b[1] == "operations":
-            r["bound_by"] = "operations"
-        if lib_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
-        r["calls"] += 1
-        log(json.dumps({"kernel": name, "shape": shape, "kernel_ms": ms, "plain_ms": plain_ms,
-                        "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
-                        "max_abs_err": float(err)}))
+        record(rows, name, err, ms, plain_ms, b, lib_ms, shape)
 
     def int_err(a, b):
         for x, y in zip(a, b):
@@ -295,9 +358,16 @@ def kernel_phase(topo, table, model, seeds):
             idx_bytes = W * k * (5 if adj.cols is not None else 1)
             b = bound(idx_bytes + torch.unique(src[adj.mask]).numel() * D * 4 + W * D * 4,
                       f32_adds=lanes * D + W * D)
+            # yardstick: embedding_bag's weighted sum, weights mask / cnt computed beforehand
+            cnt = torch.clamp(adj.mask.sum(dim=1, keepdim=True), min=1).to(x.dtype)
+            bag = dict(input=src.reshape(-1).long(), weight=x, mode="sum",
+                       offsets=torch.arange(0, W * k, k, device=dev),
+                       per_sample_weights=(adj.mask.to(x.dtype) / cnt).reshape(-1))
+            check(torch.allclose(F.embedding_bag(**bag), got, atol=1e-5, rtol=1e-5),
+                  "the embedding_bag yardstick computes another function")
             add("masked_mean", err, time_ms(lambda: masked_mean_aggregate(x, adj)),
                 time_ms(lambda: masked_mean_aggregate_plain(x, adj), reps=5), b,
-                shape=f"W={W} k={k} D={D}")
+                lib_ms=time_ms(lambda: F.embedding_bag(**bag)), shape=f"W={W} k={k} D={D}")
             x = torch.relu(conv(x, adj))
     torch.cuda.synchronize()
     return rows
@@ -351,6 +421,281 @@ def replay_check(topo, model, params, table, engine, served, device, n_dispatch,
                 worst = max(worst, float(np.abs(row - out[i]).max()))
     check(worst <= atol, f"replay on {device} differs from the served rows by {worst}")
     return worst
+
+
+# -- the training slice ----------------------------------------------------------
+
+def link_rate(dev) -> float:
+    """Host-to-card bytes per second of one 1 GiB pinned ``copy_``: the
+    rate the bound charges the tiered gather's host-tail rows at."""
+    host = torch.empty(256 << 20, dtype=torch.float32).pin_memory()
+    dst = torch.empty(host.shape, dtype=host.dtype, device=dev)
+    dst.copy_(host, non_blocking=True)  # warm the path
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    dst.copy_(host, non_blocking=True)
+    b.record()
+    b.synchronize()
+    return host.numel() * 4 / (a.elapsed_time(b) / 1e3)
+
+
+def build_features(topo, table_np, dev):
+    """The two stores of the training legs: the whole table on the card
+    (no reorder) and the 20% cache with the degree reorder, its tail in
+    pinned host memory."""
+    t0 = time.perf_counter()
+    resident = Feature(device_cache_size=table_np.nbytes, device=dev)
+    resident.from_cpu_tensor(table_np)
+    tiered = Feature(device_cache_size=int(table_np.shape[0] * CACHE_FRAC) * DIM * 4,
+                     csr_topo=topo, device=dev)
+    tiered.from_cpu_tensor(table_np)
+    log(f"features: resident {resident.tier_bytes()}, tiered {tiered.tier_bytes()} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return resident, tiered
+
+
+def kernel_phase_2(topo, table, tiered, seeds, rows, seed):
+    """Hold K4b, K10 and K3t against their plain versions at the training
+    shapes and time them; adds their rows to ``rows``."""
+    dev = table.device
+    n = topo.node_count
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 11)
+    ds = sampler.sample_dense(seeds)                            # cols layout
+    graph, bind, _ = sampler.fused_sample_spec()
+    ds_f, _ = sample_and_gather_fused(None, None, table, sampler.next_key(),
+                                      sampler.as_seeds(seeds), SIZES, sample_fn=bind(graph))
+
+    # K4b: the backward of layers 1 and 2 in both layouts; the report row
+    # sums the cols layout's two calls (one step of legs 1, 2 and 4)
+    for layout, d in (("cols", ds), ("structural", ds_f)):
+        for layer in (1, 2):
+            adj = d.adjs[layer]
+            W, k = adj.mask.shape
+            w_src = d.adjs[layer - 1].w_dst
+            g = torch.randn((W, HIDDEN), generator=gen, device=dev)
+            got = masked_mean_backward(g, adj.mask, adj.cols, w_src)
+            again = masked_mean_backward(g, adj.mask, adj.cols, w_src)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"K4b {layout} layer {layer}: two runs differ")
+            # held against the plain version on a CPU copy of the inputs, which
+            # adds the lanes in the kernel's order; on the card the plain
+            # version is index_add_ with float atomics, in no fixed order
+            cpu = masked_mean_backward_plain(g.cpu(), adj.mask.cpu(),
+                                             None if adj.cols is None else adj.cols.cpu(), w_src)
+            err = float((got.cpu() - cpu).abs().max())
+            check(torch.allclose(got.cpu(), cpu, atol=1e-5, rtol=1e-5),
+                  f"K4b {layout} layer {layer} differs from its plain version by {err}")
+            lanes = int(adj.mask.sum())
+            idx_bytes = W * k * (5 if adj.cols is not None else 1)
+            b = bound(idx_bytes + W * HIDDEN * 4 + w_src * HIDDEN * 4, f32_adds=2 * lanes * HIDDEN)
+            # yardstick: index_add_ of the lane contributions, computed beforehand
+            cnt = torch.clamp(adj.mask.sum(dim=1, keepdim=True), min=1).to(g.dtype)
+            contrib = (g / cnt)[:, None, :].expand(W, k, HIDDEN)[adj.mask].contiguous()
+            if adj.cols is None:
+                src = (W + torch.arange(k, device=dev)[None, :] * W
+                       + torch.arange(W, device=dev)[:, None])
+            else:
+                src = torch.clamp(adj.cols.long(), 0, w_src - 1)
+            idx = src[adj.mask].contiguous()
+            lib = time_ms(lambda: torch.zeros((w_src, HIDDEN), device=dev).index_add_(0, idx,
+                                                                                      contrib))
+            record(rows, "masked_mean_backward", err,
+                   time_ms(lambda: masked_mean_backward(g, adj.mask, adj.cols, w_src)),
+                   time_ms(lambda: masked_mean_backward_plain(g, adj.mask, adj.cols, w_src),
+                           reps=5),
+                   b, lib, shape=f"{layout} layer {layer} W={W} k={k} D={HIDDEN} W_src={w_src}",
+                   report=layout == "cols")
+
+    # K10: the full-graph mean over the whole graph at D = 100 and 256; the
+    # report row sums the two calls
+    indptr, indices = topo.to_device(dev)
+    e = indices.shape[0]
+    adjacency = torch.sparse_csr_tensor(indptr, indices, torch.ones(e, device=dev), size=(n, n))
+    denom = torch.clamp(indptr[1:] - indptr[:-1], min=1).to(torch.float32)[:, None]
+    for D in (DIM, HIDDEN):
+        h = table if D == DIM else torch.randn((n, D), generator=gen, device=dev)
+        got = full_mean_aggregate(indptr, indices, h)
+        want = full_mean_aggregate_plain(indptr, indices, h)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
+              f"K10 at D={D} differs from its plain version by {err}")
+        del got, want
+        b = bound((n + 1) * 4 + e * 4 + 2 * n * D * 4, f32_adds=e * D + n * D)
+        record(rows, "full_mean", err,
+               time_ms(lambda: full_mean_aggregate(indptr, indices, h), reps=5, warm=1),
+               time_ms(lambda: full_mean_aggregate_plain(indptr, indices, h), reps=3, warm=1), b,
+               time_ms(lambda: torch.sparse.mm(adjacency, h) / denom, reps=3, warm=1),
+               shape=f"N={n} E={e} D={D}")
+    del adjacency
+
+    # K3t: the tiered gather of a real sample_dense batch's n_id at 20% cache
+    st = tiered.shard_tensor
+    n_id = ds.n_id
+    got = tiered[n_id]
+    want = tiered_gather_plain(st.device_rows, st.cpu_tensor, n_id, n, tiered._order_dev)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K3t differs from its plain version")
+    rate = link_rate(dev)
+    ids = n_id.long()
+    stored = torch.unique(tiered._order_dev[ids[(ids >= 0) & (ids < n)]].long())
+    H = st.device_rows.shape[0]
+    host_rows = int((stored >= H).sum())
+    hbm_bytes = n_id.numel() * 4 + stored.numel() * 4 + (stored.numel() - host_rows) * DIM * 4 \
+        + n_id.numel() * DIM * 4
+    t_hbm, t_link = hbm_bytes / HBM_BYTES_PER_S * 1e3, host_rows * DIM * 4 / rate * 1e3
+    log(json.dumps({"link_GBps": rate / 1e9, "k3t_rows": n_id.numel(),
+                    "k3t_distinct_rows": stored.numel(), "k3t_host_rows": host_rows,
+                    "k3t_hbm_bound_ms": t_hbm, "k3t_link_bound_ms": t_link}))
+    record(rows, "tiered_gather", 0.0, time_ms(lambda: tiered[n_id]),
+           time_ms(lambda: tiered_gather_plain(st.device_rows, st.cpu_tensor, n_id, n,
+                                               tiered._order_dev), reps=5),
+           (max(t_hbm, t_link), "bytes"), None, shape=f"n={n_id.numel()} D={DIM} cache=20%")
+
+
+def port_kernel_names() -> set:
+    """The ``__global__`` function names of ``quiver_tpu_torch/csrc``: how a
+    profiled kernel is told to be one of the port's own."""
+    return {m for f in Path(_kernels.CSRC).glob("*.cu")
+            for m in re.findall(r"__global__ void (\w+)", f.read_text())}
+
+
+def profile_steps(step, seeds_iter, port_names, steps=3):
+    """Device time per step over ``steps`` profiled steps, from the kernel
+    rows of the trace only (an op's row, and a user annotation's span on
+    the device such as the optimizer step's, repeat their kernels' time):
+    ``{"port_ms", "other_ms", "top"}`` — the port's kernels, every other
+    kernel (GEMMs, elementwise, Adam, copies), and the eight largest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(next(seeds_iter))
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.key_averages():
+        if (ev.device_type == DeviceType.CUDA and not ev.is_user_annotation
+                and ev.device_time_total > 0):
+            per[ev.key] = per.get(ev.key, 0.0) + ev.device_time_total / 1e3 / steps
+    check(bool(per), "the profiler saw no kernel on the card")
+    port = sum(v for k, v in per.items() if any(p in k for p in port_names))
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    return {"port_ms": port, "other_ms": sum(per.values()) - port,
+            "top": [(k[:60], v) for k, v in top]}
+
+
+def train_phase(topo, table, resident, tiered, train_idx, seed):
+    """Four legs of TRAIN_STEPS Adam steps at batch 1024, full width;
+    returns the launches summed over the legs."""
+    dev = table.device
+    n = topo.node_count
+    labels = torch.randint(0, CLASSES, (n,), generator=torch.Generator(device=dev).manual_seed(8),
+                           device=dev)
+    sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5)
+    graph, bind, _ = sampler.fused_sample_spec()
+
+    def dense_resident(s):
+        ds = sampler.sample_dense(s)
+        return ds, resident.lookup_padded(ds.n_id)
+
+    def dense_tiered(s):
+        ds = sampler.sample_dense(s)
+        return ds, tiered[ds.n_id]
+
+    def fused(s):
+        return sample_and_gather_fused(None, None, table, sampler.next_key(), sampler.as_seeds(s),
+                                       SIZES, sample_fn=bind(graph))
+
+    def dedup(s):
+        return sample_and_gather_dedup(None, None, table, sampler.next_key(), sampler.as_seeds(s),
+                                       SIZES, sample_fn=bind(graph))
+
+    legs = (
+        ("sample_dense+lookup_padded", dense_resident, ("local_reindex", "gather_rows",
+                                                        "masked_mean_backward/cols")),
+        ("sample_dense+Feature20%", dense_tiered, ("local_reindex", "tiered_gather",
+                                                   "masked_mean_backward/cols")),
+        ("sample_and_gather_fused", fused, ("gather_rows", "masked_mean_backward/structural")),
+        ("sample_and_gather_dedup", dedup, ("local_reindex", "gather_rows",
+                                            "masked_mean_backward/cols")),
+    )
+    total = {}
+    port_names = port_kernel_names()
+    for leg, inputs, needs in legs:
+        model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        model.to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        drop = torch.Generator(device=dev).manual_seed(seed + 1)
+        order = np.random.default_rng(seed + 2).permutation(train_idx)
+        batches = iter(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                       for i in range(len(order) // TRAIN_BATCH))
+
+        def step(seeds):
+            ds, x = inputs(seeds)
+            y = labels[ds.n_id[:TRAIN_BATCH].long()]
+            loss = F.cross_entropy(model(x, ds.adjs, train=True, generator=drop), y)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach(), sum(a.mask.sum() for a in ds.adjs)
+
+        for _ in range(2):  # warm-up: allocator, cuBLAS handles
+            step(next(batches))
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        times, losses, edges = [], [], 0
+        t_all = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, e = step(next(batches))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            edges += int(e)
+        wall = time.perf_counter() - t_all
+        counts = _kernels.counts()
+        prof = profile_steps(step, batches, port_names)
+        first, last = float(losses[0]), float(losses[-1])
+        step_ms = median_min_max(times)
+        summary = {"leg": leg, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+                   "step_ms": step_ms, "seps": seps(edges, wall),
+                   "sampled_edges": edges, "loss_first": first, "loss_last": last,
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "profile_per_step": prof,
+                   "port_kernel_share": prof["port_ms"] / step_ms["median"],
+                   "device_idle_share": 1.0 - (prof["port_ms"] + prof["other_ms"])
+                   / step_ms["median"]}
+        log("train: " + json.dumps(summary))
+        check(np.isfinite(first) and np.isfinite(last), f"{leg}: loss not finite")
+        for name in ("sample_tiled", "masked_mean") + needs:
+            check(counts[name] > 0, f"kernel {name} never launched on the {leg} leg")
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+        del model, opt
+    return total
+
+
+def learn_phase():
+    """The example at its defaults on the card; its accuracies beside the
+    reference's recorded ones. Returns the launches."""
+    from quiver_tpu_torch.examples import reddit_sage
+
+    ref = json.loads((Path(__file__).resolve().parent / "ACCURACY.json").read_text())
+    ref = ref["reddit_sage_synthetic"]
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = reddit_sage.main(["--device", "cuda"])
+    counts = _kernels.counts()
+    log("learn: " + json.dumps({"result": res, "reference_ACCURACY_json": ref,
+                                "seconds": time.perf_counter() - t0,
+                                "launches": {k: v for k, v in counts.items() if v}}))
+    check(res.get("test_acc", 0.0) > 0.8 and res.get("test_acc_full", 0.0) > 0.8,
+          f"the example did not learn: {res}")
+    check(counts["full_mean"] > 0, "K10 never launched in full inference")
+    return counts
 
 
 def main() -> int:
@@ -425,6 +770,20 @@ def main() -> int:
     for name in ("sample_flat", "local_reindex", "gather_rows", "masked_mean"):
         check(fcounts[name] > 0, f"kernel {name} never launched on the flat path")
     launches["sample_flat"] = fcounts["sample_flat"]
+    del engine, fengine
+
+    # -- the training slice ----------------------------------------------------
+    strict_float32()
+    resident, tiered = build_features(topo, table.cpu().numpy(), dev)
+    train_idx = np.random.default_rng(args.seed + 3).choice(topo.node_count, PRODUCTS_TRAIN,
+                                                            replace=False)
+    seeds_1024 = torch.from_numpy(train_idx[:TRAIN_BATCH].astype(np.int32)).to(dev)
+    kernel_phase_2(topo, table, tiered, seeds_1024, rows, args.seed)
+    train_counts = train_phase(topo, table, resident, tiered, train_idx, args.seed)
+    learn_counts = learn_phase()
+    for name in ("masked_mean_backward", "tiered_gather"):
+        launches[name] = train_counts[name]
+    launches["full_mean"] = learn_counts["full_mean"]
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -1,5 +1,7 @@
-"""quiver_tpu_torch — the PyTorch/CUDA port of quiver_tpu, slice 1:
-GraphSAGE serving (sample -> dedup -> gather -> forward -> ServeEngine).
+"""quiver_tpu_torch — the PyTorch/CUDA port of quiver_tpu on one card:
+GraphSAGE serving (sample -> dedup -> gather -> forward -> ServeEngine)
+and training (tiered Feature -> sample-and-gather -> forward/backward ->
+Adam -> full-neighbor eval).
 
 Imports torch and numpy only, never jax or quiver_tpu. Entry points run on
 CUDA unless ``device="cpu"`` is passed, where every kernel's plain torch
@@ -8,12 +10,13 @@ first use (`quiver_tpu_torch._kernels.build`).
 """
 
 from .convert import sage_params_from_flax
+from .feature import Feature
 from .models import GraphSAGE
 from .pyg import GraphSageSampler
 from .serve import ServeConfig, ServeEngine
 from .utils import CSRTopo
 
 __all__ = [
-    "CSRTopo", "GraphSAGE", "GraphSageSampler", "ServeConfig", "ServeEngine",
+    "CSRTopo", "Feature", "GraphSAGE", "GraphSageSampler", "ServeConfig", "ServeEngine",
     "sage_params_from_flax",
 ]

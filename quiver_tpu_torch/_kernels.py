@@ -9,8 +9,9 @@ their hash). Nothing is built or imported when this module is imported:
 the CPU tests import every module of the package.
 
 Each launch goes through :func:`launch`, which adds one to the kernel's
-launch count, calls the C entry point on the caller's current CUDA stream
-and raises at once if the launch was refused.
+launch count (and to ``name/variant`` where a kernel has layouts that a
+run must show apart), calls the C entry point on the caller's current
+CUDA stream and raises at once if the launch was refused.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -53,13 +54,23 @@ KERNELS = {
                     [_P, _LL, _I, _P, _LL, _LL, _P, _P, _P]),
     "masked_mean": ("aggregate", "qt_masked_mean",
                     [_P, _LL, _I, _P, _P, _I, _I, _P, _P]),
+    "masked_mean_backward": ("aggregate", "qt_masked_mean_backward",
+                             [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "tiered_gather": ("gather", "qt_tiered_gather",
+                      [_P, _LL, _P, _LL, _I, _P, _LL, _LL, _P, _P, _P]),
+    "full_mean": ("full_mean", "qt_full_mean", [_P, _P, _I, _LL, _P, _LL, _I, _P, _P]),
 }
+# kernels whose launches are also counted per layout, as "name/variant"
+VARIANTS = {"masked_mean_backward": ("cols", "structural")}
+# C helpers that launch nothing: name -> (source stem, argtypes)
+HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)])}
 SOURCES = sorted({stem for stem, _, _ in KERNELS.values()})
 
 _lock = threading.Lock()        # launch counts and the loaded libraries
 _build_lock = threading.Lock()  # one build at a time in this process
 _libs: Dict[str, ctypes.CDLL] = {}
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}
+_counts.update({f"{name}/{v}": 0 for name, vs in VARIANTS.items() for v in vs})
 build_log: Dict[str, str] = {}
 
 
@@ -138,11 +149,12 @@ def _lib(stem: str) -> ctypes.CDLL:
         lib = _libs.get(stem)
         if lib is None:
             lib = ctypes.CDLL(str(_lib_path(stem)))
-            for s, fn, argtypes in KERNELS.values():
-                if s == stem:
-                    f = getattr(lib, fn)
-                    f.argtypes = argtypes
-                    f.restype = ctypes.c_int
+            entries = [(fn, a) for s, fn, a in KERNELS.values() if s == stem]
+            entries += [(fn, a) for fn, (s, a) in HELPERS.items() if s == stem]
+            for fn, argtypes in entries:
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
             lib.qt_error_string.argtypes = [ctypes.c_int]
             lib.qt_error_string.restype = ctypes.c_char_p
             _libs[stem] = lib
@@ -154,14 +166,30 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, variant: Optional[str] = None) -> None:
     """Launch kernel ``name`` with C arguments ``args`` (pointers and the
-    stream as ints). Counts the launch and raises if CUDA refused it."""
+    stream as ints). Counts the launch (under ``name/variant`` too, for a
+    kernel listed in `VARIANTS`) and raises if CUDA refused it."""
     stem, fn, _ = KERNELS[name]
     lib = _lib(stem)
     with _lock:
         _counts[name] += 1
+        if variant is not None:
+            _counts[f"{name}/{variant}"] += 1
     rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.qt_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({msg})")
+
+
+def host_device_pointer(t: torch.Tensor) -> int:
+    """The device address through which a kernel reads the pinned host
+    tensor ``t`` (its UVA mapping). Raises when ``t`` is not pinned,
+    mapped host memory."""
+    lib = _lib(HELPERS["qt_host_device_pointer"][0])
+    out = ctypes.c_void_p()
+    rc = lib.qt_host_device_pointer(t.data_ptr(), ctypes.byref(out))
+    if rc != 0 or not out.value:
+        msg = lib.qt_error_string(rc).decode() if rc else "null mapping"
+        raise RuntimeError(f"host tensor is not mapped for device reads: error {rc} ({msg})")
+    return out.value

@@ -1,16 +1,28 @@
-"""Products-shaped synthetic graphs — the port's own copy of
-``quiver_tpu/datasets.py`` (``_powerlaw_csr_arrays``, ``powerlaw_csr``,
+"""Datasets — the port's own copy of ``quiver_tpu/datasets.py``
+(``load_npz``, ``_powerlaw_csr_arrays``, ``powerlaw_csr``,
 ``synthetic_powerlaw``, ``products_like``): same seeds, same arrays."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
 # ogbn-products scale (OGB reference numbers)
 PRODUCTS = dict(n_nodes=2_449_029, n_edges=61_859_140, feat_dim=100, classes=47,
                 train_nodes=196_615)
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    """Load a dataset the user exported: {edge_index [2,E], features
+    [N,D], labels [N], train_idx [T], (optional valid_idx/test_idx)}.
+    Nothing is downloaded."""
+    with np.load(path) as data:
+        out = {k: data[k] for k in data.files}
+    for k in ("edge_index", "features", "labels", "train_idx"):
+        if k not in out:
+            raise ValueError(f"dataset {path} missing required array {k!r}")
+    return out
 
 
 def _powerlaw_csr_arrays(n_nodes, n_edges, alpha, seed, max_deg_frac):

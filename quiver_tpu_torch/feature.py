@@ -1,20 +1,33 @@
-"""Feature row gather — the port of the gather in
-``quiver_tpu/feature.py`` (``_padded_gather``, ``_padded_gather_ordered``)
-and of the in-program gather of ``quiver_tpu/inference.py:make_serve_step``:
-``ids -> clip(0, n-1) -> [index_map -> clip(0, R-1)] -> table row``.
+"""Feature store and row gathers — the port of ``quiver_tpu/feature.py``
+(``DeviceConfig``, ``validate_lookup_ids``, ``Feature`` under the
+``device_replicate`` policy on one device, ``_padded_gather``,
+``_padded_gather_ordered``) and of the in-program gather of
+``quiver_tpu/inference.py:make_serve_step``.
 
-On CUDA tensors `gather_rows` launches the kernel of ``csrc/gather.cu``;
-on CPU tensors it runs `gather_rows_plain`. The tiered ``Feature`` class
-comes with the training slice.
+`gather_rows` is ``ids -> clip(0, n-1) -> [index_map -> clip(0, R-1)] ->
+table row``: on CUDA tensors it launches the kernel of ``csrc/gather.cu``
+(K3), on CPU tensors it runs `gather_rows_plain`. ``Feature.__getitem__``
+is one launch of the tiered gather (`shard_tensor.tiered_gather`, K3t);
+``Feature.lookup_padded`` is K3 over the resident table. Ids stay on the
+device.
+
+Not ported yet: the ``p2p_clique_replicate`` policy, the disk and
+adaptive tiers (``host_memory_budget``, ``disk_path``, ``adaptive_tiers``,
+``from_mmap``, ``set_mmap_file``), the observe-only taps (``tier_counter``,
+``row_tap``), the distributed local order and the IPC handles.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from . import _kernels
+from .shard_tensor import CPU_DEVICE, ShardTensor, ShardTensorConfig, normalize_dtype
+from .utils import CSRTopo, parse_size, reindex_feature, resolve_device
 
 
 def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -59,3 +72,177 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
         _kernels.stream_of(table),
     )
     return out
+
+
+@dataclass
+class DeviceConfig:
+    device_list: List[int]
+    device_cache_size: Union[int, str] = 0
+
+
+def validate_lookup_ids(node_idx, n: int) -> np.ndarray:
+    """Opt-in strict id check for feature lookups (host side): returns the
+    flattened int64 ids, or raises ValueError naming how many lie outside
+    ``[0, n)`` and a few of them. The lookups themselves never raise:
+    `Feature.lookup_padded` clips such ids and `Feature.__getitem__`
+    zero-fills them, so the sampler's sentinel padding flows through."""
+    ids = np.asarray(node_idx).astype(np.int64).reshape(-1)
+    bad = (ids < 0) | (ids >= n)
+    if bad.any():
+        examples = ids[bad][:8].tolist()
+        raise ValueError(
+            f"{int(bad.sum())} of {ids.size} lookup ids outside [0, {n}); "
+            f"examples: {examples} (jit lookups would clip these, eager "
+            "lookups would zero-fill — see Feature.validate_ids)"
+        )
+    return ids
+
+
+class Feature:
+    """Tiered ``[N, D]`` float32 feature store on one device.
+
+    rank : CUDA ordinal whose memory holds the hot rows (``device``
+        overrides it, e.g. ``"cpu"`` for the plain versions)
+    device_list : devices taking part in caching (one in this port)
+    device_cache_size : hot bytes on the device (int or "200M"/"4G")
+    cache_policy : "device_replicate" ("p2p_clique_replicate" and its
+        alias "ici_replicate" are not ported yet)
+    csr_topo : optional CSRTopo — stores rows in degree-descending order
+        so the cached prefix is the hot set (``feature_order`` remaps ids)
+    """
+
+    def __init__(self, rank: int = 0, device_list: Optional[Sequence[int]] = None,
+                 device_cache_size: Union[int, str] = 0,
+                 cache_policy: str = "device_replicate", csr_topo: Optional[CSRTopo] = None,
+                 dtype=np.float32, device=None):
+        if cache_policy == "ici_replicate":
+            cache_policy = "p2p_clique_replicate"
+        if cache_policy not in ("device_replicate", "p2p_clique_replicate"):
+            raise ValueError(f"unknown cache_policy: {cache_policy}")
+        if cache_policy != "device_replicate":
+            raise NotImplementedError(f"cache_policy {cache_policy!r} is not ported yet")
+        self.dtype = normalize_dtype(dtype)
+        self.rank = rank
+        self.device_list = list(device_list) if device_list else [rank]
+        self.device_cache_size = parse_size(device_cache_size)
+        self.cache_policy = cache_policy
+        self.csr_topo = csr_topo
+        self.device = resolve_device(f"cuda:{rank}" if device is None else device)
+        self.feature_order: Optional[np.ndarray] = None  # old id -> stored row
+        self._order_dev: Optional[torch.Tensor] = None   # the same, int32 on the device
+        self._inv_order: Optional[np.ndarray] = None
+        self.shard_tensor: Optional[ShardTensor] = None
+        self._dim: Optional[int] = None
+        self._n: int = 0
+
+    def from_cpu_tensor(self, cpu_tensor) -> None:
+        """Ingest the full ``[N, D]`` table: reorder it by degree when a
+        ``csr_topo`` is attached, then keep the first
+        ``device_cache_size`` bytes of rows on the device and the rest in
+        the pinned host tail."""
+        if isinstance(cpu_tensor, torch.Tensor):
+            cpu_tensor = cpu_tensor.detach().cpu().numpy()
+        arr = np.asarray(cpu_tensor)
+        if arr.ndim != 2:
+            raise ValueError("features must be [N, D]")
+        arr = arr.astype(self.dtype, copy=False)
+        self._n, self._dim = arr.shape
+        cache_rows = min(self.device_cache_size // (self._dim * self.dtype.itemsize), self._n)
+        if self.csr_topo is not None:
+            arr, order = reindex_feature(self.csr_topo, arr, cache_rows / max(self._n, 1))
+            self.feature_order = order
+            self.csr_topo.feature_order = order
+            self._order_dev = torch.from_numpy(order.astype(np.int32)).to(self.device)
+            self._inv_order = None
+        st = ShardTensor(self.device, ShardTensorConfig({}), dtype=self.dtype)
+        if cache_rows > 0:
+            st.append(arr[:cache_rows], self.rank)
+        if cache_rows < self._n:
+            st.append(arr[cache_rows:], CPU_DEVICE)
+        self.shard_tensor = st
+
+    def __getitem__(self, node_idx) -> torch.Tensor:
+        """Rows for (original) node ids on this feature's device, in one
+        tiered-gather launch: ids remap through ``feature_order``; ids
+        outside ``[0, N)`` (the sampler's sentinel padding) give zero
+        rows."""
+        return self.shard_tensor.gather(node_idx, n_valid=self._n, order=self._order_dev)
+
+    def _map_ids(self, node_idx):
+        """(stored_rows, invalid_mask) of a lookup batch on the host;
+        invalid lanes map to stored row 0."""
+        ids = np.asarray(node_idx).astype(np.int64).reshape(-1)
+        invalid = (ids < 0) | (ids >= self._n)
+        if invalid.any():
+            ids = np.where(invalid, 0, ids)
+        if self.feature_order is not None:
+            ids = self.feature_order[ids]
+        return ids, invalid
+
+    def gather_stored(self, stored) -> torch.Tensor:
+        """Rows by stored row id (no remap); ids outside the store give
+        zero rows."""
+        return self.shard_tensor[stored]
+
+    def tier_bytes(self) -> Dict[str, int]:
+        return {} if self.shard_tensor is None else self.shard_tensor.tier_bytes()
+
+    def stored_rows_of(self, node_ids) -> np.ndarray:
+        """Node id -> stored row (-1 for out-of-range ids)."""
+        stored, invalid = self._map_ids(node_ids)
+        return np.where(invalid, -1, stored)
+
+    def node_ids_of_stored(self, stored) -> np.ndarray:
+        """Stored row -> node id (the inverse of ``feature_order``;
+        identity without a reorder)."""
+        stored = np.asarray(stored, np.int64).reshape(-1)
+        if self.feature_order is None:
+            return stored
+        if self._inv_order is None:
+            inv = np.empty(self.feature_order.shape[0], np.int64)
+            inv[self.feature_order] = np.arange(self.feature_order.shape[0], dtype=np.int64)
+            self._inv_order = inv
+        return self._inv_order[stored]
+
+    @property
+    def resident(self) -> bool:
+        """Whether every row lives on the device (`lookup_padded` works)."""
+        st = self.shard_tensor
+        return st is not None and st.cpu_tensor is None and len(st.device_shards) == 1
+
+    def lookup_padded(self, node_idx: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Gather for padded id tensors of a fully device-resident
+        feature: ids are clipped into ``[0, N)`` (not zero-filled),
+        remapped through ``feature_order``, clipped into the table, and
+        the rows of lanes where ``valid`` is False are zeroed."""
+        if not self.resident:
+            raise ValueError(
+                "lookup_padded needs a fully device-resident feature; "
+                "use __getitem__ (tiered)"
+            )
+        if not isinstance(node_idx, torch.Tensor):
+            node_idx = torch.from_numpy(np.asarray(node_idx).astype(np.int64))
+        if node_idx.dtype != torch.int32:  # clamped first, so the clip is unchanged
+            node_idx = torch.clamp(node_idx.to(torch.int64), -1, self._n).to(torch.int32)
+        rows = gather_rows(self.shard_tensor.device_rows, node_idx.to(self.device),
+                           self._order_dev)
+        if valid is not None:
+            rows = rows * valid[:, None].to(rows.dtype)
+        return rows
+
+    def validate_ids(self, node_idx) -> np.ndarray:
+        """Strict opt-in id check: raise instead of the lookups' silent
+        clip or zero-fill. See :func:`validate_lookup_ids`."""
+        return validate_lookup_ids(node_idx, self._n)
+
+    @property
+    def shape(self):
+        return (self._n, self._dim)
+
+    @property
+    def dim(self) -> int:
+        return self._dim or 0
+
+    def size(self, axis: int) -> int:
+        return self.shape[axis]

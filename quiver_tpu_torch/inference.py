@@ -1,5 +1,5 @@
-"""Sampled inference and the fused serve step — the port of the serving
-half of ``quiver_tpu/inference.py``.
+"""Inference, evaluation and the fused serve step — the port of
+``quiver_tpu/inference.py``.
 
 The JAX package passes a flax module and its params separately; here a
 model is an ``nn.Module`` holding its weights (`bind_params` makes one
@@ -7,6 +7,10 @@ from a ``state_dict``), so every function below takes the bound module.
 All of them run the model in eval mode with TF32 off
 (`strict_float32`): float32 products stay float32, as in the reference.
 
+- `full_mean_aggregate` (K10: the kernel of ``csrc/full_mean.cu`` on CUDA
+  tensors, `full_mean_aggregate_plain` on CPU tensors) and
+  `sage_full_inference`: exact layer-wise full-neighbor GraphSAGE over all
+  nodes; `full_inference_accuracy` and `sampled_eval` score a model;
 - `sample_batch` + `forward_logits` == `batch_logits`: the split path;
 - `make_serve_step`: sample + gather + forward as one step function, the
   engine's fused path; `BucketPrograms` keeps one entry per bucket with
@@ -22,8 +26,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import _kernels
 from . import random as qrandom
-from .feature import gather_rows
+from .feature import Feature, gather_rows
 
 
 def strict_float32() -> None:
@@ -31,6 +36,99 @@ def strict_float32() -> None:
     reference computes in full float32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def full_mean_aggregate_plain(indptr: torch.Tensor, indices: torch.Tensor, h: torch.Tensor,
+                              edge_chunk: int = 1 << 22) -> torch.Tensor:
+    """Plain torch version of `full_mean_aggregate`: an edge-chunked
+    ``index_add_`` of the neighbor rows, then the divide."""
+    n = indptr.shape[0] - 1
+    e = indices.shape[0]
+    out = torch.zeros((n, h.shape[1]), dtype=h.dtype, device=h.device)
+    deg = (indptr[1:] - indptr[:-1]).to(torch.int64)
+    for lo in range(0, e, edge_chunk):
+        hi = min(lo + edge_chunk, e)
+        eidx = torch.arange(lo, hi, dtype=indptr.dtype, device=h.device)
+        src = torch.searchsorted(indptr, eidx, right=True) - 1
+        dst = torch.clamp(indices[lo:hi].to(torch.int64), 0, h.shape[0] - 1)
+        out.index_add_(0, src.to(torch.int64), h[dst])
+    return out / torch.clamp(deg, min=1).to(h.dtype)[:, None]
+
+
+def full_mean_aggregate(indptr: torch.Tensor, indices: torch.Tensor,
+                        h: torch.Tensor) -> torch.Tensor:
+    """Exact mean over all neighbors of every node: ``out[u] = mean_{v in
+    N(u)} h[clip(v)]`` (zero where the degree is 0), ``[N, D]``. On CUDA
+    tensors one launch of the K10 kernel (deterministic: CSR order, no
+    atomics)."""
+    if indptr.dim() != 1 or indices.dim() != 1 or h.dim() != 2:
+        raise ValueError("indptr [N+1], indices [E] and h [N_h, D] expected")
+    if len({indptr.device, indices.device, h.device}) != 1:
+        raise ValueError("indptr, indices and h must share a device")
+    if not h.is_cuda:
+        return full_mean_aggregate_plain(indptr, indices, h)
+    if h.dtype != torch.float32:
+        raise TypeError(f"the full-mean kernel takes float32 h; got {h.dtype}")
+    if indptr.dtype != indices.dtype or indptr.dtype not in (torch.int32, torch.int64):
+        raise TypeError("indptr and indices must both be int32 or both int64")
+    indptr, indices, h = indptr.contiguous(), indices.contiguous(), h.contiguous()
+    n = indptr.shape[0] - 1
+    out = torch.empty((n, h.shape[1]), dtype=h.dtype, device=h.device)
+    if n == 0 or h.shape[1] == 0:
+        return out
+    _kernels.launch(
+        "full_mean", indptr.data_ptr(), indices.data_ptr(), int(indptr.dtype == torch.int64),
+        n, h.data_ptr(), h.shape[0], h.shape[1], out.data_ptr(), _kernels.stream_of(h),
+    )
+    return out
+
+
+def sage_full_inference(model: nn.Module, indptr: torch.Tensor, indices: torch.Tensor,
+                        x_all) -> torch.Tensor:
+    """Layer-wise full-neighbor GraphSAGE over all nodes: per layer one
+    `full_mean_aggregate` and the layer's two projections, relu between
+    layers, no dropout. ``model`` is a port `GraphSAGE` holding its
+    weights; the result lies on its device."""
+    strict_float32()
+    dev = next(model.parameters()).device
+    h = x_all if isinstance(x_all, torch.Tensor) else torch.from_numpy(np.asarray(x_all))
+    h = h.to(device=dev, dtype=torch.float32)
+    last = len(model.convs) - 1
+    with torch.inference_mode():
+        for i, conv in enumerate(model.convs):
+            agg = full_mean_aggregate(indptr, indices, h)
+            h = conv.lin_l(agg) + conv.lin_r(h)
+            if i != last:
+                h = torch.relu(h)
+    return h
+
+
+def full_inference_accuracy(model: nn.Module, topo, x_all, labels, nodes) -> float:
+    """Accuracy of `sage_full_inference` on a node subset."""
+    dev = next(model.parameters()).device
+    indptr, indices = topo.to_device(dev)
+    h = sage_full_inference(model, indptr, indices, x_all)
+    pred = h.argmax(dim=-1).cpu().numpy()
+    nodes = np.asarray(nodes)
+    return float((pred[nodes] == np.asarray(labels)[nodes]).mean())
+
+
+def sampled_eval(model: nn.Module, sampler, feature, labels, nodes,
+                 batch_size: int = 1024) -> float:
+    """Sampled accuracy over ``nodes``: batches of ``batch_size`` seeds
+    (the last one padded with its final seed, the padding not scored)
+    through ``sampler`` and `lookup_features`. Returns the fraction
+    correct."""
+    nodes = np.asarray(nodes)
+    labels = np.asarray(labels)
+    correct = 0
+    for lo in range(0, nodes.shape[0], batch_size):
+        batch = pad_seed_batch(nodes[lo: lo + batch_size], batch_size)
+        logits = batch_logits(model, sampler, feature, batch)
+        n_real = min(batch_size, nodes.shape[0] - lo)
+        pred = logits.argmax(dim=-1).cpu().numpy()[:n_real]
+        correct += int((pred == labels[nodes[lo: lo + batch_size]]).sum())
+    return correct / nodes.shape[0]
 
 
 def bind_params(model: nn.Module, params=None, device=None) -> nn.Module:
@@ -61,8 +159,12 @@ def pad_seed_batch(batch: np.ndarray, batch_size: int) -> np.ndarray:
 
 def lookup_features(feature, n_id: torch.Tensor) -> torch.Tensor:
     """Feature rows for a sampled ``n_id``: a ``[N, D]`` tensor on the
-    sample's device goes through `gather_rows`; a numpy table is
-    clipped and taken on the host, then moved."""
+    sample's device goes through `gather_rows`; a `Feature` through
+    `Feature.lookup_padded` when every row is on the device, else its
+    tiered ``__getitem__``; a numpy table is clipped and taken on the
+    host, then moved."""
+    if isinstance(feature, Feature):
+        return feature.lookup_padded(n_id) if feature.resident else feature[n_id]
     if isinstance(feature, torch.Tensor):
         return gather_rows(feature, n_id)
     if isinstance(feature, np.ndarray):

@@ -4,16 +4,17 @@
 
 Semantics match PyG ``SAGEConv(mean)``: ``out = lin_l(mean_j x_j) +
 lin_r(x_i)``; relu and dropout between layers, no head. The neighbor mean
-is the kernel of ``csrc/aggregate.cu`` on CUDA tensors (forward only in
-this slice) and `masked_mean_aggregate_plain` on CPU tensors. The linear
-layers stay ``nn.Linear`` (``torch.nn.functional.linear``), as the JAX package leaves them
-to XLA. Float32 products run in full float32: the serve and eval entry
-points (`quiver_tpu_torch.inference`) turn TF32 off before the model runs.
+is a ``torch.autograd.Function``: on CUDA tensors its forward is the
+kernel of ``csrc/aggregate.cu`` (K4) and its backward the deterministic
+kernel beside it (K4b); on CPU tensors both are the plain torch versions
+in this module. The linear layers stay ``nn.Linear``, as the JAX package
+leaves them to XLA. Float32 products run in full float32: the entry
+points (`quiver_tpu_torch.inference`, the example) turn TF32 off.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -31,26 +32,14 @@ def masked_mean_aggregate_plain(x_src: torch.Tensor, adj: DenseAdj) -> torch.Ten
     return s / cnt
 
 
-def masked_mean_aggregate(x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
-    """Mean of the valid sampled neighbors per target: ``[W_dst, D]``
-    from ``x_src [W_src, D]`` (cols or structural layout)."""
-    w, k = adj.mask.shape
-    if x_src.dim() != 2:
-        raise ValueError(f"x_src must be [W_src, D]; got {tuple(x_src.shape)}")
-    if adj.cols is None and x_src.shape[0] < w * (1 + k):
-        raise ValueError(f"structural layout needs {w * (1 + k)} source rows; "
-                         f"got {x_src.shape[0]}")
+def _mean_forward(x_src: torch.Tensor, mask: torch.Tensor,
+                  cols: Optional[torch.Tensor]) -> torch.Tensor:
     if not x_src.is_cuda:
-        return masked_mean_aggregate_plain(x_src, adj)
-    if x_src.dtype != torch.float32 or adj.mask.dtype != torch.bool:
-        raise TypeError("the mean kernel takes float32 x and a bool mask")
-    if adj.cols is not None and adj.cols.dtype != torch.int32:
-        raise TypeError(f"the mean kernel takes int32 cols; got {adj.cols.dtype}")
-    if k > _kernels.KMAX:
-        raise ValueError(f"the mean kernel takes k <= {_kernels.KMAX}; got {k}")
+        return masked_mean_aggregate_plain(x_src, DenseAdj(cols, mask, None, None))
+    w, k = mask.shape
     x_src = x_src.contiguous()
-    mask = adj.mask.contiguous()
-    cols = adj.cols.contiguous() if adj.cols is not None else None
+    mask = mask.contiguous()
+    cols = cols.contiguous() if cols is not None else None
     D = x_src.shape[1]
     out = torch.empty((w, D), dtype=x_src.dtype, device=x_src.device)
     if w == 0 or D == 0:
@@ -61,6 +50,116 @@ def masked_mean_aggregate(x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
         _kernels.stream_of(x_src),
     )
     return out
+
+
+def masked_mean_backward_plain(g: torch.Tensor, mask: torch.Tensor,
+                               cols: Optional[torch.Tensor], w_src: int) -> torch.Tensor:
+    """Gradient of the masked mean with respect to ``x_src [w_src, D]``:
+    lane (i, j) adds ``mask[i, j] * g[i] / max(cnt_i, 1)`` to its source
+    row, as the reference's autodiff does (``index_add_`` in the cols
+    layout, a reshape in the structural one)."""
+    w, k = mask.shape
+    cnt = torch.clamp(mask.sum(dim=1, keepdim=True), min=1).to(g.dtype)
+    contrib = (g / cnt)[:, None, :] * mask[..., None].to(g.dtype)  # [W, k, D]
+    gx = torch.zeros((w_src, g.shape[1]), dtype=g.dtype, device=g.device)
+    if cols is None:
+        gx[w: w * (1 + k)] = contrib.transpose(0, 1).reshape(k * w, g.shape[1])
+    else:
+        idx = torch.clamp(cols, 0, w_src - 1).to(torch.int64).reshape(-1)
+        gx.index_add_(0, idx, contrib.reshape(w * k, g.shape[1]))
+    return gx
+
+
+SCAN_TILE = 1024  # the tile of the backward's offset scan (kScanTile in csrc/aggregate.cu)
+
+
+def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[torch.Tensor],
+                         w_src: int) -> torch.Tensor:
+    """`masked_mean_backward_plain`'s function; on CUDA tensors one
+    counted launch of K4b, whose C entry point runs its kernels in turn
+    (the cols layout: count, scan, fill, ordered sum). Deterministic: no
+    float atomics, two runs give bit-equal gradients."""
+    w, k = mask.shape
+    if g.shape[0] != w:
+        raise ValueError(f"gradient of {g.shape[0]} rows for {w} targets")
+    if not g.is_cuda:
+        return masked_mean_backward_plain(g, mask, cols, w_src)
+    if g.dtype != torch.float32 or mask.dtype != torch.bool:
+        raise TypeError("the mean backward kernel takes a float32 gradient and a bool mask")
+    if cols is not None and cols.dtype != torch.int32:
+        raise TypeError(f"the mean backward kernel takes int32 cols; got {cols.dtype}")
+    if k > _kernels.KMAX:
+        raise ValueError(f"the mean backward kernel takes k <= {_kernels.KMAX}; got {k}")
+    g, mask = g.contiguous(), mask.contiguous()
+    D = g.shape[1]
+    dev = g.device
+    gx = torch.empty((w_src, D), dtype=g.dtype, device=dev)
+    if w_src == 0 or D == 0:
+        return gx
+    scratch = [None] * 7
+    if cols is not None:  # lane counts, offsets, cursors, lanes, ordered lanes, cnt, tile sums
+        cols = cols.contiguous()
+        i32 = dict(dtype=torch.int32, device=dev)
+        scratch = [torch.empty(w_src, **i32), torch.empty(w_src + 1, **i32),
+                   torch.empty(w_src, **i32), torch.empty(w * k, **i32),
+                   torch.empty(w * k, **i32), torch.empty(w, dtype=torch.float32, device=dev),
+                   torch.empty(-(-w_src // SCAN_TILE), **i32)]
+    _kernels.launch(
+        "masked_mean_backward", g.data_ptr(), D, mask.data_ptr(),
+        cols.data_ptr() if cols is not None else None, w, k, w_src, gx.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scratch),
+        _kernels.stream_of(g), variant="structural" if cols is None else "cols",
+    )
+    return gx
+
+
+class _MaskedMean(torch.autograd.Function):
+    """The neighbor mean with its gradient to ``x_src`` (none to the
+    mask or cols)."""
+
+    @staticmethod
+    def forward(ctx, x_src, mask, cols):
+        ctx.save_for_backward(mask, cols)
+        ctx.w_src = x_src.shape[0]
+        return _mean_forward(x_src, mask, cols)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        mask, cols = ctx.saved_tensors
+        return masked_mean_backward(g, mask, cols, ctx.w_src), None, None
+
+
+def masked_mean_aggregate(x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
+    """Mean of the valid sampled neighbors per target: ``[W_dst, D]``
+    from ``x_src [W_src, D]`` (cols or structural layout), differentiable
+    in ``x_src``."""
+    w, k = adj.mask.shape
+    if x_src.dim() != 2:
+        raise ValueError(f"x_src must be [W_src, D]; got {tuple(x_src.shape)}")
+    if adj.cols is None and x_src.shape[0] < w * (1 + k):
+        raise ValueError(f"structural layout needs {w * (1 + k)} source rows; "
+                         f"got {x_src.shape[0]}")
+    if x_src.is_cuda:
+        if x_src.dtype != torch.float32 or adj.mask.dtype != torch.bool:
+            raise TypeError("the mean kernel takes float32 x and a bool mask")
+        if adj.cols is not None and adj.cols.dtype != torch.int32:
+            raise TypeError(f"the mean kernel takes int32 cols; got {adj.cols.dtype}")
+        if k > _kernels.KMAX:
+            raise ValueError(f"the mean kernel takes k <= {_kernels.KMAX}; got {k}")
+    return _MaskedMean.apply(x_src, adj.mask, adj.cols)
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's inverted dropout (``where(keep, x / keep_prob, 0)``) with the
+    keep mask drawn from ``generator``."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator (never the global RNG)")
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, dtype=x.dtype, device=x.device).bernoulli_(
+        keep_prob, generator=generator)
+    return torch.where(keep > 0, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class SAGEConv(nn.Module):
@@ -90,13 +189,30 @@ class GraphSAGE(nn.Module):
         self.convs = nn.ModuleList(
             SAGEConv(dims[i], dims[i + 1]) for i in range(num_layers)
         )
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = float(dropout)
 
-    def forward(self, x: torch.Tensor, adjs: Sequence[DenseAdj]) -> torch.Tensor:
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """nn.Linear's default init (uniform in +-1/sqrt(fan_in) for the
+        weights and the bias), drawn from ``generator``."""
+        with torch.no_grad():
+            for conv in self.convs:
+                for lin in (conv.lin_l, conv.lin_r):
+                    bound = 1.0 / lin.in_features ** 0.5
+                    lin.weight.uniform_(-bound, bound, generator=generator)
+                    if lin.bias is not None:
+                        lin.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor, adjs: Sequence[DenseAdj], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits ``[W_0, out_dim]`` (float32). ``train=True`` applies
+        dropout between layers, its mask drawn from ``generator`` (a
+        ``torch.Generator`` on ``x``'s device)."""
         if len(adjs) != self.num_layers:
             raise ValueError(f"{len(adjs)} hops for a {self.num_layers}-layer model")
         for i, (conv, adj) in enumerate(zip(self.convs, adjs)):
             x = conv(x, adj)
             if i != self.num_layers - 1:
-                x = self.dropout(F.relu(x))
+                x = F.relu(x)
+                if train and self.dropout > 0.0:
+                    x = _dropout(x, self.dropout, generator)
         return x.to(torch.float32)

@@ -1,7 +1,7 @@
 """GraphSAGE k-hop sampler — the port of
 ``quiver_tpu/pyg/sage_sampler.py`` (``DenseAdj``, ``DenseSample``,
-``sample_dense_fused``, ``sample_dense_pure`` and ``GraphSageSampler`` in
-its device mode).
+``sample_dense_fused``, ``sample_dense_pure``, ``sample_and_gather_fused``,
+``sample_and_gather_dedup`` and ``GraphSageSampler`` in its device mode).
 
 The sampler draws one key per call from a deterministic stream
 (``fold_in(key(seed), call)``) and splits a sub-key per hop
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import random as qrandom
+from ..feature import gather_rows
 from ..ops.reindex import local_reindex
 from ..ops.sample import pad_widths
 from ..ops.sample import sample_layer as _sample_layer_op
@@ -128,6 +129,96 @@ def sample_dense_pure(indptr, indices, key, seeds: torch.Tensor,
         n_id=cur, count=prev_count, batch_size=B, adjs=tuple(adjs[::-1]),
         cap_overflow=overflow, raw_counts=torch.stack(raws),
     )
+
+
+def sample_and_gather_fused(indptr, indices, table: torch.Tensor, key, seeds: torch.Tensor,
+                            sizes: Sequence[int], gather_fn=None,
+                            sample_fn=None) -> Tuple[DenseSample, torch.Tensor]:
+    """`sample_dense_fused` with the feature gather interleaved per hop:
+    returns ``(ds, x)`` with ``x == table[clip(ds.n_id)]`` row for row
+    (invalid lanes carry rows that ``adj.mask`` gates out). The same key
+    splits per hop as the sample alone. ``gather_fn(table, ids)``
+    overrides the clipped row gather (K3)."""
+    if gather_fn is None:
+        gather_fn = gather_rows
+    if sample_fn is None:
+        sample_fn = _default_sample_fn(indptr, indices)
+    B = seeds.shape[0]
+    dev = seeds.device
+    cur = seeds
+    cur_valid = torch.ones(B, dtype=torch.bool, device=dev)
+    adjs: List[DenseAdj] = []
+    xs = [gather_fn(table, seeds)]
+    prev_count = torch.full((), B, dtype=torch.int32, device=dev)
+    for k in sizes:
+        key, sub = qrandom.split(key)
+        nbrs, valid = sample_fn(cur, cur_valid, k, sub)
+        flat = nbrs.t().reshape(-1)
+        xs.append(gather_fn(table, flat))
+        n_id = torch.cat([cur, flat])
+        n_valid = torch.cat([cur_valid, valid.t().reshape(-1)])
+        count = n_valid.sum(dtype=torch.int32)
+        adjs.append(DenseAdj(cols=None, mask=valid, n_src=count, n_dst=prev_count))
+        cur, cur_valid, prev_count = n_id, n_valid, count
+    ds = DenseSample(n_id=cur, count=prev_count, batch_size=B, adjs=tuple(adjs[::-1]))
+    return ds, torch.cat(xs)
+
+
+def sample_and_gather_dedup(indptr, indices, table: torch.Tensor, key, seeds: torch.Tensor,
+                            sizes: Sequence[int], caps=None, gather_fn=None,
+                            sample_fn=None) -> Tuple[DenseSample, torch.Tensor]:
+    """The dedup sample of `sample_dense_pure` for every hop but the last,
+    whose leaves stay in the structural layout and take their rows straight
+    from ``table``: the leaf aggregation reads the constant table, so no
+    gradient flows into it. Returns ``(ds, x)``; ``ds.n_id`` is the hop
+    L-1 unique frontier then the structural leaf block (not globally
+    unique)."""
+    if len(sizes) == 0:
+        raise ValueError("sizes must name at least one hop")
+    if gather_fn is None:
+        gather_fn = gather_rows
+    if sample_fn is None:
+        sample_fn = _default_sample_fn(indptr, indices)
+    B = seeds.shape[0]
+    dev = seeds.device
+    inner_caps = None if caps is None else tuple(caps[: len(sizes) - 1])
+    widths = pad_widths(B, sizes[:-1], inner_caps)
+    cur = seeds
+    cur_valid = torch.ones(B, dtype=torch.bool, device=dev)
+    adjs: List[DenseAdj] = []
+    raws: List[torch.Tensor] = []
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    prev_count = torch.full((), B, dtype=torch.int32, device=dev)
+    for l, k in enumerate(sizes[:-1]):
+        key, sub = qrandom.split(key)
+        nbrs, valid = sample_fn(cur, cur_valid, k, sub)
+        res = local_reindex(cur, cur_valid, nbrs, valid)
+        n_id, count = res.n_id, res.count
+        raws.append(count)
+        local_nbrs, nbr_valid = res.local_nbrs, res.nbr_valid
+        if widths[l + 1] < n_id.shape[0]:
+            cap = widths[l + 1]
+            n_id = n_id[:cap]
+            overflow = overflow + torch.clamp(count - cap, min=0)
+            count = torch.clamp(count, max=cap)
+            nbr_valid = nbr_valid & (local_nbrs < cap)
+        adjs.append(DenseAdj(cols=local_nbrs, mask=nbr_valid, n_src=count, n_dst=prev_count))
+        cur = n_id
+        cur_valid = torch.arange(n_id.shape[0], dtype=torch.int32, device=dev) < count
+        prev_count = count
+    k = sizes[-1]
+    key, sub = qrandom.split(key)
+    nbrs, valid = sample_fn(cur, cur_valid, k, sub)
+    flat = nbrs.t().reshape(-1)  # leaf (i, j) -> position W + j*W + i
+    x = torch.cat([gather_fn(table, cur), gather_fn(table, flat)])
+    n_src = prev_count + valid.sum(dtype=torch.int32)
+    adjs.append(DenseAdj(cols=None, mask=valid, n_src=n_src, n_dst=prev_count))
+    raws.append(n_src)  # structural leaves are never capped
+    ds = DenseSample(
+        n_id=torch.cat([cur, flat]), count=n_src, batch_size=B, adjs=tuple(adjs[::-1]),
+        cap_overflow=overflow, raw_counts=torch.stack(raws),
+    )
+    return ds, x
 
 
 class GraphSageSampler:

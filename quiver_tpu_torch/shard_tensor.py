@@ -1,0 +1,259 @@
+"""ShardTensor — one logical ``[N, D]`` float32 tensor over two tiers: the
+port of ``quiver_tpu/shard_tensor.py`` (``normalize_dtype``, ``Offset``,
+``ShardTensorConfig``, ``ShardTensor``) on one device.
+
+Rows ``[0, H)`` live in device memory, rows ``[H, N)`` in a pinned host
+tail (``tensor.pin_memory()``). `tiered_gather` reads both in one launch
+of the kernel of ``csrc/gather.cu``: host rows are read in-kernel through
+the tail's mapped device pointer, as the reference's
+``shard_tensor.cu.hpp`` did, so there is no host gather, no staging copy
+and no scatter merge. On a CPU device both tiers are CPU tensors and
+`tiered_gather_plain` runs instead.
+
+Not ported yet: other dtypes (bfloat16, quantized stores), a second
+device shard (the clique stripe), the disk tier (``append_disk``) and the
+IPC handles.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from . import _kernels
+from .utils import parse_size, resolve_device
+
+CPU_DEVICE = -1  # the reference's device id of the pinned host shard
+
+
+def normalize_dtype(dtype) -> np.dtype:
+    """The store dtype of a tiered tensor. The port stores float32 only;
+    any other dtype raises."""
+    if str(dtype) in ("bfloat16", "bf16") or np.dtype(dtype) != np.float32:
+        raise TypeError(f"dtype {dtype} is not ported yet: the port stores float32 only")
+    return np.dtype(np.float32)
+
+
+@dataclass
+class Offset:
+    """Row range [start, end) owned by one shard."""
+
+    start: int
+    end: int
+
+
+@dataclass
+class ShardTensorConfig:
+    """Per-device memory budget: device rank -> bytes (int or "200M")."""
+
+    device_memory_budget: Dict[int, Union[int, str]] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.device_memory_budget = {
+            int(d): parse_size(v) for d, v in self.device_memory_budget.items()
+        }
+
+    @property
+    def device_list(self) -> List[int]:
+        return sorted(self.device_memory_budget.keys())
+
+
+def _rows_of(tensor) -> np.ndarray:
+    if isinstance(tensor, torch.Tensor):
+        tensor = tensor.detach().cpu().numpy()
+    arr = np.asarray(tensor)
+    if arr.ndim != 2:
+        raise ValueError("ShardTensor shards must be 2-D")
+    return np.ascontiguousarray(arr, dtype=np.float32)
+
+
+def _ids_on(ids, device: torch.device, n_valid: int) -> torch.Tensor:
+    """Lookup ids as int32 on ``device``. Ids outside ``[0, n_valid)`` stay
+    outside it (they are clamped to -1 or ``n_valid``), so the gather
+    still zero-fills them after the cast."""
+    if not isinstance(ids, torch.Tensor):
+        ids = torch.from_numpy(np.asarray(ids).astype(np.int64).reshape(-1))
+    ids = ids.reshape(-1)
+    if ids.dtype != torch.int32:
+        ids = torch.clamp(ids.to(torch.int64), -1, n_valid).to(torch.int32)
+    if ids.device != device:
+        ids = ids.to(device)
+    return ids
+
+
+def tiered_gather_plain(dev_rows: Optional[torch.Tensor], host_rows: Optional[torch.Tensor],
+                        ids: torch.Tensor, n_valid: int,
+                        order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain torch version of `tiered_gather` on ``ids``' device: the
+    device rows are indexed where they are, the host rows on the host."""
+    dev = ids.device
+    some = dev_rows if dev_rows is not None else host_rows
+    H = 0 if dev_rows is None else dev_rows.shape[0]
+    n_host = 0 if host_rows is None else host_rows.shape[0]
+    ids = ids.to(torch.int64)
+    valid = (ids >= 0) & (ids < n_valid)
+    s = torch.where(valid, ids, 0)
+    if order is not None:
+        s = order.to(dev)[s].to(torch.int64)
+    valid &= (s >= 0) & (s < H + n_host)
+    out = torch.zeros((ids.shape[0], some.shape[1]), dtype=some.dtype, device=dev)
+    in_dev = valid & (s < H)
+    if H:
+        out[in_dev] = dev_rows[s[in_dev].to(dev_rows.device)].to(dev)
+    in_host = valid & (s >= H)
+    if n_host:
+        out[in_host] = host_rows[(s[in_host] - H).cpu()].to(dev)
+    return out
+
+
+def tiered_gather(dev_rows: Optional[torch.Tensor], host_rows: Optional[torch.Tensor],
+                  ids: torch.Tensor, n_valid: int,
+                  order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rows of the two-tier table for ``ids`` as ``[len(ids), D]`` on
+    ``ids``' device: ids outside ``[0, n_valid)`` give zero rows; the
+    stored row is ``order[id]`` (``id`` without an order), read from
+    ``dev_rows [H, D]`` when below H and from ``host_rows [N - H, D]``
+    (pinned host memory) otherwise. Bit-equal copies."""
+    if dev_rows is None and host_rows is None:
+        raise ValueError("a tiered gather needs at least one tier")
+    if ids.dim() != 1:
+        raise ValueError(f"ids must be [n]; got {tuple(ids.shape)}")
+    if not ids.is_cuda:
+        return tiered_gather_plain(dev_rows, host_rows, ids, n_valid, order)
+    for t, name in ((dev_rows, "device rows"), (host_rows, "host rows")):
+        if t is not None and (t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous()):
+            raise TypeError(f"the tiered gather takes contiguous [R, D] float32 {name}")
+    if dev_rows is not None and dev_rows.device != ids.device:
+        raise ValueError(f"device rows on {dev_rows.device} but ids on {ids.device}")
+    if host_rows is not None and (host_rows.is_cuda or not host_rows.is_pinned()):
+        raise ValueError("the host tail must be a pinned CPU tensor")
+    if order is not None and (order.device != ids.device or order.dtype != torch.int32):
+        raise TypeError("order must be an int32 tensor on the ids' device")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"the tiered gather takes int32 ids; got {ids.dtype}")
+    ids = ids.contiguous()
+    D = (dev_rows if dev_rows is not None else host_rows).shape[1]
+    out = torch.empty((ids.shape[0], D), dtype=torch.float32, device=ids.device)
+    if ids.shape[0] == 0 or D == 0:
+        return out
+    host_ptr = None
+    if host_rows is not None and host_rows.shape[0] > 0:
+        host_ptr = _kernels.host_device_pointer(host_rows)
+    _kernels.launch(
+        "tiered_gather",
+        dev_rows.data_ptr() if dev_rows is not None else None,
+        0 if dev_rows is None else dev_rows.shape[0], host_ptr,
+        0 if host_rows is None else host_rows.shape[0], D, ids.data_ptr(), ids.shape[0],
+        int(n_valid), order.contiguous().data_ptr() if order is not None else None,
+        out.data_ptr(), _kernels.stream_of(ids),
+    )
+    return out
+
+
+class ShardTensor:
+    """Logical row-sharded tensor: one device shard (rows ``[0, H)``)
+    then a host tail (rows ``[H, N)``), in `append` order as in the
+    reference. ``current_device`` is a CUDA ordinal or any torch device
+    (``"cpu"`` runs the plain version); the tail is pinned on CUDA."""
+
+    def __init__(self, current_device: Union[int, str, torch.device] = 0,
+                 shard_tensor_config: Optional[ShardTensorConfig] = None, dtype=np.float32):
+        if isinstance(current_device, int):
+            current_device = f"cuda:{current_device}"
+        self.device = resolve_device(current_device)
+        self.config = shard_tensor_config or ShardTensorConfig({})
+        self.dtype = normalize_dtype(dtype)
+        self.device_shards: List[tuple] = []  # (device_rank, tensor, Offset), at most one
+        self.cpu_tensor: Optional[torch.Tensor] = None
+        self.cpu_offset: Optional[Offset] = None
+        self._n_rows = 0
+        self._dim: Optional[int] = None
+
+    def append(self, tensor, device: int) -> None:
+        """Place ``tensor`` as the next row range: on this handle's device
+        for a rank >= 0, in the pinned host tail for -1."""
+        arr = _rows_of(tensor)
+        if self._dim is None:
+            self._dim = arr.shape[1]
+        elif arr.shape[1] != self._dim:
+            raise ValueError("shard dim mismatch")
+        off = Offset(self._n_rows, self._n_rows + arr.shape[0])
+        if device == CPU_DEVICE:
+            if self.cpu_tensor is not None:
+                raise ValueError("host shard already set")
+            host = torch.from_numpy(arr)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            self.cpu_tensor = host
+            self.cpu_offset = off
+        else:
+            if self.cpu_tensor is not None:
+                raise ValueError("device shards must precede the host shard")
+            if self.device_shards:
+                raise NotImplementedError(
+                    "a second device shard (the clique stripe) is not ported yet")
+            self.device_shards.append((device, torch.from_numpy(arr).to(self.device, copy=True),
+                                       off))
+        self._n_rows = off.end
+
+    @classmethod
+    def new_from_cpu_tensor(cls, tensor, shard_tensor_config: ShardTensorConfig,
+                            current_device: Union[int, str, torch.device] = 0,
+                            dtype=np.float32) -> "ShardTensor":
+        """Budget-based split: the device shard takes as many rows as its
+        budget holds, the host tail the rest."""
+        self = cls(current_device, shard_tensor_config, dtype=dtype)
+        arr = _rows_of(tensor)
+        row_bytes = arr.shape[1] * self.dtype.itemsize
+        cursor = 0
+        for dev in self.config.device_list:
+            rows = min(self.config.device_memory_budget[dev] // row_bytes, arr.shape[0] - cursor)
+            if rows <= 0:
+                continue
+            self.append(arr[cursor: cursor + rows], dev)
+            cursor += rows
+        if cursor < arr.shape[0]:
+            self.append(arr[cursor:], CPU_DEVICE)
+        return self
+
+    from_cpu_tensor = new_from_cpu_tensor
+
+    @property
+    def shape(self):
+        return (self._n_rows, self._dim or 0)
+
+    @property
+    def size(self):
+        return self._n_rows * (self._dim or 0)
+
+    @property
+    def device_rows(self) -> Optional[torch.Tensor]:
+        return self.device_shards[0][1] if self.device_shards else None
+
+    def device_ratio(self) -> float:
+        dev_rows = sum(o.end - o.start for _, _, o in self.device_shards)
+        return dev_rows / max(self._n_rows, 1)
+
+    def tier_bytes(self) -> Dict[str, int]:
+        """Byte footprint per tier at the stored dtype (no disk tier)."""
+        row = (self._dim or 0) * self.dtype.itemsize
+        dev = sum((o.end - o.start) * row for _, _, o in self.device_shards)
+        host = 0 if self.cpu_tensor is None else (self.cpu_offset.end - self.cpu_offset.start) * row
+        return {"device": dev, "host": host, "disk": 0, "row": row}
+
+    def gather(self, ids, n_valid: Optional[int] = None,
+               order: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`tiered_gather` of this tensor's tiers on this handle's device:
+        ids outside ``[0, n_valid)`` (default: the row count) give zero
+        rows; ``order`` remaps ids to stored rows first."""
+        n_valid = self._n_rows if n_valid is None else int(n_valid)
+        return tiered_gather(self.device_rows, self.cpu_tensor,
+                             _ids_on(ids, self.device, n_valid), n_valid, order)
+
+    def __getitem__(self, ids) -> torch.Tensor:
+        """Rows by global id on this handle's device; ids outside every
+        shard give zero rows."""
+        return self.gather(ids)

@@ -1,5 +1,6 @@
-"""Serving metrics — the part of ``quiver_tpu/trace.py`` the serve engine
-and its cache use: `SpanRecorder` (stage spans and their measured
+"""Timing and metrics — the part of ``quiver_tpu/trace.py`` the port
+uses: the scope `timer`, the benchmark helpers `median_min_max` and
+`seps`, and for serving `SpanRecorder` (stage spans and their measured
 overlap), `LatencyHistogram` and `HitRateCounter`. Host only."""
 
 from __future__ import annotations
@@ -7,10 +8,47 @@ from __future__ import annotations
 import bisect
 import collections
 import math
+import statistics
 import threading
+import time
 from typing import Dict
 
 import numpy as np
+
+
+class timer:
+    """Scope timer on the host clock: ``with timer("sample") as t: ...``
+    then ``t.elapsed`` (seconds). Device work must be synchronised inside
+    the scope to be counted."""
+
+    def __init__(self, name: str = "", verbose: bool = False):
+        self.name = name
+        self.verbose = verbose
+        self.elapsed = 0.0
+
+    def __enter__(self) -> "timer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.elapsed = time.perf_counter() - self._t0
+        if self.verbose:
+            print(f"[timer] {self.name}: {self.elapsed * 1e3:.3f} ms")
+
+
+def median_min_max(values) -> Dict[str, float]:
+    """``{"median", "min", "max", "n"}`` of a numeric sequence (the median
+    of an even count is the mean of the two middle values)."""
+    vals = [float(v) for v in values]
+    if not vals:
+        raise ValueError("median_min_max needs at least one value")
+    return {"median": statistics.median(vals), "min": min(vals), "max": max(vals),
+            "n": len(vals)}
+
+
+def seps(sampled_edges: int, seconds: float) -> float:
+    """Sampled edges per second."""
+    return sampled_edges / max(seconds, 1e-12)
 
 
 def _snapshot_deque(dq) -> tuple:

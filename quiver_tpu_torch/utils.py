@@ -1,5 +1,6 @@
 """Graph topology container and small helpers — the port of
-``quiver_tpu/utils.py`` (``CSRTopo``, ``parse_size``, ``_best_id_dtype``).
+``quiver_tpu/utils.py`` (``CSRTopo``, ``parse_size``, ``_best_id_dtype``,
+``reindex_by_config``, ``reindex_feature``).
 
 Topology lives in host numpy arrays and is materialised on a torch device
 on demand. Ids on the device are int32 wherever the JAX package uses int32
@@ -83,6 +84,17 @@ class CSRTopo:
             raise ValueError("need edge_index or (indptr, indices)")
         self._flat_cache = None
         self._tiled_cache = None
+        self._feature_order: Optional[np.ndarray] = None
+
+    @property
+    def feature_order(self) -> Optional[np.ndarray]:
+        """Old node id -> stored feature row, set by a `Feature` built
+        with this topology (None until then)."""
+        return self._feature_order
+
+    @feature_order.setter
+    def feature_order(self, order) -> None:
+        self._feature_order = np.asarray(order, dtype=np.int64)
 
     @property
     def degree(self) -> np.ndarray:
@@ -127,3 +139,30 @@ class CSRTopo:
         pair = (torch.from_numpy(bd).to(dev), torch.from_numpy(tiles).to(dev))
         self._tiled_cache = (key, pair)
         return pair
+
+
+def reindex_by_config(adj_csr: CSRTopo, graph_feature, gpu_portion: float, seed: int = 0):
+    """Degree-descending hot/cold reorder: sort nodes by out-degree
+    (descending, stable on ties), shuffle the hot prefix (the top
+    ``gpu_portion`` fraction) with a generator seeded by ``seed``, and
+    return ``(permuted_feature, new_order)`` where ``new_order`` maps old
+    node id -> position in the permuted feature ("feature_order"). Host
+    numpy, the same arrays as the JAX package's."""
+    if not 0.0 <= gpu_portion <= 1.0:
+        raise ValueError("gpu_portion must be in [0, 1]")
+    node_count = adj_csr.node_count
+    split = int(node_count * gpu_portion)
+    perm_range = np.random.default_rng(seed).permutation(split)
+    prev_order = np.argsort(-adj_csr.degree, kind="stable")
+    prev_order[:split] = prev_order[perm_range]
+    new_order = np.empty(node_count, dtype=np.int64)
+    new_order[prev_order] = np.arange(node_count, dtype=np.int64)
+    if graph_feature is not None:
+        graph_feature = np.asarray(graph_feature)[prev_order]
+    return graph_feature, new_order
+
+
+def reindex_feature(graph: CSRTopo, feature, ratio: float, seed: int = 0):
+    """`reindex_by_config` as `Feature` calls it: ``(reordered_feature,
+    feature_order)``."""
+    return reindex_by_config(graph, feature, ratio, seed=seed)

@@ -5,11 +5,16 @@ torch and numpy only, so it runs on a machine without jax:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Bars: the sampling kernel (tiled and flat), the reindex kernel (n_id,
-count, local_seeds; local_nbrs on valid lanes) and the gather kernel are
-bit-equal to the plain versions, and to the plain versions run on the
-CPU; the neighbor mean is within atol = rtol = 1e-5 (a different sum
-order). Shapes are the slice's: B = 64, sizes [15, 10, 5], D = 100 and
-256."""
+count, local_seeds; local_nbrs on valid lanes), the gather kernel and the
+tiered gather are bit-equal to the plain versions, and to the plain
+versions run on the CPU; the neighbor mean and the full-graph mean are
+within atol = rtol = 1e-5 (a different sum order). The mean's backward
+is within the same of its plain version run on the CPU, which adds the
+lanes in ascending order as the kernel does (the plain version on the
+card is ``index_add_`` with float atomics, whose order changes from run
+to run), and the backward run twice is bit-equal (no float atomics). Shapes are
+the serving slice's (B = 64, sizes [15, 10, 5], D = 100 and 256) and the
+training slice's (B = 1024 for the backward)."""
 
 import numpy as np
 import pytest
@@ -17,9 +22,20 @@ import torch
 
 from quiver_tpu_torch import GraphSAGE, GraphSageSampler, _kernels
 from quiver_tpu_torch import random as qrandom
-from quiver_tpu_torch.feature import gather_rows, gather_rows_plain
-from quiver_tpu_torch.inference import bind_params, forward_logits
-from quiver_tpu_torch.models.sage import masked_mean_aggregate, masked_mean_aggregate_plain
+from quiver_tpu_torch.feature import Feature, gather_rows, gather_rows_plain
+from quiver_tpu_torch.inference import (
+    bind_params,
+    forward_logits,
+    full_mean_aggregate,
+    full_mean_aggregate_plain,
+)
+from quiver_tpu_torch.models.sage import (
+    masked_mean_aggregate,
+    masked_mean_aggregate_plain,
+    masked_mean_backward,
+    masked_mean_backward_plain,
+)
+from quiver_tpu_torch.shard_tensor import tiered_gather, tiered_gather_plain
 from quiver_tpu_torch.ops import reindex, sample
 from quiver_tpu_torch.pyg.sage_sampler import DenseAdj
 from quiver_tpu_torch.utils import CSRTopo
@@ -144,3 +160,91 @@ def test_sampled_forward_on_card_matches_cpu(cuda_device):
     out_dev = forward_logits(dev_model, feat.to(cuda_device), ds_dev)
     torch.testing.assert_close(out_dev.cpu(), out_cpu, atol=1e-4, rtol=1e-4)
     assert sum(_kernels.counts().values()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structural", [False, True])
+def test_mean_backward_kernel_matches_plain_and_reruns_bit_equal(cuda_device, structural):
+    """Layers 1 and 2 of a batch-1024 step at sizes [15, 10, 5]: targets
+    share source rows (a hub named by many lanes), some lanes invalid, a
+    target with no valid lane, columns past the source width."""
+    rng = np.random.default_rng(7)
+    for (W, k), D in (((1024, 15), 256), ((16384, 10), 256)):
+        w_src = W * (1 + k)
+        mask = torch.from_numpy(rng.random((W, k)) < 0.8)
+        mask[0] = False
+        cols = None
+        if not structural:
+            c = rng.integers(-2, w_src + 2, (W, k)).astype(np.int32)
+            c[rng.random((W, k)) < 0.05] = 3  # a hub row
+            cols = torch.from_numpy(c).to(cuda_device)
+        g = torch.from_numpy(rng.standard_normal((W, D)).astype(np.float32)).to(cuda_device)
+        m = mask.to(cuda_device)
+        before = _kernels.counts()["masked_mean_backward"]
+        got = masked_mean_backward(g, m, cols, w_src)
+        again = masked_mean_backward(g, m, cols, w_src)
+        cpu = masked_mean_backward_plain(g.cpu(), mask, None if cols is None else cols.cpu(), w_src)
+        torch.cuda.synchronize()
+        assert _kernels.counts()["masked_mean_backward"] == before + 2
+        torch.testing.assert_close(got.cpu(), cpu, atol=1e-5, rtol=1e-5)
+        assert _same(got, again)
+
+
+@pytest.mark.cuda
+def test_mean_autograd_on_card_matches_cpu(cuda_device):
+    """The autograd Function end to end: gradients of x_src through K4
+    and K4b against torch's plain path on the CPU."""
+    rng = np.random.default_rng(8)
+    W, k, w_src, D = 512, 10, 3000, 64
+    mask = torch.from_numpy(rng.random((W, k)) < 0.7)
+    cols = torch.from_numpy(rng.integers(0, w_src, (W, k)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((w_src, D)).astype(np.float32))
+    R = torch.from_numpy(rng.standard_normal((W, D)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda_device):
+        xs = x.to(dev, copy=True).requires_grad_(True)
+        adj = DenseAdj(cols.to(dev), mask.to(dev), None, None)
+        (masked_mean_aggregate(xs, adj) * R.to(dev)).sum().backward()
+        grads.append(xs.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+def test_full_mean_kernel_matches_plain(cuda_device, id_dtype):
+    topo, n = _graph(seed=9)
+    for D in (100, 256, 99):
+        h = torch.from_numpy(np.random.default_rng(D).standard_normal((n, D)).astype(np.float32))
+        indptr, indices = topo.to_device(cuda_device, id_dtype=id_dtype)
+        got = full_mean_aggregate(indptr, indices, h.to(cuda_device))
+        want = full_mean_aggregate_plain(indptr, indices, h.to(cuda_device))
+        cpu = full_mean_aggregate_plain(*topo.to_device("cpu", id_dtype=id_dtype), h)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(got.cpu(), cpu, atol=1e-5, rtol=1e-5)
+        assert not got[9].any()  # the degree-0 row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_frac", [0.0, 0.2, 1.0])
+def test_tiered_gather_kernel_matches_plain(cuda_device, cache_frac):
+    topo, n = _graph(seed=10)
+    table = np.random.default_rng(11).standard_normal((n, 100)).astype(np.float32)
+    feat = Feature(device_cache_size=int(n * cache_frac) * 400, csr_topo=topo, device=cuda_device)
+    feat.from_cpu_tensor(table)
+    st = feat.shard_tensor
+    if cache_frac < 1.0:
+        assert st.cpu_tensor.is_pinned()
+    cpu_feat = Feature(device_cache_size=int(n * cache_frac) * 400, csr_topo=_graph(seed=10)[0],
+                       device="cpu")
+    cpu_feat.from_cpu_tensor(table)
+    ids = torch.from_numpy(np.random.default_rng(12).integers(-5, n + 5, 67584).astype(np.int32))
+    ids[:2] = torch.tensor([2**31 - 1, -(2**31)], dtype=torch.int32)
+    dev_ids = ids.to(cuda_device)
+    got = feat[dev_ids]
+    want = tiered_gather_plain(st.device_rows, st.cpu_tensor, dev_ids, n, feat._order_dev)
+    torch.cuda.synchronize()
+    assert _same(got, want) and _same(got, cpu_feat[ids])
+    assert not got[:2].any()
+    stored = tiered_gather(st.device_rows, st.cpu_tensor, dev_ids, n)  # no order
+    assert _same(stored, tiered_gather_plain(st.device_rows, st.cpu_tensor, dev_ids, n))

@@ -33,7 +33,10 @@ from quiver_tpu_torch import (
     ServeEngine,
     sage_params_from_flax,
 )
-from quiver_tpu_torch.inference import batch_logits, bind_params
+from quiver_tpu_torch import Feature
+from quiver_tpu_torch.examples import reddit_sage
+from quiver_tpu_torch.inference import batch_logits, bind_params, full_mean_aggregate
+from quiver_tpu_torch.shard_tensor import ShardTensor
 from quiver_tpu_torch.serve import default_buckets, zipfian_trace
 from quiver_tpu_torch.utils import resolve_device
 
@@ -203,7 +206,9 @@ def test_split_warmup_twin_shares_graph_and_leaves_keys(setup):
 def test_import_loads_no_jax_or_reference_package():
     code = (
         "import sys; before = set(sys.modules); import quiver_tpu_torch.serve.engine, "
-        "quiver_tpu_torch.datasets, quiver_tpu_torch.convert; "
+        "quiver_tpu_torch.datasets, quiver_tpu_torch.convert, quiver_tpu_torch.shard_tensor, "
+        "quiver_tpu_torch.feature, quiver_tpu_torch.inference, "
+        "quiver_tpu_torch.examples.reddit_sage; "
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'quiver_tpu', 'quiver')); print(repr(bad))"
     )
@@ -221,4 +226,13 @@ def test_entry_points_refuse_without_a_card_unless_cpu_is_asked(setup, monkeypat
         GraphSageSampler(topo, SIZES)
     with pytest.raises(RuntimeError):
         topo.to_device()
+    with pytest.raises(RuntimeError):
+        Feature()
+    with pytest.raises(RuntimeError):
+        ShardTensor()
+    with pytest.raises(RuntimeError):  # the graph goes to the default device, the card
+        full_mean_aggregate(*topo.to_device(), torch.zeros((N_NODES, 4)))
+    with pytest.raises(RuntimeError):
+        reddit_sage.main(["--nodes", "300", "--epochs", "1"])
     assert GraphSageSampler(topo, SIZES, device="cpu").device.type == "cpu"
+    assert Feature(device="cpu").device.type == "cpu"
