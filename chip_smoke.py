@@ -41,8 +41,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the full-graph mean (K10) over the whole graph at D = 100 and
              256 within 1e-5; the tiered gather (K3t) of a real batch's
              n_id at a 20% cache, bit-equal. Bounds as above; K3t's host
-             rows are charged at the link rate of one 1 GiB pinned copy
-             measured in the run. Yardsticks: index_add_ (K4b),
+             rows are charged at the link rate of a 1 GiB pinned copy
+             measured in the run (median of 5). Yardsticks: index_add_ (K4b),
              torch.sparse.mm with a CSR adjacency of ones (K10), none for
              K3t (no one call reads two tiers);
 8. train   — 20 Adam steps at batch 1024 on each of four legs at full
@@ -425,18 +425,23 @@ def replay_check(topo, model, params, table, engine, served, device, n_dispatch,
 
 # -- the training slice ----------------------------------------------------------
 
-def link_rate(dev) -> float:
-    """Host-to-card bytes per second of one 1 GiB pinned ``copy_``: the
-    rate the bound charges the tiered gather's host-tail rows at."""
+def link_rate(dev, reps: int = 5) -> float:
+    """Host-to-card bytes per second of a 1 GiB pinned ``copy_``, the
+    median of ``reps`` timed copies: the rate the bound charges the tiered
+    gather's host-tail rows at. All ``reps`` rates are logged."""
     host = torch.empty(256 << 20, dtype=torch.float32).pin_memory()
     dst = torch.empty(host.shape, dtype=host.dtype, device=dev)
     dst.copy_(host, non_blocking=True)  # warm the path
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    dst.copy_(host, non_blocking=True)
-    b.record()
-    b.synchronize()
-    return host.numel() * 4 / (a.elapsed_time(b) / 1e3)
+    rates = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(host, non_blocking=True)
+        b.record()
+        b.synchronize()
+        rates.append(host.numel() * 4 / (a.elapsed_time(b) / 1e3))
+    log(json.dumps({"link_GBps_runs": [r / 1e9 for r in rates]}))
+    return float(np.median(rates))
 
 
 def build_features(topo, table_np, dev):
@@ -561,29 +566,41 @@ def port_kernel_names() -> set:
             for m in re.findall(r"__global__ void (\w+)", f.read_text())}
 
 
+def kernel_base_name(key: str) -> str:
+    """A profiler kernel row's function name, without its return type,
+    template arguments or parameter list."""
+    return key.split("(")[0].split("<")[0].removeprefix("void ").strip()
+
+
 def profile_steps(step, seeds_iter, port_names, steps=3):
     """Device time per step over ``steps`` profiled steps, from the kernel
     rows of the trace only (an op's row, and a user annotation's span on
-    the device such as the optimizer step's, repeat their kernels' time):
-    ``{"port_ms", "other_ms", "top"}`` — the port's kernels, every other
-    kernel (GEMMs, elementwise, Adam, copies), and the eight largest."""
+    the device such as the optimizer step's, repeat their kernels' time),
+    and the host time of the same steps: ``{"port_ms", "other_ms",
+    "step_ms", "top"}`` — the port's kernels (matched by exact name),
+    every other kernel (GEMMs, elementwise, Adam, copies), the mean
+    profiled step, and the eight largest kernels. The profiler adds host
+    time of its own, so ``step_ms`` exceeds an unprofiled step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    times = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
+            t0 = time.perf_counter()
             step(next(seeds_iter))
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
     per = {}
     for ev in prof.key_averages():
         if (ev.device_type == DeviceType.CUDA and not ev.is_user_annotation
                 and ev.device_time_total > 0):
             per[ev.key] = per.get(ev.key, 0.0) + ev.device_time_total / 1e3 / steps
     check(bool(per), "the profiler saw no kernel on the card")
-    port = sum(v for k, v in per.items() if any(p in k for p in port_names))
+    port = sum(v for k, v in per.items() if kernel_base_name(k) in port_names)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     return {"port_ms": port, "other_ms": sum(per.values()) - port,
-            "top": [(k[:60], v) for k, v in top]}
+            "step_ms": sum(times) / steps, "top": [(k[:60], v) for k, v in top]}
 
 
 def train_phase(topo, table, resident, tiered, train_idx, seed):
@@ -665,9 +682,9 @@ def train_phase(topo, table, resident, tiered, train_idx, seed):
                    "sampled_edges": edges, "loss_first": first, "loss_last": last,
                    "launches": {k: v for k, v in counts.items() if v},
                    "profile_per_step": prof,
-                   "port_kernel_share": prof["port_ms"] / step_ms["median"],
+                   "port_kernel_share": prof["port_ms"] / prof["step_ms"],
                    "device_idle_share": 1.0 - (prof["port_ms"] + prof["other_ms"])
-                   / step_ms["median"]}
+                   / prof["step_ms"]}
         log("train: " + json.dumps(summary))
         check(np.isfinite(first) and np.isfinite(last), f"{leg}: loss not finite")
         for name in ("sample_tiled", "masked_mean") + needs:

@@ -55,7 +55,7 @@ KERNELS = {
     "masked_mean": ("aggregate", "qt_masked_mean",
                     [_P, _LL, _I, _P, _P, _I, _I, _P, _P]),
     "masked_mean_backward": ("aggregate", "qt_masked_mean_backward",
-                             [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+                             [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _LL, _P]),
     "tiered_gather": ("gather", "qt_tiered_gather",
                       [_P, _LL, _P, _LL, _I, _P, _LL, _LL, _P, _P, _P]),
     "full_mean": ("full_mean", "qt_full_mean", [_P, _P, _I, _LL, _P, _LL, _I, _P, _P]),
@@ -63,7 +63,9 @@ KERNELS = {
 # kernels whose launches are also counted per layout, as "name/variant"
 VARIANTS = {"masked_mean_backward": ("cols", "structural")}
 # C helpers that launch nothing: name -> (source stem, argtypes)
-HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)])}
+HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
+           "qt_masked_mean_backward_scratch": ("aggregate",
+                                               [_LL, _I, _I, ctypes.POINTER(_LL)])}
 SOURCES = sorted({stem for stem, _, _ in KERNELS.values()})
 
 _lock = threading.Lock()        # launch counts and the loaded libraries
@@ -192,4 +194,13 @@ def host_device_pointer(t: torch.Tensor) -> int:
     if rc != 0 or not out.value:
         msg = lib.qt_error_string(rc).decode() if rc else "null mapping"
         raise RuntimeError(f"host tensor is not mapped for device reads: error {rc} ({msg})")
+    return out.value
+
+
+def masked_mean_backward_scratch_bytes(w_src: int, w_dst: int, k: int) -> int:
+    """Bytes of device scratch the cols layout of ``masked_mean_backward``
+    takes; its layout is known to ``csrc/aggregate.cu`` alone."""
+    lib = _lib(HELPERS["qt_masked_mean_backward_scratch"][0])
+    out = ctypes.c_longlong()
+    lib.qt_masked_mean_backward_scratch(w_src, w_dst, k, ctypes.byref(out))
     return out.value

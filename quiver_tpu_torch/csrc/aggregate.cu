@@ -310,10 +310,47 @@ __global__ void mean_bwd_structural_kernel(const float* __restrict__ g, int D,
     gx[row * D + c] = take ? __fdiv_rn(g[i * D + c], denom) : 0.0f;
 }
 
+// The cols layout's scratch: lane counts, offsets, cursors, the lanes in
+// arrival and in flat-index order, the float counts and the scan's tile
+// sums, carved from one buffer of the caller's in 256-byte-aligned parts.
+// Only this file knows the layout; the wrapper asks for its size.
+struct MeanBwdScratch {
+  int32_t *deg, *offsets, *cursor, *lanes, *sorted, *tile_sums;
+  float* cntf;
+  long long bytes;
+};
+
+static MeanBwdScratch mean_bwd_scratch(char* base, long long w_src, int w_dst, int k) {
+  MeanBwdScratch s{};
+  long long at = 0;
+  auto take = [&](long long n, size_t elem) {
+    char* p = base == nullptr ? nullptr : base + at;
+    at += (n * static_cast<long long>(elem) + 255) / 256 * 256;
+    return p;
+  };
+  const long long n_lanes = static_cast<long long>(w_dst) * k;
+  s.deg = reinterpret_cast<int32_t*>(take(w_src, sizeof(int32_t)));
+  s.offsets = reinterpret_cast<int32_t*>(take(w_src + 1, sizeof(int32_t)));
+  s.cursor = reinterpret_cast<int32_t*>(take(w_src, sizeof(int32_t)));
+  s.lanes = reinterpret_cast<int32_t*>(take(n_lanes, sizeof(int32_t)));
+  s.sorted = reinterpret_cast<int32_t*>(take(n_lanes, sizeof(int32_t)));
+  s.cntf = reinterpret_cast<float*>(take(w_dst, sizeof(float)));
+  s.tile_sums = reinterpret_cast<int32_t*>(take((w_src + kScanTile - 1) / kScanTile,
+                                                sizeof(int32_t)));
+  s.bytes = at;
+  return s;
+}
+
+// bytes of scratch the cols layout needs (the structural layout needs none)
+QT_EXPORT int qt_masked_mean_backward_scratch(long long w_src, int w_dst, int k,
+                                              long long* bytes) {
+  *bytes = mean_bwd_scratch(nullptr, w_src, w_dst, k).bytes;
+  return 0;
+}
+
 QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, const void* cols,
-                                      int w_dst, int k, long long w_src, void* gx, void* deg,
-                                      void* offsets, void* cursor, void* lanes, void* sorted,
-                                      void* cntf, void* tile_sums, void* stream) {
+                                      int w_dst, int k, long long w_src, void* gx, void* scratch,
+                                      long long scratch_bytes, void* stream) {
   if (w_src <= 0 || D <= 0) return 0;
   if (k > 32) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -326,11 +363,14 @@ QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, co
         gf, D, m, w_dst, k, w_src, out);
     return qt_launch_status();
   }
+  const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k);
+  if (scratch == nullptr || scratch_bytes < sc.bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int32_t* c = static_cast<const int32_t*>(cols);
-  int32_t* dg = static_cast<int32_t*>(deg);
-  int32_t* off = static_cast<int32_t*>(offsets);
-  int32_t* cur = static_cast<int32_t*>(cursor);
-  float* cf = static_cast<float*>(cntf);
+  int32_t* dg = sc.deg;
+  int32_t* off = sc.offsets;
+  int32_t* cur = sc.cursor;
+  float* cf = sc.cntf;
   cudaError_t err = cudaMemsetAsync(dg, 0, sizeof(int32_t) * w_src, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (w_dst > 0 && k > 0) {
@@ -339,7 +379,7 @@ QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, co
     if (int e = qt_launch_status()) return e;
   }
   const long long n_tiles = (w_src + kScanTile - 1) / kScanTile;
-  int32_t* ts = static_cast<int32_t*>(tile_sums);
+  int32_t* ts = sc.tile_sums;
   mean_bwd_tile_sums_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(dg, w_src, ts);
   if (int e = qt_launch_status()) return e;
   mean_bwd_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(ts, n_tiles);
@@ -350,14 +390,13 @@ QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, co
   const long long n_lanes = static_cast<long long>(w_dst) * k;
   if (n_lanes > 0) {
     mean_bwd_fill_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
-        m, c, n_lanes, w_src, cur, static_cast<int32_t*>(lanes));
+        m, c, n_lanes, w_src, cur, sc.lanes);
     if (int e = qt_launch_status()) return e;
   }
   const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(gx) % 16 == 0;
   mean_bwd_sum_kernel<<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
-      gf, D, cf, k, w_src, off, static_cast<const int32_t*>(lanes),
-      static_cast<int32_t*>(sorted), vec4, out);
+      gf, D, cf, k, w_src, off, sc.lanes, sc.sorted, vec4, out);
   return qt_launch_status();
 }
 

@@ -38,16 +38,19 @@ def strict_float32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def full_mean_aggregate_plain(indptr: torch.Tensor, indices: torch.Tensor, h: torch.Tensor,
-                              edge_chunk: int = 1 << 22) -> torch.Tensor:
+EDGE_CHUNK = 1 << 22  # edges per index_add_ of the plain full mean (bounds its [E, D] temporary)
+
+
+def full_mean_aggregate_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                              h: torch.Tensor) -> torch.Tensor:
     """Plain torch version of `full_mean_aggregate`: an edge-chunked
     ``index_add_`` of the neighbor rows, then the divide."""
     n = indptr.shape[0] - 1
     e = indices.shape[0]
     out = torch.zeros((n, h.shape[1]), dtype=h.dtype, device=h.device)
     deg = (indptr[1:] - indptr[:-1]).to(torch.int64)
-    for lo in range(0, e, edge_chunk):
-        hi = min(lo + edge_chunk, e)
+    for lo in range(0, e, EDGE_CHUNK):
+        hi = min(lo + EDGE_CHUNK, e)
         eidx = torch.arange(lo, hi, dtype=indptr.dtype, device=h.device)
         src = torch.searchsorted(indptr, eidx, right=True) - 1
         dst = torch.clamp(indices[lo:hi].to(torch.int64), 0, h.shape[0] - 1)

@@ -70,9 +70,6 @@ def masked_mean_backward_plain(g: torch.Tensor, mask: torch.Tensor,
     return gx
 
 
-SCAN_TILE = 1024  # the tile of the backward's offset scan (kScanTile in csrc/aggregate.cu)
-
-
 def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[torch.Tensor],
                          w_src: int) -> torch.Tensor:
     """`masked_mean_backward_plain`'s function; on CUDA tensors one
@@ -96,18 +93,15 @@ def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[tor
     gx = torch.empty((w_src, D), dtype=g.dtype, device=dev)
     if w_src == 0 or D == 0:
         return gx
-    scratch = [None] * 7
-    if cols is not None:  # lane counts, offsets, cursors, lanes, ordered lanes, cnt, tile sums
+    scratch, n_bytes = None, 0
+    if cols is not None:
         cols = cols.contiguous()
-        i32 = dict(dtype=torch.int32, device=dev)
-        scratch = [torch.empty(w_src, **i32), torch.empty(w_src + 1, **i32),
-                   torch.empty(w_src, **i32), torch.empty(w * k, **i32),
-                   torch.empty(w * k, **i32), torch.empty(w, dtype=torch.float32, device=dev),
-                   torch.empty(-(-w_src // SCAN_TILE), **i32)]
+        n_bytes = _kernels.masked_mean_backward_scratch_bytes(w_src, w, k)
+        scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
     _kernels.launch(
         "masked_mean_backward", g.data_ptr(), D, mask.data_ptr(),
         cols.data_ptr() if cols is not None else None, w, k, w_src, gx.data_ptr(),
-        *(t.data_ptr() if t is not None else None for t in scratch),
+        scratch.data_ptr() if scratch is not None else None, n_bytes,
         _kernels.stream_of(g), variant="structural" if cols is None else "cols",
     )
     return gx

@@ -33,9 +33,14 @@ from quiver_tpu_torch import (
     ServeEngine,
     sage_params_from_flax,
 )
-from quiver_tpu_torch import Feature
+from quiver_tpu_torch import Feature, _kernels
 from quiver_tpu_torch.examples import reddit_sage
-from quiver_tpu_torch.inference import batch_logits, bind_params, full_mean_aggregate
+from quiver_tpu_torch.inference import (
+    batch_logits,
+    bind_params,
+    full_mean_aggregate,
+    full_mean_aggregate_plain,
+)
 from quiver_tpu_torch.shard_tensor import ShardTensor
 from quiver_tpu_torch.serve import default_buckets, zipfian_trace
 from quiver_tpu_torch.utils import resolve_device
@@ -230,9 +235,16 @@ def test_entry_points_refuse_without_a_card_unless_cpu_is_asked(setup, monkeypat
         Feature()
     with pytest.raises(RuntimeError):
         ShardTensor()
-    with pytest.raises(RuntimeError):  # the graph goes to the default device, the card
-        full_mean_aggregate(*topo.to_device(), torch.zeros((N_NODES, 4)))
     with pytest.raises(RuntimeError):
         reddit_sage.main(["--nodes", "300", "--epochs", "1"])
     assert GraphSageSampler(topo, SIZES, device="cpu").device.type == "cpu"
     assert Feature(device="cpu").device.type == "cpu"
+    # full_mean_aggregate has no device of its own: it follows its inputs,
+    # and on CPU tensors it takes the plain version and launches nothing
+    indptr, indices = topo.to_device("cpu")
+    h = torch.from_numpy(np.random.default_rng(SEED).standard_normal((N_NODES, 4),
+                                                                     dtype=np.float32))
+    before = _kernels.counts()["full_mean"]
+    out = full_mean_aggregate(indptr, indices, h)
+    assert torch.equal(out, full_mean_aggregate_plain(indptr, indices, h))
+    assert _kernels.counts()["full_mean"] == before
