@@ -58,7 +58,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
              at its defaults on the card: test and full-inference accuracy
              must exceed 0.8, printed beside ACCURACY.json's recorded
              ones; K10 must have launched;
-10. report — one JSON line of all kernels, the card line, then the
+10. kernels-3 — the staged pipeline's kernels on a real batch of 1,024
+             seeds staged by TieredFeaturePipeline.prepare, each bit-equal
+             to its plain version: the tiered lookup (K5) at the 20% fp32
+             cache; the dequant gather (K9a) on fully resident int8 and bf16
+             tables; the quantized tiered lookup (K9b) on the int8 and bf16
+             stores of the same device bytes (195.92 MB: int8 72% hot after
+             its side tables, bf16 40%), whose valid lanes must also equal
+             QuantizedFeature[n_id]; the tiered gather (K3t) over those
+             stores' int8 and bf16 rows. Times as above; the report rows of
+             K9a and K9b are the int8 calls (the bf16 ones are logged). No
+             one torch call computes K5, K9a or K9b (library_ms null);
+11. pipeline — TrainPipeline.run_epoch at full width on three tables of
+             the same device bytes (fp32 Feature 20%, QuantizedFeature int8
+             and bf16): per table 6 warm-up batches at depth 2 (they
+             allocate the pinned staging blocks), 20 timed batches at
+             depth 1 and at depth 2 (per-batch wall time, each stage's busy
+             seconds a batch, overlap_frac, hidden_frac_measured, cold rows
+             and bytes a batch, first and last loss, launches), a
+             sequential pass over 20 batches (each stage alone, then the
+             step, all timed to a synchronize) and one
+             measure_overlap epoch of 20; then 20 steps of sample_dense +
+             QuantizedFeature.lookup_padded on the resident int8 table (K9a
+             on a train path). Losses must be finite and K1, K2, K4, K4b and
+             K5 (fp32) or K9b (int8, bf16) or K9a must have launched;
+12. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a card. Needs one card.
@@ -93,6 +117,21 @@ from quiver_tpu_torch.inference import (
     full_mean_aggregate_plain,
     strict_float32,
 )
+from quiver_tpu_torch.pipeline import (
+    TieredFeaturePipeline,
+    TrainPipeline,
+    make_tiered_train_step,
+    tiered_lookup,
+    tiered_lookup_plain,
+)
+from quiver_tpu_torch.quant import (
+    QuantizedFeature,
+    gather_dequant,
+    get_codec,
+    make_quantized_train_step,
+    quantized_tiered_lookup,
+)
+from quiver_tpu_torch.quant.lookup import gather_dequant_plain, quantized_tiered_lookup_plain
 from quiver_tpu_torch.models.sage import (
     masked_mean_aggregate,
     masked_mean_aggregate_plain,
@@ -135,11 +174,18 @@ SOURCES = {
                              "quiver_tpu/models/sage.py:25"),
     "tiered_gather": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/shard_tensor.py:241"),
     "full_mean": ("quiver_tpu_torch/csrc/full_mean.cu", "quiver_tpu/inference.py:30"),
+    "tiered_lookup": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/pipeline.py:178"),
+    "gather_dequant": ("quiver_tpu_torch/csrc/dequant.cu", "quiver_tpu/quant/lookup.py:29"),
+    "quantized_tiered_lookup": ("quiver_tpu_torch/csrc/dequant.cu",
+                                "quiver_tpu/quant/lookup.py:47"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
 # the training slice: batch, timed steps a leg, the tiered leg's cache share
 TRAIN_BATCH, TRAIN_STEPS, CACHE_FRAC = 1024, 20, 0.2
 PRODUCTS_TRAIN = 196_615  # ogbn-products train nodes
+# the staged pipeline: timed batches a run, and the two quantized codecs
+PIPE_BATCHES, PIPE_WARMUP = 20, 6
+QUANT_CODECS = ("int8", "bf16")
 
 
 def log(*a):
@@ -461,7 +507,8 @@ def build_features(topo, table_np, dev):
 
 def kernel_phase_2(topo, table, tiered, seeds, rows, seed):
     """Hold K4b, K10 and K3t against their plain versions at the training
-    shapes and time them; adds their rows to ``rows``."""
+    shapes and time them; adds their rows to ``rows``. Returns the link
+    rate (bytes a second) measured for K3t's bound."""
     dev = table.device
     n = topo.node_count
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
@@ -557,6 +604,7 @@ def kernel_phase_2(topo, table, tiered, seeds, rows, seed):
            time_ms(lambda: tiered_gather_plain(st.device_rows, st.cpu_tensor, n_id, n,
                                                tiered._order_dev), reps=5),
            (max(t_hbm, t_link), "bytes"), None, shape=f"n={n_id.numel()} D={DIM} cache=20%")
+    return rate
 
 
 def port_kernel_names() -> set:
@@ -695,6 +743,278 @@ def train_phase(topo, table, resident, tiered, train_idx, seed):
     return total
 
 
+# -- the staged pipeline -----------------------------------------------------------
+
+def build_quant_tables(topo, table_np, budget, dev):
+    """The quantized stores of the pipeline phase: int8 and bf16 at the
+    fp32 leg's device bytes with the degree reorder, and the two fully
+    resident tables of K9a (no reorder)."""
+    t0 = time.perf_counter()
+    tiered, resident = {}, {}
+    n = table_np.shape[0]
+    for name in QUANT_CODECS:
+        q = QuantizedFeature(name, device_cache_size=budget, csr_topo=topo, device=dev)
+        q.from_cpu_tensor(table_np)
+        tiered[name] = q
+        c = get_codec(name)
+        r = QuantizedFeature(name, device_cache_size=int(n * c.row_bytes(DIM)), device=dev)
+        r.from_cpu_tensor(table_np)
+        resident[name] = r
+    log("quant tables: " + json.dumps({
+        name: {"hot_rows": q.hot_rows, "hot_share": q.hot_rows / n, "tiers": q.tier_bytes(),
+               "side_table_bytes": q.side_table_bytes()} for name, q in tiered.items()}
+    ) + f" in {time.perf_counter() - t0:.1f} s")
+    return tiered, resident
+
+
+def staged_batch(feature, ds):
+    """One batch staged as the pipeline stages it: (hot_table, mapped,
+    cold_rows, cold_pos, pipeline)."""
+    pipe = TieredFeaturePipeline(feature)
+    mapped, cold_rows, cold_pos = pipe.prepare(ds.n_id, valid_count=int(ds.count))
+    torch.cuda.synchronize()
+    return pipe.hot_table, mapped, cold_rows, cold_pos, pipe
+
+
+def lookup_bytes(hot_table, mapped, cold_rows, row_bytes, side_bytes=0):
+    """Least bytes of a tiered lookup: W ids, each distinct hot row (and
+    its side entries) read once, the staged cold rows and slots read once,
+    the [W, D] output written once."""
+    m = mapped.long()
+    hot = torch.unique(m[(m >= 0) & (m < hot_table.shape[0])]).numel()
+    valid = torch.unique(m[m >= 0]).numel()
+    W, C_b = mapped.numel(), cold_rows.shape[0]
+    return W * 4 + hot * row_bytes + valid * side_bytes + C_b * (row_bytes + 4) + W * DIM * 4
+
+
+def kernel_phase_3(topo, tiered, qtiered, qresident, seeds, rows, rate, seed):
+    """Hold K5, K9a, K9b and K3t over int8 and bf16 rows against their
+    plain versions on one real batch and time them; adds K5's row and the
+    int8 rows of K9a and K9b to ``rows`` (the bf16 calls and K3t's narrow
+    rows are logged only)."""
+    dev = seeds.device
+    n = topo.node_count
+    sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 21)
+    ds = sampler.sample_dense(seeds)
+    count = int(ds.count)
+
+    # K5: the fp32 20% store's assembly
+    hot, mapped, cold_rows, cold_pos, pipe = staged_batch(tiered, ds)
+    got = tiered_lookup(hot, mapped, cold_rows, cold_pos)
+    want = tiered_lookup_plain(hot, mapped, cold_rows, cold_pos)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K5 differs from its plain version")
+    check(torch.equal(got[:count], tiered[ds.n_id[:count]]), "K5 rows differ from Feature[n_id]")
+    cold = int((cold_pos < mapped.numel()).sum())
+    log(json.dumps({"k5_slots": mapped.numel(), "k5_valid": count, "k5_cold_rows": cold,
+                    "k5_cold_bucket": cold_rows.shape[0]}))
+    record(rows, "tiered_lookup", 0.0, time_ms(lambda: tiered_lookup(hot, mapped, cold_rows,
+                                                                       cold_pos)),
+           time_ms(lambda: tiered_lookup_plain(hot, mapped, cold_rows, cold_pos), reps=5),
+           bound(lookup_bytes(hot, mapped, cold_rows, DIM * 4)), None,
+           shape=f"W={mapped.numel()} H={hot.shape[0]} C_b={cold_rows.shape[0]} D={DIM}")
+
+    for name in QUANT_CODECS:
+        codec = get_codec(name)
+        es = int(codec.bytes_per_elem)
+        side = int(codec.side_bytes_per_row)
+        # K9a: the resident table, every lane clipped into range
+        r = qresident[name]
+        table = r.shard_tensor.device_rows
+        ids = ds.n_id
+        got = r.lookup_padded(ids)
+        want = gather_dequant_plain(codec, table, ids, r.scale, r.zero)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K9a {name} differs from its plain version")
+        distinct = torch.unique(torch.clamp(ids.long(), 0, n - 1)).numel()
+        record(rows, "gather_dequant", 0.0,
+               time_ms(lambda: gather_dequant(codec, table, ids, r.scale, r.zero)),
+               time_ms(lambda: gather_dequant_plain(codec, table, ids, r.scale, r.zero), reps=5),
+               bound(ids.numel() * 4 + distinct * (DIM * es + side) + ids.numel() * DIM * 4),
+               None, shape=f"{name} W={ids.numel()} N={n} D={DIM}", report=name == "int8")
+        # K9b: the store at the fp32 leg's device bytes
+        q = qtiered[name]
+        hot, mapped, cold_rows, cold_pos, _ = staged_batch(q, ds)
+        args = (codec, hot, mapped, cold_rows, cold_pos, q.scale, q.zero)
+        got = quantized_tiered_lookup(*args)
+        want = quantized_tiered_lookup_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K9b {name} differs from its plain version")
+        check(torch.equal(got[:count], q[ds.n_id[:count]]),
+              f"K9b {name} rows differ from QuantizedFeature[n_id]")
+        log(json.dumps({"k9b": name, "hot_rows": q.hot_rows, "cold_rows":
+                        int((cold_pos < mapped.numel()).sum()), "cold_bucket": cold_rows.shape[0]}))
+        record(rows, "quantized_tiered_lookup", 0.0, time_ms(lambda: quantized_tiered_lookup(*args)),
+               time_ms(lambda: quantized_tiered_lookup_plain(*args), reps=5),
+               bound(lookup_bytes(hot, mapped, cold_rows, DIM * es, side)), None,
+               shape=f"{name} W={mapped.numel()} H={hot.shape[0]} C_b={cold_rows.shape[0]}",
+               report=name == "int8")
+        # K3t over the store's encoded rows (its hot prefix and pinned tail)
+        st = q.shard_tensor
+        got = q.inner.gather_stored(mapped)
+        want = tiered_gather_plain(st.device_rows, st.cpu_tensor, mapped, n)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K3t over {name} rows differs from its plain version")
+        m = mapped.long()
+        stored = torch.unique(m[m >= 0])
+        host_rows = int((stored >= st.device_rows.shape[0]).sum())
+        hbm = mapped.numel() * 4 + (stored.numel() - host_rows) * DIM * es \
+            + mapped.numel() * DIM * es
+        t_b = max(hbm / HBM_BYTES_PER_S * 1e3, host_rows * DIM * es / rate * 1e3)
+        record(rows, "tiered_gather", 0.0, time_ms(lambda: q.inner.gather_stored(mapped)),
+               time_ms(lambda: tiered_gather_plain(st.device_rows, st.cpu_tensor, mapped, n),
+                       reps=5),
+               (t_b, "bytes"), None, report=False,
+               shape=f"{name} rows n={mapped.numel()} host_rows={host_rows} D={DIM}")
+
+
+def pipeline_leg(name, topo, feature, labels, order, seed):
+    """TrainPipeline on one table: 6 warm-up batches, 20 timed batches at
+    depth 1 and at depth 2, a sequential pass (each stage alone, then the
+    step), a measure_overlap epoch. Returns the launches of the timed
+    epochs."""
+    dev = labels.device
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    pipe = TieredFeaturePipeline(feature)
+    if name == "fp32":
+        step = make_tiered_train_step(model, opt, labels, pipe.hot_table)
+        lookup = "tiered_lookup"
+    else:
+        step = make_quantized_train_step(model, opt, labels, pipe.hot_table, feature.scale,
+                                         feature.zero, codec=name)
+        lookup = f"quantized_tiered_lookup/{name}"
+    drop = torch.Generator(device=dev).manual_seed(seed + 1)
+    sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5)
+    batches = iter(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                   for i in range(len(order) // TRAIN_BATCH))
+
+    def take(k):
+        return [next(batches) for _ in range(k)]
+
+    def pipeline(**kw):
+        return TrainPipeline(sampler, feature, step, tiered=pipe, **kw)
+
+    row_bytes = DIM * feature.shard_tensor.dtype.itemsize
+    # warm-up at depth 2: its chains in flight allocate the pinned staging
+    # blocks the timed epochs then reuse (a 105 MB first allocation can take
+    # hundreds of ms)
+    pipeline(depth=2).run_epoch(take(PIPE_WARMUP), drop)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    out = {"leg": name, "batches": PIPE_BATCHES, "hot_rows": pipe.hot_rows,
+           "hot_share": pipe.hot_rows / topo.node_count, "row_bytes": row_bytes}
+    for depth in (1, 2):
+        tp = pipeline(depth=depth)
+        t0 = time.perf_counter()
+        losses = tp.run_epoch(take(PIPE_BATCHES), drop)
+        wall = time.perf_counter() - t0
+        starts = sorted(t for s, t, _ in tp.stats.spans if s == "step_dispatch")
+        ov = tp.stats.overlap_summary()
+        check(all(np.isfinite(losses)), f"{name} depth {depth}: loss not finite")
+        out[f"depth{depth}"] = {
+            "batch_ms": median_min_max(np.diff(starts) * 1e3), "epoch_ms_per_batch":
+            wall / PIPE_BATCHES * 1e3,
+            "busy_ms_per_batch": {k: v / PIPE_BATCHES * 1e3 for k, v in ov["busy_s"].items()},
+            "overlap_frac": ov["overlap_frac"], "hidden_frac_measured": ov["hidden_frac_measured"],
+            "cold_rows_per_batch": tp.stats.cold_rows / PIPE_BATCHES,
+            "cold_bytes_per_batch": tp.stats.cold_rows / PIPE_BATCHES * row_bytes,
+            "loss_first": losses[0], "loss_last": losses[-1]}
+    counts = _kernels.counts()
+    # the sequential reference: each stage alone, then the step, per batch
+    tp = pipeline()
+    alone = {"sample": 0.0, "gather": 0.0, "upload": 0.0, "step": 0.0}
+    for s in take(PIPE_BATCHES):
+        t0 = time.perf_counter()
+        r = tp._sample_body(sampler.sample_dense(s), s)
+        t1 = time.perf_counter()
+        r = tp._gather_body(*r)
+        t2 = time.perf_counter()
+        b = tp._upload_body(*r)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        float(step(b, drop))
+        t4 = time.perf_counter()
+        for k, a, z in (("sample", t0, t1), ("gather", t1, t2), ("upload", t2, t3),
+                        ("step", t3, t4)):
+            alone[k] += (z - a) / PIPE_BATCHES * 1e3
+    out["sequential_ms_per_batch"] = dict(alone, total=sum(alone.values()))
+    # the step spans of this epoch cover the step's device work
+    tp = pipeline(depth=1, measure_overlap=True)
+    losses = tp.run_epoch(take(PIPE_BATCHES), drop)
+    ov = tp.stats.overlap_summary()
+    out["measured"] = {"busy_ms_per_batch": {k: v / PIPE_BATCHES * 1e3
+                                             for k, v in ov["busy_s"].items()},
+                       "overlap_frac": ov["overlap_frac"],
+                       "hidden_frac_measured": ov["hidden_frac_measured"],
+                       "covered_ms_per_batch": ov["covered_wall_s"] / PIPE_BATCHES * 1e3,
+                       "loss_last": losses[-1]}
+    out["launches"] = {k: v for k, v in counts.items() if v}
+    log("pipeline: " + json.dumps(out))
+    check(all(np.isfinite(losses)), f"{name} measured epoch: loss not finite")
+    for k in ("sample_tiled", "local_reindex", "masked_mean", "masked_mean_backward/cols", lookup):
+        check(counts[k] > 0, f"kernel {k} never launched on the {name} pipeline")
+    del model, opt, step
+    return counts
+
+
+def pipeline_phase(topo, tiered, qtiered, qresident, train_idx, seed):
+    """The three pipeline legs, then 20 steps of sample_dense +
+    QuantizedFeature.lookup_padded on the resident int8 table. Returns the
+    launches summed over them."""
+    dev = tiered.device
+    n = topo.node_count
+    labels = torch.randint(0, CLASSES, (n,), generator=torch.Generator(device=dev).manual_seed(8),
+                           device=dev)
+    order = np.random.default_rng(seed + 4).permutation(train_idx)
+    total = {}
+    for name, feature in (("fp32", tiered), ("int8", qtiered["int8"]), ("bf16", qtiered["bf16"])):
+        for k, v in pipeline_leg(name, topo, feature, labels, order, seed).items():
+            total[k] = total.get(k, 0) + v
+
+    # K9a on a train path: the resident int8 table's fused lookup
+    q = qresident["int8"]
+    sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 6)
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    drop = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def step(seeds):
+        ds = sampler.sample_dense(seeds)
+        loss = F.cross_entropy(model(q.lookup_padded(ds.n_id), ds.adjs, train=True,
+                                     generator=drop), labels[ds.n_id[:TRAIN_BATCH].long()])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    batches = [order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for i in range(2 + PIPE_BATCHES)]
+    for s in batches[:2]:
+        step(s)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    times, losses = [], []
+    for s in batches[2:]:
+        t0 = time.perf_counter()
+        losses.append(float(step(s)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = _kernels.counts()
+    log("pipeline: " + json.dumps({"leg": "sample_dense+QuantizedFeature(int8).lookup_padded",
+                                   "steps": PIPE_BATCHES, "step_ms": median_min_max(times),
+                                   "loss_first": losses[0], "loss_last": losses[-1],
+                                   "launches": {k: v for k, v in counts.items() if v}}))
+    check(all(np.isfinite(losses)), "the K9a leg's loss is not finite")
+    for k in ("sample_tiled", "local_reindex", "masked_mean", "gather_dequant/int8"):
+        check(counts[k] > 0, f"kernel {k} never launched on the K9a leg")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
 def learn_phase():
     """The example at its defaults on the card; its accuracies beside the
     reference's recorded ones. Returns the launches."""
@@ -791,16 +1111,26 @@ def main() -> int:
 
     # -- the training slice ----------------------------------------------------
     strict_float32()
-    resident, tiered = build_features(topo, table.cpu().numpy(), dev)
+    table_np = table.cpu().numpy()
+    resident, tiered = build_features(topo, table_np, dev)
     train_idx = np.random.default_rng(args.seed + 3).choice(topo.node_count, PRODUCTS_TRAIN,
                                                             replace=False)
     seeds_1024 = torch.from_numpy(train_idx[:TRAIN_BATCH].astype(np.int32)).to(dev)
-    kernel_phase_2(topo, table, tiered, seeds_1024, rows, args.seed)
+    rate = kernel_phase_2(topo, table, tiered, seeds_1024, rows, args.seed)
     train_counts = train_phase(topo, table, resident, tiered, train_idx, args.seed)
     learn_counts = learn_phase()
     for name in ("masked_mean_backward", "tiered_gather"):
         launches[name] = train_counts[name]
     launches["full_mean"] = learn_counts["full_mean"]
+    del resident
+
+    # -- the staged pipeline over fp32, int8 and bf16 tables ------------------------
+    budget = tiered.shard_tensor.tier_bytes()["device"]
+    qtiered, qresident = build_quant_tables(topo, table_np, budget, dev)
+    kernel_phase_3(topo, tiered, qtiered, qresident, seeds_1024, rows, rate, args.seed)
+    pipe_counts = pipeline_phase(topo, tiered, qtiered, qresident, train_idx, args.seed)
+    for name in ("tiered_lookup", "gather_dequant", "quantized_tiered_lookup"):
+        launches[name] = pipe_counts[name]
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

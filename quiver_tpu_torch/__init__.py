@@ -1,7 +1,9 @@
 """quiver_tpu_torch — the PyTorch/CUDA port of quiver_tpu on one card:
-GraphSAGE serving (sample -> dedup -> gather -> forward -> ServeEngine)
-and training (tiered Feature -> sample-and-gather -> forward/backward ->
-Adam -> full-neighbor eval).
+GraphSAGE serving (sample -> dedup -> gather -> forward -> ServeEngine),
+training (tiered Feature -> sample-and-gather -> forward/backward -> Adam
+-> full-neighbor eval) and the staged tiered train pipeline
+(TrainPipeline -> TieredFeaturePipeline -> tiered_lookup) over float32,
+int8 and bf16 feature tables (`quant`).
 
 Imports torch and numpy only, never jax or quiver_tpu. Entry points run on
 CUDA unless ``device="cpu"`` is passed, where every kernel's plain torch
@@ -9,14 +11,18 @@ version runs instead. The kernels (``csrc/*.cu``) are built for sm_90a at
 first use (`quiver_tpu_torch._kernels.build`).
 """
 
+from .checkpoint import CheckpointManager
 from .convert import sage_params_from_flax
 from .feature import Feature
 from .models import GraphSAGE
+from .pipeline import TieredFeaturePipeline, TrainPipeline
 from .pyg import GraphSageSampler
+from .quant import QuantizedFeature
 from .serve import ServeConfig, ServeEngine
 from .utils import CSRTopo
 
 __all__ = [
-    "CSRTopo", "Feature", "GraphSAGE", "GraphSageSampler", "ServeConfig", "ServeEngine",
+    "CSRTopo", "CheckpointManager", "Feature", "GraphSAGE", "GraphSageSampler",
+    "QuantizedFeature", "ServeConfig", "ServeEngine", "TieredFeaturePipeline", "TrainPipeline",
     "sage_params_from_flax",
 ]

@@ -59,9 +59,17 @@ KERNELS = {
     "tiered_gather": ("gather", "qt_tiered_gather",
                       [_P, _LL, _P, _LL, _I, _P, _LL, _LL, _P, _P, _P]),
     "full_mean": ("full_mean", "qt_full_mean", [_P, _P, _I, _LL, _P, _LL, _I, _P, _P]),
+    "tiered_lookup": ("gather", "qt_tiered_lookup", [_P, _LL, _I, _P, _LL, _P, _LL, _P, _P, _P]),
+    "gather_dequant": ("dequant", "qt_gather_dequant",
+                       [_I, _P, _LL, _I, _P, _LL, _LL, _P, _P, _P, _P, _P]),
+    "quantized_tiered_lookup": ("dequant", "qt_quantized_tiered_lookup",
+                                [_I, _P, _LL, _I, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P, _P]),
 }
 # kernels whose launches are also counted per layout, as "name/variant"
-VARIANTS = {"masked_mean_backward": ("cols", "structural")}
+VARIANTS = {"masked_mean_backward": ("cols", "structural"),
+            "tiered_gather": ("float32", "int8", "bfloat16"),
+            "gather_dequant": ("fp32", "bf16", "int8"),
+            "quantized_tiered_lookup": ("fp32", "bf16", "int8")}
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
            "qt_masked_mean_backward_scratch": ("aggregate",

@@ -14,6 +14,8 @@
 // row width and both base pointers allow it (D % 4 == 0), so a warp moves
 // a 400-byte row in one coalesced sweep and many rows are in flight.
 
+#include <initializer_list>
+
 #include "common.cuh"
 
 __global__ void gather_rows_kernel(const float* __restrict__ table, long long R, int D,
@@ -55,66 +57,165 @@ QT_EXPORT int qt_gather_rows(const void* table, long long R, int D, const void* 
 //
 // Replaces quiver_tpu/shard_tensor.py:ShardTensor.__getitem__ (the
 // per-tier _gather_local, the host-side gather and the _scatter_rows
-// merge) behind quiver_tpu/feature.py:Feature.__getitem__. For output row
-// r with id = ids[r]: ids outside [0, n_valid) give a zero row; else the
-// stored row is s = order[id] (id itself without an order), read from the
-// device shard when s < H and from the host tail when H <= s < H + n_host
-// (any other s gives a zero row, as a row no shard owns does in the
-// reference). The rows are copied, so the result is bit-equal.
+// merge) behind quiver_tpu/feature.py:Feature.__getitem__ and
+// Feature.gather_stored. For output row r with id = ids[r]: ids outside
+// [0, n_valid) give a zero row; else the stored row is s = order[id] (id
+// itself without an order), read from the device shard when s < H and from
+// the host tail when H <= s < H + n_host (any other s gives a zero row, as
+// a row no shard owns does in the reference). Rows are copied as bytes, so
+// one kernel serves every stored dtype (float32, and the int8 and bfloat16
+// rows of a quantized store) and the result is bit-equal.
 //
 // Bound on the card: bytes — each output row is one stored row read and
-// written once (400 B at D = 100 float32); the host-tail rows cross PCIe,
-// whose rate (tens of GB/s, not 3.35 TB/s) sets the time whenever a few
-// percent of the rows are cold. Design: the host tail is pinned host
-// memory read in-kernel through its mapped device pointer (UVA zero-copy,
-// as the reference's shard_tensor.cu.hpp did), so there is no staging
-// copy and no scatter; one warp per row copies with 16-byte accesses
-// where the width and every base pointer allow it, so a row is read as
-// whole 128-byte lines (3.125 lines a 400-byte row) and many rows are in
-// flight to hide the link's latency.
+// written once (400 B at D = 100 float32, 200 B bfloat16, 100 B int8); the
+// host-tail rows cross PCIe, whose rate (tens of GB/s, not 3.35 TB/s) sets
+// the time whenever a few percent of the rows are cold. Design: the host
+// tail is pinned host memory read in-kernel through its mapped device
+// pointer (UVA zero-copy, as the reference's shard_tensor.cu.hpp did), so
+// there is no staging copy and no scatter; one warp per row copies with the
+// widest access (16, 8, 4, 2 or 1 bytes) that divides the row's byte width
+// and every base pointer, so a row is read in whole sectors and many rows
+// are in flight to hide the link's latency.
 
-__global__ void tiered_gather_kernel(const float* __restrict__ dev_rows, long long H,
-                                     const float* host_rows, long long n_host, int D,
-                                     const int32_t* __restrict__ ids, long long n_ids,
-                                     long long n_valid, const int32_t* __restrict__ order,
-                                     bool vec4, float* __restrict__ out) {
+template <int V> struct Bytes;
+template <> struct Bytes<16> { using T = uint4; };
+template <> struct Bytes<8> { using T = uint2; };
+template <> struct Bytes<4> { using T = uint32_t; };
+template <> struct Bytes<2> { using T = uint16_t; };
+template <> struct Bytes<1> { using T = uint8_t; };
+
+// The widest access (16, 8, 4, 2 or 1 bytes) that divides the row's byte
+// width and every base pointer given.
+static int qt_vec_bytes(long long row_bytes, std::initializer_list<const void*> ptrs) {
+  for (int v = 16; v > 1; v >>= 1) {
+    bool ok = row_bytes % v == 0;
+    for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % v == 0;
+    if (ok) return v;
+  }
+  return 1;
+}
+
+template <int V>
+__global__ void tiered_gather_kernel(const char* __restrict__ dev_rows, long long H,
+                                     const char* host_rows, long long n_host,
+                                     long long row_bytes, const int32_t* __restrict__ ids,
+                                     long long n_ids, long long n_valid,
+                                     const int32_t* __restrict__ order, char* __restrict__ out) {
+  using T = typename Bytes<V>::T;
   const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= n_ids) return;
   const long long id = ids[row];
   long long s = -1;
   if (id >= 0 && id < n_valid) s = order != nullptr ? static_cast<long long>(order[id]) : id;
-  float* dst = out + row * D;
-  const float* src = nullptr;
+  const T* src = nullptr;
   if (s >= 0 && s < H) {
-    src = dev_rows + s * D;
+    src = reinterpret_cast<const T*>(dev_rows + s * row_bytes);
   } else if (s >= H && s < H + n_host) {
-    src = host_rows + (s - H) * D;  // pinned host memory, read over the link
+    src = reinterpret_cast<const T*>(host_rows + (s - H) * row_bytes);  // over the link
   }
-  if (vec4) {
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    for (int c = lane; c < D / 4; c += 32)
-      d4[c] = src != nullptr ? s4[c] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  } else {
-    for (int c = lane; c < D; c += 32) dst[c] = src != nullptr ? src[c] : 0.0f;
+  T* dst = reinterpret_cast<T*>(out + row * row_bytes);
+  const long long n_vec = row_bytes / V;
+  for (long long c = lane; c < n_vec; c += 32) dst[c] = src != nullptr ? src[c] : T{};
+}
+
+template <int V>
+static void launch_tiered_gather(const void* dev_rows, long long H, const void* host_rows,
+                                 long long n_host, long long row_bytes, const void* ids,
+                                 long long n_ids, long long n_valid, const void* order,
+                                 void* out, cudaStream_t stream) {
+  const int threads = 256;  // 8 rows a block
+  tiered_gather_kernel<V><<<qt_blocks(n_ids * 32, threads), threads, 0, stream>>>(
+      static_cast<const char*>(dev_rows), H, static_cast<const char*>(host_rows), n_host,
+      row_bytes, static_cast<const int32_t*>(ids), n_ids, n_valid,
+      static_cast<const int32_t*>(order), static_cast<char*>(out));
+}
+
+static void tiered_gather_any(const void* dev_rows, long long H, const void* host_rows,
+                              long long n_host, long long row_bytes, const void* ids,
+                              long long n_ids, long long n_valid, const void* order, void* out,
+                              cudaStream_t stream) {
+  switch (qt_vec_bytes(row_bytes, {dev_rows, host_rows, out})) {
+    case 16: launch_tiered_gather<16>(dev_rows, H, host_rows, n_host, row_bytes, ids, n_ids,
+                                      n_valid, order, out, stream); break;
+    case 8: launch_tiered_gather<8>(dev_rows, H, host_rows, n_host, row_bytes, ids, n_ids,
+                                    n_valid, order, out, stream); break;
+    case 4: launch_tiered_gather<4>(dev_rows, H, host_rows, n_host, row_bytes, ids, n_ids,
+                                    n_valid, order, out, stream); break;
+    case 2: launch_tiered_gather<2>(dev_rows, H, host_rows, n_host, row_bytes, ids, n_ids,
+                                    n_valid, order, out, stream); break;
+    default: launch_tiered_gather<1>(dev_rows, H, host_rows, n_host, row_bytes, ids, n_ids,
+                                     n_valid, order, out, stream); break;
   }
 }
 
 QT_EXPORT int qt_tiered_gather(const void* dev_rows, long long H, const void* host_rows,
-                               long long n_host, int D, const void* ids, long long n_ids,
+                               long long n_host, int row_bytes, const void* ids, long long n_ids,
                                long long n_valid, const void* order, void* out,
                                void* stream) {
-  if (n_ids <= 0 || D <= 0) return 0;
-  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(dev_rows) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(host_rows) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int threads = 256;  // 8 rows a block
-  tiered_gather_kernel<<<qt_blocks(n_ids * 32, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dev_rows), H, static_cast<const float*>(host_rows), n_host, D,
-      static_cast<const int32_t*>(ids), n_ids, n_valid, static_cast<const int32_t*>(order),
-      vec4, static_cast<float*>(out));
+  if (n_ids <= 0 || row_bytes <= 0) return 0;
+  tiered_gather_any(dev_rows, H, host_rows, n_host, row_bytes, ids, n_ids, n_valid, order, out,
+                    static_cast<cudaStream_t>(stream));
+  return qt_launch_status();
+}
+
+// K5: tiered_lookup — the staged pipeline's feature assembly.
+//
+// Replaces quiver_tpu/pipeline.py:tiered_lookup: out[r] is hot[mapped[r]]
+// where 0 <= mapped[r] < H and zero elsewhere, then each staged cold row i
+// lands in slot cold_pos[i] (positions outside [0, W) are the bucket's
+// padding and are dropped; the pipeline's positions are unique). The
+// reference computes the zero as hot[clip(mapped)] * 0, a signed zero (or
+// NaN under a non-finite row); the kernel writes +0.0 without reading the
+// row, equal as a value for every finite table.
+//
+// Bound on the card: bytes — W ids read, the hot lanes' rows read, W rows
+// written, and the C_b cold rows and positions read and their rows written.
+// Design: two launches in stream order, so a cold slot's zero fill can never
+// race its cold write: the fill is K3t's copy kernel over the hot table
+// alone (n_valid = H, no order, no host tail), then one warp a cold row
+// copies it into its slot with the same widest access.
+
+template <int V>
+__global__ void scatter_rows_kernel(const char* __restrict__ rows, long long n_rows,
+                                    long long row_bytes, const int32_t* __restrict__ pos,
+                                    long long W, char* __restrict__ out) {
+  using T = typename Bytes<V>::T;
+  const long long i = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= n_rows) return;
+  const long long p = pos[i];
+  if (p < 0 || p >= W) return;
+  const T* src = reinterpret_cast<const T*>(rows + i * row_bytes);
+  T* dst = reinterpret_cast<T*>(out + p * row_bytes);
+  const long long n_vec = row_bytes / V;
+  for (long long c = lane; c < n_vec; c += 32) dst[c] = src[c];
+}
+
+template <int V>
+static void launch_scatter_rows(const void* rows, long long n_rows, long long row_bytes,
+                                const void* pos, long long W, void* out, cudaStream_t stream) {
+  const int threads = 256;
+  scatter_rows_kernel<V><<<qt_blocks(n_rows * 32, threads), threads, 0, stream>>>(
+      static_cast<const char*>(rows), n_rows, row_bytes, static_cast<const int32_t*>(pos), W,
+      static_cast<char*>(out));
+}
+
+QT_EXPORT int qt_tiered_lookup(const void* hot, long long H, int row_bytes, const void* mapped,
+                               long long W, const void* cold, long long C, const void* pos,
+                               void* out, void* stream) {
+  if (W <= 0 || row_bytes <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  tiered_gather_any(hot, H, nullptr, 0, row_bytes, mapped, W, H, nullptr, out, s);
+  const int rc = qt_launch_status();
+  if (rc != 0 || C <= 0) return rc;
+  switch (qt_vec_bytes(row_bytes, {cold, out})) {
+    case 16: launch_scatter_rows<16>(cold, C, row_bytes, pos, W, out, s); break;
+    case 8: launch_scatter_rows<8>(cold, C, row_bytes, pos, W, out, s); break;
+    case 4: launch_scatter_rows<4>(cold, C, row_bytes, pos, W, out, s); break;
+    case 2: launch_scatter_rows<2>(cold, C, row_bytes, pos, W, out, s); break;
+    default: launch_scatter_rows<1>(cold, C, row_bytes, pos, W, out, s); break;
+  }
   return qt_launch_status();
 }
 

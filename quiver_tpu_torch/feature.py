@@ -9,7 +9,11 @@ table row``: on CUDA tensors it launches the kernel of ``csrc/gather.cu``
 (K3), on CPU tensors it runs `gather_rows_plain`. ``Feature.__getitem__``
 is one launch of the tiered gather (`shard_tensor.tiered_gather`, K3t);
 ``Feature.lookup_padded`` is K3 over the resident table. Ids stay on the
-device.
+device. A ``Feature`` stores float32, int8 or bfloat16 rows
+(`shard_tensor.normalize_dtype`): ``gather_stored`` returns rows in the
+stored dtype (what `quant.QuantizedFeature` reads), while ``__getitem__``
+and ``lookup_padded`` take float32 stores only, as the reference's callers
+use them.
 
 Not ported yet: the ``p2p_clique_replicate`` policy, the disk and
 adaptive tiers (``host_memory_budget``, ``disk_path``, ``adaptive_tiers``,
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .shard_tensor import CPU_DEVICE, ShardTensor, ShardTensorConfig, normalize_dtype
+from .shard_tensor import CPU_DEVICE, ShardTensor, ShardTensorConfig, _rows_of, normalize_dtype
 from .utils import CSRTopo, parse_size, reindex_feature, resolve_device
 
 
@@ -99,7 +103,7 @@ def validate_lookup_ids(node_idx, n: int) -> np.ndarray:
 
 
 class Feature:
-    """Tiered ``[N, D]`` float32 feature store on one device.
+    """Tiered ``[N, D]`` feature store on one device.
 
     rank : CUDA ordinal whose memory holds the hot rows (``device``
         overrides it, e.g. ``"cpu"`` for the plain versions)
@@ -109,6 +113,7 @@ class Feature:
         alias "ici_replicate" are not ported yet)
     csr_topo : optional CSRTopo — stores rows in degree-descending order
         so the cached prefix is the hot set (``feature_order`` remaps ids)
+    dtype : stored dtype, float32 (default), int8 or "bfloat16"
     """
 
     def __init__(self, rank: int = 0, device_list: Optional[Sequence[int]] = None,
@@ -136,36 +141,40 @@ class Feature:
         self._n: int = 0
 
     def from_cpu_tensor(self, cpu_tensor) -> None:
-        """Ingest the full ``[N, D]`` table: reorder it by degree when a
-        ``csr_topo`` is attached, then keep the first
-        ``device_cache_size`` bytes of rows on the device and the rest in
-        the pinned host tail."""
-        if isinstance(cpu_tensor, torch.Tensor):
-            cpu_tensor = cpu_tensor.detach().cpu().numpy()
-        arr = np.asarray(cpu_tensor)
-        if arr.ndim != 2:
-            raise ValueError("features must be [N, D]")
-        arr = arr.astype(self.dtype, copy=False)
-        self._n, self._dim = arr.shape
+        """Ingest the full ``[N, D]`` table (numpy or torch) in the stored
+        dtype: reorder it by degree when a ``csr_topo`` is attached, then
+        keep the first ``device_cache_size`` bytes of rows on the device
+        and the rest in the pinned host tail."""
+        rows = _rows_of(cpu_tensor, self.dtype)
+        self._n, self._dim = rows.shape
         cache_rows = min(self.device_cache_size // (self._dim * self.dtype.itemsize), self._n)
         if self.csr_topo is not None:
-            arr, order = reindex_feature(self.csr_topo, arr, cache_rows / max(self._n, 1))
+            _, order = reindex_feature(self.csr_topo, None, cache_rows / max(self._n, 1))
+            inv = np.empty_like(order)
+            inv[order] = np.arange(order.shape[0], dtype=order.dtype)
+            rows = rows.index_select(0, torch.from_numpy(inv))  # stored row j: node inv[j]
             self.feature_order = order
             self.csr_topo.feature_order = order
             self._order_dev = torch.from_numpy(order.astype(np.int32)).to(self.device)
             self._inv_order = None
         st = ShardTensor(self.device, ShardTensorConfig({}), dtype=self.dtype)
         if cache_rows > 0:
-            st.append(arr[:cache_rows], self.rank)
+            st.append(rows[:cache_rows], self.rank)
         if cache_rows < self._n:
-            st.append(arr[cache_rows:], CPU_DEVICE)
+            st.append(rows[cache_rows:], CPU_DEVICE)
         self.shard_tensor = st
+
+    def _float32_only(self, what: str) -> None:
+        if self.dtype != torch.float32:
+            raise TypeError(f"Feature.{what} reads float32 stores; this one holds {self.dtype} "
+                            "(use gather_stored, or quant.QuantizedFeature to decode)")
 
     def __getitem__(self, node_idx) -> torch.Tensor:
         """Rows for (original) node ids on this feature's device, in one
         tiered-gather launch: ids remap through ``feature_order``; ids
         outside ``[0, N)`` (the sampler's sentinel padding) give zero
         rows."""
+        self._float32_only("__getitem__")
         return self.shard_tensor.gather(node_idx, n_valid=self._n, order=self._order_dev)
 
     def _map_ids(self, node_idx):
@@ -180,8 +189,8 @@ class Feature:
         return ids, invalid
 
     def gather_stored(self, stored) -> torch.Tensor:
-        """Rows by stored row id (no remap); ids outside the store give
-        zero rows."""
+        """Rows by stored row id (no remap) in the stored dtype, one K3t
+        launch on CUDA; ids outside the store give zero rows."""
         return self.shard_tensor[stored]
 
     def tier_bytes(self) -> Dict[str, int]:
@@ -221,6 +230,7 @@ class Feature:
                 "lookup_padded needs a fully device-resident feature; "
                 "use __getitem__ (tiered)"
             )
+        self._float32_only("lookup_padded")
         if not isinstance(node_idx, torch.Tensor):
             node_idx = torch.from_numpy(np.asarray(node_idx).astype(np.int64))
         if node_idx.dtype != torch.int32:  # clamped first, so the clip is unchanged

@@ -1,0 +1,177 @@
+"""Fused dequant-on-gather lookups for quantized feature tables — the port
+of ``quiver_tpu/quant/lookup.py`` (``gather_dequant``,
+``quantized_tiered_lookup``, ``make_quantized_train_step``).
+
+The gathers read encoded rows and their per-row side entries and decode
+in registers (``csrc/dequant.cu``): the float32 table exists nowhere, not
+in device memory and not on the host-to-device link. On CUDA tensors each
+call is one launch (K9a, K9b) for the fp32, bf16 and int8 codecs; on CPU
+tensors the plain versions run (any codec of the registry).
+
+Not ported yet: ``sharded_dequant_gather`` (the encoded gather across
+devices), which comes with the collectives (ROADMAP A16, kernel K13).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .. import _kernels
+from .codecs import get_codec
+
+# codec name -> (the kernel's codec id, the payload dtype it decodes)
+_KERNEL_CODECS = {"fp32": (0, torch.float32), "bf16": (1, torch.bfloat16),
+                  "int8": (2, torch.int8)}
+
+
+def _side_lookup(idx: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor):
+    """Per-lane scale/zero from the full side tables, ``idx`` clipped into
+    range (invalid lanes are masked by the caller)."""
+    safe = torch.clamp(idx.to(torch.int64), 0, scale.shape[0] - 1)
+    return scale[safe], zero[safe]
+
+
+def _kernel_args(codec, payload: torch.Tensor, scale, zero, ints) -> int:
+    """Check what the CUDA kernels take; returns the kernel's codec id."""
+    entry = _KERNEL_CODECS.get(codec.name)
+    if entry is None or payload.dtype != entry[1]:
+        raise TypeError(f"the dequant kernels decode fp32, bf16 and int8 payloads; got codec "
+                        f"{codec.name!r} over {payload.dtype}")
+    if payload.dim() != 2:
+        raise ValueError(f"payload must be [N, D]; got {tuple(payload.shape)}")
+    if codec.name == "int8" and (scale is None or zero is None):
+        raise ValueError("int8 dequant needs per-row scale and zero tables")
+    for t in ((scale, zero) if scale is not None else ()):
+        if t.dtype != torch.float32 or t.dim() != 1 or t.device != payload.device:
+            raise TypeError("scale and zero must be [N] float32 tensors on the payload's device")
+    for t, name in ints:
+        if t is not None and (t.dtype != torch.int32 or t.device != payload.device):
+            raise TypeError(f"the dequant kernels take int32 {name} on the payload's device")
+    return entry[0]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def gather_dequant_plain(codec, payload: torch.Tensor, ids: torch.Tensor, scale=None,
+                         zero=None, index_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain torch version of `gather_dequant`."""
+    codec = get_codec(codec)
+    ids = ids.to(torch.int64)
+    if index_map is not None:
+        ids = index_map[torch.clamp(ids, 0, index_map.shape[0] - 1)].to(torch.int64)
+    q = payload[torch.clamp(ids, 0, payload.shape[0] - 1)]
+    if scale is not None:
+        return codec.dequant(q, *_side_lookup(ids, scale, zero))
+    return codec.dequant(q)
+
+
+def gather_dequant(codec, payload: torch.Tensor, ids: torch.Tensor, scale=None, zero=None,
+                   index_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gather and decode from a fully device-resident encoded table (K9a).
+
+    payload: ``[N, D]`` encoded rows; scale/zero: ``[N]`` float32 side
+    tables (None for codecs without them); ids: any shape, clipped into
+    ``[0, N)`` (into the map first, then the table, when an
+    ``index_map`` such as the feature order is given), the clipping of
+    ``Feature.lookup_padded``. Returns float32 rows ``[*ids.shape, D]``.
+    """
+    codec = get_codec(codec)
+    if not ids.is_cuda:
+        return gather_dequant_plain(codec, payload, ids, scale, zero, index_map)
+    kind = _kernel_args(codec, payload, scale, zero, ((ids, "ids"), (index_map, "index_map")))
+    N, D = payload.shape
+    flat = ids.reshape(-1).contiguous()
+    out = torch.empty((flat.shape[0], D), dtype=torch.float32, device=payload.device)
+    if flat.shape[0] and D:
+        imap = None if index_map is None else index_map.contiguous()
+        side = (None, None) if scale is None else (scale.contiguous(), zero.contiguous())
+        _kernels.launch("gather_dequant", kind, payload.contiguous().data_ptr(), N, D,
+                        flat.data_ptr(), flat.shape[0], N if imap is None else imap.shape[0],
+                        _ptr(imap), _ptr(side[0]), _ptr(side[1]), out.data_ptr(),
+                        _kernels.stream_of(payload), variant=codec.name)
+    return out.reshape(*ids.shape, D)
+
+
+def quantized_tiered_lookup_plain(codec, hot_payload: torch.Tensor, mapped: torch.Tensor,
+                                  cold_payload: torch.Tensor, cold_pos: torch.Tensor,
+                                  scale=None, zero=None) -> torch.Tensor:
+    """Plain torch version of `quantized_tiered_lookup`."""
+    codec = get_codec(codec)
+    H, W = hot_payload.shape[0], mapped.shape[0]
+    m = mapped.to(torch.int64)
+    valid = m >= 0
+    is_hot = valid & (m < H)
+    q = torch.zeros((W, hot_payload.shape[1]), dtype=hot_payload.dtype, device=mapped.device)
+    q[is_hot] = hot_payload[m[is_hot]]
+    if cold_payload.shape[0]:
+        p = cold_pos.to(torch.int64)
+        keep = (p >= 0) & (p < W)
+        q[p[keep]] = cold_payload[keep]
+    x = codec.dequant(q, *_side_lookup(m, scale, zero)) if scale is not None else codec.dequant(q)
+    return x * valid[:, None].to(x.dtype)
+
+
+def quantized_tiered_lookup(codec, hot_payload: torch.Tensor, mapped: torch.Tensor,
+                            cold_payload: torch.Tensor, cold_pos: torch.Tensor,
+                            scale=None, zero=None) -> torch.Tensor:
+    """The quantized twin of `pipeline.tiered_lookup` (K9b): the assembly
+    stays encoded — hot rows gathered, the staged cold rows (storage dtype,
+    from a `TieredFeaturePipeline` over a `QuantizedFeature`) scattered into
+    their slots — and each merged row is decoded once, with side entries
+    from the ``[N_stored]`` tables at ``clip(mapped)``; lanes with
+    ``mapped < 0`` are zeroed. A lane past the hot prefix that no cold row
+    covers decodes to the row's zero point (int8: ``-zero * scale``), not
+    to 0, as in the reference; the pipeline always covers them."""
+    codec = get_codec(codec)
+    if mapped.dim() != 1 or cold_pos.dim() != 1 or cold_payload.shape[0] != cold_pos.shape[0]:
+        raise ValueError("mapped [W], cold_payload [C, D] and cold_pos [C] expected")
+    if not mapped.is_cuda:
+        return quantized_tiered_lookup_plain(codec, hot_payload, mapped, cold_payload, cold_pos,
+                                             scale, zero)
+    kind = _kernel_args(codec, hot_payload, scale, zero, ((mapped, "mapped"),
+                                                         (cold_pos, "cold_pos")))
+    if cold_payload.dtype != hot_payload.dtype or cold_payload.device != hot_payload.device:
+        raise TypeError("cold rows must share the hot table's dtype and device")
+    if cold_payload.shape[0] and cold_payload.shape[1] != hot_payload.shape[1]:
+        raise ValueError("cold rows and the hot table differ in width")
+    W, D = mapped.shape[0], hot_payload.shape[1]
+    out = torch.empty((W, D), dtype=torch.float32, device=mapped.device)
+    if W and D:
+        side = (None, None) if scale is None else (scale.contiguous(), zero.contiguous())
+        _kernels.launch("quantized_tiered_lookup", kind, hot_payload.contiguous().data_ptr(),
+                        hot_payload.shape[0], D, mapped.contiguous().data_ptr(), W,
+                        cold_payload.contiguous().data_ptr(), cold_payload.shape[0],
+                        cold_pos.contiguous().data_ptr(), _ptr(side[0]), _ptr(side[1]),
+                        0 if scale is None else scale.shape[0], out.data_ptr(),
+                        _kernels.stream_of(mapped), variant=codec.name)
+    return out
+
+
+def make_quantized_train_step(model, optimizer, labels, hot_payload: torch.Tensor,
+                              scale=None, zero=None, codec="int8"):
+    """The quantized twin of `pipeline.make_tiered_train_step`: the same
+    ``step(batch, generator=None) -> loss`` over the same `TieredBatch`,
+    its rows assembled and decoded by `quantized_tiered_lookup` (K9b). The
+    step carries ``.model`` and ``.optimizer``."""
+    codec = get_codec(codec)
+    labels = torch.as_tensor(labels).to(hot_payload.device, torch.int64)
+    n = labels.shape[0]
+
+    def step(batch, generator: Optional[torch.Generator] = None):
+        x = quantized_tiered_lookup(codec, hot_payload, batch.mapped, batch.cold_rows,
+                                    batch.cold_pos, scale, zero)
+        y = labels[torch.clamp(batch.seeds.to(torch.int64), 0, n - 1)]
+        loss = F.cross_entropy(model(x, batch.ds.adjs, train=True, generator=generator), y)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    step.model = model
+    step.optimizer = optimizer
+    return step

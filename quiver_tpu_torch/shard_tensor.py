@@ -1,18 +1,23 @@
-"""ShardTensor — one logical ``[N, D]`` float32 tensor over two tiers: the
-port of ``quiver_tpu/shard_tensor.py`` (``normalize_dtype``, ``Offset``,
+"""ShardTensor — one logical ``[N, D]`` tensor over two tiers: the port of
+``quiver_tpu/shard_tensor.py`` (``normalize_dtype``, ``Offset``,
 ``ShardTensorConfig``, ``ShardTensor``) on one device.
 
 Rows ``[0, H)`` live in device memory, rows ``[H, N)`` in a pinned host
-tail (``tensor.pin_memory()``). `tiered_gather` reads both in one launch
-of the kernel of ``csrc/gather.cu``: host rows are read in-kernel through
-the tail's mapped device pointer, as the reference's
+tail (``tensor.pin_memory()``), both in the stored dtype: float32, int8 or
+bfloat16 (the encoded rows of a quantized store). `tiered_gather` reads
+both in one launch of the kernel of ``csrc/gather.cu``: host rows are read
+in-kernel through the tail's mapped device pointer, as the reference's
 ``shard_tensor.cu.hpp`` did, so there is no host gather, no staging copy
 and no scatter merge. On a CPU device both tiers are CPU tensors and
 `tiered_gather_plain` runs instead.
 
-Not ported yet: other dtypes (bfloat16, quantized stores), a second
-device shard (the clique stripe), the disk tier (``append_disk``) and the
-IPC handles.
+bfloat16 stays a torch dtype end to end: numpy has no bfloat16 without
+``ml_dtypes``, so rows are torch tensors here and a float32 table is
+converted with ``Tensor.to(torch.bfloat16)`` (round to nearest even, as
+``ml_dtypes`` rounds).
+
+Not ported yet: a second device shard (the clique stripe), the disk tier
+(``append_disk``) and the IPC handles.
 """
 
 from __future__ import annotations
@@ -29,12 +34,23 @@ from .utils import parse_size, resolve_device
 CPU_DEVICE = -1  # the reference's device id of the pinned host shard
 
 
-def normalize_dtype(dtype) -> np.dtype:
-    """The store dtype of a tiered tensor. The port stores float32 only;
-    any other dtype raises."""
-    if str(dtype) in ("bfloat16", "bf16") or np.dtype(dtype) != np.float32:
-        raise TypeError(f"dtype {dtype} is not ported yet: the port stores float32 only")
-    return np.dtype(np.float32)
+STORE_DTYPES = {"float32": torch.float32, "int8": torch.int8, "bfloat16": torch.bfloat16}
+
+
+def normalize_dtype(dtype) -> torch.dtype:
+    """The store dtype of a tiered tensor as a torch dtype: float32, int8 or
+    bfloat16 (spelt ``"bfloat16"``, ``"bf16"``, ``torch.bfloat16`` or an
+    ``ml_dtypes`` numpy dtype). Any other dtype raises."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    elif str(dtype) in ("bfloat16", "bf16"):
+        name = "bfloat16"
+    else:
+        name = np.dtype(dtype).name
+    if name not in STORE_DTYPES:
+        raise TypeError(f"dtype {dtype} is not ported yet: the port stores "
+                        f"{', '.join(STORE_DTYPES)}")
+    return STORE_DTYPES[name]
 
 
 @dataclass
@@ -61,13 +77,15 @@ class ShardTensorConfig:
         return sorted(self.device_memory_budget.keys())
 
 
-def _rows_of(tensor) -> np.ndarray:
-    if isinstance(tensor, torch.Tensor):
-        tensor = tensor.detach().cpu().numpy()
-    arr = np.asarray(tensor)
-    if arr.ndim != 2:
+def _rows_of(tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``tensor`` (numpy or torch, 2-D) as a contiguous CPU tensor of
+    ``dtype``; a float table becomes bfloat16 by ``Tensor.to`` (round to
+    nearest even)."""
+    if not isinstance(tensor, torch.Tensor):
+        tensor = torch.from_numpy(np.ascontiguousarray(tensor))
+    if tensor.dim() != 2:
         raise ValueError("ShardTensor shards must be 2-D")
-    return np.ascontiguousarray(arr, dtype=np.float32)
+    return tensor.detach().to("cpu", dtype).contiguous()
 
 
 def _ids_on(ids, device: torch.device, n_valid: int) -> torch.Tensor:
@@ -113,19 +131,23 @@ def tiered_gather(dev_rows: Optional[torch.Tensor], host_rows: Optional[torch.Te
                   ids: torch.Tensor, n_valid: int,
                   order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows of the two-tier table for ``ids`` as ``[len(ids), D]`` on
-    ``ids``' device: ids outside ``[0, n_valid)`` give zero rows; the
-    stored row is ``order[id]`` (``id`` without an order), read from
-    ``dev_rows [H, D]`` when below H and from ``host_rows [N - H, D]``
-    (pinned host memory) otherwise. Bit-equal copies."""
+    ``ids``' device, in the tiers' dtype (float32, int8 or bfloat16): ids
+    outside ``[0, n_valid)`` give zero rows; the stored row is
+    ``order[id]`` (``id`` without an order), read from ``dev_rows [H, D]``
+    when below H and from ``host_rows [N - H, D]`` (pinned host memory)
+    otherwise. Bit-equal copies."""
     if dev_rows is None and host_rows is None:
         raise ValueError("a tiered gather needs at least one tier")
     if ids.dim() != 1:
         raise ValueError(f"ids must be [n]; got {tuple(ids.shape)}")
     if not ids.is_cuda:
         return tiered_gather_plain(dev_rows, host_rows, ids, n_valid, order)
+    some = dev_rows if dev_rows is not None else host_rows
     for t, name in ((dev_rows, "device rows"), (host_rows, "host rows")):
-        if t is not None and (t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous()):
-            raise TypeError(f"the tiered gather takes contiguous [R, D] float32 {name}")
+        if t is not None and (t.dtype not in STORE_DTYPES.values() or t.dtype != some.dtype
+                              or t.dim() != 2 or not t.is_contiguous()):
+            raise TypeError(f"the tiered gather takes contiguous [R, D] {name} of one "
+                            f"dtype of {', '.join(STORE_DTYPES)}")
     if dev_rows is not None and dev_rows.device != ids.device:
         raise ValueError(f"device rows on {dev_rows.device} but ids on {ids.device}")
     if host_rows is not None and (host_rows.is_cuda or not host_rows.is_pinned()):
@@ -135,8 +157,8 @@ def tiered_gather(dev_rows: Optional[torch.Tensor], host_rows: Optional[torch.Te
     if ids.dtype != torch.int32:
         raise TypeError(f"the tiered gather takes int32 ids; got {ids.dtype}")
     ids = ids.contiguous()
-    D = (dev_rows if dev_rows is not None else host_rows).shape[1]
-    out = torch.empty((ids.shape[0], D), dtype=torch.float32, device=ids.device)
+    D = some.shape[1]
+    out = torch.empty((ids.shape[0], D), dtype=some.dtype, device=ids.device)
     if ids.shape[0] == 0 or D == 0:
         return out
     host_ptr = None
@@ -146,9 +168,10 @@ def tiered_gather(dev_rows: Optional[torch.Tensor], host_rows: Optional[torch.Te
         "tiered_gather",
         dev_rows.data_ptr() if dev_rows is not None else None,
         0 if dev_rows is None else dev_rows.shape[0], host_ptr,
-        0 if host_rows is None else host_rows.shape[0], D, ids.data_ptr(), ids.shape[0],
+        0 if host_rows is None else host_rows.shape[0], D * some.element_size(), ids.data_ptr(),
+        ids.shape[0],
         int(n_valid), order.contiguous().data_ptr() if order is not None else None,
-        out.data_ptr(), _kernels.stream_of(ids),
+        out.data_ptr(), _kernels.stream_of(ids), variant=str(some.dtype).removeprefix("torch."),
     )
     return out
 
@@ -156,8 +179,9 @@ def tiered_gather(dev_rows: Optional[torch.Tensor], host_rows: Optional[torch.Te
 class ShardTensor:
     """Logical row-sharded tensor: one device shard (rows ``[0, H)``)
     then a host tail (rows ``[H, N)``), in `append` order as in the
-    reference. ``current_device`` is a CUDA ordinal or any torch device
-    (``"cpu"`` runs the plain version); the tail is pinned on CUDA."""
+    reference, both in ``dtype`` (see `normalize_dtype`).
+    ``current_device`` is a CUDA ordinal or any torch device (``"cpu"``
+    runs the plain version); the tail is pinned on CUDA."""
 
     def __init__(self, current_device: Union[int, str, torch.device] = 0,
                  shard_tensor_config: Optional[ShardTensorConfig] = None, dtype=np.float32):
@@ -175,7 +199,7 @@ class ShardTensor:
     def append(self, tensor, device: int) -> None:
         """Place ``tensor`` as the next row range: on this handle's device
         for a rank >= 0, in the pinned host tail for -1."""
-        arr = _rows_of(tensor)
+        arr = _rows_of(tensor, self.dtype)
         if self._dim is None:
             self._dim = arr.shape[1]
         elif arr.shape[1] != self._dim:
@@ -184,7 +208,7 @@ class ShardTensor:
         if device == CPU_DEVICE:
             if self.cpu_tensor is not None:
                 raise ValueError("host shard already set")
-            host = torch.from_numpy(arr)
+            host = arr
             if self.device.type == "cuda":
                 host = host.pin_memory()
             self.cpu_tensor = host
@@ -195,8 +219,7 @@ class ShardTensor:
             if self.device_shards:
                 raise NotImplementedError(
                     "a second device shard (the clique stripe) is not ported yet")
-            self.device_shards.append((device, torch.from_numpy(arr).to(self.device, copy=True),
-                                       off))
+            self.device_shards.append((device, arr.to(self.device, copy=True), off))
         self._n_rows = off.end
 
     @classmethod
@@ -206,7 +229,7 @@ class ShardTensor:
         """Budget-based split: the device shard takes as many rows as its
         budget holds, the host tail the rest."""
         self = cls(current_device, shard_tensor_config, dtype=dtype)
-        arr = _rows_of(tensor)
+        arr = _rows_of(tensor, self.dtype)
         row_bytes = arr.shape[1] * self.dtype.itemsize
         cursor = 0
         for dev in self.config.device_list:

@@ -1,19 +1,40 @@
 """Timing and metrics — the part of ``quiver_tpu/trace.py`` the port
-uses: the scope `timer`, the benchmark helpers `median_min_max` and
-`seps`, and for serving `SpanRecorder` (stage spans and their measured
-overlap), `LatencyHistogram` and `HitRateCounter`. Host only."""
+uses: the scope `timer`, the aggregated `trace_scope` (on when
+``QUIVER_ENABLE_TRACE`` is set) and `trace_report`, the benchmark helpers
+`median_min_max` and `seps`, `SpanRecorder` (stage spans and their
+measured overlap) with `export_chrome_trace` of its spans, and for serving
+`LatencyHistogram` and `HitRateCounter`. Host only.
+
+Not ported yet: ``MetricsRegistry`` and the journal and counter sources of
+the Chrome trace (they come with the serving observability slice)."""
 
 from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
+import json
 import math
+import os
 import statistics
 import threading
 import time
-from typing import Dict
+from collections import defaultdict
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+TRACE_ENV = "QUIVER_ENABLE_TRACE"
+
+_registry: Dict[str, Tuple[int, float]] = defaultdict(lambda: (0, 0.0))
+# one lock for the read-modify-write of a scope's totals and for
+# trace_report(reset=True)'s snapshot-then-clear
+_registry_lock = threading.Lock()
+
+
+def trace_enabled() -> bool:
+    return os.environ.get(TRACE_ENV, "0") not in ("0", "", "false", "False")
 
 
 class timer:
@@ -34,6 +55,57 @@ class timer:
         self.elapsed = time.perf_counter() - self._t0
         if self.verbose:
             print(f"[timer] {self.name}: {self.elapsed * 1e3:.3f} ms")
+
+
+class _SyncBox:
+    """Handle a scope parks its output tensors in (``box.sync = out``) so
+    the scope waits for the work that makes them, not just its launch."""
+
+    __slots__ = ("sync",)
+
+    def __init__(self):
+        self.sync = None
+
+
+def _wait_for(tensors) -> None:
+    if isinstance(tensors, torch.Tensor):
+        tensors = (tensors,)
+    for dev in {t.device for t in tensors if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.current_stream(dev).synchronize()
+
+
+@contextlib.contextmanager
+def trace_scope(name: str, sync=None) -> Iterator[_SyncBox]:
+    """Aggregated scope timer, a no-op unless ``QUIVER_ENABLE_TRACE`` is
+    set: adds (count, seconds) to ``name``'s totals. CUDA work is queued,
+    not done, when its call returns: pass the scope's output tensors as
+    ``sync=`` (or assign them to the yielded box) and the scope waits for
+    the current stream of their device before stopping the clock."""
+    box = _SyncBox()
+    box.sync = sync
+    if not trace_enabled():
+        yield box
+        return
+    t0 = time.perf_counter()
+    try:
+        yield box
+    finally:
+        if box.sync is not None:
+            _wait_for(box.sync)
+        dt = time.perf_counter() - t0
+        with _registry_lock:
+            cnt, tot = _registry[name]
+            _registry[name] = (cnt + 1, tot + dt)
+
+
+def trace_report(reset: bool = False) -> Dict[str, Tuple[int, float]]:
+    """``{name: (count, total_seconds)}`` of the aggregated scopes;
+    ``reset=True`` snapshots and clears under one lock."""
+    with _registry_lock:
+        out = dict(_registry)
+        if reset:
+            _registry.clear()
+    return out
 
 
 def median_min_max(values) -> Dict[str, float]:
@@ -72,6 +144,26 @@ class SpanRecorder:
     def record(self, stage: str, t0: float, t1: float) -> None:
         self._spans.append((stage, t0, t1))
 
+    def __iter__(self):
+        return iter(_snapshot_deque(self._spans))
+
+    def __len__(self) -> int:
+        return len(self._spans)
+
+    def __bool__(self) -> bool:
+        return bool(self._spans)
+
+    def clear(self) -> None:
+        self._spans.clear()
+
+    def merge(self, other) -> "SpanRecorder":
+        """Append ``other``'s spans (a recorder or any iterable of triples);
+        an overlap summary of the merged spans means something only when
+        both recorders read one clock. Returns self."""
+        for span in tuple(other):
+            self._spans.append(span)
+        return self
+
     def overlap_summary(self) -> dict:
         """Busy seconds per stage, the union-covered wall, ``overlap_frac``
         (share of covered wall with >= 2 stages active) and
@@ -105,6 +197,74 @@ class SpanRecorder:
                 round((total_busy - covered) / total_busy, 4) if total_busy else 0.0
             ),
         }
+
+
+def _assign_lanes(intervals: Sequence[Tuple[float, float]]) -> List[int]:
+    """Greedy interval colouring: overlapping intervals get distinct lanes."""
+    order = sorted(range(len(intervals)), key=lambda i: intervals[i][0])
+    lane_free: List[float] = []  # lane -> the time it frees up
+    lanes = [0] * len(intervals)
+    for i in order:
+        t0, t1 = intervals[i]
+        for ln, free in enumerate(lane_free):
+            if free <= t0:
+                lane_free[ln] = t1
+                lanes[i] = ln
+                break
+        else:
+            lanes[i] = len(lane_free)
+            lane_free.append(t1)
+    return lanes
+
+
+def chrome_trace_events(sources: Sequence[Tuple[str, object]]) -> List[Dict[str, object]]:
+    """Chrome ``trace_events`` of span sources ``[(process_name, source)]``,
+    a source being a `SpanRecorder` or any iterable of ``(stage, t0, t1)``
+    triples on one clock: one pid a source, one named track a stage
+    (overlapping spans of one stage fan out to numbered tracks), times
+    rebased to the earliest span."""
+    by_pid = [(pid, name, [tuple(s) for s in src]) for pid, (name, src) in enumerate(sources)]
+    t_min = min((t0 for _, _, spans in by_pid for _, t0, _ in spans), default=0.0)
+    events: List[Dict[str, object]] = []
+    tids: Dict[Tuple[int, str], int] = {}
+
+    def tid_for(pid: int, track: str) -> int:
+        if (pid, track) not in tids:
+            tids[(pid, track)] = sum(1 for k in tids if k[0] == pid)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tids[(pid, track)], "args": {"name": track}})
+        return tids[(pid, track)]
+
+    for pid, name, _ in by_pid:
+        events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                       "args": {"name": name}})
+    for pid, _, spans in by_pid:
+        by_stage: Dict[str, List[Tuple[float, float]]] = {}
+        for stage, t0, t1 in spans:
+            by_stage.setdefault(stage, []).append((t0, t1))
+        for stage, iv in by_stage.items():
+            for (t0, t1), lane in zip(iv, _assign_lanes(iv)):
+                events.append({
+                    "name": stage, "ph": "X", "ts": round((t0 - t_min) * 1e6, 3),
+                    "dur": round(max(t1 - t0, 0.0) * 1e6, 3), "pid": pid,
+                    "tid": tid_for(pid, stage if lane == 0 else f"{stage}/{lane}"),
+                    "cat": "span",
+                })
+    return events
+
+
+def export_chrome_trace(path: str, sources: Sequence[Tuple[str, object]],
+                        metadata: Optional[Dict[str, object]] = None) -> Dict[str, object]:
+    """Write (when ``path`` is not empty) and return a Chrome trace JSON
+    (Perfetto loads it) of the span sources; see `chrome_trace_events`."""
+    doc: Dict[str, object] = {"traceEvents": chrome_trace_events(sources),
+                              "displayTimeUnit": "ms"}
+    if metadata:
+        doc["metadata"] = metadata
+    if path:
+        with open(path, "w") as fh:
+            json.dump(doc, fh)
+    return doc
 
 
 class LatencyHistogram:

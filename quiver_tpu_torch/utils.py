@@ -1,6 +1,7 @@
 """Graph topology container and small helpers — the port of
 ``quiver_tpu/utils.py`` (``CSRTopo``, ``parse_size``, ``_best_id_dtype``,
-``reindex_by_config``, ``reindex_feature``).
+``reindex_by_config``, ``reindex_feature``) and of ``round_up_pow2`` from
+``quiver_tpu/comm.py``.
 
 Topology lives in host numpy arrays and is materialised on a torch device
 on demand. Ids on the device are int32 wherever the JAX package uses int32
@@ -44,6 +45,15 @@ def parse_size(sz: Union[int, str, float]) -> int:
     unit = m.group(2)
     mult = {"": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30, "T": 1 << 40}[unit]
     return int(value * mult)
+
+
+def round_up_pow2(n: int, floor: int = 16) -> int:
+    """The least power-of-two multiple of ``floor`` that is >= ``n``: the
+    bucket a padded batch is rounded up to, so its shape repeats."""
+    v = floor
+    while v < n:
+        v <<= 1
+    return v
 
 
 def _best_id_dtype(max_value: int) -> np.dtype:

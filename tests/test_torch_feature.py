@@ -186,7 +186,7 @@ def test_tiered_gather_with_order_and_bad_stored_rows():
 
 def test_shard_tensor_and_feature_refuse_what_is_not_ported():
     with pytest.raises(TypeError):
-        normalize_dtype("bfloat16")
+        normalize_dtype("float16")
     with pytest.raises(TypeError):
         ShardTensor("cpu", dtype=np.float16)
     st = ShardTensor("cpu")

@@ -14,7 +14,13 @@ lanes in ascending order as the kernel does (the plain version on the
 card is ``index_add_`` with float atomics, whose order changes from run
 to run), and the backward run twice is bit-equal (no float atomics). Shapes are
 the serving slice's (B = 64, sizes [15, 10, 5], D = 100 and 256) and the
-training slice's (B = 1024 for the backward)."""
+training slice's (B = 1024 for the backward). The staged pipeline's
+kernels — the tiered lookup (K5), the tiered gather over int8 and bfloat16
+rows, the dequant gather (K9a) and the quantized tiered lookup (K9b) for
+the fp32, bf16 and int8 codecs — are bit-equal to their plain versions on
+the card and on the CPU, at a batch-1024 n_id's width (67,584 slots at
+B = 64 for the gathers) and D = 100, and at D = 99, whose rows take the
+narrower accesses."""
 
 import numpy as np
 import pytest
@@ -37,6 +43,10 @@ from quiver_tpu_torch.models.sage import (
 )
 from quiver_tpu_torch.shard_tensor import tiered_gather, tiered_gather_plain
 from quiver_tpu_torch.ops import reindex, sample
+from quiver_tpu_torch.pipeline import tiered_lookup, tiered_lookup_plain
+from quiver_tpu_torch.quant import gather_dequant, get_codec, quantized_tiered_lookup
+from quiver_tpu_torch.quant.lookup import gather_dequant_plain, quantized_tiered_lookup_plain
+from quiver_tpu_torch.utils import round_up_pow2
 from quiver_tpu_torch.pyg.sage_sampler import DenseAdj
 from quiver_tpu_torch.utils import CSRTopo
 
@@ -248,3 +258,94 @@ def test_tiered_gather_kernel_matches_plain(cuda_device, cache_frac):
     assert not got[:2].any()
     stored = tiered_gather(st.device_rows, st.cpu_tensor, dev_ids, n)  # no order
     assert _same(stored, tiered_gather_plain(st.device_rows, st.cpu_tensor, dev_ids, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_tiered_gather_kernel_on_narrow_rows(cuda_device, dtype):
+    topo, n = _graph(seed=13)
+    rng = np.random.default_rng(14)
+    ids = torch.from_numpy(rng.integers(-5, n + 5, 67584).astype(np.int32))
+    for D in (100, 99):
+        table = rng.standard_normal((n, D)).astype(np.float32)
+        rows = get_codec("int8").encode(table).payload if dtype == "int8" else table
+        feats = []
+        for dev in (cuda_device, "cpu"):
+            f = Feature(device_cache_size=int(n * 0.2) * D * (1 if dtype == "int8" else 2),
+                        dtype=dtype, device=dev)
+            f.from_cpu_tensor(rows)
+            feats.append(f)
+        st = feats[0].shard_tensor
+        assert st.cpu_tensor.is_pinned() and st.cpu_tensor.dtype == st.device_rows.dtype
+        dev_ids = ids.to(cuda_device)
+        before = _kernels.counts()[f"tiered_gather/{dtype}"]
+        got = feats[0].gather_stored(dev_ids)
+        want = tiered_gather_plain(st.device_rows, st.cpu_tensor, dev_ids, n)
+        torch.cuda.synchronize()
+        assert _kernels.counts()[f"tiered_gather/{dtype}"] == before + 1
+        assert got.dtype == st.device_rows.dtype
+        assert _same(got, want) and _same(got, feats[1].gather_stored(ids))
+
+
+def _staged(rng, W, H, n, D, make_rows):
+    """A lookup's inputs as the pipeline stages them: mapped ids with
+    invalid (-1) and cold (>= H) lanes, the cold rows padded to a power of
+    two with slot W."""
+    mapped = rng.integers(-1, n, W).astype(np.int32)
+    cold_sel = np.nonzero(mapped >= H)[0]
+    b = round_up_pow2(cold_sel.size, floor=256)
+    pos = np.full(b, W, np.int32)
+    pos[: cold_sel.size] = cold_sel
+    return torch.from_numpy(mapped), make_rows(b), torch.from_numpy(pos)
+
+
+@pytest.mark.cuda
+def test_tiered_lookup_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(15)
+    for D in (100, 99):
+        hot = torch.from_numpy(rng.standard_normal((3000, D)).astype(np.float32))
+        mapped, cold, pos = _staged(rng, 67584, 3000, 15000, D, lambda b: torch.from_numpy(
+            rng.standard_normal((b, D)).astype(np.float32)))
+        args = [t.to(cuda_device) for t in (hot, mapped, cold, pos)]
+        before = _kernels.counts()["tiered_lookup"]
+        got = tiered_lookup(*args)
+        want = tiered_lookup_plain(*args)
+        torch.cuda.synchronize()
+        assert _kernels.counts()["tiered_lookup"] == before + 1
+        assert _same(got, want) and _same(got, tiered_lookup_plain(hot, mapped, cold, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fp32", "bf16", "int8"])
+def test_dequant_kernels_match_plain(cuda_device, name):
+    """K9a with and without the feature order, K9b with its invalid lanes,
+    cold lanes and padding; every decode bit-equal to the plain torch
+    version on the card and on the CPU."""
+    rng = np.random.default_rng(16)
+    codec = get_codec(name)
+    for D in (100, 99):
+        enc = codec.encode((rng.standard_normal((20000, D)) * 3).astype(np.float32))
+        payload = torch.as_tensor(enc.payload)
+        side = [None if a is None else torch.from_numpy(a) for a in (enc.scale, enc.zero)]
+        dev_side = [None if a is None else a.to(cuda_device) for a in side]
+        ids = torch.from_numpy(rng.integers(-5, 20005, 67584).astype(np.int32))
+        order = torch.from_numpy(rng.permutation(20000).astype(np.int32))
+        for imap in (None, order):
+            args = (payload.to(cuda_device), ids.to(cuda_device), *dev_side)
+            kw = dict(index_map=None if imap is None else imap.to(cuda_device))
+            got = gather_dequant(name, *args, **kw)
+            want = gather_dequant_plain(name, *args, **kw)
+            cpu = gather_dequant_plain(name, payload, ids, *side, index_map=imap)
+            torch.cuda.synchronize()
+            assert _same(got, want) and _same(got, cpu)
+        H = 4000
+        mapped, cold, pos = _staged(rng, 67584, H, 20000, D, lambda b: payload[
+            torch.from_numpy(rng.integers(H, 20000, b))])
+        before = _kernels.counts()[f"quantized_tiered_lookup/{name}"]
+        args = [t.to(cuda_device) for t in (payload[:H], mapped, cold, pos)]
+        got = quantized_tiered_lookup(name, *args, *dev_side)
+        want = quantized_tiered_lookup_plain(name, *args, *dev_side)
+        cpu = quantized_tiered_lookup_plain(name, payload[:H], mapped, cold, pos, *side)
+        torch.cuda.synchronize()
+        assert _kernels.counts()[f"quantized_tiered_lookup/{name}"] == before + 1
+        assert _same(got, want) and _same(got, cpu)
