@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GraphSAGE serving and training paths on
-one card.
+"""Drive the PyTorch/CUDA port's GraphSAGE serving, training and
+out-of-core training paths on one card.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -82,7 +82,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
              QuantizedFeature.lookup_padded on the resident int8 table (K9a
              on a train path). Losses must be finite and K1, K2, K4, K4b and
              K5 (fp32) or K9b (int8, bf16) or K9a must have launched;
-12. report — one JSON line of all kernels, the card line, then the
+12. kernels-4 — the out-of-core slice's kernels against their plain
+             versions: the row scatter of a placement batch (K6: one pass
+             writing a new table from the rows or the old table) on the 20%
+             cache's fp32 table (489,805 x 100) with 65,000 promoted rows
+             padded to a bucket of 65,536, bit-equal and leaving its input
+             untouched (copy-on-write); the probability propagation (K11) on
+             the products graph per hop of sizes [15, 10, 5] from a
+             196,615-node train split and for a whole sample_prob, bit-equal
+             when run twice; per hop each node within 2 (n - 1) 2^-24 of
+             its sum of the plain version's (n its in-edges: the worst
+             float32 rounding of two orders of addition), on the card
+             (index_add_ with float atomics) and on the CPU (the
+             reference's sequential order), with the relative errors
+             logged; and per hop each node within its own order's bound
+             (neighbor_prob_depth) of the float64 sum of the same terms,
+             about 7.5e-5 relative at the hub, with the share of that
+             bound used logged. Yardsticks:
+             index_copy (K6), index_add_ of the edge contributions (K11);
+             the transposed graph's build seconds;
+13. tiers  — the out-of-core path at full width: the heat from
+             GraphSageSampler.sample_prob (K11), heat_reorder of graph,
+             features and train split, then TrainPipeline at batch 1024 over
+             a 20% device cache, 195.92 MB of host DRAM and the rest on disk
+             in a temporary directory (removed at exit): (a) static 4-tier,
+             prefetch off, (b) prefetch on, (c) adaptive — an epoch, a plan
+             from its exact per-row counts (65,536 moves at most),
+             TierStore.apply (K6), a fresh pipeline and a second epoch —
+             and (d) QuantizedFeature(int8) of the same device bytes with a
+             disk tail (K9b), 20 batches each (10 for d). Legs (a) and (b)
+             and the second epoch of (c) must equal an all-DRAM epoch with
+             the same seeds bit for bit; the pipeline built before the apply
+             must still gather the right bytes; K11, K6, K5 and K9b must
+             have launched. Disk reads go through O_DIRECT where the
+             filesystem takes it, else through the page cache after
+             drop_page_cache; leg (a) also runs through the page cache
+             dropped and once more warm, labelled a DRAM read. The temp
+             directory's filesystem is logged. Lines start ``tiers: ``;
+14. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a card. Needs one card.
@@ -96,6 +133,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -142,8 +180,22 @@ from quiver_tpu_torch.ops import reindex, sample
 from quiver_tpu_torch.pyg.sage_sampler import sample_and_gather_dedup, sample_and_gather_fused
 from quiver_tpu_torch.serve import zipfian_trace
 from quiver_tpu_torch.shard_tensor import tiered_gather_plain
+from quiver_tpu_torch.ops.sample import (
+    neighbor_prob,
+    neighbor_prob_depth,
+    neighbor_prob_plain,
+    sample_prob,
+)
+from quiver_tpu_torch.tiers import (
+    DiskShard,
+    drop_page_cache,
+    o_direct_supported,
+    plan_adaptive,
+    set_rows,
+    set_rows_plain,
+)
 from quiver_tpu_torch.trace import median_min_max, seps
-from quiver_tpu_torch.utils import CSRTopo
+from quiver_tpu_torch.utils import CSRTopo, heat_reorder, round_up_pow2
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 # Its 67 TFLOP/s float32 rate counts an FMA as two operations on 128 lanes
@@ -178,6 +230,8 @@ SOURCES = {
     "gather_dequant": ("quiver_tpu_torch/csrc/dequant.cu", "quiver_tpu/quant/lookup.py:29"),
     "quantized_tiered_lookup": ("quiver_tpu_torch/csrc/dequant.cu",
                                 "quiver_tpu/quant/lookup.py:47"),
+    "set_rows": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/tiers.py:329"),
+    "neighbor_prob": ("quiver_tpu_torch/csrc/prob.cu", "quiver_tpu/ops/sample.py:546"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
 # the training slice: batch, timed steps a leg, the tiered leg's cache share
@@ -186,6 +240,11 @@ PRODUCTS_TRAIN = 196_615  # ogbn-products train nodes
 # the staged pipeline: timed batches a run, and the two quantized codecs
 PIPE_BATCHES, PIPE_WARMUP = 20, 6
 QUANT_CODECS = ("int8", "bf16")
+# the out-of-core slice: a promotion batch, the planner's move bound, the
+# batches of a tiers leg (and of the int8 leg)
+PROMOTE_ROWS, MAX_MOVES = 65_000, 65_536
+PREFETCH_ROWS = 1 << 18  # staging room for one batch's disk rows
+TIER_BATCHES, TIER_WARMUP, TIER_INT8_BATCHES = 20, 4, 10
 
 
 def log(*a):
@@ -1015,6 +1074,421 @@ def pipeline_phase(topo, tiered, qtiered, qresident, train_idx, seed):
     return total
 
 
+# -- the out-of-core slice -----------------------------------------------------------
+
+def prob_errors(got, want, in_deg, what):
+    """Hold K11's ``got`` against a plain version's ``want``: two float32
+    sums of the same n >= 0 terms in two orders each lie within
+    (n - 1) * 2^-24 of their exact sum, so they may differ by twice that
+    (times the sum) and no more; a node of one in-edge or none must be
+    equal. Returns (max |got - want|, max |got - want| / want, the largest
+    share of that bound used)."""
+    got, want, in_deg = got.double(), want.double(), in_deg.double()
+    diff = (got - want).abs()
+    tol = 2 * torch.clamp(in_deg - 1, min=0) * 2.0**-24 * torch.maximum(got, want) * 1.001
+    check(bool((diff <= tol).all()), f"{what}: K11 differs from its plain version by more than "
+          "the float32 rounding of the two orders of addition")
+    nz = want != 0
+    rel = float((diff[nz] / want[nz]).max()) if bool(nz.any()) else 0.0
+    used = float((diff[tol > 0] / tol[tol > 0]).max()) if bool((tol > 0).any()) else 0.0
+    return float(diff.max()), rel, used
+
+
+def prob_order_check(got, exact, depth, hub, what):
+    """Hold K11's ``got`` against ``exact``, the float64 sum of the same
+    float32 terms: all are >= 0, so the kernel's order lies within
+    d u / (1 - d u) of it, relative (d = `neighbor_prob_depth`, u = 2^-24;
+    about 7.5e-5 at the products hub, where dropping one 1,024-edge tile
+    costs 8e-4), plus 1e-9 for the float64 sum's own rounding. Returns the
+    largest share of that bound used, and the share at node ``hub``."""
+    u = 2.0**-24
+    dd = depth.double()
+    tol = (dd * u / (1 - dd * u) + 1e-9) * exact
+    diff = (got.double() - exact).abs()
+    check(bool((diff <= tol).all()), f"{what}: K11 lies outside its order's rounding bound "
+          "of the exact sum")
+    share = torch.where(tol > 0, diff / tol, torch.zeros_like(tol))
+    return float(share.max()), float(share[hub])
+
+
+def kernel_phase_4(topo, tiered, train_idx, rows):
+    """K6 on the 20% cache's fp32 table (a 65,000-row promotion batch
+    padded to its bucket, slots from the seed) and K11 per hop and for a
+    whole sample_prob on the products graph, each against its plain
+    version; adds their rows to ``rows``. Returns the seconds the
+    transposed graph took to build."""
+    dev = tiered.device
+    n = topo.node_count
+    rng = np.random.default_rng(PROMOTE_ROWS)
+    table = tiered.shard_tensor.device_rows
+    H = table.shape[0]
+    b = round_up_pow2(PROMOTE_ROWS, floor=256)
+    slots = torch.full((b,), H, dtype=torch.int64)
+    slots[:PROMOTE_ROWS] = torch.from_numpy(rng.choice(H, PROMOTE_ROWS, replace=False))
+    promo = torch.from_numpy(rng.standard_normal((b, DIM)).astype(np.float32))
+    slots, promo = slots.to(dev), promo.to(dev)
+    untouched = table.clone()
+    got = set_rows(table, slots, promo)
+    want = set_rows_plain(table, slots, promo)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K6 differs from its plain version")
+    check(torch.equal(table, untouched), "K6 wrote into its input table: copy-on-write broken")
+    del got, want, untouched
+    valid = slots[:PROMOTE_ROWS]
+    clone_ms = time_ms(lambda: table.clone())
+    log(json.dumps({"k6_table_rows": H, "k6_bucket": b, "k6_rows": PROMOTE_ROWS,
+                    "k6_clone_ms": clone_ms}))
+    # least bytes: the rows that keep their bytes and the promoted rows read,
+    # the slots read, the new table written
+    record(rows, "set_rows", 0.0, time_ms(lambda: set_rows(table, slots, promo)),
+           time_ms(lambda: set_rows_plain(table, slots, promo), reps=5),
+           bound((H - PROMOTE_ROWS) * DIM * 4 + PROMOTE_ROWS * DIM * 4 + b * 8 + H * DIM * 4),
+           time_ms(lambda: torch.index_copy(table, 0, valid, promo[:PROMOTE_ROWS])),
+           shape=f"H={H} b={b} rows={PROMOTE_ROWS} D={DIM}")
+
+    t0 = time.perf_counter()
+    tr = topo.to_device_transposed(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    indptr, indices = topo.to_device(dev)
+    e = int(tr.tsrc.numel())
+    log(json.dumps({"k11_transposed_build_s": build_s, "edges": e,
+                    "tiles": int(tr.tile_node.numel()), "long_nodes": int(tr.long_nodes.numel()),
+                    "tile": tr.tile, "top_in_degree": int((tr.tindptr[1:] - tr.tindptr[:-1]).max())}))
+    train_t = torch.from_numpy(np.asarray(train_idx)).to(dev)
+    deg = indptr[1:] - indptr[:-1]
+    src = torch.repeat_interleave(torch.arange(n, device=dev), deg.long())
+    dst = indices.long()
+    d = torch.clamp(deg.to(torch.float32), min=1.0)
+    last = torch.zeros(n, device=dev)
+    last[train_t] = 1.0
+    in_deg = tr.tindptr[1:] - tr.tindptr[:-1]
+    depth = neighbor_prob_depth(tr)
+    hub = int(in_deg.argmax())
+    cpu_graph = (indptr.cpu(), indices.cpu())
+    for k in SIZES:
+        got = neighbor_prob(indptr, indices, last, k, tr)
+        again = neighbor_prob(indptr, indices, last, k, tr)
+        want = neighbor_prob_plain(indptr, indices, last, k)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"K11 at k={k}: two runs differ")
+        err, rel, used = prob_errors(got, want, in_deg, f"k={k}")
+        # the plain version on the CPU adds in the reference's order
+        seq = neighbor_prob_plain(*cpu_graph, last.cpu(), k)
+        _, rel_seq, used_seq = prob_errors(got.cpu(), seq, in_deg.cpu(), f"k={k}, CPU")
+        exact = neighbor_prob_plain(indptr, indices, last, k, acc_dtype=torch.float64)
+        used_exact, used_hub = prob_order_check(got, exact, depth, hub, f"k={k}")
+        contrib = (last * torch.clamp(torch.full_like(d, float(k)) / d, max=1.0))[src]
+        # least bytes: the transposed sources once; tindptr, deg, prob and the
+        # output once a node, and the weights w written and read once (the
+        # [N] w stays in the L2, so its per-edge reads are not HBM bytes)
+        record(rows, "neighbor_prob", err, time_ms(lambda: neighbor_prob(indptr, indices, last, k, tr)),
+               time_ms(lambda: neighbor_prob_plain(indptr, indices, last, k), reps=5),
+               bound(e * 4 + n * (8 + 4 + 4 + 4 + 8), f32_adds=e),
+               time_ms(lambda: torch.zeros(n, device=dev).index_add_(0, dst, contrib), reps=5),
+               shape=f"N={n} E={e} k={k}")
+        log(json.dumps({"k11_hop_k": k, "max_rel_err": rel, "max_abs_err": err,
+                        "bound_share_used": used, "max_rel_err_vs_cpu_sequential": rel_seq,
+                        "bound_share_used_vs_cpu": used_seq,
+                        "order_bound_share_used": used_exact,
+                        "order_bound_share_used_at_hub": used_hub, "hub_in_edges":
+                        int(in_deg[hub]), "hub_depth": int(depth[hub])}))
+        del exact
+        last = got
+        del contrib, seq
+    del src, dst
+
+    def plain_sample_prob():
+        prob = torch.zeros(n, device=dev)
+        prob[train_t] = 1.0
+        cur = prob
+        for k in SIZES:
+            cur = neighbor_prob_plain(indptr, indices, cur, k)
+            prob = prob + cur
+        return prob
+
+    got = sample_prob(indptr, indices, SIZES, train_t, n, tr)
+    again = sample_prob(indptr, indices, SIZES, train_t, n, tr)
+    want = plain_sample_prob()
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "sample_prob: two runs differ")
+    err = float((got - want).abs().max())
+    nz = want > 0
+    check(bool((got[~nz] == 0).all()), "sample_prob gives heat to a node its plain version does not")
+    rel = float(((got - want).abs()[nz] / want[nz]).max())
+    log(json.dumps({"sample_prob_ms": time_ms(lambda: sample_prob(indptr, indices, SIZES, train_t,
+                                                                  n, tr), reps=5),
+                    "sample_prob_plain_ms": time_ms(plain_sample_prob, reps=3),
+                    "max_rel_err": rel, "max_abs_err": err, "train_nodes": int(train_t.numel())}))
+    return build_s
+
+
+class TapPipeline(TieredFeaturePipeline):
+    """A TieredFeaturePipeline that also counts each batch's valid lanes
+    and, with ``keep_ids``, keeps their stored rows: the exact per-row
+    counts an adaptive placement is planned from."""
+
+    def __init__(self, feature, keep_ids=False, **kw):
+        super().__init__(feature, **kw)
+        self.valid_rows = 0
+        self.ids = [] if keep_ids else None
+
+    def prepare_host(self, ids, valid_count=None):
+        flat = torch.as_tensor(ids).reshape(-1).cpu()
+        v = flat[:valid_count] if valid_count is not None else flat
+        v = v[(v >= 0) & (v < self.feature.shape[0])].to(torch.int64)
+        self.valid_rows += v.numel()
+        if self.ids is not None:
+            stored = self._order[v] if self._order is not None else v
+            self.ids.append(stored.numpy().copy())
+        return super().prepare_host(ids, valid_count)
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type of the mount that holds ``path``."""
+    best, kind = "", "unknown"
+    try:
+        for line in Path("/proc/mounts").read_text().splitlines():
+            parts = line.split()
+            if len(parts) > 2 and path.startswith(parts[1]) and len(parts[1]) > len(best):
+                best, kind = parts[1], parts[2]
+    except OSError:
+        pass
+    return kind
+
+
+def renumbered_csr(topo, order, inv) -> CSRTopo:
+    """The graph with node ``order[j]`` renamed ``j`` (``inv`` the
+    inverse): the CSR that ``CSRTopo(edge_index=inv[edge_index])`` builds,
+    each row's edges in their old order, without its sort of every edge."""
+    deg = np.diff(topo.indptr)
+    new_deg = deg[order]
+    indptr = np.zeros(order.shape[0] + 1, np.int64)
+    np.cumsum(new_deg, out=indptr[1:])
+    idx = np.repeat(topo.indptr[:-1][order] - indptr[:-1], new_deg)
+    idx += np.arange(idx.shape[0], dtype=np.int64)
+    return CSRTopo(indptr=indptr, indices=inv[topo.indices[idx]])
+
+
+def tiers_phase(topo, table_np, train_idx, seed, dev):
+    """The out-of-core path: heat from K11's sample_prob, heat_reorder,
+    then TrainPipeline through the disk tier on four legs — (a) static
+    4-tier, prefetch off; (b) prefetch on; (c) adaptive: an epoch, a plan
+    from its exact row counts, TierStore.apply (K6), a fresh pipeline and a
+    second epoch; (d) QuantizedFeature(int8) with a disk tail — against an
+    all-DRAM epoch with the same seeds. Returns the launches of the main
+    path's parts."""
+    n = topo.node_count
+    launches = {}
+    # the heat: K11 on the main path
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    heat = GraphSageSampler(topo, SIZES, device=dev, seed=seed).sample_prob(train_idx, n)
+    heat = heat.cpu().numpy()
+    heat_s = time.perf_counter() - t0
+    launches["neighbor_prob"] = _kernels.counts()["neighbor_prob"]
+    check(launches["neighbor_prob"] > 0, "K11 never launched building the heat")
+    check(bool(np.isfinite(heat).all()) and heat[train_idx].min() >= 1.0, "heat malformed")
+    t0 = time.perf_counter()
+    edge_index = np.stack([np.repeat(np.arange(n, dtype=np.int64), np.diff(topo.indptr)),
+                           topo.indices])
+    edge_r, feats_r, _, (train_r,), order, inv = heat_reorder(edge_index, n, table_np, None,
+                                                             (train_idx,), heat=heat)
+    del edge_index
+    topo_r = renumbered_csr(topo, order, inv)
+    probe = np.sort(np.random.default_rng(seed).choice(n, 48, replace=False))
+    probe = np.concatenate([[0, 1], probe])  # the two hottest rows too
+    sel = np.isin(edge_r[0], probe)
+    src_p, dst_p = edge_r[0][sel], edge_r[1][sel]
+    for j in probe:
+        check(np.array_equal(dst_p[src_p == j], topo_r.indices[topo_r.indptr[j]:topo_r.indptr[j + 1]]),
+              f"renumbered row {j} differs from heat_reorder's edges")
+    del edge_r, sel, src_p, dst_p
+    reorder_s = time.perf_counter() - t0
+    log("tiers: " + json.dumps({"heat_build_s": heat_s, "heat_reorder_s": reorder_s,
+                                "k11_launches": launches["neighbor_prob"],
+                                "heat_top": float(heat[order[0]]),
+                                "heat_at_20pct": float(heat[order[int(n * CACHE_FRAC)]]),
+                                "nodes_with_heat": int((heat > 0).sum())}))
+
+    labels = torch.randint(0, CLASSES, (n,), generator=torch.Generator(device=dev).manual_seed(8),
+                           device=dev)
+    cache_b = int(n * CACHE_FRAC) * DIM * 4
+    perm = np.random.default_rng(seed + 7).permutation(train_r)
+    batches = [perm[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+               for i in range(2 * TIER_BATCHES + TIER_WARMUP)]
+    b_warm, b0, b1 = (batches[:TIER_WARMUP], batches[TIER_WARMUP:TIER_WARMUP + TIER_BATCHES],
+                      batches[TIER_WARMUP + TIER_BATCHES:])
+
+    def epoch(feature, bs, keep_ids=False, quant=None, **kw):
+        model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        model.to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        pipe = TapPipeline(feature, keep_ids=keep_ids, prefetch=kw.pop("prefetch", False),
+                           prefetch_max_rows=PREFETCH_ROWS)
+        if quant is None:
+            step = make_tiered_train_step(model, opt, labels, pipe.hot_table)
+        else:
+            step = make_quantized_train_step(model, opt, labels, pipe.hot_table, feature.scale,
+                                             feature.zero, codec=quant)
+        tp = TrainPipeline(GraphSageSampler(topo_r, SIZES, device=dev, seed=seed + 5), feature,
+                           step, tiered=pipe, **kw)
+        t0 = time.perf_counter()
+        losses = tp.run_epoch(bs, torch.Generator(device=dev).manual_seed(seed + 1))
+        wall = time.perf_counter() - t0
+        check(all(np.isfinite(losses)), "a tiers leg's loss is not finite")
+        return losses, wall, tp, pipe
+
+    def report(leg, feature, losses, wall, tp, pipe, mode, row_bytes=DIM * 4, **extra):
+        nb = len(losses)
+        starts = sorted(t for s, t, _ in tp.stats.spans if s == "step_dispatch")
+        ov = tp.stats.overlap_summary()
+        cold, disk = pipe.cold_rows_seen / nb, pipe.disk_rows_seen / nb
+        per = {"hbm": pipe.valid_rows / nb - cold, "host": cold - disk, "disk": disk}
+        out = {"leg": leg, "batches": nb, "read_mode": mode,
+               "batch_ms": wall / nb * 1e3,
+               "step_interval_ms": median_min_max(np.diff(starts) * 1e3),
+               "busy_ms_per_batch": {k: v / nb * 1e3 for k, v in ov["busy_s"].items()},
+               "overlap_frac": ov["overlap_frac"],
+               "rows_per_batch": per,
+               "mb_per_batch": {k: v * row_bytes / 1e6 for k, v in per.items()},
+               "prefetch": pipe.prefetch_stats, "loss_first": losses[0], "loss_last": losses[-1]}
+        out.update(extra)
+        log("tiers: " + json.dumps(out))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="qt-tiers-") as tmp:
+        t0 = time.perf_counter()
+        dram = Feature(device_cache_size=cache_b, device=dev)
+        dram.from_cpu_tensor(feats_r)
+        static = Feature(device_cache_size=cache_b, host_memory_budget=cache_b,
+                         disk_path=os.path.join(tmp, "static.npy"), device=dev)
+        static.from_cpu_tensor(feats_r)
+        adaptive = Feature(device_cache_size=cache_b, host_memory_budget=cache_b,
+                           disk_path=os.path.join(tmp, "adaptive.npy"), adaptive_tiers=True,
+                           device=dev)
+        adaptive.from_cpu_tensor(feats_r)
+        q8 = QuantizedFeature("int8", device_cache_size=cache_b,
+                              disk_path=os.path.join(tmp, "int8.npy"), device=dev)
+        q8.from_cpu_tensor(feats_r)
+        st = static.shard_tensor
+        direct = o_direct_supported(st.disk_shard.path)
+        log("tiers: " + json.dumps({
+            "tmp_fs": fs_type(tmp), "o_direct_supported": direct,
+            "build_s": time.perf_counter() - t0, "static": static.tier_bytes(),
+            "adaptive": adaptive.tier_bytes(), "int8": q8.tier_bytes(),
+            "int8_side_table_bytes": q8.side_table_bytes(), "int8_hot_rows": q8.hot_rows}))
+        # reads: O_DIRECT where the filesystem takes it (cold by construction),
+        # else through the page cache after drop_page_cache
+        mapped_shard = st.disk_shard
+        primary = "O_DIRECT" if direct else "page cache dropped"
+        if direct:
+            st.disk_shard = DiskShard(st.disk_shard.path, direct=True)
+            adaptive.tier_store.backing = DiskShard(adaptive.tier_store.backing.path, direct=True)
+            q8.shard_tensor.disk_shard = DiskShard(q8.shard_tensor.disk_shard.path, direct=True)
+        direct_shard = st.disk_shard
+        for f in (dram, static, adaptive):
+            epoch(f, b_warm, depth=2)  # allocates the pinned staging blocks
+        torch.cuda.synchronize()
+
+        ref, wall, tp, pipe = epoch(dram, b1)
+        report("all-DRAM reference", dram, ref, wall, tp, pipe, "host DRAM")
+
+        def drop():
+            """Evict the disk files from the page cache; logs whether it took."""
+            done = [drop_page_cache(f) for f in (st.disk_shard.path, adaptive.tier_store.backing.path,
+                                                 q8.shard_tensor.disk_shard.path)]
+            log("tiers: " + json.dumps({"drop_page_cache": done}))
+
+        # leg (a) in the primary mode, then (where that was O_DIRECT) through
+        # the page cache dropped, and once more warm: a DRAM read
+        legs = [("a", False, primary)]
+        if direct:
+            legs.append(("a", False, "page cache dropped"))
+        legs += [("a", False, "page cache warm (a DRAM read)"), ("b", True, primary)]
+        out = {}
+        for leg, prefetch, mode in legs:
+            st.disk_shard = direct_shard if mode == "O_DIRECT" else mapped_shard
+            if mode == "page cache dropped":
+                drop()
+            _kernels.reset_counts()
+            losses, wall, tp, pipe = epoch(static, b1, prefetch=prefetch)
+            counts = _kernels.counts()
+            check(counts["tiered_lookup"] > 0, f"K5 never launched on tiers leg {leg}")
+            check(losses == ref, f"tiers leg {leg} ({mode}) losses differ from the all-DRAM epoch")
+            out[(leg, mode)] = report(f"{leg}: static 4-tier, prefetch {'on' if prefetch else 'off'}",
+                                      static, losses, wall, tp, pipe, mode,
+                                      bit_equal_to_dram=True)
+        launches["tiered_lookup"] = counts["tiered_lookup"]
+
+        # (c) adaptive: an epoch, exact counts, a plan, the apply, a fresh epoch
+        store = adaptive.tier_store
+        mode_c = primary
+        if not direct:
+            drop()
+        losses0, wall, tp, pipe_c1 = epoch(adaptive, b0, keep_ids=True)
+        report("c1: adaptive, first epoch", adaptive, losses0, wall, tp, pipe_c1, mode_c)
+        counts_rows = np.bincount(np.concatenate(pipe_c1.ids), minlength=n)
+        hot_stored = np.nonzero(counts_rows)[0]
+        t0 = time.perf_counter()
+        plan = plan_adaptive(store.placement, hot_stored, counts_rows[hot_stored].astype(np.float64),
+                             lambda ids: counts_rows[ids].astype(np.float64), max_moves=MAX_MOVES)
+        plan_s = time.perf_counter() - t0
+        old_table = pipe_c1.hot_table
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        summary = store.apply(plan)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        launches["set_rows"] = _kernels.counts()["set_rows"]
+        check(launches["set_rows"] > 0 and summary["promoted_hbm"] > 0,
+              "the plan promoted no row into HBM: K6 never launched")
+        check(store.hbm_table is not old_table, "apply did not swap the HBM table")
+        ds = GraphSageSampler(topo_r, SIZES, device=dev, seed=seed + 9).sample_dense(b1[0])
+        count = int(ds.count)
+        x_old = tiered_lookup(old_table, *pipe_c1.prepare(ds.n_id, valid_count=count))
+        check(torch.equal(x_old[:count], dram[ds.n_id[:count]]),
+              "the pipeline built before apply gathers other bytes after it")
+        log("tiers: " + json.dumps({
+            "leg": "c: plan and apply", "rows_counted": int(counts_rows.sum()),
+            "distinct_rows": int(hot_stored.size), "plan_moves": len(plan), "plan_s": plan_s,
+            "apply_s": apply_s, "k6_launches": launches["set_rows"],
+            **{k: v for k, v in summary.items() if k != "moved_stored"}}))
+        if not direct:
+            drop()
+        _kernels.reset_counts()
+        losses2, wall, tp, pipe = epoch(adaptive, b1)
+        counts = _kernels.counts()
+        check(counts["tiered_lookup"] > 0, "K5 never launched on tiers leg c")
+        check(losses2 == ref, "the adaptive second epoch's losses differ from the static run's")
+        launches["tiered_lookup"] += counts["tiered_lookup"]
+        report("c2: adaptive after apply", adaptive, losses2, wall, tp, pipe, mode_c,
+               bit_equal_to_static=True)
+
+        # K5 on one staged batch of the static store: its share of a batch
+        sp = TieredFeaturePipeline(static)
+        args = (sp.hot_table, *sp.prepare(ds.n_id, valid_count=count))
+        k5_ms = time_ms(lambda: tiered_lookup(*args))
+        log("tiers: " + json.dumps({"k5_ms_one_batch": k5_ms, "k5_share_of_leg_a_batch":
+                                    k5_ms / out[(legs[0][0], legs[0][2])]["batch_ms"]}))
+
+        # (d) the int8 store with a disk tail (K9b decodes the staged rows)
+        if not direct:
+            drop()
+        _kernels.reset_counts()
+        losses, wall, tp, pipe = epoch(q8, b1[:TIER_INT8_BATCHES], quant="int8")
+        counts = _kernels.counts()
+        check(counts["quantized_tiered_lookup/int8"] > 0, "K9b never launched on tiers leg d")
+        launches["quantized_tiered_lookup"] = counts["quantized_tiered_lookup"]
+        report("d: int8 QuantizedFeature, disk tail", q8, losses, wall, tp, pipe, mode_c,
+               row_bytes=DIM)
+        for f in (static, adaptive, q8.inner):
+            f.read_pool.shutdown()
+        del dram, static, adaptive, q8, store, old_table, sp, args
+    return launches
+
+
 def learn_phase():
     """The example at its defaults on the card; its accuracies beside the
     reference's recorded ones. Returns the launches."""
@@ -1131,6 +1605,13 @@ def main() -> int:
     pipe_counts = pipeline_phase(topo, tiered, qtiered, qresident, train_idx, args.seed)
     for name in ("tiered_lookup", "gather_dequant", "quantized_tiered_lookup"):
         launches[name] = pipe_counts[name]
+    del qtiered, qresident
+
+    # -- the out-of-core slice: K6 and K11, then training through the disk tier ----
+    kernel_phase_4(topo, tiered, train_idx, rows)
+    tier_counts = tiers_phase(topo, table_np, train_idx, args.seed, dev)
+    for name in ("set_rows", "neighbor_prob"):
+        launches[name] = tier_counts[name]
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

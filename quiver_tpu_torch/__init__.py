@@ -1,9 +1,12 @@
 """quiver_tpu_torch — the PyTorch/CUDA port of quiver_tpu on one card:
 GraphSAGE serving (sample -> dedup -> gather -> forward -> ServeEngine),
 training (tiered Feature -> sample-and-gather -> forward/backward -> Adam
--> full-neighbor eval) and the staged tiered train pipeline
+-> full-neighbor eval), the staged tiered train pipeline
 (TrainPipeline -> TieredFeaturePipeline -> tiered_lookup) over float32,
-int8 and bf16 feature tables (`quant`).
+int8 and bf16 feature tables (`quant`), and out-of-core training
+(GraphSageSampler.sample_prob -> utils.heat_reorder / `partition` -> a disk
+tier, static or adaptive (`tiers`) -> the staged pipeline with
+flush-ahead prefetch).
 
 Imports torch and numpy only, never jax or quiver_tpu. Entry points run on
 CUDA unless ``device="cpu"`` is passed, where every kernel's plain torch

@@ -24,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -57,17 +57,22 @@ KERNELS = {
     "masked_mean_backward": ("aggregate", "qt_masked_mean_backward",
                              [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _LL, _P]),
     "tiered_gather": ("gather", "qt_tiered_gather",
-                      [_P, _LL, _P, _LL, _I, _P, _LL, _LL, _P, _P, _P]),
+                      [_P, _LL, _P, _LL, _I, _P, _LL, _LL, _P, _P, _LL, _P, _P, _P]),
     "full_mean": ("full_mean", "qt_full_mean", [_P, _P, _I, _LL, _P, _LL, _I, _P, _P]),
     "tiered_lookup": ("gather", "qt_tiered_lookup", [_P, _LL, _I, _P, _LL, _P, _LL, _P, _P, _P]),
     "gather_dequant": ("dequant", "qt_gather_dequant",
                        [_I, _P, _LL, _I, _P, _LL, _LL, _P, _P, _P, _P, _P]),
     "quantized_tiered_lookup": ("dequant", "qt_quantized_tiered_lookup",
                                 [_I, _P, _LL, _I, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P, _P]),
+    "set_rows": ("gather", "qt_set_rows", [_P, _LL, _I, _P, _LL, _P, _P, _P, _P]),
+    "neighbor_prob": ("prob", "qt_neighbor_prob",
+                      [_P, _P, _LL, ctypes.c_float, _P, _P, _P, _P, _LL, _I, _P, _LL,
+                       _P, _P, _P, _P]),
 }
 # kernels whose launches are also counted per layout, as "name/variant"
 VARIANTS = {"masked_mean_backward": ("cols", "structural"),
-            "tiered_gather": ("float32", "int8", "bfloat16"),
+            "tiered_gather": ("float32", "int8", "bfloat16", "disk"),
+            "set_rows": ("float32", "int8", "bfloat16"),
             "gather_dequant": ("fp32", "bf16", "int8"),
             "quantized_tiered_lookup": ("fp32", "bf16", "int8")}
 # C helpers that launch nothing: name -> (source stem, argtypes)
@@ -176,16 +181,18 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(name: str, *args, variant: Optional[str] = None) -> None:
+def launch(name: str, *args, variant=None) -> None:
     """Launch kernel ``name`` with C arguments ``args`` (pointers and the
     stream as ints). Counts the launch (under ``name/variant`` too, for a
-    kernel listed in `VARIANTS`) and raises if CUDA refused it."""
+    kernel listed in `VARIANTS`; ``variant`` may be a tuple of them) and
+    raises if CUDA refused it."""
     stem, fn, _ = KERNELS[name]
     lib = _lib(stem)
+    variants = (variant,) if isinstance(variant, str) else (variant or ())
     with _lock:
         _counts[name] += 1
-        if variant is not None:
-            _counts[f"{name}/{variant}"] += 1
+        for v in variants:
+            _counts[f"{name}/{v}"] += 1
     rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.qt_error_string(rc).decode()

@@ -57,7 +57,7 @@ QT_EXPORT int qt_gather_rows(const void* table, long long R, int D, const void* 
 //
 // Replaces quiver_tpu/shard_tensor.py:ShardTensor.__getitem__ (the
 // per-tier _gather_local, the host-side gather and the _scatter_rows
-// merge) behind quiver_tpu/feature.py:Feature.__getitem__ and
+// merges) behind quiver_tpu/feature.py:Feature.__getitem__ and
 // Feature.gather_stored. For output row r with id = ids[r]: ids outside
 // [0, n_valid) give a zero row; else the stored row is s = order[id] (id
 // itself without an order), read from the device shard when s < H and from
@@ -75,7 +75,11 @@ QT_EXPORT int qt_gather_rows(const void* table, long long R, int D, const void* 
 // there is no staging copy and no scatter; one warp per row copies with the
 // widest access (16, 8, 4, 2 or 1 bytes) that divides the row's byte width
 // and every base pointer, so a row is read in whole sectors and many rows
-// are in flight to hide the link's latency.
+// are in flight to hide the link's latency. A disk tier's rows cannot be
+// read in-kernel: the host reads them into a pinned staging buffer that
+// is copied to the card, and the same call then scatters them into their
+// output rows with K5's scatter (below), in stream order after the
+// gather, which wrote zero rows there.
 
 template <int V> struct Bytes;
 template <> struct Bytes<16> { using T = uint4; };
@@ -149,14 +153,25 @@ static void tiered_gather_any(const void* dev_rows, long long H, const void* hos
   }
 }
 
+// `disk_rows` ([n_disk, row_bytes] on the card, or null) are staged disk
+// rows; row i lands in output row disk_pos[i] (int32; n_ids pads) after
+// the gather.
+template <typename P>
+static int scatter_rows_any(const void* rows, long long n_rows, long long row_bytes,
+                            const void* pos, long long W, void* out, cudaStream_t s);
+
 QT_EXPORT int qt_tiered_gather(const void* dev_rows, long long H, const void* host_rows,
                                long long n_host, int row_bytes, const void* ids, long long n_ids,
-                               long long n_valid, const void* order, void* out,
+                               long long n_valid, const void* order, const void* disk_rows,
+                               long long n_disk, const void* disk_pos, void* out,
                                void* stream) {
   if (n_ids <= 0 || row_bytes <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   tiered_gather_any(dev_rows, H, host_rows, n_host, row_bytes, ids, n_ids, n_valid, order, out,
-                    static_cast<cudaStream_t>(stream));
-  return qt_launch_status();
+                    s);
+  const int rc = qt_launch_status();
+  if (rc != 0) return rc;
+  return scatter_rows_any<int32_t>(disk_rows, n_disk, row_bytes, disk_pos, n_ids, out, s);
 }
 
 // K5: tiered_lookup — the staged pipeline's feature assembly.
@@ -176,9 +191,9 @@ QT_EXPORT int qt_tiered_gather(const void* dev_rows, long long H, const void* ho
 // alone (n_valid = H, no order, no host tail), then one warp a cold row
 // copies it into its slot with the same widest access.
 
-template <int V>
+template <int V, typename P>
 __global__ void scatter_rows_kernel(const char* __restrict__ rows, long long n_rows,
-                                    long long row_bytes, const int32_t* __restrict__ pos,
+                                    long long row_bytes, const P* __restrict__ pos,
                                     long long W, char* __restrict__ out) {
   using T = typename Bytes<V>::T;
   const long long i = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
@@ -192,13 +207,29 @@ __global__ void scatter_rows_kernel(const char* __restrict__ rows, long long n_r
   for (long long c = lane; c < n_vec; c += 32) dst[c] = src[c];
 }
 
-template <int V>
+template <int V, typename P>
 static void launch_scatter_rows(const void* rows, long long n_rows, long long row_bytes,
                                 const void* pos, long long W, void* out, cudaStream_t stream) {
   const int threads = 256;
-  scatter_rows_kernel<V><<<qt_blocks(n_rows * 32, threads), threads, 0, stream>>>(
-      static_cast<const char*>(rows), n_rows, row_bytes, static_cast<const int32_t*>(pos), W,
+  scatter_rows_kernel<V, P><<<qt_blocks(n_rows * 32, threads), threads, 0, stream>>>(
+      static_cast<const char*>(rows), n_rows, row_bytes, static_cast<const P*>(pos), W,
       static_cast<char*>(out));
+}
+
+// out[pos[i]] = rows[i] for the n_rows rows whose position lies in [0, W),
+// with the widest access the row width and both base pointers allow.
+template <typename P>
+static int scatter_rows_any(const void* rows, long long n_rows, long long row_bytes,
+                            const void* pos, long long W, void* out, cudaStream_t s) {
+  if (n_rows <= 0) return 0;
+  switch (qt_vec_bytes(row_bytes, {rows, out})) {
+    case 16: launch_scatter_rows<16, P>(rows, n_rows, row_bytes, pos, W, out, s); break;
+    case 8: launch_scatter_rows<8, P>(rows, n_rows, row_bytes, pos, W, out, s); break;
+    case 4: launch_scatter_rows<4, P>(rows, n_rows, row_bytes, pos, W, out, s); break;
+    case 2: launch_scatter_rows<2, P>(rows, n_rows, row_bytes, pos, W, out, s); break;
+    default: launch_scatter_rows<1, P>(rows, n_rows, row_bytes, pos, W, out, s); break;
+  }
+  return qt_launch_status();
 }
 
 QT_EXPORT int qt_tiered_lookup(const void* hot, long long H, int row_bytes, const void* mapped,
@@ -208,13 +239,105 @@ QT_EXPORT int qt_tiered_lookup(const void* hot, long long H, int row_bytes, cons
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   tiered_gather_any(hot, H, nullptr, 0, row_bytes, mapped, W, H, nullptr, out, s);
   const int rc = qt_launch_status();
-  if (rc != 0 || C <= 0) return rc;
-  switch (qt_vec_bytes(row_bytes, {cold, out})) {
-    case 16: launch_scatter_rows<16>(cold, C, row_bytes, pos, W, out, s); break;
-    case 8: launch_scatter_rows<8>(cold, C, row_bytes, pos, W, out, s); break;
-    case 4: launch_scatter_rows<4>(cold, C, row_bytes, pos, W, out, s); break;
-    case 2: launch_scatter_rows<2>(cold, C, row_bytes, pos, W, out, s); break;
-    default: launch_scatter_rows<1>(cold, C, row_bytes, pos, W, out, s); break;
+  if (rc != 0) return rc;
+  return scatter_rows_any<int32_t>(cold, C, row_bytes, pos, W, out, s);
+}
+
+// K6: set_rows — the bounded row scatter of a placement batch.
+//
+// Replaces quiver_tpu/tiers.py:_set_rows (table.at[slots].set(rows,
+// mode="drop")), TierStore.apply's promotion of rows into HBM slots: row i
+// lands in slot slots[i] (int64) of the [H, D] table; slots outside
+// [0, H) are the bucket's padding and are dropped. Rows are copied as
+// bytes (float32, bfloat16 or int8 stores), so the result is bit-equal.
+// The reference returns a new array and leaves its input untouched, which
+// an adaptive pipeline's pinned snapshot of the table relies on: this call
+// writes a new table `out` and only reads `table`.
+//
+// Bound on the card: bytes — the table's rows that keep their bytes read,
+// the b slots and the promoted rows read, and the H rows of the new table
+// written once (392 MB at the 20% products cache, D = 100 float32).
+// Design: one pass over the new table, not a clone followed by a scatter.
+// Two small launches first build the slot -> row map ([H] int32 scratch,
+// -1 for a slot that keeps its row; a slot given twice takes the last row
+// i, as a sequential scatter would). Then the new table is written as one
+// flat array of V-byte words (the widest access the row width and the
+// three base pointers allow), one word a thread, as a device memcpy would:
+// every lane busy and every warp's stores contiguous across row edges,
+// where a warp a row would leave lanes idle on a 400-byte row. Word c of
+// slot s = c / row_words comes from the promoted row slot_row[s] when
+// there is one, else from word c of the old table; the word index is
+// divided in 32 bits when the table has fewer than ~2^32 words.
+
+__global__ void slot_map_fill_kernel(int32_t* __restrict__ slot_row, long long H) {
+  const long long s = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (s < H) slot_row[s] = -1;
+}
+
+__global__ void slot_map_mark_kernel(const int64_t* __restrict__ slots, long long b,
+                                     long long H, int32_t* __restrict__ slot_row) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= b) return;
+  const long long s = slots[i];
+  if (s >= 0 && s < H) atomicMax(slot_row + s, static_cast<int32_t>(i));
+}
+
+template <int V, typename I>
+__global__ void set_rows_kernel(const char* __restrict__ table, I n_words, I row_words,
+                                const int32_t* __restrict__ slot_row,
+                                const char* __restrict__ rows, char* __restrict__ out) {
+  using T = typename Bytes<V>::T;
+  const I c = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (c >= n_words) return;
+  const I s = c / row_words;
+  const int32_t r = __ldg(slot_row + s);
+  const T* src = r >= 0 ? reinterpret_cast<const T*>(rows) +
+                              (static_cast<long long>(r) * row_words + (c - s * row_words))
+                        : reinterpret_cast<const T*>(table) + c;
+  reinterpret_cast<T*>(out)[c] = __ldg(src);
+}
+
+template <int V>
+static void launch_set_rows(const void* table, long long H, long long row_bytes,
+                            const int32_t* slot_row, const void* rows, void* out,
+                            cudaStream_t stream) {
+  const int threads = 256;
+  const long long row_words = row_bytes / V, n_words = H * row_words;
+  const char* t = static_cast<const char*>(table);
+  const char* r = static_cast<const char*>(rows);
+  char* o = static_cast<char*>(out);
+  if (n_words + threads <= (1LL << 32)) {  // no 32-bit word index can wrap
+    set_rows_kernel<V, uint32_t><<<qt_blocks(n_words, threads), threads, 0, stream>>>(
+        t, static_cast<uint32_t>(n_words), static_cast<uint32_t>(row_words), slot_row, r, o);
+  } else {
+    set_rows_kernel<V, unsigned long long><<<qt_blocks(n_words, threads), threads, 0, stream>>>(
+        t, n_words, row_words, slot_row, r, o);
+  }
+}
+
+// `slot_row` is [H] int32 scratch; b < 2^31.
+QT_EXPORT int qt_set_rows(const void* table, long long H, int row_bytes, const void* slots,
+                          long long b, const void* rows, void* slot_row, void* out,
+                          void* stream) {
+  if (H <= 0 || row_bytes <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  int32_t* map = static_cast<int32_t*>(slot_row);
+  slot_map_fill_kernel<<<qt_blocks(H, threads), threads, 0, s>>>(map, H);
+  int rc = qt_launch_status();
+  if (rc != 0) return rc;
+  if (b > 0) {
+    slot_map_mark_kernel<<<qt_blocks(b, threads), threads, 0, s>>>(
+        static_cast<const int64_t*>(slots), b, H, map);
+    rc = qt_launch_status();
+    if (rc != 0) return rc;
+  }
+  switch (qt_vec_bytes(row_bytes, {table, rows, out})) {
+    case 16: launch_set_rows<16>(table, H, row_bytes, map, rows, out, s); break;
+    case 8: launch_set_rows<8>(table, H, row_bytes, map, rows, out, s); break;
+    case 4: launch_set_rows<4>(table, H, row_bytes, map, rows, out, s); break;
+    case 2: launch_set_rows<2>(table, H, row_bytes, map, rows, out, s); break;
+    default: launch_set_rows<1>(table, H, row_bytes, map, rows, out, s); break;
   }
   return qt_launch_status();
 }

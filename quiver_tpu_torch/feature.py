@@ -15,10 +15,16 @@ stored dtype (what `quant.QuantizedFeature` reads), while ``__getitem__``
 and ``lookup_padded`` take float32 stores only, as the reference's callers
 use them.
 
-Not ported yet: the ``p2p_clique_replicate`` policy, the disk and
-adaptive tiers (``host_memory_budget``, ``disk_path``, ``adaptive_tiers``,
-``from_mmap``, ``set_mmap_file``), the observe-only taps (``tier_counter``,
-``row_tap``), the distributed local order and the IPC handles.
+With a ``disk_path`` the store spans four tiers: the device prefix, a host
+DRAM middle bounded by ``host_memory_budget`` and a flat ``.npy`` tail on
+disk (`tiers.DiskShard`, read through an `pipeline.AsyncReadPool`); with
+``adaptive_tiers`` a `tiers.TierStore` places rows between the three
+instead, and ``gather_stored``/``__getitem__`` go through its tiered lookup
+(K5).
+
+Not ported yet: the ``p2p_clique_replicate`` policy, ``from_mmap`` and
+``set_mmap_file``, the observe-only taps (``tier_counter``, ``row_tap``),
+the distributed local order and the IPC handles.
 """
 
 from __future__ import annotations
@@ -114,16 +120,35 @@ class Feature:
     csr_topo : optional CSRTopo — stores rows in degree-descending order
         so the cached prefix is the hot set (``feature_order`` remaps ids)
     dtype : stored dtype, float32 (default), int8 or "bfloat16"
+    host_memory_budget : host DRAM bytes of the middle tier when a disk
+        tier is configured (0: device misses go straight to disk); ignored
+        without ``disk_path``, where the host tail holds every other row
+    disk_path : ``.npy`` path of the disk tier: the rows beyond the device
+        and host budgets (static), or the full stored table (adaptive)
+    adaptive_tiers : place rows with a `tiers.TierStore` (promotions and
+        demotions in batches, `TierStore.apply`) instead of the static
+        shard book; the bytes gathered are the same under any placement
+    disk_read_workers : `pipeline.AsyncReadPool` width of the disk reads
+        when no ``read_pool`` is given
+    read_pool : an existing `pipeline.AsyncReadPool` to share
     """
 
     def __init__(self, rank: int = 0, device_list: Optional[Sequence[int]] = None,
                  device_cache_size: Union[int, str] = 0,
                  cache_policy: str = "device_replicate", csr_topo: Optional[CSRTopo] = None,
-                 dtype=np.float32, device=None):
+                 dtype=np.float32, device=None, host_memory_budget: Union[int, str] = 0,
+                 disk_path: Optional[str] = None, adaptive_tiers: bool = False,
+                 disk_read_workers: int = 4, read_pool=None):
         if cache_policy == "ici_replicate":
             cache_policy = "p2p_clique_replicate"
         if cache_policy not in ("device_replicate", "p2p_clique_replicate"):
             raise ValueError(f"unknown cache_policy: {cache_policy}")
+        if adaptive_tiers and disk_path is None:
+            raise ValueError("adaptive_tiers needs a disk_path (the full-table backing "
+                             "file is what makes placement moves bit-neutral)")
+        if disk_path is not None and cache_policy != "device_replicate":
+            raise ValueError("disk tiers support cache_policy='device_replicate' only "
+                             "(the clique stripe has no per-rank disk story yet)")
         if cache_policy != "device_replicate":
             raise NotImplementedError(f"cache_policy {cache_policy!r} is not ported yet")
         self.dtype = normalize_dtype(dtype)
@@ -139,12 +164,23 @@ class Feature:
         self.shard_tensor: Optional[ShardTensor] = None
         self._dim: Optional[int] = None
         self._n: int = 0
+        self.host_memory_budget = parse_size(host_memory_budget)
+        self.disk_path = disk_path
+        self.adaptive_tiers = bool(adaptive_tiers)
+        self.disk_read_workers = int(disk_read_workers)
+        self.read_pool = read_pool
+        self.tier_store = None  # tiers.TierStore when adaptive
+        # (disk-local ids -> bool mask) of rows a flush-ahead prefetch has
+        # staged in DRAM, installed by the pipeline that runs the prefetch
+        # of a static disk tail; observe-only
+        self.disk_staged = None
 
     def from_cpu_tensor(self, cpu_tensor) -> None:
         """Ingest the full ``[N, D]`` table (numpy or torch) in the stored
         dtype: reorder it by degree when a ``csr_topo`` is attached, then
         keep the first ``device_cache_size`` bytes of rows on the device
-        and the rest in the pinned host tail."""
+        and the rest in the pinned host tail (or, with a ``disk_path``, in
+        the host and disk tiers: `_build_disk_tiers`)."""
         rows = _rows_of(cpu_tensor, self.dtype)
         self._n, self._dim = rows.shape
         cache_rows = min(self.device_cache_size // (self._dim * self.dtype.itemsize), self._n)
@@ -157,11 +193,46 @@ class Feature:
             self.csr_topo.feature_order = order
             self._order_dev = torch.from_numpy(order.astype(np.int32)).to(self.device)
             self._inv_order = None
+        if self.disk_path is not None:
+            self._build_disk_tiers(rows, cache_rows)
+            return
         st = ShardTensor(self.device, ShardTensorConfig({}), dtype=self.dtype)
         if cache_rows > 0:
             st.append(rows[:cache_rows], self.rank)
         if cache_rows < self._n:
             st.append(rows[cache_rows:], CPU_DEVICE)
+        self.shard_tensor = st
+
+    def _build_disk_tiers(self, rows: torch.Tensor, cache_rows: int) -> None:
+        """The four-tier build: the device prefix, a host DRAM middle of
+        ``host_memory_budget`` bytes, the rest on disk; ``rows`` are in the
+        stored order. Adaptive mode builds a `tiers.TierStore` with the same
+        initial placement, so a frozen adaptive store and a static one
+        gather the same bytes from the same tiers."""
+        row_bytes = self._dim * self.dtype.itemsize
+        host_rows = 0
+        if self.host_memory_budget > 0:
+            host_rows = min(self.host_memory_budget // row_bytes, self._n - cache_rows)
+        if self.read_pool is None:
+            from .pipeline import AsyncReadPool
+
+            self.read_pool = AsyncReadPool(self.disk_read_workers)
+        if self.adaptive_tiers:
+            from .tiers import TierStore
+
+            self.tier_store = TierStore.build(rows, self.disk_path, hbm_rows=cache_rows,
+                                              host_rows=host_rows, device=self.device,
+                                              read_pool=self.read_pool)
+            self.shard_tensor = None
+            return
+        st = ShardTensor(self.device, ShardTensorConfig({}), dtype=self.dtype)
+        if cache_rows > 0:
+            st.append(rows[:cache_rows], self.rank)
+        if host_rows > 0:
+            st.append(rows[cache_rows: cache_rows + host_rows], CPU_DEVICE)
+        if cache_rows + host_rows < self._n:
+            st.append_disk(rows[cache_rows + host_rows:], self.disk_path,
+                           read_pool=self.read_pool)
         self.shard_tensor = st
 
     def _float32_only(self, what: str) -> None:
@@ -175,11 +246,16 @@ class Feature:
         outside ``[0, N)`` (the sampler's sentinel padding) give zero
         rows."""
         self._float32_only("__getitem__")
+        if self.tier_store is not None:
+            stored, invalid = self._map_ids(node_idx)
+            return self.tier_store.gather(np.where(invalid, -1, stored))
         return self.shard_tensor.gather(node_idx, n_valid=self._n, order=self._order_dev)
 
     def _map_ids(self, node_idx):
         """(stored_rows, invalid_mask) of a lookup batch on the host;
         invalid lanes map to stored row 0."""
+        if isinstance(node_idx, torch.Tensor):
+            node_idx = node_idx.cpu().numpy()
         ids = np.asarray(node_idx).astype(np.int64).reshape(-1)
         invalid = (ids < 0) | (ids >= self._n)
         if invalid.any():
@@ -189,11 +265,21 @@ class Feature:
         return ids, invalid
 
     def gather_stored(self, stored) -> torch.Tensor:
-        """Rows by stored row id (no remap) in the stored dtype, one K3t
-        launch on CUDA; ids outside the store give zero rows."""
+        """Rows by stored row id (no remap) in the stored dtype, through
+        whichever store backs this feature: one K3t launch on CUDA for the
+        static shard book, one K5 launch for an adaptive store; ids outside
+        the store give zero rows."""
+        if self.tier_store is not None:
+            if isinstance(stored, torch.Tensor):
+                stored = stored.cpu().numpy()
+            return self.tier_store.gather(stored)
         return self.shard_tensor[stored]
 
     def tier_bytes(self) -> Dict[str, int]:
+        """Live per-tier byte footprint (an adaptive store reports its
+        current placement)."""
+        if self.tier_store is not None:
+            return self.tier_store.tier_bytes()
         return {} if self.shard_tensor is None else self.shard_tensor.tier_bytes()
 
     def stored_rows_of(self, node_ids) -> np.ndarray:
@@ -217,7 +303,8 @@ class Feature:
     def resident(self) -> bool:
         """Whether every row lives on the device (`lookup_padded` works)."""
         st = self.shard_tensor
-        return st is not None and st.cpu_tensor is None and len(st.device_shards) == 1
+        return (st is not None and st.cpu_tensor is None and st.disk_shard is None
+                and len(st.device_shards) == 1)
 
     def lookup_padded(self, node_idx: torch.Tensor,
                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:

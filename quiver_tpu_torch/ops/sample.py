@@ -1,6 +1,7 @@
-"""One-hop uniform neighbor sampling — the port of
-``quiver_tpu/ops/sample.py`` (``pad_widths``, ``fisher_yates_positions``,
-``sample_layer``, ``tiled_sample_layer`` and the host tile build).
+"""One-hop uniform neighbor sampling and the sampling-probability
+estimate — the port of ``quiver_tpu/ops/sample.py`` (``pad_widths``,
+``fisher_yates_positions``, ``sample_layer``, ``tiled_sample_layer``, the
+host tile build, ``neighbor_prob`` and ``sample_prob``).
 
 Each row draws ``min(deg, k)`` distinct neighbor positions by a partial
 Fisher-Yates shuffle over k threefry uniforms of shape ``[k, W]``; rows
@@ -11,11 +12,21 @@ package on the same key. ``sample_layer`` reads the flat CSR,
 On a CUDA tensor the wrappers launch the hand-written kernel of
 ``csrc/sample.cu``; on a CPU tensor they run the plain torch version in
 this module, which the tests hold against the JAX package.
+
+`neighbor_prob` propagates per-node sampling probabilities one hop
+(``next[v] = sum over edges u -> v of prob[u] * min(k / deg(u), 1)``) and
+`sample_prob` adds one hop per fanout to the seeds' ones: the heat that
+`utils.heat_reorder` and `partition` place rows by. On the card it is the
+pull kernel of ``csrc/prob.cu`` (K11) over the transposed CSR
+(`build_transposed_host`, cached per graph by
+`utils.CSRTopo.to_device_transposed`); on the CPU `neighbor_prob_plain`
+adds each node's sources in edge order, bit-equal to the JAX package's
+edge-ordered scatter-add.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -201,3 +212,154 @@ def build_tiled_host(indptr: np.ndarray, indices: np.ndarray, id_dtype=None):
     )
     tiles.reshape(-1)[out_pos] = indices.astype(id_dtype, copy=False)
     return bd, tiles
+
+
+# edges a warp of the probability kernel sums before a segment is cut into
+# tiles whose partials a second pass adds in tile order
+PROB_TILE = 1024
+
+
+class TransposedCSR(NamedTuple):
+    """The graph's edges grouped by destination, with the tile table of
+    the probability kernel (K11): the sources of node v are
+    ``tsrc[tindptr[v]:tindptr[v+1]]`` in stable edge order; node v's
+    edges are cut into ``tile_ptr[v+1] - tile_ptr[v]`` tiles of ``tile``
+    edges (at least one), tile m belonging to ``tile_node[m]``;
+    ``long_nodes`` are the nodes of more than one tile."""
+
+    tindptr: torch.Tensor     # [N+1] int64
+    tsrc: torch.Tensor        # [E'] int32 (E' edges with a destination in [0, N))
+    deg: torch.Tensor         # [N] int32 out-degree
+    tile_node: torch.Tensor   # [M] int32
+    tile_ptr: torch.Tensor    # [N+1] int64
+    long_nodes: torch.Tensor  # [L] int32
+    tile: int
+
+    def to(self, device) -> "TransposedCSR":
+        return TransposedCSR(*(t.to(device) for t in self[:-1]), self.tile)
+
+
+def build_transposed_host(indptr, indices, tile: int = PROB_TILE) -> TransposedCSR:
+    """Host build of the `TransposedCSR` (CPU tensors). Edges are stored
+    by source, so among the edges into one node the stable edge order is
+    ascending source order (duplicate edges, equal in source, carry equal
+    values): one sort of packed (destination, source) keys gives it.
+    Edges whose destination lies outside ``[0, N)`` are left out, as the
+    reference's scatter drops them."""
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices, np.int64)
+    n = indptr.shape[0] - 1
+    if n >= 2**31:
+        raise ValueError(f"{n} nodes: the transposed CSR keeps int32 sources")
+    deg = np.diff(indptr)
+    src = np.repeat(np.arange(n, dtype=np.int64), deg)
+    keep = (indices >= 0) & (indices < n)
+    if not keep.all():
+        src, indices = src[keep], indices[keep]
+    key = (indices << 32) | src
+    key.sort()
+    tsrc = (key & 0xFFFFFFFF).astype(np.int32)
+    tcount = np.bincount(indices, minlength=n)
+    tindptr = np.zeros(n + 1, np.int64)
+    np.cumsum(tcount, out=tindptr[1:])
+    ntiles = np.maximum(-(-tcount // tile), 1)
+    tile_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(ntiles, out=tile_ptr[1:])
+    return TransposedCSR(
+        torch.from_numpy(tindptr), torch.from_numpy(tsrc),
+        torch.from_numpy(deg.astype(np.int32)),
+        torch.from_numpy(np.repeat(np.arange(n, dtype=np.int32), ntiles)),
+        torch.from_numpy(tile_ptr), torch.from_numpy(np.nonzero(ntiles > 1)[0].astype(np.int32)),
+        int(tile))
+
+
+def _prob_weights(deg: torch.Tensor, prob: torch.Tensor, k: int) -> torch.Tensor:
+    """``prob * min(k / max(deg, 1), 1)`` in float32, in the reference's
+    steps (an IEEE division: ``k / tensor`` would multiply by a
+    reciprocal)."""
+    d = torch.clamp(deg.to(torch.float32), min=1.0)
+    return prob * torch.clamp(torch.div(torch.full_like(d, float(k)), d), max=1.0)
+
+
+def neighbor_prob_plain(indptr, indices, prob: torch.Tensor, k: int,
+                        acc_dtype=torch.float32) -> torch.Tensor:
+    """Plain torch version of `neighbor_prob` on ``prob``'s device: the
+    weights, then ``index_add_`` over the edge list in edge order (on the
+    CPU a sequential sum per node, the reference's order). With
+    ``acc_dtype=torch.float64`` the float32 weights are summed in float64:
+    their exact sum to within float64 rounding, which the card's tree order
+    is held against (`neighbor_prob_depth`)."""
+    n = indptr.shape[0] - 1
+    dev = prob.device
+    deg = (indptr[1:] - indptr[:-1]).to(dev)
+    w = _prob_weights(deg, prob, k).to(acc_dtype)
+    src = torch.repeat_interleave(torch.arange(n, device=dev), deg.to(torch.int64))
+    dst = indices.to(dev, torch.int64)
+    keep = (dst >= 0) & (dst < n)
+    return torch.zeros(n, dtype=acc_dtype, device=dev).index_add_(0, dst[keep], w[src[keep]])
+
+
+def neighbor_prob_depth(t: TransposedCSR) -> torch.Tensor:
+    """``[N]`` int64: for each node, a bound on the float32 additions any
+    of its terms passes through in K11's order — a lane's sequential sum
+    of at most ``ceil(min(in_deg, tile) / 32)`` edges, the warp's 5-level
+    butterfly, then the in-order sum of the node's tile partials. The terms
+    are nonnegative, so the kernel's ``next[v]`` lies within ``d u / (1 -
+    d u)`` (``d`` the depth, ``u = 2^-24``) of their exact sum, relative."""
+    in_deg = t.tindptr[1:] - t.tindptr[:-1]
+    tiles = t.tile_ptr[1:] - t.tile_ptr[:-1]
+    return (torch.clamp(in_deg, max=t.tile) + 31) // 32 + 5 + tiles
+
+
+def neighbor_prob(indptr, indices, prob: torch.Tensor, k: int,
+                  transposed: Optional[TransposedCSR] = None) -> torch.Tensor:
+    """One hop of sampling-probability propagation: ``next [N]`` float32
+    with ``next[v] = sum over edges u -> v of prob[u] * min(k / max(deg(u),
+    1), 1)``. On CUDA tensors one call of ``csrc/prob.cu``'s
+    ``qt_neighbor_prob`` (K11) over ``transposed`` (built from the graph
+    when not given; `utils.CSRTopo.to_device_transposed` caches it), which
+    adds in a fixed tree order: deterministic, and within float rounding of
+    the reference's sequential sum. On CPU tensors `neighbor_prob_plain`."""
+    n = indptr.shape[0] - 1
+    if prob.dim() != 1 or prob.shape[0] != n:
+        raise ValueError(f"prob must be [N] = [{n}]; got {tuple(prob.shape)}")
+    if not prob.is_cuda:
+        return neighbor_prob_plain(indptr, indices, prob, k)
+    if prob.dtype != torch.float32:
+        raise TypeError(f"the probability kernel takes float32 prob; got {prob.dtype}")
+    if transposed is None:
+        transposed = build_transposed_host(indptr.cpu().numpy(), indices.cpu().numpy())
+        transposed = transposed.to(prob.device)
+    t = transposed
+    if t.tsrc.device != prob.device or t.deg.shape[0] != n:
+        raise ValueError("the transposed graph must be this graph's, on prob's device")
+    prob = prob.contiguous()
+    out = torch.empty(n, dtype=torch.float32, device=prob.device)
+    if n == 0:
+        return out
+    w = torch.empty(n, dtype=torch.float32, device=prob.device)
+    partial = torch.empty(t.tile_node.shape[0], dtype=torch.float32, device=prob.device)
+    _kernels.launch("neighbor_prob", prob.data_ptr(), t.deg.data_ptr(), n, float(k),
+                    t.tindptr.data_ptr(), t.tsrc.data_ptr(), t.tile_node.data_ptr(),
+                    t.tile_ptr.data_ptr(), t.tile_node.shape[0], t.tile,
+                    t.long_nodes.data_ptr(), t.long_nodes.shape[0], w.data_ptr(),
+                    partial.data_ptr(), out.data_ptr(), _kernels.stream_of(prob))
+    return out
+
+
+def sample_prob(indptr, indices, sizes, train_idx, num_nodes: Optional[int] = None,
+                transposed: Optional[TransposedCSR] = None) -> torch.Tensor:
+    """Multi-hop hot-probability estimate on ``indptr``'s device: the train
+    nodes get 1, then each fanout of ``sizes`` adds one `neighbor_prob`
+    hop of the previous hop's result."""
+    n = num_nodes if num_nodes is not None else indptr.shape[0] - 1
+    dev = indptr.device
+    idx = torch.as_tensor(train_idx).to(dev, torch.int64)
+    prob = torch.zeros(n, dtype=torch.float32, device=dev)
+    prob[idx] = 1.0
+    last = prob
+    for k in sizes:
+        nxt = neighbor_prob(indptr, indices, last, int(k), transposed)
+        prob = prob + nxt
+        last = nxt
+    return prob

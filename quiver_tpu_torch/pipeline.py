@@ -29,11 +29,17 @@ the pinned staging tensor, multi-threaded and outside the interpreter
 lock), not ``quiver_tpu/ops/cpu_kernels.gather_rows``. The staged values
 are those of the reference, bit for bit.
 
-Not ported yet (ROADMAP A13): the disk, adaptive and flush-ahead prefetch
-modes of `TieredFeaturePipeline` (``prefetch=True`` raises; `prefetch` and
-`cancel_prefetch` are no-ops without a disk tier); (A12) the metrics
-registry behind ``register_metrics``; (A9) the mixed sampler's feedback
-into `PipelineStats`.
+The cold stage spans the whole hierarchy: a feature with a disk tier
+(``Feature(disk_path=...)``) stages its host rows from the DRAM middle and
+its disk rows from the flat file through the feature's `AsyncReadPool`
+("disk" mode); an adaptive feature routes each batch by a snapshot of its
+`tiers.TierStore` placement, ``mapped`` then carrying HBM slots
+("adaptive" mode). ``prefetch=True`` issues a batch's disk reads from the
+sample stage, one stage before the gather takes them
+(`tiers.PrefetchBuffer`). The bytes are those of an all-DRAM epoch.
+
+Not ported yet: (A12) the metrics registry behind ``register_metrics``;
+(A9) the mixed sampler's feedback into `PipelineStats`.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ import torch.nn.functional as F
 
 from . import _kernels
 from .pyg.sage_sampler import DenseSample
-from .shard_tensor import STORE_DTYPES
+from .shard_tensor import STORE_DTYPES, rows_from_numpy
+from .tiers import TIER_HOST, PrefetchBuffer
 from .trace import SpanRecorder, export_chrome_trace, trace_scope
 from .utils import round_up_pow2
 
@@ -228,52 +235,98 @@ def _host_ids(ids) -> torch.Tensor:
 
 class TieredFeaturePipeline:
     """Prepares `TieredBatch` inputs for a tiered `Feature` (or a
-    `quant.QuantizedFeature`, whose tiers hold encoded rows): one device
-    shard (the hot prefix, ``hot_table``) plus an optional pinned host
-    tail (``cold_np``), the reference's "dram" mode, on the feature's
-    device.
+    `quant.QuantizedFeature`, whose tiers hold encoded rows) on the
+    feature's device, in one of three modes:
+
+    - "dram": one device shard (the hot prefix, ``hot_table``) plus an
+      optional pinned host tail (``cold_np``);
+    - "disk": the same plus a flat-file disk tail (``disk_path``), whose
+      rows the cold stage reads through the feature's read pool;
+    - "adaptive": a `tiers.TierStore`. The pipeline snapshots its placement
+      at construction (the maps are copied, the HBM table and the DRAM
+      cache pinned: a later `TierStore.apply` writes new ones, so the pinned
+      ones keep their bytes); ``mapped`` carries HBM slots, host-cache and
+      disk rows are staged. Build a fresh pipeline after an ``apply`` to
+      train on the new placement.
 
     Per batch, `prepare_host` remaps ids through ``feature_order``, splits
-    hot from cold at the cache boundary and gathers the cold rows into a
-    pinned staging tensor; `upload` copies them to the card.
+    hot from cold and gathers the cold rows into a pinned staging tensor;
+    `upload` copies them to the card. ``prefetch=True`` (disk and adaptive
+    modes; inert in "dram") adds the flush-ahead leg, `prefetch`.
     """
 
-    def __init__(self, feature, prefetch: bool = False):
-        if prefetch:
-            raise NotImplementedError("flush-ahead prefetch needs the disk tier, which is not "
-                                      "ported yet (ROADMAP A13)")
+    def __init__(self, feature, prefetch: bool = False, prefetch_max_rows: int = 8192):
+        self.feature = feature
+        self.dtype = feature.dtype
+        order = feature.feature_order
+        self._order = None if order is None else torch.from_numpy(np.asarray(order, np.int64))
+        # true tier traffic (padding excluded), accumulated across prepare()
+        self.cold_rows_seen = 0
+        self.rows_seen = 0
+        self.disk_rows_seen = 0
+        self._prefetch: Optional[PrefetchBuffer] = None
+        store = getattr(feature, "tier_store", None)
+        if store is not None and getattr(feature, "codec", None) is not None:
+            raise NotImplementedError(
+                "an adaptive QuantizedFeature cannot feed the staged pipeline: the quantized "
+                "lookup reads its side tables by stored row, and an adaptive batch's mapped "
+                "carries HBM slots (read it through QuantizedFeature.__getitem__)")
+        if store is not None:
+            self.mode = "adaptive"
+            self._store = store
+            self.device = store.device
+            self._tier_of = store.placement.tier_of.copy()
+            self._slot_of = store.placement.slot_of.copy()
+            self.hot_rows = store.placement.hbm_rows
+            self.hot_table = (store.hbm_table if store.hbm_table is not None else
+                              torch.zeros((0, feature.dim), dtype=self.dtype, device=self.device))
+            self._host_cache = store.host_cache
+            self.cold_np = None
+            if prefetch:
+                self._prefetch = store.enable_prefetch(max_rows=prefetch_max_rows)
+            self._pin = self.device.type == "cuda"
+            return
         st = feature.shard_tensor
         if st is None:
             raise ValueError("feature not built; call from_cpu_tensor first")
         if len(st.device_shards) > 1:
             raise ValueError("tiered pipeline expects one hot shard + optional host tail")
-        self.feature = feature
+        self._store = None
         self.device = st.device
-        self.dtype = st.dtype
-        order = feature.feature_order
-        self._order = None if order is None else torch.from_numpy(np.asarray(order, np.int64))
         self._pin = self.device.type == "cuda"
-        # true tier traffic (padding excluded), accumulated across prepare()
-        self.cold_rows_seen = 0
-        self.rows_seen = 0
         if st.device_shards:
             _, self.hot_table, off = st.device_shards[0]
             self.hot_rows = off.end - off.start
         else:
             self.hot_table = torch.zeros((0, feature.dim), dtype=self.dtype, device=self.device)
             self.hot_rows = 0
-        self.cold_np = st.cpu_tensor  # the pinned host tail, or None (fully resident)
+        self.cold_np = st.cpu_tensor  # the pinned host tail, or None
+        self._shards = st
+        if st.disk_shard is None:
+            self.mode = "dram"
+            return
+        self.mode = "disk"
+        self._disk_start = st.disk_offset.start
+        if prefetch:
+            if st.read_pool is None:
+                raise ValueError("prefetch needs an AsyncReadPool (build the Feature with "
+                                 "read_pool=/disk_read_workers=)")
+            shard = st.disk_shard
+            self._prefetch = PrefetchBuffer(lambda ids: shard.read_block(ids), st.read_pool,
+                                            max_rows=prefetch_max_rows)
+            if hasattr(feature, "disk_staged"):
+                feature.disk_staged = self._prefetch.staged_mask
 
     def _staging(self, shape, dtype) -> torch.Tensor:
         return torch.empty(shape, dtype=dtype, pin_memory=self._pin)
 
     def prepare_host(self, ids, valid_count: Optional[int] = None) -> HostStaged:
         """The host half of staging: id remap, hot/cold split and cold
-        gather; no device call, so it runs on the gather thread while
-        another batch uploads. ``valid_count`` (``ds.count``) marks the
-        padding tail, whose lanes the model masks and whose rows are not
-        fetched. Cold rows are padded to ``round_up_pow2(C, 256)`` rows of
-        zeros at slot ``W``."""
+        gather (the disk rows through the read pool); no device call, so it
+        runs on the gather thread while another batch uploads.
+        ``valid_count`` (``ds.count``) marks the padding tail, whose lanes
+        the model masks and whose rows are not fetched. Cold rows are
+        padded to ``round_up_pow2(C, 256)`` rows of zeros at slot ``W``."""
         with trace_scope("pipeline.prepare_host"):
             ids = _host_ids(ids)
             W = ids.shape[0]
@@ -283,38 +336,102 @@ class TieredFeaturePipeline:
             safe = torch.where(invalid, 0, ids)
             stored = self._order[safe] if self._order is not None else safe
             stored = torch.where(invalid, -1, stored)
+            self.rows_seen += W
+            if self.mode == "adaptive":
+                return self._prepare_adaptive(stored, W)
             mapped = self._staging((W,), torch.int32)
             mapped.copy_(stored)
-            self.rows_seen += W
-            if self.cold_np is None:
+            if self.cold_np is None and self.mode != "disk":
                 return HostStaged(mapped, None, None)
             cold_sel = torch.nonzero(stored >= self.hot_rows).reshape(-1)
             C = cold_sel.shape[0]
             if C == 0:  # hot-only batch: no padded upload at all
                 return HostStaged(mapped, None, None)
-            self.cold_rows_seen += C
-            b = round_up_pow2(C, floor=256)
-            pos = self._staging((b,), torch.int32)
-            pos[:C].copy_(cold_sel)
-            pos[C:] = W  # W is out of range: the scatter drops it
-            rows = self._staging((b, self.feature.dim), self.dtype)
+            pos, rows = self._cold_staging(cold_sel, W)
+            cold_ids = stored[cold_sel]
             with trace_scope("pipeline.cold_gather"):
-                torch.index_select(self.cold_np, 0, stored[cold_sel] - self.hot_rows,
-                                   out=rows[:C])
-            rows[C:].zero_()
+                if self.mode == "disk":
+                    on_disk = cold_ids >= self._disk_start
+                    host_sel = torch.nonzero(~on_disk).reshape(-1)
+                    if host_sel.shape[0]:
+                        rows[host_sel] = self.cold_np.index_select(
+                            0, cold_ids[host_sel] - self.hot_rows)
+                    disk_sel = torch.nonzero(on_disk).reshape(-1)
+                    if disk_sel.shape[0]:
+                        self.disk_rows_seen += disk_sel.shape[0]
+                        st = self._shards
+                        rows[disk_sel] = self._read_cold(
+                            (cold_ids[disk_sel] - self._disk_start).numpy(),
+                            lambda i: st.disk_shard.read_rows(i, pool=st.read_pool))
+                else:
+                    torch.index_select(self.cold_np, 0, cold_ids - self.hot_rows, out=rows[:C])
             return HostStaged(mapped, rows, pos)
+
+    def _cold_staging(self, cold_sel: torch.Tensor, W: int):
+        """Pinned ``(pos, rows)`` of a cold bucket: the C slots then ``W``
+        (dropped by the scatter), and rows whose padding is zero. Counts
+        the C rows in ``cold_rows_seen``."""
+        C = cold_sel.shape[0]
+        self.cold_rows_seen += C
+        b = round_up_pow2(C, floor=256)
+        pos = self._staging((b,), torch.int32)
+        pos[:C].copy_(cold_sel)
+        pos[C:] = W
+        rows = self._staging((b, self.feature.dim), self.dtype)
+        rows[C:].zero_()
+        return pos, rows
+
+    def _read_cold(self, ids: np.ndarray, read) -> torch.Tensor:
+        """Disk rows for ``ids`` as a tensor of the stored dtype: the rows a
+        prefetch staged out of DRAM, the rest through ``read`` (a pooled
+        flat-file read): the same bytes either way."""
+        pf = self._prefetch
+        arr = read(ids) if pf is None else pf.take_or_read(ids, read)
+        return rows_from_numpy(arr, self.dtype)
+
+    def _prepare_adaptive(self, stored: torch.Tensor, W: int) -> HostStaged:
+        """Staging against the placement snapshot (`tiers.TierStore.stage`):
+        ``mapped`` carries HBM slots (-1 elsewhere); host-cache rows come
+        from the snapshot's DRAM cache, disk rows from the backing file
+        (prefetched rows out of staging)."""
+        with trace_scope("pipeline.cold_gather"):
+            mapped_np, pos, rows, n_disk = self._store.stage(
+                stored.numpy(), lambda sel: self._cold_staging(torch.from_numpy(sel), W),
+                self._tier_of, self._slot_of, self._host_cache, self._prefetch)
+        mapped = self._staging((W,), torch.int32)
+        mapped.copy_(torch.from_numpy(mapped_np))
+        self.disk_rows_seen += n_disk
+        return HostStaged(mapped, rows, pos)
 
     @property
     def prefetch_stats(self) -> dict:
-        return {}
+        return self._prefetch.stats() if self._prefetch is not None else {}
 
     def prefetch(self, ids, valid_count: Optional[int] = None) -> int:
-        """Flush-ahead disk reads: nothing to issue without a disk tier."""
-        return 0
+        """Issue `AsyncReadPool` reads for the disk-resident rows of a
+        batch's ``n_id``, from the sample stage, one stage before the
+        gather takes them; returns the rows issued (0 without prefetch).
+        Observe-only on bits."""
+        pf = self._prefetch
+        if pf is None:
+            return 0
+        ids = _host_ids(ids).numpy()
+        if valid_count is not None and valid_count < ids.shape[0]:
+            ids = ids[:valid_count]
+        ids = ids[(ids >= 0) & (ids < self.feature.shape[0])]
+        if ids.size == 0:
+            return 0
+        stored = self._order.numpy()[ids] if self._order is not None else ids
+        if self.mode == "adaptive":
+            disk = stored[self._tier_of[stored] > TIER_HOST]
+            return pf.issue(disk) if disk.size else 0
+        local = stored[stored >= self._disk_start] - self._disk_start
+        return pf.issue(local) if local.size else 0
 
     def cancel_prefetch(self) -> int:
-        """Drop staged prefetch rows: none without a disk tier."""
-        return 0
+        """Drop staged prefetch rows (the mid-epoch error unwind): see
+        `tiers.PrefetchBuffer.cancel`."""
+        return self._prefetch.cancel() if self._prefetch is not None else 0
 
     def _h2d(self, t: torch.Tensor) -> torch.Tensor:
         # asynchronous only from pinned memory: a pageable source may be

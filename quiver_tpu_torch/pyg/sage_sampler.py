@@ -22,6 +22,7 @@ from .. import random as qrandom
 from ..feature import gather_rows
 from ..ops.reindex import local_reindex
 from ..ops.sample import pad_widths
+from ..ops.sample import sample_prob as _sample_prob
 from ..ops.sample import sample_layer as _sample_layer_op
 from ..ops.sample import tiled_sample_layer as _tiled_sample_layer_op
 from ..utils import CSRTopo, resolve_device
@@ -303,6 +304,16 @@ class GraphSageSampler:
             # on the stream, serialising concurrent flushes on the host
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def sample_prob(self, train_idx, total_node_count: int) -> torch.Tensor:
+        """Per-node hot-probability estimate (`ops.sample.sample_prob`) over
+        the flat CSR on this sampler's device, whatever the sampling
+        layout; on the card through the cached transposed graph (K11)."""
+        indptr, indices = self.csr_topo.to_device(self.device)
+        transposed = (self.csr_topo.to_device_transposed(self.device)
+                      if self.device.type == "cuda" else None)
+        return _sample_prob(indptr, indices, self.sizes, train_idx, total_node_count,
+                            transposed=transposed)
 
     def sample_dense(self, seeds) -> DenseSample:
         """Sample a padded batch with the next key of the stream."""

@@ -17,10 +17,14 @@ all N rows) live on the device whatever the hot share, so their bytes are
 charged against ``device_cache_size`` first and the rest buys hot payload
 rows; a budget the side tables alone overflow raises.
 
-Not ported yet: the clique stripe (``p2p_clique_replicate`` raises), and,
-as in `Feature`, the disk and adaptive tiers (``host_memory_budget``,
-``disk_path``, ``adaptive_tiers``, ``read_pool``; ROADMAP A13) and the
-observe-only taps (``tier_counter``, ``row_tap``, ``disk_staged``).
+The disk and adaptive tiers (``host_memory_budget``, ``disk_path``,
+``adaptive_tiers``, ``disk_read_workers``, ``read_pool``) pass through to
+the inner `Feature`, so the disk tail (or the adaptive backing file) holds
+encoded rows: they cross the disk, the link and the staging at the codec's
+width and K9b decodes them after the upload.
+
+Not ported yet: the clique stripe (``p2p_clique_replicate`` raises) and,
+as in `Feature`, the observe-only taps (``tier_counter``, ``row_tap``).
 """
 
 from __future__ import annotations
@@ -49,12 +53,19 @@ class QuantizedFeature:
                  device_list: Optional[Sequence[int]] = None,
                  device_cache_size: Union[int, str] = 0,
                  cache_policy: str = "device_replicate", csr_topo: Optional[CSRTopo] = None,
-                 device=None):
+                 device=None, host_memory_budget: Union[int, str] = 0,
+                 disk_path: Optional[str] = None, adaptive_tiers: bool = False,
+                 disk_read_workers: int = 4, read_pool=None):
         if cache_policy == "ici_replicate":
             cache_policy = "p2p_clique_replicate"
         if cache_policy != "device_replicate":
             raise NotImplementedError(f"cache_policy {cache_policy!r} is not ported yet")
         self.codec = get_codec(codec)
+        self.host_memory_budget = host_memory_budget
+        self.disk_path = disk_path
+        self.adaptive_tiers = bool(adaptive_tiers)
+        self.disk_read_workers = int(disk_read_workers)
+        self.read_pool = read_pool
         self.rank = rank
         self.device_list = list(device_list) if device_list else [rank]
         self.device_cache_size = parse_size(device_cache_size)
@@ -107,7 +118,9 @@ class QuantizedFeature:
         inner = Feature(rank=self.rank, device_list=self.device_list,
                         device_cache_size=cache_rows * payload_row_bytes,
                         cache_policy=self.cache_policy, dtype=self.codec.storage_dtype,
-                        device=self.device)
+                        device=self.device, host_memory_budget=self.host_memory_budget,
+                        disk_path=self.disk_path, adaptive_tiers=self.adaptive_tiers,
+                        disk_read_workers=self.disk_read_workers, read_pool=self.read_pool)
         inner.from_cpu_tensor(enc.payload)
         self.inner = inner
         self._scale_np = None if enc.scale is None else np.asarray(enc.scale, np.float32)
@@ -119,6 +132,24 @@ class QuantizedFeature:
     @property
     def shard_tensor(self):
         return None if self.inner is None else self.inner.shard_tensor
+
+    @property
+    def tier_store(self):
+        """The inner store's adaptive `tiers.TierStore` (None when static):
+        placement moves encoded rows."""
+        return None if self.inner is None else self.inner.tier_store
+
+    @property
+    def disk_staged(self):
+        """The inner store's flush-ahead staging mask hook (see
+        `Feature.disk_staged`)."""
+        return None if self.inner is None else self.inner.disk_staged
+
+    @disk_staged.setter
+    def disk_staged(self, fn):
+        if self.inner is None:
+            raise ValueError("disk_staged needs a built feature (call from_cpu_tensor first)")
+        self.inner.disk_staged = fn
 
     def tier_bytes(self):
         """Encoded payload bytes per tier; the side tables are reported by
@@ -165,7 +196,10 @@ class QuantizedFeature:
 
     @property
     def hot_rows(self) -> int:
-        """Encoded rows resident on the device (the hot prefix)."""
+        """Encoded rows resident on the device (the hot prefix, or an
+        adaptive store's HBM residents)."""
+        if self.tier_store is not None:
+            return self.tier_store.placement.counts()["hbm"]
         st = self.shard_tensor
         return 0 if st is None else sum(o.end - o.start for _, _, o in st.device_shards)
 

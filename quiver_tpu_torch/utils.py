@@ -1,7 +1,7 @@
 """Graph topology container and small helpers — the port of
 ``quiver_tpu/utils.py`` (``CSRTopo``, ``parse_size``, ``_best_id_dtype``,
-``reindex_by_config``, ``reindex_feature``) and of ``round_up_pow2`` from
-``quiver_tpu/comm.py``.
+``reindex_by_config``, ``reindex_feature``, ``heat_reorder``) and of
+``round_up_pow2`` from ``quiver_tpu/comm.py``.
 
 Topology lives in host numpy arrays and is materialised on a torch device
 on demand. Ids on the device are int32 wherever the JAX package uses int32
@@ -94,6 +94,7 @@ class CSRTopo:
             raise ValueError("need edge_index or (indptr, indices)")
         self._flat_cache = None
         self._tiled_cache = None
+        self._transposed_cache = None
         self._feature_order: Optional[np.ndarray] = None
 
     @property
@@ -151,6 +152,20 @@ class CSRTopo:
         return pair
 
 
+    def to_device_transposed(self, device=None):
+        """The edges grouped by destination with the probability kernel's
+        tile table (`ops.sample.TransposedCSR`) on ``device``, built on the
+        host once (`ops.sample.build_transposed_host`) and cached."""
+        from .ops.sample import build_transposed_host
+
+        dev = resolve_device(device)
+        if self._transposed_cache is not None and self._transposed_cache[0] == str(dev):
+            return self._transposed_cache[1]
+        t = build_transposed_host(self.indptr, self.indices).to(dev)
+        self._transposed_cache = (str(dev), t)
+        return t
+
+
 def reindex_by_config(adj_csr: CSRTopo, graph_feature, gpu_portion: float, seed: int = 0):
     """Degree-descending hot/cold reorder: sort nodes by out-degree
     (descending, stable on ties), shuffle the hot prefix (the top
@@ -176,3 +191,32 @@ def reindex_feature(graph: CSRTopo, feature, ratio: float, seed: int = 0):
     """`reindex_by_config` as `Feature` calls it: ``(reordered_feature,
     feature_order)``."""
     return reindex_by_config(graph, feature, ratio, seed=seed)
+
+
+def heat_reorder(edge_index, num_nodes: Optional[int] = None, features=None, labels=None,
+                 index_sets=(), heat=None):
+    """Renumber the whole id space heat-descending, so that "rows below
+    ``hot_rows`` are the hot tier" holds for graph, features, labels and
+    index sets alike. ``heat`` defaults to in+out degree; pass measured
+    access probabilities (`GraphSageSampler.sample_prob`) for the
+    probability-driven placement. Host numpy.
+
+    Returns ``(edge_index_r, features_r, labels_r, sets_r, order, inv)``
+    with ``order[new_id] = old_id`` and ``inv[old_id] = new_id``; absent
+    features or labels pass through as None."""
+    edge_index = np.asarray(edge_index)
+    n = int(num_nodes) if num_nodes is not None else int(edge_index.max()) + 1
+    if heat is None:
+        heat = np.bincount(edge_index[0], minlength=n) + np.bincount(edge_index[1], minlength=n)
+    else:
+        heat = np.asarray(heat)
+        if heat.shape[0] != n:
+            raise ValueError(f"heat has {heat.shape[0]} entries for {n} nodes")
+    order = np.argsort(-heat, kind="stable").astype(np.int64)
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    edge_r = inv[edge_index]
+    feats_r = None if features is None else np.asarray(features)[order]
+    labels_r = None if labels is None else np.asarray(labels)[order]
+    sets_r = tuple(inv[np.asarray(s)] for s in index_sets)
+    return edge_r, feats_r, labels_r, sets_r, order, inv

@@ -20,7 +20,17 @@ rows, the dequant gather (K9a) and the quantized tiered lookup (K9b) for
 the fp32, bf16 and int8 codecs — are bit-equal to their plain versions on
 the card and on the CPU, at a batch-1024 n_id's width (67,584 slots at
 B = 64 for the gathers) and D = 100, and at D = 99, whose rows take the
-narrower accesses."""
+narrower accesses. The out-of-core slice's kernels: the row scatter of a
+placement batch (K6) over fp32, bf16 and int8 tables, bit-equal to its
+plain version on the card and on the CPU, with drop-padding, and leaving
+its input table untouched (copy-on-write); the probability propagation
+(K11) on a graph whose hub spans many of the kernel's edge tiles, within
+rtol 1e-4 (atol 1e-6) of its plain version run on the CPU (a sequential
+float32 sum, whose rounding error over a 40,000-edge segment is ~2e-6 of
+the sum; the kernel adds in a fixed tree order) and bit-equal when run
+twice;
+the tiered gather with a disk tail (K3t's gather, then the staged disk
+rows' scatter), bit-equal to the CPU store."""
 
 import numpy as np
 import pytest
@@ -49,6 +59,13 @@ from quiver_tpu_torch.quant.lookup import gather_dequant_plain, quantized_tiered
 from quiver_tpu_torch.utils import round_up_pow2
 from quiver_tpu_torch.pyg.sage_sampler import DenseAdj
 from quiver_tpu_torch.utils import CSRTopo
+from quiver_tpu_torch.ops.sample import (
+    build_transposed_host,
+    neighbor_prob,
+    neighbor_prob_depth,
+    neighbor_prob_plain,
+)
+from quiver_tpu_torch.tiers import set_rows, set_rows_plain
 
 from torch_fixtures import cuda_device  # noqa: F401 (fixture)
 
@@ -349,3 +366,84 @@ def test_dequant_kernels_match_plain(cuda_device, name):
         torch.cuda.synchronize()
         assert _kernels.counts()[f"quantized_tiered_lookup/{name}"] == before + 1
         assert _same(got, want) and _same(got, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_set_rows_kernel_matches_plain_and_leaves_its_input(cuda_device, dtype):
+    rng = np.random.default_rng(17)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}[dtype]
+    for D in (100, 99):
+        H, b = 50000, 4096
+        table = torch.from_numpy((rng.standard_normal((H, D)) * 30).astype(np.float32)).to(tdt)
+        rows = torch.from_numpy((rng.standard_normal((b, D)) * 30).astype(np.float32)).to(tdt)
+        slots = rng.permutation(H)[:b].astype(np.int64)
+        slots[-100:] = H  # the bucket's padding
+        slots[-3] = H + 7
+        slots = torch.from_numpy(slots)
+        dev = [t.to(cuda_device) for t in (table, slots, rows)]
+        keep = dev[0].clone()
+        before = _kernels.counts()[f"set_rows/{dtype}"]
+        got = set_rows(*dev)
+        want = set_rows_plain(*dev)
+        torch.cuda.synchronize()
+        assert _kernels.counts()[f"set_rows/{dtype}"] == before + 1
+        assert torch.equal(dev[0], keep)  # copy-on-write
+        assert got.data_ptr() != dev[0].data_ptr()
+        assert _same(got, want) and _same(got, set_rows_plain(table, slots, rows))
+    # a slot given twice takes the later row, as a sequential scatter does
+    twice = torch.tensor([3, 9, 3, H], dtype=torch.int64, device=cuda_device)
+    got = set_rows(dev[0], twice, dev[2][:4])
+    assert _same(got[3], dev[2][2]) and _same(got[9], dev[2][1]) and _same(got[4], dev[0][4])
+
+
+@pytest.mark.cuda
+def test_neighbor_prob_kernel_on_a_hub_graph_reruns_bit_equal(cuda_device):
+    rng = np.random.default_rng(18)
+    n, e = 200000, 3000000
+    src = rng.integers(0, n, e)
+    dst = (rng.pareto(1.2, e) * 50).astype(np.int64) % n  # power-law in-degrees
+    dst[:40000] = 5  # a hub of ~39 tiles
+    topo = CSRTopo(edge_index=np.stack([src, dst]), num_nodes=n)
+    indptr, indices = topo.to_device(cuda_device)
+    t = build_transposed_host(topo.indptr, topo.indices)
+    assert int(t.long_nodes.numel()) > 0 and int(t.tile_ptr[6] - t.tile_ptr[5]) >= 39
+    t = t.to(cuda_device)
+    prob = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda_device)
+    for k in (15, 10, 5):
+        before = _kernels.counts()["neighbor_prob"]
+        got = neighbor_prob(indptr, indices, prob, k, t)
+        again = neighbor_prob(indptr, indices, prob, k, t)
+        built = neighbor_prob(indptr, indices, prob, k)  # builds its own transposed graph
+        cpu = neighbor_prob_plain(indptr.cpu(), indices.cpu(), prob.cpu(), k)
+        card_plain = neighbor_prob_plain(indptr, indices, prob, k)
+        torch.cuda.synchronize()
+        assert _kernels.counts()["neighbor_prob"] == before + 3
+        assert torch.equal(got, again) and torch.equal(got, built)
+        torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(got, card_plain, rtol=1e-4, atol=1e-6)
+        # within the kernel's own order bound of the exact sum, hub included
+        exact = neighbor_prob_plain(indptr, indices, prob, k, acc_dtype=torch.float64)
+        d = neighbor_prob_depth(t).double()
+        # plus 1e-9 relative for the float64 sum's own rounding
+        tol = (d * 2.0**-24 / (1 - d * 2.0**-24) + 1e-9) * exact
+        assert bool(((got.double() - exact).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_tiered_gather_with_a_disk_tail_matches_the_cpu_store(cuda_device, tmp_path):
+    topo, n = _graph(seed=19)
+    table = np.random.default_rng(20).standard_normal((n, 100)).astype(np.float32)
+    feats = []
+    for dev in (cuda_device, "cpu"):
+        f = Feature(device_cache_size=int(n * 0.2) * 400, host_memory_budget=int(n * 0.3) * 400,
+                    disk_path=str(tmp_path / f"{dev}.npy"), csr_topo=_graph(seed=19)[0],
+                    device=dev)
+        f.from_cpu_tensor(table)
+        feats.append(f)
+    ids = torch.from_numpy(np.random.default_rng(21).integers(-5, n + 5, 67584).astype(np.int32))
+    before = _kernels.counts()["tiered_gather/disk"]
+    got = feats[0][ids.to(cuda_device)]
+    torch.cuda.synchronize()
+    assert _kernels.counts()["tiered_gather/disk"] == before + 1
+    assert _same(got, feats[1][ids])

@@ -144,8 +144,11 @@ def test_fully_resident_pipeline_and_refusals():
     assert cold_rows.shape == (0, feat.shape[1]) and cold_pos.shape == (0,)
     assert tp.prefetch(np.arange(3)) == 0 and tp.cancel_prefetch() == 0
     assert tp.prefetch_stats == {}
-    with pytest.raises(NotImplementedError, match="A13"):
-        TieredFeaturePipeline(tf, prefetch=True)
+    # flush-ahead prefetch serves a disk tier; on an all-DRAM store it is
+    # inert, as in the reference
+    inert = TieredFeaturePipeline(tf, prefetch=True)
+    assert inert.mode == "dram" and inert.prefetch(np.arange(3)) == 0
+    assert inert.prefetch_stats == {}
     with pytest.raises(ValueError, match="not built"):
         TieredFeaturePipeline(Feature(device="cpu"))
     with pytest.raises(NotImplementedError, match="A12"):
