@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GraphSAGE serving, training and
-out-of-core training paths on one card.
+"""Drive the PyTorch/CUDA port's GraphSAGE serving, training,
+out-of-core training, weighted training and temporal serving paths on
+one card.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -119,7 +120,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
              drop_page_cache; leg (a) also runs through the page cache
              dropped and once more warm, labelled a DRAM read. The temp
              directory's filesystem is logged. Lines start ``tiers: ``;
-14. report — one JSON line of all kernels, the card line, then the
+14. kernels-5 — the weighted and temporal slice's kernels against their
+             plain versions, bit-equal on the card, on per-edge weights
+             uniform in [0, 1) with 5% set to 0 and timestamps uniform in
+             [0, 50) from the seed: the weighted draw (K7) over the tile
+             layout and the flat CSR at the three hops of one batch-1024
+             weighted sample_dense (max_deg 512), and tiled == flat on
+             their valid lanes; the temporal draw (K8) at the three hops
+             of one B = 64 temporal_sample_dense (64, 1,024, 11,264 rows;
+             its 64 requests spread over the temporal trace, so their
+             query times span [0, 50)) at recency 0.02 with and without a
+             cutoff of 10 and at recency 0, logging the share of lanes
+             the time mask removed; the recency weights (K8w) over the
+             whole timestamp table; K8 at t = +inf equal to K7 over K8w's
+             tiles and K8 equal to the host-masked oracle (1,024 rows).
+             Bounds: each row's window, pair, ids and flags read and
+             written once, against a threefry uniform and the float64
+             logarithms (and exp) of each live lane, their FP64
+             instructions counted from the built kernel's SASS, at the
+             FP64 rate. Yardsticks: torch.topk of the given scores (K7,
+             K8), torch.exp of the scaled tiles (K8w);
+15. weighted-train — path (a): 20 Adam steps at batch 1024 of
+             sample_dense + lookup_padded with GraphSageSampler(weighted=
+             True, max_deg=512) on the tile layout (with a profiled
+             split) and 5 on the flat one, as the train legs above; K7
+             must have launched on each;
+16. temporal-serve — path (b): TemporalServeEngine(max_batch=64,
+             t_quantum=0.05) over GraphSageSampler(dedup=False).
+             bind_temporal(TemporalTiledGraph, recency=0.02): the recency
+             weight tiles (K8w must have launched building them; the
+             kernels line's K8w launches are these) and the t = +inf
+             layer pin over them, warmup, then, with the counts set to 0,
+             the temporal_trace's requests (Zipf 0.99, query times at 40
+             a second from 0) from 4 client threads: QPS, p50/p99, cache
+             hits, coalescing, launches of the served run (K8, K3, K4
+             must have launched); 8 dispatches replayed through
+             replay_temporal_log on the card bit-equal, 2 on the CPU plain
+             path within 1e-3; a temporal engine at recency 0 queried at
+             t = +inf bit-equal to a plain ServeEngine over a weighted
+             sampler with unit weights; 256 lp_trace pairs through
+             predict_pairs with finite scores. Lines start ``temporal``;
+17. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a card. Needs one card.
@@ -178,7 +219,7 @@ from quiver_tpu_torch.models.sage import (
 )
 from quiver_tpu_torch.ops import reindex, sample
 from quiver_tpu_torch.pyg.sage_sampler import sample_and_gather_dedup, sample_and_gather_fused
-from quiver_tpu_torch.serve import zipfian_trace
+from quiver_tpu_torch.serve import lp_trace, temporal_trace, zipfian_trace
 from quiver_tpu_torch.shard_tensor import tiered_gather_plain
 from quiver_tpu_torch.ops.sample import (
     neighbor_prob,
@@ -196,6 +237,13 @@ from quiver_tpu_torch.tiers import (
 )
 from quiver_tpu_torch.trace import median_min_max, seps
 from quiver_tpu_torch.utils import CSRTopo, heat_reorder, round_up_pow2
+from quiver_tpu_torch.workloads import (
+    TemporalServeEngine,
+    TemporalTiledGraph,
+    host_masked_oracle,
+    quantize_t,
+    replay_temporal_log,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 # Its 67 TFLOP/s float32 rate counts an FMA as two operations on 128 lanes
@@ -206,6 +254,9 @@ from quiver_tpu_torch.utils import CSRTopo, heat_reorder, round_up_pow2
 HBM_BYTES_PER_S = 3.35e12
 F32_ADDS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = 67e12 / 4
+# FP64 outside the tensor cores: 34 TFLOP/s with an FMA as two operations,
+# so one DFMA, DADD or DMUL instruction per unit per clock
+F64_INSTR_PER_S = 34e12 / 2
 # integer ops of one threefry2x32 uniform: 2 key adds, 5 rounds of 4 x
 # (add, funnel shift, xor) and 2 key adds, then xor, shift and or
 THREEFRY_INT_OPS = 2 + 5 * (4 * 3 + 2) + 3
@@ -232,6 +283,13 @@ SOURCES = {
                                 "quiver_tpu/quant/lookup.py:47"),
     "set_rows": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/tiers.py:329"),
     "neighbor_prob": ("quiver_tpu_torch/csrc/prob.cu", "quiver_tpu/ops/sample.py:546"),
+    "weighted_sample_tiled": ("quiver_tpu_torch/csrc/weighted.cu",
+                              "quiver_tpu/ops/sample.py:242"),
+    "weighted_sample_flat": ("quiver_tpu_torch/csrc/weighted.cu", "quiver_tpu/ops/sample.py:172"),
+    "temporal_sample_tiled": ("quiver_tpu_torch/csrc/weighted.cu",
+                              "quiver_tpu/ops/sample.py:476"),
+    "recency_weights": ("quiver_tpu_torch/csrc/weighted.cu",
+                        "quiver_tpu/workloads/temporal.py:128"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
 # the training slice: batch, timed steps a leg, the tiered leg's cache share
@@ -245,6 +303,11 @@ QUANT_CODECS = ("int8", "bf16")
 PROMOTE_ROWS, MAX_MOVES = 65_000, 65_536
 PREFETCH_ROWS = 1 << 18  # staging room for one batch's disk rows
 TIER_BATCHES, TIER_WARMUP, TIER_INT8_BATCHES = 20, 4, 10
+# the weighted and temporal slice: the Gumbel window, the zero-weight share,
+# the flat weighted leg's steps; timestamps in [0, TS_SPAN), the recency and
+# t quantum of scripts/serve_probe.py --temporal, its trace rate, LP pairs
+MAX_DEG, ZERO_WEIGHT_FRAC, WEIGHTED_FLAT_STEPS = 512, 0.05, 5
+TS_SPAN, RECENCY, T_QUANTUM, TEMPORAL_QPS, LP_PAIRS = 50.0, 0.02, 0.05, 40.0, 256
 
 
 def log(*a):
@@ -285,12 +348,13 @@ def time_ms(fn, reps=15, warm=3):
     return float(np.median(times))
 
 
-def bound(bytes_moved, int_ops=0, f32_adds=0):
+def bound(bytes_moved, int_ops=0, f32_adds=0, f64_instr=0):
     """Least time (ms) for the work, and which side binds: the bytes over
-    the HBM rate, or the operations over their peak rate (integer and
-    float pipes issue side by side, so the slower of the two)."""
+    the HBM rate, or the operations over their peak rate (integer, float
+    and FP64 pipes run side by side, so the slowest of them)."""
     t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_o = max(int_ops / INT32_OPS_PER_S, f32_adds / F32_ADDS_PER_S) * 1e3
+    t_o = max(int_ops / INT32_OPS_PER_S, f32_adds / F32_ADDS_PER_S,
+              f64_instr / F64_INSTR_PER_S) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -478,28 +542,36 @@ def kernel_phase(topo, table, model, seeds):
     return rows
 
 
-def serve_phase(engine, trace, clients):
-    """Requests from ``clients`` threads, 8 ids a call; returns
-    (node -> first served row, wall seconds)."""
+def serve_phase(engine, trace, clients, t=None):
+    """Requests from ``clients`` threads, 8 ids a call (with their query
+    times ``t`` on a temporal engine); returns (key -> first served row,
+    wall seconds), the key a node or a (node, float32 t bucket) pair."""
     served = {}
     lock = threading.Lock()
     errors = []
 
-    def client(chunk):
+    def client(chunk, tchunk):
         try:
             for j in range(0, len(chunk), 8):
                 ids = chunk[j:j + 8]
-                out = engine.predict(ids, timeout=120)
+                if tchunk is None:
+                    out, keys = engine.predict(ids, timeout=120), ids.tolist()
+                else:
+                    tq = tchunk[j:j + 8]
+                    out = engine.predict(ids, t=tq, timeout=120)
+                    keys = [(int(a), float(np.float32(quantize_t(b, engine.t_quantum))))
+                            for a, b in zip(ids, tq)]
                 with lock:
-                    for node, row in zip(ids.tolist(), out):
-                        served.setdefault(node, row)
+                    for key, row in zip(keys, out):
+                        served.setdefault(key, row)
         except Exception as exc:  # noqa: BLE001 — reported and failed below
             errors.append(exc)
 
     t0 = time.perf_counter()
+    tparts = [None] * clients if t is None else np.array_split(t, clients)
     with engine:
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in np.array_split(trace, clients)]
+        threads = [threading.Thread(target=client, args=(c, tc))
+                   for c, tc in zip(np.array_split(trace, clients), tparts)]
         for t in threads:
             t.start()
         for t in threads:
@@ -714,9 +786,7 @@ def train_phase(topo, table, resident, tiered, train_idx, seed):
     """Four legs of TRAIN_STEPS Adam steps at batch 1024, full width;
     returns the launches summed over the legs."""
     dev = table.device
-    n = topo.node_count
-    labels = torch.randint(0, CLASSES, (n,), generator=torch.Generator(device=dev).manual_seed(8),
-                           device=dev)
+    labels = train_labels(topo.node_count, dev)
     sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5)
     graph, bind, _ = sampler.fused_sample_spec()
 
@@ -748,58 +818,75 @@ def train_phase(topo, table, resident, tiered, train_idx, seed):
     total = {}
     port_names = port_kernel_names()
     for leg, inputs, needs in legs:
-        model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
-        model.reset_parameters(torch.Generator().manual_seed(seed))
-        model.to(dev)
-        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-        drop = torch.Generator(device=dev).manual_seed(seed + 1)
-        order = np.random.default_rng(seed + 2).permutation(train_idx)
-        batches = iter(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
-                       for i in range(len(order) // TRAIN_BATCH))
-
-        def step(seeds):
-            ds, x = inputs(seeds)
-            y = labels[ds.n_id[:TRAIN_BATCH].long()]
-            loss = F.cross_entropy(model(x, ds.adjs, train=True, generator=drop), y)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            return loss.detach(), sum(a.mask.sum() for a in ds.adjs)
-
-        for _ in range(2):  # warm-up: allocator, cuBLAS handles
-            step(next(batches))
-        torch.cuda.synchronize()
-        _kernels.reset_counts()
-        times, losses, edges = [], [], 0
-        t_all = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            loss, e = step(next(batches))
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            losses.append(loss)
-            edges += int(e)
-        wall = time.perf_counter() - t_all
-        counts = _kernels.counts()
-        prof = profile_steps(step, batches, port_names)
-        first, last = float(losses[0]), float(losses[-1])
-        step_ms = median_min_max(times)
-        summary = {"leg": leg, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
-                   "step_ms": step_ms, "seps": seps(edges, wall),
-                   "sampled_edges": edges, "loss_first": first, "loss_last": last,
-                   "launches": {k: v for k, v in counts.items() if v},
-                   "profile_per_step": prof,
-                   "port_kernel_share": prof["port_ms"] / prof["step_ms"],
-                   "device_idle_share": 1.0 - (prof["port_ms"] + prof["other_ms"])
-                   / prof["step_ms"]}
-        log("train: " + json.dumps(summary))
-        check(np.isfinite(first) and np.isfinite(last), f"{leg}: loss not finite")
-        for name in ("sample_tiled", "masked_mean") + needs:
-            check(counts[name] > 0, f"kernel {name} never launched on the {leg} leg")
+        counts = train_leg(leg, inputs, ("sample_tiled", "masked_mean") + needs, labels,
+                           train_idx, seed, TRAIN_STEPS, port_names)
         for name, v in counts.items():
             total[name] = total.get(name, 0) + v
-        del model, opt
     return total
+
+
+def train_labels(n, dev):
+    """Random labels of the training legs, from a seeded device generator."""
+    return torch.randint(0, CLASSES, (n,), generator=torch.Generator(device=dev).manual_seed(8),
+                         device=dev)
+
+
+def train_leg(leg, inputs, needs, labels, train_idx, seed, steps, port_names, profile=True):
+    """``steps`` timed Adam steps at batch 1024 on ``inputs(seeds) -> (ds,
+    x)`` after 2 warm-up steps, then (with ``profile``) a profiled device
+    split of 3 more; logs a ``train:`` line, checks that the losses are
+    finite and that every kernel of ``needs`` launched in the timed steps,
+    and returns their launch counts."""
+    dev = labels.device
+    model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    drop = torch.Generator(device=dev).manual_seed(seed + 1)
+    order = np.random.default_rng(seed + 2).permutation(train_idx)
+    batches = iter(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                   for i in range(len(order) // TRAIN_BATCH))
+
+    def step(seeds):
+        ds, x = inputs(seeds)
+        y = labels[ds.n_id[:TRAIN_BATCH].long()]
+        loss = F.cross_entropy(model(x, ds.adjs, train=True, generator=drop), y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach(), sum(a.mask.sum() for a in ds.adjs)
+
+    for _ in range(2):  # warm-up: allocator, cuBLAS handles
+        step(next(batches))
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    times, losses, edges = [], [], 0
+    t_all = time.perf_counter()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, e = step(next(batches))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        edges += int(e)
+    wall = time.perf_counter() - t_all
+    counts = _kernels.counts()
+    first, last = float(losses[0]), float(losses[-1])
+    summary = {"leg": leg, "steps": steps, "batch": TRAIN_BATCH,
+               "step_ms": median_min_max(times), "seps": seps(edges, wall),
+               "sampled_edges": edges, "loss_first": first, "loss_last": last,
+               "launches": {k: v for k, v in counts.items() if v}}
+    if profile:
+        prof = profile_steps(step, batches, port_names)
+        summary.update(profile_per_step=prof,
+                       port_kernel_share=prof["port_ms"] / prof["step_ms"],
+                       device_idle_share=1.0 - (prof["port_ms"] + prof["other_ms"])
+                       / prof["step_ms"])
+    log("train: " + json.dumps(summary))
+    check(np.isfinite(first) and np.isfinite(last), f"{leg}: loss not finite")
+    for name in needs:
+        check(counts[name] > 0, f"kernel {name} never launched on the {leg} leg")
+    return counts
 
 
 # -- the staged pipeline -----------------------------------------------------------
@@ -1489,6 +1576,355 @@ def tiers_phase(topo, table_np, train_idx, seed, dev):
     return launches
 
 
+# -- the weighted and temporal slice ----------------------------------------------
+
+def f64_ops_per_lane() -> dict:
+    """FP64 instructions (DFMA, DADD, DMUL) a live lane of each Gumbel
+    kernel executes, counted from the built library's SASS (``cuobjdump
+    -sass``): the unpredicated ones of the kernel, whose lane loop is not
+    unrolled and whose three logs (and exp) are inlined and straight-line;
+    the predicated ones serve special and subnormal arguments. Keys
+    ``tiled``, ``flat``, ``temporal`` and ``exp``, the temporal kernel's
+    count less the tiled one's: its one exp, K8w's work an element (K8w's
+    own SASS unrolls its loop, so its count is not an element's)."""
+    so = _kernels._lib_path("weighted")
+    tool = Path(_kernels._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    per_fn, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            per_fn[fn] = 0
+        elif fn and re.search(r"\b(DFMA|DADD|DMUL)\b", line) and not re.search(r"@!?U?P", line):
+            per_fn[fn] += 1
+    out = {}
+    for key, tag in (("tiled", "12TiledWeights"), ("flat", "11FlatWeights"),
+                     ("temporal", "15TemporalWeights")):
+        hits = [v for f, v in per_fn.items() if tag in f]
+        check(len(hits) == 1 and hits[0] > 0, f"no FP64 count for the {key} kernel in the SASS")
+        out[key] = hits[0]
+    out["exp"] = out["temporal"] - out["tiled"]
+    check(out["exp"] > 0, "the temporal kernel's SASS shows no exp")
+    log("f64 instructions a live lane (SASS): " + json.dumps(out))
+    return out
+
+
+def gumbel_inputs(indptr, cur, cur_valid, max_deg):
+    """``(deg, ptr)`` of a hop's rows: the degree clamped to ``max_deg``
+    (0 for an invalid row) and the row start in the flat CSR."""
+    s = torch.clamp(cur.long(), 0, indptr.shape[0] - 2)
+    ptr = indptr[s].long()
+    deg = torch.where(cur_valid, torch.clamp(indptr[s + 1].long() - ptr, max=max_deg), 0)
+    return deg, ptr
+
+
+def gumbel_bound(indptr, cur, cur_valid, k, max_deg, live, f64_per_lane, extra_row_bytes=0):
+    """K7/K8's least time for one hop on this hop's data. Bytes: seeds,
+    flags (and a query time) per row; per distinct valid seed its (base,
+    degree) pair, its min(deg, max_deg) window values and min(deg, k) ids;
+    the [W, k] ids and flags written. Operations: a threefry uniform and
+    the float64 logarithms (and exp) of each live lane (below its degree,
+    weight > 0), at the integer and FP64 rates."""
+    W = cur.shape[0]
+    s = torch.clamp(cur.long(), 0, indptr.shape[0] - 2)
+    u = torch.unique(s[cur_valid])
+    deg_u = (indptr[u + 1] - indptr[u]).long()
+    n_bytes = (W * (5 + extra_row_bytes) + u.numel() * 8
+               + int(torch.clamp(deg_u, max=max_deg).sum()) * 4
+               + int(torch.clamp(deg_u, max=k).sum()) * 4 + W * k * 5)
+    return bound(n_bytes, live * THREEFRY_INT_OPS, f64_instr=live * f64_per_lane)
+
+
+def weighted_hops(g, bind, seeds, key, sizes=SIZES):
+    """The inputs one batch's dedup ``sample_dense`` hands the weighted
+    kernel per hop (``bind(g)`` the sampler's one-hop draw)."""
+    sample_fn = bind(g)
+    cur, cur_valid = seeds, torch.ones_like(seeds, dtype=torch.bool)
+    hops = []
+    for k in sizes:
+        key, sub = qrandom.split(key)
+        nbrs, valid = sample_fn(cur, cur_valid, k, sub)
+        hops.append(dict(cur=cur, cur_valid=cur_valid, k=k, key=sub))
+        res = reindex.local_reindex(cur, cur_valid, nbrs, valid)
+        cur = res.n_id
+        cur_valid = torch.arange(cur.shape[0], device=cur.device) < res.count
+    return hops
+
+
+def temporal_hops(graph, seeds, t, key, sizes=SIZES):
+    """The inputs one B = 64 ``temporal_sample_dense`` hands K8 per hop:
+    rows, flags and query times in the structural layout."""
+    bd, tiles, ttiles = graph
+    cur, cur_valid, cur_t = seeds, torch.ones_like(seeds, dtype=torch.bool), t
+    hops = []
+    for k in sizes:
+        key, sub = qrandom.split(key)
+        nbrs, valid = sample.tiled_temporal_sample_layer(bd, tiles, ttiles, cur, cur_valid, k,
+                                                         sub, cur_t, MAX_DEG, RECENCY)
+        hops.append(dict(cur=cur, cur_valid=cur_valid, t=cur_t, k=k, key=sub))
+        cur = torch.cat([cur, nbrs.t().reshape(-1)])
+        cur_valid = torch.cat([cur_valid, valid.t().reshape(-1)])
+        cur_t = torch.cat([cur_t, cur_t.repeat(k)])
+    return hops
+
+
+def kernel_phase_5(topo, wtopo, tg, ts_np, seeds_1024, tseeds, tvals, rows, seed):
+    """Hold K7 (tiled and flat), K8 (recency 0.02 with and without a
+    cutoff, recency 0) and K8w against their plain versions on the card at
+    the shapes of real calls, check the t = +inf and host-masked-oracle
+    pins there, and time each; adds their rows to ``rows``."""
+    dev = seeds_1024.device
+    f64 = f64_ops_per_lane()
+    indptr = topo.to_device(dev)[0]
+    g_tiled = (*wtopo.to_device_tiled(dev), wtopo.to_device_tiled_weights(dev))
+    g_flat = (*wtopo.to_device(dev), wtopo.to_device_weights(dev))
+    wsampler = GraphSageSampler(wtopo, SIZES, device=dev, seed=seed + 21, weighted=True,
+                                max_deg=MAX_DEG)
+    graph_w, bind, _ = wsampler.fused_sample_spec()
+    hops = weighted_hops(graph_w, bind, seeds_1024, qrandom.key(seed + 22))
+    w_flat = g_flat[2]
+
+    def same(got, want, what):
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{what} differs from its plain version")
+
+    # K7, tiled then flat, at the three hops of a batch-1024 weighted sample
+    for layout, g, fn, plain in (
+        ("tiled", g_tiled, sample.tiled_weighted_sample_layer,
+         sample.tiled_weighted_sample_layer_plain),
+        ("flat", g_flat, sample.weighted_sample_layer, sample.weighted_sample_layer_plain),
+    ):
+        for h in hops:
+            W, k = h["cur"].shape[0], h["k"]
+            args = (h["cur"], h["cur_valid"], k, h["key"], MAX_DEG)
+            got, want = fn(*g, *args), plain(*g, *args)
+            same(got, want, f"K7 {layout} at W={W}")
+            deg, ptr = gumbel_inputs(indptr, h["cur"], h["cur_valid"], MAX_DEG)
+            # the flat lanes: past a row's degree they hold other rows' weights,
+            # which the draw masks, so the scores are the tiled window's too
+            lanes = torch.clamp(ptr[:, None] + torch.arange(MAX_DEG, device=dev)[None, :], 0,
+                                w_flat.shape[0] - 1)
+            scores = sample.gumbel_scores(h["key"], deg, w_flat[lanes])
+            live = int(torch.isfinite(scores).sum())
+            b = gumbel_bound(indptr, h["cur"], h["cur_valid"], k, MAX_DEG, live, f64[layout])
+            record(rows, f"weighted_sample_{layout}", 0.0, time_ms(lambda: fn(*g, *args)),
+                   time_ms(lambda: plain(*g, *args), reps=5), b,
+                   time_ms(lambda: torch.topk(scores, k)), shape=f"W={W} k={k} live={live}")
+        if layout == "tiled":  # draw-equal to the flat layout at max_deg % 128 == 0
+            for h in hops:
+                args = (h["cur"], h["cur_valid"], h["k"], h["key"], MAX_DEG)
+                (tn, tv), (fn_, fv) = fn(*g, *args), sample.weighted_sample_layer(*g_flat, *args)
+                check(torch.equal(tv, fv) and torch.equal(tn[tv], fn_[fv]),
+                      "K7's tiled and flat draws differ")
+
+    # K8 at the three hops of a B = 64 temporal sample, three variants
+    graph = tg.temporal_graph()
+    ttiles = graph[2]
+    thops = temporal_hops(graph, tseeds, tvals, qrandom.key(seed + 23))
+    for name, rec, cutoff, report in (("recency 0.02", RECENCY, None, True),
+                                      ("recency 0.02, cutoff 10", RECENCY, 10.0, False),
+                                      ("recency 0", 0.0, None, False)):
+        for h in thops:
+            W, k = h["cur"].shape[0], h["k"]
+            args = (h["cur"], h["cur_valid"], k, h["key"], h["t"], MAX_DEG, rec, cutoff)
+            got = sample.tiled_temporal_sample_layer(*graph, *args)
+            want = sample.tiled_temporal_sample_layer_plain(*graph, *args)
+            same(got, want, f"K8 ({name}) at W={W}")
+            base = graph[0][torch.clamp(h["cur"].long(), 0, graph[0].shape[0] - 1), 0]
+            deg, _ = gumbel_inputs(indptr, h["cur"], h["cur_valid"], MAX_DEG)
+            ts_rows = sample._tiled_payload_window(base, ttiles, MAX_DEG)
+            w_rows = sample.temporal_weight_rows(ts_rows, h["t"], rec, cutoff)
+            scores = sample.gumbel_scores(h["key"], deg, w_rows)
+            live = int(torch.isfinite(scores).sum())
+            in_deg = torch.arange(ts_rows.shape[1], device=dev)[None, :] < deg[:, None]
+            masked = int((in_deg & (w_rows <= 0)).sum())
+            log(json.dumps({"k8_mask": name, "W": W, "lanes_below_deg": int(in_deg.sum()),
+                            "lanes_masked_by_time": masked,
+                            "masked_share": masked / max(int(in_deg.sum()), 1)}))
+            b = gumbel_bound(indptr, h["cur"], h["cur_valid"], k, MAX_DEG, live, f64["temporal"],
+                             extra_row_bytes=4)
+            record(rows, "temporal_sample_tiled", 0.0,
+                   time_ms(lambda: sample.tiled_temporal_sample_layer(*graph, *args)),
+                   time_ms(lambda: sample.tiled_temporal_sample_layer_plain(*graph, *args),
+                           reps=5), b, time_ms(lambda: torch.topk(scores, k)),
+                   shape=f"{name} W={W} k={k} live={live}", report=report)
+
+    # K8w over the whole timestamp table, then the two pins
+    wt = tg.recency_wtiles(RECENCY)
+    check(torch.equal(wt, sample.temporal_edge_weights_plain(ttiles, RECENCY)),
+          "K8w differs from its plain version")
+    scaled = ttiles * torch.tensor(RECENCY, device=dev)
+    record(rows, "recency_weights", 0.0, time_ms(lambda: tg.recency_wtiles(RECENCY)),
+           time_ms(lambda: sample.temporal_edge_weights_plain(ttiles, RECENCY), reps=5),
+           bound(2 * ttiles.numel() * 4, f64_instr=ttiles.numel() * f64["exp"]),
+           time_ms(lambda: torch.exp(scaled)), shape=f"M={ttiles.shape[0]} x 128")
+    h = thops[1]  # 1,024 rows
+    inf = torch.full_like(h["t"], float("inf"))
+    a = sample.tiled_temporal_sample_layer(*graph, h["cur"], h["cur_valid"], h["k"], h["key"],
+                                           inf, MAX_DEG, RECENCY)
+    b = sample.tiled_weighted_sample_layer(graph[0], graph[1], wt, h["cur"], h["cur_valid"],
+                                           h["k"], h["key"], MAX_DEG)
+    same(a, b, "K8 at t = +inf against K7 over the recency tiles:")
+    args = (h["cur"], h["cur_valid"], h["k"], h["key"], h["t"], MAX_DEG, RECENCY)
+    nb, vl = sample.tiled_temporal_sample_layer(*graph, *args)
+    onb, ovl = host_masked_oracle(topo.indptr, topo.indices, ts_np, h["cur"].cpu().numpy(),
+                                  h["cur_valid"].cpu().numpy(), h["k"], h["key"],
+                                  h["t"].cpu().numpy(), max_deg=MAX_DEG, recency=RECENCY)
+    vl = vl.cpu().numpy()
+    check(np.array_equal(vl, ovl) and np.array_equal(nb.cpu().numpy()[vl], onb[ovl]),
+          "K8 differs from the host-masked oracle")
+    log(f"kernels-5 pins: t=+inf == weighted over K8w tiles and host-masked oracle, "
+        f"{h['cur'].shape[0]} rows each, bit-equal")
+    torch.cuda.synchronize()
+
+
+def weighted_train_phase(wtopo, resident, labels, train_idx, seed):
+    """Path (a): TRAIN_STEPS steps of the weighted sampler on the tile
+    layout and WEIGHTED_FLAT_STEPS on the flat one (sample_dense +
+    lookup_padded, K7 in place of K1); returns the launches of each leg."""
+    dev = labels.device
+    port_names = port_kernel_names()
+    out = {}
+    for layout, steps, profile in (("tiled", TRAIN_STEPS, True),
+                                   ("flat", WEIGHTED_FLAT_STEPS, False)):
+        sampler = GraphSageSampler(wtopo, SIZES, device=dev, seed=seed + 5, weighted=True,
+                                   max_deg=MAX_DEG, layout=layout)
+
+        def inputs(s, sampler=sampler):
+            ds = sampler.sample_dense(s)
+            return ds, resident.lookup_padded(ds.n_id)
+
+        out[layout] = train_leg(
+            f"weighted {layout} sample_dense+lookup_padded", inputs,
+            (f"weighted_sample_{layout}", "local_reindex", "gather_rows", "masked_mean",
+             "masked_mean_backward/cols"), labels, train_idx, seed, steps, port_names, profile)
+    return out
+
+
+def weighted_inputs(topo, seed):
+    """Per-edge weights uniform in [0, 1) with ZERO_WEIGHT_FRAC of them 0
+    and timestamps uniform in [0, TS_SPAN), float32, from the seed:
+    ``(weighted CSRTopo over the same arrays, timestamps)``."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 20)
+    e = topo.edge_count
+    w = rng.random(e, dtype=np.float32)
+    w[rng.random(e) < ZERO_WEIGHT_FRAC] = 0.0
+    ts = rng.uniform(0.0, TS_SPAN, e).astype(np.float32)
+    wtopo = CSRTopo(indptr=topo.indptr, indices=topo.indices, edge_weights=w)
+    log(f"weights and timestamps: {e} edges, {int((w == 0).sum())} zero weights, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    return wtopo, ts
+
+
+def temporal_serve_phase(topo, tg, model, params, table, trace, seed):
+    """Path (b): the recency weight tiles (K8w) and the t = +inf pin over
+    them, warmup, then the temporal trace's requests with their query
+    times from 4 client threads; replay and engine pins after. Returns the
+    launches of the served run and K8w's launches building the tiles (the
+    engine itself never builds them: K8 weighs each lane in place)."""
+    dev = table.device
+    requests = trace.requests.shape[0]
+
+    def sampler(recency=RECENCY):
+        s = GraphSageSampler(topo, SIZES, device=dev, seed=seed, dedup=False, max_deg=MAX_DEG)
+        return s.bind_temporal(tg, recency=recency)
+
+    engine = TemporalServeEngine(model, params, sampler(), table,
+                                 ServeConfig(max_batch=BATCH, record_dispatches=True),
+                                 t_quantum=T_QUANTUM)
+    _kernels.reset_counts()
+    wt = tg.recency_wtiles(RECENCY)  # the frozen graph's weights: K8w
+    k8w_launches = _kernels.counts()["recency_weights"]
+    check(k8w_launches > 0, "K8w never launched building the recency weight tiles")
+    bd, tiles, ttiles = tg.temporal_graph()
+    s64 = torch.from_numpy(trace.requests[:BATCH].astype(np.int32)).to(dev)
+    ones = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    key = qrandom.key(seed + 32)
+    a = sample.tiled_temporal_sample_layer(bd, tiles, ttiles, s64, ones, SIZES[0], key,
+                                           torch.full((BATCH,), float("inf"), device=dev),
+                                           MAX_DEG, RECENCY)
+    b = sample.tiled_weighted_sample_layer(bd, tiles, wt, s64, ones, SIZES[0], key, MAX_DEG)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), "temporal at t=+inf != weighted")
+    warm = engine.warmup()
+    log(f"temporal warmup: {json.dumps({str(k): round(v, 4) for k, v in warm.items()})}")
+    engine.reset_stats()
+    _kernels.reset_counts()
+    served, wall = serve_phase(engine, trace.requests, clients=4, t=trace.t_query)
+    counts = _kernels.counts()
+    st = engine.stats
+    check(st.requests == requests, "not every temporal request was answered")
+    out = np.stack(list(served.values()))
+    check(out.shape[1] == CLASSES and np.isfinite(out).all(), "temporal logits malformed")
+    log("temporal serve: " + json.dumps({
+        "requests": st.requests, "wall_s": wall, "qps": st.requests / wall,
+        "latency": st.latency.snapshot(), "cache_hit_rate": st.cache.hit_rate,
+        "coalesced": st.coalesced, "dispatches": st.dispatches,
+        "dispatched_seeds": st.dispatched_seeds, "distinct_keys": len(served),
+        "t_query_span": [float(trace.t_query[0]), float(trace.t_query[-1])],
+        "launches": {k: v for k, v in counts.items() if v}}))
+    for name in ("temporal_sample_tiled", "gather_rows", "masked_mean"):
+        check(counts[name] > 0, f"kernel {name} never launched on the temporal path")
+
+    # replay: 8 dispatches on the card bit-equal, 2 on the CPU plain path within 1e-3
+    def replay_worst(log_entries, s, feat, device):
+        oracle = replay_temporal_log(log_entries, model, params, s, feat)
+        worst, seen = 0.0, 0
+        for key_, cands in oracle.items():
+            row = served.get(key_)
+            if row is not None:
+                seen += 1
+                worst = max(worst, min(float(np.abs(row - c).max()) for c in cands))
+        check(seen > 0, f"no served row among the replayed keys on {device}")
+        return worst
+
+    dev_worst = replay_worst(engine.dispatch_log[:8], sampler(), table, dev)
+    check(dev_worst == 0.0, f"temporal replay on the card differs by {dev_worst}")
+    cpu_topo = CSRTopo(indptr=topo.indptr, indices=topo.indices)  # its own tile cache
+    cpu_tg = TemporalTiledGraph(cpu_topo, tg.edge_ts, device="cpu")
+    cpu_s = GraphSageSampler(cpu_topo, SIZES, device="cpu", seed=seed, dedup=False,
+                             max_deg=MAX_DEG)
+    cpu_s.bind_temporal(cpu_tg, recency=RECENCY)
+    cpu_worst = replay_worst(engine.dispatch_log[:2], cpu_s, table.cpu(), "cpu")
+    check(cpu_worst <= 1e-3, f"temporal replay on the CPU differs by {cpu_worst}")
+    log(f"temporal replay: 8 dispatches on the card max |diff| {dev_worst} (bit-equal); "
+        f"2 on the CPU plain path max |diff| {cpu_worst:.3g}")
+    del cpu_tg, cpu_s, cpu_topo
+
+    # the serving-grain pin: recency 0, t = +inf against a plain engine over unit weights
+    unit = CSRTopo(indptr=topo.indptr, indices=topo.indices,
+                   edge_weights=np.ones(topo.edge_count, np.float32))
+    plain_eng = ServeEngine(model, params, GraphSageSampler(unit, SIZES, device=dev, seed=seed,
+                                                            dedup=False, weighted=True,
+                                                            max_deg=MAX_DEG),
+                            table, ServeConfig(max_batch=BATCH, record_dispatches=True))
+    temp_eng = TemporalServeEngine(model, params, sampler(0.0), table,
+                                   ServeConfig(max_batch=BATCH, record_dispatches=True),
+                                   t_quantum=0.0)
+    nodes = trace.requests[:BATCH]
+    rows_w, rows_t = plain_eng.predict(nodes, timeout=120), temp_eng.predict(nodes, timeout=120)
+    check(np.array_equal(rows_w, rows_t), "temporal engine at t=+inf != plain weighted engine")
+    check(all(np.array_equal(pw, pt) and nw == nt for (pw, nw), (pt, nt, _) in
+              zip(plain_eng.dispatch_log, temp_eng.dispatch_log)), "pin dispatch logs differ")
+    log(f"temporal pin: {len(nodes)} nodes at t=+inf, recency 0, bit-equal to the plain "
+        "engine over unit weights")
+    del plain_eng, temp_eng, unit
+
+    # link prediction: lp_trace pairs through predict_pairs
+    lp = lp_trace(topo, LP_PAIRS, seed=seed + 33, qps=TEMPORAL_QPS)
+    before = engine.stats.coalesced
+    scores = engine.predict_pairs(np.stack([lp.u, lp.v], axis=1), t=lp.t_query, timeout=120)
+    check(scores.shape == (LP_PAIRS,) and np.isfinite(scores).all(), "pair scores malformed")
+    log("temporal pairs: " + json.dumps({
+        "pairs": LP_PAIRS, "positives": int(lp.label.sum()),
+        "endpoints_coalesced": engine.stats.coalesced - before,
+        "mean_score_pos": float(scores[lp.label == 1].mean()),
+        "mean_score_neg": float(scores[lp.label == 0].mean())}))
+    return counts, k8w_launches
+
+
 def learn_phase():
     """The example at its defaults on the card; its accuracies beside the
     reference's recorded ones. Returns the launches."""
@@ -1596,7 +2032,6 @@ def main() -> int:
     for name in ("masked_mean_backward", "tiered_gather"):
         launches[name] = train_counts[name]
     launches["full_mean"] = learn_counts["full_mean"]
-    del resident
 
     # -- the staged pipeline over fp32, int8 and bf16 tables ------------------------
     budget = tiered.shard_tensor.tier_bytes()["device"]
@@ -1612,6 +2047,29 @@ def main() -> int:
     tier_counts = tiers_phase(topo, table_np, train_idx, args.seed, dev)
     for name in ("set_rows", "neighbor_prob"):
         launches[name] = tier_counts[name]
+
+    # -- the weighted and temporal slice: K7, K8, K8w ------------------------------
+    wtopo, ts_np = weighted_inputs(topo, args.seed)
+    t0 = time.perf_counter()
+    tg = TemporalTiledGraph(topo, ts_np, device=dev)
+    log(f"timestamp tiles on the card in {time.perf_counter() - t0:.1f} s")
+    ttrace = temporal_trace(topo.node_count, args.requests, alpha=0.99, seed=args.seed + 31,
+                            qps=TEMPORAL_QPS, t0=0.0)
+    # a flush of 64 requests spread over the trace, so its query times span [0, TS_SPAN)
+    spread = np.linspace(0, args.requests - 1, BATCH).astype(np.int64)
+    tseeds = torch.from_numpy(ttrace.requests[spread].astype(np.int32)).to(dev)
+    tvals = torch.from_numpy(np.float32([quantize_t(t, T_QUANTUM)
+                                         for t in ttrace.t_query[spread]])).to(dev)
+    kernel_phase_5(topo, wtopo, tg, ts_np, seeds_1024, tseeds, tvals, rows, args.seed)
+    w_counts = weighted_train_phase(wtopo, resident, train_labels(topo.node_count, dev),
+                                    train_idx, args.seed)
+    del resident
+    t_counts, k8w_launches = temporal_serve_phase(topo, tg, model, params, table, ttrace,
+                                                  args.seed)
+    launches["weighted_sample_tiled"] = w_counts["tiled"]["weighted_sample_tiled"]
+    launches["weighted_sample_flat"] = w_counts["flat"]["weighted_sample_flat"]
+    launches["temporal_sample_tiled"] = t_counts["temporal_sample_tiled"]
+    launches["recency_weights"] = k8w_launches  # building the recency weight tiles
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -3,10 +3,11 @@ GraphSAGE serving (sample -> dedup -> gather -> forward -> ServeEngine),
 training (tiered Feature -> sample-and-gather -> forward/backward -> Adam
 -> full-neighbor eval), the staged tiered train pipeline
 (TrainPipeline -> TieredFeaturePipeline -> tiered_lookup) over float32,
-int8 and bf16 feature tables (`quant`), and out-of-core training
+int8 and bf16 feature tables (`quant`), out-of-core training
 (GraphSageSampler.sample_prob -> utils.heat_reorder / `partition` -> a disk
 tier, static or adaptive (`tiers`) -> the staged pipeline with
-flush-ahead prefetch).
+flush-ahead prefetch), weighted sampling (GraphSageSampler(weighted=True))
+and temporal feed-ranking and link-prediction serving (`workloads`).
 
 Imports torch and numpy only, never jax or quiver_tpu. Entry points run on
 CUDA unless ``device="cpu"`` is passed, where every kernel's plain torch
@@ -15,7 +16,7 @@ first use (`quiver_tpu_torch._kernels.build`).
 """
 
 from .checkpoint import CheckpointManager
-from .convert import sage_params_from_flax
+from .convert import pair_head_params_from_jax, sage_params_from_flax
 from .feature import Feature
 from .models import GraphSAGE
 from .pipeline import TieredFeaturePipeline, TrainPipeline
@@ -27,5 +28,5 @@ from .utils import CSRTopo
 __all__ = [
     "CSRTopo", "CheckpointManager", "Feature", "GraphSAGE", "GraphSageSampler",
     "QuantizedFeature", "ServeConfig", "ServeEngine", "TieredFeaturePipeline", "TrainPipeline",
-    "sage_params_from_flax",
+    "pair_head_params_from_jax", "sage_params_from_flax",
 ]

@@ -32,8 +32,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# largest fanout k of the sampling kernel (k-entry tables per thread) and
-# of the mean kernel (one warp ballot of the k mask bits)
+# largest fanout k of the sampling kernels (k-entry tables per thread; one
+# lane a winner in the Gumbel kernels) and of the mean kernel (one warp
+# ballot of the k mask bits)
 KMAX = 32
 
 _P = ctypes.c_void_p
@@ -68,6 +69,14 @@ KERNELS = {
     "neighbor_prob": ("prob", "qt_neighbor_prob",
                       [_P, _P, _LL, ctypes.c_float, _P, _P, _P, _P, _LL, _I, _P, _LL,
                        _P, _P, _P, _P]),
+    "weighted_sample_tiled": ("weighted", "qt_weighted_sample_tiled",
+                              [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _U, _U, _P, _P, _P]),
+    "weighted_sample_flat": ("weighted", "qt_weighted_sample_flat",
+                             [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _U, _U, _P, _P, _P]),
+    "temporal_sample_tiled": ("weighted", "qt_temporal_sample_tiled",
+                              [_P, _P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
+                               ctypes.c_float, _U, _U, _P, _P, _P]),
+    "recency_weights": ("weighted", "qt_recency_weights", [_P, _LL, ctypes.c_float, _P, _P]),
 }
 # kernels whose launches are also counted per layout, as "name/variant"
 VARIANTS = {"masked_mean_backward": ("cols", "structural"),

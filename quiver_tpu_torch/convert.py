@@ -1,6 +1,7 @@
-"""Carry GraphSAGE weights from the JAX package's flax parameter tree to
-the port's modules. Takes numpy arrays (or anything ``np.asarray``
-accepts), so it imports no flax."""
+"""Carry weights from the JAX package to the port: GraphSAGE's flax
+parameter tree (`sage_params_from_flax`) and the link-prediction head's
+parameters (`pair_head_params_from_jax`). Takes numpy arrays (or anything
+``np.asarray`` accepts), so it imports no flax or jax."""
 
 from __future__ import annotations
 
@@ -32,3 +33,15 @@ def sage_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     if i == 0:
         raise ValueError("no conv{i} layers in the parameter tree")
     return out
+
+
+def pair_head_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``params`` of `workloads.PairHead` ("mlp") from the JAX
+    package's ``PairHead.params`` (``{"w1" [3*dim, hidden], "b1"
+    [hidden], "w2" [hidden, 1], "b2" [1]}``; both heads compute ``x @ w1
+    + b1``, so no transpose)."""
+    missing = {"w1", "b1", "w2", "b2"} - set(params)
+    if missing:
+        raise ValueError(f"pair-head params lack {sorted(missing)}")
+    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32))
+            for k in ("w1", "b1", "w2", "b2")}

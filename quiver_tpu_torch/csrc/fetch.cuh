@@ -1,0 +1,37 @@
+// The two neighbor fetches of the sampling kernels (K1/K1b, K7, K8): a
+// drawn position of a row resolves through the 128-lane tile layout
+// (tiles[clip(base + (pos >> 7)), pos & 127], the JAX package's
+// _tiled_resolve) or the flat CSR (indices[clip(ptr + pos)]).
+#pragma once
+
+#include "common.cuh"
+
+struct TiledFetch {
+  const int32_t* bd;     // [N, 2] (tile base, degree)
+  const int32_t* tiles;  // [M, 128]
+  long long m_rows;
+  __device__ __forceinline__ void row(int32_t s, int32_t& base, int32_t& deg) const {
+    base = bd[2 * static_cast<long long>(s)];
+    deg = bd[2 * static_cast<long long>(s) + 1];
+  }
+  __device__ __forceinline__ int32_t fetch(int32_t base, int32_t pos) const {
+    long long r = static_cast<long long>(base) + (static_cast<uint32_t>(pos) >> 7);
+    r = qt_clamp<long long>(r, 0, m_rows - 1);
+    return tiles[r * 128 + (pos & 127)];
+  }
+};
+
+struct FlatFetch {
+  const int32_t* indptr;   // [N + 1]
+  const int32_t* indices;  // [E]
+  long long n_edges;
+  __device__ __forceinline__ void row(int32_t s, int32_t& ptr, int32_t& deg) const {
+    ptr = indptr[s];
+    deg = indptr[s + 1] - ptr;
+  }
+  __device__ __forceinline__ int32_t fetch(int32_t ptr, int32_t pos) const {
+    long long f = static_cast<long long>(ptr) + pos;
+    f = qt_clamp<long long>(f, 0, n_edges - 1);
+    return indices[f];
+  }
+};

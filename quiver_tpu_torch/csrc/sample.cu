@@ -26,39 +26,10 @@
 // at once across the warps of the card.
 
 #include "common.cuh"
+#include "fetch.cuh"
 #include "threefry.cuh"
 
 #define QT_KMAX 32
-
-struct TiledFetch {
-  const int32_t* bd;     // [N, 2] (tile base, degree)
-  const int32_t* tiles;  // [M, 128]
-  long long m_rows;
-  __device__ __forceinline__ void row(int32_t s, int32_t& base, int32_t& deg) const {
-    base = bd[2 * static_cast<long long>(s)];
-    deg = bd[2 * static_cast<long long>(s) + 1];
-  }
-  __device__ __forceinline__ int32_t fetch(int32_t base, int32_t pos) const {
-    long long r = static_cast<long long>(base) + (static_cast<uint32_t>(pos) >> 7);
-    r = qt_clamp<long long>(r, 0, m_rows - 1);
-    return tiles[r * 128 + (pos & 127)];
-  }
-};
-
-struct FlatFetch {
-  const int32_t* indptr;   // [N + 1]
-  const int32_t* indices;  // [E]
-  long long n_edges;
-  __device__ __forceinline__ void row(int32_t s, int32_t& ptr, int32_t& deg) const {
-    ptr = indptr[s];
-    deg = indptr[s + 1] - ptr;
-  }
-  __device__ __forceinline__ int32_t fetch(int32_t ptr, int32_t pos) const {
-    long long f = static_cast<long long>(ptr) + pos;
-    f = qt_clamp<long long>(f, 0, n_edges - 1);
-    return indices[f];
-  }
-};
 
 template <class Fetch>
 __global__ void sample_kernel(Fetch g, int32_t n_nodes, const int32_t* __restrict__ seeds,

@@ -13,8 +13,10 @@ All of them run the model in eval mode with TF32 off
   nodes; `full_inference_accuracy` and `sampled_eval` score a model;
 - `sample_batch` + `forward_logits` == `batch_logits`: the split path;
 - `make_serve_step`: sample + gather + forward as one step function, the
-  engine's fused path; `BucketPrograms` keeps one entry per bucket with
-  the hard miss after `seal()`. Each bucket stays a plain call in this
+  engine's fused path, and `make_temporal_serve_step`, its temporal twin
+  that takes the padded per-seed query times as one more argument;
+  `BucketPrograms` keeps one entry per bucket with the hard miss after
+  `seal()`. Each bucket stays a plain call in this
   slice (CUDA-graph capture per bucket is later work).
 """
 
@@ -241,16 +243,43 @@ def make_serve_step(sampler):
     return serve_step, graph, id_dtype
 
 
+def make_temporal_serve_step(sampler):
+    """The temporal twin of `make_serve_step`: ``serve_step(model, key,
+    seeds, table, index_map, graph, t)`` runs
+    `workloads.temporal.temporal_sample_dense` with the padded per-seed
+    query times ``t``, then the gather and the forward. The sampler must
+    be temporal-bound (`GraphSageSampler.bind_temporal`)."""
+    from .workloads.temporal import temporal_sample_dense
+
+    if getattr(sampler, "temporal", None) is None:
+        raise TypeError("make_temporal_serve_step needs a temporal-bound sampler")
+    _, recency = sampler.temporal
+    graph = sampler.fused_graph_arrays()
+    sizes, max_deg = sampler.sizes, sampler.max_deg
+
+    def serve_step(model, key, seeds, table, index_map, graph, t):
+        ds = temporal_sample_dense(graph, key, seeds, t, sizes, recency=recency,
+                                   max_deg=max_deg)
+        x = gather_rows(table, ds.n_id, index_map)
+        return model(x, ds.adjs)
+
+    return serve_step, graph, graph[1].dtype
+
+
 class BucketPrograms:
     """The fused serve step per bucket. `compile_bucket` runs a bucket
     once on a fixed key (the sampler's key stream is untouched) so that
     the kernels are built and the allocator warm; `seal()` turns a later
-    call at an unwarmed bucket into a hard RuntimeError."""
+    call at an unwarmed bucket into a hard RuntimeError. A temporal-bound
+    sampler's step takes the padded query-time vector as one more
+    argument of each call (the warm run passes ``t = +inf``)."""
 
     _WARM_KEY = qrandom.fold_in(qrandom.key(0), 0)
 
     def __init__(self, sampler, feature):
-        self._fn, self._graph, self._id_dtype = make_serve_step(sampler)
+        self._temporal = getattr(sampler, "temporal", None) is not None
+        make = make_temporal_serve_step if self._temporal else make_serve_step
+        self._fn, self._graph, self._id_dtype = make(sampler)
         self._sampler = sampler
         self._caps = sampler.caps  # the caps the step was built for
         self._table, self._map = feature_gather_spec(feature, sampler.device)
@@ -268,21 +297,32 @@ class BucketPrograms:
         bucket = int(bucket)
         if bucket in self._buckets:
             return
-        self._run(model, self._WARM_KEY, np.zeros(bucket, np.int64))
+        extra = (np.full(bucket, np.inf, np.float32),) if self._temporal else ()
+        self._run(model, self._WARM_KEY, np.zeros(bucket, np.int64), *extra)
         if self._table.is_cuda:
             torch.cuda.synchronize(self._table.device)
         self._buckets.add(bucket)
 
-    def _run(self, model, key, seeds):
+    def _run(self, model, key, seeds, *extra):
         strict_float32()
+        if len(extra) != int(self._temporal):
+            raise TypeError(f"the serve step takes {int(self._temporal)} per-seed array(s) "
+                            f"besides the seeds; got {len(extra)}")
+        t = tuple(self._on_device(np.asarray(e, np.float32)) for e in extra)
         with torch.inference_mode():
             return self._fn(model.eval(), key, self._sampler.as_seeds(seeds), self._table,
-                            self._map, self._graph)
+                            self._map, self._graph, *t)
 
-    def __call__(self, bucket: int, model: nn.Module, key, seeds) -> torch.Tensor:
+    def _on_device(self, arr: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(arr)
+        if self._sampler.device.type == "cuda":
+            return host.pin_memory().to(self._sampler.device, non_blocking=True)
+        return host
+
+    def __call__(self, bucket: int, model: nn.Module, key, seeds, *extra) -> torch.Tensor:
         """Sample + gather + forward of one padded seed batch at
-        ``bucket``; misses register lazily before `seal()` and raise
-        after."""
+        ``bucket`` (``extra``: the padded query times of a temporal step);
+        misses register lazily before `seal()` and raise after."""
         if self._sampler.caps != self._caps:
             raise RuntimeError(
                 f"sampler caps changed from {self._caps} to {self._sampler.caps} "
@@ -295,7 +335,7 @@ class BucketPrograms:
                     "warmup() seals the bucket table"
                 )
             self._buckets.add(int(bucket))
-        return self._run(model, key, seeds)
+        return self._run(model, key, seeds, *extra)
 
 
 def to_host(out: torch.Tensor) -> np.ndarray:

@@ -1,7 +1,11 @@
-"""One-hop uniform neighbor sampling and the sampling-probability
-estimate — the port of ``quiver_tpu/ops/sample.py`` (``pad_widths``,
-``fisher_yates_positions``, ``sample_layer``, ``tiled_sample_layer``, the
-host tile build, ``neighbor_prob`` and ``sample_prob``).
+"""One-hop uniform, weighted and temporal neighbor sampling and the
+sampling-probability estimate — the port of ``quiver_tpu/ops/sample.py``
+(``pad_widths``, ``row_windows``, ``fisher_yates_positions``,
+``sample_layer``, ``tiled_sample_layer``, ``gumbel_topk_positions``,
+``weighted_sample_layer``, ``tiled_weighted_sample_layer``,
+``temporal_edge_weights``, ``temporal_weight_rows``,
+``tiled_temporal_sample_layer``, the host tile build, ``neighbor_prob``
+and ``sample_prob``).
 
 Each row draws ``min(deg, k)`` distinct neighbor positions by a partial
 Fisher-Yates shuffle over k threefry uniforms of shape ``[k, W]``; rows
@@ -12,6 +16,17 @@ package on the same key. ``sample_layer`` reads the flat CSR,
 On a CUDA tensor the wrappers launch the hand-written kernel of
 ``csrc/sample.cu``; on a CPU tensor they run the plain torch version in
 this module, which the tests hold against the JAX package.
+
+A weighted draw (K7) takes the top k of ``log w + Gumbel`` over each
+row's window of its first ``min(deg, max_deg)`` edge weights (the flat
+CSR's or the tile map's); a temporal draw (K8) is the same draw over the
+timestamp tiles with weight ``exp(recency * ts)`` where ``ts <= t[row]``
+and 0 elsewhere, and K8w builds those weights for whole tile tables. The
+kernels (``csrc/weighted.cu``) and the plain versions take every ``log``
+and ``exp`` in float64 and round once to float32, so they agree bit for
+bit; the JAX package's float32 ``log`` and ``exp`` are XLA's own
+approximations, within an ULP, so a row whose two best candidates score
+within an ULP or two may order them differently there.
 
 `neighbor_prob` propagates per-node sampling probabilities one hop
 (``next[v] = sum over edges u -> v of prob[u] * min(k / deg(u), 1)``) and
@@ -110,12 +125,27 @@ def _check_layer_args(seeds, seed_valid, k, graph):
             )
 
 
+def row_windows(indptr: torch.Tensor, s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(row start, degree int32)`` of clipped node ids ``s``."""
+    s = s.to(torch.int64)
+    ptr = indptr[s]
+    return ptr, (indptr[s + 1] - ptr).to(torch.int32)
+
+
+def _tiled_bd_lookup(bd, seeds, seed_valid):
+    s = torch.clamp(seeds, 0, bd.shape[0] - 1).to(torch.int64)
+    both = bd[s]
+    return both[:, 0], torch.where(seed_valid, both[:, 1], 0)
+
+
+def _tiled_resolve(tiles, base, pos):
+    rows = torch.clamp(base.to(torch.int64)[:, None] + (pos >> 7), 0, tiles.shape[0] - 1)
+    return tiles[rows, (pos & (LANE - 1)).to(torch.int64)]
+
+
 def sample_layer_plain(indptr, indices, seeds, seed_valid, k, key):
     """Plain torch one-hop draw over the flat CSR."""
-    n = indptr.shape[0] - 1
-    s = torch.clamp(seeds, 0, n - 1).to(torch.int64)
-    ptr = indptr[s]
-    deg = (indptr[s + 1] - ptr).to(torch.int32)
+    ptr, deg = row_windows(indptr, torch.clamp(seeds, 0, indptr.shape[0] - 2))
     deg = torch.where(seed_valid, deg, 0)
     pos, valid = fisher_yates_positions(key, deg, k)
     flat = torch.clamp(ptr[:, None].to(torch.int64) + pos, 0, indices.shape[0] - 1)
@@ -124,14 +154,9 @@ def sample_layer_plain(indptr, indices, seeds, seed_valid, k, key):
 
 def tiled_sample_layer_plain(bd, tiles, seeds, seed_valid, k, key):
     """Plain torch one-hop draw over the tile layout."""
-    n = bd.shape[0]
-    s = torch.clamp(seeds, 0, n - 1).to(torch.int64)
-    both = bd[s]
-    base = both[:, 0]
-    deg = torch.where(seed_valid, both[:, 1], 0)
+    base, deg = _tiled_bd_lookup(bd, seeds, seed_valid)
     pos, valid = fisher_yates_positions(key, deg, k)
-    rows = torch.clamp(base[:, None].to(torch.int64) + (pos >> 7), 0, tiles.shape[0] - 1)
-    return tiles[rows, (pos & (LANE - 1)).to(torch.int64)], valid
+    return _tiled_resolve(tiles, base, pos), valid
 
 
 def _launch_sample(kind, a, b, seeds, seed_valid, k, key):
@@ -179,6 +204,286 @@ def tiled_sample_layer(bd, tiles, seeds, seed_valid, k: int, key):
     if seeds.is_cuda:
         return _launch_sample("tiled", bd, tiles, seeds, seed_valid, k, key)
     return tiled_sample_layer_plain(bd, tiles, seeds, seed_valid, k, key)
+
+
+# -- weighted and temporal draws (K7, K8, K8w) ---------------------------------
+
+# the largest per-row window of the Gumbel kernels (one warp a row, the
+# window's keys in shared memory)
+MAX_WINDOW = 4096
+GUMBEL_MINVAL = 1e-20  # the Gumbel uniform's floor (log(-log(u)) stays finite)
+
+
+def _log32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log``, evaluated in float64 and rounded once (the rule the
+    kernels keep: kernel and plain version agree bit for bit)."""
+    return torch.log(x.double()).float()
+
+
+def gumbel_scores(key, deg: torch.Tensor, weight_rows: torch.Tensor) -> torch.Tensor:
+    """``[B, W]`` float32 scores of a Gumbel draw: ``log(max(w, 1e-30)) +
+    -log(-log(u))`` where lane ``j < deg[b]`` and ``w > 0``, else
+    ``-inf``. The uniform at lane ``j`` of row ``b`` is the threefry value
+    at flat counter ``b * W + j`` with ``minval=1e-20``; each ``log`` is
+    taken in float64 and rounded once. Plain torch on any device."""
+    B, W = weight_rows.shape
+    dev = weight_rows.device
+    u = qrandom.uniform(key, (B, W), device=dev, minval=GUMBEL_MINVAL)
+    g = -_log32(-_log32(u))
+    w = torch.clamp(weight_rows.to(torch.float32), min=0.0)  # NaN stays NaN: w > 0 fails
+    live = (torch.arange(W, device=dev)[None, :] < deg.to(dev)[:, None]) & (w > 0)
+    lw = _log32(torch.clamp(w, min=1e-30))
+    return torch.where(live, lw + g, torch.tensor(-float("inf"), device=dev))
+
+
+def topk_lane_order(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values, lanes)`` of the ``k`` largest scores per row, ties (and
+    ``-inf`` lanes) to the lower lane, as ``lax.top_k`` orders them: a
+    stable descending sort (``torch.topk`` leaves the order of ties
+    undefined)."""
+    vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def gumbel_topk_positions(key, deg: torch.Tensor, k: int,
+                          weight_rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted k-subset without replacement per row: the top k of
+    `gumbel_scores` over a ``[B, W]`` window (``(pos [B, k] int32, valid
+    [B, k] bool)``); ``valid`` is ``j < min(deg, k)`` and a finite selected
+    score, so zero-weight lanes are never valid draws. Plain torch on any
+    device: the plain versions of K7 and K8 use it; the kernels fuse it."""
+    B, _ = weight_rows.shape
+    dev = weight_rows.device
+    if k == 0:
+        return (torch.zeros((B, 0), dtype=torch.int32, device=dev),
+                torch.zeros((B, 0), dtype=torch.bool, device=dev))
+    vals, pos = topk_lane_order(gumbel_scores(key, deg, weight_rows), k)
+    n_valid = torch.clamp(deg.to(dev), max=k)
+    valid = (torch.arange(k, device=dev)[None, :] < n_valid[:, None]) & (vals > -float("inf"))
+    return pos.to(torch.int32), valid
+
+
+def _tiled_payload_window(base: torch.Tensor, ptiles: torch.Tensor, max_deg: int) -> torch.Tensor:
+    """Each row's first ``ceil(max_deg/128)`` payload tiles as one ``[B,
+    T*128]`` window (weights and timestamps both ride it)."""
+    T = -(-int(max_deg) // LANE)
+    rows = base.to(torch.int64)[:, None] + torch.arange(T, device=base.device)[None, :]
+    rows = torch.clamp(rows, 0, ptiles.shape[0] - 1)
+    return ptiles[rows].reshape(base.shape[0], T * LANE)
+
+
+def weighted_sample_layer_plain(indptr, indices, weights, seeds, seed_valid, k, key,
+                                max_deg: int = 512):
+    """Plain torch weighted draw over the flat CSR: a ``[W, max_deg]``
+    weight window from each row's start."""
+    n = indptr.shape[0] - 1
+    s = torch.clamp(seeds, 0, n - 1)
+    ptr, deg = row_windows(indptr, s)
+    deg = torch.where(seed_valid, torch.clamp(deg, max=int(max_deg)), 0)
+    e_last = indices.shape[0] - 1
+    lanes = ptr.to(torch.int64)[:, None] + torch.arange(int(max_deg), device=ptr.device)[None, :]
+    w_rows = weights[torch.clamp(lanes, 0, e_last)]
+    pos, valid = gumbel_topk_positions(key, deg, k, w_rows)
+    flat = torch.clamp(ptr.to(torch.int64)[:, None] + pos, 0, e_last)
+    return indices[flat], valid
+
+
+def tiled_weighted_sample_layer_plain(bd, tiles, wtiles, seeds, seed_valid, k, key,
+                                      max_deg: int = 512):
+    """Plain torch weighted draw over the tile layout: the window is the
+    row's first ``ceil(max_deg/128)`` weight tiles."""
+    base, deg = _tiled_bd_lookup(bd, seeds, seed_valid)
+    deg = torch.clamp(deg, max=int(max_deg))
+    w_rows = _tiled_payload_window(base, wtiles, max_deg)
+    pos, valid = gumbel_topk_positions(key, deg, k, w_rows)
+    return _tiled_resolve(tiles, base, pos), valid
+
+
+def temporal_edge_weights_plain(ts: torch.Tensor, recency: float) -> torch.Tensor:
+    """Plain torch `temporal_edge_weights`: ``exp(f32(recency) * ts)`` with
+    the product rounded to float32 and the ``exp`` taken in float64 and
+    rounded once; exactly 1.0 at ``recency == 0``."""
+    if recency == 0.0:
+        return torch.ones(ts.shape, dtype=torch.float32, device=ts.device)
+    x = ts.to(torch.float32) * torch.tensor(float(recency), dtype=torch.float32, device=ts.device)
+    return torch.exp(x.double()).float()
+
+
+def temporal_weight_rows(ts_rows: torch.Tensor, t: torch.Tensor, recency: float,
+                         cutoff=None) -> torch.Tensor:
+    """The masked weight window of a temporal draw: the recency weight
+    where ``ts <= t[row]`` (and ``ts > cutoff`` when a cutoff is given),
+    else 0 — the zero weight `gumbel_topk_positions` excludes. Plain
+    torch; the host-masked oracle and the plain temporal layer share it."""
+    ts = ts_rows.to(torch.float32)
+    keep = ts <= t.to(ts.device, torch.float32)[:, None]
+    if cutoff is not None:
+        keep = keep & (ts > torch.tensor(float(cutoff), dtype=torch.float32, device=ts.device))
+    w = temporal_edge_weights_plain(ts, recency)
+    return torch.where(keep, w, torch.zeros((), dtype=torch.float32, device=ts.device))
+
+
+def tiled_temporal_sample_layer_plain(bd, tiles, ttiles, seeds, seed_valid, k, key, t,
+                                      max_deg: int = 512, recency: float = 0.0, cutoff=None):
+    """Plain torch temporal draw over the tile layout: the timestamp
+    window, masked and weighted by `temporal_weight_rows`, through the
+    Gumbel top-k."""
+    base, deg = _tiled_bd_lookup(bd, seeds, seed_valid)
+    deg = torch.clamp(deg, max=int(max_deg))
+    ts_rows = _tiled_payload_window(base, ttiles, max_deg)
+    w_rows = temporal_weight_rows(ts_rows, t, recency, cutoff)
+    pos, valid = gumbel_topk_positions(key, deg, k, w_rows)
+    return _tiled_resolve(tiles, base, pos), valid
+
+
+def gumbel_window(max_deg: int, layout: str) -> int:
+    """The Gumbel window of a draw: ``max_deg`` lanes over the flat CSR,
+    ``ceil(max_deg/128)*128`` over the tile layout (so flat and tiled draws
+    are equal only when ``max_deg % 128 == 0``)."""
+    return int(max_deg) if layout == "flat" else -(-int(max_deg) // LANE) * LANE
+
+
+def _check_gumbel_args(k, max_deg, wwin, floats):
+    if int(k) > _kernels.KMAX:
+        raise ValueError(f"the Gumbel kernels take k <= {_kernels.KMAX}; got {k}")
+    if not 1 <= int(max_deg) <= MAX_WINDOW:
+        raise ValueError(f"the Gumbel kernels take 1 <= max_deg <= {MAX_WINDOW}; got {max_deg}")
+    if int(k) > wwin:
+        raise ValueError(f"fanout k={k} exceeds the {wwin}-lane window (max_deg={max_deg})")
+    for t, name in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the Gumbel kernels take float32 {name}; got {t.dtype}")
+
+
+def _gumbel_outputs(seeds, k):
+    W = seeds.shape[0]
+    return (torch.empty((W, k), dtype=torch.int32, device=seeds.device),
+            torch.empty((W, k), dtype=torch.bool, device=seeds.device))
+
+
+def _same_tile_map(tiles, ptiles):
+    if ptiles.shape != tiles.shape:
+        raise ValueError(f"payload tiles {tuple(ptiles.shape)} must share the tile map of "
+                         f"{tuple(tiles.shape)}")
+
+
+def _int32_args(*named):
+    for t, name in named:
+        if t.dtype != torch.int32:
+            raise TypeError(f"the Gumbel kernels take int32 {name}; got {t.dtype}")
+
+
+def weighted_sample_layer(indptr, indices, weights, seeds, seed_valid, k: int, key,
+                          max_deg: int = 512):
+    """One-hop weighted sample over the flat CSR (K7, flat window): each
+    row draws ``min(deg, k)`` of its first ``min(deg, max_deg)`` edges
+    without replacement, with probability proportional to ``weights``
+    (``[E]`` float32, aligned with ``indices``); zero weights are never
+    drawn. ``(nbrs [W, k], valid [W, k])``. Kernel ``weighted_sample_flat``
+    on CUDA tensors, `weighted_sample_layer_plain` on CPU tensors."""
+    _check_layer_args(seeds, seed_valid, k, (indptr, indices, weights))
+    if not seeds.is_cuda:
+        return weighted_sample_layer_plain(indptr, indices, weights, seeds, seed_valid, k, key,
+                                           max_deg)
+    _check_gumbel_args(k, max_deg, int(max_deg), ((weights, "weights"),))
+    if weights.shape != indices.shape:
+        raise ValueError(f"weights {tuple(weights.shape)} must align with indices "
+                         f"{tuple(indices.shape)}")
+    _int32_args((indptr, "indptr"), (indices, "indices"), (seeds, "seeds"))
+    indptr, indices, weights = indptr.contiguous(), indices.contiguous(), weights.contiguous()
+    seeds, seed_valid = seeds.contiguous(), seed_valid.contiguous()
+    nbrs, valid = _gumbel_outputs(seeds, k)
+    if seeds.shape[0] == 0 or k == 0:
+        return nbrs, valid
+    _kernels.launch("weighted_sample_flat", indptr.data_ptr(), indices.data_ptr(),
+                    weights.data_ptr(), indices.shape[0], indptr.shape[0] - 1,
+                    seeds.data_ptr(), seed_valid.data_ptr(), seeds.shape[0], int(k),
+                    int(max_deg), int(key[0]), int(key[1]), nbrs.data_ptr(), valid.data_ptr(),
+                    _kernels.stream_of(seeds))
+    return nbrs, valid
+
+
+def tiled_weighted_sample_layer(bd, tiles, wtiles, seeds, seed_valid, k: int, key,
+                                max_deg: int = 512):
+    """One-hop weighted sample over the tile layout (K7, tiled window):
+    ``wtiles`` holds the edge weights in the tile map of ``tiles``
+    (`utils.CSRTopo.to_device_tiled_weights`). Draw-equal to
+    `weighted_sample_layer` on the same key when ``max_deg % 128 == 0``.
+    Kernel ``weighted_sample_tiled`` on CUDA tensors, the plain version on
+    CPU tensors."""
+    _check_layer_args(seeds, seed_valid, k, (bd, tiles, wtiles))
+    if not seeds.is_cuda:
+        return tiled_weighted_sample_layer_plain(bd, tiles, wtiles, seeds, seed_valid, k, key,
+                                                 max_deg)
+    wwin = gumbel_window(max_deg, "tiled")
+    _check_gumbel_args(k, max_deg, wwin, ((wtiles, "weight tiles"),))
+    _same_tile_map(tiles, wtiles)
+    _int32_args((bd, "bd"), (tiles, "tiles"), (seeds, "seeds"))
+    bd, tiles, wtiles = bd.contiguous(), tiles.contiguous(), wtiles.contiguous()
+    seeds, seed_valid = seeds.contiguous(), seed_valid.contiguous()
+    nbrs, valid = _gumbel_outputs(seeds, k)
+    if seeds.shape[0] == 0 or k == 0:
+        return nbrs, valid
+    _kernels.launch("weighted_sample_tiled", bd.data_ptr(), tiles.data_ptr(),
+                    wtiles.data_ptr(), tiles.shape[0], bd.shape[0], seeds.data_ptr(),
+                    seed_valid.data_ptr(), seeds.shape[0], int(k), int(max_deg),
+                    int(key[0]), int(key[1]), nbrs.data_ptr(), valid.data_ptr(),
+                    _kernels.stream_of(seeds))
+    return nbrs, valid
+
+
+def tiled_temporal_sample_layer(bd, tiles, ttiles, seeds, seed_valid, k: int, key, t,
+                                max_deg: int = 512, recency: float = 0.0, cutoff=None):
+    """One-hop temporal sample over the tile layout (K8): each row draws
+    among its first ``min(deg, max_deg)`` edges those with ``ts <= t[row]``
+    (and ``ts > cutoff`` when given), weighted ``exp(recency * ts)``
+    (uniform at ``recency == 0``). ``ttiles`` holds the edge timestamps in
+    the tile map of ``tiles``; ``t`` is ``[W]`` float32. At ``t = +inf``
+    the draw equals `tiled_weighted_sample_layer` over
+    ``temporal_edge_weights(ttiles, recency)`` bit for bit. Kernel
+    ``temporal_sample_tiled`` on CUDA tensors, the plain version on CPU
+    tensors."""
+    _check_layer_args(seeds, seed_valid, k, (bd, tiles, ttiles, t))
+    if t.shape != seeds.shape:
+        raise ValueError(f"t must be [W] = {tuple(seeds.shape)}; got {tuple(t.shape)}")
+    if not seeds.is_cuda:
+        return tiled_temporal_sample_layer_plain(bd, tiles, ttiles, seeds, seed_valid, k, key,
+                                                 t, max_deg, recency, cutoff)
+    wwin = gumbel_window(max_deg, "tiled")
+    _check_gumbel_args(k, max_deg, wwin, ((ttiles, "timestamp tiles"), (t, "t")))
+    _same_tile_map(tiles, ttiles)
+    _int32_args((bd, "bd"), (tiles, "tiles"), (seeds, "seeds"))
+    bd, tiles, ttiles, t = bd.contiguous(), tiles.contiguous(), ttiles.contiguous(), t.contiguous()
+    seeds, seed_valid = seeds.contiguous(), seed_valid.contiguous()
+    nbrs, valid = _gumbel_outputs(seeds, k)
+    if seeds.shape[0] == 0 or k == 0:
+        return nbrs, valid
+    _kernels.launch("temporal_sample_tiled", bd.data_ptr(), tiles.data_ptr(),
+                    ttiles.data_ptr(), tiles.shape[0], bd.shape[0], seeds.data_ptr(),
+                    seed_valid.data_ptr(), t.data_ptr(), seeds.shape[0], int(k), int(max_deg),
+                    float(recency), int(cutoff is not None),
+                    0.0 if cutoff is None else float(cutoff), int(key[0]), int(key[1]),
+                    nbrs.data_ptr(), valid.data_ptr(), _kernels.stream_of(seeds))
+    return nbrs, valid
+
+
+def temporal_edge_weights(ts: torch.Tensor, recency: float) -> torch.Tensor:
+    """Recency weight per edge, ``exp(recency * ts)`` (1.0 at ``recency ==
+    0``), float32 of ``ts``'s shape: on CUDA tensors kernel K8w
+    (``recency_weights``), which computes each weight through the device
+    function K8 uses, so weight tiles built here make the weighted draw
+    equal to the temporal one at ``t = +inf``; on CPU tensors
+    `temporal_edge_weights_plain`."""
+    if not ts.is_cuda:
+        return temporal_edge_weights_plain(ts, recency)
+    if ts.dtype != torch.float32:
+        raise TypeError(f"the recency-weight kernel takes float32 timestamps; got {ts.dtype}")
+    ts = ts.contiguous()
+    out = torch.empty_like(ts)
+    if ts.numel():
+        _kernels.launch("recency_weights", ts.data_ptr(), ts.numel(), float(recency),
+                        out.data_ptr(), _kernels.stream_of(ts))
+    return out
 
 
 def tiled_base_host(indptr) -> Tuple[np.ndarray, int]:

@@ -1,7 +1,10 @@
 """GraphSAGE k-hop sampler — the port of
 ``quiver_tpu/pyg/sage_sampler.py`` (``DenseAdj``, ``DenseSample``,
 ``sample_dense_fused``, ``sample_dense_pure``, ``sample_and_gather_fused``,
-``sample_and_gather_dedup`` and ``GraphSageSampler`` in its device mode).
+``sample_and_gather_dedup`` and ``GraphSageSampler`` in its device mode,
+uniform, weighted (``weighted=True``: the Gumbel top-k kernel K7 over the
+tile or flat layout) or temporal (`GraphSageSampler.bind_temporal`: K8,
+see `quiver_tpu_torch.workloads.temporal`)).
 
 The sampler draws one key per call from a deterministic stream
 (``fold_in(key(seed), call)``) and splits a sub-key per hop
@@ -25,6 +28,8 @@ from ..ops.sample import pad_widths
 from ..ops.sample import sample_prob as _sample_prob
 from ..ops.sample import sample_layer as _sample_layer_op
 from ..ops.sample import tiled_sample_layer as _tiled_sample_layer_op
+from ..ops.sample import tiled_weighted_sample_layer as _tiled_weighted_sample_layer_op
+from ..ops.sample import weighted_sample_layer as _weighted_sample_layer_op
 from ..utils import CSRTopo, resolve_device
 
 
@@ -227,18 +232,27 @@ class GraphSageSampler:
     (default) dedups every hop, False uses the structural no-dedup
     pipeline; ``caps`` optional per-hop static ``n_id`` budgets;
     ``seed`` fixes the key stream; ``device`` defaults to CUDA.
+    ``weighted=True`` draws each hop with probability proportional to the
+    topology's ``edge_weights`` among a row's first ``min(deg, max_deg)``
+    edges (the tiled layout reads the weights in the tile map; flat and
+    tiled draws are equal when ``max_deg % 128 == 0``).
     """
 
     MODE_ALIASES = {"TPU": "GPU"}
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
                  mode: str = "GPU", caps: Optional[Sequence[Optional[int]]] = None,
-                 seed: int = 0, dedup: bool = True, layout: str = "tiled"):
+                 seed: int = 0, dedup: bool = True, layout: str = "tiled",
+                 weighted: bool = False, max_deg: int = 512):
         mode = self.MODE_ALIASES.get(mode, mode)
         if mode != "GPU":
-            raise ValueError(f"unsupported mode: {mode} (this port has GPU/TPU only)")
+            raise ValueError(f"unsupported mode: {mode} (this port has GPU/TPU only; "
+                             "HOST and CPU sampling, weighted or not, wait for ROADMAP A9)")
         if layout not in ("tiled", "flat"):
             raise ValueError(f"unsupported layout: {layout}")
+        if weighted and csr_topo.edge_weights is None:
+            raise ValueError("weighted=True needs CSRTopo(edge_weights=...) "
+                             "(per-edge weights aligned with the COO input)")
         self.csr_topo = csr_topo
         self.sizes = tuple(int(s) for s in sizes)
         self.caps = None if caps is None else tuple(caps)
@@ -246,20 +260,76 @@ class GraphSageSampler:
         self.device = resolve_device(device)
         self.dedup = bool(dedup)
         self.layout = layout
+        self.weighted = bool(weighted)
+        self.max_deg = int(max_deg)
         self._seed = int(seed)
         self._call = 0
         self._graph = None
+        self._temporal = None  # (source, recency) once bind_temporal ran
         self.lazy_init_quiver()
 
     def lazy_init_quiver(self):
         """Bind the graph to the device: ``(bd, tiles)`` under the tiled
-        layout, ``(indptr, indices)`` under the flat one."""
+        layout, ``(indptr, indices)`` under the flat one; a weighted
+        sampler appends its weights (``wtiles [M, 128]`` or ``w [E]``)."""
         if self._graph is None:
             if self.layout == "tiled":
-                self._graph = self.csr_topo.to_device_tiled(self.device)
+                g = self.csr_topo.to_device_tiled(self.device)
+                if self.weighted:
+                    g = g + (self.csr_topo.to_device_tiled_weights(self.device),)
             else:
-                self._graph = self.csr_topo.to_device(self.device)
+                g = self.csr_topo.to_device(self.device)
+                if self.weighted:
+                    g = g + (self.csr_topo.to_device_weights(self.device),)
+            self._graph = g
         return self._graph
+
+    # -- temporal binding (workloads.temporal) ------------------------------
+
+    @property
+    def temporal(self):
+        """``(source, recency)`` when this sampler draws temporally
+        (`bind_temporal`), else None."""
+        return self._temporal
+
+    def bind_temporal(self, source, recency: float = 0.0) -> "GraphSageSampler":
+        """Draw every hop among edges with ``ts <= t`` of the expanding
+        seed's query time, weighted ``exp(recency * ts)`` (K8). ``source``
+        is a `workloads.TemporalTiledGraph`. Tiled, uniform, ``dedup=False``
+        samplers only: each seed's t rides its frontier lineage through the
+        structural layout."""
+        from ..workloads.temporal import TemporalTiledGraph
+
+        if self.layout != "tiled":
+            raise TypeError("bind_temporal needs layout='tiled' — timestamps ride the "
+                            "tile payload lanes")
+        if self.weighted:
+            raise TypeError("temporal recency bias replaces static edge weights; "
+                            "bind_temporal needs weighted=False")
+        if self.dedup:
+            raise TypeError("temporal sampling threads per-seed query times down the "
+                            "frontier lineage — construct with dedup=False")
+        if not getattr(source, "temporal", False):
+            raise TypeError("bind_temporal wants a TemporalTiledGraph (got "
+                            f"{type(source).__name__})")
+        if not isinstance(source, TemporalTiledGraph):
+            raise TypeError(f"{type(source).__name__}: streaming temporal graphs "
+                            "(StreamingTiledGraph(edge_ts=)) are not ported yet (ROADMAP A14)")
+        self._temporal = (source, float(recency))
+        return self
+
+    def temporal_graph_arrays(self):
+        """The device ``(bd, tiles, ttiles)`` a temporal draw reads."""
+        if self._temporal is None:
+            raise TypeError("sampler has no temporal binding")
+        return self._temporal[0].temporal_graph()
+
+    def fused_graph_arrays(self):
+        """The device graph tensors a fused serve step takes: the temporal
+        triple, or the binding of `lazy_init_quiver`."""
+        if self._temporal is not None:
+            return self.temporal_graph_arrays()
+        return self.lazy_init_quiver()
 
     @property
     def id_dtype(self) -> torch.dtype:
@@ -273,11 +343,24 @@ class GraphSageSampler:
         return key
 
     def _bind(self, graph):
-        if self.layout == "tiled":
+        max_deg = self.max_deg
+        if self.layout == "tiled" and self.weighted:
+            bd, tiles, wtiles = graph
+
+            def sample_fn(cur, cur_valid, k, key):
+                return _tiled_weighted_sample_layer_op(bd, tiles, wtiles, cur, cur_valid, k,
+                                                       key, max_deg)
+        elif self.layout == "tiled":
             bd, tiles = graph
 
             def sample_fn(cur, cur_valid, k, key):
                 return _tiled_sample_layer_op(bd, tiles, cur, cur_valid, k, key)
+        elif self.weighted:
+            indptr, indices, w = graph
+
+            def sample_fn(cur, cur_valid, k, key):
+                return _weighted_sample_layer_op(indptr, indices, w, cur, cur_valid, k, key,
+                                                 max_deg)
         else:
             indptr, indices = graph
 
@@ -288,7 +371,9 @@ class GraphSageSampler:
     def fused_sample_spec(self):
         """``(graph, bind, id_dtype)`` for a fused sample+gather+forward
         step (`inference.make_serve_step`): ``bind(graph)`` gives the
-        one-hop ``sample_fn`` over the graph tensors."""
+        one-hop ``sample_fn`` over the graph tensors (``(bd, tiles)`` or
+        ``(indptr, indices)``, with the weights last on a weighted
+        sampler)."""
         graph = self.lazy_init_quiver()
         return graph, self._bind, graph[1].dtype
 
@@ -315,8 +400,27 @@ class GraphSageSampler:
         return _sample_prob(indptr, indices, self.sizes, train_idx, total_node_count,
                             transposed=transposed)
 
-    def sample_dense(self, seeds) -> DenseSample:
-        """Sample a padded batch with the next key of the stream."""
+    def sample_dense(self, seeds, t=None) -> DenseSample:
+        """Sample a padded batch with the next key of the stream. ``t``
+        (temporal samplers only): per-seed query times, scalar or ``[B]``;
+        every hop of a seed's expansion draws only edges with ``ts <=
+        t[seed]``."""
+        if self._temporal is not None:
+            if t is None:
+                raise TypeError("temporal sampler needs a query time: sample_dense(seeds, t=...)")
+            from ..workloads.temporal import temporal_sample_dense
+
+            seeds = self.as_seeds(seeds)
+            tv = np.asarray(t, np.float32).reshape(-1)
+            if tv.shape[0] == 1 and seeds.shape[0] != 1:
+                tv = np.broadcast_to(tv, (seeds.shape[0],)).copy()
+            if tv.shape[0] != seeds.shape[0]:
+                raise ValueError(f"t has {tv.shape[0]} entries for {seeds.shape[0]} seeds")
+            return temporal_sample_dense(self.temporal_graph_arrays(), self.next_key(), seeds,
+                                         torch.from_numpy(tv).to(self.device), self.sizes,
+                                         recency=self._temporal[1], max_deg=self.max_deg)
+        if t is not None:
+            raise TypeError("t= is only meaningful on a temporal sampler (bind_temporal first)")
         seeds = self.as_seeds(seeds)
         sample_fn = self._bind(self.lazy_init_quiver())
         if not self.dedup:

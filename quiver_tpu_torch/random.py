@@ -19,7 +19,9 @@ The algorithm follows ``jax/_src/prng.py`` (jax 0.9.0):
 - ``split(key, n)``: key ``i`` is the hash pair of counter ``(0, i)``;
 - 32-bit random bits at flat index ``i``: ``b1 ^ b2`` of the hash of
   ``(i >> 32, i & 0xFFFFFFFF)``;
-- float32 uniform: ``bitcast(bits >> 9 | 0x3F800000) - 1``.
+- float32 uniform: ``bitcast(bits >> 9 | 0x3F800000) - 1``, then
+  ``max(minval, f * f32(maxval - minval) + minval)`` (``_uniform``), the
+  multiply-add rounded once, as XLA contracts it.
 """
 
 from __future__ import annotations
@@ -105,8 +107,22 @@ def random_bits_32(k: Key, shape: Sequence[int], device="cpu") -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(k: Key, shape: Sequence[int], device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(k, shape)`` (float32 in ``[0, 1)``)."""
+def uniform(k: Key, shape: Sequence[int], device="cpu", minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, minval=, maxval=)``: float32 in
+    ``[minval, maxval)``, by jax's transform ``max(minval, f * f32(maxval -
+    minval) + minval)`` of the ``[0, 1)`` value ``f``. XLA contracts the
+    multiply-add into one rounding; here the product is exact in float64
+    and the sum is rounded to float64, then to float32 (a second rounding
+    can differ from a fused one about once in 2^29 values). The Gumbel draw
+    of the weighted sampler uses ``minval=1e-20`` and ``maxval=1``, where
+    every form is exact: it lifts only ``f == 0``."""
     bits = random_bits_32(k, shape, device)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return fbits.view(torch.float32) - 1.0
+    f = fbits.view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return f
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=f.device) - lo
+    fused = (f.double() * span.double() + lo.double()).float()
+    return torch.maximum(lo, fused)

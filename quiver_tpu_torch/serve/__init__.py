@@ -9,9 +9,17 @@ from .engine import (
     ServeStats,
     default_buckets,
 )
-from .trace_gen import zipfian_trace
+from .trace_gen import (
+    LPTrace,
+    TemporalTrace,
+    lp_trace,
+    poisson_arrivals,
+    temporal_trace,
+    zipfian_trace,
+)
 
 __all__ = [
-    "EmbeddingCache", "ResultBatch", "ServeConfig", "ServeEngine", "ServeResult",
-    "ServeStats", "default_buckets", "zipfian_trace",
+    "EmbeddingCache", "LPTrace", "ResultBatch", "ServeConfig", "ServeEngine", "ServeResult",
+    "ServeStats", "TemporalTrace", "default_buckets", "lp_trace", "poisson_arrivals",
+    "temporal_trace", "zipfian_trace",
 ]

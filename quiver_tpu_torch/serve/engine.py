@@ -23,11 +23,16 @@ in-flight flush, swaps the weights and bumps the version. `warmup` runs
 every bucket once on a fixed key (fused) or through a twin sampler
 (split), so the serving key stream stays untouched.
 
-This slice ports the single-host core. Tenants and shedding, late
-admission, the journal and workload monitor, tiers and prefetch,
-streaming graphs, temporal serving and the metrics registry wait for a
-later slice (ROADMAP A12); with them off the JAX engine makes the same
-batching decisions as this one, so the two write equal dispatch logs.
+This slice ports the single-host core. A request is admitted under a
+key: the node id here, ``(node, t_bucket)`` on the temporal engine
+(`quiver_tpu_torch.workloads.TemporalServeEngine`), which overrides the
+hooks that turn a flush's keys into dispatch arrays (`_flush_arrays`)
+and a dispatch-log entry (`_dispatch_log_entry`); this engine refuses a
+temporal-bound sampler. Tenants
+and shedding, late admission, the journal and workload monitor, tiers and
+prefetch, streaming graphs and the metrics registry wait for a later
+slice (ROADMAP A12); with them off the JAX engine makes the same batching
+decisions as this one, so the two write equal dispatch logs.
 """
 
 from __future__ import annotations
@@ -156,6 +161,10 @@ class ServeResult:
     def done(self) -> bool:
         return self._slot is None or self._slot.resolved
 
+    def error(self) -> Optional[BaseException]:
+        """The flush's error once resolved, else None."""
+        return None if self._slot is None else self._slot.error
+
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
         """The logits row (read-only: shared with the cache and every
         coalesced request). Raises the flush's error if it failed."""
@@ -219,7 +228,7 @@ class ServeStats:
 class _Flush:
     """Per-flush state between assemble and resolve."""
 
-    __slots__ = ("keys", "slots", "model", "bucket", "ds", "key", "padded", "error")
+    __slots__ = ("keys", "slots", "model", "bucket", "ds", "key", "padded", "extra", "error")
 
     def __init__(self, keys, slots, model):
         self.keys = keys
@@ -229,6 +238,7 @@ class _Flush:
         self.ds = None
         self.key = None
         self.padded = None
+        self.extra: Tuple[np.ndarray, ...] = ()  # per-seed arrays padded like the seeds
         self.error: Optional[BaseException] = None
 
 
@@ -247,9 +257,17 @@ class ServeEngine:
     The engine runs on the sampler's device.
     """
 
+    # subclasses that dispatch a query time per seed set this (the
+    # temporal engine, quiver_tpu_torch.workloads.TemporalServeEngine)
+    _temporal_capable = False
+
     def __init__(self, model, params, sampler, feature,
                  config: Optional[ServeConfig] = None):
         self.config = config or ServeConfig()
+        if getattr(sampler, "temporal", None) is not None and not self._temporal_capable:
+            raise TypeError("temporal-bound samplers need the temporal engine — use "
+                            "quiver_tpu_torch.workloads.TemporalServeEngine (this engine "
+                            "would dispatch without a query time)")
         if self.config.max_in_flight < 1:
             raise ValueError("max_in_flight must be >= 1")
         if self.config.dispatch_mode not in ("auto", "fused", "split"):
@@ -274,7 +292,7 @@ class ServeEngine:
         self.stats = ServeStats()
         self.cache = EmbeddingCache(self.config.cache_entries, counters=self.stats.cache)
         self.params_version = 0
-        self.dispatch_log: List[Tuple[np.ndarray, int]] = []
+        self.dispatch_log: List[tuple] = []
         self._pending: "OrderedDict[int, _Slot]" = OrderedDict()
         self._inflight: Dict[int, _Slot] = {}
         self._lock = threading.Lock()           # queue, cache version, stats
@@ -291,11 +309,20 @@ class ServeEngine:
         """Enqueue one request; a fill of ``max_batch`` flushes inline."""
         return self.submit_many((node_id,))[0]
 
-    def submit_many(self, node_ids) -> ResultBatch:
+    def submit_many(self, node_ids, t=None) -> ResultBatch:
         """Admit requests in order (cache hit, else coalesce, else a new
         pending slot), flushing inline at every fill of ``max_batch`` —
-        exactly where N single submits would flush."""
-        keys = np.asarray(node_ids, dtype=np.int64).reshape(-1).tolist()
+        exactly where N single submits would flush. ``t`` is refused here
+        (the temporal engine takes query times)."""
+        if t is not None:
+            raise TypeError("t= is a temporal-serving argument (TemporalServeEngine); "
+                            "this engine serves untimed nodes")
+        return self._submit_keyed_many(np.asarray(node_ids, dtype=np.int64).reshape(-1).tolist())
+
+    def _submit_keyed_many(self, keys: List) -> ResultBatch:
+        """The admission loop behind `submit_many`: ``keys`` are the
+        coalescing and cache identities (node ids, or ``(node, t_bucket)``
+        on the temporal engine)."""
         n = len(keys)
         results: List[Optional[ServeResult]] = [None] * n
         max_batch = self.config.max_batch
@@ -328,16 +355,22 @@ class ServeEngine:
         slot.waiters.append(now)
         return ServeResult(slot=slot)
 
-    def predict(self, node_ids, timeout: Optional[float] = None) -> np.ndarray:
+    def predict(self, node_ids, t=None, timeout: Optional[float] = None) -> np.ndarray:
         """Submit every id, flush inline when no background thread runs,
-        and return ``[len(ids), C]`` logits in request order."""
-        handles = self.submit_many(node_ids)
+        and return ``[len(ids), C]`` logits in request order. ``t`` goes
+        to `submit_many` (query times on the temporal engine)."""
+        handles = self.submit_many(node_ids, t=t)
         if not len(handles):
             return np.zeros((0, 0), np.float32)
-        if not self._running:
-            while not handles.done() and self._pending:
-                self.flush()
+        self.flush_inline(handles.done)
         return self.results_many(handles, timeout)
+
+    def flush_inline(self, done) -> None:
+        """Unless a background flusher runs, flush until ``done()`` holds
+        or nothing is pending."""
+        if not self._running:
+            while not done() and self._pending:
+                self.flush()
 
     def results_many(self, handles, timeout: Optional[float] = None) -> np.ndarray:
         """Rows of a batch of handles as one ``[len(handles), C]`` array."""
@@ -389,9 +422,11 @@ class ServeEngine:
         ``fl.error`` and re-raised by `flush` after every slot of the flush
         is resolved with them."""
         try:
-            padded = pad_seed_batch(np.asarray(fl.keys, dtype=np.int64), fl.bucket)
+            seeds, extras = self._flush_arrays(fl)
+            padded = pad_seed_batch(seeds, fl.bucket)
+            fl.extra = tuple(pad_seed_batch(e, fl.bucket) for e in extras)
             if self.config.record_dispatches:
-                self.dispatch_log.append((padded.copy(), len(fl.keys)))
+                self.dispatch_log.append(self._dispatch_log_entry(fl, padded))
             if self._programs is not None:
                 fl.key = draw_sample_key(self._sampler)
                 fl.padded = padded
@@ -400,12 +435,22 @@ class ServeEngine:
         except BaseException as exc:
             fl.error = exc
 
+    # hooks the temporal engine overrides: how a flush's keys become
+    # dispatch arrays and what a dispatch-log entry records
+    def _flush_arrays(self, fl: _Flush):
+        """``(seeds int64 [n], extra per-seed arrays)`` of ``fl.keys``;
+        here the keys are the seeds."""
+        return np.asarray(fl.keys, dtype=np.int64), ()
+
+    def _dispatch_log_entry(self, fl: _Flush, padded: np.ndarray):
+        return (padded.copy(), len(fl.keys))
+
     def _dispatch(self, fl: _Flush) -> np.ndarray:
         """Device work of one flush and its read-back (no engine lock)."""
         with self._lock:
             self.stats.dispatch_calls += 1
         if fl.ds is None and self._programs is not None:
-            out = self._programs(fl.bucket, fl.model, fl.key, fl.padded)
+            out = self._programs(fl.bucket, fl.model, fl.key, fl.padded, *fl.extra)
             n_exec = 1
         else:
             out = forward_logits(fl.model, self._feature, fl.ds)

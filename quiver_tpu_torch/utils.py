@@ -66,11 +66,14 @@ class CSRTopo:
 
     Build from an ``edge_index`` COO pair ``[2, E]`` (stable counting sort
     on the source row, as the JAX package does) or from ``(indptr,
-    indices)``. `to_device` and `to_device_tiled` return cached tensors.
+    indices)``. ``edge_weights`` (optional, ``[E]`` float32, aligned with
+    the COO input or with ``indices``) feed the weighted sampler; the COO
+    build permutes them by the same sort. `to_device`, `to_device_tiled`
+    and `to_device_tiled_weights` return cached tensors.
     """
 
     def __init__(self, edge_index=None, indptr=None, indices=None,
-                 num_nodes: Optional[int] = None):
+                 num_nodes: Optional[int] = None, edge_weights=None):
         if edge_index is not None:
             edge_index = np.asarray(edge_index)
             if edge_index.shape[0] != 2:
@@ -84,16 +87,30 @@ class CSRTopo:
             self.indptr = np.zeros(n + 1, dtype=np.int64)
             np.cumsum(np.bincount(src[order], minlength=n), out=self.indptr[1:])
             self.indices = dst[order]
+            self.edge_weights = None
+            if edge_weights is not None:
+                ew = np.asarray(edge_weights, np.float32)
+                if ew.shape != src.shape:
+                    raise ValueError(f"edge_weights shape {ew.shape} != edge count "
+                                     f"{src.shape} of edge_index")
+                self.edge_weights = ew[order]
         elif indptr is not None and indices is not None:
             self.indptr = np.ascontiguousarray(np.asarray(indptr, dtype=np.int64))
             self.indices = np.ascontiguousarray(np.asarray(indices, dtype=np.int64))
+            self.edge_weights = (None if edge_weights is None
+                                 else np.asarray(edge_weights, np.float32))
             if num_nodes is not None and num_nodes + 1 > self.indptr.shape[0]:
                 pad = np.full(num_nodes + 1 - self.indptr.shape[0], self.indptr[-1])
                 self.indptr = np.concatenate([self.indptr, pad])
         else:
             raise ValueError("need edge_index or (indptr, indices)")
+        if self.edge_weights is not None and self.edge_weights.shape != self.indices.shape:
+            raise ValueError(f"edge_weights shape {self.edge_weights.shape} != indices "
+                             f"shape {self.indices.shape}")
         self._flat_cache = None
         self._tiled_cache = None
+        self._wtiled_cache = None
+        self._weights_cache = None
         self._transposed_cache = None
         self._feature_order: Optional[np.ndarray] = None
 
@@ -151,6 +168,33 @@ class CSRTopo:
         self._tiled_cache = (key, pair)
         return pair
 
+    def to_device_weights(self, device=None) -> torch.Tensor:
+        """The edge weights ``[E]`` float32 on ``device``, aligned with
+        `to_device`'s ``indices`` (cached)."""
+        dev = resolve_device(device)
+        if self.edge_weights is None:
+            raise ValueError("no edge_weights on this CSRTopo")
+        if self._weights_cache is not None and self._weights_cache[0] == str(dev):
+            return self._weights_cache[1]
+        w = torch.from_numpy(self.edge_weights).to(dev)
+        self._weights_cache = (str(dev), w)
+        return w
+
+    def to_device_tiled_weights(self, device=None) -> torch.Tensor:
+        """The edge weights in the tile map of `to_device_tiled`'s tiles,
+        ``[M, 128]`` float32 on ``device`` (cached): the weighted sampler's
+        window then reads whole weight tiles."""
+        from .ops.sample import build_tiled_host
+
+        dev = resolve_device(device)
+        if self.edge_weights is None:
+            raise ValueError("no edge_weights on this CSRTopo")
+        if self._wtiled_cache is not None and self._wtiled_cache[0] == str(dev):
+            return self._wtiled_cache[1]
+        _, wtiles = build_tiled_host(self.indptr, self.edge_weights, np.float32)
+        w = torch.from_numpy(wtiles).to(dev)
+        self._wtiled_cache = (str(dev), w)
+        return w
 
     def to_device_transposed(self, device=None):
         """The edges grouped by destination with the probability kernel's

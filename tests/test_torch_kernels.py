@@ -30,7 +30,15 @@ float32 sum, whose rounding error over a 40,000-edge segment is ~2e-6 of
 the sum; the kernel adds in a fixed tree order) and bit-equal when run
 twice;
 the tiered gather with a disk tail (K3t's gather, then the staged disk
-rows' scatter), bit-equal to the CPU store."""
+rows' scatter), bit-equal to the CPU store. The weighted and temporal
+slice's kernels at the three hops of a B = 64 sample: the weighted draw
+(K7) over the tile layout and the flat CSR at max_deg 512 and 4096, the
+temporal draw (K8) at recency 0.02 with and without a cutoff and at
+recency 0, each bit-equal to its plain version on the card and on the
+CPU (every log and exp is float64 rounded once on both sides), K8 also
+equal to the host-masked oracle on its valid lanes; the recency weights
+(K8w) bit-equal to their plain version on the card and within an ULP of
+the CPU's, and K8 at t = +inf bit-equal to K7 over K8w's tiles."""
 
 import numpy as np
 import pytest
@@ -447,3 +455,111 @@ def test_tiered_gather_with_a_disk_tail_matches_the_cpu_store(cuda_device, tmp_p
     torch.cuda.synchronize()
     assert _kernels.counts()["tiered_gather/disk"] == before + 1
     assert _same(got, feats[1][ids])
+
+
+# -- the weighted and temporal slice: K7, K8, K8w --------------------------------------
+
+def _weighted_topo(seed=0):
+    topo, n = _graph(seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    w = rng.uniform(0.0, 1.0, topo.edge_count).astype(np.float32)
+    w[rng.random(topo.edge_count) < 0.05] = 0.0
+    ts = rng.uniform(0.0, 50.0, topo.edge_count).astype(np.float32)
+    return CSRTopo(indptr=topo.indptr, indices=topo.indices, edge_weights=w), ts, n
+
+
+def _hop_seeds(rng, W, n):
+    seeds = torch.from_numpy(rng.integers(-3, n + 3, W).astype(np.int32))
+    seeds[:3] = torch.tensor([5, 7, 9], dtype=torch.int32)
+    valid = torch.from_numpy(rng.random(W) < 0.9)
+    valid[:3] = True
+    return seeds, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+@pytest.mark.parametrize("max_deg", [512, 4096])
+def test_weighted_kernels_match_plain(cuda_device, layout, max_deg):
+    """K7 against its plain version on the card and on the CPU, at the
+    three hops of a B = 64 sample (the hub of 500 edges spans four tile
+    rows; max_deg 4096 takes the two-rows-a-block window)."""
+    topo, _, n = _weighted_topo()
+    rng = np.random.default_rng(2)
+    if layout == "tiled":
+        g = (*topo.to_device_tiled(cuda_device), topo.to_device_tiled_weights(cuda_device))
+        fn, plain = sample.tiled_weighted_sample_layer, sample.tiled_weighted_sample_layer_plain
+    else:
+        g = (*topo.to_device(cuda_device), topo.to_device_weights(cuda_device))
+        fn, plain = sample.weighted_sample_layer, sample.weighted_sample_layer_plain
+    before = _kernels.counts()[f"weighted_sample_{layout}"]
+    for W, k in HOPS:
+        seeds, valid = _hop_seeds(rng, W, n)
+        key = qrandom.split(qrandom.key(W))[1]
+        args = (seeds.to(cuda_device), valid.to(cuda_device), k, key, max_deg)
+        got, want = fn(*g, *args), plain(*g, *args)
+        cpu = plain(*(t.cpu() for t in g), seeds, valid, k, key, max_deg)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, cpu):
+            assert _same(a, b) and _same(a, c)
+        assert got[1][0].all()  # the hub draws k valid neighbours
+    assert _kernels.counts()[f"weighted_sample_{layout}"] == before + len(HOPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recency,cutoff", [(0.02, None), (0.02, 20.0), (0.0, None)])
+def test_temporal_kernel_matches_plain(cuda_device, recency, cutoff):
+    from quiver_tpu_torch.workloads import TemporalTiledGraph, host_masked_oracle
+
+    topo, ts, n = _weighted_topo()
+    tg = TemporalTiledGraph(topo, ts, device=cuda_device)
+    g = tg.temporal_graph()
+    rng = np.random.default_rng(3)
+    for W, k in HOPS:
+        seeds, valid = _hop_seeds(rng, W, n)
+        t = torch.from_numpy(rng.uniform(0.0, 60.0, W).astype(np.float32))
+        t[1] = float("inf")
+        key = qrandom.split(qrandom.key(W + 1))[1]
+        args = (seeds.to(cuda_device), valid.to(cuda_device), k, key, t.to(cuda_device), 512,
+                recency, cutoff)
+        got = sample.tiled_temporal_sample_layer(*g, *args)
+        want = sample.tiled_temporal_sample_layer_plain(*g, *args)
+        cpu = sample.tiled_temporal_sample_layer_plain(*(x.cpu() for x in g), seeds, valid, k,
+                                                       key, t, 512, recency, cutoff)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, cpu):
+            assert _same(a, b) and _same(a, c)
+        if W <= 1024:  # the host-masked oracle, on the valid lanes
+            onb, ovl = host_masked_oracle(topo.indptr, topo.indices, ts, seeds.numpy(),
+                                          valid.numpy(), k, key, t.numpy(), max_deg=512,
+                                          recency=recency, cutoff=cutoff)
+            vl = got[1].cpu().numpy()
+            assert np.array_equal(vl, ovl)
+            assert np.array_equal(got[0].cpu().numpy()[vl], onb[ovl])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recency", [0.0, 0.05])
+def test_recency_weights_kernel_matches_plain_and_pins_t_inf(cuda_device, recency):
+    """K8w bit-equal to its plain version on the card (within an ULP of the
+    CPU's exp), and K8 at t = +inf bit-equal to K7 over K8w's tiles."""
+    from quiver_tpu_torch.workloads import TemporalTiledGraph
+
+    topo, ts, n = _weighted_topo()
+    tg = TemporalTiledGraph(topo, ts, device=cuda_device)
+    bd, tiles, tt = tg.temporal_graph()
+    wt = tg.recency_wtiles(recency)
+    want = sample.temporal_edge_weights_plain(tt, recency)
+    torch.cuda.synchronize()
+    assert _same(wt, want)
+    np.testing.assert_allclose(wt.cpu().numpy(),
+                               sample.temporal_edge_weights_plain(tt.cpu(), recency).numpy(),
+                               rtol=1.2e-7, atol=0)
+    rng = np.random.default_rng(4)
+    seeds, valid = _hop_seeds(rng, 1024, n)
+    seeds, valid = seeds.to(cuda_device), valid.to(cuda_device)
+    key = qrandom.key(9)
+    inf = torch.full((1024,), float("inf"), device=cuda_device)
+    a = sample.tiled_temporal_sample_layer(bd, tiles, tt, seeds, valid, 10, key, inf, 512, recency)
+    b = sample.tiled_weighted_sample_layer(bd, tiles, wt, seeds, valid, 10, key, 512)
+    torch.cuda.synchronize()
+    assert _same(a[0], b[0]) and _same(a[1], b[1])
