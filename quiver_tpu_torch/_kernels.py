@@ -32,10 +32,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# largest fanout k of the sampling kernels (k-entry tables per thread; one
-# lane a winner in the Gumbel kernels) and of the mean kernel (one warp
-# ballot of the k mask bits)
+# largest fanout k of the Gumbel kernels (one lane a winner) and of the mean
+# kernels (one warp ballot of the k mask bits)
 KMAX = 32
+# largest fanout k of the uniform sampling kernels (K1, K1b: per-thread
+# k-entry tables, in shared memory above 32; csrc/sample.cu QT_SAMPLE_KMAX)
+SAMPLE_KMAX = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,13 +79,15 @@ KERNELS = {
                               [_P, _P, _P, _LL, _I, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
                                ctypes.c_float, _U, _U, _P, _P, _P]),
     "recency_weights": ("weighted", "qt_recency_weights", [_P, _LL, ctypes.c_float, _P, _P]),
+    "build_tiles": ("tiles", "qt_build_tiles", [_P, _LL, _P, _P, _LL, _P, _P]),
 }
 # kernels whose launches are also counted per layout, as "name/variant"
 VARIANTS = {"masked_mean_backward": ("cols", "structural"),
             "tiered_gather": ("float32", "int8", "bfloat16", "disk"),
             "set_rows": ("float32", "int8", "bfloat16"),
             "gather_dequant": ("fp32", "bf16", "int8"),
-            "quantized_tiered_lookup": ("fp32", "bf16", "int8")}
+            "quantized_tiered_lookup": ("fp32", "bf16", "int8"),
+            "build_tiles": ("int32", "float32")}
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
            "qt_masked_mean_backward_scratch": ("aggregate",

@@ -21,33 +21,55 @@
 // neighbor ids scattered over the graph, and writes k ids and k flags;
 // the threefry arithmetic (about 100 integer operations per uniform) is
 // far below the bytes' time. Design: one thread per row keeps its three
-// k-entry tables in local memory (L1), so the draw needs no
-// synchronisation and the random reads of different rows are in flight
-// at once across the warps of the card.
+// k-entry tables (head, tail positions, tail values) to itself, so the
+// draw needs no synchronisation and the random reads of different rows
+// are in flight at once across the warps of the card. For k <= 32 the
+// tables are arrays in local memory (L1); for 32 < k <= 512 they live in
+// dynamic shared memory, entry t of a thread's table q at
+// [(q * k + t) * blockDim + thread] so a warp's 32 lookups of one entry
+// fall in 32 banks, with as many threads a block (32 to 128) as fit in
+// 48 KB, or 32 threads and the shared memory opted in above that.
 
 #include "common.cuh"
 #include "fetch.cuh"
 #include "threefry.cuh"
 
-#define QT_KMAX 32
+#define QT_KMAX 32          // the local-memory tables
+#define QT_SAMPLE_KMAX 512  // the shared-memory tables: 32 threads x 3 x 512 x 4 B = 192 KB
+#define QT_SMEM_DEFAULT (48 * 1024)
 
-template <class Fetch>
-__global__ void sample_kernel(Fetch g, int32_t n_nodes, const int32_t* __restrict__ seeds,
-                              const bool* __restrict__ seed_valid, int32_t W, int32_t k,
-                              uint32_t key0, uint32_t key1, int32_t* __restrict__ out,
-                              bool* __restrict__ out_valid) {
-  const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= W) return;
+struct LocalTables {
+  int32_t h[QT_KMAX], tj[QT_KMAX], tv[QT_KMAX];
+  __device__ __forceinline__ int32_t& head(int t) { return h[t]; }
+  __device__ __forceinline__ int32_t& tail_j(int t) { return tj[t]; }
+  __device__ __forceinline__ int32_t& tail_v(int t) { return tv[t]; }
+};
+
+struct SharedTables {
+  int32_t* base;  // this thread's column of the block's tables
+  int32_t stride;
+  int32_t k;
+  __device__ __forceinline__ int32_t& head(int t) { return base[t * stride]; }
+  __device__ __forceinline__ int32_t& tail_j(int t) { return base[(k + t) * stride]; }
+  __device__ __forceinline__ int32_t& tail_v(int t) { return base[(2 * k + t) * stride]; }
+};
+
+template <class Fetch, class Tables>
+__device__ __forceinline__ void sample_row(const Fetch& g, Tables& tab, int32_t n_nodes,
+                                           const int32_t* __restrict__ seeds,
+                                           const bool* __restrict__ seed_valid, int32_t W,
+                                           int32_t k, uint32_t key0, uint32_t key1,
+                                           int32_t* __restrict__ out,
+                                           bool* __restrict__ out_valid, int32_t b) {
   const int32_t s = qt_clamp<int32_t>(seeds[b], 0, n_nodes - 1);
   int32_t base, deg;
   g.row(s, base, deg);
   if (!seed_valid[b]) deg = 0;
 
-  int32_t head[QT_KMAX], tail_j[QT_KMAX], tail_v[QT_KMAX];
   for (int t = 0; t < k; ++t) {
-    head[t] = t;
-    tail_j[t] = -1;
-    tail_v[t] = 0;
+    tab.head(t) = t;
+    tab.tail_j(t) = -1;
+    tab.tail_v(t) = 0;
   }
   int32_t cnt = 0;
   const int32_t lim = deg - 1 > 0 ? deg - 1 : 0;
@@ -61,16 +83,16 @@ __global__ void sample_kernel(Fetch g, int32_t n_nodes, const int32_t* __restric
     const bool in_head = j < k;
     int32_t slot = -1;
     for (int t = 0; t < k; ++t) {
-      if (slot < 0 && tail_j[t] == j) slot = t;
+      if (slot < 0 && tab.tail_j(t) == j) slot = t;
     }
-    const int32_t val_j = in_head ? head[j] : (slot >= 0 ? tail_v[slot] : j);
-    const int32_t val_i = head[i];
-    if (in_head) head[j] = val_i;
-    head[i] = val_j;
+    const int32_t val_j = in_head ? tab.head(j) : (slot >= 0 ? tab.tail_v(slot) : j);
+    const int32_t val_i = tab.head(i);
+    if (in_head) tab.head(j) = val_i;
+    tab.head(i) = val_j;
     if (!in_head) {
       const int32_t w = slot >= 0 ? slot : cnt;
-      tail_j[w] = j;
-      tail_v[w] = val_i;
+      tab.tail_j(w) = j;
+      tab.tail_v(w) = val_i;
       if (slot < 0) ++cnt;
     }
     const int32_t pos = deg <= k ? i : val_j;
@@ -80,16 +102,56 @@ __global__ void sample_kernel(Fetch g, int32_t n_nodes, const int32_t* __restric
 }
 
 template <class Fetch>
+__global__ void sample_kernel(Fetch g, int32_t n_nodes, const int32_t* __restrict__ seeds,
+                              const bool* __restrict__ seed_valid, int32_t W, int32_t k,
+                              uint32_t key0, uint32_t key1, int32_t* __restrict__ out,
+                              bool* __restrict__ out_valid) {
+  const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= W) return;
+  LocalTables tab;
+  sample_row(g, tab, n_nodes, seeds, seed_valid, W, k, key0, key1, out, out_valid, b);
+}
+
+template <class Fetch>
+__global__ void sample_kernel_wide(Fetch g, int32_t n_nodes, const int32_t* __restrict__ seeds,
+                                   const bool* __restrict__ seed_valid, int32_t W, int32_t k,
+                                   uint32_t key0, uint32_t key1, int32_t* __restrict__ out,
+                                   bool* __restrict__ out_valid) {
+  extern __shared__ int32_t qt_tables[];
+  const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= W) return;  // no barrier below: each thread owns its column
+  SharedTables tab{qt_tables + threadIdx.x, static_cast<int32_t>(blockDim.x), k};
+  sample_row(g, tab, n_nodes, seeds, seed_valid, W, k, key0, key1, out, out_valid, b);
+}
+
+template <class Fetch>
 static int launch_sample(Fetch g, int n_nodes, const void* seeds, const void* seed_valid,
                          int W, int k, unsigned key0, unsigned key1, void* out,
                          void* out_valid, void* stream) {
   if (W <= 0 || k <= 0) return 0;
-  if (k > QT_KMAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  sample_kernel<Fetch><<<qt_blocks(W, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      g, n_nodes, static_cast<const int32_t*>(seeds), static_cast<const bool*>(seed_valid),
-      W, k, key0, key1, static_cast<int32_t*>(out), static_cast<bool*>(out_valid));
+  if (k > QT_SAMPLE_KMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto sd = static_cast<const int32_t*>(seeds);
+  const auto sv = static_cast<const bool*>(seed_valid);
+  const auto o = static_cast<int32_t*>(out);
+  const auto ov = static_cast<bool*>(out_valid);
+  if (k <= QT_KMAX) {
+    const int threads = 128;
+    sample_kernel<Fetch><<<qt_blocks(W, threads), threads, 0, s>>>(g, n_nodes, sd, sv, W, k,
+                                                                   key0, key1, o, ov);
+    return qt_launch_status();
+  }
+  const int per_thread = 3 * k * static_cast<int>(sizeof(int32_t));
+  int threads = (QT_SMEM_DEFAULT / per_thread) / 32 * 32;
+  threads = threads < 32 ? 32 : (threads > 128 ? 128 : threads);
+  const int smem = threads * per_thread;
+  if (smem > QT_SMEM_DEFAULT) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sample_kernel_wide<Fetch>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  sample_kernel_wide<Fetch><<<qt_blocks(W, threads), threads, smem, s>>>(
+      g, n_nodes, sd, sv, W, k, key0, key1, o, ov);
   return qt_launch_status();
 }
 

@@ -23,6 +23,9 @@ from torch import nn
 from .. import _kernels
 from ..pyg.sage_sampler import DenseAdj
 
+# std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
+TRUNC_NORMAL_STD = 0.87962566103423978
+
 
 def masked_mean_aggregate_plain(x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
     gathered = adj.gather_src(x_src)                   # [W_dst, k, D]
@@ -186,15 +189,18 @@ class GraphSAGE(nn.Module):
         self.dropout = float(dropout)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """nn.Linear's default init (uniform in +-1/sqrt(fan_in) for the
-        weights and the bias), drawn from ``generator``."""
+        """flax ``nn.Dense``'s default init, drawn from ``generator``:
+        lecun-normal weights (``variance_scaling(1.0, "fan_in",
+        "truncated_normal")``: a normal cut at +-2 sigma, sigma scaled so
+        that the variance is ``1/fan_in``) and zero biases."""
         with torch.no_grad():
             for conv in self.convs:
                 for lin in (conv.lin_l, conv.lin_r):
-                    bound = 1.0 / lin.in_features ** 0.5
-                    lin.weight.uniform_(-bound, bound, generator=generator)
+                    s = (1.0 / lin.in_features) ** 0.5 / TRUNC_NORMAL_STD
+                    nn.init.trunc_normal_(lin.weight, 0.0, s, -2.0 * s, 2.0 * s,
+                                          generator=generator)
                     if lin.bias is not None:
-                        lin.bias.uniform_(-bound, bound, generator=generator)
+                        lin.bias.zero_()
 
     def forward(self, x: torch.Tensor, adjs: Sequence[DenseAdj], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Dedup + local-id rewrite ("reindex") — the port of
-``quiver_tpu/ops/reindex.py:local_reindex``.
+``quiver_tpu/ops/reindex.py`` (``local_reindex``, ``reindex_single``).
 
 Contract (the JAX package's ``reindex.py:9-22``):
 
@@ -18,8 +18,9 @@ On CUDA tensors `local_reindex` launches the hash-and-sort kernel of
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -119,3 +120,56 @@ def local_reindex(seeds, seed_valid, nbrs, nbr_valid) -> ReindexResult:
     if seeds.is_cuda:
         return _launch_reindex(seeds, seed_valid, nbrs, nbr_valid)
     return local_reindex_plain(seeds, seed_valid, nbrs, nbr_valid)
+
+
+def _as_ids(x, dev) -> torch.Tensor:
+    return x.to(dev) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x), device=dev)
+
+
+def reindex_single(seeds, inputs, counts=None,
+                   device=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's standalone ``reindex_single``: seeds ``[S]`` and
+    their sampled neighbors give ``(n_id, count, local ids of the
+    inputs)``. ``inputs`` is a padded ``[S, k]`` matrix (local ids
+    ``[S*k]``, row-major) or the flat ragged concatenation, with
+    ``counts`` (neighbors per seed) required unless its length divides
+    into ``S`` equal rows; the local ids of a ragged input are those of
+    its entries, in input order. Ids are cast to int32 when they fit (the
+    dtype of K2). Runs on ``seeds``' device when it is a tensor, else on
+    ``device`` (default CUDA)."""
+    from ..utils import resolve_device
+
+    dev = seeds.device if isinstance(seeds, torch.Tensor) else resolve_device(device)
+    seeds, inputs = _as_ids(seeds, dev), _as_ids(inputs, dev)
+    S = seeds.shape[0]
+    filled = [t for t in (seeds, inputs) if t.numel()]
+    lo = min((int(t.min()) for t in filled), default=0)
+    hi = max((int(t.max()) for t in filled), default=0)
+    dt = torch.int32 if -2**31 <= lo and hi < 2**31 - 1 else torch.int64
+    seeds, inputs = seeds.to(dt), inputs.to(dt)
+    ones = torch.ones(S, dtype=torch.bool, device=dev)
+    if inputs.dim() == 2:
+        res = local_reindex(seeds, ones, inputs, torch.ones(inputs.shape, dtype=torch.bool,
+                                                            device=dev))
+        return res.n_id, res.count, res.local_nbrs.reshape(-1)
+    if counts is None:
+        if inputs.shape[0] % S != 0:
+            raise ValueError(
+                f"flat ragged neighbor list (len {inputs.shape[0]}, {S} seeds): pass counts= "
+                f"(neighbors per seed) — guessing a uniform [S, k] grid would mis-assign "
+                f"neighbors")
+        flat = inputs.reshape(S, -1)
+        res = local_reindex(seeds, ones, flat, torch.ones(flat.shape, dtype=torch.bool,
+                                                          device=dev))
+        return res.n_id, res.count, res.local_nbrs.reshape(-1)
+    counts = np.asarray(counts if not isinstance(counts, torch.Tensor) else counts.cpu(),
+                        np.int64).reshape(-1)
+    if counts.shape[0] != S or int(counts.sum()) != inputs.shape[0]:
+        raise ValueError(f"counts {counts.shape}/{int(counts.sum())} inconsistent with {S} "
+                         f"seeds and {inputs.shape[0]} flat neighbors")
+    k = max(int(counts.max()), 1) if S else 1
+    mask = torch.from_numpy(np.arange(k)[None, :] < counts[:, None]).to(dev)
+    padded = torch.zeros((S, k), dtype=dt, device=dev)
+    padded[mask] = inputs  # row-major mask order is the ragged concatenation's
+    res = local_reindex(seeds, ones, padded, mask)
+    return res.n_id, res.count, res.local_nbrs[mask]

@@ -4,7 +4,8 @@ sampling-probability estimate — the port of ``quiver_tpu/ops/sample.py``
 ``sample_layer``, ``tiled_sample_layer``, ``gumbel_topk_positions``,
 ``weighted_sample_layer``, ``tiled_weighted_sample_layer``,
 ``temporal_edge_weights``, ``temporal_weight_rows``,
-``tiled_temporal_sample_layer``, the host tile build, ``neighbor_prob``
+``tiled_temporal_sample_layer``, the host tile build and its device
+twin ``build_tiled_device`` with ``tiled_rowmap_host``, ``neighbor_prob``
 and ``sample_prob``).
 
 Each row draws ``min(deg, k)`` distinct neighbor positions by a partial
@@ -165,8 +166,8 @@ def _launch_sample(kind, a, b, seeds, seed_valid, k, key):
     for t, name in ((a, "graph"), (b, "graph"), (seeds, "seeds")):
         if t.dtype != torch.int32:
             raise TypeError(f"the sampling kernel takes int32 {name}; got {t.dtype}")
-    if int(k) > _kernels.KMAX:
-        raise ValueError(f"the sampling kernel takes k <= {_kernels.KMAX}; got {k}")
+    if int(k) > _kernels.SAMPLE_KMAX:
+        raise ValueError(f"the sampling kernel takes k <= {_kernels.SAMPLE_KMAX}; got {k}")
     a, b = a.contiguous(), b.contiguous()
     seeds, seed_valid = seeds.contiguous(), seed_valid.contiguous()
     W = seeds.shape[0]
@@ -501,7 +502,8 @@ def tiled_base_host(indptr) -> Tuple[np.ndarray, int]:
 def build_tiled_host(indptr: np.ndarray, indices: np.ndarray, id_dtype=None):
     """Host build of the 128-lane tile layout: each node's edge list starts
     at a tile-row boundary of a ``[M, 128]`` table; ``bd [N, 2]`` holds
-    (tile_base, degree). Returns ``(bd, tiles)``."""
+    (tile_base, degree). Returns ``(bd, tiles)``. The oracle of
+    `build_tiled_device`, which the port's callers build with."""
     if id_dtype is None:
         from ..utils import _best_id_dtype
 
@@ -517,6 +519,78 @@ def build_tiled_host(indptr: np.ndarray, indices: np.ndarray, id_dtype=None):
     )
     tiles.reshape(-1)[out_pos] = indices.astype(id_dtype, copy=False)
     return bd, tiles
+
+
+def tiled_rowmap_host(indptr) -> Tuple[np.ndarray, np.ndarray]:
+    """Per tile row, ``(row_start [M] int64, row_width [M] int32)`` for
+    `build_tiled_device`: row r of the tile table holds the flat words
+    ``[row_start[r], row_start[r] + row_width[r])`` of its owner node. An
+    empty graph gets one all-padding row."""
+    indptr = np.asarray(indptr, np.int64)
+    bd, M = tiled_base_host(indptr)
+    base = bd[:, 0].astype(np.int64)
+    deg = bd[:, 1].astype(np.int64)
+    rows_per = -(-deg // LANE)
+    owner = np.repeat(np.arange(len(deg), dtype=np.int64), rows_per)
+    if owner.shape[0] == 0:
+        return np.zeros(1, np.int64), np.zeros(1, np.int32)
+    t = np.arange(M, dtype=np.int64) - base[owner]
+    start = indptr[:-1][owner] + t * LANE
+    width = np.minimum(indptr[1:][owner] - start, LANE).astype(np.int32)
+    return start, width
+
+
+# tile rows a chunk of the plain tile build (bounds its [rows, 128] int64 index)
+TILE_CHUNK = 1 << 18
+
+
+def build_tiled_device_plain(src: torch.Tensor, row_start: torch.Tensor,
+                             row_width: torch.Tensor) -> torch.Tensor:
+    """Plain torch K12 on ``src``'s device: ``out[r, l] = src[clip(row_start[r]
+    + l, 0, E - 1)]`` where ``l < row_width[r]``, else 0, in chunks of
+    `TILE_CHUNK` rows."""
+    M, E = row_start.shape[0], src.shape[0]
+    out = torch.zeros((M, LANE), dtype=src.dtype, device=src.device)
+    if E == 0:
+        return out
+    lanes = torch.arange(LANE, dtype=torch.int64, device=src.device)
+    for r0 in range(0, M, TILE_CHUNK):
+        r1 = min(r0 + TILE_CHUNK, M)
+        g = torch.clamp(row_start[r0:r1].to(torch.int64)[:, None] + lanes[None, :], 0, E - 1)
+        keep = lanes[None, :] < row_width[r0:r1].to(torch.int64)[:, None]
+        out[r0:r1] = torch.where(keep, src[g], out[r0:r1])
+    return out
+
+
+def build_tiled_device(src: torch.Tensor, row_start: torch.Tensor,
+                       row_width: torch.Tensor) -> torch.Tensor:
+    """The ``[M, 128]`` tile table of flat ``src [E]`` (node ids, edge
+    weights or timestamps) through the row map of `tiled_rowmap_host`
+    (``row_start [M]`` int64, ``row_width [M]`` int32), on ``src``'s
+    device. On CUDA tensors kernel K12 (``csrc/tiles.cu``, a bit copy of
+    4-byte words); on CPU tensors `build_tiled_device_plain`. Bit-equal to
+    `build_tiled_host`'s table."""
+    if src.dim() != 1 or row_start.dim() != 1 or row_width.shape != row_start.shape:
+        raise ValueError(f"src [E], row_start [M] and row_width [M] expected; got "
+                         f"{tuple(src.shape)}, {tuple(row_start.shape)}, "
+                         f"{tuple(row_width.shape)}")
+    if row_start.dtype != torch.int64 or row_width.dtype != torch.int32:
+        raise TypeError(f"row_start must be int64 and row_width int32; got {row_start.dtype}, "
+                        f"{row_width.dtype}")
+    if row_start.device != src.device or row_width.device != src.device:
+        raise ValueError("src and the row map must share a device")
+    if not src.is_cuda:
+        return build_tiled_device_plain(src, row_start, row_width)
+    if src.element_size() != 4:
+        raise ValueError(f"the tile kernel copies 4-byte words; got {src.dtype} (node ids past "
+                         "2^31 are not ported yet: ROADMAP A3)")
+    src, row_start, row_width = src.contiguous(), row_start.contiguous(), row_width.contiguous()
+    out = torch.empty((row_start.shape[0], LANE), dtype=src.dtype, device=src.device)
+    _kernels.launch("build_tiles", src.data_ptr(), src.shape[0], row_start.data_ptr(),
+                    row_width.data_ptr(), row_start.shape[0], out.data_ptr(),
+                    _kernels.stream_of(src),
+                    variant="float32" if src.dtype.is_floating_point else "int32")
+    return out
 
 
 # edges a warp of the probability kernel sums before a segment is cut into

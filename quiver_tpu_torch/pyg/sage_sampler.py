@@ -1,10 +1,13 @@
 """GraphSAGE k-hop sampler — the port of
-``quiver_tpu/pyg/sage_sampler.py`` (``DenseAdj``, ``DenseSample``,
+``quiver_tpu/pyg/sage_sampler.py`` (``Adj``, ``DenseAdj``, ``DenseSample``,
 ``sample_dense_fused``, ``sample_dense_pure``, ``sample_and_gather_fused``,
-``sample_and_gather_dedup`` and ``GraphSageSampler`` in its device mode,
-uniform, weighted (``weighted=True``: the Gumbel top-k kernel K7 over the
-tile or flat layout) or temporal (`GraphSageSampler.bind_temporal`: K8,
-see `quiver_tpu_torch.workloads.temporal`)).
+``sample_and_gather_dedup``, ``probe_hop_counts``, ``caps_from_counts``,
+``dense_to_pyg`` and ``GraphSageSampler`` in its device mode, uniform,
+weighted (``weighted=True``: the Gumbel top-k kernel K7 over the tile or
+flat layout) or temporal (`GraphSageSampler.bind_temporal`: K8, see
+`quiver_tpu_torch.workloads.temporal`), with static-cap calibration, the
+``auto_grow_caps`` overflow ladder and the reference's ragged surface:
+``sample``, ``sample_layer``, ``reindex``).
 
 The sampler draws one key per call from a deterministic stream
 (``fold_in(key(seed), call)``) and splits a sub-key per hop
@@ -16,6 +19,7 @@ computed on the device, inside the sampling kernel.
 
 from __future__ import annotations
 
+import warnings
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,7 +27,7 @@ import torch
 
 from .. import random as qrandom
 from ..feature import gather_rows
-from ..ops.reindex import local_reindex
+from ..ops.reindex import local_reindex, reindex_single
 from ..ops.sample import pad_widths
 from ..ops.sample import sample_prob as _sample_prob
 from ..ops.sample import sample_layer as _sample_layer_op
@@ -31,6 +35,21 @@ from ..ops.sample import tiled_sample_layer as _tiled_sample_layer_op
 from ..ops.sample import tiled_weighted_sample_layer as _tiled_weighted_sample_layer_op
 from ..ops.sample import weighted_sample_layer as _weighted_sample_layer_op
 from ..utils import CSRTopo, resolve_device
+
+
+class Adj(NamedTuple):
+    """The reference's PyG adjacency of one hop: ``edge_index [2, nnz]``
+    int64 (row 0 the source local ids, row 1 the target ones), an empty
+    ``e_id`` (the reference keeps it empty too) and ``size = (n_src,
+    n_dst)``. Host tensors; `to` moves them."""
+
+    edge_index: torch.Tensor
+    e_id: torch.Tensor
+    size: Tuple[int, int]
+
+    def to(self, *args, **kwargs) -> "Adj":
+        return Adj(self.edge_index.to(*args, **kwargs), self.e_id.to(*args, **kwargs),
+                   self.size)
 
 
 class DenseAdj(NamedTuple):
@@ -223,6 +242,57 @@ def sample_and_gather_dedup(indptr, indices, table: torch.Tensor, key, seeds: to
     return ds, x
 
 
+def probe_hop_counts(indptr, indices, key, seeds_all: torch.Tensor, sizes: Sequence[int],
+                     sample_fn=None) -> np.ndarray:
+    """Per-hop unique-frontier counts ``[m, L]`` of the uncapped dedup
+    pipeline over ``m`` probe batches ``seeds_all [m, B]``: batch i draws
+    with ``fold_in(key, i)``, and every count is read after one sync."""
+    counts = []
+    for i in range(seeds_all.shape[0]):
+        ds = sample_dense_pure(indptr, indices, qrandom.fold_in(key, i), seeds_all[i], sizes,
+                               sample_fn=sample_fn)
+        counts.append(torch.stack([a.n_src for a in ds.adjs[::-1]]))
+    if not counts:
+        return np.zeros((0, len(sizes)), np.int32)
+    return torch.stack(counts).cpu().numpy()
+
+
+def caps_from_counts(counts, batch: int, sizes: Sequence[int], margin: float = 1.2,
+                     granule: int = 4096) -> Tuple[int, ...]:
+    """Static per-hop ``n_id`` caps from probed unique counts: the max over
+    the probe batches times ``margin``, rounded up to ``granule``, clipped
+    to the uncapped worst case ``B * prod(1 + k)``."""
+    counts = np.asarray(counts).reshape(-1, len(sizes))
+    worst = pad_widths(batch, sizes)[1:]
+    caps = []
+    for l in range(len(sizes)):
+        need = int(np.max(counts[:, l])) * margin
+        caps.append(int(min(-(-need // granule) * granule, worst[l])))
+    return tuple(caps)
+
+
+def dense_to_pyg(ds: DenseSample):
+    """The reference's ragged ``(n_id, batch_size, [Adj])`` of a padded
+    `DenseSample`, outermost hop first, on the host: ``n_id`` its valid
+    prefix, each `Adj` the (source, target) local ids of its valid lanes
+    in row-major order."""
+    count = int(ds.count)
+    n_id = ds.n_id[:count].cpu()
+    adjs = []
+    for adj in ds.adjs:
+        mask = adj.mask.cpu()
+        w, k = mask.shape
+        if adj.cols is None:  # structural layout: cols[i, j] = W + j*W + i
+            cols = w * (1 + torch.arange(k))[None, :] + torch.arange(w)[:, None]
+        else:
+            cols = adj.cols.cpu()
+        rows = torch.arange(w)[:, None].expand(w, k)
+        edge_index = torch.stack([cols[mask], rows[mask]]).to(torch.int64)
+        adjs.append(Adj(edge_index, torch.empty(0, dtype=torch.int64),
+                        (int(adj.n_src), int(adj.n_dst))))
+    return n_id, ds.batch_size, adjs
+
+
 class GraphSageSampler:
     """K-hop sampler over a :class:`CSRTopo` on one device.
 
@@ -236,6 +306,11 @@ class GraphSageSampler:
     topology's ``edge_weights`` among a row's first ``min(deg, max_deg)``
     edges (the tiled layout reads the weights in the tile map; flat and
     tiled draws are equal when ``max_deg % 128 == 0``).
+    ``auto_grow_caps=True`` regrows the caps of a dedup batch that
+    overflowed them (``cap_overflow > 0``) from its pre-cap counts, with
+    the ``cap_margin`` and ``cap_granule`` of the last `calibrate_caps`,
+    and resamples with the next key, at most ``len(sizes) + 1`` times;
+    ``cap_regrows`` counts those resamples.
     """
 
     MODE_ALIASES = {"TPU": "GPU"}
@@ -243,7 +318,7 @@ class GraphSageSampler:
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
                  mode: str = "GPU", caps: Optional[Sequence[Optional[int]]] = None,
                  seed: int = 0, dedup: bool = True, layout: str = "tiled",
-                 weighted: bool = False, max_deg: int = 512):
+                 weighted: bool = False, max_deg: int = 512, auto_grow_caps: bool = False):
         mode = self.MODE_ALIASES.get(mode, mode)
         if mode != "GPU":
             raise ValueError(f"unsupported mode: {mode} (this port has GPU/TPU only; "
@@ -262,6 +337,10 @@ class GraphSageSampler:
         self.layout = layout
         self.weighted = bool(weighted)
         self.max_deg = int(max_deg)
+        self.auto_grow_caps = bool(auto_grow_caps)
+        # the overflow ladder's policy, set by calibrate_caps
+        self.cap_margin, self.cap_granule = 1.2, 4096
+        self.cap_regrows = 0
         self._seed = int(seed)
         self._call = 0
         self._graph = None
@@ -426,5 +505,99 @@ class GraphSageSampler:
         if not self.dedup:
             return sample_dense_fused(None, None, self.next_key(), seeds, self.sizes,
                                       sample_fn=sample_fn)
-        return sample_dense_pure(None, None, self.next_key(), seeds, self.sizes,
-                                 self.caps, sample_fn=sample_fn)
+        ds = sample_dense_pure(None, None, self.next_key(), seeds, self.sizes,
+                               self.caps, sample_fn=sample_fn)
+        if self.auto_grow_caps and self.caps is not None:
+            ds = self._grow_caps(ds, seeds, sample_fn)
+        return ds
+
+    def _grow_caps(self, ds: DenseSample, seeds: torch.Tensor, sample_fn) -> DenseSample:
+        """The overflow ladder: while ``ds`` dropped nodes, raise the caps
+        to `caps_from_counts` of its pre-cap counts (a monotone merge; an
+        uncapped hop stays uncapped) and resample with the next key. Hop
+        l+1's raw count is taken under hop l's capped frontier, so one
+        regrowth can reveal more demand: ``len(sizes) + 1`` rounds, then a
+        `RuntimeWarning` if nodes are still dropped."""
+        for _ in range(len(self.sizes) + 1):
+            if int(ds.cap_overflow) == 0:
+                return ds
+            grown = caps_from_counts(ds.raw_counts.cpu().numpy()[None, :], seeds.shape[0],
+                                     self.sizes, margin=self.cap_margin,
+                                     granule=self.cap_granule)
+            self.caps = tuple(None if o is None else max(o, n) for o, n in zip(self.caps, grown))
+            self.cap_regrows += 1
+            ds = sample_dense_pure(None, None, self.next_key(), seeds, self.sizes, self.caps,
+                                   sample_fn=sample_fn)
+        if int(ds.cap_overflow) > 0:
+            warnings.warn(f"auto_grow_caps: still dropping {int(ds.cap_overflow)} nodes after "
+                          f"regrowth to caps={self.caps}; raise cap_margin/cap_granule",
+                          RuntimeWarning, stacklevel=3)
+        return ds
+
+    # -- static-cap calibration ----------------------------------------------
+
+    def calibrate_caps(self, probe_seeds, margin: float = 1.2, granule: int = 4096,
+                       set_caps: bool = True) -> Tuple[int, ...]:
+        """Per-hop static ``n_id`` caps from probe batches ``probe_seeds``
+        (``[m, B]``, or m batches of one length; >= 8 keep the max stable):
+        `probe_hop_counts` of the uncapped dedup pipeline under this
+        sampler's own draw (layout, weights), with one key of its stream,
+        then `caps_from_counts`. Keeps ``margin`` and ``granule`` for the
+        ``auto_grow_caps`` ladder; installs the caps unless ``set_caps`` is
+        False. Returns them."""
+        batches = np.stack([np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b)
+                            for b in probe_seeds])
+        if batches.ndim != 2:
+            raise ValueError(f"probe_seeds must be [m, B]; got {batches.shape}")
+        counts = probe_hop_counts(None, None, self.next_key(), self.as_seeds(batches),
+                                  self.sizes, sample_fn=self._bind(self.lazy_init_quiver()))
+        caps = caps_from_counts(counts, batches.shape[1], self.sizes, margin=margin,
+                                granule=granule)
+        self.cap_margin, self.cap_granule = float(margin), int(granule)
+        if set_caps:
+            self.caps = caps
+        return caps
+
+    # -- the reference's ragged surface ----------------------------------------
+
+    def _plain_draws(self, what: str):
+        if self._temporal is not None:
+            raise TypeError(f"{what} draws without query times; a temporal sampler samples "
+                            "through sample_dense(seeds, t=...)")
+        return self._bind(self.lazy_init_quiver())
+
+    def sample(self, input_nodes):
+        """The reference's ``(n_id, batch_size, [Adj])`` (`dense_to_pyg`;
+        host tensors, one sync). Always the dedup pipeline, with this
+        sampler's caps (and its ladder when ``dedup``): the ragged contract
+        needs a unique, prefix-valid ``n_id``."""
+        sample_fn = self._plain_draws("sample()")
+        if self.dedup:
+            return dense_to_pyg(self.sample_dense(input_nodes))
+        ds = sample_dense_pure(None, None, self.next_key(), self.as_seeds(input_nodes),
+                               self.sizes, self.caps, sample_fn=sample_fn)
+        return dense_to_pyg(ds)
+
+    def sample_layer(self, seeds, size: int):
+        """One hop of ``size`` draws a seed with the next key: ``(neighbors,
+        counts)``, the valid draws of each seed in order, ragged, on this
+        sampler's device."""
+        sample_fn = self._plain_draws("sample_layer()")
+        seeds = self.as_seeds(seeds)
+        nbrs, valid = sample_fn(seeds, torch.ones(seeds.shape, dtype=torch.bool,
+                                                  device=seeds.device), int(size),
+                                self.next_key())
+        return nbrs[valid], valid.sum(dim=1)
+
+    def reindex(self, inputs, outputs, counts):
+        """The reference's reindex of a ragged one-hop result: ``(n_id, row,
+        col)`` with ``n_id`` the inputs then their new neighbors once each,
+        ascending, and ``(row, col)`` each output's target and source
+        local ids, in input order (`ops.reindex.reindex_single`)."""
+        counts_np = np.asarray(counts.cpu() if isinstance(counts, torch.Tensor) else counts,
+                               np.int64).reshape(-1)
+        inputs = self.as_seeds(inputs)
+        n_id, count, col = reindex_single(inputs, outputs, counts_np)
+        row = torch.repeat_interleave(torch.arange(inputs.shape[0], device=self.device),
+                                      torch.from_numpy(counts_np).to(self.device))
+        return n_id[: int(count)], row, col

@@ -1,12 +1,14 @@
 """Graph topology container and small helpers — the port of
 ``quiver_tpu/utils.py`` (``CSRTopo``, ``parse_size``, ``_best_id_dtype``,
-``reindex_by_config``, ``reindex_feature``, ``heat_reorder``) and of
-``round_up_pow2`` from ``quiver_tpu/comm.py``.
+``show_tensor_info``, ``reindex_by_config``, ``reindex_feature``,
+``heat_reorder``) and of ``round_up_pow2`` from ``quiver_tpu/comm.py``.
 
 Topology lives in host numpy arrays and is materialised on a torch device
-on demand. Ids on the device are int32 wherever the JAX package uses int32
-(JAX runs with x64 off; torch would keep int64 silently), int64 only for
-graphs whose ids do not fit.
+on demand; the tile tables are built on the device from the flat arrays
+there (`ops.sample.build_tiled_device`, kernel K12 on the card) through one
+host row map per topology. Ids on the device are int32 wherever the JAX
+package uses int32 (JAX runs with x64 off; torch would keep int64
+silently), int64 only for graphs whose ids do not fit.
 """
 
 from __future__ import annotations
@@ -20,14 +22,18 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    another. Raises when CUDA was asked for (or defaulted to) and no card
-    is present — nothing carries on on the CPU by itself."""
+    another, with its index (the current device's when none is given).
+    Raises when CUDA was asked for (or defaulted to) and no card is present
+    — nothing carries on on the CPU by itself."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is present; pass device='cpu' to run the plain "
-            "torch versions of the kernels on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is present; pass device='cpu' to run the plain "
+                "torch versions of the kernels on the CPU"
+            )
+        if dev.index is None:  # "cuda" and "cuda:0" must key one device cache entry
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -69,7 +75,8 @@ class CSRTopo:
     indices)``. ``edge_weights`` (optional, ``[E]`` float32, aligned with
     the COO input or with ``indices``) feed the weighted sampler; the COO
     build permutes them by the same sort. `to_device`, `to_device_tiled`
-    and `to_device_tiled_weights` return cached tensors.
+    and `to_device_tiled_weights` return cached tensors; the tile tables
+    are built on the device (`tiles_on_device`).
     """
 
     def __init__(self, edge_index=None, indptr=None, indices=None,
@@ -112,7 +119,21 @@ class CSRTopo:
         self._wtiled_cache = None
         self._weights_cache = None
         self._transposed_cache = None
+        self._tile_map = None  # (bd, row_start, row_width), host numpy
         self._feature_order: Optional[np.ndarray] = None
+
+    def __getstate__(self):
+        # device tensors stay in their process; a child binds its own
+        state = self.__dict__.copy()
+        for name in ("_flat_cache", "_tiled_cache", "_wtiled_cache", "_weights_cache",
+                     "_transposed_cache"):
+            state[name] = None
+        return state
+
+    def share_memory_(self) -> "CSRTopo":
+        """No-op: the topology is host numpy, which worker processes get
+        by fork or pickle (device tensors are dropped, `__getstate__`)."""
+        return self
 
     @property
     def feature_order(self) -> Optional[np.ndarray]:
@@ -152,19 +173,47 @@ class CSRTopo:
         self._flat_cache = (key, pair)
         return pair
 
+    def tile_map(self):
+        """``(bd [N, 2] int32, row_start [M] int64, row_width [M] int32)``
+        of the tile layout, computed on the host once
+        (`ops.sample.tiled_base_host`, `ops.sample.tiled_rowmap_host`)."""
+        from .ops.sample import tiled_base_host, tiled_rowmap_host
+
+        if self._tile_map is None:
+            bd, _ = tiled_base_host(self.indptr)
+            self._tile_map = (bd, *tiled_rowmap_host(self.indptr))
+        return self._tile_map
+
+    def tiles_on_device(self, flat: torch.Tensor) -> torch.Tensor:
+        """The ``[M, 128]`` tile table of ``flat [E]`` (aligned with
+        ``indices``), built on ``flat``'s device through this topology's
+        row map (`ops.sample.build_tiled_device`: K12 on the card)."""
+        from .ops.sample import build_tiled_device
+
+        _, start, width = self.tile_map()
+        dev = flat.device
+        return build_tiled_device(flat, torch.from_numpy(start).to(dev),
+                                  torch.from_numpy(width).to(dev))
+
     def to_device_tiled(self, device=None, id_dtype=None):
         """The 128-lane tile layout ``(bd [N, 2] int32, tiles [M, 128])``
-        on ``device`` (see `ops.sample.build_tiled_host`)."""
-        from .ops.sample import build_tiled_host
-
+        on ``device``, the table built there (`tiles_on_device`); bit-equal
+        to `ops.sample.build_tiled_host`'s."""
         dev = resolve_device(device)
         if id_dtype is None:
             id_dtype = _best_id_dtype(self.node_count + 1)
-        key = ("tiled", str(dev), np.dtype(id_dtype).name)
+        name = np.dtype(id_dtype).name
+        key = ("tiled", str(dev), name)
         if self._tiled_cache is not None and self._tiled_cache[0] == key:
             return self._tiled_cache[1]
-        bd, tiles = build_tiled_host(self.indptr, self.indices, id_dtype)
-        pair = (torch.from_numpy(bd).to(dev), torch.from_numpy(tiles).to(dev))
+        # the flat ids at the tiles' dtype: `to_device`'s when it holds them
+        # there, else an upload freed after the build
+        if self._flat_cache is not None and self._flat_cache[0] == (str(dev), name):
+            flat = self._flat_cache[1][1]
+        else:
+            flat = torch.from_numpy(self.indices.astype(id_dtype, copy=False)).to(dev)
+        pair = (torch.from_numpy(self.tile_map()[0]).to(dev, copy=True),
+                self.tiles_on_device(flat))
         self._tiled_cache = (key, pair)
         return pair
 
@@ -182,17 +231,18 @@ class CSRTopo:
 
     def to_device_tiled_weights(self, device=None) -> torch.Tensor:
         """The edge weights in the tile map of `to_device_tiled`'s tiles,
-        ``[M, 128]`` float32 on ``device`` (cached): the weighted sampler's
-        window then reads whole weight tiles."""
-        from .ops.sample import build_tiled_host
-
+        ``[M, 128]`` float32 on ``device`` (cached), built there: the
+        weighted sampler's window then reads whole weight tiles."""
         dev = resolve_device(device)
         if self.edge_weights is None:
             raise ValueError("no edge_weights on this CSRTopo")
         if self._wtiled_cache is not None and self._wtiled_cache[0] == str(dev):
             return self._wtiled_cache[1]
-        _, wtiles = build_tiled_host(self.indptr, self.edge_weights, np.float32)
-        w = torch.from_numpy(wtiles).to(dev)
+        if self._weights_cache is not None and self._weights_cache[0] == str(dev):
+            flat = self._weights_cache[1]
+        else:  # an upload freed after the build
+            flat = torch.from_numpy(self.edge_weights).to(dev)
+        w = self.tiles_on_device(flat)
         self._wtiled_cache = (str(dev), w)
         return w
 
@@ -208,6 +258,26 @@ class CSRTopo:
         t = build_transposed_host(self.indptr, self.indices).to(dev)
         self._transposed_cache = (str(dev), t)
         return t
+
+
+def show_tensor_info(x, name: str = "", file=None) -> str:
+    """One line naming an array: dtype, shape, device, data pointer and
+    whether a host tensor is pinned (the reference's ``show_tensor_info``);
+    numpy arrays show ``host=numpy`` (and a memmap its file). Printed to
+    ``file`` and returned."""
+    parts = [name or type(x).__name__, f"shape={tuple(getattr(x, 'shape', ()))}",
+             f"dtype={getattr(x, 'dtype', '?')}"]
+    if isinstance(x, torch.Tensor):
+        parts += [f"device={x.device}", f"data_ptr={x.data_ptr():#x}",
+                  f"nbytes={x.numel() * x.element_size():,}"]
+        if x.device.type == "cpu":
+            parts.append(f"pinned={x.is_pinned()}")
+    elif isinstance(x, np.ndarray):
+        parts.append(f"nbytes={x.nbytes:,}")
+        parts.append(f"memmap={x.filename}" if isinstance(x, np.memmap) else "host=numpy")
+    line = " ".join(parts)
+    print(line, file=file)
+    return line
 
 
 def reindex_by_config(adj_csr: CSRTopo, graph_feature, gpu_portion: float, seed: int = 0):

@@ -34,7 +34,6 @@ import torch
 from .. import random as qrandom
 from ..ops.sample import (
     LANE,
-    build_tiled_host,
     gumbel_topk_positions,
     temporal_edge_weights,
     temporal_weight_rows,
@@ -68,8 +67,8 @@ class TemporalTiledGraph:
             raise ValueError(f"edge_ts has {self.edge_ts.shape[0]} entries for "
                              f"{csr_topo.edge_count} edges")
         self._bd, self._tiles = csr_topo.to_device_tiled(dev, id_dtype)
-        _, ttiles = build_tiled_host(csr_topo.indptr, self.edge_ts, np.float32)
-        self._ttiles = torch.from_numpy(ttiles).to(dev)
+        # the timestamps' flat upload is freed once their tiles are built
+        self._ttiles = csr_topo.tiles_on_device(torch.from_numpy(self.edge_ts).to(dev))
 
     def temporal_graph(self):
         """The device ``(bd, tiles, ttiles)`` a temporal draw reads."""

@@ -38,7 +38,12 @@ recency 0, each bit-equal to its plain version on the card and on the
 CPU (every log and exp is float64 rounded once on both sides), K8 also
 equal to the host-masked oracle on its valid lanes; the recency weights
 (K8w) bit-equal to their plain version on the card and within an ULP of
-the CPU's, and K8 at t = +inf bit-equal to K7 over K8w's tiles."""
+the CPU's, and K8 at t = +inf bit-equal to K7 over K8w's tiles. The tile
+slice's: the tile build (K12) on ids, weights and timestamps of a graph
+with a degree-0 row and a hub, bit-equal to its plain version on the card
+and on the CPU and to the host build, with row starts past the end; the
+sampling kernels at k = 48, 64 and 300 (tables in shared memory, opted in
+above 48 KB at 300), bit-equal to their plain versions."""
 
 import numpy as np
 import pytest
@@ -563,3 +568,78 @@ def test_recency_weights_kernel_matches_plain_and_pins_t_inf(cuda_device, recenc
     b = sample.tiled_weighted_sample_layer(bd, tiles, wt, seeds, valid, 10, key, 512)
     torch.cuda.synchronize()
     assert _same(a[0], b[0]) and _same(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_build_tiles_kernel_matches_plain_and_the_host_build(cuda_device):
+    """K12 on ids, weights and timestamps of a graph with a degree-0 row and
+    a 500-edge hub, bit-equal to its plain version on the card and on the
+    CPU and to build_tiled_host; a row map past the end clips as the plain
+    version does; CSRTopo's tables are K12's."""
+    topo, _ = _graph()
+    rng = np.random.default_rng(12)
+    start, width = sample.tiled_rowmap_host(topo.indptr)
+    rs, rw = torch.from_numpy(start), torch.from_numpy(width)
+    e = topo.edge_count
+    for src in (topo.indices.astype(np.int32), rng.random(e, dtype=np.float32),
+                rng.uniform(0, 50, e).astype(np.float32)):
+        t = torch.from_numpy(src)
+        _kernels.reset_counts()
+        got = sample.build_tiled_device(t.to(cuda_device), rs.to(cuda_device), rw.to(cuda_device))
+        assert _kernels.counts()["build_tiles"] == 1
+        want = sample.build_tiled_device_plain(t.to(cuda_device), rs.to(cuda_device),
+                                               rw.to(cuda_device))
+        cpu = sample.build_tiled_device_plain(t, rs, rw)
+        _, host = sample.build_tiled_host(topo.indptr, src, src.dtype)
+        torch.cuda.synchronize()
+        bits = (lambda a: a.view(torch.int32)) if t.dtype == torch.float32 else (lambda a: a)
+        assert _same(bits(got), bits(want)) and _same(bits(got), bits(cpu))
+        assert _same(bits(got), bits(torch.from_numpy(host)))
+    past = torch.tensor([e - 3, 0, e + 100], dtype=torch.int64)
+    wid = torch.tensor([128, 0, 5], dtype=torch.int32)
+    src = torch.from_numpy(topo.indices.astype(np.int32))
+    got = sample.build_tiled_device(src.to(cuda_device), past.to(cuda_device), wid.to(cuda_device))
+    assert _same(got, sample.build_tiled_device_plain(src, past, wid))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        sample.build_tiled_device(src.long().to(cuda_device), past.to(cuda_device),
+                                  wid.to(cuda_device))
+    _kernels.reset_counts()
+    fresh = CSRTopo(indptr=topo.indptr, indices=topo.indices)
+    _, tiles = fresh.to_device_tiled(cuda_device)
+    # "cuda" and "cuda:<current>" are one device: one cache entry, one build
+    assert fresh.to_device_tiled(f"cuda:{torch.cuda.current_device()}")[1] is tiles
+    assert fresh.to_device_tiled("cuda")[1] is tiles
+    assert _kernels.counts()["build_tiles"] == 1
+    assert _same(tiles, torch.from_numpy(sample.build_tiled_host(topo.indptr, topo.indices,
+                                                                 np.int32)[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+@pytest.mark.parametrize("k", [48, 64, 300])
+def test_sample_kernel_wide_fanouts_match_plain(cuda_device, layout, k):
+    """K1 and K1b above 32 (tables in shared memory; 300 opts in above 48
+    KB), bit-equal to the plain draw on the card and on the CPU."""
+    topo, n = _graph()
+    rng = np.random.default_rng(k)
+    W = 1024 if k < 300 else 256
+    seeds = torch.from_numpy(rng.integers(-3, n + 3, W).astype(np.int32))
+    seeds[:3] = torch.tensor([5, 7, 9], dtype=torch.int32)
+    valid = torch.from_numpy(rng.random(W) < 0.9)
+    valid[0] = True  # the hub
+    key = qrandom.split(qrandom.key(k))[1]
+    if layout == "tiled":
+        g = topo.to_device_tiled(cuda_device)
+        fn, plain = sample.tiled_sample_layer, sample.tiled_sample_layer_plain
+    else:
+        g = topo.to_device(cuda_device)
+        fn, plain = sample.sample_layer, sample.sample_layer_plain
+    args = (seeds.to(cuda_device), valid.to(cuda_device), k, key)
+    got, want = fn(*g, *args), plain(*g, *args)
+    cpu = plain(*(t.cpu() for t in g), seeds, valid, k, key)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, cpu):
+        assert _same(a, b) and _same(a, c)
+    assert int(got[1][0].sum()) == min(500, k)  # the hub draws a full subset
+    with pytest.raises(ValueError, match="k <= 512"):
+        fn(*g, args[0], args[1], 513, key)

@@ -179,3 +179,29 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     out = forward_logits(model, feat, ts.sample_dense(np.arange(8)))
     assert out.shape == (8, 5) and torch.isfinite(out).all()
     assert set(_kernels.counts().values()) == {0}
+
+
+@pytest.mark.parametrize("fan_in", [256, 100])
+def test_init_matches_flax_dense_statistics(fan_in):
+    """GraphSAGE.reset_parameters draws flax nn.Dense's init: lecun-normal
+    kernels (a normal cut at +-2 sigma_raw, variance 1/fan_in) and zero
+    biases, the same weights from the same generator seed."""
+    import flax.linen as fnn
+
+    from quiver_tpu_torch.models.sage import TRUNC_NORMAL_STD
+
+    model = GraphSAGE(fan_in, 256, 256, num_layers=1)
+    model.reset_parameters(torch.Generator().manual_seed(7))
+    lin_l, lin_r = model.convs[0].lin_l, model.convs[0].lin_r
+    flax_w = np.asarray(fnn.Dense(256).init(jax.random.key(7), jnp.zeros((1, fan_in)))
+                        ["params"]["kernel"])
+    sigma_raw = (1.0 / fan_in) ** 0.5 / TRUNC_NORMAL_STD
+    for w in (lin_l.weight.detach().numpy(), lin_r.weight.detach().numpy(), flax_w):
+        assert abs(w.std() / fan_in ** -0.5 - 1.0) < 0.03
+        assert np.abs(w).max() <= 2.0 * sigma_raw
+        assert abs(w.mean()) < 4.0 / (16 * fan_in)  # 4 standard errors of a 256 x fan_in mean
+    assert lin_r.bias is None and torch.count_nonzero(lin_l.bias) == 0
+    again = GraphSAGE(fan_in, 256, 256, num_layers=1)
+    again.reset_parameters(torch.Generator().manual_seed(7))
+    assert torch.equal(again.convs[0].lin_l.weight, lin_l.weight)
+    assert torch.equal(again.convs[0].lin_r.weight, lin_r.weight)
