@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphSAGE serving, training,
-capped training, out-of-core training, weighted training and temporal
-serving paths on one card, with every tile table built on it.
+capped training, out-of-core training, weighted training, GCN and GAT
+training (float32 and bfloat16) and temporal serving paths on one card,
+with every tile table built on it.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -73,10 +74,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              same draw through sample_dense, timed. Lines start ``caps``;
 10. learn  — the example (python -m quiver_tpu_torch.examples.reddit_sage)
              on the card at the args ACCURACY.json was recorded at
-             (--epochs 8 --nodes 20000 --batch-size 512 --cache 4M): test
-             and full-inference accuracy must exceed 0.8 and lie within
-             0.05 of ACCURACY.json's 0.903 and 0.911, printed beside them;
-             K10 must have launched;
+             (--epochs 8 --nodes 20000 --batch-size 512 --cache 4M): with
+             --model sage, test and full-inference accuracy must exceed 0.8
+             and lie within 0.05 of ACCURACY.json's 0.903 and 0.911, printed
+             beside them, and K10 must have launched; with --model gcn and
+             --model gat, test accuracy must exceed 0.5 and lie within 0.05
+             of the JAX example's on the CPU at the same args (0.993 and
+             0.998), and K14 and K14b must have launched;
 11. kernels-3 — the staged pipeline's kernels on a real batch of 1,024
              seeds staged by TieredFeaturePipeline.prepare, each bit-equal
              to its plain version: the tiered lookup (K5) at the 20% fp32
@@ -175,7 +179,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
              True, max_deg=512) on the tile layout (with a profiled
              split) and 5 on the flat one, as the train legs above; K7
              must have launched on each;
-18. temporal-serve — path (b): TemporalServeEngine(max_batch=64,
+18. kernels-7 — the model zoo's kernels at the shapes one dedup
+             sample_dense of 1,024 train seeds gives them (hops 180,224 x 5,
+             16,384 x 10 and 1,024 x 15): the hop-source gather (K14) at
+             GCN's row widths (100, 256, 256), GAT's (1,024, 1,024, 47) and
+             F = 1, float32 and, at 256 and 1,024, bfloat16, bit-equal to its
+             plain version; its gradient (K14b) wherever a gradient reaches
+             the source (GCN's 256 on layers 1-2, GAT's three), bit-equal when
+             run twice, within one float32 (bfloat16) rounding of the sum of
+             its plain version on a CPU copy, which adds the valid lanes in
+             the kernel's order, and in bfloat16 equal to the float32
+             kernel's sum rounded once; the block out-degree (K14c) of each
+             hop, bit-equal; K4 and K4b in bfloat16 at SAGE's widths, equal to
+             the float32 kernels on the same values rounded once. Each hop's
+             valid lanes, distinct rows and largest source segment (the hub)
+             are logged. Bounds: each byte read and written once (K14b also
+             its float32 adds). Yardsticks: index_select of the clamped flat
+             cols (K14), index_add_ of the valid lanes' cotangent rows
+             computed beforehand (K14b), index_add_ of the mask (K14c),
+             embedding_bag and index_add_ (K4, K4b bf16). The report rows of
+             K14 and K14b are the float32 calls at GAT's widths (one GAT
+             step's), K14c's its three hops;
+19. zoo    — path (c): 20 Adam steps at batch 1024 of sample_dense +
+             lookup_padded on the resident table, as the train legs (dropout
+             0.5 from a seeded generator, labels from the seed), on six
+             models at products width: (a) GCN(100 -> 256 -> 256 -> 47,
+             norm right), (b) the same with norm both, (c) GAT(hidden 256,
+             4 heads, 3 layers -> 47), (d) GCN right in bfloat16, (e) GAT in
+             bfloat16, (f) GraphSAGE(100 -> 256 -> 256 -> 47) in bfloat16:
+             median step ms, SEPS, first and last loss (finite), the peak
+             device memory, launches and a profiled split. K14 and K14b must
+             have launched on (a)-(e) in the leg's dtype, K14c on (b), the
+             bfloat16 K4/K4b on (f), and K14 not on (f). Lines start
+             ``zoo: ``; the kernels line's K14, K14b and K14c launches are
+             the sums over the legs;
+20. temporal-serve — path (b): TemporalServeEngine(max_batch=64,
              t_quantum=0.05) over GraphSageSampler(dedup=False).
              bind_temporal(TemporalTiledGraph, recency=0.02): the recency
              weight tiles (K8w must have launched building them; the
@@ -190,7 +228,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              t = +inf bit-equal to a plain ServeEngine over a weighted
              sampler with unit weights; 256 lp_trace pairs through
              predict_pairs with finite scores. Lines start ``temporal``;
-19. report — one JSON line of all kernels, the card line, then the
+21. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a card. Needs one card.
@@ -217,7 +255,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from quiver_tpu_torch import Feature, GraphSAGE, GraphSageSampler, ServeConfig, ServeEngine, _kernels
+from quiver_tpu_torch import (GAT, GCN, Feature, GraphSAGE, GraphSageSampler, ServeConfig,
+                              ServeEngine, _kernels)
 from quiver_tpu_torch import random as qrandom
 from quiver_tpu_torch.datasets import PRODUCTS, powerlaw_csr
 from quiver_tpu_torch.feature import gather_rows, gather_rows_plain
@@ -250,6 +289,14 @@ from quiver_tpu_torch.models.sage import (
     masked_mean_backward_plain,
 )
 from quiver_tpu_torch.ops import reindex, sample
+from quiver_tpu_torch.ops.gather_src import (
+    block_out_degree,
+    block_out_degree_plain,
+    gather_src_backward,
+    gather_src_backward_plain,
+    gather_src_plain,
+    gather_src_rows,
+)
 from quiver_tpu_torch.pyg.sage_sampler import (
     caps_from_counts,
     dense_to_pyg,
@@ -329,6 +376,10 @@ SOURCES = {
     "recency_weights": ("quiver_tpu_torch/csrc/weighted.cu",
                         "quiver_tpu/workloads/temporal.py:128"),
     "build_tiles": ("quiver_tpu_torch/csrc/tiles.cu", "quiver_tpu/ops/sample.py:368"),
+    "gather_src": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/pyg/sage_sampler.py:85"),
+    "gather_src_backward": ("quiver_tpu_torch/csrc/aggregate.cu",
+                            "quiver_tpu/pyg/sage_sampler.py:85"),
+    "block_out_degree": ("quiver_tpu_torch/csrc/aggregate.cu", "quiver_tpu/models/gcn.py:69"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
 # the training slice: batch, timed steps a leg, the tiered leg's cache share
@@ -356,6 +407,21 @@ CAP_PROBES, CAP_MARGIN, CAP_GRANULE, CAP_GROW_BATCHES = 24, 1.1, 2048, 10
 # the example at the args ACCURACY.json was recorded at (scripts/record_accuracy.py)
 LEARN_ARGS = ["--epochs", "8", "--nodes", "20000", "--batch-size", "512", "--cache", "4M"]
 LEARN_BAR, LEARN_REF_TOL = 0.8, 0.05
+# the model zoo slice: GAT's heads (examples/reddit_sage.py), each layer's
+# K14 row width for GCN and GAT (layer 0 reads the [N, 100] features; GAT
+# projects to heads x hidden before the gather), and the JAX example's test
+# accuracy on the CPU at LEARN_ARGS with --model gcn / gat (no ACCURACY.json
+# entry exists): the port's must exceed ZOO_LEARN_BAR and lie within
+# LEARN_REF_TOL of it
+GAT_HEADS = 4
+# K14b against its plain version on a CPU copy: the same float32 additions in
+# lane order, so 0 is expected; the bars allow one float32 rounding of the sum
+# (one bfloat16 rounding in bf16) in case the host's index_add_ reorders
+K14B_CPU_BAR = {torch.float32: 2.0**-23, torch.bfloat16: 2.0**-8}
+GCN_WIDTHS = (DIM, HIDDEN, HIDDEN)
+GAT_WIDTHS = (GAT_HEADS * HIDDEN, GAT_HEADS * HIDDEN, CLASSES)
+JAX_CPU_TEST_ACC = {"gcn": 0.993, "gat": 0.998}
+ZOO_LEARN_BAR = 0.5
 
 
 def log(*a):
@@ -900,14 +966,21 @@ def train_labels(n, dev):
                          device=dev)
 
 
-def train_leg(leg, inputs, needs, labels, train_idx, seed, steps, port_names, profile=True):
+def sage_model():
+    return GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
+
+
+def train_leg(leg, inputs, needs, labels, train_idx, seed, steps, port_names, profile=True,
+              make_model=sage_model, tag="train"):
     """``steps`` timed Adam steps at batch 1024 on ``inputs(seeds) -> (ds,
     x)`` after 2 warm-up steps, then (with ``profile``) a profiled device
-    split of 3 more; logs a ``train:`` line, checks that the losses are
-    finite and that every kernel of ``needs`` launched in the timed steps,
-    and returns their launch counts and the logged summary."""
+    split of 3 more; logs a ``{tag}:`` line (with the peak device memory of
+    the timed steps), checks that the losses are finite and that every
+    kernel of ``needs`` launched in the timed steps, and returns their
+    launch counts and the logged summary. The model is ``make_model()``
+    with flax's init drawn from ``seed``."""
     dev = labels.device
-    model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
+    model = make_model()
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(dev)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
@@ -928,6 +1001,7 @@ def train_leg(leg, inputs, needs, labels, train_idx, seed, steps, port_names, pr
     for _ in range(2):  # warm-up: allocator, cuBLAS handles
         step(next(batches))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     _kernels.reset_counts()
     times, losses, edges = [], [], 0
     t_all = time.perf_counter()
@@ -944,6 +1018,7 @@ def train_leg(leg, inputs, needs, labels, train_idx, seed, steps, port_names, pr
     summary = {"leg": leg, "steps": steps, "batch": TRAIN_BATCH,
                "step_ms": median_min_max(times), "seps": seps(edges, wall),
                "sampled_edges": edges, "loss_first": first, "loss_last": last,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
                "launches": {k: v for k, v in counts.items() if v}}
     if profile:
         prof = profile_steps(step, batches, port_names)
@@ -951,7 +1026,7 @@ def train_leg(leg, inputs, needs, labels, train_idx, seed, steps, port_names, pr
                        port_kernel_share=prof["port_ms"] / prof["step_ms"],
                        device_idle_share=1.0 - (prof["port_ms"] + prof["other_ms"])
                        / prof["step_ms"])
-    log("train: " + json.dumps(summary))
+    log(f"{tag}: " + json.dumps(summary))
     check(np.isfinite(first) and np.isfinite(last), f"{leg}: loss not finite")
     for name in needs:
         check(counts[name] > 0, f"kernel {name} never launched on the {leg} leg")
@@ -1874,6 +1949,191 @@ def weighted_train_phase(wtopo, resident, labels, train_idx, seed):
     return out
 
 
+# -- the model zoo slice: K14, K14b, K14c, bf16 K4/K4b; GCN and GAT training --------
+
+def _rows_of(F):
+    """A K14 row of F elements as GAT holds it: [H, D] for the heads, else [F]."""
+    return (GAT_HEADS, HIDDEN) if F == GAT_HEADS * HIDDEN else (F,)
+
+
+def kernel_phase_7(topo, seeds, rows, seed):
+    """Hold K14, K14b and K14c against their plain versions at the shapes
+    one dedup sample_dense of 1,024 seeds gives GCN and GAT, and K4/K4b's
+    bfloat16 variants against their float32 kernels at SAGE's; adds the
+    report rows: K14 and K14b the float32 calls at GAT's widths (one GAT
+    step's), K14c its three hops."""
+    dev = seeds.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 70)
+    ds = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 70).sample_dense(seeds)
+    w_srcs = [int(ds.n_id.shape[0])] + [a.w_dst for a in ds.adjs[:-1]]
+    bf16 = torch.bfloat16
+    for layer, (adj, w_src) in enumerate(zip(ds.adjs, w_srcs)):
+        W, k = adj.mask.shape
+        mask, cols = adj.mask, adj.cols
+        n_lanes, n_valid = W * k, int(mask.sum())
+        src = torch.clamp(cols.long(), 0, w_src - 1)
+        distinct = torch.unique(src).numel()
+        flat_idx = src.reshape(-1)
+        valid_idx = src[mask].contiguous()
+        log("kernels-7 hop: " + json.dumps({"layer": layer, "W_dst": W, "k": k, "W_src": w_src,
+                                            "valid_lanes": n_valid, "distinct_rows": distinct,
+                                            "hub_lanes": int(torch.bincount(valid_idx).max())}))
+        # K14c: the out-degree of this hop, as GCN norm="both" counts it
+        got = block_out_degree(mask, cols, w_src)
+        check(torch.equal(got, block_out_degree_plain(mask, cols, w_src)),
+              f"K14c at layer {layer} differs from its plain version")
+        # yardstick: index_add_ of the mask; the sampler's cols all lie in [0, W_src),
+        # so clipping drops nothing
+        check(bool(((cols >= 0) & (cols < w_src)).all()), "a sampled col lies outside the source")
+        ones = mask.reshape(-1).to(torch.float32)
+        record(rows, "block_out_degree", 0.0,
+               time_ms(lambda: block_out_degree(mask, cols, w_src)),
+               time_ms(lambda: block_out_degree_plain(mask, cols, w_src), reps=5),
+               bound(n_lanes * 5 + w_src * 4, int_ops=n_valid),
+               time_ms(lambda: torch.zeros(w_src, device=dev).index_add_(0, flat_idx, ones)),
+               shape=f"layer {layer} W={W} k={k} W_src={w_src}")
+        widths = sorted({GCN_WIDTHS[layer], GAT_WIDTHS[layer], 1})
+        for F_ in widths:
+            for dtype in (torch.float32, bf16):
+                if dtype == bf16 and F_ not in (HIDDEN, GAT_HEADS * HIDDEN):
+                    continue
+                es = 4 if dtype == torch.float32 else 2
+                tag = f"layer {layer} W={W} k={k} W_src={w_src} F={F_} {str(dtype)[6:]}"
+                report = dtype == torch.float32 and F_ == GAT_WIDTHS[layer]
+                x32 = torch.randn((w_src,) + _rows_of(F_), generator=gen, device=dev)
+                x = x32.to(dtype)
+                del x32
+                # K14: a copy, bit-equal to its plain version
+                got = gather_src_rows(x, cols)
+                check(torch.equal(got, gather_src_plain(x, cols)),
+                      f"K14 differs from its plain version at {tag}")
+                del got
+                flat = x.reshape(w_src, -1)
+                record(rows, "gather_src", 0.0, time_ms(lambda: gather_src_rows(x, cols)),
+                       time_ms(lambda: gather_src_plain(x, cols), reps=5),
+                       bound(n_lanes * 4 + distinct * F_ * es + n_lanes * F_ * es),
+                       time_ms(lambda: torch.index_select(flat, 0, flat_idx)), shape=tag,
+                       report=report)
+                del flat
+                backward = (F_ == GCN_WIDTHS[layer] and layer > 0) or F_ == GAT_WIDTHS[layer]
+                if not backward:  # no gradient reaches this source (the input features, F = 1)
+                    del x
+                    continue
+                # K14b: run twice bit-equal, and against the plain version on a
+                # CPU copy (the valid lanes added in lane order, as the kernel does)
+                g = torch.randn((W, k) + _rows_of(F_), generator=gen, device=dev).to(dtype)
+                got = gather_src_backward(g, mask, cols, w_src)
+                again = gather_src_backward(g, mask, cols, w_src)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"K14b: two runs differ at {tag}")
+                cpu = gather_src_backward_plain(g.cpu(), mask.cpu(), cols.cpu(), w_src)
+                err = float((got.cpu().float() - cpu.float()).abs().max())
+                scale = float(cpu.float().abs().max())
+                check(err <= K14B_CPU_BAR[dtype] * scale,
+                      f"K14b differs from its plain version by {err} (scale {scale}) at {tag}")
+                del again, cpu
+                if dtype == bf16:  # the float32 kernel on the same values, rounded once
+                    ref = gather_src_backward(g.float(), mask, cols, w_src).to(bf16)
+                    check(torch.equal(got, ref),
+                          f"K14b bf16 is not the float32 sum rounded at {tag}")
+                    del ref
+                del got
+                contrib = g.reshape(n_lanes, -1)[mask.reshape(-1)].contiguous()
+                record(rows, "gather_src_backward", err,
+                       time_ms(lambda: gather_src_backward(g, mask, cols, w_src)),
+                       time_ms(lambda: gather_src_backward_plain(g, mask, cols, w_src), reps=5),
+                       bound(n_lanes * 5 + n_valid * F_ * es + w_src * F_ * es,
+                             f32_adds=n_valid * F_),
+                       time_ms(lambda: torch.zeros((w_src, contrib.shape[1]), dtype=dtype,
+                                                   device=dev).index_add_(0, valid_idx, contrib)),
+                       shape=tag, report=report)
+                del g, contrib, x
+        torch.cuda.empty_cache()
+
+    # K4 and K4b in bfloat16 at SAGE's shapes (D = 100 on the features, 256 after),
+    # against the float32 kernels on the same values rounded once; logged only
+    for layer, (adj, w_src) in enumerate(zip(ds.adjs, w_srcs)):
+        W, k = adj.mask.shape
+        D = DIM if layer == 0 else HIDDEN
+        src = torch.clamp(adj.cols.long(), 0, w_src - 1)
+        lanes = int(adj.mask.sum())
+        x = torch.randn((w_src, D), generator=gen, device=dev).to(bf16)
+        got = masked_mean_aggregate(x, adj)
+        check(torch.equal(got, masked_mean_aggregate(x.float(), adj).to(bf16)),
+              f"K4 bf16 is not the float32 mean rounded at layer {layer}")
+        cnt = torch.clamp(adj.mask.sum(dim=1, keepdim=True), min=1)
+        bag = dict(input=src.reshape(-1), weight=x, mode="sum",
+                   offsets=torch.arange(0, W * k, k, device=dev),
+                   per_sample_weights=(adj.mask.float() / cnt).reshape(-1).to(bf16))
+        record(rows, "masked_mean", 0.0, time_ms(lambda: masked_mean_aggregate(x, adj)),
+               time_ms(lambda: masked_mean_aggregate_plain(x, adj), reps=5),
+               bound(W * k * 5 + torch.unique(src[adj.mask]).numel() * D * 2 + W * D * 2,
+                     f32_adds=lanes * D + W * D),
+               time_ms(lambda: F.embedding_bag(**bag)),
+               shape=f"bf16 layer {layer} W={W} k={k} D={D}", report=False)
+        if layer == 0:  # the features take no gradient
+            continue
+        g = torch.randn((W, HIDDEN), generator=gen, device=dev).to(bf16)
+        got = masked_mean_backward(g, adj.mask, adj.cols, w_src)
+        check(torch.equal(got, masked_mean_backward(g.float(), adj.mask, adj.cols,
+                                                    w_src).to(bf16)),
+              f"K4b bf16 is not the float32 gradient rounded at layer {layer}")
+        contrib = ((g.float() / cnt)[:, None, :].expand(W, k, HIDDEN)[adj.mask]).to(bf16)
+        idx = src[adj.mask].contiguous()
+        record(rows, "masked_mean_backward", 0.0,
+               time_ms(lambda: masked_mean_backward(g, adj.mask, adj.cols, w_src)),
+               time_ms(lambda: masked_mean_backward_plain(g, adj.mask, adj.cols, w_src), reps=5),
+               bound(W * k * 5 + W * HIDDEN * 2 + w_src * HIDDEN * 2, f32_adds=2 * lanes * HIDDEN),
+               time_ms(lambda: torch.zeros((w_src, HIDDEN), dtype=bf16, device=dev).index_add_(
+                   0, idx, contrib)),
+               shape=f"bf16 cols layer {layer} W={W} k={k} D={HIDDEN} W_src={w_src}",
+               report=False)
+    torch.cuda.synchronize()
+
+
+def zoo_phase(topo, resident, labels, train_idx, seed):
+    """Path (c): TRAIN_STEPS Adam steps at batch 1024 of sample_dense +
+    lookup_padded on each model of the zoo at products width, as the train
+    legs above; returns the launches summed over the legs."""
+    dev = labels.device
+    port_names = port_kernel_names()
+    bf16 = torch.bfloat16
+    f32_zoo = ("gather_src/float32", "gather_src_backward/float32")
+    bf16_zoo = ("gather_src/bfloat16", "gather_src_backward/bfloat16")
+    legs = (
+        ("gcn right", lambda: GCN(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5), f32_zoo),
+        ("gcn both", lambda: GCN(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5, norm="both"),
+         f32_zoo + ("block_out_degree",)),
+        ("gat", lambda: GAT(DIM, HIDDEN, CLASSES, heads=GAT_HEADS, num_layers=3, dropout=0.5),
+         f32_zoo),
+        ("gcn right bf16", lambda: GCN(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5,
+                                       dtype=bf16), bf16_zoo),
+        ("gat bf16", lambda: GAT(DIM, HIDDEN, CLASSES, heads=GAT_HEADS, num_layers=3,
+                                 dropout=0.5, dtype=bf16), bf16_zoo),
+        ("sage bf16", lambda: GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5,
+                                        dtype=bf16),
+         ("masked_mean/bfloat16", "masked_mean_backward/bfloat16")),
+    )
+    total = {}
+    for leg, make, needs in legs:
+        sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5)
+
+        def inputs(s, sampler=sampler):
+            ds = sampler.sample_dense(s)
+            return ds, resident.lookup_padded(ds.n_id)
+
+        counts, _ = train_leg(f"{leg} sample_dense+lookup_padded", inputs,
+                              ("sample_tiled", "local_reindex", "gather_rows") + needs, labels,
+                              train_idx, seed, TRAIN_STEPS, port_names, make_model=make,
+                              tag="zoo")
+        if leg == "sage bf16":
+            check(counts["gather_src"] == 0, "the SAGE leg launched K14")
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+        torch.cuda.empty_cache()
+    return total
+
+
 def weighted_inputs(topo, seed):
     """Per-edge weights uniform in [0, 1) with ZERO_WEIGHT_FRAC of them 0
     and timestamps uniform in [0, TS_SPAN), float32, from the seed:
@@ -2189,27 +2449,40 @@ def caps_phase(topo, resident, labels, train_idx, seed):
 
 
 def learn_phase():
-    """The example at ACCURACY.json's args on the card; its accuracies
-    beside the reference's recorded ones. Returns the launches."""
+    """The example at ACCURACY.json's args on the card, for GraphSAGE (its
+    accuracies beside the reference's recorded ones) and for GCN and GAT
+    (beside the JAX example's on the CPU at the same args). Returns the
+    launches."""
     from quiver_tpu_torch.examples import reddit_sage
 
     ref = json.loads((Path(__file__).resolve().parent / "ACCURACY.json").read_text())
     ref = ref["reddit_sage_synthetic"]
-    _kernels.reset_counts()
-    t0 = time.perf_counter()
-    res = reddit_sage.main(["--device", "cuda"] + LEARN_ARGS)
-    counts = _kernels.counts()
-    log("learn: " + json.dumps({"result": res, "args": LEARN_ARGS,
-                                "reference_ACCURACY_json": ref,
-                                "seconds": time.perf_counter() - t0,
-                                "launches": {k: v for k, v in counts.items() if v}}))
-    for got, want in (("test_acc", "test_acc"), ("test_acc_full", "test_acc_full_inference")):
-        acc = res.get(got, 0.0)
-        check(acc > LEARN_BAR, f"the example did not learn: {res}")
-        check(abs(acc - ref[want]) <= LEARN_REF_TOL,
-              f"{got} {acc} is not within {LEARN_REF_TOL} of the reference's {ref[want]}")
-    check(counts["full_mean"] > 0, "K10 never launched in full inference")
-    return counts
+    total = {}
+    for model in ("sage", "gcn", "gat"):
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = reddit_sage.main(["--device", "cuda", "--model", model] + LEARN_ARGS)
+        counts = _kernels.counts()
+        want = ref if model == "sage" else {"test_acc": JAX_CPU_TEST_ACC[model]}
+        log("learn: " + json.dumps({"model": model, "result": res, "args": LEARN_ARGS,
+                                    "reference": want, "seconds": time.perf_counter() - t0,
+                                    "launches": {k: v for k, v in counts.items() if v}}))
+        if model == "sage":
+            pairs, bar = (("test_acc", "test_acc"), ("test_acc_full", "test_acc_full_inference")), \
+                LEARN_BAR
+            check(counts["full_mean"] > 0, "K10 never launched in full inference")
+        else:
+            pairs, bar = (("test_acc", "test_acc"),), ZOO_LEARN_BAR
+            for name in ("gather_src", "gather_src_backward"):
+                check(counts[name] > 0, f"{name} never launched in the {model} example")
+        for got, key in pairs:
+            acc = res.get(got, 0.0)
+            check(acc > bar, f"the {model} example did not learn: {res}")
+            check(abs(acc - want[key]) <= LEARN_REF_TOL,
+                  f"{model} {got} {acc} is not within {LEARN_REF_TOL} of {want[key]}")
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+    return total
 
 
 def main() -> int:
@@ -2335,6 +2608,13 @@ def main() -> int:
     kernel_phase_5(topo, wtopo, tg, ts_np, seeds_1024, tseeds, tvals, rows, args.seed)
     w_counts = weighted_train_phase(wtopo, resident, train_labels(topo.node_count, dev),
                                     train_idx, args.seed)
+
+    # -- the model zoo slice: K14, K14b, K14c; GCN, GAT and bf16 training -----------
+    kernel_phase_7(topo, seeds_1024, rows, args.seed)
+    zoo_counts = zoo_phase(topo, resident, train_labels(topo.node_count, dev), train_idx,
+                           args.seed)
+    for name in ("gather_src", "gather_src_backward", "block_out_degree"):
+        launches[name] = zoo_counts[name]
     del resident
     t_counts, k8w_launches = temporal_serve_phase(topo, tg, model, params, table, ttrace,
                                                   args.seed)

@@ -1,8 +1,9 @@
 """quiver_tpu_torch — the PyTorch/CUDA port of quiver_tpu on one card:
 GraphSAGE serving (sample -> dedup -> gather -> forward -> ServeEngine),
-training (tiered Feature -> sample-and-gather -> forward/backward -> Adam
--> full-neighbor eval), the staged tiered train pipeline
-(TrainPipeline -> TieredFeaturePipeline -> tiered_lookup) over float32,
+training of GraphSAGE, GCN and GAT in float32 or bfloat16 compute (tiered
+Feature -> sample-and-gather -> forward/backward -> Adam -> eval), the
+staged tiered train pipeline (TrainPipeline -> TieredFeaturePipeline ->
+tiered_lookup) over float32,
 int8 and bf16 feature tables (`quant`), out-of-core training
 (GraphSageSampler.sample_prob -> utils.heat_reorder / `partition` -> a disk
 tier, static or adaptive (`tiers`) -> the staged pipeline with
@@ -16,9 +17,10 @@ first use (`quiver_tpu_torch._kernels.build`).
 """
 
 from .checkpoint import CheckpointManager
-from .convert import pair_head_params_from_jax, sage_params_from_flax
+from .convert import (gat_params_from_flax, gcn_params_from_flax, pair_head_params_from_jax,
+                      sage_params_from_flax)
 from .feature import Feature
-from .models import GraphSAGE
+from .models import GAT, GCN, GraphSAGE
 from .pipeline import TieredFeaturePipeline, TrainPipeline
 from .pyg import GraphSageSampler
 from .quant import QuantizedFeature
@@ -26,7 +28,8 @@ from .serve import ServeConfig, ServeEngine
 from .utils import CSRTopo
 
 __all__ = [
-    "CSRTopo", "CheckpointManager", "Feature", "GraphSAGE", "GraphSageSampler",
+    "CSRTopo", "CheckpointManager", "Feature", "GAT", "GCN", "GraphSAGE", "GraphSageSampler",
     "QuantizedFeature", "ServeConfig", "ServeEngine", "TieredFeaturePipeline", "TrainPipeline",
-    "pair_head_params_from_jax", "sage_params_from_flax",
+    "gat_params_from_flax", "gcn_params_from_flax", "pair_head_params_from_jax",
+    "sage_params_from_flax",
 ]

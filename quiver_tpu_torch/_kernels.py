@@ -56,9 +56,13 @@ KERNELS = {
     "gather_rows": ("gather", "qt_gather_rows",
                     [_P, _LL, _I, _P, _LL, _LL, _P, _P, _P]),
     "masked_mean": ("aggregate", "qt_masked_mean",
-                    [_P, _LL, _I, _P, _P, _I, _I, _P, _P]),
+                    [_P, _LL, _I, _P, _P, _I, _I, _P, _I, _P]),
     "masked_mean_backward": ("aggregate", "qt_masked_mean_backward",
-                             [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _LL, _P]),
+                             [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _LL, _I, _P]),
+    "gather_src": ("gather", "qt_gather_src", [_P, _LL, _I, _I, _P, _LL, _P, _P]),
+    "gather_src_backward": ("aggregate", "qt_gather_src_backward",
+                            [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _LL, _I, _P]),
+    "block_out_degree": ("aggregate", "qt_block_out_degree", [_P, _P, _LL, _LL, _P, _P, _P]),
     "tiered_gather": ("gather", "qt_tiered_gather",
                       [_P, _LL, _P, _LL, _I, _P, _LL, _LL, _P, _P, _LL, _P, _P, _P]),
     "full_mean": ("full_mean", "qt_full_mean", [_P, _P, _I, _LL, _P, _LL, _I, _P, _P]),
@@ -82,7 +86,10 @@ KERNELS = {
     "build_tiles": ("tiles", "qt_build_tiles", [_P, _LL, _P, _P, _LL, _P, _P]),
 }
 # kernels whose launches are also counted per layout, as "name/variant"
-VARIANTS = {"masked_mean_backward": ("cols", "structural"),
+VARIANTS = {"masked_mean": ("float32", "bfloat16"),
+            "masked_mean_backward": ("cols", "structural", "float32", "bfloat16"),
+            "gather_src": ("float32", "bfloat16"),
+            "gather_src_backward": ("float32", "bfloat16"),
             "tiered_gather": ("float32", "int8", "bfloat16", "disk"),
             "set_rows": ("float32", "int8", "bfloat16"),
             "gather_dequant": ("fp32", "bf16", "int8"),
@@ -227,7 +234,8 @@ def host_device_pointer(t: torch.Tensor) -> int:
 
 def masked_mean_backward_scratch_bytes(w_src: int, w_dst: int, k: int) -> int:
     """Bytes of device scratch the cols layout of ``masked_mean_backward``
-    takes; its layout is known to ``csrc/aggregate.cu`` alone."""
+    (and ``gather_src_backward``, which shares its source segments) takes;
+    its layout is known to ``csrc/aggregate.cu`` alone."""
     lib = _lib(HELPERS["qt_masked_mean_backward_scratch"][0])
     out = ctypes.c_longlong()
     lib.qt_masked_mean_backward_scratch(w_src, w_dst, k, ctypes.byref(out))

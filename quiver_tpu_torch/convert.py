@@ -1,6 +1,7 @@
-"""Carry weights from the JAX package to the port: GraphSAGE's flax
-parameter tree (`sage_params_from_flax`) and the link-prediction head's
-parameters (`pair_head_params_from_jax`). Takes numpy arrays (or anything
+"""Carry weights from the JAX package to the port: the flax parameter trees
+of GraphSAGE (`sage_params_from_flax`), GCN (`gcn_params_from_flax`) and
+GAT (`gat_params_from_flax`), and the link-prediction head's parameters
+(`pair_head_params_from_jax`). Takes numpy arrays (or anything
 ``np.asarray`` accepts), so it imports no flax or jax."""
 
 from __future__ import annotations
@@ -11,27 +12,64 @@ import numpy as np
 import torch
 
 
+def _tree(params: Mapping) -> Mapping:
+    return params["params"] if "params" in params else params
+
+
+def _kernel(dense: Mapping) -> torch.Tensor:
+    """A flax ``kernel [in, out]`` as a torch Linear weight ``[out, in]``."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(dense["kernel"], np.float32).T))
+
+
+def _array(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _layers(p: Mapping, prefix: str):
+    """The layer subtrees ``prefix{0}``, ``prefix{1}``, ... in order."""
+    out = []
+    while f"{prefix}{len(out)}" in p:
+        out.append(p[f"{prefix}{len(out)}"])
+    if not out:
+        raise ValueError(f"no {prefix}{{i}} layers in the parameter tree")
+    return out
+
+
 def sage_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """``state_dict`` of `models.GraphSAGE` from a flax tree
     ``{"params": {"conv{i}": {"lin_l": {"kernel", "bias"}, "lin_r":
     {"kernel"}}}}``. A flax ``kernel`` is ``[in, out]``; a torch Linear
     weight is ``[out, in]``."""
-    p = params["params"] if "params" in params else params
     out: Dict[str, torch.Tensor] = {}
-    i = 0
-    while f"conv{i}" in p:
-        layer = p[f"conv{i}"]
+    for i, layer in enumerate(_layers(_tree(params), "conv")):
         pre = f"convs.{i}."
-        out[pre + "lin_l.weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(layer["lin_l"]["kernel"], np.float32).T))
+        out[pre + "lin_l.weight"] = _kernel(layer["lin_l"])
         if "bias" in layer["lin_l"]:
-            out[pre + "lin_l.bias"] = torch.from_numpy(
-                np.asarray(layer["lin_l"]["bias"], np.float32).copy())
-        out[pre + "lin_r.weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(layer["lin_r"]["kernel"], np.float32).T))
-        i += 1
-    if i == 0:
-        raise ValueError("no conv{i} layers in the parameter tree")
+            out[pre + "lin_l.bias"] = _array(layer["lin_l"]["bias"])
+        out[pre + "lin_r.weight"] = _kernel(layer["lin_r"])
+    return out
+
+
+def gcn_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of `models.GCN` from a flax tree ``{"params":
+    {"conv{i}": {"lin": {"kernel", "bias"}}}}``."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(_layers(_tree(params), "conv")):
+        out[f"convs.{i}.lin.weight"] = _kernel(layer["lin"])
+        if "bias" in layer["lin"]:
+            out[f"convs.{i}.lin.bias"] = _array(layer["lin"]["bias"])
+    return out
+
+
+def gat_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of `models.GAT` from a flax tree ``{"params":
+    {"gat{i}": {"lin": {"kernel"}, "att_src" [1, H, D], "att_dst" [1, H,
+    D]}}}``."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(_layers(_tree(params), "gat")):
+        out[f"convs.{i}.lin.weight"] = _kernel(layer["lin"])
+        out[f"convs.{i}.att_src"] = _array(layer["att_src"])
+        out[f"convs.{i}.att_dst"] = _array(layer["att_dst"])
     return out
 
 
@@ -43,5 +81,4 @@ def pair_head_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     missing = {"w1", "b1", "w2", "b2"} - set(params)
     if missing:
         raise ValueError(f"pair-head params lack {sorted(missing)}")
-    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32))
-            for k in ("w1", "b1", "w2", "b2")}
+    return {k: _array(params[k]) for k in ("w1", "b1", "w2", "b2")}

@@ -7,21 +7,24 @@
 // where src = clip(cols[i, j], 0, W_src - 1) in the cols layout and
 // W + j*W + i in the structural layout (cols == nullptr, W = W_dst). The
 // sum order differs from XLA's, so it matches the JAX package within a
-// float tolerance, and the plain torch version within the same.
+// float tolerance, and the plain torch version within the same. Rows are
+// float32 or bfloat16; a bfloat16 row is summed and divided in float32 and
+// rounded once (the plain version computes in float32 and rounds too).
 //
 // Bound on the card: bytes — the valid neighbor rows of x are read once
-// each (D float32 per valid lane), the output written once; the adds are
-// one per byte-pair read. Design: one warp per target row; lane j holds
+// each (D elements per valid lane), the output written once; the adds are
+// one per element read. Design: one warp per target row; lane j holds
 // lane j's (mask, src) so the row's valid set is one ballot, the columns
 // run across the lanes (coalesced reads of each neighbor row), and the
 // k-step sum of each column stays in a register. Needs k <= 32.
 
 #include "common.cuh"
 
-__global__ void masked_mean_kernel(const float* __restrict__ x, long long w_src, int D,
+template <typename E>
+__global__ void masked_mean_kernel(const typename E::T* __restrict__ x, long long w_src, int D,
                                    const bool* __restrict__ mask,
                                    const int32_t* __restrict__ cols, int32_t w_dst, int k,
-                                   float* __restrict__ out) {
+                                   typename E::T* __restrict__ out) {
   const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= w_dst) return;  // warp-uniform
@@ -42,21 +45,34 @@ __global__ void masked_mean_kernel(const float* __restrict__ x, long long w_src,
     float acc = 0.0f;
     for (int j = 0; j < k; ++j) {
       const long long sj = __shfl_sync(0xFFFFFFFFu, src, j);
-      if (((valid >> j) & 1u) && d < D) acc = __fadd_rn(acc, x[sj * D + d]);
+      if (((valid >> j) & 1u) && d < D) acc = __fadd_rn(acc, E::load(x + sj * D + d));
     }
-    if (d < D) out[row * D + d] = __fdiv_rn(acc, denom);
+    if (d < D) E::store(out + row * D + d, __fdiv_rn(acc, denom));
   }
 }
 
+template <typename E>
+static void launch_masked_mean(const void* x, long long w_src, int D, const void* mask,
+                               const void* cols, int w_dst, int k, void* out, cudaStream_t st) {
+  const int threads = 256;  // 8 target rows a block
+  masked_mean_kernel<E><<<qt_blocks(static_cast<long long>(w_dst) * 32, threads), threads, 0,
+                          st>>>(
+      static_cast<const typename E::T*>(x), w_src, D, static_cast<const bool*>(mask),
+      static_cast<const int32_t*>(cols), w_dst, k, static_cast<typename E::T*>(out));
+}
+
+// bf16: 0 for float32 rows, 1 for bfloat16 rows (x and out alike)
 QT_EXPORT int qt_masked_mean(const void* x, long long w_src, int D, const void* mask,
-                             const void* cols, int w_dst, int k, void* out, void* stream) {
+                             const void* cols, int w_dst, int k, void* out, int bf16,
+                             void* stream) {
   if (w_dst <= 0 || D <= 0) return 0;
   if (k > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;  // 8 target rows a block
-  masked_mean_kernel<<<qt_blocks(static_cast<long long>(w_dst) * 32, threads), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), w_src, D, static_cast<const bool*>(mask),
-      static_cast<const int32_t*>(cols), w_dst, k, static_cast<float*>(out));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    launch_masked_mean<QtBF16>(x, w_src, D, mask, cols, w_dst, k, out, st);
+  } else {
+    launch_masked_mean<QtF32>(x, w_src, D, mask, cols, w_dst, k, out, st);
+  }
   return qt_launch_status();
 }
 
@@ -90,7 +106,8 @@ QT_EXPORT int qt_masked_mean(const void* x, long long w_src, int D, const void* 
 //      writes them in ascending order, then sums g[i] / cnt_i in that
 //      order with each lane owning columns.
 // Clipped columns are clipped as the forward clips them, and lanes the
-// mask drops (invalid, or past a cap) add nothing.
+// mask drops (invalid, or past a cap) add nothing. A bfloat16 gradient is
+// divided and summed in float32 and rounded once, when stored.
 //
 // Bound on the card: bytes — g and the mask and cols read once, d x_src
 // written once. Design: the count, scan and fill move 4-byte integers
@@ -203,18 +220,19 @@ __global__ void mean_bwd_fill_kernel(const bool* __restrict__ mask,
 
 // 4. per source row: order the segment, then sum in that order. One walk
 //    of the segment serves up to kChunks column chunks a lane (256 columns
-//    with 16-byte loads), and the loads of kLanesInFlight lanes are issued
-//    before their adds, so a hub's long segment is walked once with 8
-//    gradient rows in flight
+//    with 4-element loads), and the loads of kLanesInFlight lanes are
+//    issued before their adds, so a hub's long segment is walked once with
+//    8 gradient rows in flight
 constexpr int kLanesInFlight = 8;
 constexpr int kChunks = 2;
 
-__global__ void mean_bwd_sum_kernel(const float* __restrict__ g, int D,
+template <typename E>
+__global__ void mean_bwd_sum_kernel(const typename E::T* __restrict__ g, int D,
                                     const float* __restrict__ cntf, int k, long long w_src,
                                     const int32_t* __restrict__ offsets,
                                     const int32_t* __restrict__ lanes,
                                     int32_t* sorted, bool vec4,
-                                    float* __restrict__ gx) {
+                                    typename E::T* __restrict__ gx) {
   const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= w_src) return;  // warp-uniform
@@ -230,7 +248,7 @@ __global__ void mean_bwd_sum_kernel(const float* __restrict__ g, int D,
     if (t0 + lane < n) sorted[base + rank] = mine;
   }
   __syncwarp();  // the ordered segment is visible to the whole warp
-  float* out = gx + row * D;
+  typename E::T* out = gx + row * D;
   const int width = vec4 ? 4 : 1;       // columns a lane loads at once
   const int stride = 32 * width;        // columns a warp covers per chunk
   for (int c0 = 0; c0 < D; c0 += kChunks * stride) {  // warp-uniform
@@ -243,7 +261,7 @@ __global__ void mean_bwd_sum_kernel(const float* __restrict__ g, int D,
 #pragma unroll
       for (int u = 0; u < kLanesInFlight; ++u) {  // all loads first ...
         cnt[u] = 1.0f;
-        const float* gi = g;
+        const typename E::T* gi = g;
         if (t + u < n) {
           const int32_t i = sorted[base + t + u] / k;
           cnt[u] = cntf[i];
@@ -255,9 +273,9 @@ __global__ void mean_bwd_sum_kernel(const float* __restrict__ g, int D,
           v[u][ch] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           if (t + u < n && c < D) {
             if (vec4) {
-              v[u][ch] = *reinterpret_cast<const float4*>(gi + c);
+              v[u][ch] = E::load4(gi + c);
             } else {
-              v[u][ch].x = gi[c];
+              v[u][ch].x = E::load(gi + c);
             }
           }
         }
@@ -280,9 +298,9 @@ __global__ void mean_bwd_sum_kernel(const float* __restrict__ g, int D,
       const int c = c0 + ch * stride + lane * width;
       if (c < D) {
         if (vec4) {
-          *reinterpret_cast<float4*>(out + c) = acc[ch];
+          E::store4(out + c, acc[ch]);
         } else {
-          out[c] = acc[ch].x;
+          E::store(out + c, acc[ch].x);
         }
       }
     }
@@ -290,9 +308,11 @@ __global__ void mean_bwd_sum_kernel(const float* __restrict__ g, int D,
 }
 
 // structural layout: source row r = W + j*W + i takes lane (i, j) alone
-__global__ void mean_bwd_structural_kernel(const float* __restrict__ g, int D,
+template <typename E>
+__global__ void mean_bwd_structural_kernel(const typename E::T* __restrict__ g, int D,
                                            const bool* __restrict__ mask, int32_t w_dst,
-                                           int k, long long w_src, float* __restrict__ gx) {
+                                           int k, long long w_src,
+                                           typename E::T* __restrict__ gx) {
   const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= w_src) return;  // warp-uniform
@@ -307,13 +327,14 @@ __global__ void mean_bwd_structural_kernel(const float* __restrict__ g, int D,
   const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
   const bool take = inside && ((valid >> j) & 1u);
   for (int c = lane; c < D; c += 32)
-    gx[row * D + c] = take ? __fdiv_rn(g[i * D + c], denom) : 0.0f;
+    E::store(gx + row * D + c, take ? __fdiv_rn(E::load(g + i * D + c), denom) : 0.0f);
 }
 
-// The cols layout's scratch: lane counts, offsets, cursors, the lanes in
-// arrival and in flat-index order, the float counts and the scan's tile
-// sums, carved from one buffer of the caller's in 256-byte-aligned parts.
-// Only this file knows the layout; the wrapper asks for its size.
+// The cols layout's scratch (K4b's and K14b's): lane counts, offsets,
+// cursors, the lanes in arrival and in flat-index order, the float counts
+// (K4b only) and the scan's tile sums, carved from one buffer of the
+// caller's in 256-byte-aligned parts. Only this file knows the layout;
+// the wrapper asks for its size.
 struct MeanBwdScratch {
   int32_t *deg, *offsets, *cursor, *lanes, *sorted, *tile_sums;
   float* cntf;
@@ -348,55 +369,287 @@ QT_EXPORT int qt_masked_mean_backward_scratch(long long w_src, int w_dst, int k,
   return 0;
 }
 
-QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, const void* cols,
-                                      int w_dst, int k, long long w_src, void* gx, void* scratch,
-                                      long long scratch_bytes, void* stream) {
-  if (w_src <= 0 || D <= 0) return 0;
-  if (k > 32) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// 2-3 of the cols layout, given the lane counts in sc.deg: the scan into
+// segment offsets, then each valid lane's flat index into its segment
+static int scan_and_fill(const bool* m, const int32_t* c, long long n_lanes, long long w_src,
+                         const MeanBwdScratch& sc, cudaStream_t st) {
   const int threads = 256;
-  const float* gf = static_cast<const float*>(g);
+  const long long n_tiles = (w_src + kScanTile - 1) / kScanTile;
+  mean_bwd_tile_sums_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
+      sc.deg, w_src, sc.tile_sums);
+  if (int e = qt_launch_status()) return e;
+  mean_bwd_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(sc.tile_sums, n_tiles);
+  if (int e = qt_launch_status()) return e;
+  mean_bwd_tile_scan_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
+      sc.deg, w_src, sc.tile_sums, sc.offsets, sc.cursor);
+  if (int e = qt_launch_status()) return e;
+  if (n_lanes > 0) {
+    mean_bwd_fill_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
+        m, c, n_lanes, w_src, sc.cursor, sc.lanes);
+    if (int e = qt_launch_status()) return e;
+  }
+  return 0;
+}
+
+template <typename E>
+static int masked_mean_backward_any(const void* g, int D, const void* mask, const void* cols,
+                                    int w_dst, int k, long long w_src, void* gx, void* scratch,
+                                    long long scratch_bytes, cudaStream_t st) {
+  using T = typename E::T;
+  const int threads = 256;
+  const T* gt = static_cast<const T*>(g);
   const bool* m = static_cast<const bool*>(mask);
-  float* out = static_cast<float*>(gx);
+  T* out = static_cast<T*>(gx);
   if (cols == nullptr) {
-    mean_bwd_structural_kernel<<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
-        gf, D, m, w_dst, k, w_src, out);
+    mean_bwd_structural_kernel<E><<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
+        gt, D, m, w_dst, k, w_src, out);
     return qt_launch_status();
   }
   const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k);
   if (scratch == nullptr || scratch_bytes < sc.bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   const int32_t* c = static_cast<const int32_t*>(cols);
-  int32_t* dg = sc.deg;
-  int32_t* off = sc.offsets;
-  int32_t* cur = sc.cursor;
-  float* cf = sc.cntf;
-  cudaError_t err = cudaMemsetAsync(dg, 0, sizeof(int32_t) * w_src, st);
+  cudaError_t err = cudaMemsetAsync(sc.deg, 0, sizeof(int32_t) * w_src, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (w_dst > 0 && k > 0) {
     mean_bwd_count_kernel<<<qt_blocks(static_cast<long long>(w_dst) * 32, threads), threads, 0,
-                            st>>>(m, c, w_dst, k, w_src, dg, cf);
+                            st>>>(m, c, w_dst, k, w_src, sc.deg, sc.cntf);
     if (int e = qt_launch_status()) return e;
   }
-  const long long n_tiles = (w_src + kScanTile - 1) / kScanTile;
-  int32_t* ts = sc.tile_sums;
-  mean_bwd_tile_sums_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(dg, w_src, ts);
-  if (int e = qt_launch_status()) return e;
-  mean_bwd_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(ts, n_tiles);
-  if (int e = qt_launch_status()) return e;
-  mean_bwd_tile_scan_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(dg, w_src, ts,
-                                                                                  off, cur);
-  if (int e = qt_launch_status()) return e;
   const long long n_lanes = static_cast<long long>(w_dst) * k;
+  if (int e = scan_and_fill(m, c, n_lanes, w_src, sc, st)) return e;
+  const uintptr_t align = 4 * sizeof(T);
+  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % align == 0 &&
+                    reinterpret_cast<uintptr_t>(gx) % align == 0;
+  mean_bwd_sum_kernel<E><<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
+      gt, D, sc.cntf, k, w_src, sc.offsets, sc.lanes, sc.sorted, vec4, out);
+  return qt_launch_status();
+}
+
+// bf16: 0 for a float32 gradient, 1 for a bfloat16 one (g and gx alike)
+QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, const void* cols,
+                                      int w_dst, int k, long long w_src, void* gx, void* scratch,
+                                      long long scratch_bytes, int bf16, void* stream) {
+  if (w_src <= 0 || D <= 0) return 0;
+  if (k > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? masked_mean_backward_any<QtBF16>(g, D, mask, cols, w_dst, k, w_src, gx, scratch,
+                                                 scratch_bytes, st)
+              : masked_mean_backward_any<QtF32>(g, D, mask, cols, w_dst, k, w_src, gx, scratch,
+                                                scratch_bytes, st);
+}
+
+// K14b: gather_src_backward — the gradient of the hop-source gather
+// (K14, csrc/gather.cu) with respect to x_src: d x_src [W_src, F] from
+// d out [W_dst, k, F].
+//
+// Replaces the autodiff of quiver_tpu/pyg/sage_sampler.py:
+// DenseAdj.gather_src in the cols layout (the transpose of jnp.take: a
+// scatter-add of every lane's cotangent row onto its clipped source row),
+// as GCN (quiver_tpu/models/gcn.py:49) and GAT (models/gat.py:52) reach
+// it. Only valid lanes are summed: every caller gives a masked lane a
+// cotangent of +-0 (GCN and SAGE multiply by the mask, GAT's masked
+// scores are -1e9 before a float32 softmax, whose exp is exactly 0), and
+// adding +-0 to a sum that starts at +0 changes no bit, so the sum equals
+// the scatter over every lane, while the masked lanes — which the sampler
+// points at one real source row — never form a segment. Lane (i, j) adds
+// g[i, j, :] to row clip(cols[i, j], 0, W_src - 1), in ascending flat
+// lane index q = i*k + j: deterministic, no float atomics, so two runs
+// give bit-equal gradients. Rows no valid lane names get zero. A bfloat16
+// gradient is summed in float32 and rounded once.
+//
+// Bound on the card: bytes — the valid lanes' cotangent rows, the mask and
+// cols read once, d x_src written once (3.7 GB of float32 cotangent at
+// GAT's widest hop, 180,224 x 5 lanes of 1,024). Design: K4b's CSR of
+// sources (count with integer atomics, three-pass scan, fill of the valid
+// lanes); then a thread per filled slot ranks its lane within its segment
+// (the number of smaller lane indices), so a hub's segment of n lanes is
+// ordered in time n by n threads, where K4b's warp takes n^2 / 32; then
+// a warp per (source row, 128 columns) walks the ordered segment, each
+// lane summing 4 columns with kLanesInFlight cotangent rows in flight, so
+// a row of 1,024 columns is spread over 8 warps.
+
+// 1 (K14b and K14c). a thread per lane: each valid lane adds one to its
+// source row — clipped to [0, W_src) (drop = 0), or, as JAX's
+// .at[cols].add(mode="drop") indexes, a negative col counted from the end
+// and a col still outside [0, W_src) dropped (drop = 1)
+__global__ void lane_count_kernel(const bool* __restrict__ mask,
+                                  const int32_t* __restrict__ cols, long long n_lanes,
+                                  long long w_src, int drop, int32_t* __restrict__ deg) {
+  const long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (q >= n_lanes || !mask[q]) return;
+  long long c = cols[q];
+  if (drop) {
+    if (c < 0) c += w_src;
+    if (c < 0 || c >= w_src) return;
+  } else {
+    c = qt_clamp<long long>(c, 0, w_src - 1);
+  }
+  atomicAdd(deg + c, 1);
+}
+
+// 4. a thread per filled slot p: its lane q, its segment [base, base + n),
+//    and its rank there; sorted[base + rank] = q. Slots past the total
+//    (offsets[w_src]: the valid lanes) do nothing.
+__global__ void src_rank_kernel(const int32_t* __restrict__ cols, long long n_lanes,
+                                long long w_src, const int32_t* __restrict__ offsets,
+                                const int32_t* __restrict__ lanes,
+                                int32_t* __restrict__ sorted) {
+  const long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (p >= n_lanes || p >= offsets[w_src]) return;
+  const int32_t q = lanes[p];
+  const long long src = qt_clamp<long long>(cols[q], 0, w_src - 1);
+  const int32_t base = offsets[src];
+  const int32_t n = offsets[src + 1] - base;
+  int32_t rank = 0;
+  for (int32_t t = 0; t < n; ++t) rank += lanes[base + t] < q;
+  sorted[base + rank] = q;
+}
+
+// 5. a warp per (source row, kSrcCols columns): lane l sums columns
+//    c0 + 4l .. c0 + 4l + 3 (vec4: one 4-element load a row) or c0 + l +
+//    32u, u < 4, over the ordered segment's cotangent rows g[q]
+constexpr int kSrcCols = 128;
+
+template <typename E>
+__global__ void src_sum_kernel(const typename E::T* __restrict__ g, int F, long long w_src,
+                               const int32_t* __restrict__ offsets,
+                               const int32_t* __restrict__ sorted, bool vec4,
+                               typename E::T* __restrict__ gx) {
+  const long long warp = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int chunks = (F + kSrcCols - 1) / kSrcCols;
+  const long long row = warp / chunks;
+  if (row >= w_src) return;  // warp-uniform
+  const int c0 = static_cast<int>(warp - row * chunks) * kSrcCols;
+  const int32_t base = offsets[row];
+  const int32_t n = offsets[row + 1] - base;
+  int col[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) col[u] = vec4 ? c0 + 4 * lane + u : c0 + lane + 32 * u;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int32_t t = 0; t < n; t += kLanesInFlight) {  // warp-uniform
+    float4 v[kLanesInFlight];
+#pragma unroll
+    for (int u = 0; u < kLanesInFlight; ++u) {  // all loads first ...
+      v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (t + u < n) {
+        const typename E::T* gq = g + static_cast<long long>(sorted[base + t + u]) * F;
+        if (vec4) {
+          if (col[0] < F) v[u] = E::load4(gq + col[0]);
+        } else {
+          if (col[0] < F) v[u].x = E::load(gq + col[0]);
+          if (col[1] < F) v[u].y = E::load(gq + col[1]);
+          if (col[2] < F) v[u].z = E::load(gq + col[2]);
+          if (col[3] < F) v[u].w = E::load(gq + col[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLanesInFlight; ++u) {  // ... then the adds, in lane order
+      if (t + u < n) {
+        acc.x = __fadd_rn(acc.x, v[u].x);
+        acc.y = __fadd_rn(acc.y, v[u].y);
+        acc.z = __fadd_rn(acc.z, v[u].z);
+        acc.w = __fadd_rn(acc.w, v[u].w);
+      }
+    }
+  }
+  typename E::T* out = gx + row * F;
+  if (vec4) {
+    if (col[0] < F) E::store4(out + col[0], acc);
+  } else {
+    if (col[0] < F) E::store(out + col[0], acc.x);
+    if (col[1] < F) E::store(out + col[1], acc.y);
+    if (col[2] < F) E::store(out + col[2], acc.z);
+    if (col[3] < F) E::store(out + col[3], acc.w);
+  }
+}
+
+template <typename E>
+static int gather_src_backward_any(const void* g, int F, const void* mask, const void* cols,
+                                   int w_dst, int k, long long w_src, void* gx, void* scratch,
+                                   long long scratch_bytes, cudaStream_t st) {
+  using T = typename E::T;
+  const int threads = 256;
+  const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k);
+  if (scratch == nullptr || scratch_bytes < sc.bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool* m = static_cast<const bool*>(mask);
+  const int32_t* c = static_cast<const int32_t*>(cols);
+  const long long n_lanes = static_cast<long long>(w_dst) * k;
+  cudaError_t err = cudaMemsetAsync(sc.deg, 0, sizeof(int32_t) * w_src, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (n_lanes > 0) {
-    mean_bwd_fill_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
-        m, c, n_lanes, w_src, cur, sc.lanes);
+    lane_count_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(m, c, n_lanes, w_src, 0,
+                                                                       sc.deg);
     if (int e = qt_launch_status()) return e;
   }
-  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(gx) % 16 == 0;
-  mean_bwd_sum_kernel<<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
-      gf, D, cf, k, w_src, off, sc.lanes, sc.sorted, vec4, out);
+  if (int e = scan_and_fill(m, c, n_lanes, w_src, sc, st)) return e;
+  if (n_lanes > 0) {
+    src_rank_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(c, n_lanes, w_src,
+                                                                     sc.offsets, sc.lanes,
+                                                                     sc.sorted);
+    if (int e = qt_launch_status()) return e;
+  }
+  const uintptr_t align = 4 * sizeof(T);
+  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(g) % align == 0 &&
+                    reinterpret_cast<uintptr_t>(gx) % align == 0;
+  const long long warps = w_src * ((F + kSrcCols - 1) / kSrcCols);
+  src_sum_kernel<E><<<qt_blocks(warps * 32, threads), threads, 0, st>>>(
+      static_cast<const T*>(g), F, w_src, sc.offsets, sc.sorted, vec4, static_cast<T*>(gx));
+  return qt_launch_status();
+}
+
+// g is [w_dst * k, F] (the flat lanes' cotangent rows), gx [w_src, F];
+// scratch as qt_masked_mean_backward_scratch(w_src, w_dst, k) gives; bf16:
+// 0 for float32 rows, 1 for bfloat16 rows. Any k.
+QT_EXPORT int qt_gather_src_backward(const void* g, int F, const void* mask, const void* cols,
+                                     int w_dst, int k, long long w_src, void* gx, void* scratch,
+                                     long long scratch_bytes, int bf16, void* stream) {
+  if (w_src <= 0 || F <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? gather_src_backward_any<QtBF16>(g, F, mask, cols, w_dst, k, w_src, gx, scratch,
+                                                scratch_bytes, st)
+              : gather_src_backward_any<QtF32>(g, F, mask, cols, w_dst, k, w_src, gx, scratch,
+                                               scratch_bytes, st);
+}
+
+// K14c: block_out_degree — GCN's within-block source out-degree.
+//
+// Replaces quiver_tpu/models/gcn.py:69-71, jnp.zeros(W_src).at[cols].add(
+// mask, mode="drop") in float32: deg_out[s] is the number of valid lanes
+// whose col names s, a negative col counting from the end (-1 is W_src - 1)
+// as JAX's indexing does, and a col outside [-W_src, W_src) dropped — not
+// clipped, as the gather clips. The count is exact and does not depend on
+// the order, so the result is bit-equal to the plain version's.
+//
+// Bound on the card: bytes — the mask and cols read once, W_src float32
+// written once (and the [W_src] int32 counts zeroed, counted and read).
+// Design: K14b's count kernel (drop = 1) with integer atomics, then one
+// conversion a row.
+__global__ void count_to_float_kernel(const int32_t* __restrict__ deg, long long n,
+                                      float* __restrict__ out) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i < n) out[i] = static_cast<float>(deg[i]);
+}
+
+// deg: [w_src] int32 scratch; out: [w_src] float32
+QT_EXPORT int qt_block_out_degree(const void* mask, const void* cols, long long n_lanes,
+                                  long long w_src, void* deg, void* out, void* stream) {
+  if (w_src <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  int32_t* d = static_cast<int32_t*>(deg);
+  cudaError_t err = cudaMemsetAsync(d, 0, sizeof(int32_t) * w_src, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_lanes > 0) {
+    lane_count_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
+        static_cast<const bool*>(mask), static_cast<const int32_t*>(cols), n_lanes, w_src, 1, d);
+    if (int e = qt_launch_status()) return e;
+  }
+  count_to_float_kernel<<<qt_blocks(w_src, threads), threads, 0, st>>>(d, w_src,
+                                                                      static_cast<float*>(out));
   return qt_launch_status();
 }
 

@@ -355,4 +355,86 @@ QT_EXPORT int qt_host_device_pointer(const void* host, void** dev) {
   return 0;
 }
 
+// K14: gather_src — the hop-source gather of the dense adjacency.
+//
+// Replaces quiver_tpu/pyg/sage_sampler.py:DenseAdj.gather_src in the cols
+// layout (jnp.take(x_src, clip(cols, 0, W_src - 1), axis=0)), as GCN
+// (quiver_tpu/models/gcn.py:49, :76) and GAT (models/gat.py:52) call it:
+// out[q] = x_src[clip(cols[q], 0, W_src - 1)] for every lane q of the
+// [W_dst, k] hop, each row F elements (F = D, H * D or 1) of float32 or
+// bfloat16, copied as bytes, so the result is bit-equal. Its gradient is
+// K14b (csrc/aggregate.cu).
+//
+// Bound on the card: bytes — the rows the lanes name read once each, the
+// [W_dst * k, F] output written once (3.7 GB of float32 at GAT's widest
+// hop). Design: K3's shape, with K3t's widest access (16, 8, 4, 2 or 1
+// bytes that divide the row width and both base pointers): a warp copies
+// a row of 32 elements or more in one coalesced sweep; a narrower row (GCN's
+// F = 1 inverse degree) is copied by one thread, so a warp writes 32
+// consecutive rows instead of leaving 31 lanes idle.
+template <int V>
+__global__ void gather_src_warp_kernel(const char* __restrict__ x, long long w_src,
+                                       long long row_bytes, const int32_t* __restrict__ cols,
+                                       long long n_lanes, char* __restrict__ out) {
+  using T = typename Bytes<V>::T;
+  const long long q = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (q >= n_lanes) return;
+  const long long s = qt_clamp<long long>(cols[q], 0, w_src - 1);
+  const T* src = reinterpret_cast<const T*>(x + s * row_bytes);
+  T* dst = reinterpret_cast<T*>(out + q * row_bytes);
+  const long long n_vec = row_bytes / V;
+  for (long long c = lane; c < n_vec; c += 32) dst[c] = src[c];
+}
+
+template <int V>
+__global__ void gather_src_thread_kernel(const char* __restrict__ x, long long w_src,
+                                         long long row_bytes, const int32_t* __restrict__ cols,
+                                         long long n_lanes, char* __restrict__ out) {
+  using T = typename Bytes<V>::T;
+  const long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (q >= n_lanes) return;
+  const long long s = qt_clamp<long long>(cols[q], 0, w_src - 1);
+  const T* src = reinterpret_cast<const T*>(x + s * row_bytes);
+  T* dst = reinterpret_cast<T*>(out + q * row_bytes);
+  const long long n_vec = row_bytes / V;
+  for (long long c = 0; c < n_vec; ++c) dst[c] = src[c];
+}
+
+template <int V>
+static void launch_gather_src(const void* x, long long w_src, long long row_bytes,
+                              bool thread_a_row, const void* cols, long long n_lanes, void* out,
+                              cudaStream_t stream) {
+  const int threads = 256;
+  const char* xs = static_cast<const char*>(x);
+  const int32_t* c = static_cast<const int32_t*>(cols);
+  char* o = static_cast<char*>(out);
+  if (thread_a_row) {
+    gather_src_thread_kernel<V><<<qt_blocks(n_lanes, threads), threads, 0, stream>>>(
+        xs, w_src, row_bytes, c, n_lanes, o);
+  } else {
+    gather_src_warp_kernel<V><<<qt_blocks(n_lanes * 32, threads), threads, 0, stream>>>(
+        xs, w_src, row_bytes, c, n_lanes, o);
+  }
+}
+
+// x: [w_src, F] rows of elem_bytes-byte elements; cols: [n_lanes] int32;
+// out: [n_lanes, F]
+QT_EXPORT int qt_gather_src(const void* x, long long w_src, int F, int elem_bytes,
+                            const void* cols, long long n_lanes, void* out, void* stream) {
+  if (n_lanes <= 0 || F <= 0) return 0;
+  if (w_src <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long row_bytes = static_cast<long long>(F) * elem_bytes;
+  const bool thread_a_row = F < 32;
+  switch (qt_vec_bytes(row_bytes, {x, out})) {
+    case 16: launch_gather_src<16>(x, w_src, row_bytes, thread_a_row, cols, n_lanes, out, s); break;
+    case 8: launch_gather_src<8>(x, w_src, row_bytes, thread_a_row, cols, n_lanes, out, s); break;
+    case 4: launch_gather_src<4>(x, w_src, row_bytes, thread_a_row, cols, n_lanes, out, s); break;
+    case 2: launch_gather_src<2>(x, w_src, row_bytes, thread_a_row, cols, n_lanes, out, s); break;
+    default: launch_gather_src<1>(x, w_src, row_bytes, thread_a_row, cols, n_lanes, out, s); break;
+  }
+  return qt_launch_status();
+}
+
 QT_DEFINE_ERROR_STRING

@@ -1,16 +1,17 @@
-"""Single-GPU GraphSAGE training — the port of ``examples/reddit_sage.py``:
-sample -> feature lookup -> forward/backward -> Adam, then sampled
-validation and test accuracy and the layer-wise full-neighbor test
-accuracy.
+"""Single-GPU GraphSAGE, GAT or GCN training — the port of
+``examples/reddit_sage.py``: sample -> feature lookup -> forward/backward
+-> Adam, then sampled validation and test accuracy and, for GraphSAGE, the
+layer-wise full-neighbor test accuracy.
 
     python -m quiver_tpu_torch.examples.reddit_sage [--device cpu] [flags]
 
 With --dataset pointing at an .npz holding {edge_index [2,E], features
 [N,D], labels [N], train_idx} (and optional valid_idx/test_idx) it trains
 that graph; without it, a synthetic power-law community graph stands in.
-Runs on the card unless ``--device cpu`` asks for the plain torch
-versions. Not ported yet: ``--model gat/gcn``, ``--bf16`` and ``--mode
-HOST/CPU/UVA``.
+``--model gat`` trains a GAT with 4 heads of ``--hidden``, ``--model gcn``
+a GCN with norm "right"; ``--bf16`` computes in bfloat16 (float32
+parameters and logits). Runs on the card unless ``--device cpu`` asks for
+the plain torch versions. Not ported yet: ``--mode HOST/CPU/UVA``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import CSRTopo, Feature, GraphSAGE, GraphSageSampler
+from .. import GAT, GCN, CSRTopo, Feature, GraphSAGE, GraphSageSampler
 from ..inference import full_inference_accuracy, lookup_features, sampled_eval, strict_float32
 from ..trace import seps
 from ..utils import resolve_device
@@ -69,9 +70,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--dim", type=int, default=64, help="synthetic feature dim")
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute (not ported yet)")
-    ap.add_argument("--model", default="sage", choices=["sage", "gat", "gcn"],
-                    help="gat and gcn are not ported yet")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    ap.add_argument("--model", default="sage", choices=["sage", "gat", "gcn"])
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     return ap.parse_args(argv)
 
@@ -81,10 +81,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ``{"loss", "val_acc", "test_acc", "test_acc_full"}`` (those it
     computed)."""
     args = parse_args(argv)
-    if args.model != "sage":
-        raise NotImplementedError(f"--model {args.model} is not ported yet")
-    if args.bf16:
-        raise NotImplementedError("--bf16 is not ported yet")
     if args.mode not in ("GPU", "TPU"):
         raise NotImplementedError(f"--mode {args.mode} is not ported yet")
     dev = resolve_device(args.device)
@@ -111,7 +107,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                       device=dev)
     feature.from_cpu_tensor(feat)
 
-    model = GraphSAGE(feat.shape[1], args.hidden, ncls, num_layers=len(sizes), dropout=0.5)
+    dtype = torch.bfloat16 if args.bf16 else None
+    if args.model == "gat":
+        model = GAT(feat.shape[1], args.hidden, ncls, heads=4, num_layers=len(sizes),
+                    dropout=0.5, dtype=dtype)
+    elif args.model == "gcn":
+        model = GCN(feat.shape[1], args.hidden, ncls, num_layers=len(sizes), dropout=0.5,
+                    dtype=dtype)
+    else:
+        model = GraphSAGE(feat.shape[1], args.hidden, ncls, num_layers=len(sizes), dropout=0.5,
+                          dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to(dev)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
@@ -151,8 +156,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
             acc = sampled_eval(model, sampler, feature, labels, idx, batch_size)
             out[f"{name}_acc"] = acc
             print(f"{name} acc: {acc:.4f} ({len(idx)} nodes)", flush=True)
-    if test_idx is not None and len(test_idx):
-        # exact layer-wise full-neighbor inference
+    if args.model == "sage" and test_idx is not None and len(test_idx):
+        # exact layer-wise full-neighbor inference (float32, as the JAX package's)
         facc = full_inference_accuracy(model, csr_topo, feat, labels, test_idx)
         out["test_acc_full"] = facc
         print(f"test acc (full inference): {facc:.4f}", flush=True)

@@ -3,7 +3,9 @@
 
 The JAX package passes a flax module and its params separately; here a
 model is an ``nn.Module`` holding its weights (`bind_params` makes one
-from a ``state_dict``), so every function below takes the bound module.
+from a ``state_dict``), so every function below takes the bound module:
+a `models.GraphSAGE`, `models.GCN` or `models.GAT` (full-neighbor
+inference is GraphSAGE's alone, as in the JAX package).
 All of them run the model in eval mode with TF32 off
 (`strict_float32`): float32 products stay float32, as in the reference.
 
@@ -138,7 +140,8 @@ def sampled_eval(model: nn.Module, sampler, feature, labels, nodes,
 
 def bind_params(model: nn.Module, params=None, device=None) -> nn.Module:
     """An eval-mode module with ``params`` (a ``state_dict``, e.g. from
-    `convert.sage_params_from_flax`) loaded into a copy of ``model``, on
+    `convert.sage_params_from_flax`, `gcn_params_from_flax` or
+    `gat_params_from_flax`) loaded into a copy of ``model``, on
     ``device``. ``params=None`` keeps the model's own weights."""
     m = copy.deepcopy(model) if params is not None else model
     if device is not None:

@@ -10,6 +10,12 @@ kernel beside it (K4b); on CPU tensors both are the plain torch versions
 in this module. The linear layers stay ``nn.Linear``, as the JAX package
 leaves them to XLA. Float32 products run in full float32: the entry
 points (`quiver_tpu_torch.inference`, the example) turn TF32 off.
+
+``dtype=torch.bfloat16`` is the flax mixed-precision recipe of the JAX
+package: parameters stay float32, each layer casts its input and its
+parameters to bfloat16 and computes there (the mean in float32 with one
+rounding), and the logits come back float32. `lecun_normal_`,
+`linear_in` and `dropout` are shared with `models.gcn` and `models.gat`.
 """
 
 from __future__ import annotations
@@ -21,14 +27,38 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import _kernels
+from ..ops.gather_src import gather_src_plain, structural_view
 from ..pyg.sage_sampler import DenseAdj
 
 # std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
 TRUNC_NORMAL_STD = 0.87962566103423978
 
 
+def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
+    """flax ``nn.Dense``'s kernel init on a torch ``[out, in]`` weight:
+    ``variance_scaling(1.0, "fan_in", "truncated_normal")``, a normal cut
+    at +-2 sigma, sigma scaled so that the variance is ``1/fan_in``."""
+    s = (1.0 / weight.shape[1]) ** 0.5 / TRUNC_NORMAL_STD
+    nn.init.trunc_normal_(weight, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
+
+
+def linear_in(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``lin(x)`` computed in ``dtype`` (flax ``nn.Dense(dtype=...)``: the
+    float32 parameters cast to the compute dtype); ``None`` keeps ``lin``."""
+    if dtype is None:
+        return lin(x)
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
 def masked_mean_aggregate_plain(x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
-    gathered = adj.gather_src(x_src)                   # [W_dst, k, D]
+    """Plain torch version of K4; a bfloat16 ``x_src`` is averaged in
+    float32 and rounded once, as the kernel does."""
+    if x_src.dtype == torch.bfloat16:
+        return masked_mean_aggregate_plain(x_src.float(), adj).to(torch.bfloat16)
+    w, k = adj.mask.shape
+    gathered = (structural_view(x_src, w, k) if adj.cols is None
+                else gather_src_plain(x_src, adj.cols))  # [W_dst, k, D]
     m = adj.mask[..., None].to(x_src.dtype)
     s = (gathered * m).sum(dim=1)
     cnt = torch.clamp(adj.mask.sum(dim=1, keepdim=True), min=1).to(x_src.dtype)
@@ -47,10 +77,11 @@ def _mean_forward(x_src: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((w, D), dtype=x_src.dtype, device=x_src.device)
     if w == 0 or D == 0:
         return out
+    bf16 = x_src.dtype == torch.bfloat16
     _kernels.launch(
         "masked_mean", x_src.data_ptr(), x_src.shape[0], D, mask.data_ptr(),
-        cols.data_ptr() if cols is not None else None, w, k, out.data_ptr(),
-        _kernels.stream_of(x_src),
+        cols.data_ptr() if cols is not None else None, w, k, out.data_ptr(), int(bf16),
+        _kernels.stream_of(x_src), variant="bfloat16" if bf16 else "float32",
     )
     return out
 
@@ -60,7 +91,10 @@ def masked_mean_backward_plain(g: torch.Tensor, mask: torch.Tensor,
     """Gradient of the masked mean with respect to ``x_src [w_src, D]``:
     lane (i, j) adds ``mask[i, j] * g[i] / max(cnt_i, 1)`` to its source
     row, as the reference's autodiff does (``index_add_`` in the cols
-    layout, a reshape in the structural one)."""
+    layout, a reshape in the structural one). A bfloat16 ``g`` is divided
+    and summed in float32 and rounded once, as the kernel does."""
+    if g.dtype == torch.bfloat16:
+        return masked_mean_backward_plain(g.float(), mask, cols, w_src).to(torch.bfloat16)
     w, k = mask.shape
     cnt = torch.clamp(mask.sum(dim=1, keepdim=True), min=1).to(g.dtype)
     contrib = (g / cnt)[:, None, :] * mask[..., None].to(g.dtype)  # [W, k, D]
@@ -84,8 +118,9 @@ def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[tor
         raise ValueError(f"gradient of {g.shape[0]} rows for {w} targets")
     if not g.is_cuda:
         return masked_mean_backward_plain(g, mask, cols, w_src)
-    if g.dtype != torch.float32 or mask.dtype != torch.bool:
-        raise TypeError("the mean backward kernel takes a float32 gradient and a bool mask")
+    if g.dtype not in (torch.float32, torch.bfloat16) or mask.dtype != torch.bool:
+        raise TypeError("the mean backward kernel takes a float32 or bfloat16 gradient and "
+                        "a bool mask")
     if cols is not None and cols.dtype != torch.int32:
         raise TypeError(f"the mean backward kernel takes int32 cols; got {cols.dtype}")
     if k > _kernels.KMAX:
@@ -101,11 +136,13 @@ def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[tor
         cols = cols.contiguous()
         n_bytes = _kernels.masked_mean_backward_scratch_bytes(w_src, w, k)
         scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    bf16 = g.dtype == torch.bfloat16
     _kernels.launch(
         "masked_mean_backward", g.data_ptr(), D, mask.data_ptr(),
         cols.data_ptr() if cols is not None else None, w, k, w_src, gx.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, n_bytes,
-        _kernels.stream_of(g), variant="structural" if cols is None else "cols",
+        scratch.data_ptr() if scratch is not None else None, n_bytes, int(bf16),
+        _kernels.stream_of(g), variant=("structural" if cols is None else "cols",
+                                        "bfloat16" if bf16 else "float32"),
     )
     return gx
 
@@ -139,8 +176,8 @@ def masked_mean_aggregate(x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
         raise ValueError(f"structural layout needs {w * (1 + k)} source rows; "
                          f"got {x_src.shape[0]}")
     if x_src.is_cuda:
-        if x_src.dtype != torch.float32 or adj.mask.dtype != torch.bool:
-            raise TypeError("the mean kernel takes float32 x and a bool mask")
+        if x_src.dtype not in (torch.float32, torch.bfloat16) or adj.mask.dtype != torch.bool:
+            raise TypeError("the mean kernel takes float32 or bfloat16 x and a bool mask")
         if adj.cols is not None and adj.cols.dtype != torch.int32:
             raise TypeError(f"the mean kernel takes int32 cols; got {adj.cols.dtype}")
         if k > _kernels.KMAX:
@@ -148,7 +185,7 @@ def masked_mean_aggregate(x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
     return _MaskedMean.apply(x_src, adj.mask, adj.cols)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's inverted dropout (``where(keep, x / keep_prob, 0)``) with the
     keep mask drawn from ``generator``."""
     if generator is None:
@@ -161,30 +198,38 @@ def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator])
 
 class SAGEConv(nn.Module):
     """One GraphSAGE layer (mean aggregator): ``lin_l`` on the neighbor
-    mean (with bias), ``lin_r`` on the target rows (no bias)."""
+    mean (with bias), ``lin_r`` on the target rows (no bias), computed in
+    ``dtype`` (None: the input's)."""
 
-    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.lin_l = nn.Linear(in_dim, out_dim, bias=bias)
         self.lin_r = nn.Linear(in_dim, out_dim, bias=False)
+        self.dtype = dtype
 
     def forward(self, x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
+        if self.dtype is not None:
+            x_src = x_src.to(self.dtype)
         x_dst = x_src[: adj.w_dst]  # targets are the prefix of the source
         agg = masked_mean_aggregate(x_src, adj)
-        return self.lin_l(agg) + self.lin_r(x_dst)
+        return linear_in(self.lin_l, agg, self.dtype) + linear_in(self.lin_r, x_dst, self.dtype)
 
 
 class GraphSAGE(nn.Module):
     """Multi-layer GraphSAGE. ``in_dim`` is explicit (flax infers it at
-    init; a torch module is built with its weights)."""
+    init; a torch module is built with its weights). ``dtype`` is the
+    compute dtype (None or ``torch.bfloat16``); parameters and logits stay
+    float32."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 num_layers: int = 2, dropout: float = 0.5):
+                 num_layers: int = 2, dropout: float = 0.5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         self.num_layers = num_layers
         self.convs = nn.ModuleList(
-            SAGEConv(dims[i], dims[i + 1]) for i in range(num_layers)
+            SAGEConv(dims[i], dims[i + 1], dtype=dtype) for i in range(num_layers)
         )
         self.dropout = float(dropout)
 
@@ -196,9 +241,7 @@ class GraphSAGE(nn.Module):
         with torch.no_grad():
             for conv in self.convs:
                 for lin in (conv.lin_l, conv.lin_r):
-                    s = (1.0 / lin.in_features) ** 0.5 / TRUNC_NORMAL_STD
-                    nn.init.trunc_normal_(lin.weight, 0.0, s, -2.0 * s, 2.0 * s,
-                                          generator=generator)
+                    lecun_normal_(lin.weight, generator)
                     if lin.bias is not None:
                         lin.bias.zero_()
 
@@ -214,5 +257,5 @@ class GraphSAGE(nn.Module):
             if i != self.num_layers - 1:
                 x = F.relu(x)
                 if train and self.dropout > 0.0:
-                    x = _dropout(x, self.dropout, generator)
+                    x = dropout(x, self.dropout, generator)
         return x.to(torch.float32)

@@ -27,6 +27,7 @@ import torch
 
 from .. import random as qrandom
 from ..feature import gather_rows
+from ..ops.gather_src import gather_src, structural_view
 from ..ops.reindex import local_reindex, reindex_single
 from ..ops.sample import pad_widths
 from ..ops.sample import sample_prob as _sample_prob
@@ -70,13 +71,15 @@ class DenseAdj(NamedTuple):
         return self.mask.shape[0]
 
     def gather_src(self, x_src: torch.Tensor) -> torch.Tensor:
-        """Neighbor rows ``[W_dst, k, ...]`` of the hop-source array."""
+        """Neighbor rows ``[W_dst, k, ...]`` of the hop-source array,
+        differentiable in ``x_src``: a view in the structural layout, and
+        in the cols layout `quiver_tpu_torch.ops.gather_src.gather_src`
+        (K14 forward and K14b backward on CUDA tensors), whose gradient
+        sums the valid lanes only."""
         w, k = self.mask.shape
         if self.cols is None:
-            s = x_src[w: w * (1 + k)]
-            return s.reshape((k, w) + tuple(x_src.shape[1:])).transpose(0, 1)
-        idx = torch.clamp(self.cols, 0, x_src.shape[0] - 1).to(torch.int64)
-        return x_src[idx]
+            return structural_view(x_src, w, k)
+        return gather_src(x_src, self.mask, self.cols)
 
 
 class DenseSample(NamedTuple):

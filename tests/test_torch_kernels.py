@@ -43,7 +43,16 @@ slice's: the tile build (K12) on ids, weights and timestamps of a graph
 with a degree-0 row and a hub, bit-equal to its plain version on the card
 and on the CPU and to the host build, with row starts past the end; the
 sampling kernels at k = 48, 64 and 300 (tables in shared memory, opted in
-above 48 KB at 300), bit-equal to their plain versions."""
+above 48 KB at 300), bit-equal to their plain versions. The model zoo's:
+the hop-source gather (K14) over float32 and bfloat16 rows of F = 1, 47,
+100, 256 and 1,024 bit-equal to its plain version; its gradient (K14b) on
+a hop with a hub source row and padded lanes all naming one real row,
+bit-equal when run twice and to its plain version run on the CPU (the same
+additions in lane order; bfloat16 rounded once from float32 on both
+sides), and through autograd; the block out-degree (K14c) with negative
+and out-of-range cols, bit-equal to its plain version; the bfloat16 mean
+(K4) and its gradient (K4b) equal to the float32 kernels' outputs on the
+same values rounded to bfloat16."""
 
 import numpy as np
 import pytest
@@ -79,6 +88,15 @@ from quiver_tpu_torch.ops.sample import (
     neighbor_prob_plain,
 )
 from quiver_tpu_torch.tiers import set_rows, set_rows_plain
+from quiver_tpu_torch.ops.gather_src import (
+    block_out_degree,
+    block_out_degree_plain,
+    gather_src,
+    gather_src_backward,
+    gather_src_backward_plain,
+    gather_src_plain,
+    gather_src_rows,
+)
 
 from torch_fixtures import cuda_device  # noqa: F401 (fixture)
 
@@ -643,3 +661,130 @@ def test_sample_kernel_wide_fanouts_match_plain(cuda_device, layout, k):
     assert int(got[1][0].sum()) == min(500, k)  # the hub draws a full subset
     with pytest.raises(ValueError, match="k <= 512"):
         fn(*g, args[0], args[1], 513, key)
+
+
+def _padded_hop(rng, W, k, w_src, valid=0.8):
+    """A hop as the dedup sampler pads it: valid lanes name rows below
+    the source count, with a hub row named by ~5% of them; every masked lane
+    names one real row (the count)."""
+    count = int(w_src * 0.9)
+    mask = rng.random((W, k)) < valid
+    mask[0] = False
+    c = rng.integers(0, count, (W, k)).astype(np.int32)
+    c[rng.random((W, k)) < 0.05] = 3
+    c[~mask] = count
+    return torch.from_numpy(mask), torch.from_numpy(c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_src_kernel_matches_plain(cuda_device, dtype):
+    """K14 on the hops of a batch-1024 step at GCN's and GAT's widths, and
+    F = 1 (a thread a row), bit-equal: a copy; cols clipped at both ends."""
+    rng = np.random.default_rng(11)
+    for (W, k, w_src), rows in (((1024, 15, 16384), (47,)), ((1024, 15, 16384), (1,)),
+                                ((16384, 10, 180224), (4, 256)), ((16384, 10, 180224), (256,)),
+                                ((4096, 5, 24576), (100,)), ((4096, 5, 24576), (99,))):
+        mask, cols = _padded_hop(rng, W, k, w_src)
+        cols[1, :2] = torch.tensor([-3, w_src + 5], dtype=torch.int32)
+        x = torch.from_numpy(rng.standard_normal((w_src,) + rows).astype(np.float32)).to(
+            cuda_device, dtype)
+        c = cols.to(cuda_device)
+        before = _kernels.counts()["gather_src"]
+        got = gather_src_rows(x, c)
+        torch.cuda.synchronize()
+        assert _kernels.counts()["gather_src"] == before + 1
+        assert got.shape == (W, k) + rows and got.dtype == dtype
+        assert _same(got, gather_src_plain(x, c))
+        assert _same(got, gather_src_plain(x.cpu(), cols))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_src_backward_kernel_reruns_bit_equal_and_matches_cpu(cuda_device, dtype):
+    """K14b on layers 1 and 2 of a batch-1024 step and GAT's widest hop
+    (cut to 4,096 targets): a hub row, padded lanes all naming one real
+    row, a target with no valid lane, columns clipped; F = 256, 1,024 (as
+    [4, 256]) and 47. Bit-equal run twice and to the plain version on a
+    CPU copy, which adds the valid lanes in the kernel's order."""
+    rng = np.random.default_rng(12)
+    for (W, k, w_src), rows in (((1024, 15, 16384), (47,)), ((1024, 15, 16384), (256,)),
+                                ((16384, 10, 180224), (4, 256)), ((4096, 5, 24576), (99,))):
+        mask, cols = _padded_hop(rng, W, k, w_src)
+        cols[2, 0], mask[2, 0] = w_src + 7, True  # a valid lane past the source: clipped
+        g = torch.from_numpy(rng.standard_normal((W, k) + rows).astype(np.float32)).to(
+            cuda_device, dtype)
+        m, c = mask.to(cuda_device), cols.to(cuda_device)
+        before = _kernels.counts()["gather_src_backward"]
+        got = gather_src_backward(g, m, c, w_src)
+        again = gather_src_backward(g, m, c, w_src)
+        torch.cuda.synchronize()
+        assert _kernels.counts()["gather_src_backward"] == before + 2
+        assert got.shape == (w_src,) + rows and got.dtype == dtype
+        assert _same(got, again)
+        assert _same(got, gather_src_backward_plain(g.cpu(), mask, cols, w_src))
+        pad = int(w_src * 0.9)  # the row every masked lane names: no valid lane does
+        assert got[3].any() and got[-1].any() and not got[pad].any()
+
+
+@pytest.mark.cuda
+def test_gather_src_autograd_on_card_matches_cpu(cuda_device):
+    """The autograd Function end to end on a [W_src, H, D] source: the
+    gradient of x_src through K14 and K14b equals the CPU's plain path."""
+    rng = np.random.default_rng(13)
+    W, k, w_src = 512, 10, 3000
+    mask, cols = _padded_hop(rng, W, k, w_src)
+    x = torch.from_numpy(rng.standard_normal((w_src, 2, 32)).astype(np.float32))
+    R = torch.from_numpy(rng.standard_normal((W, k, 2, 32)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda_device):
+        xs = x.to(dev, copy=True).requires_grad_(True)
+        m = mask.to(dev)
+        (gather_src(xs, m, cols.to(dev)) * R.to(dev) * m[..., None, None]).sum().backward()
+        grads.append(xs.grad.cpu())
+    assert torch.equal(grads[1], grads[0])
+
+
+@pytest.mark.cuda
+def test_block_out_degree_kernel_matches_plain(cuda_device):
+    """K14c on the three hops of a batch-1024 step, with negative cols
+    (counted from the end) and cols outside [-W_src, W_src) (dropped)."""
+    rng = np.random.default_rng(14)
+    for W, k, w_src in ((1024, 15, 16384), (16384, 10, 180224), (180224, 5, 1081344)):
+        mask, cols = _padded_hop(rng, W, k, w_src)
+        cols[1] = torch.tensor([-1, -w_src, -w_src - 1, w_src, 0] * 3, dtype=torch.int32)[:k]
+        mask[1] = True
+        m, c = mask.to(cuda_device), cols.to(cuda_device)
+        got = block_out_degree(m, c, w_src)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        assert _same(got, block_out_degree_plain(m, c, w_src))
+        assert _same(got, block_out_degree_plain(mask, cols, w_src))
+        assert int(got.sum()) == int(mask.sum()) - 2 * (k // 5)  # -W_src - 1 and W_src drop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structural", [False, True])
+def test_bf16_mean_kernels_round_the_float32_kernels_once(cuda_device, structural):
+    """K4 and K4b on bfloat16 rows at SAGE's shapes: equal to the float32
+    kernels run on the same (bfloat16-valued) inputs, rounded once; and
+    K4 within its float32 bar of the plain version."""
+    rng = np.random.default_rng(15)
+    for (W, k), D in (((1024, 15), 256), ((16384, 10), 256), ((180224, 5), 100)):
+        w_src = W * (1 + k)
+        mask = torch.from_numpy(rng.random((W, k)) < 0.8).to(cuda_device)
+        cols = None if structural else torch.from_numpy(
+            rng.integers(-2, w_src + 2, (W, k)).astype(np.int32)).to(cuda_device)
+        adj = DenseAdj(cols, mask, None, None)
+        x = torch.from_numpy(rng.standard_normal((w_src, D)).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+        got = masked_mean_aggregate(x, adj)
+        assert got.dtype == torch.bfloat16
+        assert _same(got, masked_mean_aggregate(x.float(), adj).to(torch.bfloat16))
+        torch.testing.assert_close(got.float(), masked_mean_aggregate_plain(x, adj).float(),
+                                   atol=1e-2, rtol=1e-2)
+        g = torch.from_numpy(rng.standard_normal((W, D)).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+        gx = masked_mean_backward(g, mask, cols, w_src)
+        assert gx.dtype == torch.bfloat16
+        assert _same(gx, masked_mean_backward(g.float(), mask, cols, w_src).to(torch.bfloat16))
