@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphSAGE serving, training,
 capped training, out-of-core training, weighted training, GCN and GAT
-training (float32 and bfloat16) and temporal serving paths on one card,
-with every tile table built on it.
+training (float32 and bfloat16), temporal serving and (dp, ici)
+data-parallel training paths on one card, with every tile table built on
+it.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -228,7 +229,52 @@ Phases, each of which fails the run (non-zero exit, no result line):
              t = +inf bit-equal to a plain ServeEngine over a weighted
              sampler with unit weights; 256 lp_trace pairs through
              predict_pairs with finite scores. Lines start ``temporal``;
-21. report — one JSON line of all kernels, the card line, then the
+21. mc setup — the multi-device slice's state: 4 rank threads (dp 2 x ici
+             2) on the card over gloo (local_meshes), the table's two ici
+             stripes (one tensor a stripe, shared by the dp pair that reads
+             it), each ici shard's flat and tiled graph block (the tiled ones
+             built by K12 on the card, a ``tiles:`` line) and leg (a)'s caps
+             from calibrate_caps over 8 probe batches of 1,024;
+22. kernels-8 — on one calibrated dedup batch's lanes (its gather ids and
+             three hops; timed), and for K13a and K13b also on the same
+             batch uncapped (the widths legs (b) and (c) launch them at;
+             checked, not timed): the sharded row gather's pack (K13a) per shard in
+             float32 (the report row: shard 0) and bfloat16, bit-equal to its
+             plain version, the shards' partials summing to the rows;
+             K9c's decode of the summed int8 partials, bit-equal to its
+             plain version and to K9a on the whole payload, then
+             sharded_dequant_gather on the four rank threads (the report
+             row's launches); the owner-masked draw (K13b) flat and tiled
+             per hop and shard, bit-equal to its plain version, the shards'
+             sum equal to unsharded K1b/K1 on the valid lanes (neighbor 0
+             elsewhere). Yardsticks: index_select of the clamped local ids
+             (K13a), none for K13b and K9c. Then gloo's all-reduce alone
+             (``kernels-8 gloo:`` lines: the batch's float32 and int8 rows
+             and last hop's int32 neighbors over an ici pair, both pairs at
+             once; host-staged by gloo on one card, not NVLink or NCCL);
+23. mc train — three legs on the rank threads at full products width,
+             batch 1,024 a dp group, GraphSAGE(100 -> 256 -> 256 -> 47),
+             Adam 1e-3, dropout 0.5: (a) replicated graph, dedup, the caps;
+             (b) row-sharded tiled graph, dedup; (c) row-sharded flat graph,
+             fused. Each: the first step's sample and rows on every rank
+             bit-equal on the real lanes to the single-device pipeline on
+             the whole graph and table with the step's key
+             (split(fold_in(key, dp_idx))[0]), a warm-up step, 5 timed steps
+             (median ms), 2 steps with each all-reduce timed apart between
+             stream syncs (the collectives' share), the card's peak memory
+             (the four ranks share one allocator) and each rank's resident
+             bytes, gather_comm_bytes and sampling_comm_bytes; all ranks'
+             parameters bit-equal after the leg, finite losses, K13a and
+             the leg's sampler (K1b, or K13b tiled or flat) launched. Lines
+             start ``mc train:``;
+24. learn multichip — the products_multichip example on the four rank
+             threads at the learn phase's graph size and args (20,000 nodes,
+             dim 64, sizes [25, 10], 8 epochs, batch 512 a dp group; its own
+             synthetic power-law graph): test accuracy above 0.8, printed
+             beside the JAX example's 1.000 on the same graph and args (4
+             virtual CPU devices) and the single-device example's 0.938 on
+             its own community graph;
+25. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a card. Needs one card.
@@ -281,7 +327,33 @@ from quiver_tpu_torch.quant import (
     make_quantized_train_step,
     quantized_tiered_lookup,
 )
-from quiver_tpu_torch.quant.lookup import gather_dequant_plain, quantized_tiered_lookup_plain
+from quiver_tpu_torch.quant.lookup import (
+    gather_dequant_plain,
+    quantized_tiered_lookup_plain,
+    sharded_dequant,
+    sharded_dequant_gather,
+    sharded_dequant_plain,
+)
+from quiver_tpu_torch.parallel import (
+    allreduce_sum,
+    gather_comm_bytes,
+    local_meshes,
+    make_sharded_topo_train_step,
+    make_sharded_train_step,
+    replicate,
+    run_ranks,
+    sampling_comm_bytes,
+    shard_topology_rows,
+)
+from quiver_tpu_torch.parallel import collectives as par_collectives
+from quiver_tpu_torch.parallel.collectives import partial_rows, partial_rows_plain
+from quiver_tpu_torch.parallel.topology import (
+    sample_layer_partial,
+    sample_layer_partial_plain,
+    tiled_sample_layer_partial,
+    tiled_sample_layer_partial_plain,
+)
+from quiver_tpu_torch.parallel.train import stripe_rows
 from quiver_tpu_torch.models.sage import (
     masked_mean_aggregate,
     masked_mean_aggregate_plain,
@@ -380,6 +452,12 @@ SOURCES = {
     "gather_src_backward": ("quiver_tpu_torch/csrc/aggregate.cu",
                             "quiver_tpu/pyg/sage_sampler.py:85"),
     "block_out_degree": ("quiver_tpu_torch/csrc/aggregate.cu", "quiver_tpu/models/gcn.py:69"),
+    "sharded_rows": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/parallel/collectives.py:26"),
+    "sharded_sample_tiled": ("quiver_tpu_torch/csrc/sample.cu",
+                             "quiver_tpu/parallel/topology.py:411"),
+    "sharded_sample_flat": ("quiver_tpu_torch/csrc/sample.cu",
+                            "quiver_tpu/parallel/topology.py:339"),
+    "sharded_dequant": ("quiver_tpu_torch/csrc/dequant.cu", "quiver_tpu/quant/lookup.py:88"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
 # the training slice: batch, timed steps a leg, the tiered leg's cache share
@@ -422,6 +500,18 @@ GCN_WIDTHS = (DIM, HIDDEN, HIDDEN)
 GAT_WIDTHS = (GAT_HEADS * HIDDEN, GAT_HEADS * HIDDEN, CLASSES)
 JAX_CPU_TEST_ACC = {"gcn": 0.993, "gat": 0.998}
 ZOO_LEARN_BAR = 0.5
+# the multi-device slice: rank threads on the one card (dp x ici), the probe
+# batches of leg (a)'s caps, a leg's timed steps and its steps timed with the
+# collectives apart; the products_multichip example at the learn phase's
+# graph size and args, beside the JAX package's examples/products_multichip.py
+# on the same graph and args on 4 virtual CPU devices (test accuracy 1.000),
+# and beside the single-device example's 0.938 on its own community graph
+# (PR 6's final run; another graph, so not a like-for-like comparison)
+MC_RANKS, MC_DP = 4, 2
+MC_CAP_PROBES, MC_STEPS, MC_COLLECTIVE_STEPS = 8, 5, 2
+MC_LEARN_ARGS = ["--nodes", "20000", "--dim", "64", "--sizes", "25,10", "--epochs", "8",
+                 "--batch-per-dp", "512"]
+MC_JAX_EXAMPLE_ACC, MC_SINGLE_DEVICE_ACC = 1.000, 0.938
 
 
 def log(*a):
@@ -2448,6 +2538,425 @@ def caps_phase(topo, resident, labels, train_idx, seed):
                                         "ms": median_min_max(times)}))
 
 
+# -- the multi-device slice: K13a, K13b, K9c and the (dp, ici) train legs -------------
+
+def mc_setup(topo, table, train_idx, seed):
+    """The slice's shared state: 4 rank threads (dp 2 x ici 2) on the card,
+    the table's ici stripes (one tensor a stripe: the two ranks of a dp pair
+    only read it), each ici shard's flat and tiled graph block (built once a
+    shard, K12 building the tiled ones on the card) and leg (a)'s caps from
+    calibrate_caps over MC_CAP_PROBES batches."""
+    dev = table.device
+    meshes = local_meshes(MC_RANKS, dp=MC_DP, device=dev, timeout_s=600)
+    ici = meshes[0].ici
+    by_ici = [next(m for m in meshes if m.ici_idx == p) for p in range(ici)]
+    stripes = [stripe_rows(table, ici, p) for p in range(ici)]
+    t0 = time.perf_counter()
+    blocks = {"flat": [shard_topology_rows(m, topo, layout="flat") for m in by_ici]}
+    blocks["tiled"] = tile_build("sharded ids (ici shards)", lambda: [
+        shard_topology_rows(m, topo, layout="tiled") for m in by_ici])
+    build_s = time.perf_counter() - t0
+    order = np.random.default_rng(seed + 80).permutation(train_idx)
+    probes = order[-MC_CAP_PROBES * TRAIN_BATCH:].reshape(MC_CAP_PROBES, TRAIN_BATCH)
+    caps = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 81).calibrate_caps(
+        probes, margin=CAP_MARGIN, granule=CAP_GRANULE)
+    row_start = blocks["flat"][0].row_start
+    log("mc setup: " + json.dumps({
+        "mesh": meshes[0].shape, "ranks": len(meshes), "row_start": row_start.tolist(),
+        "stripe_rows": int(stripes[0].shape[0]),
+        "flat_block_edges": [int(b.indices.shape[0]) for b in blocks["flat"]],
+        "tiled_block_rows": [int(b.tiles.shape[0]) for b in blocks["tiled"]],
+        "graph_edges": int(topo.edge_count), "blocks_s": build_s, "caps": caps}))
+    return dict(meshes=meshes, stripes=stripes, blocks=blocks, caps=caps, order=order)
+
+
+def dedup_lanes(topo, table, caps, seeds, key):
+    """One calibrated dedup batch through the single-device pipeline: each
+    hop's (cur, cur_valid, k, key) and the ids its feature gather takes."""
+    g = topo.to_device(table.device)
+    hops = []
+
+    def recording(cur, cur_valid, k, sub):
+        hops.append((cur, cur_valid, k, sub))
+        return sample.sample_layer(*g, cur, cur_valid, k, sub)
+
+    ds, _ = sample_and_gather_dedup(None, None, table, key, seeds, SIZES, caps,
+                                    sample_fn=recording)
+    return hops, ds.n_id.contiguous()
+
+
+def sharded_sample_bound(indptr, cur, cur_valid, k, start, end):
+    """K13b's least time for one shard and hop: K1's (`sample_bound`) over
+    the rows the shard owns, with int32 flags written (3 bytes a lane more)."""
+    own = cur_valid & (cur >= start) & (cur < end)
+    t, by = sample_bound(indptr, cur, own, k)
+    extra = cur.shape[0] * k * 3 / HBM_BYTES_PER_S * 1e3
+    return (t + extra, by) if by == "bytes" else (t, by)
+
+
+def kernel_phase_8(topo, table, mc, seeds, rows, seed):
+    """Hold K13a, K13b and K9c against their plain versions on one
+    calibrated dedup batch's lanes (timed), and K13a and K13b also on the
+    same batch uncapped, the widths legs (b) and (c) run: K13a over the
+    table's ici stripes in float32 (the report row: one shard's call) and
+    bfloat16, the stripes' partials summing to the rows; K9c's decode of the
+    summed int8 rows, equal to K9a on the whole payload, then
+    sharded_dequant_gather on the four rank threads (its launches); K13b
+    flat and tiled per hop and shard, the shards' sum equal to unsharded
+    K1b/K1. Then gloo's all-reduce alone.
+    Returns K9c's launches."""
+    dev = table.device
+    ici = mc["meshes"][0].ici
+    N = topo.node_count
+    key = qrandom.fold_in(qrandom.key(seed + 82), 0)
+    # the calibrated lanes are timed; the uncapped ones are the widths legs (b)
+    # and (c) launch K13a and K13b at, and are only held against the plain versions
+    lanes = {"calibrated": dedup_lanes(topo, table, mc["caps"], seeds, key),
+             "uncapped": dedup_lanes(topo, table, None, seeds, key)}
+    hops, ids = lanes["calibrated"]
+    W = ids.shape[0]
+    inr = (ids >= 0) & (ids < N)
+    R = mc["stripes"][0].shape[0]
+    log("kernels-8 lanes: " + json.dumps({
+        tag: {"gather_ids": int(i.shape[0]), "in_range": int(((i >= 0) & (i < N)).sum()),
+              "hops": [[int(h[0].shape[0]), h[2]] for h in hs]}
+        for tag, (hs, i) in lanes.items()}))
+
+    # K13a over float32 and bfloat16 stripes
+    for dtype in (torch.float32, torch.bfloat16):
+        full = table if dtype == torch.float32 else table.to(dtype)
+        stripes = mc["stripes"] if dtype == torch.float32 else [stripe_rows(full, ici, p)
+                                                                 for p in range(ici)]
+        es = full.element_size()
+        for tag, (_, lids) in lanes.items():
+            lw, linr = lids.shape[0], (lids >= 0) & (lids < N)
+            total = None
+            for p in range(ici):
+                got = partial_rows(stripes[p], lids, p)
+                check(torch.equal(got, partial_rows_plain(stripes[p], lids, p)),
+                      f"K13a {dtype} shard {p} ({tag} lanes) differs from its plain version")
+                total = got if total is None else total + got
+                if tag != "calibrated":
+                    continue
+                own = (lids >= p * R) & (lids < (p + 1) * R)
+                local = torch.clamp(lids.long() - p * R, 0, R - 1)
+                record(rows, "sharded_rows", 0.0, time_ms(lambda: partial_rows(stripes[p], lids, p)),
+                       time_ms(lambda: partial_rows_plain(stripes[p], lids, p), reps=5),
+                       bound(lw * 4 + torch.unique(lids[own]).numel() * DIM * es + lw * DIM * es),
+                       time_ms(lambda: torch.index_select(stripes[p], 0, local)),
+                       shape=f"shard {p} of {ici} W={lw} D={DIM} {str(dtype)[6:]}",
+                       report=dtype == torch.float32 and p == 0)
+            check(torch.equal(total[linr], full[lids[linr].long()]) and not total[~linr].any(),
+                  f"K13a {dtype} ({tag} lanes): the shards' partials do not sum to the rows")
+            del total, got
+        del full, stripes
+    torch.cuda.empty_cache()
+
+    # K9c: the int8 payload striped; the decode of the summed rows
+    codec = get_codec("int8")
+    enc = codec.encode(table.cpu().numpy())
+    payload = torch.from_numpy(enc.payload).to(dev)
+    scale, zero = (torch.from_numpy(a).to(dev) for a in (enc.scale, enc.zero))
+    del enc
+    pstripes = [stripe_rows(payload, ici, p) for p in range(ici)]
+    q = partial_rows(pstripes[0], ids, 0)
+    for p in range(1, ici):
+        q += partial_rows(pstripes[p], ids, p)
+    got = sharded_dequant(codec, q, ids, scale, zero)
+    check(torch.equal(got, sharded_dequant_plain(codec, q, ids, scale, zero)),
+          "K9c differs from its plain version")
+    k9a = gather_dequant(codec, payload, ids, scale, zero)
+    check(torch.equal(got[inr], k9a[inr]) and not got[~inr].any(),
+          "K9c differs from K9a on the whole payload")
+    record(rows, "sharded_dequant", 0.0, time_ms(lambda: sharded_dequant(codec, q, ids, scale, zero)),
+           time_ms(lambda: sharded_dequant_plain(codec, q, ids, scale, zero), reps=5),
+           bound(W * DIM + W * 4 + W * 8 + W * DIM * 4), None, shape=f"int8 W={W} D={DIM}")
+    record(rows, "sharded_rows", 0.0, time_ms(lambda: partial_rows(pstripes[0], ids, 0)),
+           time_ms(lambda: partial_rows_plain(pstripes[0], ids, 0), reps=5),
+           bound(W * 4 + W * DIM * 2), None, shape=f"int8 pack shard 0 W={W}", report=False)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    outs = run_ranks(lambda m: sharded_dequant_gather(codec, pstripes[m.ici_idx], ids, m, "ici",
+                                                      scale, zero), mc["meshes"])
+    k9c_counts = _kernels.counts()
+    check(all(torch.equal(o, got) for o in outs),
+          "sharded_dequant_gather on the rank threads differs from the decode")
+    check(k9c_counts["sharded_dequant/int8"] > 0 and k9c_counts["sharded_rows/int8"] > 0,
+          "K9c or its int8 pack never launched on the rank threads")
+    log("kernels-8 K9c ranks: " + json.dumps({k: v for k, v in k9c_counts.items() if v}))
+    del q, got, k9a, outs, payload, pstripes, scale, zero
+
+    # K13b: flat and tiled, per hop and shard; the shards' sum is the unsharded draw
+    indptr_dev = torch.from_numpy(topo.indptr).to(dev)
+    row_start = mc["blocks"]["flat"][0].row_start
+    for layout in ("flat", "tiled"):
+        if layout == "flat":
+            fn, plain = sample_layer_partial, sample_layer_partial_plain
+            ref_fn, g = sample.sample_layer, topo.to_device(dev)
+            blk = [(b.indptr, b.indices) for b in mc["blocks"]["flat"]]
+        else:
+            fn, plain = tiled_sample_layer_partial, tiled_sample_layer_partial_plain
+            ref_fn, g = sample.tiled_sample_layer, topo.to_device_tiled(dev)
+            blk = [(b.bd, b.tiles) for b in mc["blocks"]["tiled"]]
+        for tag, (lhops, _) in lanes.items():
+            for l, (cur, cv, k, sub) in enumerate(lhops):
+                ref_n, ref_v = ref_fn(*g, cur, cv, k, sub)
+                n_sum = v_sum = None
+                for p in range(ici):
+                    start, end = int(row_start[p]), int(row_start[p + 1])
+                    args = (*blk[p], start, end, cur, cv, k, sub)
+                    got_n, got_v = fn(*args)
+                    want_n, want_v = plain(*args)
+                    check(torch.equal(got_n, want_n) and torch.equal(got_v, want_v),
+                          f"K13b {layout} hop {l} shard {p} ({tag} lanes) differs from its "
+                          "plain version")
+                    n_sum = got_n if n_sum is None else n_sum + got_n
+                    v_sum = got_v if v_sum is None else v_sum + got_v
+                    if tag == "calibrated":
+                        record(rows, "sharded_sample_" + layout, 0.0, time_ms(lambda: fn(*args)),
+                               time_ms(lambda: plain(*args), reps=3),
+                               sharded_sample_bound(indptr_dev, cur, cv, k, start, end), None,
+                               shape=f"hop {l} W={cur.shape[0]} k={k} shard {p} of {ici}",
+                               report=p == 0)
+                check(torch.equal(v_sum > 0, ref_v) and int(v_sum.max()) <= 1
+                      and torch.equal(n_sum[ref_v], ref_n[ref_v]) and not n_sum[~ref_v].any(),
+                      f"K13b {layout} hop {l} ({tag} lanes): the shards' sum is not the "
+                      "unsharded draw")
+    torch.cuda.synchronize()
+
+    # gloo's all-reduce alone: the sums one dedup step makes, both ici pairs at once
+    W2, k_last = hops[-1][0].shape[0], hops[-1][2]
+    for what, shape, dtype in (("x rows float32", (W, DIM), torch.float32),
+                               ("x rows int8 (K9c)", (W, DIM), torch.int8),
+                               ("last hop nbrs int32", (W2, k_last), torch.int32)):
+        def rank(m, shape=shape, dtype=dtype):
+            x = torch.zeros(shape, dtype=dtype, device=m.device)
+            times = []
+            for _ in range(4):
+                m.stream.synchronize()
+                t0 = time.perf_counter()
+                allreduce_sum(x, m.ici_group)
+                m.stream.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times[1:]))
+        ms = run_ranks(rank, mc["meshes"])
+        n_bytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        log("kernels-8 gloo: " + json.dumps({
+            "sum": what, "bytes": n_bytes, "ms": ms[0], "ms_by_rank": ms,
+            "GB_per_s": n_bytes / ms[0] / 1e6, "transport": "gloo, host-staged, one card",
+            "group": f"ici pair ({ici} ranks), both pairs at once; not NVLink, not NCCL"}))
+    return k9c_counts
+
+
+class CollectiveClock:
+    """Times every all-reduce of the rank threads that opt in (``on()``),
+    each between two syncs of the rank's stream: patched over
+    ``parallel.collectives.allreduce_sum``, through which every sum of the
+    port goes, for the instrumented steps only."""
+
+    def __init__(self):
+        self.local = threading.local()
+        self.orig = par_collectives.allreduce_sum
+
+    def __enter__(self):
+        par_collectives.allreduce_sum = self.timed
+        return self
+
+    def __exit__(self, *exc):
+        par_collectives.allreduce_sum = self.orig
+
+    def on(self):
+        self.local.acc = []
+        return self.local.acc
+
+    def timed(self, t, group):
+        acc = getattr(self.local, "acc", None)
+        if acc is None:
+            return self.orig(t, group)
+        stream = torch.cuda.current_stream()
+        stream.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig(t, group)
+        stream.synchronize()
+        acc.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def valid_positions(ds, pipeline):
+    """The n_id positions of a sample that are real: the unique frontier's
+    prefix and the valid leaves (dedup), or every hop's valid lanes
+    (fused); elsewhere a sharded step holds neighbor 0 and a zero row."""
+    if pipeline == "dedup":
+        leaf = ds.adjs[0]
+        w = leaf.mask.shape[0]
+        return torch.cat([torch.arange(w, device=leaf.mask.device) < leaf.n_dst,
+                          leaf.mask.t().reshape(-1)])
+    parts = [torch.ones(ds.batch_size, dtype=torch.bool, device=ds.n_id.device)]
+    parts += [a.mask.t().reshape(-1) for a in ds.adjs[::-1]]
+    return torch.cat(parts)
+
+
+def same_sample(ds, x, ref_ds, ref_x, pipeline):
+    """Bit-equal on every real lane: n_id, masks, counts, cols and rows."""
+    ok = valid_positions(ref_ds, pipeline)
+    same = (ds.n_id.shape == ref_ds.n_id.shape and torch.equal(ok, valid_positions(ds, pipeline))
+            and torch.equal(ds.n_id[ok], ref_ds.n_id[ok]) and torch.equal(x[ok], ref_x[ok]))
+    for a, b in zip(ds.adjs, ref_ds.adjs):
+        same = same and torch.equal(a.mask, b.mask) and int(a.n_src) == int(b.n_src)
+        if a.cols is not None:
+            same = same and torch.equal(a.cols[a.mask], b.cols[b.mask])
+    return same
+
+
+def multichip_phase(topo, table, labels, mc, seed):
+    """Three legs of the (dp, ici) train step on the four rank threads at
+    full products width, batch 1,024 a dp group: (a) replicated graph,
+    dedup, caps from calibrate_caps; (b) row-sharded tiled graph, dedup; (c)
+    row-sharded flat graph, fused. A leg: the first step's sample and rows
+    against the single-device pipeline, a warm-up step, MC_STEPS timed steps
+    (median), MC_COLLECTIVE_STEPS steps with every all-reduce timed apart
+    (the collectives' share), the device peak and each rank's resident
+    bytes, the byte models; the replicas bit-equal after the leg. Returns
+    the launches summed over the legs' runs."""
+    dev = table.device
+    meshes, ici, dp = mc["meshes"], mc["meshes"][0].ici, mc["meshes"][0].dp
+    B = TRAIN_BATCH
+    legs = (("a replicated dedup capped", "replicated", "dedup", mc["caps"],
+             ("sharded_rows/float32", "sample_flat", "local_reindex", "masked_mean_backward/cols")),
+            ("b sharded tiled dedup", "tiled", "dedup", None,
+             ("sharded_rows/float32", "sharded_sample_tiled", "local_reindex",
+              "masked_mean_backward/cols")),
+            ("c sharded flat fused", "flat", "fused", None,
+             ("sharded_rows/float32", "sharded_sample_flat", "masked_mean_backward/structural")))
+    g_flat = topo.to_device(dev)
+    total = {}
+    for n_leg, (leg, topology, pipeline, caps, needs) in enumerate(legs):
+        n_batches = 1 + MC_STEPS + MC_COLLECTIVE_STEPS
+        first = n_leg * n_batches * B * dp
+        batches = [torch.from_numpy(mc["order"][first + i * B * dp:first + (i + 1) * B * dp]
+                                    .astype(np.int32)) for i in range(n_batches)]
+        model = sage_model()
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        key0 = qrandom.key(seed + 90 + n_leg)
+        clock = CollectiveClock()
+
+        def rank(m):
+            replica = replicate(m, model)
+            opt = torch.optim.Adam(replica.parameters(), lr=1e-3)
+            if topology == "replicated":
+                step = make_sharded_train_step(m, replica, opt, SIZES, caps=caps,
+                                               pipeline=pipeline)
+                graph = g_flat
+            else:
+                step = make_sharded_topo_train_step(m, replica, opt, SIZES, pipeline=pipeline,
+                                                    layout=topology)
+                graph = (mc["blocks"][topology][m.ici_idx],)
+            block = mc["stripes"][m.ici_idx]
+            first = step.sample_and_gather(key0, *graph, block, batches[0])
+            step(key0, *graph, block, labels, batches[0])  # warm-up
+            times, losses = [], []
+            for i in range(MC_STEPS):
+                m.stream.synchronize()
+                t0 = time.perf_counter()
+                loss = step(qrandom.key(seed + 100 * n_leg + i), *graph, block, labels,
+                            batches[1 + i])
+                m.stream.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+            coll, step_ms = [], []
+            for i in range(MC_COLLECTIVE_STEPS):
+                acc = clock.on()
+                m.stream.synchronize()
+                t0 = time.perf_counter()
+                step(qrandom.key(seed + 100 * n_leg + 50 + i), *graph, block, labels,
+                     batches[1 + MC_STEPS + i])
+                m.stream.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                coll.append(sum(acc))
+                clock.local.acc = None
+            on_card = g_flat if topology == "replicated" else graph[0]
+            held = sum(t.numel() * t.element_size() for t in on_card if t.is_cuda)
+            held += block.numel() * block.element_size()
+            held += 3 * sum(p.numel() * p.element_size() for p in replica.parameters())
+            return dict(first=first, times=times, losses=losses, coll_ms=coll, instr_ms=step_ms,
+                        held_bytes=held,
+                        params={k: v.detach().clone() for k, v in replica.state_dict().items()})
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _kernels.reset_counts()
+        t_leg = time.perf_counter()
+        with clock:
+            res = run_ranks(rank, meshes)
+        leg_s = time.perf_counter() - t_leg
+        counts = _kernels.counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+        # the first step's sample and rows against the single-device pipeline
+        for r, out in enumerate(res):
+            m = meshes[r]
+            k_s = qrandom.split(qrandom.fold_in(key0, m.dp_idx))[0]
+            local = batches[0][m.dp_idx * B:(m.dp_idx + 1) * B].to(dev)
+            if pipeline == "dedup":
+                ref = sample_and_gather_dedup(*g_flat, table, k_s, local, SIZES, caps)
+            else:
+                ref = sample_and_gather_fused(*g_flat, table, k_s, local, SIZES)
+            check(same_sample(*out["first"], *ref, pipeline),
+                  f"{leg}: rank {r}'s first sample or rows differ from the single-device pipeline")
+        for r, out in enumerate(res[1:], 1):
+            check(all(torch.equal(v, res[0]["params"][k]) for k, v in out["params"].items()),
+                  f"{leg}: rank {r}'s parameters differ from rank 0's after the leg")
+        losses = res[0]["losses"]
+        check(all(np.isfinite(losses)), f"{leg}: loss not finite: {losses}")
+        for name in needs:
+            check(counts[name] > 0, f"kernel {name} never launched on the multichip leg {leg}")
+        n_rows = int(res[0]["first"][1].shape[0])
+        comm = {"gather": gather_comm_bytes(meshes[0], n_rows, DIM)}
+        if topology != "replicated":
+            comm["sampling"] = sampling_comm_bytes(meshes[0], SIZES, B, caps=caps, layout=topology,
+                                                   feature_dim=DIM if pipeline == "fused" else 0)
+        coll = [float(np.mean(o["coll_ms"])) for o in res]
+        instr = [float(np.mean(o["instr_ms"])) for o in res]
+        log("mc train: " + json.dumps({
+            "leg": leg, "mesh": meshes[0].shape, "batch_per_dp": B, "steps": MC_STEPS,
+            "step_ms": median_min_max(res[0]["times"]),
+            "step_ms_by_rank": [float(np.median(o["times"])) for o in res],
+            "collective_ms_by_rank": coll, "instrumented_step_ms_by_rank": instr,
+            "collective_share": float(np.mean([c / s for c, s in zip(coll, instr)])),
+            "loss_first": losses[0], "loss_last": losses[-1], "gathered_rows": n_rows,
+            "device_peak_bytes_all_ranks": peak,
+            "resident_bytes_by_rank": [o["held_bytes"] for o in res],
+            "comm_model_bytes": comm, "leg_s": leg_s,
+            "launches": {k: v for k, v in counts.items() if v}}))
+        del res
+        torch.cuda.empty_cache()
+    return total
+
+
+def multichip_learn_phase():
+    """The products_multichip example on the four rank threads at the learn
+    phase's graph size and args: its test accuracy beside the JAX example's
+    on the same graph and args, and the single-device example's on its own
+    graph. Returns the launches."""
+    from quiver_tpu_torch.examples import products_multichip
+
+    argv = ["--device", "cuda", "--devices", str(MC_RANKS), "--dp", str(MC_DP)] + MC_LEARN_ARGS
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = products_multichip.main(argv)
+    counts = _kernels.counts()
+    log("learn multichip: " + json.dumps({"result": res, "args": argv,
+                                          "jax_example_test_acc_same_graph": MC_JAX_EXAMPLE_ACC,
+                                          "single_device_test_acc_other_graph":
+                                              MC_SINGLE_DEVICE_ACC,
+                                          "seconds": time.perf_counter() - t0,
+                                          "launches": {k: v for k, v in counts.items() if v}}))
+    check(res.get("test_acc", 0.0) > LEARN_BAR, f"the multichip example did not learn: {res}")
+    check(counts["sharded_rows"] > 0, "K13a never launched in the multichip example")
+    return counts
+
+
 def learn_phase():
     """The example at ACCURACY.json's args on the card, for GraphSAGE (its
     accuracies beside the reference's recorded ones) and for GCN and GAT
@@ -2622,6 +3131,16 @@ def main() -> int:
     launches["weighted_sample_flat"] = w_counts["flat"]["weighted_sample_flat"]
     launches["temporal_sample_tiled"] = t_counts["temporal_sample_tiled"]
     launches["recency_weights"] = k8w_launches  # building the recency weight tiles
+
+    # -- the multi-device slice: K13a, K13b, K9c; (dp, ici) training on rank threads --
+    mc = mc_setup(topo, table, train_idx, args.seed)
+    k9c_counts = kernel_phase_8(topo, table, mc, seeds_1024, rows, args.seed)
+    mc_counts = multichip_phase(topo, table, train_labels(topo.node_count, dev), mc, args.seed)
+    for name in ("sharded_rows", "sharded_sample_tiled", "sharded_sample_flat"):
+        launches[name] = mc_counts[name]
+    launches["sharded_dequant"] = k9c_counts["sharded_dequant"]  # the ici group's encoded gather
+    del mc
+    multichip_learn_phase()
     launches["build_tiles"] = sum(b["launches"] for b in TILE_BUILDS)
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))

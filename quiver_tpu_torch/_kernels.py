@@ -84,6 +84,13 @@ KERNELS = {
                                ctypes.c_float, _U, _U, _P, _P, _P]),
     "recency_weights": ("weighted", "qt_recency_weights", [_P, _LL, ctypes.c_float, _P, _P]),
     "build_tiles": ("tiles", "qt_build_tiles", [_P, _LL, _P, _P, _LL, _P, _P]),
+    "sharded_rows": ("gather", "qt_sharded_rows", [_P, _LL, _I, _I, _P, _LL, _LL, _P, _P]),
+    "sharded_sample_tiled": ("sample", "qt_sharded_sample_tiled",
+                             [_P, _P, _LL, _I, _LL, _LL, _P, _P, _I, _I, _U, _U, _P, _P, _P]),
+    "sharded_sample_flat": ("sample", "qt_sharded_sample_flat",
+                            [_P, _P, _LL, _I, _LL, _LL, _P, _P, _I, _I, _U, _U, _P, _P, _P]),
+    "sharded_dequant": ("dequant", "qt_sharded_dequant",
+                        [_I, _P, _LL, _I, _P, _P, _P, _LL, _P, _P]),
 }
 # kernels whose launches are also counted per layout, as "name/variant"
 VARIANTS = {"masked_mean": ("float32", "bfloat16"),
@@ -94,7 +101,9 @@ VARIANTS = {"masked_mean": ("float32", "bfloat16"),
             "set_rows": ("float32", "int8", "bfloat16"),
             "gather_dequant": ("fp32", "bf16", "int8"),
             "quantized_tiered_lookup": ("fp32", "bf16", "int8"),
-            "build_tiles": ("int32", "float32")}
+            "build_tiles": ("int32", "float32"),
+            "sharded_rows": ("float32", "bfloat16", "int8"),
+            "sharded_dequant": ("fp32", "bf16", "int8")}
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
            "qt_masked_mean_backward_scratch": ("aggregate",

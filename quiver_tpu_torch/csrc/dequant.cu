@@ -185,6 +185,79 @@ static int quantized_tiered_lookup_t(const void* hot, long long H, int D, const 
   return qt_launch_status();
 }
 
+// K9c: sharded_dequant — the decode after the sum of a sharded encoded
+// gather.
+//
+// Replaces the tail of quiver_tpu/quant/lookup.py:sharded_dequant_gather
+// (:88): the shards' K13a partials of the striped encoded payload
+// (csrc/gather.cu, qt_sharded_rows, one shard owning each id) have been
+// summed into q [W, D] in storage width, and row r decodes with the
+// replicated side entries of its global id: with side tables, s, z =
+// scale/zero[clip(id, 0, N - 1)] and the decoded row times (0 <= id < N),
+// as lookup.py:109-112 masks it; without them the plain decode (fp32, bf16).
+// The decode is K9a's (decode_row), so for in-range ids the result is
+// bit-equal to K9a on the unsharded payload.
+//
+// Bound on the card: bytes — q at the storage width, 4 id bytes and 8 side
+// bytes a row, and the float32 rows written once. Design: K9a's, one warp
+// a row, 4 elements a lane where width and pointers allow.
+template <int C, bool VEC>
+__global__ void sharded_decode_kernel(const typename Elem<C>::T* __restrict__ q, int D,
+                                      const int32_t* __restrict__ ids, long long W,
+                                      const float* __restrict__ scale,
+                                      const float* __restrict__ zero, long long n_side,
+                                      float* __restrict__ out) {
+  const long long r = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= W) return;
+  float s = 1.0f, z = 0.0f, mult = 1.0f;
+  if (scale != nullptr) {
+    const long long id = ids[r];
+    const long long side = qt_clamp<long long>(id, 0, n_side - 1);
+    if constexpr (C == kI8) {
+      s = scale[side];
+      z = zero[side];
+    }
+    mult = id >= 0 && id < n_side ? 1.0f : 0.0f;
+  }
+  decode_row<C, VEC>(q + r * D, D, lane, s, z, mult, out + r * D);
+}
+
+template <int C>
+static int sharded_decode_t(const void* q, long long W, int D, const void* ids, const void* scale,
+                            const void* zero, long long n_side, void* out, cudaStream_t s) {
+  using T = typename Elem<C>::T;
+  const int threads = 256;  // 8 rows a block
+  const bool vec = D % 4 == 0 && aligned(q, 4 * sizeof(T)) && aligned(out, 16);
+  auto args = [&](auto kernel) {
+    kernel<<<qt_blocks(W * 32, threads), threads, 0, s>>>(
+        static_cast<const T*>(q), D, static_cast<const int32_t*>(ids), W,
+        static_cast<const float*>(scale), static_cast<const float*>(zero), n_side,
+        static_cast<float*>(out));
+  };
+  if (vec) args(sharded_decode_kernel<C, true>);
+  else args(sharded_decode_kernel<C, false>);
+  return qt_launch_status();
+}
+
+// codec: 0 fp32, 1 bf16, 2 int8; q: [W, D] summed payload; ids: [W] global
+// ids; scale/zero: [n_side] float32 or null (int8 needs them)
+QT_EXPORT int qt_sharded_dequant(int codec, const void* q, long long W, int D, const void* ids,
+                                 const void* scale, const void* zero, long long n_side,
+                                 void* out, void* stream) {
+  if (W <= 0 || D <= 0) return 0;
+  if (scale != nullptr && n_side <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (codec) {
+    case kF32: return sharded_decode_t<kF32>(q, W, D, ids, scale, zero, n_side, out, s);
+    case kBF16: return sharded_decode_t<kBF16>(q, W, D, ids, scale, zero, n_side, out, s);
+    case kI8:
+      if (scale == nullptr || zero == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return sharded_decode_t<kI8>(q, W, D, ids, scale, zero, n_side, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // codec: 0 fp32, 1 bf16, 2 int8 (scale and zero: [N] float32, int8 only)
 QT_EXPORT int qt_gather_dequant(int codec, const void* payload, long long N, int D,
                                 const void* ids, long long W, long long n_clip, const void* imap,

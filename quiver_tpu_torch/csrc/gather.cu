@@ -437,4 +437,68 @@ QT_EXPORT int qt_gather_src(const void* x, long long w_src, int F, int elem_byte
   return qt_launch_status();
 }
 
+// K13a: sharded_rows — one shard's partial of a row gather by global id.
+//
+// Replaces quiver_tpu/parallel/collectives.py:_partial_rows, the per-shard
+// half of sharded_gather (collectives.py:26), and through it the encoded
+// pack of quant/lookup.py:sharded_dequant_gather (K9c): the shard holds
+// rows [first, first + R) of the striped table as its [R, D] block; output
+// row r is block[ids[r] - first] when that lies in [0, R), else a zero row.
+// The caller sums the shards' partials (an all-reduce over the striping
+// group): exactly one shard owns each in-range id, so the sum is the row.
+// Rows are copied as bytes of elem_bytes-byte elements (4: float32, 2:
+// bfloat16, 1: int8 codes), so one kernel serves the float tables and the
+// encoded payloads, and the copy is bit-equal.
+//
+// Bound on the card: bytes — W ids read, the owned lanes' rows read, and
+// the [W, D] partial written once (zero rows included). Design: K3's shape
+// (a warp a row) with K3t's widest access (16, 8, 4, 2 or 1 bytes dividing
+// the row width and both base pointers); a lane the shard does not own
+// writes its zero row without reading the block.
+template <int V>
+__global__ void sharded_rows_kernel(const char* __restrict__ block, long long R,
+                                    long long row_bytes, const int32_t* __restrict__ ids,
+                                    long long n_ids, long long first, char* __restrict__ out) {
+  using T = typename Bytes<V>::T;
+  const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_ids) return;
+  const long long local = static_cast<long long>(ids[row]) - first;
+  const T* src = local >= 0 && local < R
+                     ? reinterpret_cast<const T*>(block + local * row_bytes) : nullptr;
+  T* dst = reinterpret_cast<T*>(out + row * row_bytes);
+  const long long n_vec = row_bytes / V;
+  for (long long c = lane; c < n_vec; c += 32) dst[c] = src != nullptr ? src[c] : T{};
+}
+
+template <int V>
+static void launch_sharded_rows(const void* block, long long R, long long row_bytes,
+                                const void* ids, long long n_ids, long long first, void* out,
+                                cudaStream_t stream) {
+  const int threads = 256;  // 8 rows a block
+  sharded_rows_kernel<V><<<qt_blocks(n_ids * 32, threads), threads, 0, stream>>>(
+      static_cast<const char*>(block), R, row_bytes, static_cast<const int32_t*>(ids), n_ids,
+      first, static_cast<char*>(out));
+}
+
+// block: [R, D] elements of elem_bytes (4, 2 or 1) bytes, rows [first, first
+// + R) of the global table; ids: [n_ids] int32 global ids; out: [n_ids, D]
+QT_EXPORT int qt_sharded_rows(const void* block, long long R, int D, int elem_bytes,
+                              const void* ids, long long n_ids, long long first, void* out,
+                              void* stream) {
+  if (n_ids <= 0 || D <= 0) return 0;
+  if (elem_bytes != 4 && elem_bytes != 2 && elem_bytes != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long row_bytes = static_cast<long long>(D) * elem_bytes;
+  switch (qt_vec_bytes(row_bytes, {block, out})) {
+    case 16: launch_sharded_rows<16>(block, R, row_bytes, ids, n_ids, first, out, s); break;
+    case 8: launch_sharded_rows<8>(block, R, row_bytes, ids, n_ids, first, out, s); break;
+    case 4: launch_sharded_rows<4>(block, R, row_bytes, ids, n_ids, first, out, s); break;
+    case 2: launch_sharded_rows<2>(block, R, row_bytes, ids, n_ids, first, out, s); break;
+    default: launch_sharded_rows<1>(block, R, row_bytes, ids, n_ids, first, out, s); break;
+  }
+  return qt_launch_status();
+}
+
 QT_DEFINE_ERROR_STRING

@@ -29,6 +29,18 @@
 // [(q * k + t) * blockDim + thread] so a warp's 32 lookups of one entry
 // fall in 32 banks, with as many threads a block (32 to 128) as fit in
 // 48 KB, or 32 threads and the shared memory opted in above that.
+//
+// K13b: the owner-masked draw of a row-sharded graph. Replaces
+// quiver_tpu/parallel/topology.py:_sample_layer_partial and
+// _tiled_sample_layer_partial, the per-shard halves of sharded_sample_layer
+// (:339) and tiled_sharded_sample_layer (:411): the shard holds the CSR
+// block of global rows [start, end) (a local indptr or (base, deg) table and
+// its edges or tiles). A frontier row it owns (valid and start <= id < end)
+// draws through local row id - start; every other row reads degree 0. The
+// draw is K1's, unchanged (same counters, same key), so the owner's lanes
+// equal the unsharded draw bit for bit. Invalid lanes write neighbor 0 and
+// valid is written as int32: the caller sums the shards' partials, and with
+// one owner a row the sum is the whole draw. Same bound and design as K1.
 
 #include "common.cuh"
 #include "fetch.cuh"
@@ -54,17 +66,42 @@ struct SharedTables {
   __device__ __forceinline__ int32_t& tail_v(int t) { return base[(2 * k + t) * stride]; }
 };
 
-template <class Fetch, class Tables>
-__device__ __forceinline__ void sample_row(const Fetch& g, Tables& tab, int32_t n_nodes,
-                                           const int32_t* __restrict__ seeds,
+// The rows a launch may draw: every row (K1, K1b: node id clipped into the
+// graph) or, for K13b, the block of global rows [start, end) of one shard.
+struct AllRows {
+  using Valid = bool;
+  static constexpr bool kZeroInvalid = false;
+  __device__ __forceinline__ int32_t local(int32_t id, bool valid, int32_t n_rows,
+                                           bool& mine) const {
+    mine = valid;
+    return qt_clamp<int32_t>(id, 0, n_rows - 1);
+  }
+};
+
+struct OwnedRows {
+  using Valid = int32_t;
+  static constexpr bool kZeroInvalid = true;  // neighbor 0 where invalid: partials sum
+  long long start, end;
+  __device__ __forceinline__ int32_t local(int32_t id, bool valid, int32_t n_rows,
+                                           bool& mine) const {
+    mine = valid && id >= start && id < end;
+    return static_cast<int32_t>(qt_clamp<long long>(id - start, 0, n_rows - 1));
+  }
+};
+
+template <class Fetch, class Tables, class Rows>
+__device__ __forceinline__ void sample_row(const Fetch& g, Tables& tab, const Rows& rows,
+                                           int32_t n_nodes, const int32_t* __restrict__ seeds,
                                            const bool* __restrict__ seed_valid, int32_t W,
                                            int32_t k, uint32_t key0, uint32_t key1,
                                            int32_t* __restrict__ out,
-                                           bool* __restrict__ out_valid, int32_t b) {
-  const int32_t s = qt_clamp<int32_t>(seeds[b], 0, n_nodes - 1);
+                                           typename Rows::Valid* __restrict__ out_valid,
+                                           int32_t b) {
+  bool mine;
+  const int32_t s = rows.local(seeds[b], seed_valid[b], n_nodes, mine);
   int32_t base, deg;
   g.row(s, base, deg);
-  if (!seed_valid[b]) deg = 0;
+  if (!mine) deg = 0;
 
   for (int t = 0; t < k; ++t) {
     tab.head(t) = t;
@@ -96,49 +133,52 @@ __device__ __forceinline__ void sample_row(const Fetch& g, Tables& tab, int32_t 
       if (slot < 0) ++cnt;
     }
     const int32_t pos = deg <= k ? i : val_j;
-    out[row_out + i] = g.fetch(base, pos);
-    out_valid[row_out + i] = i < n_valid;
+    const bool v = i < n_valid;
+    out[row_out + i] = Rows::kZeroInvalid && !v ? 0 : g.fetch(base, pos);
+    out_valid[row_out + i] = v;
   }
 }
 
-template <class Fetch>
-__global__ void sample_kernel(Fetch g, int32_t n_nodes, const int32_t* __restrict__ seeds,
+template <class Fetch, class Rows>
+__global__ void sample_kernel(Fetch g, Rows rows, int32_t n_nodes,
+                              const int32_t* __restrict__ seeds,
                               const bool* __restrict__ seed_valid, int32_t W, int32_t k,
                               uint32_t key0, uint32_t key1, int32_t* __restrict__ out,
-                              bool* __restrict__ out_valid) {
+                              typename Rows::Valid* __restrict__ out_valid) {
   const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= W) return;
   LocalTables tab;
-  sample_row(g, tab, n_nodes, seeds, seed_valid, W, k, key0, key1, out, out_valid, b);
+  sample_row(g, tab, rows, n_nodes, seeds, seed_valid, W, k, key0, key1, out, out_valid, b);
 }
 
-template <class Fetch>
-__global__ void sample_kernel_wide(Fetch g, int32_t n_nodes, const int32_t* __restrict__ seeds,
+template <class Fetch, class Rows>
+__global__ void sample_kernel_wide(Fetch g, Rows rows, int32_t n_nodes,
+                                   const int32_t* __restrict__ seeds,
                                    const bool* __restrict__ seed_valid, int32_t W, int32_t k,
                                    uint32_t key0, uint32_t key1, int32_t* __restrict__ out,
-                                   bool* __restrict__ out_valid) {
+                                   typename Rows::Valid* __restrict__ out_valid) {
   extern __shared__ int32_t qt_tables[];
   const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= W) return;  // no barrier below: each thread owns its column
   SharedTables tab{qt_tables + threadIdx.x, static_cast<int32_t>(blockDim.x), k};
-  sample_row(g, tab, n_nodes, seeds, seed_valid, W, k, key0, key1, out, out_valid, b);
+  sample_row(g, tab, rows, n_nodes, seeds, seed_valid, W, k, key0, key1, out, out_valid, b);
 }
 
-template <class Fetch>
-static int launch_sample(Fetch g, int n_nodes, const void* seeds, const void* seed_valid,
-                         int W, int k, unsigned key0, unsigned key1, void* out,
-                         void* out_valid, void* stream) {
+template <class Fetch, class Rows>
+static int launch_sample(Fetch g, Rows rows, int n_nodes, const void* seeds,
+                         const void* seed_valid, int W, int k, unsigned key0, unsigned key1,
+                         void* out, void* out_valid, void* stream) {
   if (W <= 0 || k <= 0) return 0;
   if (k > QT_SAMPLE_KMAX) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto sd = static_cast<const int32_t*>(seeds);
   const auto sv = static_cast<const bool*>(seed_valid);
   const auto o = static_cast<int32_t*>(out);
-  const auto ov = static_cast<bool*>(out_valid);
+  const auto ov = static_cast<typename Rows::Valid*>(out_valid);
   if (k <= QT_KMAX) {
     const int threads = 128;
-    sample_kernel<Fetch><<<qt_blocks(W, threads), threads, 0, s>>>(g, n_nodes, sd, sv, W, k,
-                                                                   key0, key1, o, ov);
+    sample_kernel<Fetch, Rows><<<qt_blocks(W, threads), threads, 0, s>>>(
+        g, rows, n_nodes, sd, sv, W, k, key0, key1, o, ov);
     return qt_launch_status();
   }
   const int per_thread = 3 * k * static_cast<int>(sizeof(int32_t));
@@ -147,11 +187,11 @@ static int launch_sample(Fetch g, int n_nodes, const void* seeds, const void* se
   const int smem = threads * per_thread;
   if (smem > QT_SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sample_kernel_wide<Fetch>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        sample_kernel_wide<Fetch, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  sample_kernel_wide<Fetch><<<qt_blocks(W, threads), threads, smem, s>>>(
-      g, n_nodes, sd, sv, W, k, key0, key1, o, ov);
+  sample_kernel_wide<Fetch, Rows><<<qt_blocks(W, threads), threads, smem, s>>>(
+      g, rows, n_nodes, sd, sv, W, k, key0, key1, o, ov);
   return qt_launch_status();
 }
 
@@ -160,8 +200,8 @@ QT_EXPORT int qt_sample_tiled(const void* bd, const void* tiles, long long m_row
                               int W, int k, unsigned key0, unsigned key1, void* out,
                               void* out_valid, void* stream) {
   TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
-  return launch_sample(g, n_nodes, seeds, seed_valid, W, k, key0, key1, out, out_valid,
-                       stream);
+  return launch_sample(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, key0, key1, out,
+                       out_valid, stream);
 }
 
 QT_EXPORT int qt_sample_flat(const void* indptr, const void* indices, long long n_edges,
@@ -170,8 +210,33 @@ QT_EXPORT int qt_sample_flat(const void* indptr, const void* indices, long long 
                              void* out_valid, void* stream) {
   FlatFetch g{static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
               n_edges};
-  return launch_sample(g, n_nodes, seeds, seed_valid, W, k, key0, key1, out, out_valid,
-                       stream);
+  return launch_sample(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, key0, key1, out,
+                       out_valid, stream);
+}
+
+// K13b over the tile layout: bd [n_rows, 2], tiles [m_rows, 128] of one
+// shard's block of global rows [start, end); out_valid is int32.
+QT_EXPORT int qt_sharded_sample_tiled(const void* bd, const void* tiles, long long m_rows,
+                                      int n_rows, long long start, long long end,
+                                      const void* seeds, const void* seed_valid, int W, int k,
+                                      unsigned key0, unsigned key1, void* out, void* out_valid,
+                                      void* stream) {
+  TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
+  return launch_sample(g, OwnedRows{start, end}, n_rows, seeds, seed_valid, W, k, key0, key1,
+                       out, out_valid, stream);
+}
+
+// K13b over the flat block: indptr [n_rows + 1] local offsets, indices
+// [n_edges] of one shard's block of global rows [start, end).
+QT_EXPORT int qt_sharded_sample_flat(const void* indptr, const void* indices, long long n_edges,
+                                     int n_rows, long long start, long long end,
+                                     const void* seeds, const void* seed_valid, int W, int k,
+                                     unsigned key0, unsigned key1, void* out, void* out_valid,
+                                     void* stream) {
+  FlatFetch g{static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
+              n_edges};
+  return launch_sample(g, OwnedRows{start, end}, n_rows, seeds, seed_valid, W, k, key0, key1,
+                       out, out_valid, stream);
 }
 
 QT_DEFINE_ERROR_STRING

@@ -1,0 +1,424 @@
+"""Row-sharded graph topology over the mesh — the port of
+``quiver_tpu/parallel/topology.py`` (``ShardedTopology``,
+``TiledShardedTopology``, ``resolve_topology_layout``,
+``partition_rows_by_edges``, ``build_topology_shards``,
+``build_tiled_topology_shards``, ``shard_topology_rows``,
+``sharded_sample_layer``, ``tiled_sharded_sample_layer``,
+``gather_comm_bytes``, ``sampling_comm_bytes``).
+
+Each shard of the ici axis owns a contiguous, edge-balanced range of rows,
+and each rank holds only its shard's CSR block. One hop's draw is a
+collective: every shard draws neighbors for the frontier rows it owns
+(degree 0 elsewhere; kernel K13b, ``csrc/sample.cu``) and one all-reduce
+over the ici group assembles the ``[W, k]`` neighbors and flags. The draw
+is K1's, counter for counter, so the assembled neighbors equal the
+unsharded draw with the same key on its valid lanes.
+
+Two block layouts share the machinery: ``flat`` (`ShardedTopology`: a local
+indptr and the block's edges) and ``tiled`` (`TiledShardedTopology`: the
+128-lane tile layout of the block, built on the card by K12 from the
+block's edges). Not ported yet (ROADMAP A16, the host axis):
+``sharded_sample_layer_grouped`` and ``tiled_sharded_sample_layer_grouped``,
+which raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..ops.sample import (
+    LANE,
+    _check_layer_args,
+    build_tiled_device,
+    build_tiled_host,
+    fisher_yates_positions,
+    pad_widths,
+    tiled_base_host,
+    tiled_rowmap_host,
+)
+from . import collectives
+from .collectives import HOST_AXIS_TODO, _axis
+
+
+class ShardedTopology(NamedTuple):
+    """One rank's block of a row-sharded CSR (`shard_topology_rows`).
+
+    ``indptr``    [R_max+1] — the shard's LOCAL indptr (offsets into its own
+                  indices block), edge-padded so padding rows read as degree 0;
+    ``indices``   [E_pad]   — the shard's neighbor block, zero-padded;
+    ``row_start`` [P+1]     — global row boundaries, a host int64 tensor
+                  (shard p owns rows ``row_start[p]:row_start[p+1]``).
+    """
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    row_start: torch.Tensor
+
+    layout = "flat"
+
+    @property
+    def n_shards(self) -> int:
+        return self.row_start.shape[0] - 1
+
+
+class TiledShardedTopology(NamedTuple):
+    """One rank's block of a row-sharded CSR in the 128-lane tile layout.
+
+    ``bd``    [R_max, 2] int32 — the shard's LOCAL (tile_base, degree) table,
+              row-padded with degree-0 rows;
+    ``tiles`` [M_max, 128]    — the shard's tile table, padded to the
+              largest shard's tile count (rounded up to 8 rows);
+    ``row_start`` [P+1]       — global row boundaries, as `ShardedTopology`.
+    """
+
+    bd: torch.Tensor
+    tiles: torch.Tensor
+    row_start: torch.Tensor
+
+    layout = "tiled"
+
+    @property
+    def n_shards(self) -> int:
+        return self.row_start.shape[0] - 1
+
+
+def resolve_topology_layout(layout: Optional[str], device=None) -> str:
+    """Default the sharded-topology layout per device: ``None`` means "tiled"
+    on the card (the sampler's default there, as the JAX package's on the
+    TPU) and "flat" elsewhere (the CPU runs the layout the JAX package's
+    virtual CPU meshes use)."""
+    if layout is None:
+        layout = "tiled" if device is not None and torch.device(device).type == "cuda" else "flat"
+    if layout not in ("flat", "tiled"):
+        raise ValueError(f"unsupported topology layout: {layout!r}")
+    return layout
+
+
+def partition_rows_by_edges(indptr: np.ndarray, n_shards: int) -> np.ndarray:
+    """Contiguous row boundaries with ~equal edges per shard.
+
+    Returns ``row_start`` [n_shards+1] with ``row_start[0]=0`` and
+    ``row_start[-1]=N``. Row ranges may be empty on pathological graphs
+    (one row owning nearly all edges); the sampler handles that (degree-0
+    ownership elsewhere).
+    """
+    indptr = np.asarray(indptr)
+    n = indptr.shape[0] - 1
+    e = int(indptr[-1])
+    targets = (np.arange(1, n_shards) * e) // n_shards
+    cuts = np.searchsorted(indptr, targets, side="left")
+    row_start = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+    return np.maximum.accumulate(row_start)  # enforce monotone under ties
+
+
+def _flat_dims(indptr, row_start, pad_multiple):
+    """(r_max, e_pad, ptr dtype) of the stacked flat blocks."""
+    n_shards = row_start.shape[0] - 1
+    r_max = max(int(np.max(row_start[1:] - row_start[:-1])) if n_shards else 0, 1)
+    e_pad = 0
+    for p in range(n_shards):
+        e_pad = max(e_pad, int(indptr[row_start[p + 1]] - indptr[row_start[p]]))
+    e_pad = max(-(-e_pad // pad_multiple) * pad_multiple, pad_multiple)
+    return r_max, e_pad, np.int32 if e_pad < 2**31 else np.int64
+
+
+def _flat_block(indptr, indices, row_start, p, r_max, e_pad, ptr_dt, id_dtype=None):
+    """Shard p's (local indptr [r_max+1], indices [e_pad]) block, its ids in
+    ``id_dtype`` (default: the graph's)."""
+    lo, hi = int(row_start[p]), int(row_start[p + 1])
+    local = (indptr[lo: hi + 1] - indptr[lo]).astype(ptr_dt)
+    ptr = np.zeros(r_max + 1, ptr_dt)
+    ptr[: hi - lo + 1] = local
+    # edge-pad: rows past this shard's range read as degree 0
+    ptr[hi - lo + 1:] = local[-1] if local.size else 0
+    idx = np.zeros(e_pad, id_dtype or indices.dtype)
+    blk = indices[int(indptr[lo]): int(indptr[hi])]
+    idx[: blk.shape[0]] = blk
+    return ptr, idx
+
+
+def _row_start_dtype(row_start):
+    return np.int32 if int(row_start[-1]) < 2**31 else np.int64
+
+
+def build_topology_shards(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    n_shards: int,
+    pad_multiple: int = 512,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side shard construction: (indptr_blocks [P, R_max+1],
+    indices_blocks [P, E_pad], row_start [P+1]) as stacked numpy arrays, the
+    JAX package's arrays (see `ShardedTopology`)."""
+    indptr = np.asarray(indptr)
+    indices = np.asarray(indices)
+    row_start = partition_rows_by_edges(indptr, n_shards)
+    r_max, e_pad, ptr_dt = _flat_dims(indptr, row_start, pad_multiple)
+    indptr_blocks = np.zeros((n_shards, r_max + 1), ptr_dt)
+    indices_blocks = np.zeros((n_shards, e_pad), indices.dtype)
+    for p in range(n_shards):
+        indptr_blocks[p], indices_blocks[p] = _flat_block(indptr, indices, row_start, p, r_max,
+                                                          e_pad, ptr_dt)
+    return indptr_blocks, indices_blocks, row_start.astype(_row_start_dtype(row_start))
+
+
+def _tiled_dims(indptr, row_start, pad_multiple):
+    """(r_max, m_max) of the stacked tiled blocks: the largest shard's row
+    count and tile count (rounded up to ``pad_multiple``), from the host
+    base tables alone."""
+    n_shards = row_start.shape[0] - 1
+    r_max = max(int(np.max(row_start[1:] - row_start[:-1])) if n_shards else 0, 1)
+    m_max = 1
+    for p in range(n_shards):
+        lo, hi = int(row_start[p]), int(row_start[p + 1])
+        m_max = max(m_max, tiled_base_host(indptr[lo: hi + 1] - indptr[lo])[1])
+    return r_max, -(-m_max // pad_multiple) * pad_multiple
+
+
+def build_tiled_topology_shards(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    n_shards: int,
+    pad_multiple: int = 8,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side TILED shard construction: (bd_blocks [P, R_max, 2],
+    tiles_blocks [P, M_max, 128], row_start [P+1]) as stacked numpy arrays
+    (see `TiledShardedTopology`). Row boundaries come from the flat build's
+    split, and each shard's block is `build_tiled_host` of its local indptr,
+    so a shard's tile table holds exactly its flat block's edges, in order.
+    The oracle of the card's build in `shard_topology_rows`."""
+    indptr = np.asarray(indptr)
+    indices = np.asarray(indices)
+    row_start = partition_rows_by_edges(indptr, n_shards)
+    r_max, m_max = _tiled_dims(indptr, row_start, pad_multiple)
+    bd_blocks = np.zeros((n_shards, r_max, 2), np.int32)
+    tiles_blocks = np.zeros((n_shards, m_max, LANE), indices.dtype)
+    for p in range(n_shards):
+        lo, hi = int(row_start[p]), int(row_start[p + 1])
+        local_ptr = (indptr[lo: hi + 1] - indptr[lo]).astype(np.int64)
+        local_idx = indices[int(indptr[lo]): int(indptr[hi])]
+        bd, tiles = build_tiled_host(local_ptr, local_idx, indices.dtype)
+        bd_blocks[p, : bd.shape[0]] = bd
+        tiles_blocks[p, : tiles.shape[0]] = tiles
+    return bd_blocks, tiles_blocks, row_start.astype(_row_start_dtype(row_start))
+
+
+def shard_topology_rows(mesh, topo, axes=None, layout: Optional[str] = None):
+    """This rank's block of a `CSRTopo` row-sharded over the mesh's ici axis,
+    on the rank's device: the rank holds only its shard's rows (~E/P edges,
+    edge-balanced). ``layout`` "flat" (`ShardedTopology`) or "tiled"
+    (`TiledShardedTopology`); None resolves per device
+    (`resolve_topology_layout`). The tiled block's tile table is built on
+    the rank's device from the block's edges through its host row map (K12
+    on the card, its plain version on the CPU), bit-equal to
+    `build_tiled_topology_shards`'s block. Pair with the same ``layout`` on
+    `train.make_sharded_topo_train_step`. Ids are int32 (K13b's)."""
+    layout = resolve_topology_layout(layout, mesh.device)
+    p, n_shards, _ = _axis(mesh, "ici" if axes is None else axes)
+    indptr = np.asarray(topo.indptr, np.int64)
+    indices = np.asarray(topo.indices)
+    if indptr.shape[0] - 1 >= 2**31 or indptr[-1] >= 2**31:
+        raise ValueError("the sharded sampler takes int32 node ids and edge offsets "
+                         "(ROADMAP A3: wider ids are not ported)")
+    row_start = partition_rows_by_edges(indptr, n_shards)
+    rs = torch.from_numpy(row_start.astype(np.int64))
+    dev = mesh.device
+    if layout == "flat":
+        r_max, e_pad, ptr_dt = _flat_dims(indptr, row_start, 512)
+        ptr, idx = _flat_block(indptr, indices, row_start, p, r_max, e_pad, ptr_dt, np.int32)
+        return ShardedTopology(torch.from_numpy(ptr).to(dev), torch.from_numpy(idx).to(dev), rs)
+    r_max, m_max = _tiled_dims(indptr, row_start, 8)
+    lo, hi = int(row_start[p]), int(row_start[p + 1])
+    local_ptr = indptr[lo: hi + 1] - indptr[lo]
+    bd_np, _ = tiled_base_host(local_ptr)
+    bd = np.zeros((r_max, 2), np.int32)
+    bd[: bd_np.shape[0]] = bd_np
+    start, width = tiled_rowmap_host(local_ptr)
+    src = torch.from_numpy(indices[int(indptr[lo]): int(indptr[hi])].astype(np.int32))
+    tiles = build_tiled_device(src.to(dev), torch.from_numpy(start).to(dev),
+                               torch.from_numpy(width).to(dev))
+    if tiles.shape[0] < m_max:
+        tiles = torch.cat([tiles, torch.zeros((m_max - tiles.shape[0], LANE),
+                                              dtype=tiles.dtype, device=dev)])
+    return TiledShardedTopology(torch.from_numpy(bd).to(dev), tiles, rs)
+
+
+# -- the owner-masked draw (K13b) ----------------------------------------------
+
+def _owner_window(row_start: torch.Tensor, p: int) -> Tuple[int, int]:
+    return int(row_start[p]), int(row_start[p + 1])
+
+
+def sample_layer_partial_plain(indptr_blk, indices_blk, start: int, end: int, cur, cur_valid,
+                               k: int, key):
+    """Plain torch K13b over a flat block: the port's ``sample_layer_plain``
+    with the owner mask — neighbors for the frontier rows in ``[start,
+    end)``, degree 0 elsewhere, neighbor 0 on invalid lanes, valid as int32."""
+    r_max = indptr_blk.shape[0] - 1
+    local = cur.to(torch.int64) - start
+    mine = cur_valid & (local >= 0) & (cur.to(torch.int64) < end)
+    s = torch.clamp(local, 0, r_max - 1)
+    ptr = indptr_blk[s]
+    deg = torch.where(mine, (indptr_blk[s + 1] - ptr).to(torch.int32), 0)
+    pos, valid = fisher_yates_positions(key, deg, k)
+    flat = torch.clamp(ptr[:, None].to(torch.int64) + pos, 0, indices_blk.shape[0] - 1)
+    nbrs = torch.where(valid, indices_blk[flat], 0)
+    return nbrs.to(torch.int32), valid.to(torch.int32)
+
+
+def tiled_sample_layer_partial_plain(bd_blk, tiles_blk, start: int, end: int, cur, cur_valid,
+                                     k: int, key):
+    """Plain torch K13b over a tiled block: the tiled draw with the owner
+    mask (same draw as the flat form on the same key)."""
+    local = cur.to(torch.int64) - start
+    mine = cur_valid & (local >= 0) & (cur.to(torch.int64) < end)
+    both = bd_blk[torch.clamp(local, 0, bd_blk.shape[0] - 1)]
+    base, deg = both[:, 0], torch.where(mine, both[:, 1], 0)
+    pos, valid = fisher_yates_positions(key, deg, k)
+    rows = torch.clamp(base.to(torch.int64)[:, None] + (pos >> 7), 0, tiles_blk.shape[0] - 1)
+    nbrs = torch.where(valid, tiles_blk[rows, (pos & (LANE - 1)).to(torch.int64)], 0)
+    return nbrs.to(torch.int32), valid.to(torch.int32)
+
+
+def _launch_partial(kind, a, b, start, end, cur, cur_valid, k, key):
+    for t, name in ((a, "graph block"), (b, "graph block"), (cur, "frontier")):
+        if t.dtype != torch.int32:
+            raise TypeError(f"the sharded sampling kernel takes int32 {name}; got {t.dtype}")
+    if int(k) > _kernels.SAMPLE_KMAX:
+        raise ValueError(f"the sampling kernel takes k <= {_kernels.SAMPLE_KMAX}; got {k}")
+    a, b, cur, cur_valid = a.contiguous(), b.contiguous(), cur.contiguous(), cur_valid.contiguous()
+    W = cur.shape[0]
+    nbrs = torch.empty((W, k), dtype=torch.int32, device=cur.device)
+    valid = torch.empty((W, k), dtype=torch.int32, device=cur.device)
+    if W == 0 or k == 0:
+        return nbrs, valid
+    n_rows = a.shape[0] if kind == "tiled" else a.shape[0] - 1
+    _kernels.launch("sharded_sample_" + kind, a.data_ptr(), b.data_ptr(), b.shape[0], n_rows,
+                    int(start), int(end), cur.data_ptr(), cur_valid.data_ptr(), W, int(k),
+                    int(key[0]), int(key[1]), nbrs.data_ptr(), valid.data_ptr(),
+                    _kernels.stream_of(cur))
+    return nbrs, valid
+
+
+def sample_layer_partial(indptr_blk, indices_blk, start: int, end: int, cur, cur_valid,
+                         k: int, key):
+    """This shard's un-reduced contribution to a one-hop sample over a flat
+    block of global rows ``[start, end)``: ``(nbrs [W, k] int32, valid [W, k]
+    int32)``. Kernel K13b (``sharded_sample_flat``) on CUDA tensors,
+    `sample_layer_partial_plain` on CPU tensors."""
+    _check_layer_args(cur, cur_valid, k, (indptr_blk, indices_blk))
+    if cur.is_cuda:
+        return _launch_partial("flat", indptr_blk, indices_blk, start, end, cur, cur_valid, k,
+                               key)
+    return sample_layer_partial_plain(indptr_blk, indices_blk, start, end, cur, cur_valid, k, key)
+
+
+def tiled_sample_layer_partial(bd_blk, tiles_blk, start: int, end: int, cur, cur_valid,
+                               k: int, key):
+    """`sample_layer_partial` over a tiled block: kernel K13b
+    (``sharded_sample_tiled``) on CUDA tensors, the plain version on CPU
+    tensors."""
+    _check_layer_args(cur, cur_valid, k, (bd_blk, tiles_blk))
+    if cur.is_cuda:
+        return _launch_partial("tiled", bd_blk, tiles_blk, start, end, cur, cur_valid, k, key)
+    return tiled_sample_layer_partial_plain(bd_blk, tiles_blk, start, end, cur, cur_valid, k,
+                                            key)
+
+
+def _psum_assemble(nbrs, valid, group):
+    """Owner-exclusive full assembly: shard contributions are zeros off
+    the owner, so a sum over the striping group IS the gather."""
+    return collectives.allreduce_sum(nbrs, group), collectives.allreduce_sum(valid, group) > 0
+
+
+def sharded_sample_layer(indptr_blk, indices_blk, row_start, cur, cur_valid, k: int, key, mesh,
+                         axis_name="ici") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Collective one-hop sample from a row-sharded flat CSR: ``cur`` (int32
+    global ids) and ``cur_valid`` must be identical on every rank of the
+    axis. Each shard draws for the frontier rows it owns and the sum over
+    the axis assembles ``(nbrs [W, k] int32, valid [W, k] bool)`` with
+    global neighbor ids, neighbor 0 where invalid — the unsharded
+    `ops.sample.sample_layer`'s draw on its valid lanes."""
+    p, _, group = _axis(mesh, axis_name)
+    start, end = _owner_window(row_start, p)
+    nbrs, valid = sample_layer_partial(indptr_blk, indices_blk, start, end, cur, cur_valid, k,
+                                       key)
+    return _psum_assemble(nbrs, valid, group)
+
+
+def tiled_sharded_sample_layer(bd_blk, tiles_blk, row_start, cur, cur_valid, k: int, key, mesh,
+                               axis_name="ici") -> Tuple[torch.Tensor, torch.Tensor]:
+    """`sharded_sample_layer` over the TILE block layout: same contract,
+    same draws on the same key."""
+    p, _, group = _axis(mesh, axis_name)
+    start, end = _owner_window(row_start, p)
+    nbrs, valid = tiled_sample_layer_partial(bd_blk, tiles_blk, start, end, cur, cur_valid, k,
+                                             key)
+    return _psum_assemble(nbrs, valid, group)
+
+
+def sharded_sample_layer_grouped(*args, **kwargs):
+    """Not ported yet: the sample for frontiers that differ across the host
+    axis."""
+    raise NotImplementedError(f"sharded_sample_layer_grouped: {HOST_AXIS_TODO}")
+
+
+def tiled_sharded_sample_layer_grouped(*args, **kwargs):
+    """Not ported yet: the tiled form of `sharded_sample_layer_grouped`."""
+    raise NotImplementedError(f"tiled_sharded_sample_layer_grouped: {HOST_AXIS_TODO}")
+
+
+# -- collective byte models (host only) --------------------------------------------
+
+def _ring_sum_bytes(mesh, n_elems: int, elem_bytes: int) -> float:
+    """Bytes a rank moves in a ring sum of ``n_elems`` over the ici axis:
+    ``2 (P - 1) / P`` of the payload (0 on one shard)."""
+    sz = mesh.shape["ici"]
+    return 2.0 * (sz - 1) / sz * n_elems * elem_bytes if sz > 1 else 0.0
+
+
+def _model_out(ici_bytes: float) -> Dict[str, float]:
+    return {"ici_bytes": ici_bytes, "dcn_bytes": 0.0, "total_bytes": ici_bytes}
+
+
+def gather_comm_bytes(mesh, width: int, dim: int, *, feat_bytes: int = 4) -> Dict[str, float]:
+    """Per-gather collective-byte model (ring costs) for ONE feature gather
+    of ``width`` ids: the sum of the ``[width, dim]`` partials over the ici
+    ring. The JAX package's model on a mesh with no host axis, where its
+    host-axis (``dcn``) terms are 0; its ``cold_budget``, ``id_bytes`` and
+    ``via`` options act on the host axis only and come with it."""
+    return _model_out(_ring_sum_bytes(mesh, width * dim, feat_bytes))
+
+
+def sampling_comm_bytes(mesh, sizes: Sequence[int], batch_per_group: int, feature_dim: int = 0,
+                        *, caps: Optional[Sequence[Optional[int]]] = None, id_bytes: int = 4,
+                        feat_bytes: int = 4, layout: str = "flat") -> Dict[str, float]:
+    """Static per-step collective-traffic model of the sharded-topology step,
+    the JAX package's on a mesh with no host axis: per rank and step, the
+    ring bytes of every hop's ``[W, k]`` neighbor and int32 valid sums and,
+    with ``feature_dim > 0``, the fused pipeline's per-hop feature gathers
+    and its seed rows. ``hbm_descriptors`` and ``hbm_fetch_bytes`` count the
+    shard-local fetches of the block layout (128-lane tile rows under
+    "tiled", single elements under "flat"). The JAX model's ``via`` option
+    acts on the host axis only and comes with it. A model: gloo's algorithms
+    may move other bytes."""
+    widths = pad_widths(batch_per_group, sizes, caps)
+    layout = resolve_topology_layout(layout)
+    ici = hbm_desc = hbm_fetch = 0.0
+    for l, k in enumerate(sizes):
+        ici += _ring_sum_bytes(mesh, widths[l] * k, id_bytes + 4)  # nbrs + int32 valid
+        if feature_dim:
+            ici += _ring_sum_bytes(mesh, widths[l] * k * feature_dim, feat_bytes)
+        w = widths[l]
+        hbm_desc += w + w * k  # degree/base lookup + k-split position fetch
+        hbm_fetch += w * 8 + w * k * (LANE * id_bytes if layout == "tiled" else id_bytes)
+    if feature_dim:
+        ici += _ring_sum_bytes(mesh, widths[0] * feature_dim, feat_bytes)  # seed rows
+    out = _model_out(ici)
+    out["hbm_descriptors"] = hbm_desc
+    out["hbm_fetch_bytes"] = hbm_fetch
+    return out

@@ -160,13 +160,16 @@ def sample_dense_pure(indptr, indices, key, seeds: torch.Tensor,
 
 
 def sample_and_gather_fused(indptr, indices, table: torch.Tensor, key, seeds: torch.Tensor,
-                            sizes: Sequence[int],
+                            sizes: Sequence[int], gather_fn=None,
                             sample_fn=None) -> Tuple[DenseSample, torch.Tensor]:
     """`sample_dense_fused` with the feature gather interleaved per hop:
     returns ``(ds, x)`` with ``x == table[clip(ds.n_id)]`` row for row
     (invalid lanes carry rows that ``adj.mask`` gates out). The same key
     splits per hop as the sample alone; the rows come through the clipped
-    row gather (K3)."""
+    row gather (K3), or ``gather_fn(table, ids) -> rows`` where given (the
+    sharded gather of `quiver_tpu_torch.parallel`)."""
+    if gather_fn is None:
+        gather_fn = gather_rows
     if sample_fn is None:
         sample_fn = _default_sample_fn(indptr, indices)
     B = seeds.shape[0]
@@ -174,13 +177,13 @@ def sample_and_gather_fused(indptr, indices, table: torch.Tensor, key, seeds: to
     cur = seeds
     cur_valid = torch.ones(B, dtype=torch.bool, device=dev)
     adjs: List[DenseAdj] = []
-    xs = [gather_rows(table, seeds)]
+    xs = [gather_fn(table, seeds)]
     prev_count = torch.full((), B, dtype=torch.int32, device=dev)
     for k in sizes:
         key, sub = qrandom.split(key)
         nbrs, valid = sample_fn(cur, cur_valid, k, sub)
         flat = nbrs.t().reshape(-1)
-        xs.append(gather_rows(table, flat))
+        xs.append(gather_fn(table, flat))
         n_id = torch.cat([cur, flat])
         n_valid = torch.cat([cur_valid, valid.t().reshape(-1)])
         count = n_valid.sum(dtype=torch.int32)
@@ -191,16 +194,19 @@ def sample_and_gather_fused(indptr, indices, table: torch.Tensor, key, seeds: to
 
 
 def sample_and_gather_dedup(indptr, indices, table: torch.Tensor, key, seeds: torch.Tensor,
-                            sizes: Sequence[int], caps=None,
+                            sizes: Sequence[int], caps=None, gather_fn=None,
                             sample_fn=None) -> Tuple[DenseSample, torch.Tensor]:
     """The dedup sample of `sample_dense_pure` for every hop but the last,
     whose leaves stay in the structural layout and take their rows straight
-    from ``table``: the leaf aggregation reads the constant table, so no
-    gradient flows into it. Returns ``(ds, x)``; ``ds.n_id`` is the hop
-    L-1 unique frontier then the structural leaf block (not globally
-    unique)."""
+    from ``table`` (through ``gather_fn(table, ids) -> rows`` where given,
+    else the clipped row gather K3): the leaf aggregation reads the constant
+    table, so no gradient flows into it. Returns ``(ds, x)``; ``ds.n_id`` is
+    the hop L-1 unique frontier then the structural leaf block (not
+    globally unique)."""
     if len(sizes) == 0:
         raise ValueError("sizes must name at least one hop")
+    if gather_fn is None:
+        gather_fn = gather_rows
     if sample_fn is None:
         sample_fn = _default_sample_fn(indptr, indices)
     B = seeds.shape[0]
@@ -234,7 +240,7 @@ def sample_and_gather_dedup(indptr, indices, table: torch.Tensor, key, seeds: to
     key, sub = qrandom.split(key)
     nbrs, valid = sample_fn(cur, cur_valid, k, sub)
     flat = nbrs.t().reshape(-1)  # leaf (i, j) -> position W + j*W + i
-    x = torch.cat([gather_rows(table, cur), gather_rows(table, flat)])
+    x = torch.cat([gather_fn(table, cur), gather_fn(table, flat)])
     n_src = prev_count + valid.sum(dtype=torch.int32)
     adjs.append(DenseAdj(cols=None, mask=valid, n_src=n_src, n_dst=prev_count))
     raws.append(n_src)  # structural leaves are never capped

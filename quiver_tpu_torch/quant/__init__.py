@@ -6,18 +6,18 @@ every tier, decoded on the card inside the gathers): the port of
   `Codec` contract;
 - ``QuantizedFeature``: the tiered store of encoded rows over a `Feature`;
 - ``lookup``: `gather_dequant` (K9a, resident tables),
-  `quantized_tiered_lookup` (K9b, the pipeline's assembly) and
-  `make_quantized_train_step`.
-
-Not ported yet: ``sharded_dequant_gather`` (ROADMAP A16).
+  `quantized_tiered_lookup` (K9b, the pipeline's assembly),
+  `sharded_dequant_gather` (K13a's pack of the encoded rows, a sum over the
+  mesh's ici group, then K9c's decode) and `make_quantized_train_step`.
 """
 
 from .codecs import CODECS, Bf16Codec, Codec, Int8Codec, QuantizedRows, get_codec, register_codec
 from .feature import QuantizedFeature
-from .lookup import gather_dequant, make_quantized_train_step, quantized_tiered_lookup
+from .lookup import (gather_dequant, make_quantized_train_step, quantized_tiered_lookup,
+                     sharded_dequant_gather)
 
 __all__ = [
     "CODECS", "Bf16Codec", "Codec", "Int8Codec", "QuantizedFeature", "QuantizedRows",
     "gather_dequant", "get_codec", "make_quantized_train_step", "quantized_tiered_lookup",
-    "register_codec",
+    "register_codec", "sharded_dequant_gather",
 ]

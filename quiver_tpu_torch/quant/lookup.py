@@ -1,15 +1,15 @@
 """Fused dequant-on-gather lookups for quantized feature tables — the port
 of ``quiver_tpu/quant/lookup.py`` (``gather_dequant``,
-``quantized_tiered_lookup``, ``make_quantized_train_step``).
+``quantized_tiered_lookup``, ``sharded_dequant_gather``,
+``make_quantized_train_step``).
 
 The gathers read encoded rows and their per-row side entries and decode
 in registers (``csrc/dequant.cu``): the float32 table exists nowhere, not
 in device memory and not on the host-to-device link. On CUDA tensors each
 call is one launch (K9a, K9b) for the fp32, bf16 and int8 codecs; on CPU
-tensors the plain versions run (any codec of the registry).
-
-Not ported yet: ``sharded_dequant_gather`` (the encoded gather across
-devices), which comes with the collectives (ROADMAP A16, kernel K13).
+tensors the plain versions run (any codec of the registry). The sharded
+gather (K9c) packs the encoded rows with K13a, sums them over the mesh's
+ici group in their storage width and decodes after the sum.
 """
 
 from __future__ import annotations
@@ -95,6 +95,62 @@ def gather_dequant(codec, payload: torch.Tensor, ids: torch.Tensor, scale=None, 
                         _ptr(imap), _ptr(side[0]), _ptr(side[1]), out.data_ptr(),
                         _kernels.stream_of(payload), variant=codec.name)
     return out.reshape(*ids.shape, D)
+
+
+def sharded_dequant_plain(codec, q: torch.Tensor, ids: torch.Tensor, scale=None,
+                          zero=None) -> torch.Tensor:
+    """Plain torch K9c decode: the codec's ``dequant`` of the summed payload
+    ``q [W, D]`` with side entries at ``clip(ids)``, zeroed where ``ids``
+    lies outside ``[0, N)`` (``N = len(scale)``); without side tables the
+    plain decode."""
+    codec = get_codec(codec)
+    if scale is None:
+        return codec.dequant(q)
+    ok = (ids >= 0) & (ids < scale.shape[0])
+    x = codec.dequant(q, *_side_lookup(ids, scale, zero))
+    return x * ok[:, None].to(x.dtype)
+
+
+def sharded_dequant(codec, q: torch.Tensor, ids: torch.Tensor, scale=None,
+                    zero=None) -> torch.Tensor:
+    """The decode after the sum of a sharded encoded gather (K9c,
+    ``sharded_dequant``) on CUDA tensors, `sharded_dequant_plain` on CPU
+    tensors: float32 rows ``[W, D]``."""
+    codec = get_codec(codec)
+    if q.dim() != 2 or ids.shape != q.shape[:1]:
+        raise ValueError(f"q [W, D] and ids [W] expected; got {tuple(q.shape)}, "
+                         f"{tuple(ids.shape)}")
+    if not q.is_cuda:
+        return sharded_dequant_plain(codec, q, ids, scale, zero)
+    kind = _kernel_args(codec, q, scale, zero, ((ids, "ids"),))
+    W, D = q.shape
+    out = torch.empty((W, D), dtype=torch.float32, device=q.device)
+    if W and D:
+        side = (None, None) if scale is None else (scale.contiguous(), zero.contiguous())
+        _kernels.launch("sharded_dequant", kind, q.contiguous().data_ptr(), W, D,
+                        ids.contiguous().data_ptr(), _ptr(side[0]), _ptr(side[1]),
+                        0 if scale is None else scale.shape[0], out.data_ptr(),
+                        _kernels.stream_of(q), variant=codec.name)
+    return out
+
+
+def sharded_dequant_gather(codec, payload_block: torch.Tensor, ids: torch.Tensor, mesh,
+                           axis_name="ici", scale=None, zero=None) -> torch.Tensor:
+    """Global-id gather from an ENCODED table row-striped over ``axis_name``
+    (this rank's ``[R, D]`` payload block, `parallel.train.shard_feature_rows`
+    of the codec's payload): the quantized twin of
+    `parallel.collectives.sharded_gather`. The sum rides the encoded payload
+    in its storage width (int8 moves 4x fewer bytes than float32; fp32 and
+    bf16 payloads sum as floats, int8 as int8: one shard owns each id, so the
+    sum is exact), and the replicated ``[N]`` scale/zero tables apply after
+    it (K9c). ``ids`` ``[W]`` int32, identical on every rank of the axis; ids
+    outside ``[0, N)`` give zero rows. Returns float32 rows ``[W, D]``."""
+    from ..parallel import collectives
+
+    codec = get_codec(codec)
+    shard, _, group = collectives._axis(mesh, axis_name)
+    q = collectives.allreduce_sum(collectives.partial_rows(payload_block, ids, shard), group)
+    return sharded_dequant(codec, q, ids, scale, zero)
 
 
 def quantized_tiered_lookup_plain(codec, hot_payload: torch.Tensor, mapped: torch.Tensor,

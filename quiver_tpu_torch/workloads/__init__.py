@@ -11,7 +11,9 @@
   both endpoints up through the engine and scores them with a `PairHead`.
 
 Waiting for later slices: the routed temporal engine and its fleet oracle
-(ROADMAP A16) and streaming temporal graphs (A14).
+(``serve/dist.py``, which ROADMAP A16 leaves after its single-host
+training half: it comes with the host axis, ``comm.py`` and ``DistFeature``)
+and streaming temporal graphs (A14).
 """
 
 from .linkpred import LinkPredictor, PairHead, PairResult

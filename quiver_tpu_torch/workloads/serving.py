@@ -12,8 +12,10 @@ n_valid, padded_t)``, which `replay_temporal_log` replays through a fresh
 sampler. ``submit_pair``/``predict_pairs`` score candidate edges through
 `linkpred.LinkPredictor`.
 
-Not ported yet: the routed temporal engine (``TemporalDistServeEngine``,
-ROADMAP A16), streaming temporal graphs (A14) and the vectorised
+Not ported yet: the routed temporal engine (``TemporalDistServeEngine`` in
+``serve/dist.py``, which ROADMAP A16 leaves after the single-host training
+half of ``parallel/``: it needs the host axis, ``comm.py``'s exchanges and
+``DistFeature`` first), streaming temporal graphs (A14) and the vectorised
 whole-batch admission (this engine admits request by request).
 """
 

@@ -788,3 +788,191 @@ def test_bf16_mean_kernels_round_the_float32_kernels_once(cuda_device, structura
         gx = masked_mean_backward(g, mask, cols, w_src)
         assert gx.dtype == torch.bfloat16
         assert _same(gx, masked_mean_backward(g.float(), mask, cols, w_src).to(torch.bfloat16))
+
+
+# -- the multi-device slice: K13a, K13b, K9c ----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("D", [100, 99])
+def test_sharded_rows_kernel_matches_plain(cuda_device, dtype, D):
+    """K13a: each shard's partial of a striped table, bit-equal to its plain
+    version on the card and on the CPU, for ids below, inside and past the
+    shard and the padding sentinel; the shards' partials sum to the rows."""
+    from quiver_tpu_torch.parallel.collectives import partial_rows, partial_rows_plain
+
+    rng = np.random.default_rng(D)
+    N, shards = 1001, 4
+    R = -(-N // shards)
+    if dtype == torch.int8:
+        table = torch.from_numpy(rng.integers(-127, 128, (shards * R, D)).astype(np.int8))
+    else:
+        table = torch.from_numpy(rng.standard_normal((shards * R, D)).astype(np.float32)).to(dtype)
+    ids = torch.from_numpy(rng.integers(-5, N + 40, 4096).astype(np.int32))
+    ids[:2] = torch.tensor([np.iinfo(np.int32).max, -1], dtype=torch.int32)
+    total = torch.zeros((ids.shape[0], D), dtype=torch.float64)
+    _kernels.reset_counts()
+    for p in range(shards):
+        block = table[p * R:(p + 1) * R]
+        got = partial_rows(block.to(cuda_device), ids.to(cuda_device), p)
+        want = partial_rows_plain(block.to(cuda_device), ids.to(cuda_device), p)
+        cpu = partial_rows_plain(block, ids, p)
+        torch.cuda.synchronize()
+        assert _same(got, want) and _same(got, cpu)
+        total += got.cpu().double()
+    assert _kernels.counts()["sharded_rows"] == shards
+    inside = ((ids >= 0) & (ids < shards * R)).numpy()
+    want = np.where(inside[:, None], table.double().numpy()[np.clip(ids.numpy(), 0,
+                                                                     shards * R - 1)], 0)
+    assert np.array_equal(total.numpy(), want)
+
+
+def _owned_seeds(rng, W, n):
+    """`_hop_seeds` with every id a node of the graph: an id no shard owns
+    draws nothing from the sharded graph, where the unsharded one clips it."""
+    seeds, valid = _hop_seeds(rng, W, n)
+    return torch.clamp(seeds, 0, n - 1), valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+@pytest.mark.parametrize("k", [15, 64])
+def test_sharded_sample_kernel_matches_plain_and_unsharded(cuda_device, layout, k):
+    """K13b on 3 shards (one owning the hub): each partial bit-equal to its
+    plain version on the card and on the CPU; the partials sum to the
+    unsharded K1/K1b draw on its valid lanes, neighbor 0 elsewhere."""
+    from quiver_tpu_torch.parallel.topology import (
+        build_tiled_topology_shards,
+        build_topology_shards,
+        sample_layer_partial,
+        sample_layer_partial_plain,
+        tiled_sample_layer_partial,
+        tiled_sample_layer_partial_plain,
+    )
+
+    topo, n = _graph()
+    rng = np.random.default_rng(k)
+    seeds, valid = _owned_seeds(rng, 2048, n)
+    key = qrandom.split(qrandom.key(k))[1]
+    if layout == "tiled":
+        a, b, rs = build_tiled_topology_shards(topo.indptr, topo.indices.astype(np.int32), 3)
+        fn, plain = tiled_sample_layer_partial, tiled_sample_layer_partial_plain
+        ref = sample.tiled_sample_layer(*topo.to_device_tiled(cuda_device), seeds.to(cuda_device),
+                                        valid.to(cuda_device), k, key)
+    else:
+        a, b, rs = build_topology_shards(topo.indptr, topo.indices.astype(np.int32), 3)
+        fn, plain = sample_layer_partial, sample_layer_partial_plain
+        ref = sample.sample_layer(*topo.to_device(cuda_device), seeds.to(cuda_device),
+                                  valid.to(cuda_device), k, key)
+    nbrs = torch.zeros((seeds.shape[0], k), dtype=torch.int32)
+    vsum = torch.zeros((seeds.shape[0], k), dtype=torch.int32)
+    for p in range(3):
+        blk = (torch.from_numpy(a[p]), torch.from_numpy(b[p]))
+        win = (int(rs[p]), int(rs[p + 1]))
+        dev_args = (*(t.to(cuda_device) for t in blk), *win, seeds.to(cuda_device),
+                    valid.to(cuda_device), k, key)
+        got, want = fn(*dev_args), plain(*dev_args)
+        cpu = plain(*blk, *win, seeds, valid, k, key)
+        torch.cuda.synchronize()
+        for x, y, z in zip(got, want, cpu):
+            assert x.dtype == torch.int32 and _same(x, y) and _same(x, z)
+        nbrs += got[0].cpu()
+        vsum += got[1].cpu()
+    rv = ref[1].cpu()
+    assert torch.equal(vsum > 0, rv) and int(vsum.max()) == 1
+    assert torch.equal(nbrs[rv], ref[0].cpu()[rv]) and not nbrs[~rv].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "bf16", "fp32"])
+def test_sharded_dequant_kernel_matches_plain_and_k9a(cuda_device, codec):
+    """K9c: the decode of the summed payload bit-equal to its plain version
+    on the card and on the CPU, and to K9a on the unsharded payload for
+    in-range ids; ids outside [0, N) give zero rows."""
+    from quiver_tpu_torch.parallel.collectives import partial_rows
+    from quiver_tpu_torch.quant.lookup import sharded_dequant, sharded_dequant_plain
+
+    c = get_codec(codec)
+    rng = np.random.default_rng(3)
+    N, D, shards = 1001, 100, 2
+    enc = c.encode(rng.standard_normal((N, D)).astype(np.float32) * 3)
+    payload = torch.as_tensor(enc.payload)
+    R = -(-N // shards)
+    padded = torch.cat([payload, torch.zeros((shards * R - N, D), dtype=payload.dtype)])
+    side = () if enc.scale is None else (torch.from_numpy(enc.scale), torch.from_numpy(enc.zero))
+    ids = torch.from_numpy(rng.integers(-3, N + 3, 4096).astype(np.int32))
+    dev = cuda_device
+    q = sum(partial_rows(padded[p * R:(p + 1) * R].to(dev), ids.to(dev), p).cpu()
+            for p in range(shards)).to(payload.dtype)
+    args = (q.to(dev), ids.to(dev), *(t.to(dev) for t in side))
+    got, want = sharded_dequant(c, *args), sharded_dequant_plain(c, *args)
+    cpu = sharded_dequant_plain(c, q, ids, *side)
+    k9a = gather_dequant(c, payload.to(dev), ids.to(dev), *(t.to(dev) for t in side))
+    torch.cuda.synchronize()
+    assert _same(got, want) and _same(got, cpu)
+    ok = ((ids >= 0) & (ids < N)).numpy()
+    assert _same(got[ok], k9a[ok]) and not got.cpu()[~ok].any()
+
+
+@pytest.mark.cuda
+def test_rank_threads_gather_and_sample_on_the_card(cuda_device):
+    """Four rank threads (dp 2 x ici 2) on one card over gloo: the sharded
+    gather of float32, bfloat16 and int8 rows and the sharded draw equal the
+    unsharded ones on every rank."""
+    from quiver_tpu_torch.parallel import (
+        local_meshes,
+        run_ranks,
+        shard_feature_rows,
+        shard_topology_rows,
+        sharded_gather,
+        sharded_sample_layer,
+        tiled_sharded_sample_layer,
+    )
+
+    topo, n = _graph()
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.standard_normal((n, 100)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-2, n + 2, 5000).astype(np.int32))
+    seeds, valid = _owned_seeds(rng, 1024, n)
+    key = qrandom.key(9)
+    ref = sample.sample_layer(*topo.to_device(cuda_device), seeds.to(cuda_device),
+                              valid.to(cuda_device), 10, key)
+    meshes = local_meshes(4, dp=2, device=cuda_device, timeout_s=120)
+
+    def rank(m):
+        out = {}
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            t = table.to(dt) if dt != torch.int8 else (table * 20).to(dt)
+            out[dt] = sharded_gather(shard_feature_rows(m, t), ids.to(m.device), m)
+        for layout in ("flat", "tiled"):
+            st = shard_topology_rows(m, topo, layout=layout)
+            a = (st.indptr, st.indices) if layout == "flat" else (st.bd, st.tiles)
+            fn = sharded_sample_layer if layout == "flat" else tiled_sharded_sample_layer
+            out[layout] = fn(*a, st.row_start, seeds.to(m.device), valid.to(m.device), 10, key, m)
+        return out
+
+    rv = ref[1].cpu()
+    ok = ((ids >= 0) & (ids < n)).numpy()
+    for out in run_ranks(rank, meshes):
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            t = table.to(dt) if dt != torch.int8 else (table * 20).to(dt)
+            got = out[dt].cpu()
+            assert got.dtype == dt and _same(got[ok], t[ids[ok].long()]) and not got[~ok].any()
+        for layout in ("flat", "tiled"):
+            nb, v = (x.cpu() for x in out[layout])
+            assert torch.equal(v, rv) and torch.equal(nb[rv], ref[0].cpu()[rv])
+
+
+@pytest.mark.cuda
+def test_run_ranks_waits_for_the_callers_queued_work(cuda_device):
+    """Work the caller queued on its stream and did not synchronize (about
+    40 ms of adds here) is done before any rank thread's stream reads its
+    result."""
+    from quiver_tpu_torch.parallel import local_meshes, run_ranks
+
+    meshes = local_meshes(4, dp=2, device=cuda_device, timeout_s=120)
+    x = torch.zeros(1 << 26, dtype=torch.int32, device=cuda_device)
+    for _ in range(200):
+        x.add_(1)
+    sums = run_ranks(lambda m: int(x.sum()), meshes)
+    assert sums == [200 * (1 << 26)] * 4
