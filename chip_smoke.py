@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphSAGE serving, training,
 capped training, out-of-core training, weighted training, GCN and GAT
-training (float32 and bfloat16), temporal serving and (dp, ici)
-data-parallel training paths on one card, with every tile table built on
-it.
+training (float32 and bfloat16), temporal serving, (dp, ici) and
+(host, dp, ici) data-parallel training paths on one card, with every tile
+table built on it.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -274,7 +274,59 @@ Phases, each of which fails the run (non-zero exit, no result line):
              beside the JAX example's 1.000 on the same graph and args (4
              virtual CPU devices) and the single-device example's 0.938 on
              its own community graph;
-25. report — one JSON line of all kernels, the card line, then the
+25. host setup — the host axis's state: 4 rank threads (host 2 x dp 1 x
+             ici 2) on the card over gloo, the table's four (host, ici)
+             stripes, each (host, ici) shard's flat and tiled graph block,
+             and for the hot/cold leg the graph and table renumbered by the
+             tiers phase's heat order, 20% of the rows hot (replicated per
+             host, striped over ici; the rest striped over (host, ici)),
+             their tiled blocks and the cold budget from
+             calibrate_cold_budget over 8 probe batches of 1,024 (margin
+             1.3); lines start ``host setup``;
+26. kernels-9 — on one calibrated dedup batch a data group (timed), and on
+             the same batches uncapped (1,081,344 gather ids, last hop
+             180,224 lanes; checked, not timed): the grouped gather's pack
+             (K13a at the gathered width, shard (0, 0); logged) and the
+             grouped unpack (K13c) of the two slabs each rank receives, in
+             float32 (the report row: rank (0, 0)), bfloat16 and int8,
+             bit-equal to its plain version, the ici ranks' unpacks summing
+             to the rows; the grouped hop (K13e: K13b at the gathered
+             width, then K13c's int32 unpack of the neighbor and valid
+             slabs) flat and tiled per hop and rank, bit-equal to their
+             plain versions, the ici ranks' sums equal to the
+             single-device K1b draw of the two hosts' frontiers with each
+             row drawn by its owner host's key (logged as ``grouped_hop``
+             on rank (0, 0)); the hot/cold compaction and merge (K13d) at
+             the hot/cold leg's two gather widths and calibrated budget,
+             bit-equal to their plain versions, the merged rows the table's.
+             Yardsticks: index_select (pack), the slabs' sum (K13c), a
+             stable argsort of the cold flag (compaction), index_add_
+             (merge).
+             Then gloo's all-gather of the ids and all-to-all of the float32
+             slabs over a host pair (``kernels-9 gloo:`` lines);
+27. host train — three legs on the rank threads at full products width,
+             batch 1,024 a data group, GraphSAGE(100 -> 256 -> 256 -> 47),
+             Adam 1e-3, dropout 0.5: (d) replicated graph, dedup, the mc
+             phase's caps, grouped gathers (K13c); (e) graph row-sharded
+             over (host, ici) in tiled blocks, fused, grouped draws (K13e)
+             and per-hop grouped gathers; (f) hot/cold on the renumbered
+             graph row-sharded in tiled blocks, dedup, the calibrated budget
+             (K13d, K13c, K13e). Each: the first step's sample and rows on
+             every rank bit-equal on the real lanes to the single-device
+             pipelines of both data groups in lockstep, each hop's draw by
+             the owners' keys (the rows where no cold id overflowed), a
+             warm-up step, 3 timed steps (median ms), 2 steps with every
+             collective timed apart between stream syncs (the collectives'
+             share, and by wrapper), the rows gathered, the byte models with
+             their host-axis terms, the card's peak memory and, on (f), the
+             overflow a step; the replicas bit-equal after the leg, finite
+             losses, the leg's kernels launched. Lines start ``host train:``;
+28. learn host — the products_multichip example with --hosts 2 --hot-frac
+             0.2 on the four rank threads at the multichip learn args: test
+             accuracy above 0.8 and within 0.05 of the JAX example's 1.000
+             on the same graph and args (4 virtual CPU devices), K13c and
+             K13d launched;
+29. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a card. Needs one card.
@@ -336,6 +388,7 @@ from quiver_tpu_torch.quant.lookup import (
 )
 from quiver_tpu_torch.parallel import (
     allreduce_sum,
+    calibrate_cold_budget,
     gather_comm_bytes,
     local_meshes,
     make_sharded_topo_train_step,
@@ -346,14 +399,24 @@ from quiver_tpu_torch.parallel import (
     shard_topology_rows,
 )
 from quiver_tpu_torch.parallel import collectives as par_collectives
-from quiver_tpu_torch.parallel.collectives import partial_rows, partial_rows_plain
+from quiver_tpu_torch.parallel.collectives import (
+    cold_budget_lanes,
+    cold_compact,
+    cold_compact_plain,
+    cold_merge,
+    cold_merge_plain,
+    grouped_unpack,
+    grouped_unpack_plain,
+    partial_rows,
+    partial_rows_plain,
+)
 from quiver_tpu_torch.parallel.topology import (
     sample_layer_partial,
     sample_layer_partial_plain,
     tiled_sample_layer_partial,
     tiled_sample_layer_partial_plain,
 )
-from quiver_tpu_torch.parallel.train import stripe_rows
+from quiver_tpu_torch.parallel.train import hot_cold_stripes, stripe_rows
 from quiver_tpu_torch.models.sage import (
     masked_mean_aggregate,
     masked_mean_aggregate_plain,
@@ -458,6 +521,11 @@ SOURCES = {
     "sharded_sample_flat": ("quiver_tpu_torch/csrc/sample.cu",
                             "quiver_tpu/parallel/topology.py:339"),
     "sharded_dequant": ("quiver_tpu_torch/csrc/dequant.cu", "quiver_tpu/quant/lookup.py:88"),
+    "grouped_unpack": ("quiver_tpu_torch/csrc/collective.cu",
+                       "quiver_tpu/parallel/collectives.py:65"),
+    "cold_compact": ("quiver_tpu_torch/csrc/collective.cu",
+                     "quiver_tpu/parallel/collectives.py:150"),
+    "cold_merge": ("quiver_tpu_torch/csrc/collective.cu", "quiver_tpu/parallel/collectives.py:150"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
 # the training slice: batch, timed steps a leg, the tiered leg's cache share
@@ -512,6 +580,13 @@ MC_CAP_PROBES, MC_STEPS, MC_COLLECTIVE_STEPS = 8, 5, 2
 MC_LEARN_ARGS = ["--nodes", "20000", "--dim", "64", "--sizes", "25,10", "--epochs", "8",
                  "--batch-per-dp", "512"]
 MC_JAX_EXAMPLE_ACC, MC_SINGLE_DEVICE_ACC = 1.000, 0.938
+# the host axis: rank threads host 2 x dp 1 x ici 2, the hot/cold leg's hot
+# share of the heat-ordered rows and its cold budget's calibration margin, a
+# leg's timed steps; the JAX package's examples/products_multichip.py at
+# MC_LEARN_ARGS with --hosts 2 --hot-frac 0.2 on 4 virtual CPU devices (test
+# accuracy), the bar of the port's example at the same args on the card
+HOST_RANKS, HOST_HOSTS, HOST_HOT_FRAC, HOST_COLD_MARGIN, HOST_STEPS = 4, 2, 0.2, 1.3, 3
+HOST_JAX_EXAMPLE_ACC = 1.000
 
 
 def log(*a):
@@ -1598,7 +1673,7 @@ def tiers_phase(topo, table_np, train_idx, seed, dev):
     from its exact row counts, TierStore.apply (K6), a fresh pipeline and a
     second epoch; (d) QuantizedFeature(int8) with a disk tail — against an
     all-DRAM epoch with the same seeds. Returns the launches of the main
-    path's parts."""
+    path's parts and the heat order (order[new_id] = old_id)."""
     n = topo.node_count
     launches = {}
     # the heat: K11 on the main path
@@ -1808,7 +1883,7 @@ def tiers_phase(topo, table_np, train_idx, seed, dev):
         for f in (static, adaptive, q8.inner):
             f.read_pool.shutdown()
         del dram, static, adaptive, q8, store, old_table, sp, args
-    return launches
+    return launches, order
 
 
 # -- the weighted and temporal slice ----------------------------------------------
@@ -2749,37 +2824,43 @@ def kernel_phase_8(topo, table, mc, seeds, rows, seed):
 
 
 class CollectiveClock:
-    """Times every all-reduce of the rank threads that opt in (``on()``),
-    each between two syncs of the rank's stream: patched over
-    ``parallel.collectives.allreduce_sum``, through which every sum of the
-    port goes, for the instrumented steps only."""
+    """Times every collective of the rank threads that opt in (``on()``),
+    each between two syncs of the rank's stream: patched over the wrappers
+    of ``parallel.collectives`` (``COLLECTIVES``: the all-reduce sum, the
+    all-gather, the all-to-all and the all-reduce max), through which every
+    exchange of the port goes, for the instrumented steps only. ``on()``
+    returns the rank's list of (wrapper, ms)."""
 
     def __init__(self):
         self.local = threading.local()
-        self.orig = par_collectives.allreduce_sum
+        self.orig = {name: getattr(par_collectives, name) for name in par_collectives.COLLECTIVES}
 
     def __enter__(self):
-        par_collectives.allreduce_sum = self.timed
+        for name, fn in self.orig.items():
+            setattr(par_collectives, name, self._timed(name, fn))
         return self
 
     def __exit__(self, *exc):
-        par_collectives.allreduce_sum = self.orig
+        for name, fn in self.orig.items():
+            setattr(par_collectives, name, fn)
 
     def on(self):
         self.local.acc = []
         return self.local.acc
 
-    def timed(self, t, group):
-        acc = getattr(self.local, "acc", None)
-        if acc is None:
-            return self.orig(t, group)
-        stream = torch.cuda.current_stream()
-        stream.synchronize()
-        t0 = time.perf_counter()
-        out = self.orig(t, group)
-        stream.synchronize()
-        acc.append((time.perf_counter() - t0) * 1e3)
-        return out
+    def _timed(self, name, fn):
+        def timed(t, group):
+            acc = getattr(self.local, "acc", None)
+            if acc is None:
+                return fn(t, group)
+            stream = torch.cuda.current_stream()
+            stream.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, group)
+            stream.synchronize()
+            acc.append((name, (time.perf_counter() - t0) * 1e3))
+            return out
+        return timed
 
 
 def valid_positions(ds, pipeline):
@@ -2872,7 +2953,7 @@ def multichip_phase(topo, table, labels, mc, seed):
                      batches[1 + MC_STEPS + i])
                 m.stream.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
-                coll.append(sum(acc))
+                coll.append(sum(ms for _, ms in acc))
                 clock.local.acc = None
             on_card = g_flat if topology == "replicated" else graph[0]
             held = sum(t.numel() * t.element_size() for t in on_card if t.is_cuda)
@@ -2954,6 +3035,550 @@ def multichip_learn_phase():
                                           "launches": {k: v for k, v in counts.items() if v}}))
     check(res.get("test_acc", 0.0) > LEARN_BAR, f"the multichip example did not learn: {res}")
     check(counts["sharded_rows"] > 0, "K13a never launched in the multichip example")
+    return counts
+
+
+# -- the host axis: K13c, K13d, K13e and the (host, dp, ici) train legs ---------------
+
+def host_setup(topo, table, train_idx, heat_order, caps, seed):
+    """The host slice's state: 4 rank threads (host 2 x dp 1 x ici 2) on the
+    card over gloo, the table's four (host, ici) stripes, each (host, ici)
+    shard's flat and tiled graph block (K12 building the tiled ones), and
+    for the hot/cold leg the graph and table renumbered by the tiers phase's
+    heat order, their hot/cold stripes (HOST_HOT_FRAC of the rows hot) and
+    tiled blocks, and the cold budget calibrated over MC_CAP_PROBES batches
+    (margin HOST_COLD_MARGIN). Leg (d)'s caps are the mc phase's."""
+    dev = table.device
+    meshes = local_meshes(HOST_RANKS, hosts=HOST_HOSTS, device=dev, timeout_s=600)
+    feat = ("host", "ici")
+    n_shards = meshes[0].axis_size(feat)
+    by_shard = [next(m for m in meshes if m.index(feat) == p) for p in range(n_shards)]
+    stripes = [stripe_rows(table, n_shards, p) for p in range(n_shards)]
+    t0 = time.perf_counter()
+    blocks = {"flat": [shard_topology_rows(m, topo, layout="flat") for m in by_shard]}
+    blocks["tiled"] = tile_build("sharded ids (host, ici shards)", lambda: [
+        shard_topology_rows(m, topo, layout="tiled") for m in by_shard])
+    n = topo.node_count
+    inv = np.empty(n, np.int64)
+    inv[heat_order] = np.arange(n)
+    topo_r = renumbered_csr(topo, heat_order, inv)
+    table_r = table[torch.from_numpy(heat_order).to(dev)]
+    hot_rows = int(n * HOST_HOT_FRAC)
+    hot_cold = [hot_cold_stripes(table_r, hot_rows, m.hosts, m.ici, m.host_idx, m.ici_idx)
+                for m in by_shard]
+    blocks["renumbered"] = tile_build("renumbered sharded ids (host, ici shards)", lambda: [
+        shard_topology_rows(m, topo_r, layout="tiled") for m in by_shard])
+    build_s = time.perf_counter() - t0
+    order = np.random.default_rng(seed + 120).permutation(train_idx)
+    probes = inv[order[-MC_CAP_PROBES * TRAIN_BATCH:]].reshape(MC_CAP_PROBES, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    budget = tile_build("renumbered ids (cold budget calibration)", lambda: calibrate_cold_budget(
+        GraphSageSampler(topo_r, SIZES, device=dev, seed=seed + 121), probes, hot_rows,
+        margin=HOST_COLD_MARGIN))
+    log("host setup: " + json.dumps({
+        "mesh": meshes[0].shape, "ranks": len(meshes),
+        "row_start": blocks["flat"][0].row_start.tolist(), "stripe_rows": int(stripes[0].shape[0]),
+        "tiled_block_rows": [int(b.tiles.shape[0]) for b in blocks["tiled"]],
+        "hot_rows": hot_rows, "hot_stripe_rows": int(hot_cold[0][0].shape[0]),
+        "cold_stripe_rows": int(hot_cold[0][1].shape[0]), "cold_budget": budget,
+        "cold_budget_margin": HOST_COLD_MARGIN, "calibration_s": time.perf_counter() - t0,
+        "blocks_s": build_s, "caps": caps}))
+    return dict(meshes=meshes, by_shard=by_shard, stripes=stripes, blocks=blocks, caps=caps,
+                order=order, inv=inv, topo_r=topo_r, table_r=table_r, hot_rows=hot_rows,
+                hot_cold=hot_cold, budget=budget)
+
+
+def owner_hosts(row_start, ici: int, ids: torch.Tensor) -> torch.Tensor:
+    """The host whose (host, ici) shard owns each id (shard p = host * ici +
+    ici_idx; ids outside every shard map to the nearest)."""
+    rs = row_start.to(ids.device)
+    p = torch.searchsorted(rs, ids.to(torch.int64), right=True) - 1
+    return torch.clamp(p, 0, rs.shape[0] - 2) // ici
+
+
+def grouped_draw_reference(g_flat, row_start, ici, frontiers, g, k):
+    """What host ``g`` gets from a grouped draw, by the single-device K1b on
+    the whole graph: the hosts' frontiers ``[(cur, cur_valid, key), ...]``
+    concatenated, each row drawn with the key of the host that owns it (its
+    shards draw with their own data group's key), host g's lanes kept."""
+    all_cur = torch.cat([f[0] for f in frontiers])
+    all_valid = torch.cat([f[1] for f in frontiers])
+    owner = owner_hosts(row_start, ici, all_cur)
+    w = frontiers[g][0].shape[0]
+    sl = slice(g * w, (g + 1) * w)
+    nbrs = torch.zeros((w, k), dtype=torch.int32, device=all_cur.device)
+    valid = torch.zeros((w, k), dtype=torch.bool, device=all_cur.device)
+    for o, (_, _, key) in enumerate(frontiers):
+        n_o, v_o = sample.sample_layer(*g_flat, all_cur, all_valid, k, key)
+        m = (owner[sl] == o)[:, None] & v_o[sl]
+        nbrs = torch.where(m, n_o[sl], nbrs)
+        valid |= m
+    return nbrs, valid
+
+
+def grouped_pipeline_reference(g_flat, row_start, ici, table, keys, seeds, pipeline, caps):
+    """The single-device pipelines of all data groups in lockstep threads,
+    each hop's draw through `grouped_draw_reference` on the whole graph:
+    what a grouped sharded step's first sample and rows must be. Returns
+    [(ds, x)] by group."""
+    G = len(keys)
+    barrier = threading.Barrier(G, timeout=600)
+    shared, out, errors = [None] * G, [None] * G, []
+
+    def run(g):
+        def sample_fn(cur, cur_valid, k, sub):
+            shared[g] = (cur, cur_valid, sub)
+            barrier.wait()
+            res = grouped_draw_reference(g_flat, row_start, ici, list(shared), g, k)
+            barrier.wait()  # every host has read the frontiers before the next hop
+            return res
+
+        try:
+            if pipeline == "dedup":
+                out[g] = sample_and_gather_dedup(None, None, table, keys[g], seeds[g], SIZES,
+                                                 caps, sample_fn=sample_fn)
+            else:
+                out[g] = sample_and_gather_fused(None, None, table, keys[g], seeds[g], SIZES,
+                                                 sample_fn=sample_fn)
+        except BaseException as exc:  # re-raised below
+            errors.append(exc)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(g,), daemon=True) for g in range(G)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def kernel_phase_9(topo, table, host, rows, seed):
+    """Hold the host axis's kernels against their plain versions, timed on
+    the lanes of one calibrated dedup batch a data group (host 0's and host
+    1's, 1,024 seeds each) and checked, not timed, on the same batches
+    uncapped (the widths legs (e) and (f) launch): the grouped gather's
+    pack (K13a at the gathered width) and K13c's unpack of the two slabs a
+    rank receives, in float32 (the report row: rank (0, 0)), bfloat16 and
+    int8, the ici ranks' unpacks summing to the rows; K13e's grouped hop
+    (K13b at the gathered width, then K13c's int32 unpack of both slab
+    sets) flat and tiled per hop and rank, the ici ranks' sums equal to
+    the single-device draw with each row drawn by its owner host's key;
+    K13d's compaction and merge at the hot/cold leg's two gather widths and
+    calibrated budget on the renumbered graph's batch. Then gloo's
+    all-gather and all-to-all alone."""
+    dev = table.device
+    meshes, by_shard = host["meshes"], host["by_shard"]
+    ici, G = meshes[0].ici, meshes[0].hosts
+    N = topo.node_count
+    B = TRAIN_BATCH
+    key = qrandom.key(seed + 130)
+    keys = [qrandom.split(qrandom.fold_in(key, g))[0] for g in range(G)]
+    seeds = [torch.from_numpy(host["order"][g * B:(g + 1) * B].astype(np.int32)).to(dev)
+             for g in range(G)]
+    lanes = {tag: [dedup_lanes(topo, table, caps, seeds[g], keys[g]) for g in range(G)]
+             for tag, caps in (("calibrated", host["caps"]), ("uncapped", None))}
+    log("kernels-9 lanes: " + json.dumps({
+        tag: {"gather_ids": [int(l[1].shape[0]) for l in ls],
+              "hops": [[int(h[0].shape[0]), h[2]] for h in ls[0][0]]}
+        for tag, ls in lanes.items()}))
+    R = host["stripes"][0].shape[0]
+
+    # K13c: the slabs rank (h, i) receives: slab g = shard (g, i)'s partial of host h's ids
+    def received(stripes, ids, h, i):
+        return torch.stack([partial_rows(stripes[g * ici + i], ids[h], g * ici + i)
+                            for g in range(G)])
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        if dtype == torch.float32:
+            full, stripes = table, host["stripes"]
+        else:
+            full = table.to(dtype) if dtype == torch.bfloat16 else \
+                torch.clamp(torch.round(table * 20), -127, 127).to(torch.int8)
+            stripes = [stripe_rows(full, G * ici, p) for p in range(G * ici)]
+        es = full.element_size()
+        for tag in (("calibrated", "uncapped") if dtype == torch.float32 else ("calibrated",)):
+            ids = [lanes[tag][g][1] for g in range(G)]
+            W = ids[0].shape[0]
+            if tag == "calibrated":  # the grouped gather's pack: K13a at the gathered width
+                all_ids = torch.cat(ids)
+                own = (all_ids >= 0) & (all_ids < R)
+                local = torch.clamp(all_ids.long(), 0, R - 1)
+                record(rows, "sharded_rows", 0.0,
+                       time_ms(lambda: partial_rows(stripes[0], all_ids, 0)),
+                       time_ms(lambda: partial_rows_plain(stripes[0], all_ids, 0), reps=5),
+                       bound(G * W * 4 + torch.unique(all_ids[own]).numel() * DIM * es
+                             + G * W * DIM * es),
+                       time_ms(lambda: torch.index_select(stripes[0], 0, local)),
+                       shape=f"K13c pack: shard (0, 0) at G*W={G * W} D={DIM} "
+                             f"{str(dtype)[6:]}", report=False)
+                del all_ids, own, local
+            for h in range(G):
+                total = None
+                for i in range(ici):
+                    slabs = received(stripes, ids, h, i)
+                    got = grouped_unpack(slabs)
+                    check(torch.equal(got, grouped_unpack_plain(slabs)),
+                          f"K13c {dtype} rank ({h}, {i}) ({tag} lanes) differs from its plain "
+                          "version")
+                    total = got if total is None else total + got
+                    if tag == "calibrated" and h == 0:
+                        record(rows, "grouped_unpack", 0.0, time_ms(lambda: grouped_unpack(slabs)),
+                               time_ms(lambda: grouped_unpack_plain(slabs), reps=5),
+                               bound(G * W * DIM * es + W * DIM * es),
+                               time_ms(lambda: slabs.sum(0)),
+                               shape=f"G={G} W={W} D={DIM} {str(dtype)[6:]} rank ({h}, {i})",
+                               report=dtype == torch.float32 and i == 0)
+                    del slabs
+                inr = (ids[h] >= 0) & (ids[h] < N)
+                check(torch.equal(total[inr], full[ids[h][inr].long()]) and not total[~inr].any(),
+                      f"K13c {dtype} ({tag} lanes): host {h}'s unpacked slabs do not sum to the "
+                      "rows")
+                del total, got
+        del full, stripes
+    torch.cuda.empty_cache()
+
+    # K13e: a grouped hop per rank, flat and tiled
+    row_start = host["blocks"]["flat"][0].row_start
+    g_flat = topo.to_device(dev)
+    indptr_dev = torch.from_numpy(topo.indptr).to(dev)
+    for layout in ("flat", "tiled"):
+        if layout == "flat":
+            fn, plain = sample_layer_partial, sample_layer_partial_plain
+            blk = [(b.indptr, b.indices) for b in host["blocks"]["flat"]]
+        else:
+            fn, plain = tiled_sample_layer_partial, tiled_sample_layer_partial_plain
+            blk = [(b.bd, b.tiles) for b in host["blocks"]["tiled"]]
+        for tag, ls in lanes.items():
+            for l in range(len(SIZES)):
+                fr = [(ls[g][0][l][0], ls[g][0][l][1], ls[g][0][l][3]) for g in range(G)]
+                k = ls[0][0][l][2]
+                w = fr[0][0].shape[0]
+                all_cur = torch.cat([f[0] for f in fr])
+                all_valid = torch.cat([f[1] for f in fr])
+                # every shard's draw at the gathered width, with its host's key
+                parts = {}
+                for g in range(G):
+                    for i in range(ici):
+                        p = g * ici + i
+                        args = (*blk[p], int(row_start[p]), int(row_start[p + 1]), all_cur,
+                                all_valid, k, fr[g][2])
+                        parts[g, i] = fn(*args)
+                        if p != 0:
+                            continue
+                        want = plain(*args)
+                        check(torch.equal(parts[g, i][0], want[0])
+                              and torch.equal(parts[g, i][1], want[1]),
+                              f"K13b {layout} hop {l} at the gathered width ({tag} lanes) "
+                              "differs from its plain version")
+                for h in range(G):
+                    n_sum = v_sum = None
+                    for i in range(ici):
+                        a = torch.stack([parts[g, i][0][h * w:(h + 1) * w] for g in range(G)])
+                        b = torch.stack([parts[g, i][1][h * w:(h + 1) * w] for g in range(G)])
+                        got = grouped_unpack(a), grouped_unpack(b)
+                        check(torch.equal(got[0], grouped_unpack_plain(a))
+                              and torch.equal(got[1], grouped_unpack_plain(b)),
+                              f"K13c int32 (K13e) {layout} hop {l} rank ({h}, {i}) ({tag} lanes) "
+                              "differs from its plain version")
+                        n_sum = got[0] if n_sum is None else n_sum + got[0]
+                        v_sum = got[1] if v_sum is None else v_sum + got[1]
+                        if tag == "calibrated" and h == 0 and i == 0:
+                            p0 = (*blk[0], int(row_start[0]), int(row_start[1]), all_cur,
+                                  all_valid, k, fr[0][2])
+                            b_draw = sharded_sample_bound(indptr_dev, all_cur, all_valid, k,
+                                                          int(row_start[0]), int(row_start[1]))
+                            b_unp = bound(2 * G * w * k * 4 + 2 * w * k * 4)
+                            unp_ms = time_ms(lambda: (grouped_unpack(a), grouped_unpack(b)))
+                            unp_plain = time_ms(lambda: (grouped_unpack_plain(a),
+                                                         grouped_unpack_plain(b)), reps=3)
+                            record(rows, "grouped_unpack", 0.0, unp_ms, unp_plain, b_unp,
+                                   time_ms(lambda: (a.sum(0), b.sum(0))),
+                                   shape=f"{layout} hop {l} W={w} G={G} k={k} int32 rank (0, 0): "
+                                         "neighbor and valid slabs", report=False)
+                            record(rows, "grouped_hop", 0.0, time_ms(lambda: fn(*p0)) + unp_ms,
+                                   time_ms(lambda: plain(*p0), reps=3) + unp_plain,
+                                   (b_draw[0] + b_unp[0],
+                                    b_draw[1] if b_draw[0] >= b_unp[0] else b_unp[1]), None,
+                                   shape=f"K13e {layout} hop {l} W={w} G={G} k={k} rank (0, 0): "
+                                         f"K13b at {G * w} lanes + K13c int32 unpack of both "
+                                         "slab sets", report=False)
+                    ref_n, ref_v = grouped_draw_reference(g_flat, row_start, ici, fr, h, k)
+                    check(torch.equal(v_sum > 0, ref_v) and int(v_sum.max()) <= 1
+                          and torch.equal(n_sum[ref_v], ref_n[ref_v]) and not n_sum[~ref_v].any(),
+                          f"K13e {layout} hop {l} host {h} ({tag} lanes): the ici ranks' sum is "
+                          "not the owner-keyed single-device draw")
+                del parts
+    torch.cuda.synchronize()
+
+    # K13d on the renumbered graph: one dedup batch's two gather widths, the budget
+    topo_r, table_r, hot_rows = host["topo_r"], host["table_r"], host["hot_rows"]
+    seeds_r = torch.from_numpy(host["inv"][host["order"][:B]].astype(np.int32)).to(dev)
+    hops_r, ids_r = dedup_lanes(topo_r, table_r, None, seeds_r, keys[0])
+    w_cur = hops_r[-1][0].shape[0]
+    n_cold_global = host["hot_cold"][0][1].shape[0] * G * ici
+    for what, ids in (("frontier", ids_r[:w_cur]), ("leaves", ids_r[w_cur:])):
+        w = ids.shape[0]
+        budget = cold_budget_lanes(w, host["budget"])
+        lo, hi = hot_rows, hot_rows + n_cold_global
+        got = cold_compact(ids, lo, hi, budget)
+        want = cold_compact_plain(ids, lo, hi, budget)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"K13d's compaction ({what}) differs from its plain version")
+        n_cold = int(got[2][0])
+        flag = ((ids >= lo) & (ids < hi)).to(torch.int32)
+        record(rows, "cold_compact", 0.0, time_ms(lambda: cold_compact(ids, lo, hi, budget)),
+               time_ms(lambda: cold_compact_plain(ids, lo, hi, budget), reps=5),
+               bound(w * 4 + budget * 8 + 8),
+               time_ms(lambda: torch.argsort(1 - flag, stable=True)[:budget]),
+               shape=f"{what} W={w} budget={budget} n_cold={n_cold}")
+        sel, cold_local, counts = got
+        inr = (ids >= 0) & (ids < hot_rows)
+        hot = torch.where(inr[:, None], table_r[torch.clamp(ids.long(), 0, hot_rows - 1)], 0.0)
+        ok = cold_local >= 0
+        cold_rows = torch.where(ok[:, None], table_r[torch.clamp(cold_local.long() + hot_rows, 0,
+                                                                   N - 1)], 0.0)
+        merged = cold_merge(hot.clone(), sel, cold_rows, counts)
+        check(torch.equal(merged, cold_merge_plain(hot, sel, cold_rows, counts)),
+              f"K13d's merge ({what}) differs from its plain version")
+        served = torch.zeros(w, dtype=torch.bool, device=dev)
+        served[sel[:min(n_cold, budget)].long()] = True
+        valid = (ids >= 0) & (ids < N) & (inr | served)
+        check(torch.equal(merged[valid], table_r[ids[valid].long()]) and not merged[~valid].any(),
+              f"K13d ({what}): the merged rows are not the table's")
+        hot_t = hot.clone()
+        add = torch.where(ok[:, None], cold_rows, 0.0)
+        record(rows, "cold_merge", 0.0, time_ms(lambda: cold_merge(hot_t, sel, cold_rows, counts)),
+               time_ms(lambda: cold_merge_plain(hot, sel, cold_rows, counts), reps=5),
+               bound(budget * 4 + budget * DIM * 4 * 3 + 4),
+               time_ms(lambda: hot_t.index_add_(0, sel.long(), add)),
+               shape=f"{what} W={w} budget={budget} D={DIM} float32")
+        log("kernels-9 hot/cold: " + json.dumps({"gather": what, "width": w, "budget": budget,
+                                                 "n_cold": n_cold, "overflow": int(counts[1]),
+                                                 "hot_share": float(inr.float().mean())}))
+    torch.cuda.synchronize()
+
+    # gloo alone: the grouped gather's id all-gather and slab all-to-all, all ranks at once
+    W = lanes["calibrated"][0][1].shape[0]
+    for what, shape, dtype, op in (("ids int32 all-gather", (W,), torch.int32, "allgather"),
+                                   ("slabs float32 all-to-all", (G, W, DIM), torch.float32,
+                                    "all_to_all")):
+        def rank(m, shape=shape, dtype=dtype, op=op):
+            x = torch.zeros(shape, dtype=dtype, device=m.device)
+            fn = getattr(par_collectives, op)
+            times = []
+            for _ in range(4):
+                m.stream.synchronize()
+                t0 = time.perf_counter()
+                fn(x, m.group("host"))
+                m.stream.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times[1:]))
+        ms = run_ranks(rank, meshes)
+        n_bytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        log("kernels-9 gloo: " + json.dumps({
+            "op": what, "bytes_in": n_bytes, "ms": ms[0], "ms_by_rank": ms,
+            "GB_per_s_in": n_bytes / ms[0] / 1e6, "transport": "gloo, host-staged, one card",
+            "group": f"host pair ({G} ranks), both pairs at once; not NVLink, not NCCL"}))
+
+
+def same_sample_rows(ds, x, ref_ds, ref_x, pipeline, overflow):
+    """`same_sample` on a hot/cold leg: the sample on every real lane, and
+    the rows too when no cold id overflowed the budget (an overflowed
+    lane's row comes back zero). Returns (ok, real lanes whose rows
+    differ)."""
+    ok = valid_positions(ref_ds, pipeline)
+    differ = int((x[ok] != ref_x[ok]).any(1).sum()) if x.shape == ref_x.shape else -1
+    if overflow == 0:
+        return same_sample(ds, x, ref_ds, ref_x, pipeline), differ
+    return same_sample(ds, ref_x, ref_ds, ref_x, pipeline) and 0 <= differ <= overflow, differ
+
+
+def host_phase(topo, table, labels, host, seed):
+    """Three legs of the (host, dp, ici) train step on the four rank
+    threads at full products width, batch 1,024 a data group: (d)
+    replicated graph, dedup, the caps, grouped gathers (K13c); (e) graph
+    row-sharded over (host, ici) in tiled blocks, fused, grouped draws
+    (K13e) and per-hop grouped gathers; (f) hot/cold: the renumbered graph
+    row-sharded in tiled blocks, dedup, the hot/cold gathers (K13d, K13c)
+    with the calibrated budget. A leg: the first step's sample and rows
+    against the single-device pipelines in lockstep (`grouped_pipeline_
+    reference`), a warm-up step, HOST_STEPS timed steps (median),
+    MC_COLLECTIVE_STEPS steps with every collective timed apart, the
+    device peak, the byte models with their host terms and, for (f), the
+    overflow a step; the replicas bit-equal after the leg. Returns the
+    launches summed over the legs' runs."""
+    dev = table.device
+    meshes = host["meshes"]
+    m0 = meshes[0]
+    ici, G = m0.ici, m0.hosts
+    B = TRAIN_BATCH
+    legs = (("d host replicated dedup capped", "replicated", "dedup", host["caps"], False,
+             ("sharded_rows/float32", "grouped_unpack/float32", "sample_flat", "local_reindex",
+              "masked_mean_backward/cols")),
+            ("e host sharded tiled fused", "tiled", "fused", None, False,
+             ("sharded_rows/float32", "grouped_unpack/float32", "sharded_sample_tiled",
+              "grouped_unpack/int32", "masked_mean_backward/structural")),
+            ("f host hot/cold sharded tiled dedup", "renumbered", "dedup", None, True,
+             ("sharded_rows/float32", "grouped_unpack/float32", "cold_compact",
+              "cold_merge/float32", "sharded_sample_tiled", "grouped_unpack/int32",
+              "local_reindex", "masked_mean_backward/cols")))
+    row_start = host["blocks"]["flat"][0].row_start
+    total = {}
+    for n_leg, (leg, topology, pipeline, caps, hot_cold, needs) in enumerate(legs):
+        n_batches = 1 + HOST_STEPS + MC_COLLECTIVE_STEPS
+        start = (n_leg * n_batches + 1) * B * G  # past kernels-9's batch
+        order = host["inv"][host["order"]] if hot_cold else host["order"]
+        batches = [torch.from_numpy(order[start + i * B * G:start + (i + 1) * B * G]
+                                    .astype(np.int32)) for i in range(n_batches)]
+        model = sage_model()
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        key0 = qrandom.key(seed + 140 + n_leg)
+        clock = CollectiveClock()
+        kw = dict(hot_rows=host["hot_rows"], cold_budget=host["budget"]) if hot_cold else {}
+
+        def rank(m):
+            replica = replicate(m, model)
+            opt = torch.optim.Adam(replica.parameters(), lr=1e-3)
+            p = m.index(("host", "ici"))
+            if topology == "replicated":
+                step = make_sharded_train_step(m, replica, opt, SIZES, caps=caps,
+                                               pipeline=pipeline)
+                graph = g_flat
+            else:
+                step = make_sharded_topo_train_step(m, replica, opt, SIZES, pipeline=pipeline,
+                                                    layout="tiled", **kw)
+                graph = (host["blocks"][topology][p],)
+            block = host["hot_cold"][p] if hot_cold else host["stripes"][p]
+            first = step.sample_and_gather(key0, *graph, block, batches[0])
+            out = step(key0, *graph, block, labels, batches[0])  # warm-up, the same sample
+            first_overflow = int(out[1]) if hot_cold else 0
+            times, losses, overflows = [], [], []
+            for i in range(HOST_STEPS):
+                m.stream.synchronize()
+                t0 = time.perf_counter()
+                out = step(qrandom.key(seed + 100 * n_leg + i), *graph, block, labels,
+                           batches[1 + i])
+                m.stream.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                loss = out[0] if hot_cold else out
+                losses.append(float(loss))
+                if hot_cold:
+                    overflows.append(int(out[1]))
+            coll, step_ms = [], []
+            for i in range(MC_COLLECTIVE_STEPS):
+                acc = clock.on()
+                m.stream.synchronize()
+                t0 = time.perf_counter()
+                step(qrandom.key(seed + 100 * n_leg + 50 + i), *graph, block, labels,
+                     batches[1 + HOST_STEPS + i])
+                m.stream.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                by = {}
+                for name, ms in acc:
+                    by[name] = by.get(name, 0.0) + ms
+                coll.append(by)
+                clock.local.acc = None
+            return dict(first=first, first_overflow=first_overflow, times=times, losses=losses,
+                        overflows=overflows, coll=coll, instr_ms=step_ms,
+                        params={k: v.detach().clone() for k, v in replica.state_dict().items()})
+
+        g_flat = (host["topo_r"] if hot_cold else topo).to_device(dev)
+        table_ref = host["table_r"] if hot_cold else table
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _kernels.reset_counts()
+        t_leg = time.perf_counter()
+        with clock:
+            res = run_ranks(rank, meshes)
+        leg_s = time.perf_counter() - t_leg
+        counts = _kernels.counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+        # the first step's sample and rows against the single-device pipelines
+        keys = [qrandom.split(qrandom.fold_in(key0, g))[0] for g in range(G)]
+        local = [batches[0][g * B:(g + 1) * B].to(dev) for g in range(G)]
+        if topology == "replicated":
+            refs = [sample_and_gather_dedup(*g_flat, table_ref, keys[g], local[g], SIZES, caps)
+                    for g in range(G)]
+        else:
+            refs = grouped_pipeline_reference(g_flat, row_start if not hot_cold else
+                                              host["blocks"]["renumbered"][0].row_start, ici,
+                                              table_ref, keys, local, pipeline, caps)
+        differ = []
+        for r, out in enumerate(res):
+            g = meshes[r].index(("host", "dp"))
+            same, d = same_sample_rows(*out["first"], *refs[g], pipeline, out["first_overflow"])
+            differ.append(d)
+            check(same, f"{leg}: rank {r}'s first sample or rows differ from the single-device "
+                        "pipelines")
+        for r, out in enumerate(res[1:], 1):
+            check(all(torch.equal(v, res[0]["params"][k]) for k, v in out["params"].items()),
+                  f"{leg}: rank {r}'s parameters differ from rank 0's after the leg")
+        losses = res[0]["losses"]
+        check(all(np.isfinite(losses)), f"{leg}: loss not finite: {losses}")
+        for name in needs:
+            check(counts[name] > 0, f"kernel {name} never launched on the host leg {leg}")
+        n_rows = int(res[0]["first"][1].shape[0])
+        budget_lanes = None
+        if hot_cold:
+            w_cur = int(res[0]["first"][0].adjs[0].mask.shape[0]) if pipeline == "dedup" else 0
+            budget_lanes = sum(cold_budget_lanes(w, host["budget"]) for w in (w_cur,
+                                                                                n_rows - w_cur))
+        comm = {"gather": gather_comm_bytes(m0, n_rows, DIM, cold_budget=budget_lanes)}
+        if topology != "replicated":
+            comm["sampling"] = sampling_comm_bytes(m0, SIZES, B, caps=caps, layout="tiled",
+                                                   feature_dim=DIM if pipeline == "fused" else 0)
+        coll = [float(np.mean([sum(c.values()) for c in o["coll"]])) for o in res]
+        instr = [float(np.mean(o["instr_ms"])) for o in res]
+        by_op = {name: float(np.mean([c.get(name, 0.0) for c in res[0]["coll"]]))
+                 for name in par_collectives.COLLECTIVES}
+        log("host train: " + json.dumps({
+            "leg": leg, "mesh": m0.shape, "batch_per_group": B, "steps": HOST_STEPS,
+            "step_ms": median_min_max(res[0]["times"]),
+            "step_ms_by_rank": [float(np.median(o["times"])) for o in res],
+            "collective_ms_by_rank": coll, "instrumented_step_ms_by_rank": instr,
+            "collective_share": float(np.mean([c / s for c, s in zip(coll, instr)])),
+            "collective_ms_by_op_rank0": by_op,
+            "loss_first": losses[0], "loss_last": losses[-1], "gathered_rows": n_rows,
+            "overflow_first_step": res[0]["first_overflow"],
+            "overflow_per_step": res[0]["overflows"] if hot_cold else None,
+            "cold_budget": host["budget"] if hot_cold else None,
+            "cold_budget_lanes": budget_lanes, "first_step_rows_differing": differ,
+            "host_axis_model_bytes": {k: v["dcn_bytes"] for k, v in comm.items()},
+            "comm_model_bytes": comm, "device_peak_bytes_all_ranks": peak, "leg_s": leg_s,
+            "launches": {k: v for k, v in counts.items() if v}}))
+        del res, refs
+        torch.cuda.empty_cache()
+    return total
+
+
+def host_learn_phase():
+    """products_multichip --hosts 2 --hot-frac 0.2 on the four rank threads
+    at the multichip learn args: test accuracy above LEARN_BAR and within
+    LEARN_REF_TOL of the JAX example's on the same graph and args (4
+    virtual CPU devices). Returns the launches."""
+    from quiver_tpu_torch.examples import products_multichip
+
+    argv = (["--device", "cuda", "--devices", str(HOST_RANKS), "--hosts", str(HOST_HOSTS),
+             "--hot-frac", str(HOST_HOT_FRAC)] + MC_LEARN_ARGS)
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = products_multichip.main(argv)
+    counts = _kernels.counts()
+    log("learn host: " + json.dumps({"result": res, "args": argv,
+                                     "jax_example_test_acc_same_graph": HOST_JAX_EXAMPLE_ACC,
+                                     "seconds": time.perf_counter() - t0,
+                                     "launches": {k: v for k, v in counts.items() if v}}))
+    acc = res.get("test_acc", 0.0)
+    check(acc > LEARN_BAR, f"the host example did not learn: {res}")
+    check(abs(acc - HOST_JAX_EXAMPLE_ACC) <= LEARN_REF_TOL,
+          f"the host example's test accuracy {acc} is not within {LEARN_REF_TOL} of the JAX "
+          f"example's {HOST_JAX_EXAMPLE_ACC}")
+    for name in ("cold_compact", "cold_merge", "grouped_unpack"):
+        check(counts[name] > 0, f"{name} never launched in the host example")
     return counts
 
 
@@ -3097,7 +3722,7 @@ def main() -> int:
 
     # -- the out-of-core slice: K6 and K11, then training through the disk tier ----
     kernel_phase_4(topo, tiered, train_idx, rows)
-    tier_counts = tiers_phase(topo, table_np, train_idx, args.seed, dev)
+    tier_counts, heat_order = tiers_phase(topo, table_np, train_idx, args.seed, dev)
     for name in ("set_rows", "neighbor_prob"):
         launches[name] = tier_counts[name]
 
@@ -3139,8 +3764,19 @@ def main() -> int:
     for name in ("sharded_rows", "sharded_sample_tiled", "sharded_sample_flat"):
         launches[name] = mc_counts[name]
     launches["sharded_dequant"] = k9c_counts["sharded_dequant"]  # the ici group's encoded gather
+    caps = mc["caps"]
     del mc
     multichip_learn_phase()
+
+    # -- the host axis: K13c, K13d, K13e; (host, dp, ici) training on rank threads ------
+    host = host_setup(topo, table, train_idx, heat_order, caps, args.seed)
+    kernel_phase_9(topo, table, host, rows, args.seed)
+    host_counts = host_phase(topo, table, train_labels(topo.node_count, dev), host, args.seed)
+    for name in ("grouped_unpack", "cold_compact", "cold_merge"):
+        launches[name] = host_counts[name]
+    del host
+    torch.cuda.empty_cache()
+    host_learn_phase()
     launches["build_tiles"] = sum(b["launches"] for b in TILE_BUILDS)
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))

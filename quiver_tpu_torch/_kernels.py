@@ -91,6 +91,9 @@ KERNELS = {
                             [_P, _P, _LL, _I, _LL, _LL, _P, _P, _I, _I, _U, _U, _P, _P, _P]),
     "sharded_dequant": ("dequant", "qt_sharded_dequant",
                         [_I, _P, _LL, _I, _P, _P, _P, _LL, _P, _P]),
+    "grouped_unpack": ("collective", "qt_grouped_unpack", [_P, _I, _LL, _I, _P, _P]),
+    "cold_compact": ("collective", "qt_cold_compact", [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P]),
+    "cold_merge": ("collective", "qt_cold_merge", [_P, _I, _P, _P, _P, _LL, _I, _P]),
 }
 # kernels whose launches are also counted per layout, as "name/variant"
 VARIANTS = {"masked_mean": ("float32", "bfloat16"),
@@ -103,11 +106,14 @@ VARIANTS = {"masked_mean": ("float32", "bfloat16"),
             "quantized_tiered_lookup": ("fp32", "bf16", "int8"),
             "build_tiles": ("int32", "float32"),
             "sharded_rows": ("float32", "bfloat16", "int8"),
-            "sharded_dequant": ("fp32", "bf16", "int8")}
+            "sharded_dequant": ("fp32", "bf16", "int8"),
+            "grouped_unpack": ("float32", "bfloat16", "int8", "int32"),
+            "cold_merge": ("float32", "bfloat16")}
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
            "qt_masked_mean_backward_scratch": ("aggregate",
-                                               [_LL, _I, _I, ctypes.POINTER(_LL)])}
+                                               [_LL, _I, _I, ctypes.POINTER(_LL)]),
+           "qt_cold_compact_scratch": ("collective", [_LL, ctypes.POINTER(_LL)])}
 SOURCES = sorted({stem for stem, _, _ in KERNELS.values()})
 
 _lock = threading.Lock()        # launch counts and the loaded libraries
@@ -248,4 +254,14 @@ def masked_mean_backward_scratch_bytes(w_src: int, w_dst: int, k: int) -> int:
     lib = _lib(HELPERS["qt_masked_mean_backward_scratch"][0])
     out = ctypes.c_longlong()
     lib.qt_masked_mean_backward_scratch(w_src, w_dst, k, ctypes.byref(out))
+    return out.value
+
+
+def cold_compact_scratch_len(w: int) -> int:
+    """int32 elements of device scratch ``cold_compact`` takes at ``w``
+    lanes (one count a tile); the tile size is known to ``csrc/scan.cuh``
+    alone."""
+    lib = _lib(HELPERS["qt_cold_compact_scratch"][0])
+    out = ctypes.c_longlong()
+    lib.qt_cold_compact_scratch(w, ctypes.byref(out))
     return out.value

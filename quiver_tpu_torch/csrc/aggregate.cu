@@ -19,6 +19,7 @@
 // k-step sum of each column stays in a register. Needs k <= 32.
 
 #include "common.cuh"
+#include "scan.cuh"
 
 template <typename E>
 __global__ void masked_mean_kernel(const typename E::T* __restrict__ x, long long w_src, int D,
@@ -142,35 +143,7 @@ __global__ void mean_bwd_count_kernel(const bool* __restrict__ mask,
 //    first n into cursor), in three coalesced passes over tiles of
 //    kScanTile: the tile totals, their scan in one block, then each tile's
 //    own scan plus its offset
-constexpr int kScanTile = 1024;  // = the block size of the scan kernels
-
-// exclusive scan of one value per thread across a block of kScanTile
-// threads; returns the thread's prefix and leaves the total in *total
-__device__ int32_t qt_block_exclusive_scan(int32_t v, int32_t* total) {
-  __shared__ int32_t warp_sums[kScanTile / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t x = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int32_t w = warp_sums[lane];
-    for (int d = 1; d < 32; d <<= 1) {
-      const int32_t y = __shfl_up_sync(0xFFFFFFFFu, w, d);
-      if (lane >= d) w += y;
-    }
-    warp_sums[lane] = w;  // inclusive over warps
-  }
-  __syncthreads();
-  const int32_t before = (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
-  *total = warp_sums[kScanTile / 32 - 1];
-  __syncthreads();  // warp_sums may be reused by the next call
-  return before;
-}
-
+// (kScanTile and the block scan: scan.cuh)
 __global__ void mean_bwd_tile_sums_kernel(const int32_t* __restrict__ deg, long long n,
                                           int32_t* __restrict__ tile_sums) {
   const long long i = blockIdx.x * static_cast<long long>(kScanTile) + threadIdx.x;
@@ -180,18 +153,6 @@ __global__ void mean_bwd_tile_sums_kernel(const int32_t* __restrict__ deg, long 
 }
 
 // one block: tile_sums[t] becomes the exclusive prefix of tile t
-__global__ void mean_bwd_tile_offsets_kernel(int32_t* __restrict__ tile_sums,
-                                             long long n_tiles) {
-  int32_t carry = 0;
-  for (long long t0 = 0; t0 < n_tiles; t0 += kScanTile) {
-    const long long t = t0 + threadIdx.x;
-    int32_t total;
-    const int32_t before = qt_block_exclusive_scan(t < n_tiles ? tile_sums[t] : 0, &total);
-    if (t < n_tiles) tile_sums[t] = carry + before;
-    carry += total;
-  }
-}
-
 __global__ void mean_bwd_tile_scan_kernel(const int32_t* __restrict__ deg, long long n,
                                           const int32_t* __restrict__ tile_offsets,
                                           int32_t* __restrict__ offsets,
@@ -378,7 +339,7 @@ static int scan_and_fill(const bool* m, const int32_t* c, long long n_lanes, lon
   mean_bwd_tile_sums_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
       sc.deg, w_src, sc.tile_sums);
   if (int e = qt_launch_status()) return e;
-  mean_bwd_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(sc.tile_sums, n_tiles);
+  qt_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(sc.tile_sums, n_tiles, nullptr);
   if (int e = qt_launch_status()) return e;
   mean_bwd_tile_scan_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
       sc.deg, w_src, sc.tile_sums, sc.offsets, sc.cursor);

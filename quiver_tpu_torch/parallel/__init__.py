@@ -1,16 +1,22 @@
-"""Data-parallel training over a (dp, ici) mesh of ranks — the port of
-``quiver_tpu/parallel`` on the mesh with no host axis: the ``Mesh`` and its
+"""Data-parallel training over a (dp, ici) or (host, dp, ici) mesh of
+ranks — the port of ``quiver_tpu/parallel``: the ``Mesh`` and its
 constructors (`local_meshes` for rank threads in one process, `make_mesh`
-over ``torch.distributed``), `run_ranks`, the sharded row gather (K13a),
-the owner-masked sharded sample (K13b) and both train steps.
+over ``torch.distributed``), `run_ranks`, the collectives (`allreduce_sum`,
+`allgather`, `all_to_all`, `reduce_scatter_sum`, `allreduce_max`), the
+sharded row gather (K13a), the grouped and all-to-all gathers (K13c), the
+replicated-hot/cold gather (K13d), the owner-masked sharded sample (K13b)
+and its grouped form (K13e: K13b at the host-gathered width, then K13c's
+int32 unpack), and both train steps.
 
-Not ported yet (ROADMAP A16, the host axis): the grouped, all-to-all and
-hot/cold gathers and samplers, which raise, and ``parallel/scaling.py``
-(ROADMAP A17)."""
+Not ported yet: ``parallel/scaling.py`` (ROADMAP A17)."""
 
 from .collectives import (
+    all_to_all,
+    allgather,
+    allreduce_max,
     allreduce_sum,
     pad_to_multiple,
+    reduce_scatter_sum,
     replicated_psum,
     sharded_gather,
     sharded_gather_a2a,
@@ -49,6 +55,9 @@ from .train import (
 
 __all__ = [
     "Mesh",
+    "all_to_all",
+    "allgather",
+    "allreduce_max",
     "ShardedTopology",
     "TiledShardedTopology",
     "allreduce_sum",
@@ -64,6 +73,7 @@ __all__ = [
     "mesh_axes",
     "pad_to_multiple",
     "partition_rows_by_edges",
+    "reduce_scatter_sum",
     "replicate",
     "replicated_psum",
     "resolve_topology_layout",

@@ -3,23 +3,27 @@
 ``TiledShardedTopology``, ``resolve_topology_layout``,
 ``partition_rows_by_edges``, ``build_topology_shards``,
 ``build_tiled_topology_shards``, ``shard_topology_rows``,
-``sharded_sample_layer``, ``tiled_sharded_sample_layer``,
-``gather_comm_bytes``, ``sampling_comm_bytes``).
+``sharded_sample_layer``, ``tiled_sharded_sample_layer``, their grouped
+forms, ``gather_comm_bytes``, ``sampling_comm_bytes``).
 
-Each shard of the ici axis owns a contiguous, edge-balanced range of rows,
-and each rank holds only its shard's CSR block. One hop's draw is a
+Each shard of the striping axes owns a contiguous, edge-balanced range of
+rows, and each rank holds only its shard's CSR block. One hop's draw is a
 collective: every shard draws neighbors for the frontier rows it owns
 (degree 0 elsewhere; kernel K13b, ``csrc/sample.cu``) and one all-reduce
-over the ici group assembles the ``[W, k]`` neighbors and flags. The draw
+over the striping group assembles the ``[W, k]`` neighbors and flags. The draw
 is K1's, counter for counter, so the assembled neighbors equal the
 unsharded draw with the same key on its valid lanes.
 
 Two block layouts share the machinery: ``flat`` (`ShardedTopology`: a local
 indptr and the block's edges) and ``tiled`` (`TiledShardedTopology`: the
 128-lane tile layout of the block, built on the card by K12 from the
-block's edges). Not ported yet (ROADMAP A16, the host axis):
-``sharded_sample_layer_grouped`` and ``tiled_sharded_sample_layer_grouped``,
-which raise.
+block's edges).
+
+On a host mesh the graph stripes over ``("host", "ici")`` and each host
+draws for its own frontier: the grouped samplers all-gather the frontiers
+over host, run K13b at the gathered width and hand each host its own
+``[W, k]`` slice back (an all-to-all and K13c's int32 unpack of the
+neighbor and valid slabs, then the sum over ici).
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from ..ops.sample import (
     tiled_rowmap_host,
 )
 from . import collectives
-from .collectives import HOST_AXIS_TODO, _axis
+from .collectives import _axes, _axis
 
 
 class ShardedTopology(NamedTuple):
@@ -208,9 +212,10 @@ def build_tiled_topology_shards(
 
 
 def shard_topology_rows(mesh, topo, axes=None, layout: Optional[str] = None):
-    """This rank's block of a `CSRTopo` row-sharded over the mesh's ici axis,
-    on the rank's device: the rank holds only its shard's rows (~E/P edges,
-    edge-balanced). ``layout`` "flat" (`ShardedTopology`) or "tiled"
+    """This rank's block of a `CSRTopo` row-sharded over ``axes`` (default:
+    the mesh's feature axes, ``("host", "ici")`` on a host mesh, else
+    ``("ici",)``), on the rank's device: the rank holds only its shard's rows
+    (~E/P edges, edge-balanced). ``layout`` "flat" (`ShardedTopology`) or "tiled"
     (`TiledShardedTopology`); None resolves per device
     (`resolve_topology_layout`). The tiled block's tile table is built on
     the rank's device from the block's edges through its host row map (K12
@@ -218,7 +223,11 @@ def shard_topology_rows(mesh, topo, axes=None, layout: Optional[str] = None):
     `build_tiled_topology_shards`'s block. Pair with the same ``layout`` on
     `train.make_sharded_topo_train_step`. Ids are int32 (K13b's)."""
     layout = resolve_topology_layout(layout, mesh.device)
-    p, n_shards, _ = _axis(mesh, "ici" if axes is None else axes)
+    if axes is None:
+        from .train import mesh_axes
+
+        axes = mesh_axes(mesh)[1]
+    p, n_shards, _ = _axis(mesh, axes)
     indptr = np.asarray(topo.indptr, np.int64)
     indices = np.asarray(topo.indices)
     if indptr.shape[0] - 1 >= 2**31 or indptr[-1] >= 2**31:
@@ -361,64 +370,178 @@ def tiled_sharded_sample_layer(bd_blk, tiles_blk, row_start, cur, cur_valid, k: 
     return _psum_assemble(nbrs, valid, group)
 
 
-def sharded_sample_layer_grouped(*args, **kwargs):
-    """Not ported yet: the sample for frontiers that differ across the host
-    axis."""
-    raise NotImplementedError(f"sharded_sample_layer_grouped: {HOST_AXIS_TODO}")
+def _grouped_collective_sample(partial_fn, cur, cur_valid, k: int, mesh, axes, group_axis: str,
+                               via: str):
+    """The grouped draw both block layouts ride: all-gather the frontiers
+    and their flags over ``group_axis``, draw once at the gathered width
+    through ``partial_fn(all_cur, all_valid) -> (nbrs, valid_int32)``
+    (K13b over this shard's owner window), then hand each group its own
+    ``[W, k]`` slice: ``via="scatter"`` sends the ``[G, W, k]`` neighbor and
+    valid slabs through `collectives.reduce_scatter_sum` over ``group_axis``
+    (an all-to-all, then K13c's int32 unpack) and sums the rest over the
+    other striping axes; ``via="psum"`` sums everything over every striping
+    axis at the gathered width and takes this group's slice."""
+    if via not in ("scatter", "psum"):
+        raise ValueError(f"unknown via {via!r}")
+    me, G, group = _axis(mesh, group_axis)
+    w = cur.shape[0]
+    all_cur = collectives.allgather(cur, group).reshape(-1)
+    all_valid = collectives.allgather(cur_valid, group).reshape(-1)
+    nbrs, valid = partial_fn(all_cur, all_valid)
+    if via == "psum" or group_axis not in axes:
+        nbrs, valid = _psum_assemble(nbrs, valid, mesh.group(axes))
+        return nbrs.view(G, w, k)[me], valid.view(G, w, k)[me]
+    nbrs = collectives.reduce_scatter_sum(nbrs.view(G, w, k), group)
+    valid = collectives.reduce_scatter_sum(valid.view(G, w, k), group)
+    other = tuple(a for a in axes if a != group_axis)
+    if other:
+        return _psum_assemble(nbrs, valid, mesh.group(other))
+    return nbrs, valid > 0
 
 
-def tiled_sharded_sample_layer_grouped(*args, **kwargs):
-    """Not ported yet: the tiled form of `sharded_sample_layer_grouped`."""
-    raise NotImplementedError(f"tiled_sharded_sample_layer_grouped: {HOST_AXIS_TODO}")
+def sharded_sample_layer_grouped(indptr_blk, indices_blk, row_start, cur, cur_valid, k: int, key,
+                                 mesh, axes, group_axis: str = "host", via: str = "scatter"):
+    """`sharded_sample_layer` for frontiers that DIFFER across
+    ``group_axis`` (one of the striping ``axes``, typically "host": each
+    host samples its own seeds): ``cur`` and ``cur_valid`` are identical on
+    the ranks of the other striping axes. Returns this rank's ``(nbrs [W, k]
+    int32, valid [W, k] bool)`` — on its valid lanes the unsharded draw of
+    its own frontier with the same key. The grouped machinery and both
+    ``via`` spellings: `_grouped_collective_sample`."""
+    axes = _axes(axes)
+    start, end = _owner_window(row_start, mesh.index(axes))
+
+    def partial_fn(all_cur, all_valid):
+        return sample_layer_partial(indptr_blk, indices_blk, start, end, all_cur, all_valid, k,
+                                    key)
+
+    return _grouped_collective_sample(partial_fn, cur, cur_valid, k, mesh, axes, group_axis, via)
+
+
+def tiled_sharded_sample_layer_grouped(bd_blk, tiles_blk, row_start, cur, cur_valid, k: int, key,
+                                       mesh, axes, group_axis: str = "host",
+                                       via: str = "scatter"):
+    """`sharded_sample_layer_grouped` over the TILE block layout: the same
+    grouped machinery and ``via`` spellings, the same draws."""
+    axes = _axes(axes)
+    start, end = _owner_window(row_start, mesh.index(axes))
+
+    def partial_fn(all_cur, all_valid):
+        return tiled_sample_layer_partial(bd_blk, tiles_blk, start, end, all_cur, all_valid, k,
+                                          key)
+
+    return _grouped_collective_sample(partial_fn, cur, cur_valid, k, mesh, axes, group_axis, via)
 
 
 # -- collective byte models (host only) --------------------------------------------
 
-def _ring_sum_bytes(mesh, n_elems: int, elem_bytes: int) -> float:
-    """Bytes a rank moves in a ring sum of ``n_elems`` over the ici axis:
-    ``2 (P - 1) / P`` of the payload (0 on one shard)."""
-    sz = mesh.shape["ici"]
-    return 2.0 * (sz - 1) / sz * n_elems * elem_bytes if sz > 1 else 0.0
+def gather_comm_bytes(mesh, width: int, dim: int, cold_budget: Optional[int] = None,
+                      feat_bytes: int = 4, id_bytes: int = 4,
+                      via: str = "scatter") -> Dict[str, float]:
+    """Per-gather collective-byte model (ring costs, the conventions of
+    `sampling_comm_bytes`) for ONE feature gather of ``width`` ids, the JAX
+    package's: on a host mesh the grouped gather (the ids all-gathered over
+    host, then the row return trip: ``via="scatter"`` reduce-scatters the
+    ``[H, W, D]`` partials over host and sums ``[W, D]`` over ici, ``"psum"``
+    sums ``[H * W, D]`` over both), and with ``cold_budget`` the hot/cold
+    gather (an ici-only sum at full width, the grouped path at the budget's
+    width). ``dcn_bytes`` are the host axis's; on one card they model the
+    bytes the host axis's collectives move, since no DCN is there."""
+    from .train import mesh_axes
 
+    _, feat_axes, _ = mesh_axes(mesh)
+    has_host = "host" in mesh.axis_names
+    hostsz = mesh.shape["host"] if has_host else 1
+    out = {"ici_bytes": 0.0, "dcn_bytes": 0.0}
 
-def _model_out(ici_bytes: float) -> Dict[str, float]:
-    return {"ici_bytes": ici_bytes, "dcn_bytes": 0.0, "total_bytes": ici_bytes}
+    def add_psum(n_elems, axes):
+        for a in axes:
+            sz = mesh.shape[a]
+            if sz == 1:
+                continue
+            b = 2.0 * (sz - 1) / sz * n_elems * feat_bytes
+            out["dcn_bytes" if a == "host" else "ici_bytes"] += b
 
+    def add_grouped_rows(w):
+        """Return-trip bytes for a grouped gather of w rows per group."""
+        if via == "scatter":
+            out["dcn_bytes"] += (hostsz - 1) / hostsz * hostsz * w * dim * feat_bytes
+            add_psum(w * dim, ici_axes)
+        else:
+            add_psum(w * hostsz * dim, feat_axes)
 
-def gather_comm_bytes(mesh, width: int, dim: int, *, feat_bytes: int = 4) -> Dict[str, float]:
-    """Per-gather collective-byte model (ring costs) for ONE feature gather
-    of ``width`` ids: the sum of the ``[width, dim]`` partials over the ici
-    ring. The JAX package's model on a mesh with no host axis, where its
-    host-axis (``dcn``) terms are 0; its ``cold_budget``, ``id_bytes`` and
-    ``via`` options act on the host axis only and come with it."""
-    return _model_out(_ring_sum_bytes(mesh, width * dim, feat_bytes))
+    ici_axes = tuple(a for a in feat_axes if a != "host")
+    if not has_host:
+        add_psum(width * dim, feat_axes)
+    elif cold_budget is None:
+        out["dcn_bytes"] += (hostsz - 1) / hostsz * width * hostsz * id_bytes
+        add_grouped_rows(width)
+    else:
+        add_psum(width * dim, ici_axes)
+        out["dcn_bytes"] += (hostsz - 1) / hostsz * cold_budget * hostsz * id_bytes
+        add_grouped_rows(cold_budget)
+    out["total_bytes"] = out["ici_bytes"] + out["dcn_bytes"]
+    return out
 
 
 def sampling_comm_bytes(mesh, sizes: Sequence[int], batch_per_group: int, feature_dim: int = 0,
-                        *, caps: Optional[Sequence[Optional[int]]] = None, id_bytes: int = 4,
-                        feat_bytes: int = 4, layout: str = "flat") -> Dict[str, float]:
-    """Static per-step collective-traffic model of the sharded-topology step,
-    the JAX package's on a mesh with no host axis: per rank and step, the
-    ring bytes of every hop's ``[W, k]`` neighbor and int32 valid sums and,
-    with ``feature_dim > 0``, the fused pipeline's per-hop feature gathers
-    and its seed rows. ``hbm_descriptors`` and ``hbm_fetch_bytes`` count the
-    shard-local fetches of the block layout (128-lane tile rows under
-    "tiled", single elements under "flat"). The JAX model's ``via`` option
-    acts on the host axis only and comes with it. A model: gloo's algorithms
-    may move other bytes."""
+                        caps: Optional[Sequence[Optional[int]]] = None, id_bytes: int = 4,
+                        feat_bytes: int = 4, via: str = "scatter",
+                        layout: str = "flat") -> Dict[str, float]:
+    """Static per-step collective-traffic model of the sharded-topology
+    step, the JAX package's: per rank and step, the ring bytes of every
+    hop's ``[W, k]`` neighbor and int32 valid sums over the ici axis
+    (``ici_bytes``) and the host axis (``dcn_bytes``: on a host mesh the
+    frontier all-gather and the grouped return trip, ``via`` as in
+    `gather_comm_bytes`) and, with ``feature_dim > 0``, the fused pipeline's
+    per-hop feature gathers and its seed rows. ``hbm_descriptors`` and
+    ``hbm_fetch_bytes`` count the shard-local fetches of the block layout
+    (128-lane tile rows under "tiled", single elements under "flat") at the
+    host-gathered width. A model: gloo's algorithms may move other bytes."""
+    from .train import mesh_axes
+
+    _, feat_axes, _ = mesh_axes(mesh)
+    has_host = "host" in mesh.axis_names
+    hostsz = mesh.shape["host"] if has_host else 1
+    out: Dict[str, float] = {"ici_bytes": 0.0, "dcn_bytes": 0.0}
     widths = pad_widths(batch_per_group, sizes, caps)
+    ici_axes = tuple(a for a in feat_axes if a != "host")
+
+    def add_psum(n_elems: int, elem_bytes: int, axes=None):
+        for a in (feat_axes if axes is None else axes):
+            sz = mesh.shape[a]
+            if sz == 1:
+                continue
+            b = 2.0 * (sz - 1) / sz * n_elems * elem_bytes
+            out["dcn_bytes" if a == "host" else "ici_bytes"] += b
+
+    def add_all_gather_host(n_elems: int, elem_bytes: int):
+        if hostsz > 1:
+            out["dcn_bytes"] += (hostsz - 1) / hostsz * n_elems * hostsz * elem_bytes
+
+    def add_grouped(per_group_elems: int, elem_bytes: int):
+        if not has_host or via == "psum":
+            add_psum(per_group_elems * hostsz, elem_bytes)
+        else:
+            out["dcn_bytes"] += (hostsz - 1) / hostsz * hostsz * per_group_elems * elem_bytes
+            add_psum(per_group_elems, elem_bytes, axes=ici_axes)
+
     layout = resolve_topology_layout(layout)
-    ici = hbm_desc = hbm_fetch = 0.0
+    hbm_desc = 0.0
+    hbm_fetch = 0.0
     for l, k in enumerate(sizes):
-        ici += _ring_sum_bytes(mesh, widths[l] * k, id_bytes + 4)  # nbrs + int32 valid
+        if has_host:
+            add_all_gather_host(widths[l], id_bytes + 1)  # frontier ids + valid
+        add_grouped(widths[l] * k, id_bytes + 4)  # nbrs + int32 valid return
         if feature_dim:
-            ici += _ring_sum_bytes(mesh, widths[l] * k * feature_dim, feat_bytes)
-        w = widths[l]
+            add_grouped(widths[l] * k * feature_dim, feat_bytes)
+        w = widths[l] * hostsz
         hbm_desc += w + w * k  # degree/base lookup + k-split position fetch
-        hbm_fetch += w * 8 + w * k * (LANE * id_bytes if layout == "tiled" else id_bytes)
+        per_fetch = LANE * id_bytes if layout == "tiled" else id_bytes
+        hbm_fetch += w * 8 + w * k * per_fetch
     if feature_dim:
-        ici += _ring_sum_bytes(mesh, widths[0] * feature_dim, feat_bytes)  # seed rows
-    out = _model_out(ici)
+        add_grouped(widths[0] * feature_dim, feat_bytes)  # seed rows
     out["hbm_descriptors"] = hbm_desc
     out["hbm_fetch_bytes"] = hbm_fetch
+    out["total_bytes"] = out["ici_bytes"] + out["dcn_bytes"]
     return out

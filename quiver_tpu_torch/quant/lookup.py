@@ -137,8 +137,9 @@ def sharded_dequant(codec, q: torch.Tensor, ids: torch.Tensor, scale=None,
 def sharded_dequant_gather(codec, payload_block: torch.Tensor, ids: torch.Tensor, mesh,
                            axis_name="ici", scale=None, zero=None) -> torch.Tensor:
     """Global-id gather from an ENCODED table row-striped over ``axis_name``
-    (this rank's ``[R, D]`` payload block, `parallel.train.shard_feature_rows`
-    of the codec's payload): the quantized twin of
+    (one axis, or a tuple such as ``("host", "ici")`` indexed flat; this
+    rank's ``[R, D]`` payload block, `parallel.train.shard_feature_rows` of
+    the codec's payload): the quantized twin of
     `parallel.collectives.sharded_gather`. The sum rides the encoded payload
     in its storage width (int8 moves 4x fewer bytes than float32; fp32 and
     bf16 payloads sum as floats, int8 as int8: one shard owns each id, so the

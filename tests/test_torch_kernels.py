@@ -52,7 +52,14 @@ additions in lane order; bfloat16 rounded once from float32 on both
 sides), and through autograd; the block out-degree (K14c) with negative
 and out-of-range cols, bit-equal to its plain version; the bfloat16 mean
 (K4) and its gradient (K4b) equal to the float32 kernels' outputs on the
-same values rounded to bfloat16."""
+same values rounded to bfloat16. The host axis's: the grouped unpack (K13c)
+of 2 and 3 slabs in float32, bfloat16, int8 and int32 with -0.0 owners and
+the grouped draw's pair unpack (K13e), the hot/cold compaction (K13d) with
+the cold count below, at and above the budget over 5,077 and 1,081,421
+lanes, and the merge (K13d) in float32 and bfloat16, each bit-equal to its
+plain version on the card and on the CPU; four rank threads on a
+host 2 x dp 1 x ici 2 mesh running the grouped and hot/cold gathers and
+the grouped draws against the unsharded rows and draw."""
 
 import numpy as np
 import pytest
@@ -976,3 +983,196 @@ def test_run_ranks_waits_for_the_callers_queued_work(cuda_device):
         x.add_(1)
     sums = run_ranks(lambda m: int(x.sum()), meshes)
     assert sums == [200 * (1 << 26)] * 4
+
+
+def _same_bits(a, b):
+    """Bit-equal (so -0.0 and +0.0 differ), on the CPU."""
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a = a.view(torch.int32 if a.element_size() == 4 else torch.int16)
+        b = b.view(a.dtype)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8, torch.int32])
+@pytest.mark.parametrize("D", [100, 99])
+def test_grouped_unpack_kernel_matches_plain(cuda_device, dtype, D):
+    """K13c's unpack of G = 2 and 3 slabs, one nonzero owner an element (a
+    -0.0 owner among +0.0 rows gives +0.0), bit-equal to its plain version
+    on the card and on the CPU and to the owners' rows; D = 99 takes the
+    one-element path. The grouped draw's int32 [G, W, k] slabs likewise."""
+    from quiver_tpu_torch.parallel.collectives import grouped_unpack, grouped_unpack_plain
+
+    rng = np.random.default_rng(D)
+    for G in (2, 3):
+        W = 3001
+        owner = rng.integers(0, G, (W, D))
+        if dtype in (torch.int8, torch.int32):
+            vals = torch.from_numpy(rng.integers(-100, 100, (W, D))).to(dtype)
+        else:
+            vals = torch.from_numpy(rng.standard_normal((W, D)).astype(np.float32)).to(dtype)
+            vals[:5] = -0.0
+        slabs = torch.zeros((G, W, D), dtype=dtype)
+        for g in range(G):
+            slabs[g][torch.from_numpy(owner == g)] = vals[torch.from_numpy(owner == g)]
+        _kernels.reset_counts()
+        got = grouped_unpack(slabs.to(cuda_device))
+        want = grouped_unpack_plain(slabs.to(cuda_device))
+        torch.cuda.synchronize()
+        assert _kernels.counts()["grouped_unpack"] == 1
+        assert _same_bits(got, want) and _same_bits(got, grouped_unpack_plain(slabs))
+        expect = vals.clone()
+        if dtype.is_floating_point:
+            expect[:5] = 0.0  # -0.0 plus the others' +0.0
+        assert _same_bits(got, expect)
+    a = torch.from_numpy(rng.integers(-9, 9, (2, 4097, 5)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 2, (2, 4097, 5)).astype(np.int32))
+    for shape in ((2, 4097, 5), (2, 4096, 5)):
+        x, y = a[:, :shape[1]].contiguous(), b[:, :shape[1]].contiguous()
+        got = grouped_unpack(x.to(cuda_device)), grouped_unpack(y.to(cuda_device))
+        torch.cuda.synchronize()
+        assert _same(got[0], x.sum(0)) and _same(got[1], y.sum(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [5000, 1_081_344 + 77])
+def test_cold_compact_kernel_matches_plain(cuda_device, W):
+    """K13d's compaction with n_cold below, at and above the budget, W not a
+    multiple of the 1,024-lane tile (and past 1,024 tiles: the scan's
+    loop), ids out of range: sel, cold_local and (n_cold, overflow)
+    bit-equal to its plain version (the stable argsort) on the card and on
+    the CPU."""
+    from quiver_tpu_torch.parallel.collectives import cold_compact, cold_compact_plain
+
+    rng = np.random.default_rng(W % 97)
+    ids = torch.from_numpy(rng.integers(-50, 2_500_000, W).astype(np.int32))
+    ids[:3] = torch.tensor([np.iinfo(np.int32).max, -1, 2_000_000], dtype=torch.int32)
+    lo, hi = 400_000, 2_000_000
+    n_cold = int(((ids >= lo) & (ids < hi)).sum())
+    for budget in (n_cold - 1000, n_cold, n_cold + 777, W, 0):
+        _kernels.reset_counts()
+        got = cold_compact(ids.to(cuda_device), lo, hi, budget)
+        want = cold_compact_plain(ids.to(cuda_device), lo, hi, budget)
+        cpu = cold_compact_plain(ids, lo, hi, budget)
+        torch.cuda.synchronize()
+        assert _kernels.counts()["cold_compact"] == (1 if W else 0)
+        for x, y, z in zip(got, want, cpu):
+            assert x.dtype == torch.int32 and _same(x, y) and _same(x, z)
+        assert got[2].tolist() == [n_cold, max(n_cold - budget, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cold_merge_kernel_matches_plain(cuda_device, dtype):
+    """K13d's merge: cold rows added at their selected lanes for the first
+    n_cold budget lanes, zero rows added past them (a -0.0 hot element
+    becomes +0.0), bit-equal to its plain version on the card and on the
+    CPU and to index_add_ of the masked rows."""
+    from quiver_tpu_torch.parallel.collectives import (
+        cold_compact,
+        cold_merge,
+        cold_merge_plain,
+    )
+
+    rng = np.random.default_rng(11)
+    W, D = 20_000, 100
+    ids = torch.from_numpy(rng.integers(0, 1000, W).astype(np.int32))
+    n_cold = int((ids >= 800).sum())
+    budget = n_cold + 300
+    sel, _, counts = cold_compact(ids.to(cuda_device), 800, 1000, budget)
+    hot = torch.from_numpy(rng.standard_normal((W, D)).astype(np.float32)).to(dtype)
+    hot[sel[n_cold:n_cold + 3].long().cpu(), 7] = -0.0
+    cold = torch.from_numpy(rng.standard_normal((budget, D)).astype(np.float32)).to(dtype)
+    _kernels.reset_counts()
+    got = cold_merge(hot.to(cuda_device), sel, cold.to(cuda_device), counts)
+    want = cold_merge_plain(hot.to(cuda_device), sel, cold.to(cuda_device), counts)
+    cpu = cold_merge_plain(hot, sel.cpu(), cold, counts.cpu())
+    torch.cuda.synchronize()
+    assert _kernels.counts()["cold_merge"] == 1
+    assert _same_bits(got, want) and _same_bits(got, cpu)
+    add = torch.where(torch.arange(budget)[:, None] < n_cold, cold.float(), 0.0)
+    ref = hot.float().index_add_(0, sel.long().cpu(), add).to(dtype)
+    assert _same_bits(got, ref)
+    assert not got[sel[n_cold:n_cold + 3].long(), 7].signbit().any()
+
+
+@pytest.mark.cuda
+def test_rank_threads_host_axis_on_the_card(cuda_device):
+    """Four rank threads (host 2 x dp 1 x ici 2) on one card over gloo: each
+    host's own ids through the grouped gather (float32, bfloat16, int8; both
+    via spellings) and the hot/cold gather, and each host's own frontier
+    through the grouped draw (flat and tiled), equal the unsharded rows and
+    the unsharded K1b draw on its valid lanes; the new kernels launched."""
+    from quiver_tpu_torch.parallel import (
+        local_meshes,
+        run_ranks,
+        shard_feature_hot_cold,
+        shard_feature_rows,
+        shard_topology_rows,
+        sharded_gather_grouped,
+        sharded_gather_hot_cold,
+        sharded_sample_layer_grouped,
+        tiled_sharded_sample_layer_grouped,
+    )
+
+    topo, n = _graph()
+    rng = np.random.default_rng(6)
+    table = torch.from_numpy(rng.standard_normal((n, 100)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-2, n + 2, (2, 5000)).astype(np.int32))
+    seeds, valid = _owned_seeds(rng, 2 * 1024, n)
+    key = qrandom.key(13)
+    ref = sample.sample_layer(*topo.to_device(cuda_device), seeds.to(cuda_device),
+                              valid.to(cuda_device), 10, key)
+    meshes = local_meshes(4, hosts=2, device=cuda_device, timeout_s=120)
+    feat = ("host", "ici")
+    hot_rows = n // 5
+
+    def rank(m):
+        h, out = m.host_idx, {}
+        mine = ids[h].to(m.device)
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            t = table.to(dt) if dt != torch.int8 else (table * 20).to(dt)
+            for via in ("scatter", "psum"):
+                out[dt, via] = sharded_gather_grouped(shard_feature_rows(m, t), mine, m, feat,
+                                                      "host", via=via)
+        hot, cold = shard_feature_hot_cold(m, table, hot_rows)
+        out["hot_cold"] = sharded_gather_hot_cold(hot, cold, mine, m, feat, "host", hot_rows,
+                                                  1.0)
+        sl = slice(h * 1024, (h + 1) * 1024)
+        for layout in ("flat", "tiled"):
+            st = shard_topology_rows(m, topo, layout=layout)
+            a = (st.indptr, st.indices) if layout == "flat" else (st.bd, st.tiles)
+            fn = (sharded_sample_layer_grouped if layout == "flat"
+                  else tiled_sharded_sample_layer_grouped)
+            out[layout] = fn(*a, st.row_start, seeds[sl].to(m.device), valid[sl].to(m.device),
+                             10, key, m, feat, "host")
+        return out
+
+    _kernels.reset_counts()
+    results = run_ranks(rank, meshes)
+    counts = _kernels.counts()
+    for name in ("grouped_unpack/float32", "grouped_unpack/bfloat16", "grouped_unpack/int8",
+                 "cold_compact", "cold_merge/float32", "grouped_unpack/int32"):
+        assert counts[name] > 0, name
+    for m, out in zip(meshes, results):
+        h = m.host_idx
+        mine = ids[h]
+        ok = ((mine >= 0) & (mine < n)).numpy()
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            t = table.to(dt) if dt != torch.int8 else (table * 20).to(dt)
+            for via in ("scatter", "psum"):
+                got = out[dt, via].cpu()
+                assert got.dtype == dt and _same(got[ok], t[mine[ok].long()])
+                assert not got[~ok].any()
+        rows, over = out["hot_cold"]
+        assert int(over) == 0
+        assert _same(rows.cpu()[ok], table[mine[ok].long()]) and not rows.cpu()[~ok].any()
+        sl = slice(h * 1024, (h + 1) * 1024)
+        rv = ref[1].cpu()[sl]
+        for layout in ("flat", "tiled"):
+            nb, v = (x.cpu() for x in out[layout])
+            assert torch.equal(v, rv) and torch.equal(nb[rv], ref[0].cpu()[sl][rv])
+            assert not nb[~rv].any()

@@ -49,7 +49,6 @@ from quiver_tpu_torch.ops.sample import sample_layer, tiled_sample_layer
 from quiver_tpu_torch.parallel import (
     build_tiled_topology_shards,
     build_topology_shards,
-    calibrate_cold_budget,
     gather_comm_bytes,
     local_meshes,
     make_mesh,
@@ -69,9 +68,7 @@ from quiver_tpu_torch.parallel import (
     sharded_gather_grouped,
     sharded_gather_hot_cold,
     sharded_sample_layer,
-    sharded_sample_layer_grouped,
     tiled_sharded_sample_layer,
-    tiled_sharded_sample_layer_grouped,
 )
 from quiver_tpu_torch.quant import get_codec, sharded_dequant_gather
 from torch_parallel_case import rank_work
@@ -317,16 +314,16 @@ def test_comm_byte_models_equal_jax(n, dp):
                         == jtop.sampling_comm_bytes(jmesh, SIZES, 8, **kw))
 
 
-def test_comm_byte_models_take_no_host_axis_options():
-    """The JAX models' ``cold_budget``, ``id_bytes`` (gather) and ``via``
-    options act on the host axis only: the port's models refuse them rather
-    than ignore them."""
-    mesh = _meshes(4, dp=2)[0]
-    for kw in (dict(cold_budget=64), dict(id_bytes=8), dict(via="psum")):
-        with pytest.raises(TypeError):
-            gather_comm_bytes(mesh, 512, 32, **kw)
-    with pytest.raises(TypeError):
-        sampling_comm_bytes(mesh, SIZES, 8, via="psum")
+def test_comm_byte_models_host_options_equal_jax_without_hosts():
+    """The JAX models' ``cold_budget``, ``id_bytes`` and ``via`` options act
+    on the host axis only: on a mesh without one the port's models give the
+    JAX package's bytes with them too (the host terms: tests/test_torch_hosts.py)."""
+    jmesh, mesh = jtrain.make_mesh(4, dp=2), _meshes(4, dp=2)[0]
+    for kw in (dict(cold_budget=64), dict(id_bytes=8), dict(via="psum"), dict(feat_bytes=2)):
+        assert gather_comm_bytes(mesh, 512, 32, **kw) == jtop.gather_comm_bytes(jmesh, 512, 32,
+                                                                                 **kw)
+    assert (sampling_comm_bytes(mesh, SIZES, 8, via="psum")
+            == jtop.sampling_comm_bytes(jmesh, SIZES, 8, via="psum"))
     assert (gather_comm_bytes(mesh, 512, 32, feat_bytes=2)["ici_bytes"] * 2
             == gather_comm_bytes(mesh, 512, 32)["ici_bytes"])
 
@@ -541,30 +538,39 @@ def test_products_multichip_example_learns_on_cpu(bf16):
 
 # -- error contracts -----------------------------------------------------------------
 
-def test_host_axis_and_hot_cold_entry_points_raise():
+def test_what_still_raises():
+    """int64 ids (tables past 2^31 rows, ROADMAP A3) raise in every sharded
+    gather; the JAX package's ValueErrors hold: hosts that do not divide
+    the ranks, hot/cold without a host axis (also through the example's
+    --hot-frac without --hosts), caps on the fused pipeline; make_mesh
+    needs an initialised process group."""
     from quiver_tpu_torch.examples import products_multichip
 
     m = _meshes(2, dp=1)[0]
-    for fn in (sharded_gather_grouped, sharded_gather_a2a, sharded_gather_hot_cold,
-               sharded_sample_layer_grouped, tiled_sharded_sample_layer_grouped,
-               shard_feature_hot_cold, calibrate_cold_budget):
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-            fn(m)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        local_meshes(4, device="cpu", hosts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        make_mesh(hosts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    wide = torch.zeros(3, dtype=torch.int64)
+    block = torch.zeros(4, 2)
+    for call in (lambda: sharded_gather(block, wide, m),
+                 lambda: sharded_gather_grouped(block, wide, m, "ici", "ici"),
+                 lambda: sharded_gather_a2a(block, wide, m),
+                 lambda: sharded_gather_hot_cold(block, block, wide, m, ("dp", "ici"), "dp", 2,
+                                                 2)):
+        with pytest.raises(TypeError, match="ROADMAP A3"):
+            call()
+    with pytest.raises(ValueError, match="hosts=3 does not divide 4"):
+        local_meshes(4, device="cpu", hosts=3)
+    with pytest.raises(ValueError, match="multi-host"):
         make_sharded_train_step(m, None, None, SIZES, hot_rows=10, cold_budget=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        sharded_gather(torch.zeros(4, 2), torch.zeros(3, dtype=torch.int32), m, ("host", "ici"))
-    for flags in (["--hosts", "2"], ["--hot-frac", "0.1"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-            products_multichip.main(["--device", "cpu"] + flags)
+    with pytest.raises(ValueError, match="multi-host"):
+        shard_feature_hot_cold(m, np.zeros((10, 2), np.float32), 4)
+    with pytest.raises(ValueError, match="multi-host"):
+        products_multichip.main(["--device", "cpu", "--devices", "2", "--hot-frac", "0.1",
+                                 "--nodes", "300", "--epochs", "1"])
     with pytest.raises(ValueError, match="caps only apply"):
         make_sharded_train_step(m, None, None, SIZES, caps=(8, 8), pipeline="fused")
     with pytest.raises(RuntimeError, match="init_process_group"):
         make_mesh()
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_mesh(hosts=2)
 
 
 def test_a_failing_rank_ends_the_run_within_its_timeout():
@@ -588,9 +594,10 @@ def test_a_failing_rank_ends_the_run_within_its_timeout():
 
 def test_make_mesh_over_a_gloo_world_of_four_processes(tmp_path):
     """make_mesh (one process a rank, torch.distributed) on the CPU: four
-    processes over gloo build the dp 2 x ici 2 mesh, and a sharded gather and
-    one replicated-graph step give every rank the rows and parameters the
-    rank threads of local_meshes give."""
+    processes over gloo build the dp 2 x ici 2 mesh and then, in the same
+    world, the host 2 x dp 1 x ici 2 mesh; on each, a sharded gather and one
+    replicated-graph step (the grouped gathers on the host mesh) give every
+    rank the rows and parameters the rank threads of local_meshes give."""
     script = tmp_path / "rank.py"
     script.write_text(RANK_SCRIPT)
     import socket
@@ -605,11 +612,13 @@ def test_make_mesh_over_a_gloo_world_of_four_processes(tmp_path):
                               stderr=subprocess.STDOUT, text=True) for r in range(4)]
     outs = [p.communicate(timeout=120)[0] for p in procs]
     assert all(p.returncode == 0 for p in procs), outs
-    ref = run_ranks(rank_work, _meshes(4, dp=2))
-    for r in range(4):
-        got = torch.load(tmp_path / f"rank{r}.pt")
-        assert torch.equal(got["rows"], ref[r]["rows"])
-        assert all(torch.equal(got["params"][k], v) for k, v in ref[r]["params"].items())
+    for tag, meshes in (("", _meshes(4, dp=2)),
+                        ("hosts", local_meshes(4, hosts=2, device="cpu", timeout_s=TIMEOUT_S))):
+        ref = run_ranks(rank_work, meshes)
+        for r in range(4):
+            got = torch.load(tmp_path / f"rank{r}{tag}.pt")
+            assert torch.equal(got["rows"], ref[r]["rows"])
+            assert all(torch.equal(got["params"][k], v) for k, v in ref[r]["params"].items())
 
 
 RANK_SCRIPT = """
@@ -624,6 +633,10 @@ dist.init_process_group("gloo")
 m = make_mesh(dp=2, device="cpu", timeout_s=60)
 out = run_ranks(rank_work, [m])[0]
 torch.save(out, f"{sys.argv[1]}/rank{dist.get_rank()}.pt")
+m = make_mesh(hosts=2, device="cpu", timeout_s=60)
+assert m.shape == {"host": 2, "dp": 1, "ici": 2}
+out = run_ranks(rank_work, [m])[0]
+torch.save(out, f"{sys.argv[1]}/rank{dist.get_rank()}hosts.pt")
 dist.destroy_process_group()
 """ % os.path.dirname(os.path.abspath(__file__))
 
