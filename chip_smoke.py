@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's GraphSAGE serving, training,
 capped training, out-of-core training, weighted training, GCN and GAT
 training (float32 and bfloat16), temporal serving, (dp, ici) and
-(host, dp, ici) data-parallel training paths on one card, with every tile
-table built on it.
+(host, dp, ici) data-parallel training and routed fleet serving paths on
+one card, with every tile table built on it.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -326,7 +326,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
              accuracy above 0.8 and within 0.05 of the JAX example's 1.000
              on the same graph and args (4 virtual CPU devices), K13c and
              K13d launched;
-29. report — one JSON line of all kernels, the card line, then the
+29. fleet  — routed serving: DistServeEngine.build over the products
+             graph and table, 2 owners of a contiguous partition (each
+             owner's closure shard and K12 tile table built on the card; a
+             ``tiles:`` line), max_batch 64, the collective exchange over
+             one rank thread a host: (a) the closure residency (each owner
+             gathers its closure's rows through K3's index map), the 2,000
+             Zipf requests from 4 client threads; (b) the exchange
+             residency (each owner's rows on the host, K3t, the others'
+             over its own feature exchange, K13f), the first 256. Each leg:
+             QPS, p50/p99, router cache and coalescing, exchange id and
+             logit bytes, mean sub-batch width per owner, each owner's
+             topo_stats (owned, closure and feature-closure nodes, edge
+             share), its dispatches and latency, each owner's launches
+             (counted around its answerer; K1, K2, K4 and its gather must
+             launch, K13f in (b)), the ms a router flush spends in
+             run_ranks and each rank in gloo's all_to_all; then each
+             owner's first 8 dispatches replayed through replay_shard_oracle
+             with a fresh full-graph sampler on the card, bit-equal to the
+             served rows, and the first 2 on the CPU plain path, within
+             1e-3. Lines start ``fleet``;
+30. kernels-10 — K13f alone: owner 0's [1,224,515, 100] block and the
+             [2, 131072] id slab it receives (requester 1 asks the owner-0
+             rows of one B = 64 flush of its own seeds, then 64 ids past
+             the block, then -1 pads), bit-equal to its plain version.
+             Yardstick: index_select of the clamped ids, then masked_fill_
+             of the -1 lanes;
+31. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a card. Needs one card.
@@ -336,6 +362,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import os
 import re
@@ -439,7 +466,10 @@ from quiver_tpu_torch.pyg.sage_sampler import (
     sample_and_gather_dedup,
     sample_and_gather_fused,
 )
-from quiver_tpu_torch.serve import lp_trace, temporal_trace, zipfian_trace
+from quiver_tpu_torch.comm import exchange_rows, exchange_rows_plain
+from quiver_tpu_torch.parallel import train as ptrain
+from quiver_tpu_torch.serve import (DistServeConfig, DistServeEngine, contiguous_partition,
+                                    lp_trace, replay_shard_oracle, temporal_trace, zipfian_trace)
 from quiver_tpu_torch.shard_tensor import tiered_gather_plain
 from quiver_tpu_torch.ops.sample import (
     neighbor_prob,
@@ -526,6 +556,7 @@ SOURCES = {
     "cold_compact": ("quiver_tpu_torch/csrc/collective.cu",
                      "quiver_tpu/parallel/collectives.py:150"),
     "cold_merge": ("quiver_tpu_torch/csrc/collective.cu", "quiver_tpu/parallel/collectives.py:150"),
+    "exchange_rows": ("quiver_tpu_torch/csrc/collective.cu", "quiver_tpu/comm.py:183"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
 # the training slice: batch, timed steps a leg, the tiered leg's cache share
@@ -587,6 +618,11 @@ MC_JAX_EXAMPLE_ACC, MC_SINGLE_DEVICE_ACC = 1.000, 0.938
 # accuracy), the bar of the port's example at the same args on the card
 HOST_RANKS, HOST_HOSTS, HOST_HOT_FRAC, HOST_COLD_MARGIN, HOST_STEPS = 4, 2, 0.2, 1.3, 3
 HOST_JAX_EXAMPLE_ACC = 1.000
+# the fleet: owners (DistServeConfig's default), the exchange residency leg's
+# requests, the dispatches of each owner replayed on the card and on the CPU,
+# the ids past the block among K13f's received lanes
+FLEET_HOSTS, FLEET_EXCHANGE_REQUESTS, FLEET_REPLAY, FLEET_REPLAY_CPU = 2, 256, 8, 2
+FLEET_PAST_IDS = 64
 
 
 def log(*a):
@@ -3582,6 +3618,225 @@ def host_learn_phase():
     return counts
 
 
+# -- the fleet: routed serving over the serve exchange (K13f) ---------------------------
+
+class ExchangeClock:
+    """Host wall of every `run_ranks` call the comm makes (on the calling
+    thread) and of every all_to_all inside them (on each rank thread,
+    between syncs of its stream): patched over ``parallel.train.run_ranks``
+    and ``parallel.collectives.all_to_all``, through which `comm` reaches
+    them."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.run_ranks_ms, self.a2a_ms = [], []
+        self.orig = (ptrain.run_ranks, par_collectives.all_to_all)
+
+    def __enter__(self):
+        run_ranks_fn, a2a_fn = self.orig
+
+        def run_ranks_timed(*a, **k):
+            t0 = time.perf_counter()
+            out = run_ranks_fn(*a, **k)
+            with self.lock:
+                self.run_ranks_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def a2a_timed(t, group):
+            stream = torch.cuda.current_stream()
+            stream.synchronize()
+            t0 = time.perf_counter()
+            out = a2a_fn(t, group)
+            stream.synchronize()
+            with self.lock:
+                self.a2a_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        ptrain.run_ranks, par_collectives.all_to_all = run_ranks_timed, a2a_timed
+        return self
+
+    def __exit__(self, *exc):
+        ptrain.run_ranks, par_collectives.all_to_all = self.orig
+
+
+def count_owner_launches(dist, names):
+    """Wrap each owner engine's predict so that the kernels it launches are
+    counted per owner ({host: {name: launches}}). Exact in collective mode:
+    the answerers run one at a time under the collective lock, and nothing
+    else launches while they do."""
+    per_owner = {h: dict.fromkeys(names, 0) for h in dist.engines}
+
+    def counted(h, fn):
+        def predict(ids, *a, **k):
+            before = _kernels.counts()
+            try:
+                return fn(ids, *a, **k)
+            finally:
+                after = _kernels.counts()
+                for name in names:
+                    per_owner[h][name] += after[name] - before[name]
+        return predict
+
+    for h, eng in dist.engines.items():
+        eng.predict = counted(h, eng.predict)
+    return per_owner
+
+
+def fleet_leg(leg, topo, table, model, params, trace, residency, seed):
+    """One fleet leg: DistServeEngine.build over the products graph and
+    table (its owners' tile tables built by K12 on the card), warmup, then
+    ``trace`` from 4 client threads with the counts set to 0 just before and
+    read just after. Checks that every request was answered with finite
+    logits; returns (dist, served, summary, counts, per-owner launches)."""
+    names = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean", "tiered_gather",
+             "exchange_rows")
+    cfg = DistServeConfig(hosts=FLEET_HOSTS, max_batch=BATCH, record_dispatches=True,
+                          feature_residency=residency)
+    t0 = time.perf_counter()
+    dist = tile_build(f"fleet owner ids ({residency} residency, {FLEET_HOSTS} owners)",
+                      lambda: DistServeEngine.build(model, params, topo, table, SIZES,
+                                                    hosts=FLEET_HOSTS, config=cfg,
+                                                    sampler_seed=seed, device=table.device))
+    build_s = time.perf_counter() - t0
+    check(dist.exchange_mode == "collective", "the fleet did not take the collective exchange")
+    t0 = time.perf_counter()
+    warm = dist.warmup()
+    warm_s = time.perf_counter() - t0
+    dist.reset_stats()
+    per_owner = count_owner_launches(dist, names)
+    with ExchangeClock() as xclock:
+        _kernels.reset_counts()
+        served, wall = serve_phase(dist, trace, clients=4)
+        counts = _kernels.counts()
+    st = dist.stats
+    agg = dist.aggregate_stats()
+    check(st.requests == len(trace) and len(served) == len(set(trace.tolist())),
+          f"fleet leg {leg}: not every request was answered")
+    out = np.stack(list(served.values()))
+    check(out.shape[1] == CLASSES and np.isfinite(out).all(),
+          f"fleet leg {leg}: served logits malformed")
+    flushes = max(st.router_dispatches, 1)
+    summary = {
+        "leg": leg, "residency": residency, "exchange": dist.exchange_mode, "hosts": dist.hosts,
+        "requests": st.requests, "wall_s": wall, "qps": st.requests / wall,
+        "latency": st.latency.snapshot(), "router_cache": st.router_cache.snapshot(),
+        "coalesced": st.coalesced, "router_dispatches": st.router_dispatches,
+        "routed_seeds": st.routed_seeds, "inflight_peak": st.inflight_peak,
+        "exchange_id_bytes": st.exchange_id_bytes,
+        "exchange_logit_bytes": st.exchange_logit_bytes, "serve_budget": dist._budget,
+        "mean_sub_batch_width": st.mean_sub_batch_width(), "sub_batches": st.sub_batches,
+        "topo_stats": dist.shard_topo_stats,
+        "owner_dispatches": {h: s["dispatches"] for h, s in agg["per_shard"].items()},
+        "owner_latency": {h: s["latency"] for h, s in agg["per_shard"].items()},
+        "owner_launches": per_owner, "launches": {k: v for k, v in counts.items() if v},
+        "run_ranks_calls": len(xclock.run_ranks_ms),
+        "run_ranks_ms_per_flush": sum(xclock.run_ranks_ms) / flushes,
+        "all_to_all_calls": len(xclock.a2a_ms),
+        "all_to_all_ms_per_flush_per_rank": sum(xclock.a2a_ms) / FLEET_HOSTS / flushes,
+        "build_s": build_s, "warmup_s": warm_s,
+        "warmup": {str(h): {str(b): round(t, 4) for b, t in w.items()} for h, w in warm.items()},
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"fleet {leg}: " + json.dumps(summary))
+    return dist, served, summary, counts, per_owner
+
+
+def fleet_replay(leg, dist, model, params, full, served, seed):
+    """replay_shard_oracle over the first FLEET_REPLAY dispatches of each
+    owner through a fresh full-graph sampler on the card (bit-equal to the
+    served rows), then over the first FLEET_REPLAY_CPU on the CPU plain path
+    (within 1e-3): the owners' logs are cut to those dispatches first.
+    ``full`` maps each device to its (CSRTopo, table)."""
+    worst = {}
+    for device, n_dispatch, atol in ((dist.engines[0].device, FLEET_REPLAY, 0.0),
+                                     (torch.device("cpu"), FLEET_REPLAY_CPU, 1e-3)):
+        for eng in dist.engines.values():
+            eng.dispatch_log = eng.dispatch_log[:n_dispatch]
+        topo, table = full[device.type]
+        oracle = replay_shard_oracle(dist, model, params,
+                                     lambda: GraphSageSampler(topo, SIZES, device=device,
+                                                              seed=seed), table)
+        check(len(oracle) > 0, f"fleet leg {leg}: nothing to replay")
+        diff = max(float(np.abs(served[node] - row).max()) for node, row in oracle.items())
+        check(diff <= atol, f"fleet leg {leg}: the replay on {device} differs from the served "
+                            f"rows by {diff}")
+        worst[str(device)] = {"dispatches_per_owner": n_dispatch, "rows": len(oracle),
+                              "max_abs_diff": diff}
+    log(f"fleet {leg} replay: " + json.dumps(worst))
+
+
+def fleet_phase(topo, table, model, params, trace, seed):
+    """The fleet's main path, two legs over 2 owners (contiguous partition,
+    max_batch 64): (a) the closure residency over the collective exchange,
+    the whole trace; (b) the exchange residency (each owner's rows on the
+    host, the others' over its own feature exchange: K3t and K13f), the
+    first FLEET_EXCHANGE_REQUESTS requests. Each owner must launch K1, K2,
+    K4 and its gather (K3 in (a), K3t in (b)); K13f must launch in (b).
+    Returns leg (b)'s counts."""
+    # the CPU replays get their own CSRTopo: the card's tile table stays cached
+    full = {table.device.type: (topo, table),
+            "cpu": (CSRTopo(indptr=topo.indptr, indices=topo.indices), table.cpu())}
+    dist, served, _, _, per_owner = fleet_leg("a", topo, table, model, params, trace,
+                                              "closure", seed)
+    for h, c in per_owner.items():
+        for name in MAIN_PATH:
+            check(c[name] > 0, f"owner {h} never launched {name} in fleet leg (a)")
+    fleet_replay("a", dist, model, params, full, served, seed)
+    del dist
+    gc.collect()  # the comm's answerers hold the engine in a cycle
+    torch.cuda.empty_cache()
+    dist, served, _, counts, per_owner = fleet_leg(
+        "b", topo, table, model, params, trace[:FLEET_EXCHANGE_REQUESTS], "exchange", seed)
+    check(counts["exchange_rows"] > 0, "exchange_rows never launched in fleet leg (b)")
+    for h, c in per_owner.items():
+        for name in ("sample_tiled", "local_reindex", "masked_mean", "tiered_gather",
+                     "exchange_rows"):
+            check(c[name] > 0, f"owner {h} never launched {name} in fleet leg (b)")
+    fleet_replay("b", dist, model, params, full, served, seed)
+    del dist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def kernel_phase_10(topo, table, trace, rows, seed):
+    """K13f alone at the fleet's shapes: owner 0's table block (its owned
+    rows of the products table, the larger block) and the [2, 131072] id
+    slab it receives: requester 0 (itself) asks nothing, requester 1 asks
+    the owner-0 rows of one B = 64 flush of its own seeds (a full-graph
+    sample's valid n_id below the block's end), then FLEET_PAST_IDS ids past
+    the block, then -1 pads. Bit-equal to its plain version."""
+    dev = table.device
+    g2h = contiguous_partition(topo.node_count, FLEET_HOSTS)
+    R = int((g2h == 0).sum())
+    block = table[:R]  # contiguous ownership: owner 0 holds rows [0, R)
+    budget = round_up_pow2(sample.pad_widths(BATCH, SIZES)[-1])
+    seeds1 = np.unique(trace[trace >= R])[:BATCH]
+    ds = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 140).sample_dense(seeds1)
+    n_id = ds.n_id[: int(ds.count)]
+    asked = n_id[n_id < R]
+    ids = torch.full((FLEET_HOSTS, budget), -1, dtype=torch.int32, device=dev)
+    w = asked.shape[0]
+    ids[1, :w] = asked.to(torch.int32)
+    ids[1, w: w + FLEET_PAST_IDS] = R + torch.arange(FLEET_PAST_IDS, dtype=torch.int32,
+                                                     device=dev)
+    got = exchange_rows(block, ids)
+    want = exchange_rows_plain(block, ids)
+    torch.cuda.synchronize()
+    err = 0.0 if torch.equal(got.view(torch.int32), want.view(torch.int32)) else float("inf")
+    check(err == 0.0, "exchange_rows differs from its plain version")
+    flat = ids.reshape(-1)
+    valid = int((flat >= 0).sum())
+    neg = (flat < 0)[:, None]
+    ms = time_ms(lambda: exchange_rows(block, ids))
+    plain_ms = time_ms(lambda: exchange_rows_plain(block, ids))
+    lib_ms = time_ms(lambda: block.index_select(0, flat.clamp(0, R - 1)).masked_fill_(neg, 0.0))
+    n_bytes = flat.numel() * 4 + valid * DIM * 4 + flat.numel() * DIM * 4
+    record(rows, "exchange_rows", err, ms, plain_ms, bound(n_bytes), lib_ms,
+           shape=f"block [{R}, {DIM}], ids [{FLEET_HOSTS}, {budget}]: {w} asked, "
+                 f"{FLEET_PAST_IDS} past the block")
+
+
 def learn_phase():
     """The example at ACCURACY.json's args on the card, for GraphSAGE (its
     accuracies beside the reference's recorded ones) and for GCN and GAT
@@ -3777,6 +4032,11 @@ def main() -> int:
     del host
     torch.cuda.empty_cache()
     host_learn_phase()
+
+    # -- the fleet: routed serving over the serve exchange, K13f --------------------
+    fleet_counts = fleet_phase(topo, table, model, params, trace, args.seed)
+    launches["exchange_rows"] = fleet_counts["exchange_rows"]
+    kernel_phase_10(topo, table, trace, rows, args.seed)
     launches["build_tiles"] = sum(b["launches"] for b in TILE_BUILDS)
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))

@@ -8,7 +8,9 @@ int8 and bf16 feature tables (`quant`), out-of-core training
 (GraphSageSampler.sample_prob -> utils.heat_reorder / `partition` -> a disk
 tier, static or adaptive (`tiers`) -> the staged pipeline with
 flush-ahead prefetch), weighted sampling (GraphSageSampler(weighted=True))
-and temporal feed-ranking and link-prediction serving (`workloads`).
+and temporal feed-ranking and link-prediction serving (`workloads`),
+data-parallel training on a mesh of ranks (`parallel`) and routed fleet
+serving over the serve exchange (`serve.DistServeEngine` over `comm`).
 
 Imports torch and numpy only, never jax or quiver_tpu. Entry points run on
 CUDA unless ``device="cpu"`` is passed, where every kernel's plain torch

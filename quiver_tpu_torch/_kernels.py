@@ -94,6 +94,7 @@ KERNELS = {
     "grouped_unpack": ("collective", "qt_grouped_unpack", [_P, _I, _LL, _I, _P, _P]),
     "cold_compact": ("collective", "qt_cold_compact", [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P]),
     "cold_merge": ("collective", "qt_cold_merge", [_P, _I, _P, _P, _P, _LL, _I, _P]),
+    "exchange_rows": ("collective", "qt_exchange_rows", [_P, _LL, _I, _P, _LL, _P, _P]),
 }
 # kernels whose launches are also counted per layout, as "name/variant"
 VARIANTS = {"masked_mean": ("float32", "bfloat16"),

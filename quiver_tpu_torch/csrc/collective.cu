@@ -1,5 +1,6 @@
 // The host axis's kernels: K13c (the grouped unpack) and K13d (the
-// hot/cold gather's compaction and merge).
+// hot/cold gather's compaction and merge); and the serve exchange's owner
+// gather, K13f.
 //
 // They replace the device work of quiver_tpu/parallel/collectives.py:65
 // sharded_gather_grouped (and :117 sharded_gather_a2a, which delegates to
@@ -8,7 +9,9 @@
 // neighbor and valid slabs K13c's unpack sums). The exchange itself
 // (all_gather, all_to_all, all-reduce) is torch.distributed's, out of the
 // kernels; the pack of a grouped gather is K13a (gather.cu) at the gathered
-// width and the grouped draw is K13b (sample.cu).
+// width and the grouped draw is K13b (sample.cu). K13f replaces the owner
+// gather between the two all_to_alls of quiver_tpu/comm.py:183
+// _exchange_jit (whose :213 and :234 halves are collectives alone).
 #include <type_traits>
 
 #include "common.cuh"
@@ -251,6 +254,55 @@ QT_EXPORT int qt_cold_merge(void* hot, int D, const void* sel, const void* cold,
   } else {
     cold_merge_kernel<QtF32><<<qt_blocks(budget * 32, threads), threads, 0, s>>>(
         static_cast<float*>(hot), D, sl, static_cast<const float*>(cold), cn, budget);
+  }
+  return qt_launch_status();
+}
+
+// -- K13f: the serve exchange's owner gather --------------------------------------
+//
+// After the id all_to_all, an owner holds the [H, L] owner-local row ids its
+// H requesters asked of it (-1 pads). out[r] = table[min(ids[r], R - 1)] where
+// ids[r] >= 0, else a zero row: _exchange_jit's where(id >= 0, take(table,
+// clip(id, 0, R - 1)), 0). Unlike K13a (sharded_rows), an id past the block
+// CLAMPS to its last row (the stacked blocks are zero-padded to the largest,
+// so an id past a smaller host's rows reads a zero pad row or its last row,
+// as JAX does); only negative ids give zeros. The clamp is in the kernel.
+//
+// Bound on the card: bytes — the ids read, each valid lane's row read and
+// the [n, D] rows written once. Design: a warp a lane (K3's shape), 16 bytes
+// a thread where D % 4 == 0 and both pointers are 16-byte aligned, else one
+// float a thread; a negative lane writes its zero row without reading the
+// table. Rows are copied as 32-bit words, so the copy is bit-equal.
+template <typename T>
+__global__ void exchange_rows_kernel(const T* __restrict__ table, long long R, long long n_vec,
+                                     const int32_t* __restrict__ ids, long long n_ids,
+                                     T* __restrict__ out) {
+  const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_ids) return;
+  const long long id = ids[row];
+  const T* src = id >= 0 && R > 0 ? table + (id < R ? id : R - 1) * n_vec : nullptr;
+  T* dst = out + row * n_vec;
+  for (long long c = lane; c < n_vec; c += 32) dst[c] = src != nullptr ? src[c] : T{};
+}
+
+// table: [R, D] float32 (one owner's block); ids: [n_ids] int32 (-1 pads);
+// out: [n_ids, D] float32
+QT_EXPORT int qt_exchange_rows(const void* table, long long R, int D, const void* ids,
+                               long long n_ids, void* out, void* stream) {
+  if (n_ids <= 0 || D <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = 256;  // 8 lanes a block
+  const unsigned blocks = qt_blocks(n_ids * 32, threads);
+  const auto* id = static_cast<const int32_t*>(ids);
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    exchange_rows_kernel<uint4><<<blocks, threads, 0, s>>>(
+        static_cast<const uint4*>(table), R, D / 4, id, n_ids, static_cast<uint4*>(out));
+  } else {
+    exchange_rows_kernel<uint32_t><<<blocks, threads, 0, s>>>(
+        static_cast<const uint32_t*>(table), R, D, id, n_ids, static_cast<uint32_t*>(out));
   }
   return qt_launch_status();
 }

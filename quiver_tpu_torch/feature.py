@@ -22,9 +22,14 @@ disk (`tiers.DiskShard`, read through an `pipeline.AsyncReadPool`); with
 instead, and ``gather_stored``/``__getitem__`` go through its tiered lookup
 (K5).
 
+The distributed layer: ``Feature.set_local_order`` (this host stores only
+its own rows and maps global ids to them), `PartitionInfo` (which host owns
+each id) and `DistFeature` (dispatch ids by owner, exchange the remote ones
+over a `comm.TorchComm`, merge with the local gather).
+
 Not ported yet: the ``p2p_clique_replicate`` policy, ``from_mmap`` and
-``set_mmap_file``, the observe-only taps (``tier_counter``, ``row_tap``),
-the distributed local order and the IPC handles.
+``set_mmap_file``, the observe-only taps (``tier_counter``, ``row_tap``)
+and the IPC handles.
 """
 
 from __future__ import annotations
@@ -159,6 +164,9 @@ class Feature:
         self.csr_topo = csr_topo
         self.device = resolve_device(f"cuda:{rank}" if device is None else device)
         self.feature_order: Optional[np.ndarray] = None  # old id -> stored row
+        # set_local_order: ids are global, feature_order maps the owned ones
+        # to local rows and every other id to -1
+        self._local_order_applied = False
         self._order_dev: Optional[torch.Tensor] = None   # the same, int32 on the device
         self._inv_order: Optional[np.ndarray] = None
         self.shard_tensor: Optional[ShardTensor] = None
@@ -184,7 +192,7 @@ class Feature:
         rows = _rows_of(cpu_tensor, self.dtype)
         self._n, self._dim = rows.shape
         cache_rows = min(self.device_cache_size // (self._dim * self.dtype.itemsize), self._n)
-        if self.csr_topo is not None:
+        if self.csr_topo is not None and not self._local_order_applied:
             _, order = reindex_feature(self.csr_topo, None, cache_rows / max(self._n, 1))
             inv = np.empty_like(order)
             inv[order] = np.arange(order.shape[0], dtype=order.dtype)
@@ -249,7 +257,12 @@ class Feature:
         if self.tier_store is not None:
             stored, invalid = self._map_ids(node_idx)
             return self.tier_store.gather(np.where(invalid, -1, stored))
-        return self.shard_tensor.gather(node_idx, n_valid=self._n, order=self._order_dev)
+        return self.shard_tensor.gather(node_idx, n_valid=self._id_space(), order=self._order_dev)
+
+    def _id_space(self) -> int:
+        """The ids a lookup takes: ``[0, N)``, or with a local order every
+        global id its map covers (unowned ones map to -1, a zero row)."""
+        return self.feature_order.shape[0] if self._local_order_applied else self._n
 
     def _map_ids(self, node_idx):
         """(stored_rows, invalid_mask) of a lookup batch on the host;
@@ -257,11 +270,14 @@ class Feature:
         if isinstance(node_idx, torch.Tensor):
             node_idx = node_idx.cpu().numpy()
         ids = np.asarray(node_idx).astype(np.int64).reshape(-1)
-        invalid = (ids < 0) | (ids >= self._n)
+        invalid = (ids < 0) | (ids >= self._id_space())
         if invalid.any():
             ids = np.where(invalid, 0, ids)
         if self.feature_order is not None:
             ids = self.feature_order[ids]
+        if self._local_order_applied:
+            invalid |= ids < 0
+            ids = np.where(invalid, 0, ids)
         return ids, invalid
 
     def gather_stored(self, stored) -> torch.Tensor:
@@ -321,7 +337,7 @@ class Feature:
         if not isinstance(node_idx, torch.Tensor):
             node_idx = torch.from_numpy(np.asarray(node_idx).astype(np.int64))
         if node_idx.dtype != torch.int32:  # clamped first, so the clip is unchanged
-            node_idx = torch.clamp(node_idx.to(torch.int64), -1, self._n).to(torch.int32)
+            node_idx = torch.clamp(node_idx.to(torch.int64), -1, self._id_space()).to(torch.int32)
         rows = gather_rows(self.shard_tensor.device_rows, node_idx.to(self.device),
                            self._order_dev)
         if valid is not None:
@@ -343,3 +359,99 @@ class Feature:
 
     def size(self, axis: int) -> int:
         return self.shape[axis]
+
+    def set_local_order(self, local_order) -> None:
+        """After cross-host partitioning this host stores only its rows, in
+        the order of ``local_order`` (their global ids): map global id ->
+        local row, -1 for ids it does not own (a zero row)."""
+        local_order = np.asarray(local_order, dtype=np.int64)
+        order = np.full(int(local_order.max()) + 1 if local_order.size else 0, -1, np.int64)
+        order[local_order] = np.arange(local_order.shape[0], dtype=np.int64)
+        self.feature_order = order
+        self._order_dev = torch.from_numpy(order.astype(np.int32)).to(self.device)
+        self._inv_order = None
+        self._local_order_applied = True
+
+
+class PartitionInfo:
+    """Cross-host partition metadata: ``global2host`` maps node id -> owning
+    host; ``replicate`` lists remote ids this host also holds, after its own
+    rows."""
+
+    def __init__(self, device, host: int, hosts: int, global2host, replicate=None):
+        self.device = device
+        self.host = host
+        self.hosts = hosts
+        self.global2host = np.asarray(global2host, dtype=np.int32)
+        self.replicate = None if replicate is None else np.asarray(replicate, dtype=np.int64)
+        self._build_global2local()
+
+    def _build_global2local(self):
+        """global id -> owner-local row for every host (each host's owned ids
+        rank 0..n_h-1); replicated ids follow this host's owned rows."""
+        n = self.global2host.shape[0]
+        self.global2local = np.zeros(n, dtype=np.int64)
+        for h in range(self.hosts):
+            owned = np.nonzero(self.global2host == h)[0]
+            self.global2local[owned] = np.arange(owned.shape[0])
+        local_mask = self.global2host == self.host
+        if self.replicate is not None:
+            local_mask = local_mask.copy()
+            owned_count = int(local_mask.sum())
+            rep = self.replicate[~local_mask[self.replicate]]
+            self.global2local[rep] = owned_count + np.arange(rep.shape[0])
+            local_mask[rep] = True
+        self.local_ids = np.nonzero(local_mask)[0]
+        self.local_mask = local_mask
+
+    def dispatch(self, ids: np.ndarray):
+        """Split a request batch by owning host: ``(per_host_ids,
+        local_ids, per_host_positions, local_positions)``."""
+        ids = np.asarray(ids).astype(np.int64)
+        local = self.local_mask[ids]
+        local_pos = np.nonzero(local)[0]
+        remote_pos = np.nonzero(~local)[0]
+        owner = self.global2host[ids[remote_pos]]
+        per_host, per_pos = [], []
+        for h in range(self.hosts):
+            sel = remote_pos[owner == h]
+            per_host.append(ids[sel])
+            per_pos.append(sel)
+        return per_host, ids[local_pos], per_pos, local_pos
+
+
+class DistFeature:
+    """Multi-host feature lookup: dispatch ids by owner, exchange the remote
+    ones over ``comm`` (owner-local rows), merge with the local gather.
+    Collective: every host calls ``__getitem__`` together. Returns ``[n, D]``
+    float32 on the local feature's device."""
+
+    def __init__(self, feature: Feature, info: PartitionInfo, comm):
+        self.feature = feature
+        self.info = info
+        self.comm = comm
+
+    def __getitem__(self, ids) -> torch.Tensor:
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu().numpy()
+        ids = np.asarray(ids).astype(np.int64).reshape(-1)
+        per_host, local_ids, per_pos, local_pos = self.info.dispatch(ids)
+        per_host_local = [self.info.global2local[h_ids] for h_ids in per_host]
+        if not getattr(self.comm, "multiprocess", False) and not any(
+                len(h) for h in per_host_local):
+            # a shard-local lookup skips the collective (single controller
+            # only: processes of a pod must all enter it together)
+            remote: List[Optional[torch.Tensor]] = [None] * self.info.hosts
+        else:
+            remote = self.comm.exchange(per_host_local)
+        dev = self.feature.device
+        out = torch.zeros((ids.shape[0], self.feature.dim), dtype=torch.float32, device=dev)
+        if local_ids.size:
+            # a Feature with a local order maps global ids itself
+            q = local_ids if self.feature._local_order_applied else (
+                self.info.global2local[local_ids])
+            out[torch.from_numpy(local_pos).to(dev)] = self.feature[q].to(dev)
+        for h, rows in enumerate(remote):
+            if rows is not None and per_pos[h].size:
+                out[torch.from_numpy(per_pos[h]).to(dev)] = torch.as_tensor(rows).to(dev)
+        return out

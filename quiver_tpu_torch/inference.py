@@ -170,7 +170,10 @@ def lookup_features(feature, n_id: torch.Tensor) -> torch.Tensor:
     sample's device goes through `gather_rows`; a `Feature` through
     `Feature.lookup_padded` when every row is on the device, else its
     tiered ``__getitem__``; a numpy table is clipped and taken on the
-    host, then moved."""
+    host, then moved; a feature with a ``gather_spec`` (the fleet's
+    `serve.dist.ClosureFeature`) goes through `gather_rows` with its index
+    map, as the fused step gathers; any other feature object (the fleet's
+    exchange-residency shard feature) through its own ``__getitem__``."""
     if isinstance(feature, Feature):
         return feature.lookup_padded(n_id) if feature.resident else feature[n_id]
     if isinstance(feature, torch.Tensor):
@@ -178,6 +181,11 @@ def lookup_features(feature, n_id: torch.Tensor) -> torch.Tensor:
     if isinstance(feature, np.ndarray):
         ids = np.clip(n_id.cpu().numpy(), 0, feature.shape[0] - 1)
         return torch.from_numpy(feature[ids]).to(n_id.device)
+    if hasattr(feature, "gather_spec"):
+        table, index_map = feature.gather_spec(n_id.device)
+        return gather_rows(table, n_id, index_map)
+    if hasattr(feature, "__getitem__"):
+        return torch.as_tensor(feature[n_id]).to(n_id.device)
     raise TypeError(f"unsupported feature type {type(feature).__name__}")
 
 
@@ -209,8 +217,12 @@ def draw_sample_key(sampler) -> qrandom.Key:
 
 def feature_gather_spec(feature, device):
     """``(table, index_map)`` tensors on ``device`` for the in-step gather:
-    a dense ``[R, D]`` table and no map. Raises TypeError for features
-    whose lookup is host-side."""
+    a dense ``[R, D]`` table and no map, or a feature's own
+    ``gather_spec(device)`` (the fleet's `serve.dist.ClosureFeature`: its
+    closure rows and int32 global -> row map). Raises TypeError for
+    features whose lookup is host-side."""
+    if hasattr(feature, "gather_spec"):
+        return feature.gather_spec(device)
     if isinstance(feature, np.ndarray):
         feature = torch.from_numpy(feature)
     if isinstance(feature, torch.Tensor):

@@ -227,6 +227,7 @@ class GraphSAGE(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.out_dim = out_dim
         self.num_layers = num_layers
         self.convs = nn.ModuleList(
             SAGEConv(dims[i], dims[i + 1], dtype=dtype) for i in range(num_layers)

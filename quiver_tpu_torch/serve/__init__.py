@@ -1,6 +1,21 @@
-"""Online serving on the port: `ServeEngine` and its parts."""
+"""Online serving on the port: `ServeEngine` and its parts, and the routed
+fleet (`DistServeEngine`)."""
 
 from .cache import EmbeddingCache
+from .dist import (
+    ClosureFeature,
+    DistServeConfig,
+    DistServeEngine,
+    DistServeStats,
+    LoopbackComm,
+    closure_masks,
+    contiguous_partition,
+    replay_fleet_oracle,
+    replay_shard_oracle,
+    shard_from_mask,
+    shard_topology_by_owner,
+    shard_topology_for_seeds,
+)
 from .engine import (
     ResultBatch,
     ServeConfig,
@@ -19,6 +34,9 @@ from .trace_gen import (
 )
 
 __all__ = [
+    "ClosureFeature", "DistServeConfig", "DistServeEngine", "DistServeStats", "LoopbackComm",
+    "closure_masks", "contiguous_partition", "replay_fleet_oracle", "replay_shard_oracle",
+    "shard_from_mask", "shard_topology_by_owner", "shard_topology_for_seeds",
     "EmbeddingCache", "LPTrace", "ResultBatch", "ServeConfig", "ServeEngine", "ServeResult",
     "ServeStats", "TemporalTrace", "default_buckets", "lp_trace", "poisson_arrivals",
     "temporal_trace", "zipfian_trace",

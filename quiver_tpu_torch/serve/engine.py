@@ -224,6 +224,32 @@ class ServeStats:
     latency: LatencyHistogram = field(default_factory=LatencyHistogram)
     spans: SpanRecorder = field(default_factory=SpanRecorder)
 
+    _COUNTERS = ("requests", "coalesced", "dispatches", "dispatched_seeds", "padded_seeds",
+                 "dispatch_calls", "execute_calls", "request_errors")
+
+    def merge(self, other: "ServeStats") -> "ServeStats":
+        """Fold another engine's stats into this one (the fleet's merged
+        view over its owners; merge into a fresh `ServeStats`): counters
+        add, ``inflight_peak`` is the largest, the bucket counts, cache
+        counters, latency histogram and spans merge. Returns self."""
+        for name in self._COUNTERS:
+            setattr(self, name, getattr(self, name) + getattr(other, name))
+        self.inflight_peak = max(self.inflight_peak, other.inflight_peak)
+        for b, n in other.dispatch_buckets.copy().items():
+            self.dispatch_buckets[b] = self.dispatch_buckets.get(b, 0) + n
+        self.cache.merge(other.cache)
+        self.latency.merge(other.latency)
+        self.spans.merge(other.spans)
+        return self
+
+    def snapshot(self) -> Dict[str, object]:
+        out: Dict[str, object] = {name: getattr(self, name) for name in self._COUNTERS}
+        out.update(inflight_peak=self.inflight_peak,
+                   dispatch_buckets=dict(self.dispatch_buckets),
+                   cache=self.cache.snapshot(), latency=self.latency.snapshot(),
+                   overlap=self.spans.overlap_summary())
+        return out
+
 
 class _Flush:
     """Per-flush state between assemble and resolve."""

@@ -338,6 +338,22 @@ class LatencyHistogram:
                     return min(max(mid, self.min_ms), self.max_ms)
             return self.max_ms
 
+    def merge(self, other: "LatencyHistogram") -> "LatencyHistogram":
+        """Fold ``other``'s samples into this histogram (the fleet's merged
+        view over its owners); both must have the same bucket edges.
+        Returns self."""
+        if self._edges != other._edges:
+            raise ValueError("LatencyHistogram.merge needs identical bucket edges")
+        with self._lock, other._lock:
+            for i, c in enumerate(other._counts):
+                self._counts[i] += c
+            self.count += other.count
+            self.sum_ms += other.sum_ms
+            if other.count:
+                self.min_ms = min(self.min_ms, other.min_ms)
+                self.max_ms = max(self.max_ms, other.max_ms)
+        return self
+
     def snapshot(self) -> Dict[str, float]:
         return {
             "count": self.count,
@@ -371,6 +387,14 @@ class HitRateCounter:
         with self._lock:
             self.evictions += n
 
+    def merge(self, other: "HitRateCounter") -> "HitRateCounter":
+        """Fold ``other``'s counts into this counter. Returns self."""
+        with self._lock, other._lock:
+            self.hits += other.hits
+            self.misses += other.misses
+            self.evictions += other.evictions
+        return self
+
     @property
     def total(self) -> int:
         return self.hits + self.misses
@@ -379,3 +403,7 @@ class HitRateCounter:
     def hit_rate(self) -> float:
         t = self.total
         return self.hits / t if t else 0.0
+
+    def snapshot(self) -> Dict[str, float]:
+        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
+                "hit_rate": self.hit_rate}

@@ -59,7 +59,11 @@ the cold count below, at and above the budget over 5,077 and 1,081,421
 lanes, and the merge (K13d) in float32 and bfloat16, each bit-equal to its
 plain version on the card and on the CPU; four rank threads on a
 host 2 x dp 1 x ici 2 mesh running the grouped and hot/cold gathers and
-the grouped draws against the unsharded rows and draw."""
+the grouped draws against the unsharded rows and draw. The fleet's: the
+serve exchange's owner gather (K13f) on [H, L] id slabs with -1 pads, ids
+past the block (clamped to its last row), all lanes -1, a one-row block and
+an empty L, at D = 100, 99, 4 and 1, bit-equal to its plain version on the
+card and on the CPU."""
 
 import numpy as np
 import pytest
@@ -1176,3 +1180,34 @@ def test_rank_threads_host_axis_on_the_card(cuda_device):
             nb, v = (x.cpu() for x in out[layout])
             assert torch.equal(v, rv) and torch.equal(nb[rv], ref[0].cpu()[sl][rv])
             assert not nb[~rv].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [100, 99, 4, 1])
+def test_exchange_rows_kernel_matches_plain(cuda_device, D):
+    """K13f's owner gather on an [H, L] id slab: -1 pads read zero rows, ids
+    past the block clamp to its last row (a -0.0 row keeps its sign), all
+    lanes -1, a one-row block, an empty L; bit-equal to its plain version
+    on the card and on the CPU. D = 99 and 1 take the one-word path."""
+    from quiver_tpu_torch.comm import exchange_rows, exchange_rows_plain
+
+    rng = np.random.default_rng(D)
+    for R in (1000, 1):
+        table = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32))
+        table[-1] = -0.0
+        cases = [rng.integers(-1, R + 50, (2, 4097)).astype(np.int32),
+                 np.full((2, 333), -1, np.int32), np.zeros((2, 0), np.int32),
+                 np.array([[R - 1, R, 2**31 - 1, -1, -5]], np.int32)]
+        for ids_np in cases:
+            ids = torch.from_numpy(ids_np)
+            _kernels.reset_counts()
+            got = exchange_rows(table.to(cuda_device), ids.to(cuda_device))
+            want = exchange_rows_plain(table.to(cuda_device), ids.to(cuda_device))
+            torch.cuda.synchronize()
+            assert _kernels.counts()["exchange_rows"] == int(ids.numel() > 0)
+            assert got.shape == tuple(ids.shape) + (D,)
+            assert _same_bits(got, want) and _same_bits(got, exchange_rows_plain(table, ids))
+            flat, rows = ids.reshape(-1).long(), got.cpu().reshape(-1, D)
+            assert not rows[flat < 0].any()
+            past = flat >= R
+            assert _same_bits(rows[past], table[-1].expand(int(past.sum()), D))
