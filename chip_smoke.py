@@ -49,7 +49,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              rows are charged at the link rate of a 1 GiB pinned copy
              measured in the run (median of 5). Yardsticks: index_add_ (K4b),
              torch.sparse.mm with a CSR adjacency of ones (K10), none for
-             K3t (no one call reads two tiers);
+             K3t (no one call reads two tiers). K4b is bit-equal to its plain
+             version on a CPU copy; K10 bit-equal when run twice. Logged:
+             each K4b cols call's segment lengths (valid lanes a source row:
+             largest and 99th percentile), K10's segment length and the
+             heavy rows and segments it splits, and a ``kernels-2
+             redesign:`` line with both kernels' times, library call and
+             bound beside their times before the redesign;
+7b. full inference — sage_full_inference of the GraphSAGE above over the
+             whole graph (three K10 calls, 3 launches checked), timed end
+             to end twice after a first run, its logits within 1e-4 of the
+             same layers over K10's plain version; a ``full inference:``
+             line;
 8. train   — 20 Adam steps at batch 1024 on each of four legs at full
              width (sample_dense + lookup_padded on the resident table;
              sample_dense + Feature[...] at a 20% cache; sample_and_gather_
@@ -134,7 +145,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              from its exact per-row counts (65,536 moves at most),
              TierStore.apply (K6), a fresh pipeline and a second epoch —
              and (d) QuantizedFeature(int8) of the same device bytes with a
-             disk tail (K9b), 20 batches each (10 for d). Legs (a) and (b)
+             disk tail (K9b), 4 batches each (2 for d). Legs (a) and (b)
              and the second epoch of (c) must equal an all-DRAM epoch with
              the same seeds bit for bit; the pipeline built before the apply
              must still gather the right bytes; K11, K6, K5 and K9b must
@@ -180,6 +191,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              True, max_deg=512) on the tile layout (with a profiled
              split) and 5 on the flat one, as the train legs above; K7
              must have launched on each;
+17b. fanout — fanouts above 32 at sizes [64, 10, 5]: one dedup
+             sample of the 1,024 seeds hop by hop, K1 and K2 bit-equal to
+             their plain versions; K4 (within 1e-5) and K4b (bit-equal to
+             its plain version on a CPU copy and run twice) on each of its
+             cols layers and on the structural layers of a B = 64 temporal
+             sample; 5 Adam steps of GraphSAGE through GraphSageSampler at
+             those sizes (K1, K2, K3, K4, K4b launched; a ``fanout train:``
+             line); K7 tiled and flat (max_deg 512) and K8 at k = 64 on the
+             seeds, bit-equal to their plain versions, K7's layouts equal on
+             their valid lanes; the weighted (tiled, flat) and temporal
+             samplers at those sizes launching their kernel every hop. The
+             kernels' times at k = 64 are logged;
 18. kernels-7 — the model zoo's kernels at the shapes one dedup
              sample_dense of 1,024 train seeds gives them (hops 180,224 x 5,
              16,384 x 10 and 1,024 x 15): the hop-source gather (K14) at
@@ -355,6 +378,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 31. report — one JSON line of all kernels, the card line, then the
              ``{"ok": true, ...}`` line last.
 
+As each phase of the run ends, a ``phase <name> done at <t> s`` line
+(seconds since the run began) goes to both stdout and stderr, so the end
+of either stream shows how far a run got and how long each phase took.
+
 Exits non-zero without a card. Needs one card.
 """
 
@@ -390,6 +417,7 @@ from quiver_tpu_torch.inference import (
     bind_params,
     full_mean_aggregate,
     full_mean_aggregate_plain,
+    sage_full_inference,
     strict_float32,
 )
 from quiver_tpu_torch.pipeline import (
@@ -569,7 +597,7 @@ QUANT_CODECS = ("int8", "bf16")
 # batches of a tiers leg (and of the int8 leg)
 PROMOTE_ROWS, MAX_MOVES = 65_000, 65_536
 PREFETCH_ROWS = 1 << 18  # staging room for one batch's disk rows
-TIER_BATCHES, TIER_WARMUP, TIER_INT8_BATCHES = 20, 4, 10
+TIER_BATCHES, TIER_WARMUP, TIER_INT8_BATCHES = 4, 2, 2
 # the weighted and temporal slice: the Gumbel window, the zero-weight share,
 # the flat weighted leg's steps; timestamps in [0, TS_SPAN), the recency and
 # t quantum of scripts/serve_probe.py --temporal, its trace rate, LP pairs
@@ -623,10 +651,27 @@ HOST_JAX_EXAMPLE_ACC = 1.000
 # the ids past the block among K13f's received lanes
 FLEET_HOSTS, FLEET_EXCHANGE_REQUESTS, FLEET_REPLAY, FLEET_REPLAY_CPU = 2, 256, 8, 2
 FLEET_PAST_IDS = 64
+# the kernels redesigned in the fanout slice, as PERF.md's table had them
+# before (K4b: the float32 cols layout's two calls of a step; K10: the two
+# passes at D = 100 and 256), logged beside this run's times; the fanout
+# phase's sizes (k = 64 on the first hop) and timed steps
+K4B_MS_BEFORE, K10_MS_BEFORE = 1.3436, 292.24
+FANOUT_SIZES, FANOUT_STEPS = (64, 10, 5), 5
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+_T_RUN = [time.perf_counter()]
+
+
+def phase_done(name):
+    """Logs, to both streams, the seconds since the run began as a phase
+    ends, so the end of either stream says how far a run got and when."""
+    line = f"phase {name} done at {time.perf_counter() - _T_RUN[0]:.1f} s"
+    log(line)
+    print(line, file=sys.stderr, flush=True)
 
 
 class Failed(RuntimeError):
@@ -762,13 +807,14 @@ def make_model_params(seed: int):
     return model, params
 
 
-def hop_inputs(graph_tiled, seeds, key):
-    """The inputs one B=64 flush hands each kernel: per hop the sampling
-    and reindex inputs, then the final n_id for the gather."""
+def hop_inputs(graph_tiled, seeds, key, sizes=SIZES):
+    """The inputs one dedup sample of ``seeds`` (a B=64 flush) hands each
+    kernel: per hop the sampling and reindex inputs, then the final n_id
+    for the gather."""
     cur = seeds
     cur_valid = torch.ones_like(seeds, dtype=torch.bool)
     hops = []
-    for k in SIZES:
+    for k in sizes:
         key, sub = qrandom.split(key)
         nbrs, valid = sample.tiled_sample_layer(*graph_tiled, cur, cur_valid, k, sub)
         hops.append(dict(cur=cur, cur_valid=cur_valid, k=k, key=sub, nbrs=nbrs, valid=valid))
@@ -998,14 +1044,23 @@ def kernel_phase_2(topo, table, tiered, seeds, rows, seed):
             torch.cuda.synchronize()
             check(torch.equal(got, again), f"K4b {layout} layer {layer}: two runs differ")
             # held against the plain version on a CPU copy of the inputs, which
-            # adds the lanes in the kernel's order; on the card the plain
-            # version is index_add_ with float atomics, in no fixed order
+            # adds the lanes in the kernel's order (bit-equal); on the card the
+            # plain version is index_add_ with float atomics, in no fixed order
             cpu = masked_mean_backward_plain(g.cpu(), adj.mask.cpu(),
                                              None if adj.cols is None else adj.cols.cpu(), w_src)
             err = float((got.cpu() - cpu).abs().max())
-            check(torch.allclose(got.cpu(), cpu, atol=1e-5, rtol=1e-5),
+            check(torch.equal(got.cpu(), cpu),
                   f"K4b {layout} layer {layer} differs from its plain version by {err}")
             lanes = int(adj.mask.sum())
+            seg = {}
+            if adj.cols is not None:  # valid lanes a source row: the segments K4b sums
+                per_row = torch.bincount(torch.clamp(adj.cols.long(), 0, w_src - 1)[adj.mask],
+                                         minlength=w_src)
+                per_row = per_row[per_row > 0].float()
+                seg = {"segment_max": int(per_row.max()),
+                       "segment_p99": float(torch.quantile(per_row, 0.99))}
+                log("kernels-2 k4b segments: " + json.dumps(dict(layer=layer, W=W, k=k,
+                                                                 w_src=w_src, **seg)))
             idx_bytes = W * k * (5 if adj.cols is not None else 1)
             b = bound(idx_bytes + W * HIDDEN * 4 + w_src * HIDDEN * 4, f32_adds=2 * lanes * HIDDEN)
             # yardstick: index_add_ of the lane contributions, computed beforehand
@@ -1023,7 +1078,8 @@ def kernel_phase_2(topo, table, tiered, seeds, rows, seed):
                    time_ms(lambda: masked_mean_backward(g, adj.mask, adj.cols, w_src)),
                    time_ms(lambda: masked_mean_backward_plain(g, adj.mask, adj.cols, w_src),
                            reps=5),
-                   b, lib, shape=f"{layout} layer {layer} W={W} k={k} D={HIDDEN} W_src={w_src}",
+                   b, lib, shape=f"{layout} layer {layer} W={W} k={k} D={HIDDEN} W_src={w_src}"
+                   + "".join(f" {key}={v}" for key, v in seg.items()),
                    report=layout == "cols")
 
     # K10: the full-graph mean over the whole graph at D = 100 and 256; the
@@ -1031,23 +1087,39 @@ def kernel_phase_2(topo, table, tiered, seeds, rows, seed):
     indptr, indices = topo.to_device(dev)
     e = indices.shape[0]
     adjacency = torch.sparse_csr_tensor(indptr, indices, torch.ones(e, device=dev), size=(n, n))
-    denom = torch.clamp(indptr[1:] - indptr[:-1], min=1).to(torch.float32)[:, None]
+    deg = (indptr[1:] - indptr[:-1]).long()
+    denom = torch.clamp(deg, min=1).to(torch.float32)[:, None]
+    S = _kernels.full_mean_segment_edges()  # rows of more edges are split into segments
+    heavy = deg > S
+    log("kernels-2 k10 segments: " + json.dumps({
+        "segment_edges": S, "heavy_rows": int(heavy.sum()),
+        "heavy_segments": int(((deg[heavy] + S - 1) // S).sum()),
+        "heavy_edge_share": float(deg[heavy].sum() / deg.sum()), "max_degree": int(deg.max())}))
     for D in (DIM, HIDDEN):
         h = table if D == DIM else torch.randn((n, D), generator=gen, device=dev)
         got = full_mean_aggregate(indptr, indices, h)
+        again = full_mean_aggregate(indptr, indices, h)
         want = full_mean_aggregate_plain(indptr, indices, h)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"K10 at D={D}: two runs differ")
         err = float((got - want).abs().max())
         check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
               f"K10 at D={D} differs from its plain version by {err}")
-        del got, want
+        del got, again, want
         b = bound((n + 1) * 4 + e * 4 + 2 * n * D * 4, f32_adds=e * D + n * D)
         record(rows, "full_mean", err,
                time_ms(lambda: full_mean_aggregate(indptr, indices, h), reps=5, warm=1),
                time_ms(lambda: full_mean_aggregate_plain(indptr, indices, h), reps=3, warm=1), b,
                time_ms(lambda: torch.sparse.mm(adjacency, h) / denom, reps=3, warm=1),
-               shape=f"N={n} E={e} D={D}")
+               shape=f"N={n} E={e} D={D} edge_row_bytes={e * D * 4}")
     del adjacency
+    # the two redesigned kernels beside their times before the redesign (the
+    # kernel table of PERF.md: K4b's one step's two calls, K10's two passes)
+    log("kernels-2 redesign: " + json.dumps({
+        name: {"ms": rows[name]["ms"], "library_ms": rows[name]["library_ms"],
+               "bound_ms": rows[name]["bound_ms"], "ms_before_redesign": before}
+        for name, before in (("masked_mean_backward", K4B_MS_BEFORE),
+                             ("full_mean", K10_MS_BEFORE))}))
 
     # K3t: the tiered gather of a real sample_dense batch's n_id at 20% cache
     st = tiered.shard_tensor
@@ -1072,6 +1144,45 @@ def kernel_phase_2(topo, table, tiered, seeds, rows, seed):
                                                tiered._order_dev), reps=5),
            (max(t_hbm, t_link), "bytes"), None, shape=f"n={n_id.numel()} D={DIM} cache=20%")
     return rate
+
+
+def full_inference_phase(topo, table, model, params):
+    """sage_full_inference of GraphSAGE(100 -> 256 -> 256 -> 47) over the
+    whole graph on the card: three K10 calls, timed end to end to a
+    synchronize (a first run, then two timed), K10's launches counted on
+    one run; the logits [N, 47] finite and within 1e-4 of the same layers
+    computed with K10's plain version. Logs a ``full inference:`` line."""
+    dev = table.device
+    m = bind_params(model, params, dev)
+    indptr, indices = topo.to_device(dev)
+    sage_full_inference(m, indptr, indices, table)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(2):
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = sage_full_inference(m, indptr, indices, table)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernels.counts()["full_mean"]
+    check(launches == len(m.convs), f"K10 launched {launches} times in one full inference")
+    check(out.shape == (topo.node_count, CLASSES) and bool(torch.isfinite(out).all()),
+          "full inference logits malformed")
+    h = table
+    with torch.inference_mode():
+        for i, conv in enumerate(m.convs):
+            h = conv.lin_l(full_mean_aggregate_plain(indptr, indices, h)) + conv.lin_r(h)
+            if i != len(m.convs) - 1:
+                h = torch.relu(h)
+    err = float((out - h).abs().max())
+    check(torch.allclose(out, h, atol=1e-4, rtol=1e-4),
+          f"full inference differs from its plain layers by {err}")
+    log("full inference: " + json.dumps({"nodes": topo.node_count, "edges": topo.edge_count,
+                                         "layers": len(m.convs), "ms_runs": times,
+                                         "ms": min(times), "k10_launches": launches,
+                                         "max_abs_err_vs_plain": err}))
+    del out, h
+    torch.cuda.empty_cache()
 
 
 def port_kernel_names() -> set:
@@ -2125,6 +2236,194 @@ def kernel_phase_5(topo, wtopo, tg, ts_np, seeds_1024, tseeds, tvals, rows, seed
     log(f"kernels-5 pins: t=+inf == weighted over K8w tiles and host-masked oracle, "
         f"{h['cur'].shape[0]} rows each, bit-equal")
     torch.cuda.synchronize()
+
+
+def mean_pair_check(rows, adj, w_src, D, gen, tag, x=None):
+    """K4 within 1e-5 of its plain version and K4b (where ``x`` is None or
+    a gradient reaches it) bit-equal to its plain version on a CPU copy
+    and when run twice, on one hop ``adj`` (cols or structural), each
+    timed; logged, not added to the report rows."""
+    dev = adj.mask.device
+    W, k = adj.mask.shape
+    lanes = int(adj.mask.sum())
+    if adj.cols is None:
+        src = W + torch.arange(k, device=dev)[None, :] * W + torch.arange(W, device=dev)[:, None]
+    else:
+        src = torch.clamp(adj.cols.long(), 0, w_src - 1)
+    xs = torch.randn((w_src, D), generator=gen, device=dev) if x is None else x
+    got, want = masked_mean_aggregate(xs, adj), masked_mean_aggregate_plain(xs, adj)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
+          f"K4 differs from its plain version by {err} at {tag}")
+    cnt = torch.clamp(adj.mask.sum(dim=1, keepdim=True), min=1).to(xs.dtype)
+    bag = dict(input=src.reshape(-1).long(), weight=xs, mode="sum",
+               offsets=torch.arange(0, W * k, k, device=dev),
+               per_sample_weights=(adj.mask.to(xs.dtype) / cnt).reshape(-1))
+    record(rows, "masked_mean", err, time_ms(lambda: masked_mean_aggregate(xs, adj)),
+           time_ms(lambda: masked_mean_aggregate_plain(xs, adj), reps=5),
+           bound(W * k * (5 if adj.cols is not None else 1)
+                 + torch.unique(src[adj.mask]).numel() * D * 4 + W * D * 4,
+                 f32_adds=lanes * D + W * D),
+           time_ms(lambda: F.embedding_bag(**bag)), shape=f"{tag} W={W} k={k} D={D}",
+           report=False)
+    if x is not None:  # the features take no gradient
+        return
+    g = torch.randn((W, D), generator=gen, device=dev)
+    gx = masked_mean_backward(g, adj.mask, adj.cols, w_src)
+    again = masked_mean_backward(g, adj.mask, adj.cols, w_src)
+    cpu = masked_mean_backward_plain(g.cpu(), adj.mask.cpu(),
+                                     None if adj.cols is None else adj.cols.cpu(), w_src)
+    torch.cuda.synchronize()
+    check(torch.equal(gx, again), f"K4b: two runs differ at {tag}")
+    check(torch.equal(gx.cpu(), cpu), f"K4b differs from its plain version at {tag}")
+    contrib = (g / cnt)[:, None, :].expand(W, k, D)[adj.mask].contiguous()
+    idx = src[adj.mask].contiguous()
+    record(rows, "masked_mean_backward", 0.0,
+           time_ms(lambda: masked_mean_backward(g, adj.mask, adj.cols, w_src)),
+           time_ms(lambda: masked_mean_backward_plain(g, adj.mask, adj.cols, w_src), reps=5),
+           bound(W * k * (5 if adj.cols is not None else 1) + W * D * 4 + w_src * D * 4,
+                 f32_adds=2 * lanes * D),
+           time_ms(lambda: torch.zeros((w_src, D), device=dev).index_add_(0, idx, contrib)),
+           shape=f"{tag} W={W} k={k} D={D} W_src={w_src}", report=False)
+
+
+def fanout_phase(topo, wtopo, tg, resident, labels, train_idx, seeds, seed):
+    """Fanouts above 32 on the card, at FANOUT_SIZES (k = 64 on the first
+    hop): one dedup sample of the 1,024 seeds hop by hop, K1 and K2 each
+    bit-equal to its plain version; K4 and K4b on each of its layers
+    (mean_pair_check); a GraphSAGE train leg through GraphSageSampler at
+    those sizes (K1, K2, K3, K4, K4b launched); K7 tiled and flat (max_deg
+    512) and K8 on the seeds at k = 64, bit-equal to their plain versions,
+    and the weighted and temporal samplers at those sizes (their kernel
+    launched on every hop; the temporal sample's structural hops through
+    mean_pair_check). Lines start ``fanout``; returns the leg's launches."""
+    dev = seeds.device
+    fk = FANOUT_SIZES[0]
+    g_tiled = topo.to_device_tiled(dev)
+    indptr = topo.to_device(dev)[0]
+    key = qrandom.key(seed + 90)
+    hops, n_id = hop_inputs(g_tiled, seeds, key, FANOUT_SIZES)
+    logged = {}
+    for h in hops:
+        W, k = h["cur"].shape[0], h["k"]
+        args = (h["cur"], h["cur_valid"], k, h["key"])
+        got = sample.tiled_sample_layer(*g_tiled, *args)
+        want = sample.tiled_sample_layer_plain(*g_tiled, *args)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K1 at W={W} k={k} differs from its plain version")
+        record(logged, "sample_tiled", 0.0, time_ms(lambda: sample.tiled_sample_layer(*g_tiled,
+                                                                                      *args)),
+               time_ms(lambda: sample.tiled_sample_layer_plain(*g_tiled, *args), reps=3),
+               sample_bound(indptr, h["cur"], h["cur_valid"], k), shape=f"fanout W={W} k={k}",
+               report=False)
+        rargs = (h["cur"], h["cur_valid"], h["nbrs"], h["valid"])
+        r, rp = reindex.local_reindex(*rargs), reindex.local_reindex_plain(*rargs)
+        check(torch.equal(r.n_id, rp.n_id) and torch.equal(r.count, rp.count)
+              and torch.equal(r.local_seeds, rp.local_seeds)
+              and torch.equal(r.local_nbrs[h["valid"]], rp.local_nbrs[h["valid"]]),
+              f"K2 at S={W} k={k} differs from its plain version")
+    from quiver_tpu_torch.pyg.sage_sampler import sample_dense_pure
+
+    ds = sample_dense_pure(None, None, key, seeds, FANOUT_SIZES,
+                           sample_fn=lambda c, v, k, kk: sample.tiled_sample_layer(*g_tiled, c, v,
+                                                                                   k, kk))
+    check(torch.equal(ds.n_id, n_id) and ds.adjs[-1].mask.shape == (seeds.shape[0], fk),
+          "the k = 64 sample differs from its hop-by-hop inputs")
+    gen = torch.Generator(device=dev).manual_seed(seed + 91)
+    w_srcs = [int(ds.n_id.shape[0])] + [a.w_dst for a in ds.adjs[:-1]]
+    for layer, (adj, w_src) in enumerate(zip(ds.adjs, w_srcs)):
+        x = resident.lookup_padded(ds.n_id) if layer == 0 else None
+        mean_pair_check(logged, adj, w_src, DIM if layer == 0 else HIDDEN, gen,
+                        f"fanout cols layer {layer}", x=x)
+
+    # the train leg at k = 64 through the sampler
+    sampler = GraphSageSampler(topo, FANOUT_SIZES, device=dev, seed=seed + 92)
+
+    def inputs(s):
+        d = sampler.sample_dense(s)
+        return d, resident.lookup_padded(d.n_id)
+
+    counts, _ = train_leg(f"sample_dense{list(FANOUT_SIZES)}+lookup_padded", inputs,
+                          ("sample_tiled", "local_reindex", "gather_rows", "masked_mean",
+                           "masked_mean_backward/cols"), labels, train_idx, seed, FANOUT_STEPS,
+                          port_kernel_names(), profile=False, tag="fanout train")
+
+    # K7 tiled and flat, K8, at k = 64 on the seeds; then their samplers
+    f64 = f64_ops_per_lane()
+    valid = torch.ones_like(seeds, dtype=torch.bool)
+    g_w = (*wtopo.to_device_tiled(dev), wtopo.to_device_tiled_weights(dev))
+    g_f = (*wtopo.to_device(dev), wtopo.to_device_weights(dev))
+    wkey = qrandom.key(seed + 93)
+    deg, ptr = gumbel_inputs(indptr, seeds, valid, MAX_DEG)
+    wargs = (seeds, valid, fk, wkey, MAX_DEG)
+    draws = {}
+    for layout, g, fn, plain in (
+        ("tiled", g_w, sample.tiled_weighted_sample_layer, sample.tiled_weighted_sample_layer_plain),
+        ("flat", g_f, sample.weighted_sample_layer, sample.weighted_sample_layer_plain),
+    ):
+        got, want = fn(*g, *wargs), plain(*g, *wargs)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K7 {layout} at k={fk} differs from its plain version")
+        draws[layout] = got
+        lanes = torch.clamp(ptr[:, None] + torch.arange(MAX_DEG, device=dev)[None, :], 0,
+                            g_f[2].shape[0] - 1)
+        scores = sample.gumbel_scores(wkey, deg, g_f[2][lanes])
+        live = int(torch.isfinite(scores).sum())
+        record(logged, f"weighted_sample_{layout}", 0.0, time_ms(lambda: fn(*g, *wargs)),
+               time_ms(lambda: plain(*g, *wargs), reps=5),
+               gumbel_bound(indptr, seeds, valid, fk, MAX_DEG, live, f64[layout]),
+               time_ms(lambda: torch.topk(scores, fk)),
+               shape=f"fanout W={seeds.shape[0]} k={fk} live={live}", report=False)
+    (tn, tv), (fn_, fv) = draws["tiled"], draws["flat"]
+    check(torch.equal(tv, fv) and torch.equal(tn[tv], fn_[fv]),
+          f"K7's tiled and flat draws differ at k={fk}")
+    graph = tg.temporal_graph()
+    t = torch.rand(seeds.shape[0], generator=gen, device=dev) * TS_SPAN
+    targs = (seeds, valid, fk, wkey, t, MAX_DEG, RECENCY)
+    got = sample.tiled_temporal_sample_layer(*graph, *targs)
+    want = sample.tiled_temporal_sample_layer_plain(*graph, *targs)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"K8 at k={fk} differs from its plain version")
+    base = graph[0][torch.clamp(seeds.long(), 0, graph[0].shape[0] - 1), 0]
+    w_rows = sample.temporal_weight_rows(sample._tiled_payload_window(base, graph[2], MAX_DEG), t,
+                                         RECENCY)
+    scores = sample.gumbel_scores(wkey, deg, w_rows)
+    live = int(torch.isfinite(scores).sum())
+    record(logged, "temporal_sample_tiled", 0.0,
+           time_ms(lambda: sample.tiled_temporal_sample_layer(*graph, *targs)),
+           time_ms(lambda: sample.tiled_temporal_sample_layer_plain(*graph, *targs), reps=5),
+           gumbel_bound(indptr, seeds, valid, fk, MAX_DEG, live, f64["temporal"],
+                        extra_row_bytes=4),
+           time_ms(lambda: torch.topk(scores, fk)),
+           shape=f"fanout W={seeds.shape[0]} k={fk} live={live}", report=False)
+    seeds_np = seeds.cpu().numpy()
+    for layout in ("tiled", "flat"):
+        ws = GraphSageSampler(wtopo, FANOUT_SIZES, device=dev, seed=seed + 94, weighted=True,
+                              max_deg=MAX_DEG, layout=layout)
+        _kernels.reset_counts()
+        wds = ws.sample_dense(seeds_np)
+        torch.cuda.synchronize()
+        n = _kernels.counts()[f"weighted_sample_{layout}"]
+        check(n == len(FANOUT_SIZES) and wds.adjs[-1].mask.shape == (seeds.shape[0], fk),
+              f"the weighted {layout} sampler launched K7 {n} times at {FANOUT_SIZES}")
+    tsampler = GraphSageSampler(topo, FANOUT_SIZES, device=dev, seed=seed + 95, dedup=False,
+                                max_deg=MAX_DEG).bind_temporal(tg, recency=RECENCY)
+    _kernels.reset_counts()
+    tds = tsampler.sample_dense(seeds_np[:BATCH], t=t[:BATCH].cpu().numpy())
+    torch.cuda.synchronize()
+    n = _kernels.counts()["temporal_sample_tiled"]
+    check(n == len(FANOUT_SIZES) and tds.adjs[-1].mask.shape == (BATCH, fk),
+          f"the temporal sampler launched K8 {n} times at {FANOUT_SIZES}")
+    for layer, adj in enumerate(tds.adjs):
+        w_src = adj.w_dst * (1 + adj.mask.shape[1])
+        mean_pair_check(logged, adj, w_src, HIDDEN, gen, f"fanout structural layer {layer}")
+    log("fanout: " + json.dumps({"sizes": list(FANOUT_SIZES), "seeds": int(seeds.shape[0]),
+                                 "n_id": int(ds.n_id.shape[0]),
+                                 "hops": [list(a.mask.shape) for a in ds.adjs],
+                                 "temporal_hops": [list(a.mask.shape) for a in tds.adjs],
+                                 "checked": "bit-equal (K1, K2, K4b, K7, K8), K4 within 1e-5"}))
+    torch.cuda.synchronize()
+    return counts
 
 
 def weighted_train_phase(wtopo, resident, labels, train_idx, seed):
@@ -3884,7 +4183,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", torch.cuda.current_device())
-    t_run = time.perf_counter()
+    t_run = _T_RUN[0] = time.perf_counter()
 
     log(f"build: {_kernels.build():.1f} s")
     for stem, text in sorted(_kernels.build_log.items()):
@@ -3905,6 +4204,7 @@ def main() -> int:
     log(f"tiled graph on the card in {time.perf_counter() - t0:.1f} s")
 
     rows = kernel_phase(topo, table, bind_params(model, params, dev), seeds)
+    phase_done("kernels-1")
 
     # -- the main path: tiled serving ------------------------------------------
     engine = ServeEngine(model, params, sampler, table,
@@ -3936,6 +4236,7 @@ def main() -> int:
     replay_cpu = replay_check(topo, model, params, table, engine, served, "cpu", 2, 1e-3)
     log(f"replay: 8 dispatches on the card max |diff| {replay_dev} (bit-equal); "
         f"2 on the CPU plain path max |diff| {replay_cpu:.3g}")
+    phase_done("serve")
 
     # -- the flat layout's path ------------------------------------------------
     flat = GraphSageSampler(topo, SIZES, device=dev, seed=args.seed, layout="flat")
@@ -3949,6 +4250,7 @@ def main() -> int:
     for name in ("sample_flat", "local_reindex", "gather_rows", "masked_mean"):
         check(fcounts[name] > 0, f"kernel {name} never launched on the flat path")
     launches["sample_flat"] = fcounts["sample_flat"]
+    phase_done("flat serve")
     del engine, fengine
 
     # -- the training slice ----------------------------------------------------
@@ -3959,9 +4261,15 @@ def main() -> int:
                                                             replace=False)
     seeds_1024 = torch.from_numpy(train_idx[:TRAIN_BATCH].astype(np.int32)).to(dev)
     rate = kernel_phase_2(topo, table, tiered, seeds_1024, rows, args.seed)
+    phase_done("kernels-2")
+    full_inference_phase(topo, table, model, params)
+    phase_done("full inference")
     train_counts = train_phase(topo, table, resident, tiered, train_idx, args.seed)
+    phase_done("train")
     caps_phase(topo, resident, train_labels(topo.node_count, dev), train_idx, args.seed)
+    phase_done("caps")
     learn_counts = learn_phase()
+    phase_done("learn")
     for name in ("masked_mean_backward", "tiered_gather"):
         launches[name] = train_counts[name]
     launches["full_mean"] = learn_counts["full_mean"]
@@ -3970,20 +4278,25 @@ def main() -> int:
     budget = tiered.shard_tensor.tier_bytes()["device"]
     qtiered, qresident = build_quant_tables(topo, table_np, budget, dev)
     kernel_phase_3(topo, tiered, qtiered, qresident, seeds_1024, rows, rate, args.seed)
+    phase_done("kernels-3")
     pipe_counts = pipeline_phase(topo, tiered, qtiered, qresident, train_idx, args.seed)
+    phase_done("pipeline")
     for name in ("tiered_lookup", "gather_dequant", "quantized_tiered_lookup"):
         launches[name] = pipe_counts[name]
     del qtiered, qresident
 
     # -- the out-of-core slice: K6 and K11, then training through the disk tier ----
     kernel_phase_4(topo, tiered, train_idx, rows)
+    phase_done("kernels-4")
     tier_counts, heat_order = tiers_phase(topo, table_np, train_idx, args.seed, dev)
+    phase_done("tiers")
     for name in ("set_rows", "neighbor_prob"):
         launches[name] = tier_counts[name]
 
     # -- the weighted and temporal slice: K7, K8, K8w ------------------------------
     wtopo, ts_np = weighted_inputs(topo, args.seed)
     kernel_phase_6(topo, wtopo, ts_np, seeds_1024, rows)
+    phase_done("kernels-6")
     t0 = time.perf_counter()
     tg = tile_build("timestamps", lambda: TemporalTiledGraph(topo, ts_np, device=dev))
     log(f"timestamp tiles on the card in {time.perf_counter() - t0:.1f} s")
@@ -3995,18 +4308,28 @@ def main() -> int:
     tvals = torch.from_numpy(np.float32([quantize_t(t, T_QUANTUM)
                                          for t in ttrace.t_query[spread]])).to(dev)
     kernel_phase_5(topo, wtopo, tg, ts_np, seeds_1024, tseeds, tvals, rows, args.seed)
+    phase_done("kernels-5")
     w_counts = weighted_train_phase(wtopo, resident, train_labels(topo.node_count, dev),
                                     train_idx, args.seed)
+    phase_done("weighted train")
+
+    # -- fanouts above 32 on the card: K1, K2, K4, K4b, K7, K8 at k = 64 ----------------
+    fanout_phase(topo, wtopo, tg, resident, train_labels(topo.node_count, dev), train_idx,
+                 seeds_1024, args.seed)
+    phase_done("fanout")
 
     # -- the model zoo slice: K14, K14b, K14c; GCN, GAT and bf16 training -----------
     kernel_phase_7(topo, seeds_1024, rows, args.seed)
+    phase_done("kernels-7")
     zoo_counts = zoo_phase(topo, resident, train_labels(topo.node_count, dev), train_idx,
                            args.seed)
+    phase_done("zoo")
     for name in ("gather_src", "gather_src_backward", "block_out_degree"):
         launches[name] = zoo_counts[name]
     del resident
     t_counts, k8w_launches = temporal_serve_phase(topo, tg, model, params, table, ttrace,
                                                   args.seed)
+    phase_done("temporal serve")
     launches["weighted_sample_tiled"] = w_counts["tiled"]["weighted_sample_tiled"]
     launches["weighted_sample_flat"] = w_counts["flat"]["weighted_sample_flat"]
     launches["temporal_sample_tiled"] = t_counts["temporal_sample_tiled"]
@@ -4015,28 +4338,36 @@ def main() -> int:
     # -- the multi-device slice: K13a, K13b, K9c; (dp, ici) training on rank threads --
     mc = mc_setup(topo, table, train_idx, args.seed)
     k9c_counts = kernel_phase_8(topo, table, mc, seeds_1024, rows, args.seed)
+    phase_done("kernels-8")
     mc_counts = multichip_phase(topo, table, train_labels(topo.node_count, dev), mc, args.seed)
+    phase_done("multichip")
     for name in ("sharded_rows", "sharded_sample_tiled", "sharded_sample_flat"):
         launches[name] = mc_counts[name]
     launches["sharded_dequant"] = k9c_counts["sharded_dequant"]  # the ici group's encoded gather
     caps = mc["caps"]
     del mc
     multichip_learn_phase()
+    phase_done("learn multichip")
 
     # -- the host axis: K13c, K13d, K13e; (host, dp, ici) training on rank threads ------
     host = host_setup(topo, table, train_idx, heat_order, caps, args.seed)
     kernel_phase_9(topo, table, host, rows, args.seed)
+    phase_done("kernels-9")
     host_counts = host_phase(topo, table, train_labels(topo.node_count, dev), host, args.seed)
+    phase_done("host")
     for name in ("grouped_unpack", "cold_compact", "cold_merge"):
         launches[name] = host_counts[name]
     del host
     torch.cuda.empty_cache()
     host_learn_phase()
+    phase_done("learn host")
 
     # -- the fleet: routed serving over the serve exchange, K13f --------------------
     fleet_counts = fleet_phase(topo, table, model, params, trace, args.seed)
+    phase_done("fleet")
     launches["exchange_rows"] = fleet_counts["exchange_rows"]
     kernel_phase_10(topo, table, trace, rows, args.seed)
+    phase_done("kernels-10")
     launches["build_tiles"] = sum(b["launches"] for b in TILE_BUILDS)
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))

@@ -32,9 +32,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# largest fanout k of the Gumbel kernels (one lane a winner) and of the mean
-# kernels (one warp ballot of the k mask bits)
-KMAX = 32
 # largest fanout k of the uniform sampling kernels (K1, K1b: per-thread
 # k-entry tables, in shared memory above 32; csrc/sample.cu QT_SAMPLE_KMAX)
 SAMPLE_KMAX = 512
@@ -65,7 +62,8 @@ KERNELS = {
     "block_out_degree": ("aggregate", "qt_block_out_degree", [_P, _P, _LL, _LL, _P, _P, _P]),
     "tiered_gather": ("gather", "qt_tiered_gather",
                       [_P, _LL, _P, _LL, _I, _P, _LL, _LL, _P, _P, _LL, _P, _P, _P]),
-    "full_mean": ("full_mean", "qt_full_mean", [_P, _P, _I, _LL, _P, _LL, _I, _P, _P]),
+    "full_mean": ("full_mean", "qt_full_mean",
+                  [_P, _P, _I, _LL, _LL, _P, _LL, _I, _P, _P, _LL, _P]),
     "tiered_lookup": ("gather", "qt_tiered_lookup", [_P, _LL, _I, _P, _LL, _P, _LL, _P, _P, _P]),
     "gather_dequant": ("dequant", "qt_gather_dequant",
                        [_I, _P, _LL, _I, _P, _LL, _LL, _P, _P, _P, _P, _P]),
@@ -113,8 +111,10 @@ VARIANTS = {"masked_mean": ("float32", "bfloat16"),
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
            "qt_masked_mean_backward_scratch": ("aggregate",
-                                               [_LL, _I, _I, ctypes.POINTER(_LL)]),
-           "qt_cold_compact_scratch": ("collective", [_LL, ctypes.POINTER(_LL)])}
+                                               [_LL, _I, _I, _I, ctypes.POINTER(_LL)]),
+           "qt_cold_compact_scratch": ("collective", [_LL, ctypes.POINTER(_LL)]),
+           "qt_full_mean_scratch": ("full_mean", [_LL, _LL, _I, ctypes.POINTER(_LL)]),
+           "qt_full_mean_segment_edges": ("full_mean", [ctypes.POINTER(_I)])}
 SOURCES = sorted({stem for stem, _, _ in KERNELS.values()})
 
 _lock = threading.Lock()        # launch counts and the loaded libraries
@@ -248,13 +248,34 @@ def host_device_pointer(t: torch.Tensor) -> int:
     return out.value
 
 
-def masked_mean_backward_scratch_bytes(w_src: int, w_dst: int, k: int) -> int:
+def masked_mean_backward_scratch_bytes(w_src: int, w_dst: int, k: int, D: int = 0) -> int:
     """Bytes of device scratch the cols layout of ``masked_mean_backward``
-    (and ``gather_src_backward``, which shares its source segments) takes;
-    its layout is known to ``csrc/aggregate.cu`` alone."""
+    takes at row width ``D`` (its scaled gradient rows), or, at ``D = 0``,
+    ``gather_src_backward``, which shares its source segments; the layout
+    is known to ``csrc/aggregate.cu`` alone."""
     lib = _lib(HELPERS["qt_masked_mean_backward_scratch"][0])
     out = ctypes.c_longlong()
-    lib.qt_masked_mean_backward_scratch(w_src, w_dst, k, ctypes.byref(out))
+    lib.qt_masked_mean_backward_scratch(w_src, w_dst, k, D, ctypes.byref(out))
+    return out.value
+
+
+def full_mean_scratch_bytes(n: int, n_edges: int, D: int) -> int:
+    """Bytes of device scratch ``full_mean`` takes for ``n`` rows,
+    ``n_edges`` edges and width ``D`` (the segment table and partial rows
+    of its heavy rows, sized for the most segments the edges can make);
+    its layout is known to ``csrc/full_mean.cu`` alone."""
+    lib = _lib(HELPERS["qt_full_mean_scratch"][0])
+    out = ctypes.c_longlong()
+    lib.qt_full_mean_scratch(n, n_edges, D, ctypes.byref(out))
+    return out.value
+
+
+def full_mean_segment_edges() -> int:
+    """The edges of one segment of ``full_mean``: a row of more edges is
+    split into segments that separate warps sum."""
+    lib = _lib(HELPERS["qt_full_mean_segment_edges"][0])
+    out = ctypes.c_int()
+    lib.qt_full_mean_segment_edges(ctypes.byref(out))
     return out.value
 
 

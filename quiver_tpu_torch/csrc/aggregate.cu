@@ -13,13 +13,41 @@
 //
 // Bound on the card: bytes — the valid neighbor rows of x are read once
 // each (D elements per valid lane), the output written once; the adds are
-// one per element read. Design: one warp per target row; lane j holds
-// lane j's (mask, src) so the row's valid set is one ballot, the columns
-// run across the lanes (coalesced reads of each neighbor row), and the
-// k-step sum of each column stays in a register. Needs k <= 32.
+// one per element read. Design: one warp per target row; the row's k lanes
+// are taken in chunks of 32, lane j of a chunk holding that chunk's lane j
+// (mask, src), so a chunk's valid set is one ballot and the count the sum
+// of the chunks' popcounts; the columns run across the lanes (coalesced
+// reads of each neighbor row), and the k-step sum of each column stays in
+// a register, in ascending j. The first chunk stays in registers across
+// the column loop; later chunks (k > 32) are read again for each 32
+// columns. Any k.
 
 #include "common.cuh"
 #include "scan.cuh"
+
+// lane j's (mask, src) of target row `row`, false and 0 past k
+__device__ __forceinline__ bool mean_lane(const bool* __restrict__ mask,
+                                          const int32_t* __restrict__ cols, long long w_src,
+                                          int32_t w_dst, int k, long long row, int j,
+                                          long long* src) {
+  *src = 0;
+  if (j >= k) return false;
+  const long long q = row * k + j;
+  *src = cols != nullptr ? qt_clamp<long long>(cols[q], 0, w_src - 1)
+                         : static_cast<long long>(w_dst) + static_cast<long long>(j) * w_dst + row;
+  return mask[q];
+}
+
+// the number of valid lanes of target row `row` (k lanes, 32 a chunk)
+__device__ __forceinline__ int mean_row_count(const bool* __restrict__ mask, int k,
+                                              long long row, int lane) {
+  int cnt = 0;
+  for (int c0 = 0; c0 < k; c0 += 32) {  // warp-uniform
+    const bool m = c0 + lane < k && mask[row * k + c0 + lane];
+    cnt += __popc(__ballot_sync(0xFFFFFFFFu, m));
+  }
+  return cnt;
+}
 
 template <typename E>
 __global__ void masked_mean_kernel(const typename E::T* __restrict__ x, long long w_src, int D,
@@ -29,24 +57,26 @@ __global__ void masked_mean_kernel(const typename E::T* __restrict__ x, long lon
   const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= w_dst) return;  // warp-uniform
-  bool m = false;
-  long long src = 0;
-  if (lane < k) {
-    const long long q = row * k + lane;
-    m = mask[q];
-    src = cols != nullptr
-              ? qt_clamp<long long>(cols[q], 0, w_src - 1)
-              : static_cast<long long>(w_dst) + static_cast<long long>(lane) * w_dst + row;
-  }
-  const unsigned valid = __ballot_sync(0xFFFFFFFFu, m);
-  const int cnt = __popc(valid);
+  long long src0;
+  const bool m0 = mean_lane(mask, cols, w_src, w_dst, k, row, lane, &src0);
+  const unsigned valid0 = __ballot_sync(0xFFFFFFFFu, m0);
+  const int cnt = k <= 32 ? __popc(valid0) : mean_row_count(mask, k, row, lane);
   const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
   for (int d0 = 0; d0 < D; d0 += 32) {  // warp-uniform trip count
     const int d = d0 + lane;
     float acc = 0.0f;
-    for (int j = 0; j < k; ++j) {
-      const long long sj = __shfl_sync(0xFFFFFFFFu, src, j);
-      if (((valid >> j) & 1u) && d < D) acc = __fadd_rn(acc, E::load(x + sj * D + d));
+    for (int c0 = 0; c0 < k; c0 += 32) {  // warp-uniform
+      long long src = src0;
+      unsigned valid = valid0;
+      if (c0 > 0) {
+        const bool m = mean_lane(mask, cols, w_src, w_dst, k, row, c0 + lane, &src);
+        valid = __ballot_sync(0xFFFFFFFFu, m);
+      }
+      const int n = k - c0 < 32 ? k - c0 : 32;
+      for (int j = 0; j < n; ++j) {
+        const long long sj = __shfl_sync(0xFFFFFFFFu, src, j);
+        if (((valid >> j) & 1u) && d < D) acc = __fadd_rn(acc, E::load(x + sj * D + d));
+      }
     }
     if (d < D) E::store(out + row * D + d, __fdiv_rn(acc, denom));
   }
@@ -67,7 +97,6 @@ QT_EXPORT int qt_masked_mean(const void* x, long long w_src, int D, const void* 
                              const void* cols, int w_dst, int k, void* out, int bf16,
                              void* stream) {
   if (w_dst <= 0 || D <= 0) return 0;
-  if (k > 32) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
     launch_masked_mean<QtBF16>(x, w_src, D, mask, cols, w_dst, k, out, st);
@@ -85,64 +114,55 @@ QT_EXPORT int qt_masked_mean(const void* x, long long w_src, int D, const void* 
 // contributes mask[i, j] * g[i] / max(cnt_i, 1) (float32 division, as the
 // reference's vjp of the divide) to source row src(i, j); rows no valid
 // lane names get zero. The target prefix's lin_r gradient is not part of
-// this function (autograd adds it).
+// this function (autograd adds it). Any k.
 //
 // Structural layout (cols == nullptr): src(i, j) = W + j*W + i, so each
 // source row receives at most one term: one warp per source row writes it
-// (or zeros), no reduction at all.
+// (or zeros), no reduction at all; the warp counts its target's valid
+// lanes 32 at a time.
 //
 // Cols layout: many targets can name one source row, so this is a
 // scatter-add. It is deterministic — no float atomics, and the sum of
 // each source row runs over its lanes in ascending flat index q = i*k + j
-// on every run, so two runs give bit-equal gradients:
-//   1. count: one warp per target row; its valid lanes add one to their
-//      source row's lane count (an integer atomic, whose result does not
-//      depend on the order) and lane 0 stores max(cnt_i, 1) as a float;
-//   2. scan: three coalesced passes turn the counts into segment offsets
-//      (exclusive);
-//   3. fill: one thread per valid lane drops q into its source row's
-//      segment through an atomic cursor — positions in arrival order;
-//   4. sum: one warp per source row ranks its segment's q values (each
-//      value's rank is the number of smaller ones; the q are distinct),
-//      writes them in ascending order, then sums g[i] / cnt_i in that
-//      order with each lane owning columns.
+// on every run, so two runs give bit-equal gradients. A warp per target
+// row first counts its valid lanes and writes g[i] / max(cnt_i, 1) (a
+// float32 division, as the reference's vjp of the divide) to a float32
+// scratch row; then K14b's pipeline (below) runs on the lanes: the valid
+// lanes' counts a source row (a thread a lane, integer atomics), the scan
+// into segment offsets, the fill, the rank of each slot in its segment (a
+// thread a slot, which stores the lane's target row i), and a warp per
+// (source row, 128 columns) adds the ordered segment's scaled rows.
 // Clipped columns are clipped as the forward clips them, and lanes the
 // mask drops (invalid, or past a cap) add nothing. A bfloat16 gradient is
 // divided and summed in float32 and rounded once, when stored.
 //
 // Bound on the card: bytes — g and the mask and cols read once, d x_src
-// written once. Design: the count, scan and fill move 4-byte integers
-// only; the sum reads each contributing g row once per lane that names it
-// (a row shared by targets is read once per target, from L2 mostly). The
-// rank step is quadratic in a segment's length, which stays small except
-// at hub sources (about a thousand lanes at batch 1024 on a power-law
-// graph); one warp walks a hub's whole segment, so the hub sets the
-// kernel's time (splitting it across warps is later work).
+// written once. Design: the scaled rows cost one float32 pass over g (W x
+// D), so the sum's critical path, a hub source's segment (about 1,500
+// lanes at batch 1024 on the products graph) walked by one warp a 128
+// columns with 8 rows in flight, holds loads and adds only; the count,
+// scan, fill and rank move 4-byte integers, the rank of a hub's n lanes in
+// time n by n threads.
 
-// 1. lane counts per source row and the float count per target row
-__global__ void mean_bwd_count_kernel(const bool* __restrict__ mask,
-                                      const int32_t* __restrict__ cols, int32_t w_dst, int k,
-                                      long long w_src, int32_t* __restrict__ deg,
-                                      float* __restrict__ cntf) {
+// each target row's gradient divided by its count max(cnt_i, 1), in
+// float32: a warp a row
+template <typename E>
+__global__ void mean_scale_kernel(const typename E::T* __restrict__ g, int D,
+                                  const bool* __restrict__ mask, int32_t w_dst, int k,
+                                  float* __restrict__ scaled) {
   const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= w_dst) return;  // warp-uniform
-  bool m = false;
-  long long src = 0;
-  if (lane < k) {
-    const long long q = row * k + lane;
-    m = mask[q];
-    src = qt_clamp<long long>(cols[q], 0, w_src - 1);
-  }
-  const int cnt = __popc(__ballot_sync(0xFFFFFFFFu, m));
-  if (lane == 0) cntf[row] = static_cast<float>(cnt > 1 ? cnt : 1);
-  if (m) atomicAdd(deg + src, 1);
+  const int cnt = mean_row_count(mask, k, row, lane);
+  const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
+  for (int c = lane; c < D; c += 32)
+    scaled[row * D + c] = __fdiv_rn(E::load(g + row * D + c), denom);
 }
 
-// 2. exclusive scan of deg[n] into offsets[n + 1] (and a copy of the
-//    first n into cursor), in three coalesced passes over tiles of
-//    kScanTile: the tile totals, their scan in one block, then each tile's
-//    own scan plus its offset
+// scan of the lane counts deg[n] into offsets[n + 1] (and a copy of the
+// first n into cursor), in three coalesced passes over tiles of
+// kScanTile: the tile totals, their scan in one block, then each tile's
+// own scan plus its offset
 // (kScanTile and the block scan: scan.cuh)
 __global__ void mean_bwd_tile_sums_kernel(const int32_t* __restrict__ deg, long long n,
                                           int32_t* __restrict__ tile_sums) {
@@ -168,7 +188,7 @@ __global__ void mean_bwd_tile_scan_kernel(const int32_t* __restrict__ deg, long 
   if (i == n - 1) offsets[n] = at + v;
 }
 
-// 3. each valid lane's flat index into its source row's segment
+// each valid lane's flat index into its source row's segment
 __global__ void mean_bwd_fill_kernel(const bool* __restrict__ mask,
                                      const int32_t* __restrict__ cols, long long n_lanes,
                                      long long w_src, int32_t* __restrict__ cursor,
@@ -179,94 +199,8 @@ __global__ void mean_bwd_fill_kernel(const bool* __restrict__ mask,
   lanes[atomicAdd(cursor + src, 1)] = static_cast<int32_t>(q);
 }
 
-// 4. per source row: order the segment, then sum in that order. One walk
-//    of the segment serves up to kChunks column chunks a lane (256 columns
-//    with 4-element loads), and the loads of kLanesInFlight lanes are
-//    issued before their adds, so a hub's long segment is walked once with
-//    8 gradient rows in flight
+// rows the ordered sum (5, below) has in flight a warp
 constexpr int kLanesInFlight = 8;
-constexpr int kChunks = 2;
-
-template <typename E>
-__global__ void mean_bwd_sum_kernel(const typename E::T* __restrict__ g, int D,
-                                    const float* __restrict__ cntf, int k, long long w_src,
-                                    const int32_t* __restrict__ offsets,
-                                    const int32_t* __restrict__ lanes,
-                                    int32_t* sorted, bool vec4,
-                                    typename E::T* __restrict__ gx) {
-  const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= w_src) return;  // warp-uniform
-  const int32_t base = offsets[row];
-  const int32_t n = offsets[row + 1] - base;
-  for (int32_t t0 = 0; t0 < n; t0 += 32) {  // warp-uniform trip counts
-    const int32_t mine = t0 + lane < n ? lanes[base + t0 + lane] : INT32_MAX;
-    int32_t rank = 0;
-    for (int32_t c0 = 0; c0 < n; c0 += 32) {
-      const int32_t v = c0 + lane < n ? lanes[base + c0 + lane] : INT32_MAX;
-      for (int u = 0; u < 32; ++u) rank += __shfl_sync(0xFFFFFFFFu, v, u) < mine;
-    }
-    if (t0 + lane < n) sorted[base + rank] = mine;
-  }
-  __syncwarp();  // the ordered segment is visible to the whole warp
-  typename E::T* out = gx + row * D;
-  const int width = vec4 ? 4 : 1;       // columns a lane loads at once
-  const int stride = 32 * width;        // columns a warp covers per chunk
-  for (int c0 = 0; c0 < D; c0 += kChunks * stride) {  // warp-uniform
-    float4 acc[kChunks];
-#pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch) acc[ch] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int32_t t = 0; t < n; t += kLanesInFlight) {
-      float4 v[kLanesInFlight][kChunks];
-      float cnt[kLanesInFlight];
-#pragma unroll
-      for (int u = 0; u < kLanesInFlight; ++u) {  // all loads first ...
-        cnt[u] = 1.0f;
-        const typename E::T* gi = g;
-        if (t + u < n) {
-          const int32_t i = sorted[base + t + u] / k;
-          cnt[u] = cntf[i];
-          gi = g + static_cast<long long>(i) * D;
-        }
-#pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch) {
-          const int c = c0 + ch * stride + lane * width;
-          v[u][ch] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (t + u < n && c < D) {
-            if (vec4) {
-              v[u][ch] = E::load4(gi + c);
-            } else {
-              v[u][ch].x = E::load(gi + c);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kLanesInFlight; ++u) {  // ... then the adds, in lane order
-        if (t + u < n) {
-#pragma unroll
-          for (int ch = 0; ch < kChunks; ++ch) {
-            acc[ch].x = __fadd_rn(acc[ch].x, __fdiv_rn(v[u][ch].x, cnt[u]));
-            acc[ch].y = __fadd_rn(acc[ch].y, __fdiv_rn(v[u][ch].y, cnt[u]));
-            acc[ch].z = __fadd_rn(acc[ch].z, __fdiv_rn(v[u][ch].z, cnt[u]));
-            acc[ch].w = __fadd_rn(acc[ch].w, __fdiv_rn(v[u][ch].w, cnt[u]));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch) {
-      const int c = c0 + ch * stride + lane * width;
-      if (c < D) {
-        if (vec4) {
-          E::store4(out + c, acc[ch]);
-        } else {
-          E::store(out + c, acc[ch].x);
-        }
-      }
-    }
-  }
-}
 
 // structural layout: source row r = W + j*W + i takes lane (i, j) alone
 template <typename E>
@@ -278,31 +212,28 @@ __global__ void mean_bwd_structural_kernel(const typename E::T* __restrict__ g, 
   const int lane = threadIdx.x & 31;
   if (row >= w_src) return;  // warp-uniform
   const long long rel = row - w_dst;
-  const bool inside = rel >= 0 && rel < static_cast<long long>(w_dst) * k;
+  const bool inside = rel >= 0 && rel < static_cast<long long>(w_dst) * k;  // warp-uniform
   const long long i = inside ? rel % w_dst : 0;
   const int j = inside ? static_cast<int>(rel / w_dst) : 0;
-  bool m = false;
-  if (inside && lane < k) m = mask[i * k + lane];
-  const unsigned valid = __ballot_sync(0xFFFFFFFFu, m);
-  const int cnt = __popc(valid);
+  const int cnt = inside ? mean_row_count(mask, k, i, lane) : 0;
   const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
-  const bool take = inside && ((valid >> j) & 1u);
+  const bool take = inside && mask[i * k + j];
   for (int c = lane; c < D; c += 32)
     E::store(gx + row * D + c, take ? __fdiv_rn(E::load(g + i * D + c), denom) : 0.0f);
 }
 
 // The cols layout's scratch (K4b's and K14b's): lane counts, offsets,
-// cursors, the lanes in arrival and in flat-index order, the float counts
-// (K4b only) and the scan's tile sums, carved from one buffer of the
-// caller's in 256-byte-aligned parts. Only this file knows the layout;
-// the wrapper asks for its size.
+// cursors, the lanes in arrival and in flat-index order, the scan's tile
+// sums and (K4b only, D > 0) the scaled gradient rows, carved from one
+// buffer of the caller's in 256-byte-aligned parts. Only this file knows
+// the layout; the wrapper asks for its size.
 struct MeanBwdScratch {
   int32_t *deg, *offsets, *cursor, *lanes, *sorted, *tile_sums;
-  float* cntf;
+  float* scaled;
   long long bytes;
 };
 
-static MeanBwdScratch mean_bwd_scratch(char* base, long long w_src, int w_dst, int k) {
+static MeanBwdScratch mean_bwd_scratch(char* base, long long w_src, int w_dst, int k, int D) {
   MeanBwdScratch s{};
   long long at = 0;
   auto take = [&](long long n, size_t elem) {
@@ -316,88 +247,19 @@ static MeanBwdScratch mean_bwd_scratch(char* base, long long w_src, int w_dst, i
   s.cursor = reinterpret_cast<int32_t*>(take(w_src, sizeof(int32_t)));
   s.lanes = reinterpret_cast<int32_t*>(take(n_lanes, sizeof(int32_t)));
   s.sorted = reinterpret_cast<int32_t*>(take(n_lanes, sizeof(int32_t)));
-  s.cntf = reinterpret_cast<float*>(take(w_dst, sizeof(float)));
   s.tile_sums = reinterpret_cast<int32_t*>(take((w_src + kScanTile - 1) / kScanTile,
                                                 sizeof(int32_t)));
+  s.scaled = reinterpret_cast<float*>(take(static_cast<long long>(w_dst) * D, sizeof(float)));
   s.bytes = at;
   return s;
 }
 
-// bytes of scratch the cols layout needs (the structural layout needs none)
-QT_EXPORT int qt_masked_mean_backward_scratch(long long w_src, int w_dst, int k,
+// bytes of scratch the cols layout needs at row width D (K4b), or D = 0
+// (K14b); the structural layout needs none
+QT_EXPORT int qt_masked_mean_backward_scratch(long long w_src, int w_dst, int k, int D,
                                               long long* bytes) {
-  *bytes = mean_bwd_scratch(nullptr, w_src, w_dst, k).bytes;
+  *bytes = mean_bwd_scratch(nullptr, w_src, w_dst, k, D).bytes;
   return 0;
-}
-
-// 2-3 of the cols layout, given the lane counts in sc.deg: the scan into
-// segment offsets, then each valid lane's flat index into its segment
-static int scan_and_fill(const bool* m, const int32_t* c, long long n_lanes, long long w_src,
-                         const MeanBwdScratch& sc, cudaStream_t st) {
-  const int threads = 256;
-  const long long n_tiles = (w_src + kScanTile - 1) / kScanTile;
-  mean_bwd_tile_sums_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
-      sc.deg, w_src, sc.tile_sums);
-  if (int e = qt_launch_status()) return e;
-  qt_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(sc.tile_sums, n_tiles, nullptr);
-  if (int e = qt_launch_status()) return e;
-  mean_bwd_tile_scan_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
-      sc.deg, w_src, sc.tile_sums, sc.offsets, sc.cursor);
-  if (int e = qt_launch_status()) return e;
-  if (n_lanes > 0) {
-    mean_bwd_fill_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
-        m, c, n_lanes, w_src, sc.cursor, sc.lanes);
-    if (int e = qt_launch_status()) return e;
-  }
-  return 0;
-}
-
-template <typename E>
-static int masked_mean_backward_any(const void* g, int D, const void* mask, const void* cols,
-                                    int w_dst, int k, long long w_src, void* gx, void* scratch,
-                                    long long scratch_bytes, cudaStream_t st) {
-  using T = typename E::T;
-  const int threads = 256;
-  const T* gt = static_cast<const T*>(g);
-  const bool* m = static_cast<const bool*>(mask);
-  T* out = static_cast<T*>(gx);
-  if (cols == nullptr) {
-    mean_bwd_structural_kernel<E><<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
-        gt, D, m, w_dst, k, w_src, out);
-    return qt_launch_status();
-  }
-  const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k);
-  if (scratch == nullptr || scratch_bytes < sc.bytes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int32_t* c = static_cast<const int32_t*>(cols);
-  cudaError_t err = cudaMemsetAsync(sc.deg, 0, sizeof(int32_t) * w_src, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (w_dst > 0 && k > 0) {
-    mean_bwd_count_kernel<<<qt_blocks(static_cast<long long>(w_dst) * 32, threads), threads, 0,
-                            st>>>(m, c, w_dst, k, w_src, sc.deg, sc.cntf);
-    if (int e = qt_launch_status()) return e;
-  }
-  const long long n_lanes = static_cast<long long>(w_dst) * k;
-  if (int e = scan_and_fill(m, c, n_lanes, w_src, sc, st)) return e;
-  const uintptr_t align = 4 * sizeof(T);
-  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % align == 0 &&
-                    reinterpret_cast<uintptr_t>(gx) % align == 0;
-  mean_bwd_sum_kernel<E><<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
-      gt, D, sc.cntf, k, w_src, sc.offsets, sc.lanes, sc.sorted, vec4, out);
-  return qt_launch_status();
-}
-
-// bf16: 0 for a float32 gradient, 1 for a bfloat16 one (g and gx alike)
-QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, const void* cols,
-                                      int w_dst, int k, long long w_src, void* gx, void* scratch,
-                                      long long scratch_bytes, int bf16, void* stream) {
-  if (w_src <= 0 || D <= 0) return 0;
-  if (k > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? masked_mean_backward_any<QtBF16>(g, D, mask, cols, w_dst, k, w_src, gx, scratch,
-                                                 scratch_bytes, st)
-              : masked_mean_backward_any<QtF32>(g, D, mask, cols, w_dst, k, w_src, gx, scratch,
-                                                scratch_bytes, st);
 }
 
 // K14b: gather_src_backward — the gradient of the hop-source gather
@@ -421,17 +283,17 @@ QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, co
 //
 // Bound on the card: bytes — the valid lanes' cotangent rows, the mask and
 // cols read once, d x_src written once (3.7 GB of float32 cotangent at
-// GAT's widest hop, 180,224 x 5 lanes of 1,024). Design: K4b's CSR of
-// sources (count with integer atomics, three-pass scan, fill of the valid
-// lanes); then a thread per filled slot ranks its lane within its segment
-// (the number of smaller lane indices), so a hub's segment of n lanes is
-// ordered in time n by n threads, where K4b's warp takes n^2 / 32; then
-// a warp per (source row, 128 columns) walks the ordered segment, each
-// lane summing 4 columns with kLanesInFlight cotangent rows in flight, so
-// a row of 1,024 columns is spread over 8 warps.
+// GAT's widest hop, 180,224 x 5 lanes of 1,024). Design, shared with K4b's
+// cols layout: a CSR of sources (count with integer atomics, three-pass
+// scan, fill of the valid lanes); then a thread per filled slot ranks its
+// lane within its segment (the number of smaller lane indices), so a hub's
+// segment of n lanes is ordered in time n by n threads; then a warp per
+// (source row, 128 columns) walks the ordered segment, each lane summing 4
+// columns with kLanesInFlight rows in flight, so a row of 1,024 columns is
+// spread over 8 warps.
 
-// 1 (K14b and K14c). a thread per lane: each valid lane adds one to its
-// source row — clipped to [0, W_src) (drop = 0), or, as JAX's
+// 1 (K4b, K14b and K14c). a thread per lane: each valid lane adds one to
+// its source row — clipped to [0, W_src) (drop = 0), or, as JAX's
 // .at[cols].add(mode="drop") indexes, a negative col counted from the end
 // and a col still outside [0, W_src) dropped (drop = 1)
 __global__ void lane_count_kernel(const bool* __restrict__ mask,
@@ -450,10 +312,11 @@ __global__ void lane_count_kernel(const bool* __restrict__ mask,
 }
 
 // 4. a thread per filled slot p: its lane q, its segment [base, base + n),
-//    and its rank there; sorted[base + rank] = q. Slots past the total
-//    (offsets[w_src]: the valid lanes) do nothing.
+//    and its rank there; sorted[base + rank] = q / div, the lane's row of
+//    the summed rows (div = k: its target row; div = 1: the lane). Slots
+//    past the total (offsets[w_src]: the valid lanes) do nothing.
 __global__ void src_rank_kernel(const int32_t* __restrict__ cols, long long n_lanes,
-                                long long w_src, const int32_t* __restrict__ offsets,
+                                long long w_src, int div, const int32_t* __restrict__ offsets,
                                 const int32_t* __restrict__ lanes,
                                 int32_t* __restrict__ sorted) {
   const long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
@@ -464,19 +327,55 @@ __global__ void src_rank_kernel(const int32_t* __restrict__ cols, long long n_la
   const int32_t n = offsets[src + 1] - base;
   int32_t rank = 0;
   for (int32_t t = 0; t < n; ++t) rank += lanes[base + t] < q;
-  sorted[base + rank] = q;
+  sorted[base + rank] = div == 1 ? q : q / div;
+}
+
+// 1-4 of the cols layout (K4b and K14b): each source row's segment of
+// valid lanes, in ascending flat lane index, in sc.offsets and sc.sorted
+static int src_segments(const bool* m, const int32_t* c, long long n_lanes, long long w_src,
+                        int div, const MeanBwdScratch& sc, cudaStream_t st) {
+  const int threads = 256;
+  cudaError_t err = cudaMemsetAsync(sc.deg, 0, sizeof(int32_t) * w_src, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_lanes > 0) {
+    lane_count_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(m, c, n_lanes, w_src, 0,
+                                                                       sc.deg);
+    if (int e = qt_launch_status()) return e;
+  }
+  // 2. the scan into segment offsets
+  const long long n_tiles = (w_src + kScanTile - 1) / kScanTile;
+  mean_bwd_tile_sums_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
+      sc.deg, w_src, sc.tile_sums);
+  if (int e = qt_launch_status()) return e;
+  qt_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(sc.tile_sums, n_tiles, nullptr);
+  if (int e = qt_launch_status()) return e;
+  mean_bwd_tile_scan_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
+      sc.deg, w_src, sc.tile_sums, sc.offsets, sc.cursor);
+  if (int e = qt_launch_status()) return e;
+  if (n_lanes > 0) {
+    // 3. the fill, then 4. the rank
+    mean_bwd_fill_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
+        m, c, n_lanes, w_src, sc.cursor, sc.lanes);
+    if (int e = qt_launch_status()) return e;
+    src_rank_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(c, n_lanes, w_src, div,
+                                                                     sc.offsets, sc.lanes,
+                                                                     sc.sorted);
+    if (int e = qt_launch_status()) return e;
+  }
+  return 0;
 }
 
 // 5. a warp per (source row, kSrcCols columns): lane l sums columns
 //    c0 + 4l .. c0 + 4l + 3 (vec4: one 4-element load a row) or c0 + l +
-//    32u, u < 4, over the ordered segment's cotangent rows g[q]
+//    32u, u < 4, over the rows x[r] its ordered segment names (K14b: the
+//    lanes' cotangent rows; K4b: the targets' scaled rows)
 constexpr int kSrcCols = 128;
 
-template <typename E>
-__global__ void src_sum_kernel(const typename E::T* __restrict__ g, int F, long long w_src,
+template <typename In, typename Out>
+__global__ void src_sum_kernel(const typename In::T* __restrict__ x, int F, long long w_src,
                                const int32_t* __restrict__ offsets,
                                const int32_t* __restrict__ sorted, bool vec4,
-                               typename E::T* __restrict__ gx) {
+                               typename Out::T* __restrict__ gx) {
   const long long warp = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const int chunks = (F + kSrcCols - 1) / kSrcCols;
@@ -495,14 +394,14 @@ __global__ void src_sum_kernel(const typename E::T* __restrict__ g, int F, long 
     for (int u = 0; u < kLanesInFlight; ++u) {  // all loads first ...
       v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (t + u < n) {
-        const typename E::T* gq = g + static_cast<long long>(sorted[base + t + u]) * F;
+        const typename In::T* xr = x + static_cast<long long>(sorted[base + t + u]) * F;
         if (vec4) {
-          if (col[0] < F) v[u] = E::load4(gq + col[0]);
+          if (col[0] < F) v[u] = In::load4(xr + col[0]);
         } else {
-          if (col[0] < F) v[u].x = E::load(gq + col[0]);
-          if (col[1] < F) v[u].y = E::load(gq + col[1]);
-          if (col[2] < F) v[u].z = E::load(gq + col[2]);
-          if (col[3] < F) v[u].w = E::load(gq + col[3]);
+          if (col[0] < F) v[u].x = In::load(xr + col[0]);
+          if (col[1] < F) v[u].y = In::load(xr + col[1]);
+          if (col[2] < F) v[u].z = In::load(xr + col[2]);
+          if (col[3] < F) v[u].w = In::load(xr + col[3]);
         }
       }
     }
@@ -516,55 +415,89 @@ __global__ void src_sum_kernel(const typename E::T* __restrict__ g, int F, long 
       }
     }
   }
-  typename E::T* out = gx + row * F;
+  typename Out::T* out = gx + row * F;
   if (vec4) {
-    if (col[0] < F) E::store4(out + col[0], acc);
+    if (col[0] < F) Out::store4(out + col[0], acc);
   } else {
-    if (col[0] < F) E::store(out + col[0], acc.x);
-    if (col[1] < F) E::store(out + col[1], acc.y);
-    if (col[2] < F) E::store(out + col[2], acc.z);
-    if (col[3] < F) E::store(out + col[3], acc.w);
+    if (col[0] < F) Out::store(out + col[0], acc.x);
+    if (col[1] < F) Out::store(out + col[1], acc.y);
+    if (col[2] < F) Out::store(out + col[2], acc.z);
+    if (col[3] < F) Out::store(out + col[3], acc.w);
   }
+}
+
+// the segments of the cols layout, then the ordered sums (5) of the rows x
+// (K14b: g itself, div = 1; K4b: the scaled rows of the targets, div = k)
+template <typename In, typename Out>
+static int src_backward(const typename In::T* x, int F, const bool* m, const int32_t* c,
+                        long long n_lanes, long long w_src, int div, void* gx,
+                        const MeanBwdScratch& sc, cudaStream_t st) {
+  if (n_lanes > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (int e = src_segments(m, c, n_lanes, w_src, div, sc, st)) return e;
+  const int threads = 256;
+  const uintptr_t align = 4 * sizeof(typename Out::T);
+  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(*x)) == 0 &&
+                    reinterpret_cast<uintptr_t>(gx) % align == 0;
+  const long long warps = w_src * ((F + kSrcCols - 1) / kSrcCols);
+  src_sum_kernel<In, Out><<<qt_blocks(warps * 32, threads), threads, 0, st>>>(
+      x, F, w_src, sc.offsets, sc.sorted, vec4, static_cast<typename Out::T*>(gx));
+  return qt_launch_status();
+}
+
+template <typename E>
+static int masked_mean_backward_any(const void* g, int D, const void* mask, const void* cols,
+                                    int w_dst, int k, long long w_src, void* gx, void* scratch,
+                                    long long scratch_bytes, cudaStream_t st) {
+  const int threads = 256;
+  const typename E::T* gt = static_cast<const typename E::T*>(g);
+  const bool* m = static_cast<const bool*>(mask);
+  if (cols == nullptr) {
+    mean_bwd_structural_kernel<E><<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
+        gt, D, m, w_dst, k, w_src, static_cast<typename E::T*>(gx));
+    return qt_launch_status();
+  }
+  const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k, D);
+  if (scratch == nullptr || scratch_bytes < sc.bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (w_dst > 0) {
+    mean_scale_kernel<E><<<qt_blocks(static_cast<long long>(w_dst) * 32, threads), threads, 0,
+                           st>>>(gt, D, m, w_dst, k, sc.scaled);
+    if (int e = qt_launch_status()) return e;
+  }
+  return src_backward<QtF32, E>(sc.scaled, D, m, static_cast<const int32_t*>(cols),
+                                static_cast<long long>(w_dst) * k, w_src, k, gx, sc, st);
 }
 
 template <typename E>
 static int gather_src_backward_any(const void* g, int F, const void* mask, const void* cols,
                                    int w_dst, int k, long long w_src, void* gx, void* scratch,
                                    long long scratch_bytes, cudaStream_t st) {
-  using T = typename E::T;
-  const int threads = 256;
-  const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k);
+  const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k, 0);
   if (scratch == nullptr || scratch_bytes < sc.bytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool* m = static_cast<const bool*>(mask);
-  const int32_t* c = static_cast<const int32_t*>(cols);
-  const long long n_lanes = static_cast<long long>(w_dst) * k;
-  cudaError_t err = cudaMemsetAsync(sc.deg, 0, sizeof(int32_t) * w_src, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_lanes > 0) {
-    lane_count_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(m, c, n_lanes, w_src, 0,
-                                                                       sc.deg);
-    if (int e = qt_launch_status()) return e;
-  }
-  if (int e = scan_and_fill(m, c, n_lanes, w_src, sc, st)) return e;
-  if (n_lanes > 0) {
-    src_rank_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(c, n_lanes, w_src,
-                                                                     sc.offsets, sc.lanes,
-                                                                     sc.sorted);
-    if (int e = qt_launch_status()) return e;
-  }
-  const uintptr_t align = 4 * sizeof(T);
-  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(g) % align == 0 &&
-                    reinterpret_cast<uintptr_t>(gx) % align == 0;
-  const long long warps = w_src * ((F + kSrcCols - 1) / kSrcCols);
-  src_sum_kernel<E><<<qt_blocks(warps * 32, threads), threads, 0, st>>>(
-      static_cast<const T*>(g), F, w_src, sc.offsets, sc.sorted, vec4, static_cast<T*>(gx));
-  return qt_launch_status();
+  return src_backward<E, E>(static_cast<const typename E::T*>(g), F,
+                            static_cast<const bool*>(mask), static_cast<const int32_t*>(cols),
+                            static_cast<long long>(w_dst) * k, w_src, 1, gx, sc, st);
+}
+
+// g is [w_dst, D], gx [w_src, D]; scratch (the cols layout) as
+// qt_masked_mean_backward_scratch(w_src, w_dst, k, D) gives; bf16: 0 for a
+// float32 gradient, 1 for a bfloat16 one (g and gx alike). Any k (w_dst * k
+// < 2^31).
+QT_EXPORT int qt_masked_mean_backward(const void* g, int D, const void* mask, const void* cols,
+                                      int w_dst, int k, long long w_src, void* gx, void* scratch,
+                                      long long scratch_bytes, int bf16, void* stream) {
+  if (w_src <= 0 || D <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? masked_mean_backward_any<QtBF16>(g, D, mask, cols, w_dst, k, w_src, gx, scratch,
+                                                 scratch_bytes, st)
+              : masked_mean_backward_any<QtF32>(g, D, mask, cols, w_dst, k, w_src, gx, scratch,
+                                                scratch_bytes, st);
 }
 
 // g is [w_dst * k, F] (the flat lanes' cotangent rows), gx [w_src, F];
-// scratch as qt_masked_mean_backward_scratch(w_src, w_dst, k) gives; bf16:
-// 0 for float32 rows, 1 for bfloat16 rows. Any k.
+// scratch as qt_masked_mean_backward_scratch(w_src, w_dst, k, 0) gives;
+// bf16: 0 for float32 rows, 1 for bfloat16 rows. Any k (w_dst * k < 2^31).
 QT_EXPORT int qt_gather_src_backward(const void* g, int F, const void* mask, const void* cols,
                                      int w_dst, int k, long long w_src, void* gx, void* scratch,
                                      long long scratch_bytes, int bf16, void* stream) {

@@ -23,12 +23,15 @@
 // outputs are bit-equal to the plain torch versions.
 //
 // Design: one warp a row. The warp writes each lane's order key to
-// shared memory (2 to 4 rows a block, Wwin <= 4096), then runs k rounds
+// shared memory (1 to 4 rows a block, Wwin <= 4096), then runs k rounds
 // of a warp arg-max over the keys, each lane scanning a 32-strided slice
 // and a 5-step shuffle butterfly deciding ties by the lower lane; the
-// winner's key becomes QT_KEY_TAKEN. Lanes past max(deg, k) are never
-// scanned: they are -inf and above every lane a round could still pick.
-// Lanes past deg take no uniform and no logarithm.
+// winner's key becomes QT_KEY_TAKEN, and lane 0 writes the round's
+// position and validity to the warp's k-entry array in shared memory, next
+// to the keys. The k ids are then fetched 32 at a time. Lanes past max(deg,
+// k) are never scanned: they are -inf and above every lane a round could
+// still pick. Lanes past deg take no uniform and no logarithm. Any k <=
+// Wwin.
 //
 // Bound on the card: bytes, on the data of a run -- each row's (base,
 // degree) pair, its min(deg, max_deg) window weights or timestamps, the
@@ -41,7 +44,6 @@
 #include "fetch.cuh"
 #include "gumbel.cuh"
 
-#define QT_KMAX 32
 #define QT_MAX_WINDOW 4096
 
 struct FlatWeights {
@@ -130,9 +132,10 @@ __global__ void gumbel_sample_kernel(Fetch g, Window win, int32_t n_nodes,
   }
   __syncwarp();
 
+  // round r's winning position, or its complement where the lane is invalid
+  int32_t* picks = reinterpret_cast<int32_t*>(qt_keys + (blockDim.x >> 5) * wwin) +
+                   static_cast<long long>(warp) * k;
   const int32_t n_valid = deg < k ? deg : k;
-  int32_t my_pos = 0;
-  bool my_valid = false;
   for (int32_t r = 0; r < k; ++r) {
     uint32_t best = QT_KEY_TAKEN;
     int32_t best_j = 0x7FFFFFFF;
@@ -152,17 +155,17 @@ __global__ void gumbel_sample_kernel(Fetch g, Window win, int32_t n_nodes,
         best_j = oj;
       }
     }
-    if (lane == 0) keys[best_j] = QT_KEY_TAKEN;
-    if (lane == r) {
-      my_pos = best_j;
-      my_valid = r < n_valid && best > QT_KEY_NEG_INF;
+    if (lane == 0) {
+      keys[best_j] = QT_KEY_TAKEN;
+      picks[r] = r < n_valid && best > QT_KEY_NEG_INF ? best_j : ~best_j;
     }
     __syncwarp();
   }
-  if (lane < k) {
-    const long long o = static_cast<long long>(b) * k + lane;
-    out[o] = g.fetch(base, my_pos);
-    out_valid[o] = my_valid;
+  for (int32_t r = lane; r < k; r += 32) {
+    const int32_t p = picks[r];
+    const long long o = static_cast<long long>(b) * k + r;
+    out[o] = g.fetch(base, p >= 0 ? p : ~p);
+    out_valid[o] = p >= 0;
   }
 }
 
@@ -171,10 +174,12 @@ static int launch_gumbel(Fetch g, Window win, int n_nodes, const void* seeds,
                          const void* seed_valid, int W, int k, int max_deg, int wwin,
                          unsigned key0, unsigned key1, void* out, void* out_valid, void* stream) {
   if (W <= 0 || k <= 0) return 0;
-  if (k > QT_KMAX || k > wwin || max_deg < 1 || wwin > QT_MAX_WINDOW)
+  if (k > wwin || max_deg < 1 || wwin > QT_MAX_WINDOW)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per_block = wwin <= 2048 ? 4 : 2;  // <= 32 KB of keys a block
-  const size_t smem = static_cast<size_t>(rows_per_block) * wwin * sizeof(uint32_t);
+  // a row's Wwin keys and k picks; <= 48 KB a block (at most 32 KB for one)
+  const int words = wwin + k;
+  const int rows_per_block = words <= 3072 ? 4 : (words <= 6144 ? 2 : 1);
+  const size_t smem = static_cast<size_t>(rows_per_block) * words * sizeof(uint32_t);
   gumbel_sample_kernel<Fetch, Window>
       <<<qt_blocks(W, rows_per_block), rows_per_block * 32, smem,
          static_cast<cudaStream_t>(stream)>>>(

@@ -66,8 +66,9 @@ def full_mean_aggregate(indptr: torch.Tensor, indices: torch.Tensor,
                         h: torch.Tensor) -> torch.Tensor:
     """Exact mean over all neighbors of every node: ``out[u] = mean_{v in
     N(u)} h[clip(v)]`` (zero where the degree is 0), ``[N, D]``. On CUDA
-    tensors one launch of the K10 kernel (deterministic: CSR order, no
-    atomics)."""
+    tensors one counted launch of K10, whose C entry point runs its kernels
+    in turn (the heavy rows' segment table, the sums, the heavy rows'
+    combine); deterministic: a fixed order, no atomics."""
     if indptr.dim() != 1 or indices.dim() != 1 or h.dim() != 2:
         raise ValueError("indptr [N+1], indices [E] and h [N_h, D] expected")
     if len({indptr.device, indices.device, h.device}) != 1:
@@ -80,12 +81,16 @@ def full_mean_aggregate(indptr: torch.Tensor, indices: torch.Tensor,
         raise TypeError("indptr and indices must both be int32 or both int64")
     indptr, indices, h = indptr.contiguous(), indices.contiguous(), h.contiguous()
     n = indptr.shape[0] - 1
-    out = torch.empty((n, h.shape[1]), dtype=h.dtype, device=h.device)
-    if n == 0 or h.shape[1] == 0:
+    D = h.shape[1]
+    out = torch.empty((n, D), dtype=h.dtype, device=h.device)
+    if n == 0 or D == 0:
         return out
+    n_bytes = _kernels.full_mean_scratch_bytes(n, indices.shape[0], D)
+    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=h.device)
     _kernels.launch(
         "full_mean", indptr.data_ptr(), indices.data_ptr(), int(indptr.dtype == torch.int64),
-        n, h.data_ptr(), h.shape[0], h.shape[1], out.data_ptr(), _kernels.stream_of(h),
+        n, indices.shape[0], h.data_ptr(), h.shape[0], D, out.data_ptr(), scratch.data_ptr(),
+        n_bytes, _kernels.stream_of(h),
     )
     return out
 

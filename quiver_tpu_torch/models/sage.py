@@ -111,8 +111,9 @@ def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[tor
                          w_src: int) -> torch.Tensor:
     """`masked_mean_backward_plain`'s function; on CUDA tensors one
     counted launch of K4b, whose C entry point runs its kernels in turn
-    (the cols layout: count, scan, fill, ordered sum). Deterministic: no
-    float atomics, two runs give bit-equal gradients."""
+    (the cols layout: the targets' scaled rows, then K14b's count, scan,
+    fill, rank and ordered sum). Deterministic: no float atomics, two runs
+    give bit-equal gradients. Any k."""
     w, k = mask.shape
     if g.shape[0] != w:
         raise ValueError(f"gradient of {g.shape[0]} rows for {w} targets")
@@ -123,8 +124,8 @@ def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[tor
                         "a bool mask")
     if cols is not None and cols.dtype != torch.int32:
         raise TypeError(f"the mean backward kernel takes int32 cols; got {cols.dtype}")
-    if k > _kernels.KMAX:
-        raise ValueError(f"the mean backward kernel takes k <= {_kernels.KMAX}; got {k}")
+    if cols is not None and w * k >= 2**31:
+        raise ValueError(f"the mean backward kernel indexes lanes in int32; got {w} x {k}")
     g, mask = g.contiguous(), mask.contiguous()
     D = g.shape[1]
     dev = g.device
@@ -134,7 +135,7 @@ def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[tor
     scratch, n_bytes = None, 0
     if cols is not None:
         cols = cols.contiguous()
-        n_bytes = _kernels.masked_mean_backward_scratch_bytes(w_src, w, k)
+        n_bytes = _kernels.masked_mean_backward_scratch_bytes(w_src, w, k, D)
         scratch = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
     bf16 = g.dtype == torch.bfloat16
     _kernels.launch(
@@ -180,8 +181,6 @@ def masked_mean_aggregate(x_src: torch.Tensor, adj: DenseAdj) -> torch.Tensor:
             raise TypeError("the mean kernel takes float32 or bfloat16 x and a bool mask")
         if adj.cols is not None and adj.cols.dtype != torch.int32:
             raise TypeError(f"the mean kernel takes int32 cols; got {adj.cols.dtype}")
-        if k > _kernels.KMAX:
-            raise ValueError(f"the mean kernel takes k <= {_kernels.KMAX}; got {k}")
     return _MaskedMean.apply(x_src, adj.mask, adj.cols)
 
 

@@ -109,6 +109,8 @@ def gather_src_backward(g: torch.Tensor, mask: torch.Tensor, cols: torch.Tensor,
         return gather_src_backward_plain(g, mask, cols, w_src)
     variant = _kernel_dtype(g, "gather_src_backward")
     _check_lanes(mask, cols, "gather_src_backward")
+    if w * k >= 2**31:
+        raise ValueError(f"the gather_src_backward kernel indexes lanes in int32; got {w} x {k}")
     g, mask, cols = g.contiguous(), mask.contiguous(), cols.contiguous()
     rest = tuple(g.shape[2:])
     F = math.prod(rest)

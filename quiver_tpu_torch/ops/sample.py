@@ -345,8 +345,6 @@ def gumbel_window(max_deg: int, layout: str) -> int:
 
 
 def _check_gumbel_args(k, max_deg, wwin, floats):
-    if int(k) > _kernels.KMAX:
-        raise ValueError(f"the Gumbel kernels take k <= {_kernels.KMAX}; got {k}")
     if not 1 <= int(max_deg) <= MAX_WINDOW:
         raise ValueError(f"the Gumbel kernels take 1 <= max_deg <= {MAX_WINDOW}; got {max_deg}")
     if int(k) > wwin:

@@ -63,7 +63,16 @@ the grouped draws against the unsharded rows and draw. The fleet's: the
 serve exchange's owner gather (K13f) on [H, L] id slabs with -1 pads, ids
 past the block (clamped to its last row), all lanes -1, a one-row block and
 an empty L, at D = 100, 99, 4 and 1, bit-equal to its plain version on the
-card and on the CPU."""
+card and on the CPU. Fanouts above 32: K4 (within 1e-5) and K4b
+(bit-equal to its plain version on the CPU and when run twice) at k = 33,
+64 and 512 in both layouts, float32 and bfloat16, the cols layout with a
+source row named by at least 20,000 lanes; K7 (tiled, flat) and K8 at
+k = 33, 64 and k = the window (512 and 4,096), bit-equal on the card and
+on the CPU; a GraphSAGE step at sizes [64, 10] (uniform and weighted
+sampler) against the CPU's plain path. The full-graph mean (K10) on a graph
+with a star of 100 segments' edges and rows at the segment length and one
+past it, at D = 99, 100 and 256 with int32 and int64 ids, bit-equal when
+run twice."""
 
 import numpy as np
 import pytest
@@ -279,6 +288,46 @@ def test_mean_autograd_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_wide_fanout_training_step_on_card_matches_cpu(cuda_device, weighted):
+    """A GraphSAGE step at sizes [64, 10] on the card (the sampler, K1 or
+    K7, K2, K4 and K4b at k = 64) against the CPU's plain path: the same
+    sample bit for bit, the loss and every parameter gradient within 1e-4
+    (float32 products in another order)."""
+    import torch.nn.functional as F
+
+    if weighted:
+        topo, _, n = _weighted_topo(seed=22)
+    else:
+        topo, n = _graph(seed=22)
+    rng = np.random.default_rng(23)
+    feat = torch.from_numpy(rng.standard_normal((n, 32)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 7, n))
+    torch.manual_seed(0)
+    model = GraphSAGE(32, 64, 7, num_layers=2, dropout=0.0)
+    seeds = (np.arange(128) * 37 % n).astype(np.int64)
+    seeds[0] = 5  # the hub
+    outs = []
+    for dev in ("cpu", cuda_device):
+        sampler = GraphSageSampler(topo, [64, 10], device=dev, seed=3, weighted=weighted,
+                                   max_deg=512)
+        ds = sampler.sample_dense(seeds)
+        m = bind_params(model, model.state_dict(), dev)
+        x = feat.to(dev)[torch.clamp(ds.n_id.long(), 0, n - 1)]
+        loss = F.cross_entropy(m(x, ds.adjs, train=True), labels.to(dev)[seeds])
+        loss.backward()
+        outs.append((ds, float(loss), {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    (ds_cpu, loss_cpu, g_cpu), (ds_dev, loss_dev, g_dev) = outs
+    assert ds_dev.adjs[-1].mask.shape == (128, 64)
+    assert _same(ds_cpu.n_id, ds_dev.n_id)
+    for a, b in zip(ds_cpu.adjs, ds_dev.adjs):
+        assert _same(a.mask, b.mask) and _same(a.cols[a.mask], b.cols[b.mask])
+    assert abs(loss_dev - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu))
+    for name in g_cpu:
+        torch.testing.assert_close(g_dev[name], g_cpu[name], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
 def test_full_mean_kernel_matches_plain(cuda_device, id_dtype):
     topo, n = _graph(seed=9)
@@ -292,6 +341,79 @@ def test_full_mean_kernel_matches_plain(cuda_device, id_dtype):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(got.cpu(), cpu, atol=1e-5, rtol=1e-5)
         assert not got[9].any()  # the degree-0 row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 64, 512])
+@pytest.mark.parametrize("structural", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mean_kernels_at_wide_fanouts_match_plain(cuda_device, k, structural, dtype):
+    """K4 and K4b above 32 lanes a row (chunks of 32): K4 within 1e-5 of
+    its plain version (bfloat16: the float32 kernel rounded once); K4b
+    bit-equal to its plain version on a CPU copy and when run twice. The
+    cols layout names one source row from at least 20,000 lanes."""
+    rng = np.random.default_rng(k)
+    W = 4096 if k < 512 else 512
+    D = 256 if k < 512 else 64
+    w_src = W * (1 + k)
+    mask = torch.from_numpy(rng.random((W, k)) < 0.8)
+    mask[0] = False
+    mask[1, :] = True
+    cols = None
+    if not structural:
+        c = rng.integers(-2, w_src + 2, (W, k)).astype(np.int32)
+        c[rng.random((W, k)) < 25_000 / (W * k * 0.8)] = 3  # the hub row
+        cols = torch.from_numpy(c)
+        assert int((torch.from_numpy(c == 3) & mask).sum()) >= 20_000
+    x = torch.from_numpy(rng.standard_normal((w_src, D)).astype(np.float32)).to(cuda_device, dtype)
+    m = mask.to(cuda_device)
+    adj = DenseAdj(None if cols is None else cols.to(cuda_device), m, None, None)
+    got = masked_mean_aggregate(x, adj)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, masked_mean_aggregate_plain(x, adj), atol=1e-5, rtol=1e-5)
+    else:
+        assert _same(got, masked_mean_aggregate(x.float(), adj).to(dtype))
+    assert not got[0].any()
+    g = torch.from_numpy(rng.standard_normal((W, D)).astype(np.float32)).to(cuda_device, dtype)
+    before = _kernels.counts()["masked_mean_backward"]
+    gx = masked_mean_backward(g, m, adj.cols, w_src)
+    again = masked_mean_backward(g, m, adj.cols, w_src)
+    torch.cuda.synchronize()
+    assert _kernels.counts()["masked_mean_backward"] == before + 2
+    assert gx.dtype == dtype and _same(gx, again)
+    assert _same(gx, masked_mean_backward_plain(g.cpu(), mask, cols, w_src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [100, 99, 256])
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+def test_full_mean_kernel_splits_hub_rows(cuda_device, D, id_dtype):
+    """K10 on a graph with a star of 100 segments' edges and rows of one
+    segment's edges and one more (split at the segment length), beside
+    degree-0 rows: within 1e-5 of its plain version on the card and on the
+    CPU, and bit-equal when run twice."""
+    S = _kernels.full_mean_segment_edges()
+    rng = np.random.default_rng(D)
+    n = 4000
+    src = rng.integers(0, n, 40_000)
+    src[np.isin(src, (1, 2, 3, 9))] = 11
+    src = np.concatenate([src, np.full(100 * S, 1), np.full(S, 2), np.full(S + 1, 3)])
+    dst = rng.integers(0, n, src.shape[0])
+    topo = CSRTopo(edge_index=np.stack([src, dst]), num_nodes=n)
+    h = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+    indptr, indices = topo.to_device(cuda_device, id_dtype=id_dtype)
+    before = _kernels.counts()["full_mean"]
+    got = full_mean_aggregate(indptr, indices, h.to(cuda_device))
+    again = full_mean_aggregate(indptr, indices, h.to(cuda_device))
+    want = full_mean_aggregate_plain(indptr, indices, h.to(cuda_device))
+    cpu = full_mean_aggregate_plain(*topo.to_device("cpu", id_dtype=id_dtype), h)
+    torch.cuda.synchronize()
+    assert _kernels.counts()["full_mean"] == before + 2
+    assert _same(got, again)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got.cpu(), cpu, atol=1e-5, rtol=1e-5)
+    assert not got[9].any()  # a degree-0 row
+    assert got[1].any() and got[2].any() and got[3].any()
 
 
 @pytest.mark.cuda
@@ -569,6 +691,48 @@ def test_temporal_kernel_matches_plain(cuda_device, recency, cutoff):
             vl = got[1].cpu().numpy()
             assert np.array_equal(vl, ovl)
             assert np.array_equal(got[0].cpu().numpy()[vl], onb[ovl])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tiled", "flat", "temporal"])
+@pytest.mark.parametrize("max_deg,k", [(512, 33), (512, 64), (512, 512), (4096, 4096)])
+def test_gumbel_kernels_at_wide_fanouts_match_plain(cuda_device, kind, max_deg, k):
+    """K7 (tiled and flat) and K8 above 32 draws a row, up to k = the
+    window (each round's pick in shared memory, the ids fetched 32 at a
+    time), bit-equal to the plain version on the card and on the CPU."""
+    from quiver_tpu_torch.workloads import TemporalTiledGraph
+
+    topo, ts, n = _weighted_topo()
+    rng = np.random.default_rng(k + max_deg)
+    W = 1024 if k <= 64 else 128
+    seeds, valid = _hop_seeds(rng, W, n)
+    key = qrandom.split(qrandom.key(k))[1]
+    args = (seeds.to(cuda_device), valid.to(cuda_device), k, key)
+    cpu_args = (seeds, valid, k, key)
+    if kind == "temporal":
+        g = TemporalTiledGraph(topo, ts, device=cuda_device).temporal_graph()
+        t = torch.from_numpy(rng.uniform(0.0, 60.0, W).astype(np.float32))
+        t[0] = float("inf")
+        fn, plain = sample.tiled_temporal_sample_layer, sample.tiled_temporal_sample_layer_plain
+        args, cpu_args = args + (t.to(cuda_device),), cpu_args + (t,)
+        tail = (max_deg, 0.02)
+    elif kind == "tiled":
+        g = (*topo.to_device_tiled(cuda_device), topo.to_device_tiled_weights(cuda_device))
+        fn, plain = sample.tiled_weighted_sample_layer, sample.tiled_weighted_sample_layer_plain
+        tail = (max_deg,)
+    else:
+        g = (*topo.to_device(cuda_device), topo.to_device_weights(cuda_device))
+        fn, plain = sample.weighted_sample_layer, sample.weighted_sample_layer_plain
+        tail = (max_deg,)
+    got, want = fn(*g, *args, *tail), plain(*g, *args, *tail)
+    cpu = plain(*(x.cpu() for x in g), *cpu_args, *tail)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, cpu):
+        assert a.shape == (W, k)
+        assert _same(a, b) and _same(a, c)
+    if kind != "temporal":  # the hub draws its nonzero-weight edges of the window, up to k
+        w = topo.edge_weights[topo.indptr[5]:topo.indptr[6]][:max_deg]
+        assert int(got[1][0].sum()) == min(k, int((w > 0).sum()))
 
 
 @pytest.mark.cuda
