@@ -27,7 +27,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              index_select (K3), embedding_bag's weighted sum with weights
              mask / count computed beforehand (K4); no one torch call
              draws a k-subset per CSR row (K1) or dedups with the seeds
-             kept in their slots (K2);
+             kept in their slots (K2). K4 is also bit-equal when run twice;
 5. serve   — ServeEngine(max_batch=64) on the tiled sampler: warmup, then
              Zipf requests from 4 client threads; every kernel of the path
              must have launched (counts zeroed just before, read just
@@ -83,7 +83,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              batches, each with no node dropped, which must regrow at
              least once (its regrowths logged),
              then one sample() of 1,024 seeds equal to dense_to_pyg of the
-             same draw through sample_dense, timed. Lines start ``caps``;
+             same draw through sample_dense, timed. Before the legs, K2 on
+             each hop of one dedup sample of the first 1,024 train seeds,
+             uncapped and at the caps: bit-equal to its plain version and
+             when run twice, ms a call (also queued behind a spin), and the
+             kernels it launches a call (``torch.profiler``); ``caps k2``
+             lines. Lines start ``caps``;
 10. learn  — the example (python -m quiver_tpu_torch.examples.reddit_sage)
              on the card at the args ACCURACY.json was recorded at
              (--epochs 8 --nodes 20000 --batch-size 512 --cache 4M): with
@@ -375,8 +380,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the block, then -1 pads), bit-equal to its plain version.
              Yardstick: index_select of the clamped ids, then masked_fill_
              of the -1 lanes;
-31. report — one JSON line of all kernels, the card line, then the
-             ``{"ok": true, ...}`` line last.
+31. report — a ``redesign K4 K2:`` line (K4 and K2 before and after
+             their redesign: K4 at a flush's three layers, the bfloat16
+             layers of kernels-7 and the k = 64 layer of the fanout phase,
+             with embedding_bag's time and the bound; K2 at a flush's three
+             hops and the caps phase's hops, with its kernel launches a
+             call; each time also queued behind a 1 ms spin, the card's
+             time without the host's share), then one JSON line of all
+             kernels, the card line, then the ``{"ok": true, ...}`` line
+             last.
 
 As each phase of the run ends, a ``phase <name> done at <t> s`` line
 (seconds since the run began) goes to both stdout and stderr, so the end
@@ -657,6 +669,18 @@ FLEET_PAST_IDS = 64
 # phase's sizes (k = 64 on the first hop) and timed steps
 K4B_MS_BEFORE, K10_MS_BEFORE = 1.3436, 292.24
 FANOUT_SIZES, FANOUT_STEPS = (64, 10, 5), 5
+# K4 and K2 before their redesign (NVIDIA H100 80GB HBM3, 700 W), logged
+# beside this run's times at the same shapes: K4 as PERF.md's table had it
+# (a B = 64 flush's three calls, the bfloat16 hops of a batch of 1,024 at
+# D = 100, 256, 256, and [1,024 x 64, D = 256]); K2 a B = 64 flush's three
+# calls (PERF.md) and, per hop of one dedup sample of a batch of 1,024 at
+# SIZES, uncapped and capped, the parent build's ms and kernel launches a
+# call from scripts/torch_redesign_probe.py
+K4_MS_BEFORE = {"flush": 0.07904, "bf16 hops": [0.1508, 0.0617, 0.0322], "k64": 0.1255}
+K2_MS_BEFORE = {"flush": 0.26525, "uncapped": [0.12043, 0.22066, 0.75910],
+                "capped": [0.10152, 0.22277, 0.72509]}
+K2_LAUNCHES_BEFORE = {"uncapped": [16, 42, 61], "capped": [16, 42, 61]}
+REDESIGN = {}  # this run's times of K4 and K2 at those shapes, filled by the phases
 
 
 def log(*a):
@@ -699,6 +723,30 @@ def time_ms(fn, reps=15, warm=3):
     times = []
     for _ in range(reps):
         _L2_FLUSH.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def time_ms_queued(fn, reps=15, warm=3, spin_cycles=2_000_000):
+    """As `time_ms`, with each timed call queued behind a spin of
+    ``spin_cycles`` clocks (about 1 ms) after the L2 flush: the host has
+    enqueued the whole call before the first event fires, so the time is
+    the card's alone, its kernels back to back, whatever the host's share
+    of the call (which `time_ms` takes in when the host is late)."""
+    global _L2_FLUSH
+    if _L2_FLUSH is None:
+        _L2_FLUSH = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        _L2_FLUSH.zero_()
+        torch.cuda._sleep(spin_cycles)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -807,19 +855,21 @@ def make_model_params(seed: int):
     return model, params
 
 
-def hop_inputs(graph_tiled, seeds, key, sizes=SIZES):
-    """The inputs one dedup sample of ``seeds`` (a B=64 flush) hands each
-    kernel: per hop the sampling and reindex inputs, then the final n_id
-    for the gather."""
+def hop_inputs(graph_tiled, seeds, key, sizes=SIZES, caps=None):
+    """The inputs one dedup sample of ``seeds`` (a B=64 flush, or a
+    training batch cut to ``caps`` as `sample_dense_pure` cuts it) hands
+    each kernel: per hop the sampling and reindex inputs, then the final
+    n_id for the gather."""
+    widths = sample.pad_widths(seeds.shape[0], sizes, caps)
     cur = seeds
     cur_valid = torch.ones_like(seeds, dtype=torch.bool)
     hops = []
-    for k in sizes:
+    for l, k in enumerate(sizes):
         key, sub = qrandom.split(key)
         nbrs, valid = sample.tiled_sample_layer(*graph_tiled, cur, cur_valid, k, sub)
         hops.append(dict(cur=cur, cur_valid=cur_valid, k=k, key=sub, nbrs=nbrs, valid=valid))
         res = reindex.local_reindex(cur, cur_valid, nbrs, valid)
-        cur = res.n_id
+        cur = res.n_id[:widths[l + 1]]
         cur_valid = torch.arange(cur.shape[0], device=cur.device) < res.count
     return hops, cur
 
@@ -867,8 +917,11 @@ def kernel_phase(topo, table, model, seeds):
                 (want.n_id, want.count, want.local_seeds, want.local_nbrs[h["valid"]]))
         W = S * (1 + k)
         b = bound(S * 5 + S * k * 5 + W * 4 + 4 + S * 4 + S * k * 4)
-        add("local_reindex", 0.0, time_ms(lambda: reindex.local_reindex(*args)),
-            time_ms(lambda: reindex.local_reindex_plain(*args), reps=5), b, shape=f"S={S} k={k}")
+        ms = time_ms(lambda: reindex.local_reindex(*args))
+        REDESIGN.setdefault("K2 flush", []).append(
+            dict(ms=ms, queued_ms=time_ms_queued(lambda: reindex.local_reindex(*args))))
+        add("local_reindex", 0.0, ms, time_ms(lambda: reindex.local_reindex_plain(*args), reps=5),
+            b, shape=f"S={S} k={k}")
 
     # K3: the feature gather of the final n_id
     n = n_id.shape[0]
@@ -914,9 +967,16 @@ def kernel_phase(topo, table, model, seeds):
                        per_sample_weights=(adj.mask.to(x.dtype) / cnt).reshape(-1))
             check(torch.allclose(F.embedding_bag(**bag), got, atol=1e-5, rtol=1e-5),
                   "the embedding_bag yardstick computes another function")
-            add("masked_mean", err, time_ms(lambda: masked_mean_aggregate(x, adj)),
+            again = masked_mean_aggregate(x, adj)
+            check(torch.equal(got, again), f"K4 at W={W} k={k} D={D}: two runs differ")
+            ms, lib = time_ms(lambda: masked_mean_aggregate(x, adj)), time_ms(
+                lambda: F.embedding_bag(**bag))
+            REDESIGN.setdefault("K4 flush", []).append(
+                k4_times(ms, lib, b, lambda: masked_mean_aggregate(x, adj),
+                         lambda: F.embedding_bag(**bag)))
+            add("masked_mean", err, ms,
                 time_ms(lambda: masked_mean_aggregate_plain(x, adj), reps=5), b,
-                lib_ms=time_ms(lambda: F.embedding_bag(**bag)), shape=f"W={W} k={k} D={D}")
+                lib_ms=lib, shape=f"W={W} k={k} D={D}")
             x = torch.relu(conv(x, adj))
     torch.cuda.synchronize()
     return rows
@@ -1189,7 +1249,8 @@ def port_kernel_names() -> set:
     """The ``__global__`` function names of ``quiver_tpu_torch/csrc``: how a
     profiled kernel is told to be one of the port's own."""
     return {m for f in Path(_kernels.CSRC).glob("*.cu")
-            for m in re.findall(r"__global__ void (\w+)", f.read_text())}
+            for m in re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                                f.read_text())}
 
 
 def kernel_base_name(key: str) -> str:
@@ -1227,6 +1288,79 @@ def profile_steps(step, seeds_iter, port_names, steps=3):
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     return {"port_ms": port, "other_ms": sum(per.values()) - port,
             "step_ms": sum(times) / steps, "top": [(k[:60], v) for k, v in top]}
+
+
+def kernel_launches(fn):
+    """The kernels ``fn()`` launches on the card in one call (a wrapper's
+    one counted launch may run several), from a profiler trace of one call
+    after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation)
+
+
+def k4_times(ms, lib_ms, b, fn, lib_fn):
+    """One K4 shape's entry of the redesign line: its and embedding_bag's
+    ms (`time_ms`), the same queued behind a spin (`time_ms_queued`), and
+    the bound."""
+    return dict(ms=ms, embedding_bag_ms=lib_ms, queued_ms=time_ms_queued(fn),
+                embedding_bag_queued_ms=time_ms_queued(lib_fn), bound_ms=b[0])
+
+
+def k2_train_hops(topo, seeds, caps, seed):
+    """K2 at the training shapes: one dedup sample of ``seeds`` (a batch of
+    1,024) at SIZES hop by hop, uncapped and cut to ``caps``; each call
+    bit-equal to its plain version and when run twice, timed, and its
+    kernel launches counted. Lines start ``caps k2``."""
+    dev = seeds.device
+    g_tiled = topo.to_device_tiled(dev)
+    for name, c in (("uncapped", None), ("capped", caps)):
+        hops, _ = hop_inputs(g_tiled, seeds, qrandom.key(seed + 44), caps=c)
+        per = []
+        for h in hops:
+            S, k = h["cur"].shape[0], h["k"]
+            args = (h["cur"], h["cur_valid"], h["nbrs"], h["valid"])
+            got, want = reindex.local_reindex(*args), reindex.local_reindex_plain(*args)
+            again = reindex.local_reindex(*args)
+            for a, b in ((got, want), (got, again)):
+                check(torch.equal(a.n_id, b.n_id) and torch.equal(a.count, b.count)
+                      and torch.equal(a.local_seeds, b.local_seeds)
+                      and torch.equal(a.local_nbrs[h["valid"]], b.local_nbrs[h["valid"]]),
+                      f"K2 {name} at S={S} k={k} differs from its plain version or itself")
+            n_seed = int(h["cur_valid"].sum())
+            per.append({"S": S, "k": k, "valid_seeds": n_seed,
+                        "new_uniques": int(got.count) - n_seed,
+                        "ms": time_ms(lambda: reindex.local_reindex(*args)),
+                        "queued_ms": time_ms_queued(lambda: reindex.local_reindex(*args)),
+                        "launches": kernel_launches(lambda: reindex.local_reindex(*args))})
+        log(f"caps k2 {name}: " + json.dumps(per))
+        REDESIGN[f"K2 {name}"] = per
+
+
+def redesign_line() -> dict:
+    """K4 and K2 before and after their redesign at each shape of
+    K4_MS_BEFORE and K2_MS_BEFORE: this run's ms a call (`time_ms`, as the
+    kernels line) and queued ms a call (`time_ms_queued`: the card's time
+    alone), beside K4's embedding_bag and bound and K2's kernel launches."""
+    def cols(entries):
+        return {key: [e[key] for e in entries] for key in entries[0]}
+
+    k64 = REDESIGN["K4 k64"]
+    return {"K4": {"flush": dict(cols(REDESIGN["K4 flush"]), ms_before=K4_MS_BEFORE["flush"]),
+                   "bf16 hops": dict(cols(REDESIGN["K4 bf16 hops"]),
+                                     ms_before=K4_MS_BEFORE["bf16 hops"]),
+                   "k64": dict(cols([k64]), ms_before=K4_MS_BEFORE["k64"])},
+            "K2": {"flush": dict(cols(REDESIGN["K2 flush"]), ms_before=K2_MS_BEFORE["flush"]),
+                   **{name: dict(cols(REDESIGN[f"K2 {name}"]), ms_before=K2_MS_BEFORE[name],
+                                 launches_before=K2_LAUNCHES_BEFORE[name])
+                      for name in ("uncapped", "capped")}}}
 
 
 def train_phase(topo, table, resident, tiered, train_idx, seed):
@@ -2239,10 +2373,11 @@ def kernel_phase_5(topo, wtopo, tg, ts_np, seeds_1024, tseeds, tvals, rows, seed
 
 
 def mean_pair_check(rows, adj, w_src, D, gen, tag, x=None):
-    """K4 within 1e-5 of its plain version and K4b (where ``x`` is None or
-    a gradient reaches it) bit-equal to its plain version on a CPU copy
-    and when run twice, on one hop ``adj`` (cols or structural), each
-    timed; logged, not added to the report rows."""
+    """K4 within 1e-5 of its plain version and bit-equal when run twice,
+    and K4b (where ``x`` is None or a gradient reaches it) bit-equal to its
+    plain version on a CPU copy and when run twice, on one hop ``adj``
+    (cols or structural), each timed; logged, not added to the report
+    rows. Returns K4's `k4_times`."""
     dev = adj.mask.device
     W, k = adj.mask.shape
     lanes = int(adj.mask.sum())
@@ -2259,15 +2394,19 @@ def mean_pair_check(rows, adj, w_src, D, gen, tag, x=None):
     bag = dict(input=src.reshape(-1).long(), weight=xs, mode="sum",
                offsets=torch.arange(0, W * k, k, device=dev),
                per_sample_weights=(adj.mask.to(xs.dtype) / cnt).reshape(-1))
-    record(rows, "masked_mean", err, time_ms(lambda: masked_mean_aggregate(xs, adj)),
-           time_ms(lambda: masked_mean_aggregate_plain(xs, adj), reps=5),
-           bound(W * k * (5 if adj.cols is not None else 1)
-                 + torch.unique(src[adj.mask]).numel() * D * 4 + W * D * 4,
-                 f32_adds=lanes * D + W * D),
-           time_ms(lambda: F.embedding_bag(**bag)), shape=f"{tag} W={W} k={k} D={D}",
-           report=False)
+    check(torch.equal(got, masked_mean_aggregate(xs, adj)), f"K4: two runs differ at {tag}")
+    b = bound(W * k * (5 if adj.cols is not None else 1)
+              + torch.unique(src[adj.mask]).numel() * D * 4 + W * D * 4,
+              f32_adds=lanes * D + W * D)
+    k4 = k4_times(time_ms(lambda: masked_mean_aggregate(xs, adj)),
+                  time_ms(lambda: F.embedding_bag(**bag)), b,
+                  lambda: masked_mean_aggregate(xs, adj), lambda: F.embedding_bag(**bag))
+    record(rows, "masked_mean", err, k4["ms"],
+           time_ms(lambda: masked_mean_aggregate_plain(xs, adj), reps=5), b,
+           k4["embedding_bag_ms"],
+           shape=f"{tag} W={W} k={k} D={D}", report=False)
     if x is not None:  # the features take no gradient
-        return
+        return k4
     g = torch.randn((W, D), generator=gen, device=dev)
     gx = masked_mean_backward(g, adj.mask, adj.cols, w_src)
     again = masked_mean_backward(g, adj.mask, adj.cols, w_src)
@@ -2285,6 +2424,7 @@ def mean_pair_check(rows, adj, w_src, D, gen, tag, x=None):
                  f32_adds=2 * lanes * D),
            time_ms(lambda: torch.zeros((w_src, D), device=dev).index_add_(0, idx, contrib)),
            shape=f"{tag} W={W} k={k} D={D} W_src={w_src}", report=False)
+    return k4
 
 
 def fanout_phase(topo, wtopo, tg, resident, labels, train_idx, seeds, seed):
@@ -2333,8 +2473,10 @@ def fanout_phase(topo, wtopo, tg, resident, labels, train_idx, seeds, seed):
     w_srcs = [int(ds.n_id.shape[0])] + [a.w_dst for a in ds.adjs[:-1]]
     for layer, (adj, w_src) in enumerate(zip(ds.adjs, w_srcs)):
         x = resident.lookup_padded(ds.n_id) if layer == 0 else None
-        mean_pair_check(logged, adj, w_src, DIM if layer == 0 else HIDDEN, gen,
-                        f"fanout cols layer {layer}", x=x)
+        k4 = mean_pair_check(logged, adj, w_src, DIM if layer == 0 else HIDDEN, gen,
+                             f"fanout cols layer {layer}", x=x)
+        if adj.mask.shape[1] == fk:
+            REDESIGN["K4 k64"] = k4
 
     # the train leg at k = 64 through the sampler
     sampler = GraphSageSampler(topo, FANOUT_SIZES, device=dev, seed=seed + 92)
@@ -2561,15 +2703,21 @@ def kernel_phase_7(topo, seeds, rows, seed):
         got = masked_mean_aggregate(x, adj)
         check(torch.equal(got, masked_mean_aggregate(x.float(), adj).to(bf16)),
               f"K4 bf16 is not the float32 mean rounded at layer {layer}")
+        check(torch.equal(got, masked_mean_aggregate(x, adj)),
+              f"K4 bf16 at layer {layer}: two runs differ")
         cnt = torch.clamp(adj.mask.sum(dim=1, keepdim=True), min=1)
         bag = dict(input=src.reshape(-1), weight=x, mode="sum",
                    offsets=torch.arange(0, W * k, k, device=dev),
                    per_sample_weights=(adj.mask.float() / cnt).reshape(-1).to(bf16))
-        record(rows, "masked_mean", 0.0, time_ms(lambda: masked_mean_aggregate(x, adj)),
-               time_ms(lambda: masked_mean_aggregate_plain(x, adj), reps=5),
-               bound(W * k * 5 + torch.unique(src[adj.mask]).numel() * D * 2 + W * D * 2,
-                     f32_adds=lanes * D + W * D),
-               time_ms(lambda: F.embedding_bag(**bag)),
+        b = bound(W * k * 5 + torch.unique(src[adj.mask]).numel() * D * 2 + W * D * 2,
+                  f32_adds=lanes * D + W * D)
+        k4 = k4_times(time_ms(lambda: masked_mean_aggregate(x, adj)),
+                      time_ms(lambda: F.embedding_bag(**bag)), b,
+                      lambda: masked_mean_aggregate(x, adj), lambda: F.embedding_bag(**bag))
+        REDESIGN.setdefault("K4 bf16 hops", []).append(k4)
+        record(rows, "masked_mean", 0.0, k4["ms"],
+               time_ms(lambda: masked_mean_aggregate_plain(x, adj), reps=5), b,
+               k4["embedding_bag_ms"],
                shape=f"bf16 layer {layer} W={W} k={k} D={D}", report=False)
         if layer == 0:  # the features take no gradient
             continue
@@ -2885,6 +3033,7 @@ def caps_phase(topo, resident, labels, train_idx, seed):
                                "uncapped_widths": sample.pad_widths(B, SIZES)[1:],
                                "probes": CAP_PROBES, "batch": B, "margin": CAP_MARGIN,
                                "granule": CAP_GRANULE, "calibrate_s": cal_s}))
+    k2_train_hops(topo, torch.from_numpy(train_idx[:B].astype(np.int32)).to(dev), caps, seed)
 
     # train leg 1 uncapped, then capped: one seed, so both draw alike while nothing overflows
     port_names = port_kernel_names()
@@ -4372,6 +4521,7 @@ def main() -> int:
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))
 
+    log("redesign K4 K2: " + json.dumps(redesign_line()))
     log(f"every phase passed in {time.perf_counter() - t_run:.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -48,12 +48,11 @@ KERNELS = {
     "sample_flat": ("sample", "qt_sample_flat",
                     [_P, _P, _LL, _I, _P, _P, _I, _I, _U, _U, _P, _P, _P]),
     "local_reindex": ("reindex", "qt_local_reindex",
-                      [_P, _P, _P, _P, _I, _I, _P, _LL, _P, _LL,
-                       _P, _P, _P, _P, _P]),
+                      [_P, _P, _P, _P, _I, _I, _P, _LL, _P, _P, _P, _P, _P]),
     "gather_rows": ("gather", "qt_gather_rows",
                     [_P, _LL, _I, _P, _LL, _LL, _P, _P, _P]),
     "masked_mean": ("aggregate", "qt_masked_mean",
-                    [_P, _LL, _I, _P, _P, _I, _I, _P, _I, _P]),
+                    [_P, _LL, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P]),
     "masked_mean_backward": ("aggregate", "qt_masked_mean_backward",
                              [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _LL, _I, _P]),
     "gather_src": ("gather", "qt_gather_src", [_P, _LL, _I, _I, _P, _LL, _P, _P]),
@@ -110,6 +109,7 @@ VARIANTS = {"masked_mean": ("float32", "bfloat16"),
             "cold_merge": ("float32", "bfloat16")}
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
+           "qt_local_reindex_scratch": ("reindex", [_I, _I, ctypes.POINTER(_LL)]),
            "qt_masked_mean_backward_scratch": ("aggregate",
                                                [_LL, _I, _I, _I, ctypes.POINTER(_LL)]),
            "qt_cold_compact_scratch": ("collective", [_LL, ctypes.POINTER(_LL)]),
@@ -256,6 +256,18 @@ def masked_mean_backward_scratch_bytes(w_src: int, w_dst: int, k: int, D: int = 
     lib = _lib(HELPERS["qt_masked_mean_backward_scratch"][0])
     out = ctypes.c_longlong()
     lib.qt_masked_mean_backward_scratch(w_src, w_dst, k, D, ctypes.byref(out))
+    return out.value
+
+
+def local_reindex_scratch_words(S: int, k: int) -> int:
+    """int32 elements of device scratch ``local_reindex`` takes at ``S``
+    seeds of ``k`` lanes (its hash table, two lists of the new uniques,
+    counts, digit histograms and the sort's tile status words; none when
+    the call fits one block); the layout is known to ``csrc/reindex.cu``
+    alone."""
+    lib = _lib(HELPERS["qt_local_reindex_scratch"][0])
+    out = ctypes.c_longlong()
+    lib.qt_local_reindex_scratch(S, k, ctypes.byref(out))
     return out.value
 
 

@@ -3,40 +3,43 @@
 // Replaces quiver_tpu/models/sage.py:masked_mean_aggregate together with
 // quiver_tpu/pyg/sage_sampler.py:DenseAdj.gather_src (forward only; the
 // backward comes with training). For target row i it sums x[src(i, j)]
-// over the valid j in ascending j order and divides by max(count_i, 1),
-// where src = clip(cols[i, j], 0, W_src - 1) in the cols layout and
-// W + j*W + i in the structural layout (cols == nullptr, W = W_dst). The
-// sum order differs from XLA's, so it matches the JAX package within a
-// float tolerance, and the plain torch version within the same. Rows are
-// float32 or bfloat16; a bfloat16 row is summed and divided in float32 and
-// rounded once (the plain version computes in float32 and rounds too).
+// over the valid j and divides by max(count_i, 1) in float32, where src =
+// clip(cols[i, j], 0, W_src - 1) in the cols layout and W + j*W + i in the
+// structural layout (cols == nullptr, W = W_dst). The sum order differs
+// from XLA's, so it matches the JAX package within a float tolerance, and
+// the plain torch version within the same. Rows are float32 or bfloat16;
+// a bfloat16 row is summed and divided in float32 and rounded once (the
+// plain version computes in float32 and rounds too). Any k.
 //
 // Bound on the card: bytes — the valid neighbor rows of x are read once
 // each (D elements per valid lane), the output written once; the adds are
-// one per element read. Design: one warp per target row; the row's k lanes
-// are taken in chunks of 32, lane j of a chunk holding that chunk's lane j
-// (mask, src), so a chunk's valid set is one ballot and the count the sum
-// of the chunks' popcounts; the columns run across the lanes (coalesced
-// reads of each neighbor row), and the k-step sum of each column stays in
-// a register, in ascending j. The first chunk stays in registers across
-// the column loop; later chunks (k > 32) are read again for each 32
-// columns. Any k.
+// one per element read. What held the first design back was not bytes but
+// loads in flight and warps: a warp a target, 4-byte loads, and a k-step
+// chain of shuffle, load and add per 32 columns, so at 1,024 targets the
+// card held 8 warps an SM, each waiting on one load at a time.
+//
+// Design: a team of T = col_warps x split warps a target, 8 / T targets a
+// block (the host picks the team with `mean_launch_plan` in
+// models/sage.py). The team reads the target's (mask, clipped src) of all
+// k lanes once, coalesced, into shared memory (1,024 lanes at a time: a
+// longer row is walked in chunks) and counts the valid ones; nothing of
+// the lane list is read again for another column slice. A warp covers
+// 32 x V columns with V-element loads, 16 bytes where the row stride and
+// the pointers allow (4 float32 or 8 bfloat16), else 8, 4 or 2. Warp
+// (c, s) of a team takes column slice c and the s-th contiguous part of
+// each chunk's lanes, issues the row loads of several lanes (64 bytes a
+// thread, kept packed so that few registers hold them and many warps fit
+// an SM) before adding them in ascending j, and the parts are added in
+// the order s = 0, 1, ... through shared memory: the split gives a target
+// with few columns and many lanes more warps when the targets are too few
+// to fill the card. No float atomics: two runs are bit-equal.
 
 #include "common.cuh"
 #include "scan.cuh"
 
-// lane j's (mask, src) of target row `row`, false and 0 past k
-__device__ __forceinline__ bool mean_lane(const bool* __restrict__ mask,
-                                          const int32_t* __restrict__ cols, long long w_src,
-                                          int32_t w_dst, int k, long long row, int j,
-                                          long long* src) {
-  *src = 0;
-  if (j >= k) return false;
-  const long long q = row * k + j;
-  *src = cols != nullptr ? qt_clamp<long long>(cols[q], 0, w_src - 1)
-                         : static_cast<long long>(w_dst) + static_cast<long long>(j) * w_dst + row;
-  return mask[q];
-}
+constexpr int kMeanBlockWarps = 8;      // warps a block: its teams' T warps each
+constexpr int kMeanListLanes = 1024;    // lanes of a target's list in shared memory at once
+constexpr int kMeanInFlightBytes = 64;  // row bytes a thread loads before its adds
 
 // the number of valid lanes of target row `row` (k lanes, 32 a chunk)
 __device__ __forceinline__ int mean_row_count(const bool* __restrict__ mask, int k,
@@ -49,60 +52,236 @@ __device__ __forceinline__ int mean_row_count(const bool* __restrict__ mask, int
   return cnt;
 }
 
-template <typename E>
-__global__ void masked_mean_kernel(const typename E::T* __restrict__ x, long long w_src, int D,
-                                   const bool* __restrict__ mask,
-                                   const int32_t* __restrict__ cols, int32_t w_dst, int k,
-                                   typename E::T* __restrict__ out) {
-  const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= w_dst) return;  // warp-uniform
-  long long src0;
-  const bool m0 = mean_lane(mask, cols, w_src, w_dst, k, row, lane, &src0);
-  const unsigned valid0 = __ballot_sync(0xFFFFFFFFu, m0);
-  const int cnt = k <= 32 ? __popc(valid0) : mean_row_count(mask, k, row, lane);
-  const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
-  for (int d0 = 0; d0 < D; d0 += 32) {  // warp-uniform trip count
-    const int d = d0 + lane;
-    float acc = 0.0f;
-    for (int c0 = 0; c0 < k; c0 += 32) {  // warp-uniform
-      long long src = src0;
-      unsigned valid = valid0;
-      if (c0 > 0) {
-        const bool m = mean_lane(mask, cols, w_src, w_dst, k, row, c0 + lane, &src);
-        valid = __ballot_sync(0xFFFFFFFFu, m);
+// V consecutive elements of type T (float32, or bfloat16 bits) as they
+// sit in memory, in 32-bit words (a bfloat16 pair a word, lower address in
+// the low half), loaded with one access of V * sizeof(T) bytes; p is
+// aligned to it. Kept packed until each element is added, so the loads
+// in flight take few registers.
+template <typename T, int V>
+struct MeanRow {
+  static constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  static constexpr int kWords = kBytes < 4 ? 1 : kBytes / 4;
+  uint32_t w[kWords];
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kBytes == 16) {
+      const uint4 t = *reinterpret_cast<const uint4*>(p);
+      w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
+    } else if constexpr (kBytes == 8) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      w[0] = t.x, w[1] = t.y;
+    } else if constexpr (kBytes == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      w[0] = *reinterpret_cast<const uint16_t*>(p);
+    }
+  }
+
+  // element t as float32 (t a constant after unrolling)
+  __device__ __forceinline__ float get(int t) const {
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float(w[t]);
+    } else {
+      return qt_bf16_to_float((t & 1) ? (w[t >> 1] >> 16) : (w[t >> 1] & 0xffffu));
+    }
+  }
+};
+
+template <int V>
+__device__ __forceinline__ void mean_store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void mean_store(uint16_t* p, const float (&v)[V]) {
+  uint32_t w[(V + 1) / 2];
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) {
+    w[i] = qt_float_to_bf16(v[2 * i]) | (qt_float_to_bf16(v[2 * i + 1]) << 16);
+  }
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  } else {
+    *p = static_cast<uint16_t>(qt_float_to_bf16(v[0]));
+  }
+}
+
+// blockDim.x = 32 * T * teams, T = col_warps * split; dynamic shared
+// memory: teams lists of min(k, kMeanListLanes) int32, then (split > 1)
+// one 32 x V float32 part a warp. At most 48 registers a thread, so five
+// blocks (40 warps) fit an SM: the kernel waits on memory, and more warps
+// keep more loads in flight.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMeanBlockWarps * 32, 5)
+    masked_mean_kernel(const T* __restrict__ x, long long w_src, int D,
+                       const bool* __restrict__ mask, const int32_t* __restrict__ cols,
+                       int32_t w_dst, int k, int col_warps, int split, T* __restrict__ out) {
+  // lanes whose rows a thread loads before adding them: 4 at 16 bytes a row
+  constexpr int kInFlight = kMeanInFlightBytes / MeanRow<T, V>::kBytes < 16
+                                ? kMeanInFlightBytes / MeanRow<T, V>::kBytes
+                                : 16;
+  extern __shared__ int32_t mean_smem[];
+  __shared__ int team_count[kMeanBlockWarps];
+  const int team_warps = col_warps * split;
+  const int team_threads = 32 * team_warps;
+  const int teams = blockDim.x / team_threads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int team = warp / team_warps, tw = warp % team_warps;
+  const int tt = threadIdx.x - team * team_threads;
+  const int c_local = tw % col_warps, s = tw / col_warps;
+  const int list_len = k < kMeanListLanes ? k : kMeanListLanes;
+  int32_t* list = mean_smem + team * list_len;
+  float* part = reinterpret_cast<float*>(mean_smem + teams * list_len);
+  const long long row = static_cast<long long>(blockIdx.x) * teams + team;
+  const bool live = row < w_dst;  // uniform within a team
+  const int slice = 32 * V;       // columns a warp covers
+  const int n_slices = (D + slice - 1) / slice;
+  const int slice_iters = (n_slices + col_warps - 1) / col_warps;
+  const int n_chunks = k > 0 ? (k + list_len - 1) / list_len : 0;
+  if (threadIdx.x < teams) team_count[threadIdx.x] = 0;
+  __syncthreads();
+  for (int it = 0; it < slice_iters; ++it) {  // block-uniform
+    const int c = c_local + it * col_warps;
+    const int d = c * slice + lane * V;
+    const bool active = live && c < n_slices && d < D;  // D % V == 0
+    float acc[V];
+#pragma unroll
+    for (int t = 0; t < V; ++t) acc[t] = 0.0f;
+    for (int ch = 0; ch < n_chunks; ++ch) {  // block-uniform
+      const int j0 = ch * list_len;
+      const int n = k - j0 < list_len ? k - j0 : list_len;
+      if (it == 0 || n_chunks > 1) {  // the lane list, read once when it fits
+        __syncthreads();              // the list's last readers are done
+        unsigned mine = 0;
+        if (live) {
+          for (int j = tt; j < n; j += team_threads) {
+            const long long q = row * k + j0 + j;
+            // mask and cols loaded side by side: one round trip, not two
+            const bool m = mask[q];
+            const long long col = cols != nullptr ? cols[q] : 0;
+            int32_t e = -1;
+            if (m) {
+              e = cols != nullptr ? static_cast<int32_t>(qt_clamp<long long>(col, 0, w_src - 1))
+                                  : j0 + j;
+            }
+            list[j] = e;
+            mine += m;
+          }
+        }
+        if (it == 0) {
+          mine = __reduce_add_sync(0xFFFFFFFFu, mine);
+          if (lane == 0 && mine) atomicAdd(&team_count[team], static_cast<int>(mine));
+        }
+        __syncthreads();
       }
-      const int n = k - c0 < 32 ? k - c0 : 32;
-      for (int j = 0; j < n; ++j) {
-        const long long sj = __shfl_sync(0xFFFFFFFFu, src, j);
-        if (((valid >> j) & 1u) && d < D) acc = __fadd_rn(acc, E::load(x + sj * D + d));
+      // this warp's part of the chunk: lanes [a, b), ascending
+      const int a = static_cast<int>(static_cast<long long>(n) * s / split);
+      const int b = static_cast<int>(static_cast<long long>(n) * (s + 1) / split);
+      if (active) {
+        for (int j = a; j < b; j += kInFlight) {
+          MeanRow<T, V> r[kInFlight];
+          int32_t e[kInFlight];
+#pragma unroll
+          for (int u = 0; u < kInFlight; ++u) {
+            e[u] = j + u < b ? list[j + u] : -1;
+            if (e[u] >= 0) {
+              const long long src = cols != nullptr
+                                        ? static_cast<long long>(e[u])
+                                        : static_cast<long long>(w_dst) * (1 + e[u]) + row;
+              r[u].load(x + src * D + d);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kInFlight; ++u) {
+            if (e[u] >= 0) {
+#pragma unroll
+              for (int t = 0; t < V; ++t) acc[t] = __fadd_rn(acc[t], r[u].get(t));
+            }
+          }
+        }
       }
     }
-    if (d < D) E::store(out + row * D + d, __fdiv_rn(acc, denom));
+    if (split > 1) {  // then slice_iters == 1: the parts meet in shared memory
+      float* mine = part + warp * slice + lane * V;
+      if (s > 0) {
+#pragma unroll
+        for (int t = 0; t < V; ++t) mine[t] = acc[t];
+      }
+      __syncthreads();
+      if (s == 0 && active) {
+        for (int p = 1; p < split; ++p) {
+          const float* other = part + (warp + p * col_warps) * slice + lane * V;
+#pragma unroll
+          for (int t = 0; t < V; ++t) acc[t] = __fadd_rn(acc[t], other[t]);
+        }
+      }
+      __syncthreads();  // the parts are read before a next slice writes them
+    }
+    if (s == 0 && active) {
+      const int cnt = team_count[team];
+      const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
+#pragma unroll
+      for (int t = 0; t < V; ++t) acc[t] = __fdiv_rn(acc[t], denom);
+      mean_store<V>(out + row * D + d, acc);
+    }
   }
 }
 
-template <typename E>
+template <typename T, int V>
 static void launch_masked_mean(const void* x, long long w_src, int D, const void* mask,
-                               const void* cols, int w_dst, int k, void* out, cudaStream_t st) {
-  const int threads = 256;  // 8 target rows a block
-  masked_mean_kernel<E><<<qt_blocks(static_cast<long long>(w_dst) * 32, threads), threads, 0,
-                          st>>>(
-      static_cast<const typename E::T*>(x), w_src, D, static_cast<const bool*>(mask),
-      static_cast<const int32_t*>(cols), w_dst, k, static_cast<typename E::T*>(out));
+                               const void* cols, int w_dst, int k, int col_warps, int split,
+                               void* out, cudaStream_t st) {
+  const int team_warps = col_warps * split;
+  const int teams = team_warps < kMeanBlockWarps ? kMeanBlockWarps / team_warps : 1;
+  const int list_len = k < kMeanListLanes ? k : kMeanListLanes;
+  const size_t lists = static_cast<size_t>(teams) * list_len * sizeof(int32_t);
+  const size_t parts = split > 1 ? static_cast<size_t>(teams) * team_warps * 32 * V * sizeof(float)
+                                 : 0;
+  const unsigned blocks =
+      static_cast<unsigned>((static_cast<long long>(w_dst) + teams - 1) / teams);
+  masked_mean_kernel<T, V><<<blocks, 32 * team_warps * teams, lists + parts, st>>>(
+      static_cast<const T*>(x), w_src, D, static_cast<const bool*>(mask),
+      static_cast<const int32_t*>(cols), w_dst, k, col_warps, split, static_cast<T*>(out));
 }
 
-// bf16: 0 for float32 rows, 1 for bfloat16 rows (x and out alike)
+// bf16: 0 for float32 rows, 1 for bfloat16 rows (x and out alike); vec:
+// elements a thread loads (float32 1, 2, 4; bfloat16 1, 2, 4, 8), D and
+// both pointers aligned to it; col_warps x split <= 8 warps a target, or
+// split = 1 and col_warps = 8 (a warp then walks several column slices)
 QT_EXPORT int qt_masked_mean(const void* x, long long w_src, int D, const void* mask,
-                             const void* cols, int w_dst, int k, void* out, int bf16,
-                             void* stream) {
+                             const void* cols, int w_dst, int k, void* out, int bf16, int vec,
+                             int col_warps, int split, void* stream) {
   if (w_dst <= 0 || D <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    launch_masked_mean<QtBF16>(x, w_src, D, mask, cols, w_dst, k, out, st);
-  } else {
-    launch_masked_mean<QtF32>(x, w_src, D, mask, cols, w_dst, k, out, st);
+  const size_t vb = static_cast<size_t>(vec) * (bf16 ? 2 : 4);
+  const bool team_ok = col_warps >= 1 && split >= 1 && col_warps * split <= kMeanBlockWarps;
+  if (k < 0 || !team_ok || D % vec != 0 || reinterpret_cast<uintptr_t>(x) % vb != 0 ||
+      reinterpret_cast<uintptr_t>(out) % vb != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void (*launch)(const void*, long long, int, const void*, const void*, int, int, int, int,
+                 void*, cudaStream_t) = nullptr;
+  switch (bf16 ? vec : -vec) {
+    case -4: launch = launch_masked_mean<float, 4>; break;
+    case -2: launch = launch_masked_mean<float, 2>; break;
+    case -1: launch = launch_masked_mean<float, 1>; break;
+    case 8: launch = launch_masked_mean<uint16_t, 8>; break;
+    case 4: launch = launch_masked_mean<uint16_t, 4>; break;
+    case 2: launch = launch_masked_mean<uint16_t, 2>; break;
+    case 1: launch = launch_masked_mean<uint16_t, 1>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  launch(x, w_src, D, mask, cols, w_dst, k, col_warps, split, out, st);
   return qt_launch_status();
 }
 

@@ -20,7 +20,7 @@ rounding), and the logits come back float32. `lecun_normal_`,
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +65,48 @@ def masked_mean_aggregate_plain(x_src: torch.Tensor, adj: DenseAdj) -> torch.Ten
     return s / cnt
 
 
+# K4's launch plan (csrc/aggregate.cu): warps a block; the targets' warps
+# below which a target's lanes are split among more warps (8 an SM of
+# 132: at the batch-1,024 shapes one warp a slice is as fast or faster,
+# at a flush's 64 targets the split halves the time; scripts/
+# torch_redesign_probe.py); the fewest lanes a split of a target may take
+MEAN_BLOCK_WARPS = 8
+MEAN_FILL_WARPS = 132 * 8
+MEAN_MIN_SPLIT_LANES = 4
+
+
+def _mean_vec(D: int, elem_bytes: int, align: int) -> int:
+    vb = 16
+    while vb > elem_bytes and ((D * elem_bytes) % vb or align % vb):
+        vb //= 2
+    return vb // elem_bytes
+
+
+def mean_launch_plan(w_dst: int, k: int, D: int, elem_bytes: int,
+                     align: int = 16) -> Tuple[int, int, int]:
+    """K4's ``(vec, col_warps, split)`` for ``w_dst`` targets of ``k``
+    lanes and ``D`` columns of ``elem_bytes`` each, the row pointers
+    aligned to ``align`` bytes. ``vec``: elements a thread loads, 16 bytes
+    where the row stride and ``align`` allow, else 8, 4 or 2. A target
+    takes one warp a ``32 * vec``-column slice (at most 8), and, while the
+    targets' warps number fewer than `MEAN_FILL_WARPS` and each part keeps
+    at least `MEAN_MIN_SPLIT_LANES` lanes, twice as many warps, each
+    summing a part of the lanes (``split``), up to 8 warps a target. The
+    split is the float32 plan's at the same shape whatever the element
+    type (a bfloat16 row takes as wide or wider slices), so a bfloat16
+    mean adds in the float32 kernel's order and is its result rounded
+    once."""
+    vec = _mean_vec(D, elem_bytes, align)
+    col_warps = min(-(-D // (32 * vec)), MEAN_BLOCK_WARPS)
+    f32_warps = min(-(-D // (32 * _mean_vec(D, 4, align))), MEAN_BLOCK_WARPS)
+    split = 1
+    while (f32_warps * split * 2 <= MEAN_BLOCK_WARPS
+           and -(-k // (2 * split)) >= MEAN_MIN_SPLIT_LANES
+           and w_dst * f32_warps * split < MEAN_FILL_WARPS):
+        split *= 2
+    return vec, col_warps, split
+
+
 def _mean_forward(x_src: torch.Tensor, mask: torch.Tensor,
                   cols: Optional[torch.Tensor]) -> torch.Tensor:
     if not x_src.is_cuda:
@@ -78,10 +120,14 @@ def _mean_forward(x_src: torch.Tensor, mask: torch.Tensor,
     if w == 0 or D == 0:
         return out
     bf16 = x_src.dtype == torch.bfloat16
+    ptrs = x_src.data_ptr() | out.data_ptr()
+    vec, col_warps, split = mean_launch_plan(w, k, D, x_src.element_size(),
+                                             min(ptrs & -ptrs, 16))
     _kernels.launch(
         "masked_mean", x_src.data_ptr(), x_src.shape[0], D, mask.data_ptr(),
         cols.data_ptr() if cols is not None else None, w, k, out.data_ptr(), int(bf16),
-        _kernels.stream_of(x_src), variant="bfloat16" if bf16 else "float32",
+        vec, col_warps, split, _kernels.stream_of(x_src),
+        variant="bfloat16" if bf16 else "float32",
     )
     return out
 

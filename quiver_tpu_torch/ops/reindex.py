@@ -12,8 +12,10 @@ Contract (the JAX package's ``reindex.py:9-22``):
   value. Invalid lanes of ``local_nbrs`` hold 0 (the JAX package leaves
   unread garbage there).
 
-On CUDA tensors `local_reindex` launches the hash-and-sort kernel of
-``csrc/reindex.cu``; on CPU tensors it runs `local_reindex_plain`.
+On CUDA tensors `local_reindex` makes one counted launch of the
+hash-and-sort kernels of ``csrc/reindex.cu`` (one kernel up to 2,048
+slots, eight above, whatever S and k); on CPU tensors it runs
+`local_reindex_plain`.
 """
 
 from __future__ import annotations
@@ -81,10 +83,6 @@ def local_reindex_plain(seeds, seed_valid, nbrs, nbr_valid) -> ReindexResult:
     return ReindexResult(n_id, count, local_seeds, local_nbrs, nbr_valid)
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(int(n) - 1, 0).bit_length()
-
-
 def _launch_reindex(seeds, seed_valid, nbrs, nbr_valid) -> ReindexResult:
     if seeds.dtype != torch.int32:
         raise TypeError(f"the reindex kernel takes int32 ids; got {seeds.dtype}")
@@ -93,10 +91,8 @@ def _launch_reindex(seeds, seed_valid, nbrs, nbr_valid) -> ReindexResult:
     S, k = nbrs.shape
     dev = seeds.device
     W = S * (1 + k)
-    H = _next_pow2(max(2 * W, 2))
-    P = _next_pow2(max(S * k, 2))
-    scratch = torch.empty(3 * H + 2, dtype=torch.int32, device=dev)
-    uniq = torch.empty(P, dtype=torch.int32, device=dev)
+    if W >= 2**30:
+        raise ValueError(f"the reindex kernel takes S * (1 + k) < 2**30 slots; got {S} x {1 + k}")
     n_id = torch.empty(W, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     local_seeds = torch.empty(S, dtype=torch.int32, device=dev)
@@ -104,11 +100,13 @@ def _launch_reindex(seeds, seed_valid, nbrs, nbr_valid) -> ReindexResult:
     if S == 0:
         count.zero_()
         return ReindexResult(n_id, count, local_seeds, local_nbrs, nbr_valid)
+    words = _kernels.local_reindex_scratch_words(S, k)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     _kernels.launch(
         "local_reindex", seeds.data_ptr(), seed_valid.data_ptr(), nbrs.data_ptr(),
-        nbr_valid.data_ptr(), S, k, scratch.data_ptr(), H, uniq.data_ptr(), P,
-        n_id.data_ptr(), count.data_ptr(), local_seeds.data_ptr(),
-        local_nbrs.data_ptr(), _kernels.stream_of(seeds),
+        nbr_valid.data_ptr(), S, k, scratch.data_ptr(), words, n_id.data_ptr(),
+        count.data_ptr(), local_seeds.data_ptr(), local_nbrs.data_ptr(),
+        _kernels.stream_of(seeds),
     )
     return ReindexResult(n_id, count, local_seeds, local_nbrs, nbr_valid)
 

@@ -72,7 +72,16 @@ on the CPU; a GraphSAGE step at sizes [64, 10] (uniform and weighted
 sampler) against the CPU's plain path. The full-graph mean (K10) on a graph
 with a star of 100 segments' edges and rows at the segment length and one
 past it, at D = 99, 100 and 256 with int32 and int64 ids, bit-equal when
-run twice."""
+run twice. The redesigned K2: bit-equal to its plain version (card and
+CPU) and when run twice at S*k of 1, 2,048, 2,049 and 65,537, across its
+1,024-seed tiles and its sort's 1,024-element tiles, with every neighbor a
+seed, no valid neighbor, no valid seed, ids 0 and INT32_MAX - 1 and
+negative ids; one kernel on the card a call up to 2,048 slots and eight
+from there to S*k = 901,120.
+The redesigned K4 at k in {1, 5, 15, 33, 64, 512}, W in {1, 64, 1,024,
+16,384} and D in {1, 47, 100, 256, 257}, both layouts, float32 and
+bfloat16: within 1e-5 of its plain version (bfloat16: the float32 kernel
+rounded once), zeros for an all-false row, bit-equal when run twice."""
 
 import numpy as np
 import pytest
@@ -187,6 +196,107 @@ def test_reindex_kernel_matches_plain(cuda_device):
         assert _same(got.local_seeds, want.local_seeds)
         assert _same(got.local_nbrs[valid], want.local_nbrs[valid])
         assert _same(again.n_id, got.n_id) and _same(again.local_nbrs, got.local_nbrs)
+
+
+INT32_MAX = 2**31 - 1
+
+
+def _reindex_case(S, k, rng, lo=0, hi=2_000_000, seed_frac=0.9, nbr_frac=0.8):
+    seeds = rng.integers(lo, hi, S).astype(np.int32)
+    seed_valid = rng.random(S) < seed_frac
+    nbrs = rng.integers(lo, hi, (S, k)).astype(np.int32)
+    nbr_valid = rng.random((S, k)) < nbr_frac
+    return seeds, seed_valid, nbrs, nbr_valid
+
+
+def _new_uniques(n_new, S, k, rng):
+    """Seeds and neighbors whose valid neighbors hold exactly ``n_new``
+    values that no seed holds (S * k >= n_new)."""
+    seeds = np.arange(S, dtype=np.int32) * 2  # even ids
+    vals = rng.permutation(n_new).astype(np.int32) * 2 + 1  # odd ids: never a seed
+    nbrs = np.resize(vals, S * k).reshape(S, k)
+    return seeds, np.ones(S, bool), nbrs, np.ones((S, k), bool)
+
+
+def _reindex_boundary_cases():
+    rng = np.random.default_rng(31)
+    cases = {f"S*k={S * k} (S={S}, k={k})": _reindex_case(S, k, rng)
+             for S, k in ((1, 1), (64, 32), (683, 3), (2049, 1), (65537, 1), (1, 2049))}
+    # the one-block path's limit: S*(1+k) = 2,048 slots, then 2,049
+    cases["one block, 2048 slots"] = _reindex_case(64, 31, rng)
+    cases["past one block, 2049 slots"] = _reindex_case(683, 2, rng)
+    cases["one block, 1025 new uniques"] = _new_uniques(1025, 500, 3, rng)
+    cases["seed tiles 1024"] = _reindex_case(1024, 4, rng)
+    cases["seed tiles 1025"] = _reindex_case(1025, 4, rng)
+    for n_new in (1024, 1025, 2048, 2049):  # the sort's 1,024-element tiles
+        cases[f"new uniques {n_new}"] = _new_uniques(n_new, 700, 3, rng)
+    seeds, sv, _, nv = _reindex_case(500, 7, rng, hi=100)
+    cases["all neighbors duplicates of the seeds"] = (
+        seeds, np.ones(500, bool), seeds[rng.integers(0, 500, (500, 7))], nv)
+    for S, path in ((300, "one block"), (700, "eight kernels")):
+        seeds, sv, nbrs, nv = _reindex_case(S, 5, rng)
+        cases[f"no valid neighbor, {path}"] = (seeds, sv, nbrs, np.zeros_like(nv))
+        cases[f"no valid seed, {path}"] = (seeds, np.zeros_like(sv), nbrs, nv)
+    for S, path in ((200, "one block"), (400, "eight kernels")):
+        seeds, sv, nbrs, nv = _reindex_case(S, 6, rng, lo=INT32_MAX - 40, hi=INT32_MAX)
+        seeds[:3] = (0, INT32_MAX - 1, 0)
+        nbrs[:2] = 0
+        nbrs[2:4] = INT32_MAX - 1
+        cases[f"ids 0 and INT32_MAX - 1, {path}"] = (seeds, sv, nbrs, nv)
+    seeds, sv, nbrs, nv = _reindex_case(400, 6, rng, lo=-2**31, hi=INT32_MAX)
+    nbrs[:3, 0] = (-2**31, -1, 0)
+    cases["negative ids in signed order"] = (seeds, sv, nbrs, nv)
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_reindex_boundary_cases()))
+def test_reindex_kernel_at_its_design_boundaries(cuda_device, name):
+    """K2 at S*k of 1, 2,048, 2,049 and 65,537, on both sides of its
+    one-block limit (2,048 slots), across its 1,024-seed tiles and its
+    sort's 1,024-element tiles of new uniques, with all neighbors
+    duplicates of the seeds, no valid neighbor, no valid seed, ids 0 and
+    INT32_MAX - 1 and negative ids: bit-equal to its plain version on the
+    card and on the CPU, and when run twice."""
+    case = _reindex_boundary_cases()[name]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in case]
+    got = reindex.local_reindex(*args)
+    again = reindex.local_reindex(*args)
+    want = reindex.local_reindex_plain(*args)
+    cpu = reindex.local_reindex_plain(*(torch.from_numpy(np.ascontiguousarray(a)) for a in case))
+    torch.cuda.synchronize()
+    valid = args[3]
+    for other in (want, cpu, again):
+        assert _same(got.n_id, other.n_id) and _same(got.count, other.count)
+        assert _same(got.local_seeds, other.local_seeds)
+        assert _same(got.local_nbrs[valid], other.local_nbrs.to(cuda_device)[valid])
+
+
+@pytest.mark.cuda
+def test_reindex_kernel_launches_do_not_grow_with_the_batch(cuda_device):
+    """One counted launch of K2 runs one kernel on the card up to 2,048
+    slots (a flush's first hop) and eight from there to S*k = 901,120 (a
+    batch of 1,024's third hop), and its scratch is the size its C helper
+    names (none for one block)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(32)
+    for S, k in ((64, 15), (64, 31), (683, 2), (1024, 10), (11264, 5), (180224, 5)):
+        args = [torch.from_numpy(a).to(cuda_device) for a in _reindex_case(S, k, rng)]
+        reindex.local_reindex(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            reindex.local_reindex(*args)
+            torch.cuda.synchronize()
+        n = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation)
+        W = S * (1 + k)
+        assert n == (1 if W <= 2048 else 8), (S, k, n)
+        H = 1 << (2 * W - 1).bit_length()
+        tiles, seed_tiles = -(-S * k // 1024), -(-S // 1024)
+        assert _kernels.local_reindex_scratch_words(S, k) == (0 if W <= 2048 else (
+            2 * H + 2 * S * k + seed_tiles + 8 + 4 * 256 + 4 * 256 * tiles))
 
 
 @pytest.mark.cuda
@@ -382,6 +492,42 @@ def test_mean_kernels_at_wide_fanouts_match_plain(cuda_device, k, structural, dt
     assert _kernels.counts()["masked_mean_backward"] == before + 2
     assert gx.dtype == dtype and _same(gx, again)
     assert _same(gx, masked_mean_backward_plain(g.cpu(), mask, cols, w_src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 15, 33, 64, 512])
+@pytest.mark.parametrize("structural", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mean_kernel_over_its_launch_plans(cuda_device, k, structural, dtype):
+    """K4 at W in {1, 64, 1,024, 16,384} targets and D in {1, 47, 100,
+    256, 257} columns: every access width (16 bytes down to one element),
+    one to eight warps a target and the lane split. Within 1e-5 of its
+    plain version (bfloat16: the float32 kernel rounded once, bit for
+    bit), an all-false mask row giving zeros, and bit-equal when run
+    twice."""
+    rng = np.random.default_rng(1000 + k)
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    for W in (1, 64, 1024, 16384):
+        for D in (1, 47, 100, 256, 257):
+            w_src = W * (1 + k) if structural else min(W * (1 + k), 50_000)
+            mask = torch.from_numpy(rng.random((W, k)) < 0.8)
+            mask[0] = False
+            cols = None if structural else torch.from_numpy(
+                rng.integers(-2, w_src + 2, (W, k)).astype(np.int32)).to(cuda_device)
+            adj = DenseAdj(cols, mask.to(cuda_device), None, None)
+            x = torch.randn((w_src, D), generator=gen, device=cuda_device)
+            got32 = masked_mean_aggregate(x, adj)
+            torch.testing.assert_close(got32, masked_mean_aggregate_plain(x, adj), atol=1e-5,
+                                       rtol=1e-5)
+            xd = x.to(dtype)
+            got = masked_mean_aggregate(xd, adj)
+            again = masked_mean_aggregate(xd, adj)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and _same(got, again), (W, D)
+            if dtype == torch.bfloat16:
+                assert _same(got, masked_mean_aggregate(xd.float(), adj).to(dtype)), (W, D)
+            assert not got[0].any()
+            del x, xd, got, got32, again
 
 
 @pytest.mark.cuda

@@ -75,3 +75,31 @@ def test_duplicate_seed_keeps_slot_and_neighbors_resolve_to_first():
     assert t.n_id[:6].tolist() == [4, 9, 4, 2, 7, 11] and t.n_id[6] == 100
     assert t.local_nbrs.tolist() == [[0, 4], [1, 3], [4, 5], [0, 6]]
 
+
+
+@pytest.mark.parametrize("S,k", [(64, 32), (683, 3), (2049, 1)])
+def test_local_reindex_matches_jax_across_sort_tiles(S, k):
+    """S*k at 2,048 and 2,049 lanes, many of them new uniques (ids up to
+    5,000): the card kernel's tiles of 1,024 new uniques."""
+    t = _compare(_case(S, k, 5000, S + k))
+    assert int(t.count) > 1025
+
+
+def test_local_reindex_matches_jax_when_every_neighbor_is_a_seed():
+    seeds, seed_valid, nbrs, nbr_valid = _case(300, 6, 100, 7)
+    held = seeds[seed_valid]
+    nbrs = held[np.random.default_rng(8).integers(0, held.shape[0], (300, 6))]
+    t = _compare((seeds, seed_valid, nbrs, nbr_valid))
+    assert int(t.count) == int(seed_valid.sum())
+
+
+def test_local_reindex_matches_jax_next_to_the_sentinel():
+    """Ids in the 40 values below INT32_MAX, and 0."""
+    top = np.iinfo(np.int32).max
+    seeds, seed_valid, nbrs, nbr_valid = _case(200, 5, 40, 9)
+    seeds, nbrs = (top - 1 - seeds).astype(np.int32), (top - 1 - nbrs).astype(np.int32)
+    seeds[:2] = (0, top - 1)
+    nbrs[:2, 0] = (0, top - 1)
+    t = _compare((seeds, seed_valid, nbrs, nbr_valid))
+    count = int(t.count)
+    assert t.n_id[count - 1] <= top - 1 and (t.n_id[count:] == top).all()

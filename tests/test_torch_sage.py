@@ -147,6 +147,67 @@ def test_masked_mean_matches_jax(structural):
     assert not got[0].any()
 
 
+@pytest.mark.parametrize("D", [47, 257])
+@pytest.mark.parametrize("structural", [False, True])
+def test_masked_mean_matches_jax_at_narrow_access_widths(D, structural):
+    """Row widths whose stride is no multiple of 16 bytes (the card
+    kernel's one-element accesses), one of them past 8 warps' columns."""
+    x, mask, cols = _adj_case(structural, W=20, k=33, w_src=300, seed=D)
+    x = np.random.default_rng(D).standard_normal((x.shape[0], D)).astype(np.float32)
+    z = np.zeros((), np.int32)
+    jadj = JDenseAdj(None if cols is None else jnp.asarray(cols), jnp.asarray(mask), z, z)
+    tadj = DenseAdj(None if cols is None else torch.from_numpy(cols), torch.from_numpy(mask),
+                    torch.tensor(0), torch.tensor(0))
+    want = np.asarray(j_mean(jnp.asarray(x), jadj))
+    got = masked_mean_aggregate(torch.from_numpy(x), tadj).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("structural", [False, True])
+def test_bf16_masked_mean_at_d100_matches_jax(structural):
+    """bfloat16 rows at D = 100 (200-byte rows: the card kernel's 8-byte
+    accesses): the port sums in float32 and rounds once, so it lies within
+    one bfloat16 rounding (2**-7 relative) of the JAX package's float32
+    mean of the same bfloat16 values rounded to bfloat16."""
+    x, mask, cols = _adj_case(structural, W=30, k=15, w_src=200, seed=11)
+    x = np.random.default_rng(11).standard_normal((x.shape[0], 100)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    z = np.zeros((), np.int32)
+    jadj = JDenseAdj(None if cols is None else jnp.asarray(cols), jnp.asarray(mask), z, z)
+    tadj = DenseAdj(None if cols is None else torch.from_numpy(cols), torch.from_numpy(mask),
+                    torch.tensor(0), torch.tensor(0))
+    want = np.asarray(j_mean(xb.astype(jnp.float32), jadj).astype(jnp.bfloat16).astype(jnp.float32))
+    got = masked_mean_aggregate(torch.from_numpy(x).to(torch.bfloat16), tadj)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0**-7, atol=1e-6)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("W,k,D,elem,align,want", [
+    (11264, 5, 100, 4, 256, (4, 1, 1)),    # a flush's first layer: many targets
+    (1024, 10, 256, 4, 256, (4, 2, 1)),    # its second: 2,048 warps, no split
+    (64, 15, 256, 4, 256, (4, 2, 4)),      # its third: 64 targets, 8 warps each
+    (64, 10, 256, 4, 256, (4, 2, 2)),      # split while the parts keep 4 lanes
+    (1024, 64, 256, 4, 256, (4, 2, 1)),    # k = 64 over 1,024 targets
+    (64, 15, 256, 2, 256, (8, 1, 4)),      # bfloat16: 16 bytes = 8 columns, float32's split
+    (180224, 5, 100, 2, 256, (4, 1, 1)),   # 200-byte bfloat16 rows: 8-byte accesses
+    (64, 33, 47, 4, 256, (1, 2, 4)),       # 188-byte rows: one element a thread
+    (64, 33, 257, 2, 256, (1, 8, 1)),      # 9 column slices: 8 warps walk them
+    (64, 64, 256, 4, 8, (2, 4, 2)),        # 8-byte-aligned pointers: 8-byte accesses
+    (5, 1, 1, 2, 256, (1, 1, 1)),
+])
+def test_mean_launch_plan(W, k, D, elem, align, want):
+    from quiver_tpu_torch.models.sage import MEAN_BLOCK_WARPS, mean_launch_plan
+
+    vec, col_warps, split = mean_launch_plan(W, k, D, elem, align)
+    assert (vec, col_warps, split) == want
+    assert D % vec == 0 and (vec * elem) in (1, 2, 4, 8, 16) and align % (vec * elem) == 0
+    assert col_warps * split <= MEAN_BLOCK_WARPS and split & (split - 1) == 0
+    if elem == 2:  # bfloat16 adds in float32's order: the same split
+        assert mean_launch_plan(W, k, D, 4, align)[2] == split
+
+
 def test_graphsage_logits_from_flax_params_match():
     js, ts = _pair_samplers()
     feat = np.random.default_rng(0).standard_normal((N_NODES, DIM)).astype(np.float32)
