@@ -81,7 +81,12 @@ from there to S*k = 901,120.
 The redesigned K4 at k in {1, 5, 15, 33, 64, 512}, W in {1, 64, 1,024,
 16,384} and D in {1, 47, 100, 256, 257}, both layouts, float32 and
 bfloat16: within 1e-5 of its plain version (bfloat16: the float32 kernel
-rounded once), zeros for an all-false row, bit-equal when run twice."""
+rounded once), zeros for an all-false row, bit-equal when run twice.
+The redesigned Gumbel draw (K7 tiled and flat, K8) across its switch
+points (rows a block, the key budget's passes, rows of at most 32 lanes,
+the arg-max/radix crossover at k = 16/17, the rank cap at 128/129, the
+shared pick list, deg < k, zero-weight rows, invalid seeds, K8's cutoff
+masking whole rows), bit-equal to its plain version and when run twice."""
 
 import numpy as np
 import pytest
@@ -879,6 +884,112 @@ def test_gumbel_kernels_at_wide_fanouts_match_plain(cuda_device, kind, max_deg, 
     if kind != "temporal":  # the hub draws its nonzero-weight edges of the window, up to k
         w = topo.edge_weights[topo.indptr[5]:topo.indptr[6]][:max_deg]
         assert int(got[1][0].sum()) == min(k, int((w > 0).sum()))
+
+
+def _gumbel_boundary_graph(seed=5):
+    """Degrees by node range: 0-999 up to 4, 1,000-1,999 5-40, 2,000-2,799
+    41-200, 2,800-3,599 200-700, 3,600-3,999 700-5,000 (past a 4,096-lane
+    window); 5% zero weights, and every weight zero on nodes 1,500-1,519
+    and 3,000-3,009; timestamps uniform in [0, 50)."""
+    rng = np.random.default_rng(seed)
+    n = 4000
+    deg = np.concatenate([rng.integers(0, 5, 1000), rng.integers(5, 41, 1000),
+                          rng.integers(41, 201, 800), rng.integers(200, 701, 800),
+                          rng.integers(700, 5001, 400)])
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    w = rng.uniform(0.0, 1.0, indices.shape[0]).astype(np.float32)
+    w[rng.random(w.shape[0]) < 0.05] = 0.0
+    for lo, hi in ((1500, 1520), (3000, 3010)):
+        w[indptr[lo]:indptr[hi]] = 0.0
+    ts = rng.uniform(0.0, 50.0, indices.shape[0]).astype(np.float32)
+    return CSRTopo(indptr=indptr, indices=indices, edge_weights=w), ts, n
+
+
+def _gumbel_boundary_seeds(rng, W, n):
+    """W seeds: 64 rows of degree 700-5,000 first (several passes of the
+    block's key budget), then 64 rows of degree <= 4, 32 rows of all-zero
+    weights, the rest random; ~10% invalid and a few out of range."""
+    seeds = rng.integers(0, n, W)
+    seeds[:64] = rng.integers(3600, 4000, 64)
+    seeds[64:128] = rng.integers(0, 1000, 64)
+    seeds[128:160] = np.resize(np.r_[1500:1520, 3000:3010], 32)
+    seeds[160:163] = (-3, n + 3, n - 1)
+    valid = rng.random(W) >= 0.1
+    valid[:4] = True
+    return torch.from_numpy(seeds.astype(np.int32)), torch.from_numpy(valid)
+
+
+def _gumbel_call(kind, topo, ts, dev, W, rng):
+    """``(fn, plain, graph)`` of one Gumbel kernel; the temporal draw's
+    query times (some +inf) ride in ``fn``/``plain`` with recency 0.02
+    and the cutoff 30, which masks every lane of a row with t <= 30."""
+    from quiver_tpu_torch.workloads import TemporalTiledGraph
+
+    if kind == "tiled":
+        return (sample.tiled_weighted_sample_layer, sample.tiled_weighted_sample_layer_plain,
+                (*topo.to_device_tiled(dev), topo.to_device_tiled_weights(dev)))
+    if kind == "flat":
+        return (sample.weighted_sample_layer, sample.weighted_sample_layer_plain,
+                (*topo.to_device(dev), topo.to_device_weights(dev)))
+    t = torch.from_numpy(rng.uniform(0.0, 60.0, W).astype(np.float32))
+    t[::17] = float("inf")
+    g = TemporalTiledGraph(topo, ts, device=dev).temporal_graph()
+
+    def fn(*a, max_deg):
+        seeds, valid, k, key = a[-4:]
+        return sample.tiled_temporal_sample_layer(*a[:-4], seeds, valid, k, key,
+                                                  t.to(seeds.device), max_deg, 0.02, 30.0)
+
+    def plain(*a, max_deg):
+        seeds, valid, k, key = a[-4:]
+        return sample.tiled_temporal_sample_layer_plain(*a[:-4], seeds, valid, k, key,
+                                                        t.to(seeds.device), max_deg, 0.02, 30.0)
+    return fn, plain, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tiled", "flat", "temporal"])
+@pytest.mark.parametrize("max_deg,k,W", [
+    (512, 1, 4999), (512, 5, 34001), (512, 16, 20011), (512, 17, 20011), (512, 64, 4999),
+    (512, 33, 34001), (512, 128, 1031), (512, 129, 1031), (4096, 5, 300), (4096, 64, 300)])
+def test_gumbel_kernels_at_their_design_boundaries(cuda_device, kind, max_deg, k, W):
+    """The redesigned Gumbel draw (K7 tiled and flat, K8) across its
+    switch points: 1 to 32 rows a block (W = 300 to 34,001; 4,999, 20,011
+    and 34,001 rows are no multiple of their 4, 16 and 32 rows a block),
+    hub rows whose windows take several
+    passes of the block's 4,096-key budget (512 and 4,096-lane windows),
+    rows of at most 32 lanes (one key a lane) and wider ones, the arg-max
+    rounds up to k = 16 and the radix select from 17, the compacted ranks
+    up to k = 128 and the whole-span ranks from 129, the picks written
+    through the block's shared list (up to 512 a pass) and straight out,
+    rows of deg < k (their -inf lanes in lane order), rows of zero
+    weights alone and mixed with live ones, invalid and out-of-range
+    seeds, and K8's cutoff masking whole rows: bit-equal to the plain
+    version on the card (and on the CPU up to 1,031 rows) and when run
+    twice."""
+    topo, ts, n = _gumbel_boundary_graph()
+    rng = np.random.default_rng(W + k)
+    seeds, valid = _gumbel_boundary_seeds(rng, W, n)
+    fn, plain, g = _gumbel_call(kind, topo, ts, cuda_device, W, rng)
+    key = qrandom.split(qrandom.key(k + max_deg))[1]
+    args = (seeds.to(cuda_device), valid.to(cuda_device), k, key)
+    name = "temporal_sample_tiled" if kind == "temporal" else f"weighted_sample_{kind}"
+    before = _kernels.counts()[name]
+    got = fn(*g, *args, max_deg=max_deg)
+    again = fn(*g, *args, max_deg=max_deg)
+    want = plain(*g, *args, max_deg=max_deg)
+    torch.cuda.synchronize()
+    assert _kernels.counts()[name] == before + 2
+    for a, b, c in zip(got, want, again):
+        assert a.shape == (W, k)
+        assert _same(a, b) and _same(a, c)
+    if W <= 1031:
+        cpu = plain(*(x.cpu() for x in g), seeds, valid, k, key, max_deg=max_deg)
+        assert _same(got[0], cpu[0]) and _same(got[1], cpu[1])
+    if kind != "temporal":  # an all-zero-weight row draws nothing; a hub row draws k
+        assert not got[1][128:160].any()
+        assert got[1][:4].sum(1).tolist() == [k] * 4
 
 
 @pytest.mark.cuda
