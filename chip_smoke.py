@@ -28,6 +28,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              mask / count computed beforehand (K4); no one torch call
              draws a k-subset per CSR row (K1) or dedups with the seeds
              kept in their slots (K2). K4 is also bit-equal when run twice;
+             K1 and K1b launch one kernel a call (the host's launch count,
+             `_kernels.kernel_launches`), also timed queued;
 5. serve   — ServeEngine(max_batch=64) on the tiled sampler: warmup, then
              Zipf requests from 4 client threads; every kernel of the path
              must have launched (counts zeroed just before, read just
@@ -87,7 +89,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              each hop of one dedup sample of the first 1,024 train seeds,
              uncapped and at the caps: bit-equal to its plain version and
              when run twice, ms a call (also queued behind a spin), and the
-             kernels it launches a call (``torch.profiler``); ``caps k2``
+             kernels it launches a call (the host's launch count,
+             `_kernels.kernel_launches`); ``caps k2``
              lines. Lines start ``caps``;
 10. learn  — the example (python -m quiver_tpu_torch.examples.reddit_sage)
              on the card at the args ACCURACY.json was recorded at
@@ -165,8 +168,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              build_tiled_host's tables; the id table's host build with its
              copy against to_device_tiled's own (row map, flat upload, K12),
              in seconds; K12 across the int32 edge-offset boundary on a
-             2^31 + 256-word source, bit-equal; K1 and K1b at k = 48 and 64
-             over a batch of 1,024 seeds, bit-equal. Yardstick:
+             2^31 + 256-word source, bit-equal; K1 and K1b at k = 48, 64
+             and 512 over a batch of 1,024 seeds, bit-equal, one kernel a
+             call, also timed queued. Yardstick:
              torch.take of the clamped [M, 128] lane indices, computed
              beforehand (K12). Every tile table the run builds is logged
              on a ``tiles:`` line with its seconds and K12 launches; the
@@ -319,8 +323,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              float32 (the report row: rank (0, 0)), bfloat16 and int8,
              bit-equal to its plain version, the ici ranks' unpacks summing
              to the rows; the grouped hop (K13e: K13b at the gathered
-             width, then K13c's int32 unpack of the neighbor and valid
-             slabs) flat and tiled per hop and rank, bit-equal to their
+             width into one stacked neighbor and flag slab, then K13c's one
+             int32 unpack of it, two kernels, checked by the launch count;
+             logged beside the pair of slabs and two unpacks it replaces,
+             ``kernels-9 K13e:`` lines) flat and tiled per hop and rank,
+             bit-equal to their
              plain versions, the ici ranks' sums equal to the
              single-device K1b draw of the two hosts' frontiers with each
              row drawn by its owner host's key (logged as ``grouped_hop``
@@ -380,13 +387,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the block, then -1 pads), bit-equal to its plain version.
              Yardstick: index_select of the clamped ids, then masked_fill_
              of the -1 lanes;
-31. report — a ``redesign K4 K2:`` line (K4 and K2 before and after
-             their redesign: K4 at a flush's three layers, the bfloat16
-             layers of kernels-7 and the k = 64 layer of the fanout phase,
-             with embedding_bag's time and the bound; K2 at a flush's three
-             hops and the caps phase's hops, with its kernel launches a
-             call; each time also queued behind a 1 ms spin, the card's
-             time without the host's share), then one JSON line of all
+31. report — a ``redesign K4 K2 K1 K13e:`` line (K4 and K2 before and
+             after their redesign: K4 at a flush's three layers, the
+             bfloat16 layers of kernels-7 and the k = 64 layer of the fanout
+             phase, with embedding_bag's time and the bound; K2 at a
+             flush's three hops and the caps phase's hops, with its kernel
+             launches a call; each time also queued behind a 1 ms spin, the
+             card's time without the host's share; K1 tiled and flat at a
+             flush's three hops and K13e's calibrated hops, queued, with
+             their kernels a call, beside their queued times before the
+             redesign (PERF.md) and, for
+             K13e, this run's pair of slabs and two unpacks), then one JSON line of all
              kernels, the card line, then the ``{"ok": true, ...}`` line
              last.
 
@@ -480,8 +491,10 @@ from quiver_tpu_torch.parallel.collectives import (
 from quiver_tpu_torch.parallel.topology import (
     sample_layer_partial,
     sample_layer_partial_plain,
+    sample_layer_partial_slab,
     tiled_sample_layer_partial,
     tiled_sample_layer_partial_plain,
+    tiled_sample_layer_partial_slab,
 )
 from quiver_tpu_torch.parallel.train import hot_cold_stripes, stripe_rows
 from quiver_tpu_torch.models.sage import (
@@ -619,7 +632,7 @@ TS_SPAN, RECENCY, T_QUANTUM, TEMPORAL_QPS, LP_PAIRS = 50.0, 0.02, 0.05, 40.0, 25
 # wide fanouts of K1/K1b; bench.py's cap policy (calibrate_bench_caps: probe
 # batches, margin, granule) and the auto-grow sampler's batches
 BOUNDARY_WORDS = 2**31 + 256
-WIDE_FANOUTS = (48, 64)
+WIDE_FANOUTS = (48, 64, 512)
 CAP_PROBES, CAP_MARGIN, CAP_GRANULE, CAP_GROW_BATCHES = 24, 1.1, 2048, 10
 # the example at the args ACCURACY.json was recorded at (scripts/record_accuracy.py)
 LEARN_ARGS = ["--epochs", "8", "--nodes", "20000", "--batch-size", "512", "--cache", "4M"]
@@ -680,7 +693,14 @@ K4_MS_BEFORE = {"flush": 0.07904, "bf16 hops": [0.1508, 0.0617, 0.0322], "k64": 
 K2_MS_BEFORE = {"flush": 0.26525, "uncapped": [0.12043, 0.22066, 0.75910],
                 "capped": [0.10152, 0.22277, 0.72509]}
 K2_LAUNCHES_BEFORE = {"uncapped": [16, 42, 61], "capped": [16, 42, 61]}
-REDESIGN = {}  # this run's times of K4 and K2 at those shapes, filled by the phases
+# K1 and K13e before their redesign (NVIDIA H100 80GB HBM3, 700 W; PERF.md's
+# table, queued behind a spin): K1 tiled and flat, a B = 64
+# flush's three calls; K13e tiled, rank (0, 0)'s three grouped hops (the draw
+# and two int32 unpacks), and flat, the three hops' sum
+K1_QUEUED_MS_BEFORE = {"sample_tiled": [0.02461, 0.01821, 0.01286],
+                       "sample_flat": [0.02477, 0.01821, 0.01283]}
+K13E_QUEUED_MS_BEFORE = {"tiled": [0.03165, 0.03162, 0.05859], "flat": 0.12095}
+REDESIGN = {}  # this run's times of K4, K2, K1 and K13e at those shapes, filled by the phases
 
 
 def log(*a):
@@ -767,11 +787,11 @@ def bound(bytes_moved, int_ops=0, f32_adds=0, f64_instr=0):
 
 
 def sample_bound(indptr, cur, cur_valid, k):
-    """K1's least time for one hop on this hop's data. Bytes: seeds and
-    flags, one (base, degree) pair and min(deg, k) neighbor ids per
-    distinct valid seed, the [W, k] ids and flags written. Operations:
-    only rows with deg > k draw; each takes k uniforms and k steps, and
-    step i scans the i tail slots filled before it."""
+    """K1's least time for one hop on this hop's data, whatever implements
+    the draw. Bytes: seeds and flags, one (base, degree) pair and min(deg,
+    k) neighbor ids per distinct valid seed, the [W, k] ids and flags
+    written. Operations: only rows with deg > k draw; each takes k uniforms
+    and k Fisher-Yates steps."""
     W = cur.shape[0]
     s = torch.clamp(cur.long(), 0, indptr.shape[0] - 2)
     deg = torch.where(cur_valid, indptr[s + 1] - indptr[s], 0)
@@ -779,7 +799,7 @@ def sample_bound(indptr, cur, cur_valid, k):
     deg_u = indptr[u + 1] - indptr[u]
     n_bytes = W * 5 + u.numel() * 8 + int(torch.clamp(deg_u, max=k).sum()) * 4 + W * k * 5
     n_draw = int((deg > k).sum())
-    return bound(n_bytes, n_draw * (k * (THREEFRY_INT_OPS + STEP_INT_OPS) + k * (k - 1) // 2))
+    return bound(n_bytes, n_draw * k * (THREEFRY_INT_OPS + STEP_INT_OPS))
 
 
 def record(rows, name, err, ms, plain_ms, b, lib_ms=None, shape="", report=True,
@@ -910,8 +930,13 @@ def kernel_phase(topo, table, model, seeds):
             err = int_err(got, want)
             check(torch.equal(got[1], h["valid"]) and torch.equal(got[0][got[1]], h["nbrs"][h["valid"]]),
                   "flat and tiled draws differ")
+            n_kernels = kernel_launches(lambda: fn(*g, *args))
+            check(n_kernels == 1, f"{name} at W={W} k={k} ran {n_kernels} kernels, not 1")
+            queued = time_ms_queued(lambda: fn(*g, *args))
+            REDESIGN.setdefault(f"K1 flush {name}", []).append(dict(queued_ms=queued,
+                                                                    kernels=n_kernels))
             add(name, err, time_ms(lambda: fn(*g, *args)), time_ms(lambda: plain(*g, *args), reps=5),
-                b, shape=f"W={W} k={k}", queued_ms=time_ms_queued(lambda: fn(*g, *args)))
+                b, shape=f"W={W} k={k}", queued_ms=queued)
 
     # K2: reindex at each hop
     for h in hops:
@@ -1297,18 +1322,16 @@ def profile_steps(step, seeds_iter, port_names, steps=3):
 
 def kernel_launches(fn):
     """The kernels ``fn()`` launches on the card in one call (a wrapper's
-    one counted launch may run several), from a profiler trace of one call
-    after a warm-up call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    one counted launch may run several), by the host's count of kernel
+    launches (`_kernels.kernel_launches`: every launch site of the sources
+    adds one), over one call after a warm-up call."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation)
+    _kernels.reset_kernel_launches()
+    fn()
+    n = _kernels.kernel_launches()
+    torch.cuda.synchronize()
+    return n
 
 
 def k4_times(ms, lib_ms, b, fn, lib_fn):
@@ -1353,7 +1376,10 @@ def redesign_line() -> dict:
     """K4 and K2 before and after their redesign at each shape of
     K4_MS_BEFORE and K2_MS_BEFORE: this run's ms a call (`time_ms`, as the
     kernels line) and queued ms a call (`time_ms_queued`: the card's time
-    alone), beside K4's embedding_bag and bound and K2's kernel launches."""
+    alone), beside K4's embedding_bag and bound and K2's kernel launches;
+    K1's flush calls and K13e's calibrated hops, queued, with their kernels
+    a call, beside K1_QUEUED_MS_BEFORE and K13E_QUEUED_MS_BEFORE (K13e also
+    beside this run's pair of slabs and two unpacks)."""
     def cols(entries):
         return {key: [e[key] for e in entries] for key in entries[0]}
 
@@ -1365,7 +1391,11 @@ def redesign_line() -> dict:
             "K2": {"flush": dict(cols(REDESIGN["K2 flush"]), ms_before=K2_MS_BEFORE["flush"]),
                    **{name: dict(cols(REDESIGN[f"K2 {name}"]), ms_before=K2_MS_BEFORE[name],
                                  launches_before=K2_LAUNCHES_BEFORE[name])
-                      for name in ("uncapped", "capped")}}}
+                      for name in ("uncapped", "capped")}},
+            "K1": {name: dict(cols(REDESIGN[f"K1 flush {name}"]), queued_ms_before=before)
+                   for name, before in K1_QUEUED_MS_BEFORE.items()},
+            "K13e": {layout: dict(cols(REDESIGN[f"K13e {layout}"]), queued_ms_before=before)
+                     for layout, before in K13E_QUEUED_MS_BEFORE.items()}}
 
 
 def train_phase(topo, table, resident, tiered, train_idx, seed):
@@ -2998,7 +3028,7 @@ def kernel_phase_6(topo, wtopo, ts_np, seeds, rows):
         f"(starts {min(starts)} to {max(starts)}), bit-equal to the plain version")
     del big, tail, got
 
-    # K1 / K1b at the wide fanouts (shared-memory tables) over one train batch
+    # K1 / K1b at the wide fanouts (a warp a row, k / 32 steps a lane) over one train batch
     g_tiled, g_flat = topo.to_device_tiled(dev), topo.to_device(dev)
     valid = torch.ones_like(seeds, dtype=torch.bool)
     for k in WIDE_FANOUTS:
@@ -3013,9 +3043,12 @@ def kernel_phase_6(topo, wtopo, ts_np, seeds, rows):
             check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                   f"{name} at k={k} differs from its plain version")
             draws.append(got)
+            n_kernels = kernel_launches(lambda: fn(*g, seeds, valid, k, key))
+            check(n_kernels == 1, f"{name} at k={k} ran {n_kernels} kernels, not 1")
             record(rows, name, 0.0, time_ms(lambda: fn(*g, seeds, valid, k, key)),
                    time_ms(lambda: plain(*g, seeds, valid, k, key), reps=3), b,
-                   shape=f"W={seeds.shape[0]} k={k}", report=False)
+                   shape=f"W={seeds.shape[0]} k={k}", report=False,
+                   queued_ms=time_ms_queued(lambda: fn(*g, seeds, valid, k, key)))
         (tn, tv), (fn_, fv) = draws
         check(torch.equal(tv, fv) and torch.equal(tn[tv], fn_[fv]),
               f"tiled and flat draws differ at k={k}")
@@ -3244,9 +3277,14 @@ def kernel_phase_8(topo, table, mc, seeds, rows, seed):
     record(rows, "sharded_dequant", 0.0, time_ms(lambda: sharded_dequant(codec, q, ids, scale, zero)),
            time_ms(lambda: sharded_dequant_plain(codec, q, ids, scale, zero), reps=5),
            bound(W * DIM + W * 4 + W * 8 + W * DIM * 4), None, shape=f"int8 W={W} D={DIM}")
+    own0 = (ids >= 0) & (ids < R)
+    local0 = torch.clamp(ids.long(), 0, R - 1)
     record(rows, "sharded_rows", 0.0, time_ms(lambda: partial_rows(pstripes[0], ids, 0)),
            time_ms(lambda: partial_rows_plain(pstripes[0], ids, 0), reps=5),
-           bound(W * 4 + W * DIM * 2), None, shape=f"int8 pack shard 0 W={W}", report=False)
+           bound(W * 4 + torch.unique(ids[own0]).numel() * DIM + W * DIM),
+           time_ms(lambda: torch.index_select(pstripes[0], 0, local0)),
+           shape=f"int8 pack shard 0 W={W}", report=False)
+    del own0, local0
     torch.cuda.synchronize()
     _kernels.reset_counts()
     outs = run_ranks(lambda m: sharded_dequant_gather(codec, pstripes[m.ici_idx], ids, m, "ici",
@@ -3286,6 +3324,9 @@ def kernel_phase_8(topo, table, mc, seeds, rows, seed):
                     n_sum = got_n if n_sum is None else n_sum + got_n
                     v_sum = got_v if v_sum is None else v_sum + got_v
                     if tag == "calibrated":
+                        n_kernels = kernel_launches(lambda: fn(*args))
+                        check(n_kernels == 1, f"K13b {layout} hop {l} shard {p} ran {n_kernels} "
+                              "kernels, not 1")
                         record(rows, "sharded_sample_" + layout, 0.0, time_ms(lambda: fn(*args)),
                                time_ms(lambda: plain(*args), reps=3),
                                sharded_sample_bound(indptr_dev, cur, cv, k, start, end), None,
@@ -3442,7 +3483,7 @@ def multichip_phase(topo, table, labels, mc, seed):
                 m.stream.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
                 losses.append(float(loss))
-            coll, step_ms = [], []
+            coll, calls, step_ms = [], [], []
             for i in range(MC_COLLECTIVE_STEPS):
                 acc = clock.on()
                 m.stream.synchronize()
@@ -3652,6 +3693,45 @@ def grouped_pipeline_reference(g_flat, row_start, ici, table, keys, seeds, pipel
     return out
 
 
+def k13e_times(rows, layout, l, w, G, k, recv, fn, pair_fn, plain, p0, indptr_dev):
+    """Time rank (0, 0)'s grouped hop ``l``: K13b's draw at the gathered
+    width ``G * w`` into the stacked slab plus K13c's one unpack of the
+    ``[G, 2, w, k]`` slabs it receives (two kernels, checked), against the
+    plain versions; logged beside the pair it replaces (the draw's neighbor
+    and flag slabs and an unpack of each, three kernels)."""
+    b_draw = sharded_sample_bound(indptr_dev, p0[4], p0[5], k, p0[2], p0[3])
+    b_unp = bound(2 * G * w * k * 4 + 2 * w * k * 4)
+    unp_ms = time_ms(lambda: grouped_unpack(recv))
+    unp_plain = time_ms(lambda: grouped_unpack_plain(recv), reps=3)
+    record(rows, "grouped_unpack", 0.0, unp_ms, unp_plain, b_unp, time_ms(lambda: recv.sum(0)),
+           shape=f"{layout} hop {l} W={w} G={G} k={k} int32 rank (0, 0): the stacked neighbor "
+                 "and valid slab", report=False)
+
+    def hop():
+        return fn(*p0, groups=G), grouped_unpack(recv)
+
+    a, b = recv[:, 0].contiguous(), recv[:, 1].contiguous()
+
+    def pair():
+        return pair_fn(*p0), grouped_unpack(a), grouped_unpack(b)
+
+    n_kernels = kernel_launches(hop)
+    check(n_kernels == 2, f"K13e {layout} hop {l} ran {n_kernels} kernels, not 2")
+    queued = time_ms_queued(hop)
+    record(rows, "grouped_hop", 0.0, time_ms(hop),
+           time_ms(lambda: plain(*p0), reps=3) + unp_plain,
+           (b_draw[0] + b_unp[0], b_draw[1] if b_draw[0] >= b_unp[0] else b_unp[1]), None,
+           shape=f"K13e {layout} hop {l} W={w} G={G} k={k} rank (0, 0): K13b at {G * w} lanes "
+                 "into the stacked slab + one K13c int32 unpack", report=False, queued_ms=queued)
+    before = {"ms": time_ms(pair), "queued_ms": time_ms_queued(pair),
+              "kernels": kernel_launches(pair)}
+    log("kernels-9 K13e: " + json.dumps({"layout": layout, "hop": l, "W": w, "G": G, "k": k,
+                                         "queued_ms": queued, "kernels": n_kernels,
+                                         "pair_before": before}))
+    REDESIGN.setdefault(f"K13e {layout}", []).append(dict(queued_ms=queued, kernels=n_kernels,
+                                                          pair_queued_ms=before["queued_ms"]))
+
+
 def kernel_phase_9(topo, table, host, rows, seed):
     """Hold the host axis's kernels against their plain versions, timed on
     the lanes of one calibrated dedup batch a data group (host 0's and host
@@ -3660,9 +3740,10 @@ def kernel_phase_9(topo, table, host, rows, seed):
     pack (K13a at the gathered width) and K13c's unpack of the two slabs a
     rank receives, in float32 (the report row: rank (0, 0)), bfloat16 and
     int8, the ici ranks' unpacks summing to the rows; K13e's grouped hop
-    (K13b at the gathered width, then K13c's int32 unpack of both slab
-    sets) flat and tiled per hop and rank, the ici ranks' sums equal to
-    the single-device draw with each row drawn by its owner host's key;
+    (K13b at the gathered width into the stacked neighbor and flag slab,
+    then K13c's one int32 unpack of it: two kernels) flat and tiled per hop
+    and rank, the ici ranks' sums equal to the single-device draw with each
+    row drawn by its owner host's key;
     K13d's compaction and merge at the hot/cold leg's two gather widths and
     calibrated budget on the renumbered graph's batch. Then gloo's
     all-gather and all-to-all alone."""
@@ -3737,16 +3818,20 @@ def kernel_phase_9(topo, table, host, rows, seed):
         del full, stripes
     torch.cuda.empty_cache()
 
-    # K13e: a grouped hop per rank, flat and tiled
+    # K13e: a grouped hop per rank, flat and tiled: each shard's draw at the
+    # gathered width into the stacked [G, 2, w, k] slab, then each rank's one
+    # unpack of the G slabs it receives
     row_start = host["blocks"]["flat"][0].row_start
     g_flat = topo.to_device(dev)
     indptr_dev = torch.from_numpy(topo.indptr).to(dev)
     for layout in ("flat", "tiled"):
         if layout == "flat":
-            fn, plain = sample_layer_partial, sample_layer_partial_plain
+            fn, pair_fn, plain = (sample_layer_partial_slab, sample_layer_partial,
+                                  sample_layer_partial_plain)
             blk = [(b.indptr, b.indices) for b in host["blocks"]["flat"]]
         else:
-            fn, plain = tiled_sample_layer_partial, tiled_sample_layer_partial_plain
+            fn, pair_fn, plain = (tiled_sample_layer_partial_slab, tiled_sample_layer_partial,
+                                  tiled_sample_layer_partial_plain)
             blk = [(b.bd, b.tiles) for b in host["blocks"]["tiled"]]
         for tag, ls in lanes.items():
             for l in range(len(SIZES)):
@@ -3756,60 +3841,40 @@ def kernel_phase_9(topo, table, host, rows, seed):
                 all_cur = torch.cat([f[0] for f in fr])
                 all_valid = torch.cat([f[1] for f in fr])
                 # every shard's draw at the gathered width, with its host's key
-                parts = {}
+                slabs = {}
                 for g in range(G):
                     for i in range(ici):
                         p = g * ici + i
                         args = (*blk[p], int(row_start[p]), int(row_start[p + 1]), all_cur,
                                 all_valid, k, fr[g][2])
-                        parts[g, i] = fn(*args)
+                        slabs[g, i] = fn(*args, groups=G)
                         if p != 0:
                             continue
                         want = plain(*args)
-                        check(torch.equal(parts[g, i][0], want[0])
-                              and torch.equal(parts[g, i][1], want[1]),
-                              f"K13b {layout} hop {l} at the gathered width ({tag} lanes) "
-                              "differs from its plain version")
+                        check(torch.equal(slabs[g, i][:, 0].reshape(-1, k), want[0])
+                              and torch.equal(slabs[g, i][:, 1].reshape(-1, k), want[1]),
+                              f"K13b {layout} hop {l} at the gathered width ({tag} lanes): the "
+                              "stacked slab differs from its plain version")
                 for h in range(G):
                     n_sum = v_sum = None
                     for i in range(ici):
-                        a = torch.stack([parts[g, i][0][h * w:(h + 1) * w] for g in range(G)])
-                        b = torch.stack([parts[g, i][1][h * w:(h + 1) * w] for g in range(G)])
-                        got = grouped_unpack(a), grouped_unpack(b)
-                        check(torch.equal(got[0], grouped_unpack_plain(a))
-                              and torch.equal(got[1], grouped_unpack_plain(b)),
+                        recv = torch.stack([slabs[g, i][h] for g in range(G)])  # [G, 2, w, k]
+                        got = grouped_unpack(recv)
+                        check(torch.equal(got, grouped_unpack_plain(recv)),
                               f"K13c int32 (K13e) {layout} hop {l} rank ({h}, {i}) ({tag} lanes) "
                               "differs from its plain version")
                         n_sum = got[0] if n_sum is None else n_sum + got[0]
                         v_sum = got[1] if v_sum is None else v_sum + got[1]
                         if tag == "calibrated" and h == 0 and i == 0:
-                            p0 = (*blk[0], int(row_start[0]), int(row_start[1]), all_cur,
-                                  all_valid, k, fr[0][2])
-                            b_draw = sharded_sample_bound(indptr_dev, all_cur, all_valid, k,
-                                                          int(row_start[0]), int(row_start[1]))
-                            b_unp = bound(2 * G * w * k * 4 + 2 * w * k * 4)
-                            unp_ms = time_ms(lambda: (grouped_unpack(a), grouped_unpack(b)))
-                            unp_plain = time_ms(lambda: (grouped_unpack_plain(a),
-                                                         grouped_unpack_plain(b)), reps=3)
-                            record(rows, "grouped_unpack", 0.0, unp_ms, unp_plain, b_unp,
-                                   time_ms(lambda: (a.sum(0), b.sum(0))),
-                                   shape=f"{layout} hop {l} W={w} G={G} k={k} int32 rank (0, 0): "
-                                         "neighbor and valid slabs", report=False)
-                            record(rows, "grouped_hop", 0.0, time_ms(lambda: fn(*p0)) + unp_ms,
-                                   time_ms(lambda: plain(*p0), reps=3) + unp_plain,
-                                   (b_draw[0] + b_unp[0],
-                                    b_draw[1] if b_draw[0] >= b_unp[0] else b_unp[1]), None,
-                                   shape=f"K13e {layout} hop {l} W={w} G={G} k={k} rank (0, 0): "
-                                         f"K13b at {G * w} lanes + K13c int32 unpack of both "
-                                         "slab sets", report=False,
-                                   queued_ms=time_ms_queued(lambda: (fn(*p0), grouped_unpack(a),
-                                                                     grouped_unpack(b))))
+                            k13e_times(rows, layout, l, w, G, k, recv, fn, pair_fn, plain,
+                                       (*blk[0], int(row_start[0]), int(row_start[1]), all_cur,
+                                        all_valid, k, fr[0][2]), indptr_dev)
                     ref_n, ref_v = grouped_draw_reference(g_flat, row_start, ici, fr, h, k)
                     check(torch.equal(v_sum > 0, ref_v) and int(v_sum.max()) <= 1
                           and torch.equal(n_sum[ref_v], ref_n[ref_v]) and not n_sum[~ref_v].any(),
                           f"K13e {layout} hop {l} host {h} ({tag} lanes): the ici ranks' sum is "
                           "not the owner-keyed single-device draw")
-                del parts
+                del slabs
     torch.cuda.synchronize()
 
     # K13d on the renumbered graph: one dedup batch's two gather widths, the budget
@@ -3967,7 +4032,7 @@ def host_phase(topo, table, labels, host, seed):
                 losses.append(float(loss))
                 if hot_cold:
                     overflows.append(int(out[1]))
-            coll, step_ms = [], []
+            coll, calls, step_ms = [], [], []
             for i in range(MC_COLLECTIVE_STEPS):
                 acc = clock.on()
                 m.stream.synchronize()
@@ -3976,13 +4041,15 @@ def host_phase(topo, table, labels, host, seed):
                      batches[1 + HOST_STEPS + i])
                 m.stream.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
-                by = {}
+                by, n_calls = {}, {}
                 for name, ms in acc:
                     by[name] = by.get(name, 0.0) + ms
+                    n_calls[name] = n_calls.get(name, 0) + 1
                 coll.append(by)
+                calls.append(n_calls)
                 clock.local.acc = None
             return dict(first=first, first_overflow=first_overflow, times=times, losses=losses,
-                        overflows=overflows, coll=coll, instr_ms=step_ms,
+                        overflows=overflows, coll=coll, calls=calls, instr_ms=step_ms,
                         params={k: v.detach().clone() for k, v in replica.state_dict().items()})
 
         g_flat = (host["topo_r"] if hot_cold else topo).to_device(dev)
@@ -4042,7 +4109,7 @@ def host_phase(topo, table, labels, host, seed):
             "step_ms_by_rank": [float(np.median(o["times"])) for o in res],
             "collective_ms_by_rank": coll, "instrumented_step_ms_by_rank": instr,
             "collective_share": float(np.mean([c / s for c, s in zip(coll, instr)])),
-            "collective_ms_by_op_rank0": by_op,
+            "collective_ms_by_op_rank0": by_op, "collective_calls_a_step_rank0": res[0]["calls"],
             "loss_first": losses[0], "loss_last": losses[-1], "gathered_rows": n_rows,
             "overflow_first_step": res[0]["first_overflow"],
             "overflow_per_step": res[0]["overflows"] if hot_cold else None,
@@ -4538,7 +4605,7 @@ def main() -> int:
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))
 
-    log("redesign K4 K2: " + json.dumps(redesign_line()))
+    log("redesign K4 K2 K1 K13e: " + json.dumps(redesign_line()))
     log(f"every phase passed in {time.perf_counter() - t_run:.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -11,7 +11,10 @@ the CPU tests import every module of the package.
 Each launch goes through :func:`launch`, which adds one to the kernel's
 launch count (and to ``name/variant`` where a kernel has layouts that a
 run must show apart), calls the C entry point on the caller's current
-CUDA stream and raises at once if the launch was refused.
+CUDA stream and raises at once if the launch was refused. Beside these
+counts of wrapper calls, the libraries count the kernels a call runs
+(`kernel_launches`): every ``<<<...>>>`` site of the sources adds one to a
+single counter of the process, which this module owns.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# largest fanout k of the uniform sampling kernels (K1, K1b: per-thread
-# k-entry tables, in shared memory above 32; csrc/sample.cu QT_SAMPLE_KMAX)
+# largest fanout k of the uniform sampling kernels (K1, K1b, K13b: k / 32
+# steps a lane in registers; csrc/sample.cu QT_SAMPLE_KMAX)
 SAMPLE_KMAX = 512
 
 _P = ctypes.c_void_p
@@ -83,9 +86,11 @@ KERNELS = {
     "build_tiles": ("tiles", "qt_build_tiles", [_P, _LL, _P, _P, _LL, _P, _P]),
     "sharded_rows": ("gather", "qt_sharded_rows", [_P, _LL, _I, _I, _P, _LL, _LL, _P, _P]),
     "sharded_sample_tiled": ("sample", "qt_sharded_sample_tiled",
-                             [_P, _P, _LL, _I, _LL, _LL, _P, _P, _I, _I, _U, _U, _P, _P, _P]),
+                             [_P, _P, _LL, _I, _LL, _LL, _P, _P, _I, _I, _U, _U, _I, _LL, _P, _P,
+                              _P]),
     "sharded_sample_flat": ("sample", "qt_sharded_sample_flat",
-                            [_P, _P, _LL, _I, _LL, _LL, _P, _P, _I, _I, _U, _U, _P, _P, _P]),
+                            [_P, _P, _LL, _I, _LL, _LL, _P, _P, _I, _I, _U, _U, _I, _LL, _P, _P,
+                             _P]),
     "sharded_dequant": ("dequant", "qt_sharded_dequant",
                         [_I, _P, _LL, _I, _P, _P, _P, _LL, _P, _P]),
     "grouped_unpack": ("collective", "qt_grouped_unpack", [_P, _I, _LL, _I, _P, _P]),
@@ -122,6 +127,8 @@ _build_lock = threading.Lock()  # one build at a time in this process
 _libs: Dict[str, ctypes.CDLL] = {}
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _counts.update({f"{name}/{v}": 0 for name, vs in VARIANTS.items() for v in vs})
+# every library adds its kernel launches here (csrc/common.cuh qt_count_launch)
+_kernel_launches = ctypes.c_ulonglong(0)
 build_log: Dict[str, str] = {}
 
 
@@ -135,6 +142,17 @@ def reset_counts() -> None:
     with _lock:
         for name in _counts:
             _counts[name] = 0
+
+
+def kernel_launches() -> int:
+    """Kernels launched on the card since the last `reset_kernel_launches`,
+    counted by the host at every ``<<<...>>>`` site of the loaded libraries:
+    a wrapper call that runs several kernels counts each of them."""
+    return _kernel_launches.value
+
+
+def reset_kernel_launches() -> None:
+    _kernel_launches.value = 0
 
 
 def _nvcc() -> str:
@@ -208,6 +226,9 @@ def _lib(stem: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             lib.qt_error_string.argtypes = [ctypes.c_int]
             lib.qt_error_string.restype = ctypes.c_char_p
+            lib.qt_bind_launch_counter.argtypes = [_P]
+            lib.qt_bind_launch_counter.restype = None
+            lib.qt_bind_launch_counter(ctypes.addressof(_kernel_launches))
             _libs[stem] = lib
     return lib
 

@@ -249,6 +249,7 @@ static void launch_masked_mean(const void* x, long long w_src, int D, const void
                                  : 0;
   const unsigned blocks =
       static_cast<unsigned>((static_cast<long long>(w_dst) + teams - 1) / teams);
+  qt_count_launch();
   masked_mean_kernel<T, V><<<blocks, 32 * team_warps * teams, lists + parts, st>>>(
       static_cast<const T*>(x), w_src, D, static_cast<const bool*>(mask),
       static_cast<const int32_t*>(cols), w_dst, k, col_warps, split, static_cast<T*>(out));
@@ -517,25 +518,31 @@ static int src_segments(const bool* m, const int32_t* c, long long n_lanes, long
   cudaError_t err = cudaMemsetAsync(sc.deg, 0, sizeof(int32_t) * w_src, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_lanes > 0) {
+    qt_count_launch();
     lane_count_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(m, c, n_lanes, w_src, 0,
                                                                        sc.deg);
     if (int e = qt_launch_status()) return e;
   }
   // 2. the scan into segment offsets
   const long long n_tiles = (w_src + kScanTile - 1) / kScanTile;
+  qt_count_launch();
   mean_bwd_tile_sums_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
       sc.deg, w_src, sc.tile_sums);
   if (int e = qt_launch_status()) return e;
+  qt_count_launch();
   qt_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(sc.tile_sums, n_tiles, nullptr);
   if (int e = qt_launch_status()) return e;
+  qt_count_launch();
   mean_bwd_tile_scan_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
       sc.deg, w_src, sc.tile_sums, sc.offsets, sc.cursor);
   if (int e = qt_launch_status()) return e;
   if (n_lanes > 0) {
     // 3. the fill, then 4. the rank
+    qt_count_launch();
     mean_bwd_fill_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
         m, c, n_lanes, w_src, sc.cursor, sc.lanes);
     if (int e = qt_launch_status()) return e;
+    qt_count_launch();
     src_rank_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(c, n_lanes, w_src, div,
                                                                      sc.offsets, sc.lanes,
                                                                      sc.sorted);
@@ -618,6 +625,7 @@ static int src_backward(const typename In::T* x, int F, const bool* m, const int
   const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(*x)) == 0 &&
                     reinterpret_cast<uintptr_t>(gx) % align == 0;
   const long long warps = w_src * ((F + kSrcCols - 1) / kSrcCols);
+  qt_count_launch();
   src_sum_kernel<In, Out><<<qt_blocks(warps * 32, threads), threads, 0, st>>>(
       x, F, w_src, sc.offsets, sc.sorted, vec4, static_cast<typename Out::T*>(gx));
   return qt_launch_status();
@@ -631,6 +639,7 @@ static int masked_mean_backward_any(const void* g, int D, const void* mask, cons
   const typename E::T* gt = static_cast<const typename E::T*>(g);
   const bool* m = static_cast<const bool*>(mask);
   if (cols == nullptr) {
+    qt_count_launch();
     mean_bwd_structural_kernel<E><<<qt_blocks(w_src * 32, threads), threads, 0, st>>>(
         gt, D, m, w_dst, k, w_src, static_cast<typename E::T*>(gx));
     return qt_launch_status();
@@ -639,6 +648,7 @@ static int masked_mean_backward_any(const void* g, int D, const void* mask, cons
   if (scratch == nullptr || scratch_bytes < sc.bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   if (w_dst > 0) {
+    qt_count_launch();
     mean_scale_kernel<E><<<qt_blocks(static_cast<long long>(w_dst) * 32, threads), threads, 0,
                            st>>>(gt, D, m, w_dst, k, sc.scaled);
     if (int e = qt_launch_status()) return e;
@@ -717,10 +727,12 @@ QT_EXPORT int qt_block_out_degree(const void* mask, const void* cols, long long 
   cudaError_t err = cudaMemsetAsync(d, 0, sizeof(int32_t) * w_src, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_lanes > 0) {
+    qt_count_launch();
     lane_count_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
         static_cast<const bool*>(mask), static_cast<const int32_t*>(cols), n_lanes, w_src, 1, d);
     if (int e = qt_launch_status()) return e;
   }
+  qt_count_launch();
   count_to_float_kernel<<<qt_blocks(w_src, threads), threads, 0, st>>>(d, w_src,
                                                                       static_cast<float*>(out));
   return qt_launch_status();

@@ -99,8 +99,10 @@ static void launch_unpack_float(const void* slabs, int G, long long n, void* out
   const auto* in = static_cast<const T*>(slabs);
   auto* o = static_cast<T*>(out);
   if (n % 4 == 0 && qt_aligned(slabs, out, 4 * sizeof(T))) {
+    qt_count_launch();
     grouped_unpack_float4_kernel<E><<<qt_blocks(n / 4, threads), threads, 0, s>>>(in, G, n, o);
   } else {
+    qt_count_launch();
     grouped_unpack_float_kernel<E><<<qt_blocks(n, threads), threads, 0, s>>>(in, G, n, o);
   }
 }
@@ -112,9 +114,11 @@ static void launch_unpack_int(const void* slabs, int G, long long n, void* out, 
   const auto* in = static_cast<const T*>(slabs);
   auto* o = static_cast<T*>(out);
   if (n % kVec == 0 && qt_aligned(slabs, out, 16)) {
+    qt_count_launch();
     grouped_unpack_int_kernel<T, kVec><<<qt_blocks(n / kVec, threads), threads, 0, s>>>(
         in, G, n, o);
   } else {
+    qt_count_launch();
     grouped_unpack_int_kernel<T, 1><<<qt_blocks(n, threads), threads, 0, s>>>(in, G, n, o);
   }
 }
@@ -202,10 +206,13 @@ QT_EXPORT int qt_cold_compact(const void* ids, long long W, long long lo, long l
   const auto* id = static_cast<const int32_t*>(ids);
   auto* tiles = static_cast<int32_t*>(scratch);
   auto* cnt = static_cast<int32_t*>(counts);
+  qt_count_launch();
   cold_count_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, s>>>(id, W, lo, hi, tiles);
   if (int e = qt_launch_status()) return e;
+  qt_count_launch();
   qt_tile_offsets_kernel<<<1, kScanTile, 0, s>>>(tiles, n_tiles, cnt);
   if (int e = qt_launch_status()) return e;
+  qt_count_launch();
   cold_fill_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, s>>>(
       id, W, lo, hi, budget, tiles, cnt, static_cast<int32_t*>(sel),
       static_cast<int32_t*>(cold_local));
@@ -249,9 +256,11 @@ QT_EXPORT int qt_cold_merge(void* hot, int D, const void* sel, const void* cold,
   const auto* sl = static_cast<const int32_t*>(sel);
   const auto* cn = static_cast<const int32_t*>(counts);
   if (bf16) {
+    qt_count_launch();
     cold_merge_kernel<QtBF16><<<qt_blocks(budget * 32, threads), threads, 0, s>>>(
         static_cast<uint16_t*>(hot), D, sl, static_cast<const uint16_t*>(cold), cn, budget);
   } else {
+    qt_count_launch();
     cold_merge_kernel<QtF32><<<qt_blocks(budget * 32, threads), threads, 0, s>>>(
         static_cast<float*>(hot), D, sl, static_cast<const float*>(cold), cn, budget);
   }
@@ -298,9 +307,11 @@ QT_EXPORT int qt_exchange_rows(const void* table, long long R, int D, const void
   const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (vec) {
+    qt_count_launch();
     exchange_rows_kernel<uint4><<<blocks, threads, 0, s>>>(
         static_cast<const uint4*>(table), R, D / 4, id, n_ids, static_cast<uint4*>(out));
   } else {
+    qt_count_launch();
     exchange_rows_kernel<uint32_t><<<blocks, threads, 0, s>>>(
         static_cast<const uint32_t*>(table), R, D, id, n_ids, static_cast<uint32_t*>(out));
   }

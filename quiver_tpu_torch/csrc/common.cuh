@@ -12,6 +12,22 @@
     return cudaGetErrorString(static_cast<cudaError_t>(code));  \
   }
 
+// The host-side count of kernel launches: every <<<...>>> site of the port's
+// sources calls qt_count_launch() just before it. The counter is one 64-bit
+// integer of the process, owned by quiver_tpu_torch/_kernels.py, which hands
+// its address to each library as it loads it; a library not yet bound
+// counts nothing. Unlike a profiler's trace, it sees every launch the host
+// makes, whether or not the device has run it.
+static unsigned long long* qt_launch_counter = nullptr;
+
+static inline void qt_count_launch() {
+  if (qt_launch_counter != nullptr) __atomic_fetch_add(qt_launch_counter, 1ull, __ATOMIC_RELAXED);
+}
+
+QT_EXPORT void qt_bind_launch_counter(unsigned long long* counter) {
+  qt_launch_counter = counter;
+}
+
 // Return the launch error (cudaSuccess = 0) of the launch just made.
 static inline int qt_launch_status() {
   return static_cast<int>(cudaGetLastError());

@@ -154,6 +154,7 @@ static void gather_dequant_t(const void* payload, long long N, int D, const void
   const int threads = 256;  // 8 rows a block
   const bool vec = D % 4 == 0 && aligned(payload, 4 * sizeof(T)) && aligned(out, 16);
   auto args = [&](auto kernel) {
+    qt_count_launch();
     kernel<<<qt_blocks(W * 32, threads), threads, 0, s>>>(
         static_cast<const T*>(payload), N, D, static_cast<const int32_t*>(ids), W, n_clip,
         static_cast<const int32_t*>(imap), tiered, static_cast<const float*>(scale),
@@ -175,6 +176,7 @@ static int quantized_tiered_lookup_t(const void* hot, long long H, int D, const 
   const int threads = 256;
   const bool vec = D % 4 == 0 && aligned(cold, 4 * sizeof(T)) && aligned(out, 16);
   auto args = [&](auto kernel) {
+    qt_count_launch();
     kernel<<<qt_blocks(n_cold * 32, threads), threads, 0, s>>>(
         static_cast<const T*>(cold), n_cold, D, static_cast<const int32_t*>(pos),
         static_cast<const int32_t*>(mapped), W, static_cast<const float*>(scale),
@@ -230,6 +232,7 @@ static int sharded_decode_t(const void* q, long long W, int D, const void* ids, 
   const int threads = 256;  // 8 rows a block
   const bool vec = D % 4 == 0 && aligned(q, 4 * sizeof(T)) && aligned(out, 16);
   auto args = [&](auto kernel) {
+    qt_count_launch();
     kernel<<<qt_blocks(W * 32, threads), threads, 0, s>>>(
         static_cast<const T*>(q), D, static_cast<const int32_t*>(ids), W,
         static_cast<const float*>(scale), static_cast<const float*>(zero), n_side,

@@ -256,21 +256,26 @@ static int full_mean_any(const I* indptr, const I* indices, long long n, long lo
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int n_chunks = (D + (vec4 ? 127 : 31)) / (vec4 ? 128 : 32);
   const long long n_tiles = (n + kScanTile - 1) / kScanTile;
+  qt_count_launch();
   heavy_tile_sums_kernel<I><<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
       indptr, n, sc.tile_sums);
   if (int e = qt_launch_status()) return e;
+  qt_count_launch();
   qt_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(sc.tile_sums, n_tiles, sc.n_segs);
   if (int e = qt_launch_status()) return e;
+  qt_count_launch();
   heavy_fill_kernel<I><<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
       indptr, n, sc.tile_sums, sc.max_segs, sc.seg_row, sc.seg_j);
   if (int e = qt_launch_status()) return e;
   const int threads = 256;  // 8 warps a block
   const long long heavy_warps = sc.max_segs * n_chunks;
+  qt_count_launch();
   full_mean_kernel<I><<<qt_blocks((heavy_warps + n * n_chunks) * 32, threads), threads, 0, st>>>(
       indptr, indices, n, h, n_h, D, vec4, n_chunks, heavy_warps, sc.n_segs, sc.seg_row,
       sc.seg_j, sc.partials, out);
   if (int e = qt_launch_status()) return e;
   if (heavy_warps > 0) {
+    qt_count_launch();
     heavy_combine_kernel<I><<<qt_blocks(heavy_warps * 32, threads), threads, 0, st>>>(
         indptr, D, vec4, n_chunks, sc.max_segs, sc.n_segs, sc.seg_row, sc.seg_j, sc.partials,
         out);

@@ -45,6 +45,7 @@ QT_EXPORT int qt_gather_rows(const void* table, long long R, int D, const void* 
   const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int threads = 256;  // 8 rows a block
+  qt_count_launch();
   gather_rows_kernel<<<qt_blocks(n_ids * 32, threads), threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), R, D, static_cast<const int32_t*>(ids), n_ids,
@@ -129,6 +130,7 @@ static void launch_tiered_gather(const void* dev_rows, long long H, const void* 
                                  long long n_ids, long long n_valid, const void* order,
                                  void* out, cudaStream_t stream) {
   const int threads = 256;  // 8 rows a block
+  qt_count_launch();
   tiered_gather_kernel<V><<<qt_blocks(n_ids * 32, threads), threads, 0, stream>>>(
       static_cast<const char*>(dev_rows), H, static_cast<const char*>(host_rows), n_host,
       row_bytes, static_cast<const int32_t*>(ids), n_ids, n_valid,
@@ -211,6 +213,7 @@ template <int V, typename P>
 static void launch_scatter_rows(const void* rows, long long n_rows, long long row_bytes,
                                 const void* pos, long long W, void* out, cudaStream_t stream) {
   const int threads = 256;
+  qt_count_launch();
   scatter_rows_kernel<V, P><<<qt_blocks(n_rows * 32, threads), threads, 0, stream>>>(
       static_cast<const char*>(rows), n_rows, row_bytes, static_cast<const P*>(pos), W,
       static_cast<char*>(out));
@@ -307,9 +310,11 @@ static void launch_set_rows(const void* table, long long H, long long row_bytes,
   const char* r = static_cast<const char*>(rows);
   char* o = static_cast<char*>(out);
   if (n_words + threads <= (1LL << 32)) {  // no 32-bit word index can wrap
+    qt_count_launch();
     set_rows_kernel<V, uint32_t><<<qt_blocks(n_words, threads), threads, 0, stream>>>(
         t, static_cast<uint32_t>(n_words), static_cast<uint32_t>(row_words), slot_row, r, o);
   } else {
+    qt_count_launch();
     set_rows_kernel<V, unsigned long long><<<qt_blocks(n_words, threads), threads, 0, stream>>>(
         t, n_words, row_words, slot_row, r, o);
   }
@@ -323,10 +328,12 @@ QT_EXPORT int qt_set_rows(const void* table, long long H, int row_bytes, const v
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
   int32_t* map = static_cast<int32_t*>(slot_row);
+  qt_count_launch();
   slot_map_fill_kernel<<<qt_blocks(H, threads), threads, 0, s>>>(map, H);
   int rc = qt_launch_status();
   if (rc != 0) return rc;
   if (b > 0) {
+    qt_count_launch();
     slot_map_mark_kernel<<<qt_blocks(b, threads), threads, 0, s>>>(
         static_cast<const int64_t*>(slots), b, H, map);
     rc = qt_launch_status();
@@ -410,9 +417,11 @@ static void launch_gather_src(const void* x, long long w_src, long long row_byte
   const int32_t* c = static_cast<const int32_t*>(cols);
   char* o = static_cast<char*>(out);
   if (thread_a_row) {
+    qt_count_launch();
     gather_src_thread_kernel<V><<<qt_blocks(n_lanes, threads), threads, 0, stream>>>(
         xs, w_src, row_bytes, c, n_lanes, o);
   } else {
+    qt_count_launch();
     gather_src_warp_kernel<V><<<qt_blocks(n_lanes * 32, threads), threads, 0, stream>>>(
         xs, w_src, row_bytes, c, n_lanes, o);
   }
@@ -476,6 +485,7 @@ static void launch_sharded_rows(const void* block, long long R, long long row_by
                                 const void* ids, long long n_ids, long long first, void* out,
                                 cudaStream_t stream) {
   const int threads = 256;  // 8 rows a block
+  qt_count_launch();
   sharded_rows_kernel<V><<<qt_blocks(n_ids * 32, threads), threads, 0, stream>>>(
       static_cast<const char*>(block), R, row_bytes, static_cast<const int32_t*>(ids), n_ids,
       first, static_cast<char*>(out));

@@ -81,11 +81,13 @@ QT_EXPORT int qt_neighbor_prob(const void* prob, const void* deg, long long n, f
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
+  qt_count_launch();
   prob_weights_kernel<<<qt_blocks(n, threads), threads, 0, s>>>(
       static_cast<const float*>(prob), static_cast<const int32_t*>(deg), n, k,
       static_cast<float*>(w));
   int rc = qt_launch_status();
   if (rc != 0) return rc;
+  qt_count_launch();
   prob_pull_kernel<<<qt_blocks(n_tiles * 32, threads), threads, 0, s>>>(
       static_cast<const long long*>(tindptr), static_cast<const int32_t*>(tsrc),
       static_cast<const int32_t*>(tile_node), static_cast<const long long*>(tile_ptr), n_tiles,
@@ -93,6 +95,7 @@ QT_EXPORT int qt_neighbor_prob(const void* prob, const void* deg, long long n, f
       static_cast<float*>(out));
   rc = qt_launch_status();
   if (rc != 0 || n_long <= 0) return rc;
+  qt_count_launch();
   prob_combine_kernel<<<qt_blocks(n_long, threads), threads, 0, s>>>(
       static_cast<const int32_t*>(long_nodes), n_long, static_cast<const long long*>(tile_ptr),
       static_cast<const float*>(partial), static_cast<float*>(out));

@@ -412,6 +412,7 @@ QT_EXPORT int qt_local_reindex(const void* seeds, const void* seed_valid, const 
   int32_t* nid = static_cast<int32_t*>(n_id);
   int32_t* ls = static_cast<int32_t*>(local_seeds);
   if (W <= kSmallSlots) {
+    qt_count_launch();
     reindex_small_kernel<<<1, kReindexTile, 0, st>>>(
         sd, sv, nb, nv, S, static_cast<int32_t>(n_nbr), nid, static_cast<int32_t*>(count_out),
         ls, static_cast<int32_t*>(local_nbrs));
@@ -424,21 +425,26 @@ QT_EXPORT int qt_local_reindex(const void* seeds, const void* seed_valid, const 
   const long long n_status = kRadixPasses * sc.n_tiles * kRadixBins;
   n_init = n_init > n_status ? n_init : n_status;
   n_init = n_init > kRadixPasses * kRadixBins ? n_init : kRadixPasses * kRadixBins;
+  qt_count_launch();
   init_kernel<<<qt_blocks(n_init, T), T, 0, st>>>(sc);
   if ((rc = qt_launch_status())) return rc;
+  qt_count_launch();
   insert_kernel<<<qt_blocks(W, kReindexTile), kReindexTile, 0, st>>>(sc, sd, sv, nb, nv, S, W);
   if ((rc = qt_launch_status())) return rc;
   const long long n_mark = n_nbr > S ? n_nbr : S;
+  qt_count_launch();
   mark_kernel<<<qt_blocks(n_mark, kReindexTile), kReindexTile, 0, st>>>(sc, sd, sv, nb, nv, S,
                                                                         n_nbr, ls, nid);
   if ((rc = qt_launch_status())) return rc;
   if (n_nbr > 0) {
     for (int pass = 0; pass < kRadixPasses; ++pass) {
+      qt_count_launch();
       radix_pass_kernel<<<static_cast<unsigned>(sc.n_tiles), kReindexTile, 0, st>>>(sc, pass,
                                                                                     nid);
       if ((rc = qt_launch_status())) return rc;
     }
   }
+  qt_count_launch();
   rewrite_kernel<<<qt_blocks(W, T), T, 0, st>>>(sc, nb, nv, n_nbr, W, ls, nid,
                                                  static_cast<int32_t*>(count_out),
                                                  static_cast<int32_t*>(local_nbrs));

@@ -51,6 +51,7 @@ QT_EXPORT int qt_build_tiles(const void* src, long long n_src, const void* row_s
                              void* stream) {
   if (m_rows <= 0) return 0;
   const int threads = 256;  // 8 tile rows a block
+  qt_count_launch();
   build_tiles_kernel<<<qt_blocks(m_rows * 32, threads), threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(src), n_src, static_cast<const long long*>(row_start),

@@ -492,6 +492,7 @@ static int launch_gumbel(Fetch g, Window win, int n_nodes, const void* seeds,
   if (k > wwin || max_deg < 1 || wwin > QT_MAX_WINDOW)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = qt_gumbel_rows(W);
+  qt_count_launch();
   gumbel_sample_kernel<Fetch, Window>
       <<<qt_blocks(W, rows), QT_GUMBEL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           g, win, n_nodes, static_cast<const int32_t*>(seeds),
@@ -554,6 +555,7 @@ QT_EXPORT int qt_recency_weights(const void* ts, long long n, float recency, voi
   const int threads = 256;
   const long long want = (n + threads - 1) / threads;
   const unsigned blocks = static_cast<unsigned>(want < 132 * 32 ? want : 132 * 32);
+  qt_count_launch();
   recency_weights_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ts), n, recency, static_cast<float*>(out));
   return qt_launch_status();

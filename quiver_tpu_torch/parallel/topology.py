@@ -9,8 +9,9 @@ forms, ``gather_comm_bytes``, ``sampling_comm_bytes``).
 Each shard of the striping axes owns a contiguous, edge-balanced range of
 rows, and each rank holds only its shard's CSR block. One hop's draw is a
 collective: every shard draws neighbors for the frontier rows it owns
-(degree 0 elsewhere; kernel K13b, ``csrc/sample.cu``) and one all-reduce
-over the striping group assembles the ``[W, k]`` neighbors and flags. The draw
+(degree 0 elsewhere; kernel K13b, ``csrc/sample.cu``, writing its
+neighbors and int32 flags as one stacked slab) and one all-reduce over the
+striping group assembles the ``[W, k]`` neighbors and flags. The draw
 is K1's, counter for counter, so the assembled neighbors equal the
 unsharded draw with the same key on its valid lanes.
 
@@ -21,9 +22,10 @@ block's edges).
 
 On a host mesh the graph stripes over ``("host", "ici")`` and each host
 draws for its own frontier: the grouped samplers all-gather the frontiers
-over host, run K13b at the gathered width and hand each host its own
-``[W, k]`` slice back (an all-to-all and K13c's int32 unpack of the
-neighbor and valid slabs, then the sum over ici).
+over host, run K13b at the gathered width into one stacked int32 slab of
+each host's neighbors and flags, and hand each host its own ``[W, k]`` pair
+back (one all-to-all and one K13c int32 unpack of the slab, then one sum
+over ici).
 """
 
 from __future__ import annotations
@@ -293,7 +295,14 @@ def tiled_sample_layer_partial_plain(bd_blk, tiles_blk, start: int, end: int, cu
     return nbrs.to(torch.int32), valid.to(torch.int32)
 
 
-def _launch_partial(kind, a, b, start, end, cur, cur_valid, k, key):
+def _stack_slab(nbrs, valid, groups: int):
+    """``[G, 2, w, k]``: each group's neighbors, then its int32 flags."""
+    W, k = nbrs.shape
+    w = W // groups
+    return torch.stack([nbrs.view(groups, w, k), valid.view(groups, w, k)], dim=1)
+
+
+def _launch_partial(kind, a, b, start, end, cur, cur_valid, k, key, groups):
     for t, name in ((a, "graph block"), (b, "graph block"), (cur, "frontier")):
         if t.dtype != torch.int32:
             raise TypeError(f"the sharded sampling kernel takes int32 {name}; got {t.dtype}")
@@ -301,29 +310,62 @@ def _launch_partial(kind, a, b, start, end, cur, cur_valid, k, key):
         raise ValueError(f"the sampling kernel takes k <= {_kernels.SAMPLE_KMAX}; got {k}")
     a, b, cur, cur_valid = a.contiguous(), b.contiguous(), cur.contiguous(), cur_valid.contiguous()
     W = cur.shape[0]
-    nbrs = torch.empty((W, k), dtype=torch.int32, device=cur.device)
-    valid = torch.empty((W, k), dtype=torch.int32, device=cur.device)
+    w = W // groups
+    slab = torch.empty((groups, 2, w, k), dtype=torch.int32, device=cur.device)
     if W == 0 or k == 0:
-        return nbrs, valid
+        return slab
     n_rows = a.shape[0] if kind == "tiled" else a.shape[0] - 1
     _kernels.launch("sharded_sample_" + kind, a.data_ptr(), b.data_ptr(), b.shape[0], n_rows,
                     int(start), int(end), cur.data_ptr(), cur_valid.data_ptr(), W, int(k),
-                    int(key[0]), int(key[1]), nbrs.data_ptr(), valid.data_ptr(),
-                    _kernels.stream_of(cur))
-    return nbrs, valid
+                    int(key[0]), int(key[1]), w, 2 * w * k, slab.data_ptr(),
+                    slab[0, 1].data_ptr(), _kernels.stream_of(cur))
+    return slab
+
+
+def _check_groups(cur, groups: int) -> None:
+    if groups < 1 or cur.shape[0] % groups:
+        raise ValueError(f"a frontier of {cur.shape[0]} rows does not split into {groups} "
+                         "groups")
+
+
+def sample_layer_partial_slab(indptr_blk, indices_blk, start: int, end: int, cur, cur_valid,
+                              k: int, key, groups: int = 1):
+    """`sample_layer_partial` written as one stacked int32 slab ``[G, 2, w,
+    k]`` (``G = groups``, ``w = W / G``): group g's neighbors at ``[g, 0]``,
+    its flags at ``[g, 1]``, the layout one collective sum takes. Kernel
+    K13b (``sharded_sample_flat``) writes it in place on CUDA tensors; on
+    CPU tensors the plain version's pair is stacked."""
+    _check_layer_args(cur, cur_valid, k, (indptr_blk, indices_blk))
+    _check_groups(cur, groups)
+    if cur.is_cuda:
+        return _launch_partial("flat", indptr_blk, indices_blk, start, end, cur, cur_valid, k,
+                               key, groups)
+    return _stack_slab(*sample_layer_partial_plain(indptr_blk, indices_blk, start, end, cur,
+                                                   cur_valid, k, key), groups)
+
+
+def tiled_sample_layer_partial_slab(bd_blk, tiles_blk, start: int, end: int, cur, cur_valid,
+                                    k: int, key, groups: int = 1):
+    """`sample_layer_partial_slab` over a tiled block (kernel K13b,
+    ``sharded_sample_tiled``, on CUDA tensors)."""
+    _check_layer_args(cur, cur_valid, k, (bd_blk, tiles_blk))
+    _check_groups(cur, groups)
+    if cur.is_cuda:
+        return _launch_partial("tiled", bd_blk, tiles_blk, start, end, cur, cur_valid, k, key,
+                               groups)
+    return _stack_slab(*tiled_sample_layer_partial_plain(bd_blk, tiles_blk, start, end, cur,
+                                                         cur_valid, k, key), groups)
 
 
 def sample_layer_partial(indptr_blk, indices_blk, start: int, end: int, cur, cur_valid,
                          k: int, key):
     """This shard's un-reduced contribution to a one-hop sample over a flat
     block of global rows ``[start, end)``: ``(nbrs [W, k] int32, valid [W, k]
-    int32)``. Kernel K13b (``sharded_sample_flat``) on CUDA tensors,
+    int32)``, the two halves of `sample_layer_partial_slab`'s ``[1, 2, W,
+    k]``. Kernel K13b (``sharded_sample_flat``) on CUDA tensors,
     `sample_layer_partial_plain` on CPU tensors."""
-    _check_layer_args(cur, cur_valid, k, (indptr_blk, indices_blk))
-    if cur.is_cuda:
-        return _launch_partial("flat", indptr_blk, indices_blk, start, end, cur, cur_valid, k,
-                               key)
-    return sample_layer_partial_plain(indptr_blk, indices_blk, start, end, cur, cur_valid, k, key)
+    slab = sample_layer_partial_slab(indptr_blk, indices_blk, start, end, cur, cur_valid, k, key)
+    return slab[0, 0], slab[0, 1]
 
 
 def tiled_sample_layer_partial(bd_blk, tiles_blk, start: int, end: int, cur, cur_valid,
@@ -331,32 +373,31 @@ def tiled_sample_layer_partial(bd_blk, tiles_blk, start: int, end: int, cur, cur
     """`sample_layer_partial` over a tiled block: kernel K13b
     (``sharded_sample_tiled``) on CUDA tensors, the plain version on CPU
     tensors."""
-    _check_layer_args(cur, cur_valid, k, (bd_blk, tiles_blk))
-    if cur.is_cuda:
-        return _launch_partial("tiled", bd_blk, tiles_blk, start, end, cur, cur_valid, k, key)
-    return tiled_sample_layer_partial_plain(bd_blk, tiles_blk, start, end, cur, cur_valid, k,
-                                            key)
+    slab = tiled_sample_layer_partial_slab(bd_blk, tiles_blk, start, end, cur, cur_valid, k, key)
+    return slab[0, 0], slab[0, 1]
 
 
-def _psum_assemble(nbrs, valid, group):
-    """Owner-exclusive full assembly: shard contributions are zeros off
-    the owner, so a sum over the striping group IS the gather."""
-    return collectives.allreduce_sum(nbrs, group), collectives.allreduce_sum(valid, group) > 0
+def _psum_assemble(slab, group):
+    """Owner-exclusive full assembly of a stacked ``[..., 2, w, k]`` slab:
+    shard contributions are zeros off the owner, so one sum over the
+    striping group IS the gather. Returns ``(nbrs, valid > 0)``."""
+    slab = collectives.allreduce_sum(slab, group)
+    return slab[..., 0, :, :], slab[..., 1, :, :] > 0
 
 
 def sharded_sample_layer(indptr_blk, indices_blk, row_start, cur, cur_valid, k: int, key, mesh,
                          axis_name="ici") -> Tuple[torch.Tensor, torch.Tensor]:
     """Collective one-hop sample from a row-sharded flat CSR: ``cur`` (int32
     global ids) and ``cur_valid`` must be identical on every rank of the
-    axis. Each shard draws for the frontier rows it owns and the sum over
-    the axis assembles ``(nbrs [W, k] int32, valid [W, k] bool)`` with
-    global neighbor ids, neighbor 0 where invalid — the unsharded
-    `ops.sample.sample_layer`'s draw on its valid lanes."""
+    axis. Each shard draws for the frontier rows it owns and one sum of the
+    stacked neighbors and flags over the axis assembles ``(nbrs [W, k]
+    int32, valid [W, k] bool)`` with global neighbor ids, neighbor 0 where
+    invalid — the unsharded `ops.sample.sample_layer`'s draw on its valid
+    lanes."""
     p, _, group = _axis(mesh, axis_name)
     start, end = _owner_window(row_start, p)
-    nbrs, valid = sample_layer_partial(indptr_blk, indices_blk, start, end, cur, cur_valid, k,
-                                       key)
-    return _psum_assemble(nbrs, valid, group)
+    slab = sample_layer_partial_slab(indptr_blk, indices_blk, start, end, cur, cur_valid, k, key)
+    return _psum_assemble(slab[0], group)
 
 
 def tiled_sharded_sample_layer(bd_blk, tiles_blk, row_start, cur, cur_valid, k: int, key, mesh,
@@ -365,38 +406,38 @@ def tiled_sharded_sample_layer(bd_blk, tiles_blk, row_start, cur, cur_valid, k: 
     same draws on the same key."""
     p, _, group = _axis(mesh, axis_name)
     start, end = _owner_window(row_start, p)
-    nbrs, valid = tiled_sample_layer_partial(bd_blk, tiles_blk, start, end, cur, cur_valid, k,
-                                             key)
-    return _psum_assemble(nbrs, valid, group)
+    slab = tiled_sample_layer_partial_slab(bd_blk, tiles_blk, start, end, cur, cur_valid, k, key)
+    return _psum_assemble(slab[0], group)
 
 
 def _grouped_collective_sample(partial_fn, cur, cur_valid, k: int, mesh, axes, group_axis: str,
                                via: str):
     """The grouped draw both block layouts ride: all-gather the frontiers
     and their flags over ``group_axis``, draw once at the gathered width
-    through ``partial_fn(all_cur, all_valid) -> (nbrs, valid_int32)``
-    (K13b over this shard's owner window), then hand each group its own
-    ``[W, k]`` slice: ``via="scatter"`` sends the ``[G, W, k]`` neighbor and
-    valid slabs through `collectives.reduce_scatter_sum` over ``group_axis``
-    (an all-to-all, then K13c's int32 unpack) and sums the rest over the
-    other striping axes; ``via="psum"`` sums everything over every striping
-    axis at the gathered width and takes this group's slice."""
+    through ``partial_fn(all_cur, all_valid, G) -> [G, 2, w, k]`` (K13b over
+    this shard's owner window, writing each group's neighbors and int32
+    flags as one stacked slab), then hand each group its own ``[w, k]``
+    pair: ``via="scatter"`` sends the slab through
+    `collectives.reduce_scatter_sum` over ``group_axis`` (one all-to-all,
+    then one K13c int32 unpack) and sums its ``[2, w, k]`` over the other
+    striping axes in one all-reduce; ``via="psum"`` sums the whole slab
+    over every striping axis in one all-reduce and takes this group's
+    ``[2, w, k]``. The flags stay int32 through the sums, as the JAX
+    package's psum of int32 flags, and become bool at the end."""
     if via not in ("scatter", "psum"):
         raise ValueError(f"unknown via {via!r}")
     me, G, group = _axis(mesh, group_axis)
-    w = cur.shape[0]
     all_cur = collectives.allgather(cur, group).reshape(-1)
     all_valid = collectives.allgather(cur_valid, group).reshape(-1)
-    nbrs, valid = partial_fn(all_cur, all_valid)
+    slab = partial_fn(all_cur, all_valid, G)
     if via == "psum" or group_axis not in axes:
-        nbrs, valid = _psum_assemble(nbrs, valid, mesh.group(axes))
-        return nbrs.view(G, w, k)[me], valid.view(G, w, k)[me]
-    nbrs = collectives.reduce_scatter_sum(nbrs.view(G, w, k), group)
-    valid = collectives.reduce_scatter_sum(valid.view(G, w, k), group)
+        nbrs, valid = _psum_assemble(slab, mesh.group(axes))
+        return nbrs[me], valid[me]
+    own = collectives.reduce_scatter_sum(slab, group)
     other = tuple(a for a in axes if a != group_axis)
     if other:
-        return _psum_assemble(nbrs, valid, mesh.group(other))
-    return nbrs, valid > 0
+        return _psum_assemble(own, mesh.group(other))
+    return own[0], own[1] > 0
 
 
 def sharded_sample_layer_grouped(indptr_blk, indices_blk, row_start, cur, cur_valid, k: int, key,
@@ -411,9 +452,9 @@ def sharded_sample_layer_grouped(indptr_blk, indices_blk, row_start, cur, cur_va
     axes = _axes(axes)
     start, end = _owner_window(row_start, mesh.index(axes))
 
-    def partial_fn(all_cur, all_valid):
-        return sample_layer_partial(indptr_blk, indices_blk, start, end, all_cur, all_valid, k,
-                                    key)
+    def partial_fn(all_cur, all_valid, groups):
+        return sample_layer_partial_slab(indptr_blk, indices_blk, start, end, all_cur, all_valid,
+                                         k, key, groups)
 
     return _grouped_collective_sample(partial_fn, cur, cur_valid, k, mesh, axes, group_axis, via)
 
@@ -426,9 +467,9 @@ def tiled_sharded_sample_layer_grouped(bd_blk, tiles_blk, row_start, cur, cur_va
     axes = _axes(axes)
     start, end = _owner_window(row_start, mesh.index(axes))
 
-    def partial_fn(all_cur, all_valid):
-        return tiled_sample_layer_partial(bd_blk, tiles_blk, start, end, all_cur, all_valid, k,
-                                          key)
+    def partial_fn(all_cur, all_valid, groups):
+        return tiled_sample_layer_partial_slab(bd_blk, tiles_blk, start, end, all_cur, all_valid,
+                                               k, key, groups)
 
     return _grouped_collective_sample(partial_fn, cur, cur_valid, k, mesh, axes, group_axis, via)
 

@@ -59,8 +59,18 @@ from quiver_tpu_torch.parallel import (
     sharded_gather_a2a,
     sharded_gather_grouped,
     sharded_gather_hot_cold,
+    sharded_sample_layer,
     sharded_sample_layer_grouped,
+    tiled_sharded_sample_layer,
     tiled_sharded_sample_layer_grouped,
+)
+from quiver_tpu_torch.parallel.topology import (
+    build_tiled_topology_shards,
+    build_topology_shards,
+    sample_layer_partial_plain,
+    sample_layer_partial_slab,
+    tiled_sample_layer_partial_plain,
+    tiled_sample_layer_partial_slab,
 )
 from quiver_tpu_torch.parallel.train import stripe_rows
 from quiver_tpu_torch.utils import heat_reorder
@@ -422,6 +432,129 @@ def test_grouped_samplers_bit_equal_to_jax_and_unsharded(via):
             assert not nbrs[~rv].any()
 
 
+def _counting_collectives(monkeypatch):
+    """Wrap every collective of `parallel.collectives.COLLECTIVES` with a
+    recorder of (wrapper, group size); returns the record."""
+    seen = []
+    for name in collectives.COLLECTIVES:
+        orig = getattr(collectives, name)
+
+        def counted(t, group, _orig=orig, _name=name):
+            seen.append((_name, group.size()))
+            return _orig(t, group)
+
+        monkeypatch.setattr(collectives, name, counted)
+    return seen
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiled"])
+@pytest.mark.parametrize("via", ["scatter", "psum", "ungrouped"])
+def test_a_sharded_hop_exchanges_one_stacked_slab(monkeypatch, layout, via):
+    """One hop of a sharded draw moves its neighbors and int32 flags as one
+    stacked slab: a grouped hop makes its two frontier all-gathers, then one
+    all-to-all and one ici all-reduce (``via="scatter"``) or one all-reduce
+    over (host, ici) and no all-to-all (``via="psum"``); an ungrouped hop
+    (one frontier on every rank) one all-reduce over (host, ici). The draws stay the unsharded draw on the valid
+    lanes, neighbor 0 elsewhere."""
+    _, tt, n = _graph_with_isolated_rows()
+    w, k = 24, 5
+    rng = np.random.default_rng(4)
+    all_cur = rng.integers(0, n, 2 * w).astype(np.int32)
+    all_valid = rng.random(2 * w) < 0.9
+    key = qrandom.key(11)
+    meshes = _meshes()
+    blocks = {m.rank: shard_topology_rows(m, tt, layout=layout) for m in meshes}
+    seen = _counting_collectives(monkeypatch)
+
+    def rank(m):
+        st = blocks[m.rank]
+        blk = (st.bd, st.tiles) if layout == "tiled" else (st.indptr, st.indices)
+        if via == "ungrouped":
+            fn = tiled_sharded_sample_layer if layout == "tiled" else sharded_sample_layer
+            return fn(*blk, st.row_start, torch.from_numpy(all_cur[:w]),
+                      torch.from_numpy(all_valid[:w]), k, key, m, ("host", "ici"))
+        fn = (tiled_sharded_sample_layer_grouped if layout == "tiled"
+              else sharded_sample_layer_grouped)
+        h = m.host_idx
+        return fn(*blk, st.row_start, torch.from_numpy(all_cur[h * w:(h + 1) * w]),
+                  torch.from_numpy(all_valid[h * w:(h + 1) * w]), k, key, m, ("host", "ici"),
+                  "host", via=via)
+
+    results = run_ranks(rank, meshes)
+    calls = {}
+    for name, size in seen:
+        calls[name, size] = calls.get((name, size), 0) + 1
+    R = len(meshes)
+    want = {"ungrouped": {("allreduce_sum", 4): R},
+            "scatter": {("allgather", 2): 2 * R, ("all_to_all", 2): R,
+                        ("allreduce_sum", 2): R},
+            "psum": {("allgather", 2): 2 * R, ("allreduce_sum", 4): R}}[via]
+    assert calls == want, calls
+    # a grouped hop draws at the gathered width, an ungrouped one at its own
+    n_in = w if via == "ungrouped" else 2 * w
+    ref_n, ref_v = sample_layer(*tt.to_device("cpu"), torch.from_numpy(all_cur[:n_in]),
+                                torch.from_numpy(all_valid[:n_in]), k, key)
+    for m, (nbrs, valid) in zip(meshes, results):
+        h = 0 if via == "ungrouped" else m.host_idx
+        rv = ref_v[h * w:(h + 1) * w]
+        assert valid.dtype == torch.bool and nbrs.dtype == torch.int32
+        assert torch.equal(valid, rv) and torch.equal(nbrs[rv], ref_n[h * w:(h + 1) * w][rv])
+        assert not nbrs[~rv].any()
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiled"])
+@pytest.mark.parametrize("groups", [1, 2, 3])
+def test_stacked_slab_halves_equal_the_pair_and_jax(layout, groups):
+    """K13b's stacked slab ``[G, 2, w, k]`` (`sample_layer_partial_slab`):
+    group g's first half is its rows of the plain path's neighbor slab, its
+    second half their int32 flags, and both equal the JAX package's
+    per-shard partial (`_sample_layer_partial`, `_tiled_sample_layer_partial`
+    in the suite's `shard_map`) on every (host, ici) shard."""
+    jt, tt, n = _graph_with_isolated_rows()
+    w, k = 12, 5
+    W = groups * w
+    rng = np.random.default_rng(groups)
+    cur = rng.integers(0, n, W).astype(np.int32)
+    cur[0] = n - 1
+    valid_in = rng.random(W) < 0.9
+    jkey, key = jax.random.key(8), qrandom.key(8)
+    jmesh = _jmesh()
+    feat_axes = ("host", "ici")
+    tiled = layout == "tiled"
+    stopo = jtop.shard_topology_rows(jmesh, jt, layout=layout)
+
+    def f(stopo, c, v):
+        blk = (stopo.bd[0], stopo.tiles[0]) if tiled else (stopo.indptr[0], stopo.indices[0])
+        fn = jtop._tiled_sample_layer_partial if tiled else jtop._sample_layer_partial
+        nb, va = fn(*blk, stopo.row_start, c, v, k, jkey, feat_axes)
+        return nb[None], va[None]
+
+    every = P(("host", "dp", "ici"))
+    jn, jv = (np.asarray(o) for o in jax.jit(shard_map_compat(
+        f, mesh=jmesh, in_specs=(stopo.specs(feat_axes), P(), P()),
+        out_specs=(every, every), check_vma=False))(stopo, jnp.asarray(cur),
+                                                    jnp.asarray(valid_in)))
+    if tiled:
+        a, b, rs = build_tiled_topology_shards(tt.indptr, tt.indices.astype(np.int32), 4)
+        slab_fn, pair_fn = tiled_sample_layer_partial_slab, tiled_sample_layer_partial_plain
+    else:
+        a, b, rs = build_topology_shards(tt.indptr, tt.indices.astype(np.int32), 4)
+        slab_fn, pair_fn = sample_layer_partial_slab, sample_layer_partial_plain
+    for p in range(4):
+        args = (torch.from_numpy(a[p]), torch.from_numpy(b[p]), int(rs[p]), int(rs[p + 1]),
+                torch.from_numpy(cur), torch.from_numpy(valid_in), k, key)
+        slab = slab_fn(*args, groups=groups)
+        nbrs, valid = pair_fn(*args)
+        assert slab.shape == (groups, 2, w, k) and slab.dtype == torch.int32
+        assert torch.equal(slab[:, 0].reshape(W, k), nbrs)
+        assert torch.equal(slab[:, 1].reshape(W, k), valid)
+        d = (p // 2) * 4 + p % 2  # device (host, dp = 0, ici) of shard (host, ici)
+        assert np.array_equal(slab[:, 0].reshape(W, k).numpy(), jn[d])
+        assert np.array_equal(slab[:, 1].reshape(W, k).numpy(), jv[d])
+    with pytest.raises(ValueError, match="does not split into"):
+        slab_fn(*args, groups=5)
+
+
 # -- placement, calibration, byte models --------------------------------------------------
 
 def test_hot_cold_blocks_and_calibrated_budget_equal_jax():
@@ -656,11 +789,11 @@ def test_every_collective_goes_through_the_wrappers(monkeypatch):
     counted_run = _port_steps(case, "flat", "dedup", True, [seeds], [qrandom.key(3)])
     for (l0, o0, p0), (l1, o1, p1) in zip(plain, counted_run):
         assert l0 == l1 and o0 == o1 and all(torch.equal(p0[k], p1[k]) for k in p0)
-    # a rank: 2 hops x (2 all-gathers, 2 all-to-alls, 2 ici sums); 2 gathers
-    # x (1 ici sum hot, 1 all-gather + 1 all-to-all + 1 ici sum cold); 1 data
-    # sum; 1 max
-    assert seen == {"allgather": 8 * (4 + 2), "all_to_all": 8 * (4 + 2),
-                    "allreduce_sum": 8 * (4 + 4 + 1), "allreduce_max": 8}, seen
+    # a rank: 2 hops x (2 all-gathers, 1 all-to-all and 1 ici sum of the
+    # stacked neighbor and flag slab); 2 gathers x (1 ici sum hot, 1
+    # all-gather + 1 all-to-all + 1 ici sum cold); 1 data sum; 1 max
+    assert seen == {"allgather": 8 * (4 + 2), "all_to_all": 8 * (2 + 2),
+                    "allreduce_sum": 8 * (2 + 4 + 1), "allreduce_max": 8}, seen
     root = Path(__file__).resolve().parent.parent / "quiver_tpu_torch"
     calls = re.compile(r"(?<!collectives)\.(allreduce|_allgather_base|allgather|alltoall_base|"
                        r"alltoall|reduce_scatter|_reduce_scatter_base|broadcast)\(")

@@ -86,7 +86,15 @@ The redesigned Gumbel draw (K7 tiled and flat, K8) across its switch
 points (rows a block, the key budget's passes, rows of at most 32 lanes,
 the arg-max/radix crossover at k = 16/17, the rank cap at 128/129, the
 shared pick list, deg < k, zero-weight rows, invalid seeds, K8's cutoff
-masking whole rows), bit-equal to its plain version and when run twice."""
+masking whole rows), bit-equal to its plain version and when run twice.
+The redesigned uniform draw (K1, K1b, K13b) at k = 1, 2, 15, 16, 17, 31,
+32, 33, 48, 64, 300 and 512, on rows of degree 0, k, k + 1 and past 10^6,
+invalid seeds, W never a multiple of the rows a warp draws and seeds at
+the owner windows' edges, bit-equal to its plain version, with K13b's
+stacked slab of 2 and 3 groups; kernel launches counted on the host
+(`_kernels.kernel_launches`): one a K1 or K13b call, two a grouped hop
+(K13e: K13b into the stacked slab, one K13c unpack) on each of four rank
+threads, and K2's one or eight."""
 
 import numpy as np
 import pytest
@@ -172,7 +180,11 @@ def test_sample_kernel_matches_plain(cuda_device, layout):
             g = topo.to_device(cuda_device)
             fn, plain = sample.sample_layer, sample.sample_layer_plain
         args = (seeds.to(cuda_device), valid.to(cuda_device), k, key)
-        got, want = fn(*g, *args), plain(*g, *args)
+        torch.cuda.synchronize()
+        _kernels.reset_kernel_launches()
+        got = fn(*g, *args)
+        assert _kernels.kernel_launches() == 1, (W, k)
+        want = plain(*g, *args)
         cpu = plain(*(t.cpu() for t in g), seeds, valid, k, key)
         torch.cuda.synchronize()
         for a, b, c in zip(got, want, cpu):
@@ -281,21 +293,18 @@ def test_reindex_kernel_at_its_design_boundaries(cuda_device, name):
 def test_reindex_kernel_launches_do_not_grow_with_the_batch(cuda_device):
     """One counted launch of K2 runs one kernel on the card up to 2,048
     slots (a flush's first hop) and eight from there to S*k = 901,120 (a
-    batch of 1,024's third hop), and its scratch is the size its C helper
-    names (none for one block)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    batch of 1,024's third hop), as the host's count of kernel launches
+    (`_kernels.kernel_launches`) sees them, and its scratch is the size its
+    C helper names (none for one block)."""
     rng = np.random.default_rng(32)
     for S, k in ((64, 15), (64, 31), (683, 2), (1024, 10), (11264, 5), (180224, 5)):
         args = [torch.from_numpy(a).to(cuda_device) for a in _reindex_case(S, k, rng)]
         reindex.local_reindex(*args)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            reindex.local_reindex(*args)
-            torch.cuda.synchronize()
-        n = sum(ev.count for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation)
+        _kernels.reset_kernel_launches()
+        reindex.local_reindex(*args)
+        n = _kernels.kernel_launches()
+        torch.cuda.synchronize()
         W = S * (1 + k)
         assert n == (1 if W <= 2048 else 8), (S, k, n)
         H = 1 << (2 * W - 1).bit_length()
@@ -1064,12 +1073,75 @@ def test_build_tiles_kernel_matches_plain_and_the_host_build(cuda_device):
                                                                  np.int32)[1]))
 
 
+SAMPLE_BOUNDARY_KS = [1, 2, 15, 16, 17, 31, 32, 33, 48, 64, 300, 512]
+
+
+def _sample_boundary_graph(k, seed=0):
+    """A CSR graph whose rows 0-3 have degree 0, k, k + 1 and 1,100,000 (a
+    hub past 10^6 neighbors, the JAX tail table's worst case), then 2,000
+    rows of degree 0 to 2k + 3."""
+    rng = np.random.default_rng(seed)
+    deg = np.concatenate([[0, k, k + 1, 1_100_000], rng.integers(0, 2 * k + 4, 2000)])
+    n = deg.shape[0]
+    indptr = np.zeros(n + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    indices = rng.integers(0, n, int(indptr[-1])).astype(np.int32)
+    return CSRTopo(indptr=indptr, indices=indices), n
+
+
+def _boundary_seeds(rng, W, n):
+    """Seeds over every row, the four boundary rows first, ids past both ends,
+    about 10% invalid (never the first four)."""
+    seeds = torch.from_numpy(rng.integers(-3, n + 3, W).astype(np.int32))
+    seeds[:8] = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0], dtype=torch.int32)
+    valid = torch.from_numpy(rng.random(W) < 0.9)
+    valid[:8] = True
+    return seeds, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tiled", "flat"])
+@pytest.mark.parametrize("k", SAMPLE_BOUNDARY_KS)
+def test_sample_kernel_at_its_design_boundaries(cuda_device, layout, k):
+    """K1 and K1b at the redesign's switch points: k = 1, 2, 15, 16, 17, 31,
+    32 (a team of k lanes, 32 // k rows a warp), 33, 48, 64, 300 and 512 (a
+    warp a row, ceil(k / 32) steps a lane); rows of degree 0, k, k + 1 and
+    past 10^6, invalid seeds, ids past both ends, and W a prime, so never a
+    multiple of the rows a warp draws: bit-equal to the plain draw on the
+    card and on the CPU, one kernel launch a call."""
+    topo, n = _sample_boundary_graph(k)
+    rng = np.random.default_rng(k + 100)
+    W = 1031 if k <= 64 else 257
+    seeds, valid = _boundary_seeds(rng, W, n)
+    key = qrandom.split(qrandom.key(k + 7))[1]
+    if layout == "tiled":
+        g = topo.to_device_tiled(cuda_device)
+        fn, plain = sample.tiled_sample_layer, sample.tiled_sample_layer_plain
+    else:
+        g = topo.to_device(cuda_device)
+        fn, plain = sample.sample_layer, sample.sample_layer_plain
+    args = (seeds.to(cuda_device), valid.to(cuda_device), k, key)
+    torch.cuda.synchronize()
+    _kernels.reset_kernel_launches()
+    got = fn(*g, *args)
+    assert _kernels.kernel_launches() == 1
+    want = plain(*g, *args)
+    cpu = plain(*(t.cpu() for t in g), seeds, valid, k, key)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, cpu):
+        assert _same(a, b) and _same(a, c)
+    counts = got[1].sum(1).cpu()
+    assert counts[:4].tolist() == [0, k, k, k]  # deg 0, k, k + 1, the hub
+    row1 = int(topo.indptr[1])
+    assert torch.equal(got[0][1, :k].cpu(), torch.from_numpy(topo.indices[row1:row1 + k]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["tiled", "flat"])
 @pytest.mark.parametrize("k", [48, 64, 300])
 def test_sample_kernel_wide_fanouts_match_plain(cuda_device, layout, k):
-    """K1 and K1b above 32 (tables in shared memory; 300 opts in above 48
-    KB), bit-equal to the plain draw on the card and on the CPU."""
+    """K1 and K1b above 32 (a warp a row, ceil(k / 32) steps a lane),
+    bit-equal to the plain draw on the card and on the CPU."""
     topo, n = _graph()
     rng = np.random.default_rng(k)
     W = 1024 if k < 300 else 256
@@ -1268,32 +1340,45 @@ def _owned_seeds(rng, W, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["tiled", "flat"])
-@pytest.mark.parametrize("k", [15, 64])
+@pytest.mark.parametrize("k", [1, 15, 17, 33, 64, 512])
 def test_sharded_sample_kernel_matches_plain_and_unsharded(cuda_device, layout, k):
-    """K13b on 3 shards (one owning the hub): each partial bit-equal to its
-    plain version on the card and on the CPU; the partials sum to the
-    unsharded K1/K1b draw on its valid lanes, neighbor 0 elsewhere."""
+    """K13b on 3 shards (one owning the hub), with seeds on both sides of
+    every owner window's edges: each partial bit-equal to its plain version
+    on the card and on the CPU, one kernel launch a call; the partials sum
+    to the unsharded K1/K1b draw on its valid lanes, neighbor 0 elsewhere;
+    the stacked slab of 2 and 3 groups (the grouped hop's [G, 2, w, k]) holds
+    the same neighbors and flags, group by group."""
     from quiver_tpu_torch.parallel.topology import (
         build_tiled_topology_shards,
         build_topology_shards,
         sample_layer_partial,
         sample_layer_partial_plain,
+        sample_layer_partial_slab,
         tiled_sample_layer_partial,
         tiled_sample_layer_partial_plain,
+        tiled_sample_layer_partial_slab,
     )
 
     topo, n = _graph()
     rng = np.random.default_rng(k)
-    seeds, valid = _owned_seeds(rng, 2048, n)
+    W = 2046 if k <= 64 else 258  # splits into 2 and 3 groups
+    seeds, valid = _owned_seeds(rng, W, n)
     key = qrandom.split(qrandom.key(k))[1]
     if layout == "tiled":
         a, b, rs = build_tiled_topology_shards(topo.indptr, topo.indices.astype(np.int32), 3)
-        fn, plain = tiled_sample_layer_partial, tiled_sample_layer_partial_plain
+        fn, plain, slab_fn = (tiled_sample_layer_partial, tiled_sample_layer_partial_plain,
+                              tiled_sample_layer_partial_slab)
+    else:
+        a, b, rs = build_topology_shards(topo.indptr, topo.indices.astype(np.int32), 3)
+        fn, plain, slab_fn = (sample_layer_partial, sample_layer_partial_plain,
+                              sample_layer_partial_slab)
+    edges = [int(rs[p]) + d for p in range(1, 3) for d in (-1, 0)] + [0, n - 1]
+    seeds[8:8 + len(edges)] = torch.tensor(edges, dtype=torch.int32)
+    valid[8:8 + len(edges)] = True
+    if layout == "tiled":
         ref = sample.tiled_sample_layer(*topo.to_device_tiled(cuda_device), seeds.to(cuda_device),
                                         valid.to(cuda_device), k, key)
     else:
-        a, b, rs = build_topology_shards(topo.indptr, topo.indices.astype(np.int32), 3)
-        fn, plain = sample_layer_partial, sample_layer_partial_plain
         ref = sample.sample_layer(*topo.to_device(cuda_device), seeds.to(cuda_device),
                                   valid.to(cuda_device), k, key)
     nbrs = torch.zeros((seeds.shape[0], k), dtype=torch.int32)
@@ -1303,11 +1388,20 @@ def test_sharded_sample_kernel_matches_plain_and_unsharded(cuda_device, layout, 
         win = (int(rs[p]), int(rs[p + 1]))
         dev_args = (*(t.to(cuda_device) for t in blk), *win, seeds.to(cuda_device),
                     valid.to(cuda_device), k, key)
-        got, want = fn(*dev_args), plain(*dev_args)
-        cpu = plain(*blk, *win, seeds, valid, k, key)
+        torch.cuda.synchronize()
+        _kernels.reset_kernel_launches()
+        got = fn(*dev_args)
+        assert _kernels.kernel_launches() == 1
+        want, cpu = plain(*dev_args), plain(*blk, *win, seeds, valid, k, key)
         torch.cuda.synchronize()
         for x, y, z in zip(got, want, cpu):
             assert x.dtype == torch.int32 and _same(x, y) and _same(x, z)
+        for G in (2, 3):
+            slab = slab_fn(*dev_args, groups=G)
+            w = seeds.shape[0] // G
+            assert slab.shape == (G, 2, w, k)
+            assert _same(slab[:, 0].reshape(-1, k), got[0])
+            assert _same(slab[:, 1].reshape(-1, k), got[1])
         nbrs += got[0].cpu()
         vsum += got[1].cpu()
     rv = ref[1].cpu()
@@ -1601,6 +1695,57 @@ def test_rank_threads_host_axis_on_the_card(cuda_device):
             nb, v = (x.cpu() for x in out[layout])
             assert torch.equal(v, rv) and torch.equal(nb[rv], ref[0].cpu()[sl][rv])
             assert not nb[~rv].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["flat", "tiled"])
+@pytest.mark.parametrize("via", ["scatter", "psum"])
+def test_grouped_hop_launches_two_kernels_a_rank(cuda_device, layout, via):
+    """A grouped hop (K13e) on four rank threads (host 2 x dp 1 x ici 2):
+    each rank launches K13b once into the stacked slab and, under
+    ``via="scatter"``, K13c's int32 unpack once (two kernels a rank, as the
+    host's launch count sees them; one under ``via="psum"``), and gets the
+    unsharded draw of its own frontier on the valid lanes."""
+    from quiver_tpu_torch.parallel import (
+        local_meshes,
+        run_ranks,
+        shard_topology_rows,
+        sharded_sample_layer_grouped,
+        tiled_sharded_sample_layer_grouped,
+    )
+
+    topo, n = _graph()
+    rng = np.random.default_rng(16)
+    seeds, valid = _owned_seeds(rng, 2 * 1024, n)
+    key = qrandom.key(17)
+    ref = sample.sample_layer(*topo.to_device(cuda_device), seeds.to(cuda_device),
+                              valid.to(cuda_device), 10, key)
+    meshes = local_meshes(4, hosts=2, device=cuda_device, timeout_s=120)
+    blocks = run_ranks(lambda m: shard_topology_rows(m, topo, layout=layout), meshes)
+    fn = sharded_sample_layer_grouped if layout == "flat" else tiled_sharded_sample_layer_grouped
+
+    def rank(m):
+        st = blocks[m.rank]
+        a = (st.indptr, st.indices) if layout == "flat" else (st.bd, st.tiles)
+        sl = slice(m.host_idx * 1024, (m.host_idx + 1) * 1024)
+        return fn(*a, st.row_start, seeds[sl].to(m.device), valid[sl].to(m.device), 10, key,
+                  m, ("host", "ici"), "host", via=via)
+
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    _kernels.reset_kernel_launches()
+    results = run_ranks(rank, meshes)
+    torch.cuda.synchronize()
+    launches, counts = _kernels.kernel_launches(), _kernels.counts()
+    per_rank = 2 if via == "scatter" else 1
+    assert launches == 4 * per_rank, launches
+    assert counts["sharded_sample_" + layout] == 4
+    assert counts["grouped_unpack/int32"] == 4 * (per_rank - 1)
+    for m, (nb, v) in zip(meshes, results):
+        sl = slice(m.host_idx * 1024, (m.host_idx + 1) * 1024)
+        rv = ref[1].cpu()[sl]
+        assert torch.equal(v.cpu(), rv) and torch.equal(nb.cpu()[rv], ref[0].cpu()[sl][rv])
+        assert not nb.cpu()[~rv].any()
 
 
 @pytest.mark.cuda

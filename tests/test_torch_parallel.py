@@ -459,9 +459,10 @@ def test_one_step_matches_the_jax_step(topology, pipeline):
 def test_every_sum_of_a_step_goes_through_allreduce_sum(monkeypatch, topology, pipeline):
     """A step's sums all go through `collectives.allreduce_sum`, so a
     wrapper there sees them all (chip_smoke.py's collective clock is one):
-    the float32 feature sums over ici, the int32 draws over ici with a
-    sharded graph, and one float32 gradient-and-loss sum over dp a rank.
-    With the wrapper in place the step gives the same parameters."""
+    the float32 feature sums over ici, with a sharded graph one int32 sum a
+    hop over ici of the draw's stacked [2, W, k] neighbors and flags, and
+    one float32 gradient-and-loss sum over dp a rank. With the wrapper in
+    place the step gives the same parameters."""
     case = _case()
     seeds = np.random.default_rng(5).choice(case["n"], 16, replace=False).astype(np.int32)
     plain = _port_rank_step(case, topology, pipeline, seeds, qrandom.key(3))
@@ -471,10 +472,10 @@ def test_every_sum_of_a_step_goes_through_allreduce_sum(monkeypatch, topology, p
         assert l0 == l1 and all(torch.equal(p0[k], p1[k]) for k in p0)
     # dp and ici groups are both of size 2 here; the dp sum is the one 1-D sum
     rows = sum(1 for s in seen if s == (2, torch.float32, 2))
-    draws = sum(1 for s in seen if s == (2, torch.int32, 2))
+    draws = sum(1 for s in seen if s == (2, torch.int32, 3))
     grads = sum(1 for s in seen if s == (2, torch.float32, 1))
     assert rows >= 4 and grads == 4
-    assert draws == (0 if topology == "replicated" else 4 * 2 * len(SIZES))
+    assert draws == (0 if topology == "replicated" else 4 * len(SIZES))
     assert len(seen) == rows + draws + grads
 
 
