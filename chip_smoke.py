@@ -140,8 +140,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              reference's sequential order), with the relative errors
              logged; and per hop each node within its own order's bound
              (neighbor_prob_depth) of the float64 sum of the same terms,
-             about 7.5e-5 relative at the hub, with the share of that
-             bound used logged. Yardsticks:
+             about 6e-6 relative at the hub, with the share of that
+             bound used logged; each hop also queued behind a spin with
+             its kernels a call. Yardsticks:
              index_copy (K6), index_add_ of the edge contributions (K11);
              the transposed graph's build seconds;
 14. tiers  — the out-of-core path at full width: the heat from
@@ -222,7 +223,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              run twice, within one float32 (bfloat16) rounding of the sum of
              its plain version on a CPU copy, which adds the valid lanes in
              the kernel's order, and in bfloat16 equal to the float32
-             kernel's sum rounded once; the block out-degree (K14c) of each
+             kernel's sum rounded once, each call also queued behind a spin
+             (beside index_add_'s queued time) and one kernel a call on the
+             host's launch count; the block out-degree (K14c) of each
              hop, bit-equal; K4 and K4b in bfloat16 at SAGE's widths, equal to
              the float32 kernels on the same values rounded once. Each hop's
              valid lanes, distinct rows and largest source segment (the hub)
@@ -525,6 +528,7 @@ from quiver_tpu_torch.serve import (DistServeConfig, DistServeEngine, contiguous
                                     lp_trace, replay_shard_oracle, temporal_trace, zipfian_trace)
 from quiver_tpu_torch.shard_tensor import tiered_gather_plain
 from quiver_tpu_torch.ops.sample import (
+    PROB_WARP_ITEMS,
     neighbor_prob,
     neighbor_prob_depth,
     neighbor_prob_plain,
@@ -700,7 +704,22 @@ K2_LAUNCHES_BEFORE = {"uncapped": [16, 42, 61], "capped": [16, 42, 61]}
 K1_QUEUED_MS_BEFORE = {"sample_tiled": [0.02461, 0.01821, 0.01286],
                        "sample_flat": [0.02477, 0.01821, 0.01283]}
 K13E_QUEUED_MS_BEFORE = {"tiled": [0.03165, 0.03162, 0.05859], "flat": 0.12095}
-REDESIGN = {}  # this run's times of K4, K2, K1 and K13e at those shapes, filled by the phases
+# K14b and K11 before their redesign (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+# K14b's report calls (float32 at GAT's widths 1,024, 1,024, 47) and its
+# bfloat16 calls at F = 1,024 by `time_ms`, and every kernels-7 call of
+# K14b queued behind a spin (the parent tree in scripts/torch_backward_probe.py,
+# keyed as the kernels-7 shapes: layer, F, dtype); K11's three hops by
+# `time_ms` and queued
+K14B_MS_BEFORE = {"float32": [4.0132, 0.8273, 0.0619], "bfloat16": [4.13338, 0.88797]}
+K14B_QUEUED_MS_BEFORE = {
+    "layer 0 F=1024 float32": 3.9703, "layer 0 F=1024 bfloat16": 3.7879,
+    "layer 1 F=256 float32": 0.3171, "layer 1 F=256 bfloat16": 0.6945,
+    "layer 1 F=1024 float32": 0.8254, "layer 1 F=1024 bfloat16": 0.7989,
+    "layer 2 F=47 float32": 0.0606, "layer 2 F=256 float32": 0.0582,
+    "layer 2 F=256 bfloat16": 0.0959}
+K11_MS_BEFORE = [1.068, 1.023, 1.024]
+K11_QUEUED_MS_BEFORE = [1.0216, 1.0229, 1.0228]
+REDESIGN = {}  # this run's times of K4, K2, K1, K13e, K14b and K11 at those shapes
 
 
 def log(*a):
@@ -1379,7 +1398,10 @@ def redesign_line() -> dict:
     alone), beside K4's embedding_bag and bound and K2's kernel launches;
     K1's flush calls and K13e's calibrated hops, queued, with their kernels
     a call, beside K1_QUEUED_MS_BEFORE and K13E_QUEUED_MS_BEFORE (K13e also
-    beside this run's pair of slabs and two unpacks)."""
+    beside this run's pair of slabs and two unpacks); K14b's kernels-7
+    calls and K11's hops by both timers with their kernels a call, beside
+    K14B_MS_BEFORE, K14B_QUEUED_MS_BEFORE, K11_MS_BEFORE and
+    K11_QUEUED_MS_BEFORE (K14b also beside index_add_'s queued time)."""
     def cols(entries):
         return {key: [e[key] for e in entries] for key in entries[0]}
 
@@ -1395,7 +1417,12 @@ def redesign_line() -> dict:
             "K1": {name: dict(cols(REDESIGN[f"K1 flush {name}"]), queued_ms_before=before)
                    for name, before in K1_QUEUED_MS_BEFORE.items()},
             "K13e": {layout: dict(cols(REDESIGN[f"K13e {layout}"]), queued_ms_before=before)
-                     for layout, before in K13E_QUEUED_MS_BEFORE.items()}}
+                     for layout, before in K13E_QUEUED_MS_BEFORE.items()},
+            "K14b": dict(cols(REDESIGN["K14b"]), ms_before=K14B_MS_BEFORE,
+                         queued_ms_before=[K14B_QUEUED_MS_BEFORE[e["shape"]]
+                                           for e in REDESIGN["K14b"]]),
+            "K11": dict(cols(REDESIGN["K11"]), ms_before=K11_MS_BEFORE,
+                        queued_ms_before=K11_QUEUED_MS_BEFORE)}
 
 
 def train_phase(topo, table, resident, tiered, train_idx, seed):
@@ -1810,8 +1837,8 @@ def prob_order_check(got, exact, depth, hub, what):
     """Hold K11's ``got`` against ``exact``, the float64 sum of the same
     float32 terms: all are >= 0, so the kernel's order lies within
     d u / (1 - d u) of it, relative (d = `neighbor_prob_depth`, u = 2^-24;
-    about 7.5e-5 at the products hub, where dropping one 1,024-edge tile
-    costs 8e-4), plus 1e-9 for the float64 sum's own rounding. Returns the
+    about 6e-6 at the products hub, where dropping one 512-item range costs
+    about 4e-4), plus 1e-9 for the float64 sum's own rounding. Returns the
     largest share of that bound used, and the share at node ``hub``."""
     u = 2.0**-24
     dd = depth.double()
@@ -1864,9 +1891,13 @@ def kernel_phase_4(topo, tiered, train_idx, rows):
     build_s = time.perf_counter() - t0
     indptr, indices = topo.to_device(dev)
     e = int(tr.tsrc.numel())
+    depth = neighbor_prob_depth(tr)
+    in_deg = tr.tindptr[1:] - tr.tindptr[:-1]
+    hub = int(in_deg.argmax())
     log(json.dumps({"k11_transposed_build_s": build_s, "edges": e,
-                    "tiles": int(tr.tile_node.numel()), "long_nodes": int(tr.long_nodes.numel()),
-                    "tile": tr.tile, "top_in_degree": int((tr.tindptr[1:] - tr.tindptr[:-1]).max())}))
+                    "ranges": -(-(n + e) // PROB_WARP_ITEMS), "range_items": PROB_WARP_ITEMS,
+                    "top_in_degree": int(in_deg[hub]), "hub_depth": int(depth[hub]),
+                    "max_depth": int(depth.max())}))
     train_t = torch.from_numpy(np.asarray(train_idx)).to(dev)
     deg = indptr[1:] - indptr[:-1]
     src = torch.repeat_interleave(torch.arange(n, device=dev), deg.long())
@@ -1874,9 +1905,6 @@ def kernel_phase_4(topo, tiered, train_idx, rows):
     d = torch.clamp(deg.to(torch.float32), min=1.0)
     last = torch.zeros(n, device=dev)
     last[train_t] = 1.0
-    in_deg = tr.tindptr[1:] - tr.tindptr[:-1]
-    depth = neighbor_prob_depth(tr)
-    hub = int(in_deg.argmax())
     cpu_graph = (indptr.cpu(), indices.cpu())
     for k in SIZES:
         got = neighbor_prob(indptr, indices, last, k, tr)
@@ -1894,11 +1922,16 @@ def kernel_phase_4(topo, tiered, train_idx, rows):
         # least bytes: the transposed sources once; tindptr, deg, prob and the
         # output once a node, and the weights w written and read once (the
         # [N] w stays in the L2, so its per-edge reads are not HBM bytes)
-        record(rows, "neighbor_prob", err, time_ms(lambda: neighbor_prob(indptr, indices, last, k, tr)),
+        hop = dict(k=k, ms=time_ms(lambda: neighbor_prob(indptr, indices, last, k, tr)),
+                   queued_ms=time_ms_queued(lambda: neighbor_prob(indptr, indices, last, k, tr)),
+                   launches=kernel_launches(lambda: neighbor_prob(indptr, indices, last, k, tr)),
+                   bound_ms=bound(e * 4 + n * (8 + 4 + 4 + 4 + 8), f32_adds=e)[0])
+        REDESIGN.setdefault("K11", []).append(hop)
+        record(rows, "neighbor_prob", err, hop["ms"],
                time_ms(lambda: neighbor_prob_plain(indptr, indices, last, k), reps=5),
                bound(e * 4 + n * (8 + 4 + 4 + 4 + 8), f32_adds=e),
                time_ms(lambda: torch.zeros(n, device=dev).index_add_(0, dst, contrib), reps=5),
-               shape=f"N={n} E={e} k={k}")
+               shape=f"N={n} E={e} k={k}", queued_ms=hop["queued_ms"])
         log(json.dumps({"k11_hop_k": k, "max_rel_err": rel, "max_abs_err": err,
                         "bound_share_used": used, "max_rel_err_vs_cpu_sequential": rel_seq,
                         "bound_share_used_vs_cpu": used_seq,
@@ -2725,14 +2758,26 @@ def kernel_phase_7(topo, seeds, rows, seed):
                     del ref
                 del got
                 contrib = g.reshape(n_lanes, -1)[mask.reshape(-1)].contiguous()
-                record(rows, "gather_src_backward", err,
-                       time_ms(lambda: gather_src_backward(g, mask, cols, w_src)),
+
+                def k14b(g=g):
+                    return gather_src_backward(g, mask, cols, w_src)
+
+                def lib(contrib=contrib):
+                    return torch.zeros((w_src, contrib.shape[1]), dtype=dtype,
+                                       device=dev).index_add_(0, valid_idx, contrib)
+                b = bound(n_lanes * 5 + n_valid * F_ * es + w_src * F_ * es,
+                          f32_adds=n_valid * F_)
+                call = dict(shape=f"layer {layer} F={F_} {str(dtype)[6:]}", ms=time_ms(k14b),
+                            queued_ms=time_ms_queued(k14b), launches=kernel_launches(k14b),
+                            index_add_ms=time_ms(lib), index_add_queued_ms=time_ms_queued(lib),
+                            bound_ms=b[0])
+                REDESIGN.setdefault("K14b", []).append(call)
+                check(call["launches"] == 1,
+                      f"K14b launched {call['launches']} kernels in one call at {tag}")
+                record(rows, "gather_src_backward", err, call["ms"],
                        time_ms(lambda: gather_src_backward_plain(g, mask, cols, w_src), reps=5),
-                       bound(n_lanes * 5 + n_valid * F_ * es + w_src * F_ * es,
-                             f32_adds=n_valid * F_),
-                       time_ms(lambda: torch.zeros((w_src, contrib.shape[1]), dtype=dtype,
-                                                   device=dev).index_add_(0, valid_idx, contrib)),
-                       shape=tag, report=report)
+                       b, call["index_add_ms"], shape=tag, report=report,
+                       queued_ms=call["queued_ms"])
                 del g, contrib, x
         torch.cuda.empty_cache()
 
@@ -4605,7 +4650,7 @@ def main() -> int:
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))
 
-    log("redesign K4 K2 K1 K13e: " + json.dumps(redesign_line()))
+    log("redesign K4 K2 K1 K13e K14b K11: " + json.dumps(redesign_line()))
     log(f"every phase passed in {time.perf_counter() - t_run:.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -73,8 +73,8 @@ KERNELS = {
                                 [_I, _P, _LL, _I, _P, _LL, _P, _LL, _P, _P, _P, _LL, _P, _P]),
     "set_rows": ("gather", "qt_set_rows", [_P, _LL, _I, _P, _LL, _P, _P, _P, _P]),
     "neighbor_prob": ("prob", "qt_neighbor_prob",
-                      [_P, _P, _LL, ctypes.c_float, _P, _P, _P, _P, _LL, _I, _P, _LL,
-                       _P, _P, _P, _P]),
+                      [_P, _P, _LL, ctypes.c_float, _P, _P, _LL, _P, _P, _LL, _I, _I, _P, _LL,
+                       _P, _P]),
     "weighted_sample_tiled": ("weighted", "qt_weighted_sample_tiled",
                               [_P, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _U, _U, _P, _P, _P]),
     "weighted_sample_flat": ("weighted", "qt_weighted_sample_flat",
@@ -118,6 +118,7 @@ HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_voi
            "qt_masked_mean_backward_scratch": ("aggregate",
                                                [_LL, _I, _I, _I, ctypes.POINTER(_LL)]),
            "qt_cold_compact_scratch": ("collective", [_LL, ctypes.POINTER(_LL)]),
+           "qt_neighbor_prob_scratch": ("prob", [_LL, _LL, ctypes.POINTER(_LL)]),
            "qt_full_mean_scratch": ("full_mean", [_LL, _LL, _I, ctypes.POINTER(_LL)]),
            "qt_full_mean_segment_edges": ("full_mean", [ctypes.POINTER(_I)])}
 SOURCES = sorted({stem for stem, _, _ in KERNELS.values()})
@@ -277,6 +278,17 @@ def masked_mean_backward_scratch_bytes(w_src: int, w_dst: int, k: int, D: int = 
     lib = _lib(HELPERS["qt_masked_mean_backward_scratch"][0])
     out = ctypes.c_longlong()
     lib.qt_masked_mean_backward_scratch(w_src, w_dst, k, D, ctypes.byref(out))
+    return out.value
+
+
+def neighbor_prob_scratch_bytes(n: int, n_edges: int) -> int:
+    """Bytes of device scratch one ``neighbor_prob`` hop takes over ``n``
+    nodes and ``n_edges`` edges (the weights and the parts of the nodes that
+    cross merge-path ranges); the layout is known to ``csrc/prob.cu``
+    alone."""
+    lib = _lib(HELPERS["qt_neighbor_prob_scratch"][0])
+    out = ctypes.c_longlong()
+    lib.qt_neighbor_prob_scratch(n, n_edges, ctypes.byref(out))
     return out.value
 
 

@@ -34,6 +34,8 @@
 // with few columns and many lanes more warps when the targets are too few
 // to fill the card. No float atomics: two runs are bit-equal.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "scan.cuh"
 
@@ -302,85 +304,16 @@ QT_EXPORT int qt_masked_mean(const void* x, long long w_src, int D, const void* 
 // lanes 32 at a time.
 //
 // Cols layout: many targets can name one source row, so this is a
-// scatter-add. It is deterministic — no float atomics, and the sum of
-// each source row runs over its lanes in ascending flat index q = i*k + j
-// on every run, so two runs give bit-equal gradients. A warp per target
-// row first counts its valid lanes and writes g[i] / max(cnt_i, 1) (a
-// float32 division, as the reference's vjp of the divide) to a float32
-// scratch row; then K14b's pipeline (below) runs on the lanes: the valid
-// lanes' counts a source row (a thread a lane, integer atomics), the scan
-// into segment offsets, the fill, the rank of each slot in its segment (a
-// thread a slot, which stores the lane's target row i), and a warp per
-// (source row, 128 columns) adds the ordered segment's scaled rows.
-// Clipped columns are clipped as the forward clips them, and lanes the
-// mask drops (invalid, or past a cap) add nothing. A bfloat16 gradient is
-// divided and summed in float32 and rounded once, when stored.
+// scatter-add. It runs K14b's one launch (below) over the targets' rows
+// divided by their count: its first phase writes g[i] / max(cnt_i, 1) (a
+// float32 division) to a float32 scratch row a target, and its segments
+// store each lane's target row i. Deterministic: no float atomics, and
+// each source row's sum runs over its lanes in ascending flat index q =
+// i*k + j on every run. A bfloat16 gradient is divided and summed in
+// float32 and rounded once, when stored.
 //
 // Bound on the card: bytes — g and the mask and cols read once, d x_src
-// written once. Design: the scaled rows cost one float32 pass over g (W x
-// D), so the sum's critical path, a hub source's segment (about 1,500
-// lanes at batch 1024 on the products graph) walked by one warp a 128
-// columns with 8 rows in flight, holds loads and adds only; the count,
-// scan, fill and rank move 4-byte integers, the rank of a hub's n lanes in
-// time n by n threads.
-
-// each target row's gradient divided by its count max(cnt_i, 1), in
-// float32: a warp a row
-template <typename E>
-__global__ void mean_scale_kernel(const typename E::T* __restrict__ g, int D,
-                                  const bool* __restrict__ mask, int32_t w_dst, int k,
-                                  float* __restrict__ scaled) {
-  const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= w_dst) return;  // warp-uniform
-  const int cnt = mean_row_count(mask, k, row, lane);
-  const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
-  for (int c = lane; c < D; c += 32)
-    scaled[row * D + c] = __fdiv_rn(E::load(g + row * D + c), denom);
-}
-
-// scan of the lane counts deg[n] into offsets[n + 1] (and a copy of the
-// first n into cursor), in three coalesced passes over tiles of
-// kScanTile: the tile totals, their scan in one block, then each tile's
-// own scan plus its offset
-// (kScanTile and the block scan: scan.cuh)
-__global__ void mean_bwd_tile_sums_kernel(const int32_t* __restrict__ deg, long long n,
-                                          int32_t* __restrict__ tile_sums) {
-  const long long i = blockIdx.x * static_cast<long long>(kScanTile) + threadIdx.x;
-  int32_t total;
-  qt_block_exclusive_scan(i < n ? deg[i] : 0, &total);
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
-}
-
-// one block: tile_sums[t] becomes the exclusive prefix of tile t
-__global__ void mean_bwd_tile_scan_kernel(const int32_t* __restrict__ deg, long long n,
-                                          const int32_t* __restrict__ tile_offsets,
-                                          int32_t* __restrict__ offsets,
-                                          int32_t* __restrict__ cursor) {
-  const long long i = blockIdx.x * static_cast<long long>(kScanTile) + threadIdx.x;
-  const int32_t v = i < n ? deg[i] : 0;
-  int32_t total;
-  const int32_t at = tile_offsets[blockIdx.x] + qt_block_exclusive_scan(v, &total);
-  if (i < n) {
-    offsets[i] = at;
-    cursor[i] = at;
-  }
-  if (i == n - 1) offsets[n] = at + v;
-}
-
-// each valid lane's flat index into its source row's segment
-__global__ void mean_bwd_fill_kernel(const bool* __restrict__ mask,
-                                     const int32_t* __restrict__ cols, long long n_lanes,
-                                     long long w_src, int32_t* __restrict__ cursor,
-                                     int32_t* __restrict__ lanes) {
-  const long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (q >= n_lanes || !mask[q]) return;
-  const long long src = qt_clamp<long long>(cols[q], 0, w_src - 1);
-  lanes[atomicAdd(cursor + src, 1)] = static_cast<int32_t>(q);
-}
-
-// rows the ordered sum (5, below) has in flight a warp
-constexpr int kLanesInFlight = 8;
+// written once; the scaled rows cost one float32 pass over g (W x D).
 
 // structural layout: source row r = W + j*W + i takes lane (i, j) alone
 template <typename E>
@@ -400,46 +333,6 @@ __global__ void mean_bwd_structural_kernel(const typename E::T* __restrict__ g, 
   const bool take = inside && mask[i * k + j];
   for (int c = lane; c < D; c += 32)
     E::store(gx + row * D + c, take ? __fdiv_rn(E::load(g + i * D + c), denom) : 0.0f);
-}
-
-// The cols layout's scratch (K4b's and K14b's): lane counts, offsets,
-// cursors, the lanes in arrival and in flat-index order, the scan's tile
-// sums and (K4b only, D > 0) the scaled gradient rows, carved from one
-// buffer of the caller's in 256-byte-aligned parts. Only this file knows
-// the layout; the wrapper asks for its size.
-struct MeanBwdScratch {
-  int32_t *deg, *offsets, *cursor, *lanes, *sorted, *tile_sums;
-  float* scaled;
-  long long bytes;
-};
-
-static MeanBwdScratch mean_bwd_scratch(char* base, long long w_src, int w_dst, int k, int D) {
-  MeanBwdScratch s{};
-  long long at = 0;
-  auto take = [&](long long n, size_t elem) {
-    char* p = base == nullptr ? nullptr : base + at;
-    at += (n * static_cast<long long>(elem) + 255) / 256 * 256;
-    return p;
-  };
-  const long long n_lanes = static_cast<long long>(w_dst) * k;
-  s.deg = reinterpret_cast<int32_t*>(take(w_src, sizeof(int32_t)));
-  s.offsets = reinterpret_cast<int32_t*>(take(w_src + 1, sizeof(int32_t)));
-  s.cursor = reinterpret_cast<int32_t*>(take(w_src, sizeof(int32_t)));
-  s.lanes = reinterpret_cast<int32_t*>(take(n_lanes, sizeof(int32_t)));
-  s.sorted = reinterpret_cast<int32_t*>(take(n_lanes, sizeof(int32_t)));
-  s.tile_sums = reinterpret_cast<int32_t*>(take((w_src + kScanTile - 1) / kScanTile,
-                                                sizeof(int32_t)));
-  s.scaled = reinterpret_cast<float*>(take(static_cast<long long>(w_dst) * D, sizeof(float)));
-  s.bytes = at;
-  return s;
-}
-
-// bytes of scratch the cols layout needs at row width D (K4b), or D = 0
-// (K14b); the structural layout needs none
-QT_EXPORT int qt_masked_mean_backward_scratch(long long w_src, int w_dst, int k, int D,
-                                              long long* bytes) {
-  *bytes = mean_bwd_scratch(nullptr, w_src, w_dst, k, D).bytes;
-  return 0;
 }
 
 // K14b: gather_src_backward — the gradient of the hop-source gather
@@ -462,172 +355,723 @@ QT_EXPORT int qt_masked_mean_backward_scratch(long long w_src, int w_dst, int k,
 // gradient is summed in float32 and rounded once.
 //
 // Bound on the card: bytes — the valid lanes' cotangent rows, the mask and
-// cols read once, d x_src written once (3.7 GB of float32 cotangent at
-// GAT's widest hop, 180,224 x 5 lanes of 1,024). Design, shared with K4b's
-// cols layout: a CSR of sources (count with integer atomics, three-pass
-// scan, fill of the valid lanes); then a thread per filled slot ranks its
-// lane within its segment (the number of smaller lane indices), so a hub's
-// segment of n lanes is ordered in time n by n threads; then a warp per
-// (source row, 128 columns) walks the ordered segment, each lane summing 4
-// columns with kLanesInFlight rows in flight, so a row of 1,024 columns is
-// spread over 8 warps.
+// cols read once, d x_src written once (2.5 GB of float32 cotangent at
+// GAT's widest hop, 607,475 valid lanes of 1,024). What held the first
+// design back at the small layers: a chain of eight device operations a
+// call (a memset and seven kernels: count, three scan passes, fill, rank,
+// sum), each moving a few KB to a few MB, so the chain's launches were the
+// call's time; and a rank pass that walked a source's whole segment for
+// each of its n lanes (n^2 loads at a hub).
+//
+// Design: one launch a call, a grid of blocks of 1,024 threads (one an SM
+// at most, as many as the call's rows need), 224 KB of shared memory each.
+// A call of at most kSrcSmallLanes lanes takes the small path, src_small
+// below, with no grid barrier (K14b launches it plainly; K4b cooperatively,
+// for one barrier after its scaling). Otherwise a cooperative launch of
+// co-resident blocks runs these phases, apart by grid-wide barriers:
+//  0. the counts and the count tiles' sums zeroed (K4b first writes the
+//     targets' rows divided by their counts, a warp a target);
+//  1. count: a thread a lane, integer atomics on the clipped source, and a
+//     warp's lanes of one 1,024-source tile added to that tile's sum at
+//     once (a match of the warp's tiles);
+//  2. scan: a block a tile of counts, its offset the sum of the tile sums
+//     before it, then a block scan into segment offsets (and cursors in
+//     place of the counts); segments of more than kSrcWarpSortMax lanes are
+//     listed for step 4, and of more than kSrcLongRow lanes for step 5;
+//  3. fill: each valid lane at its cursor (integer atomics: any order);
+//  4. order: a block takes each segment of more than kSrcWarpSortMax lanes
+//     and orders it through a bitmap of its lane indices in shared memory
+//     (up to 1,835,008 lanes a window, each a block scan of the set bits'
+//     counts); a warp takes 32 sources at a time: when their segments are
+//     at most 32 lanes each and 1,024 together, it reads them at once,
+//     sorts each in registers (a bitonic network of shuffles) and writes
+//     them at once; else it sorts each segment of 2 to kSrcWarpSortMax
+//     lanes in registers or in its 4 KB of shared memory (a bitonic
+//     network). No slot walks its segment;
+//  5. sum: a block takes each 128-column chunk of a source of more than
+//     kSrcLongRow lanes: its warps stage batches of the lanes' rows in
+//     shared memory and one warp adds them in order. Then a warp takes up
+//     to 32 consecutive source rows and 128 columns, reads their offsets
+//     at once and walks the lanes of the short rows among them as one
+//     list, 32 indices a load and kLanesInFlight rows in flight a lane
+//     (16-byte loads where F and the pointers allow, kept as loaded until
+//     added), adding in lane order and storing each row as its list ends.
 
-// 1 (K4b, K14b and K14c). a thread per lane: each valid lane adds one to
-// its source row — clipped to [0, W_src) (drop = 0), or, as JAX's
-// .at[cols].add(mode="drop") indexes, a negative col counted from the end
-// and a col still outside [0, W_src) dropped (drop = 1)
-__global__ void lane_count_kernel(const bool* __restrict__ mask,
-                                  const int32_t* __restrict__ cols, long long n_lanes,
-                                  long long w_src, int drop, int32_t* __restrict__ deg) {
-  const long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (q >= n_lanes || !mask[q]) return;
-  long long c = cols[q];
-  if (drop) {
-    if (c < 0) c += w_src;
-    if (c < 0 || c >= w_src) return;
-  } else {
-    c = qt_clamp<long long>(c, 0, w_src - 1);
-  }
-  atomicAdd(deg + c, 1);
+constexpr int kSrcThreads = kScanTile;      // threads a block of the one launch
+constexpr int kSrcWarps = kSrcThreads / 32;
+constexpr int kSrcWarpSortMax = 1024;       // longest segment a warp sorts (in shared memory)
+constexpr int kSrcSmemBytes = 224 * 1024;   // a block's dynamic shared memory
+constexpr int kSrcLongRow = 64;             // rows of more lanes are summed by a whole block
+constexpr int kSrcBlockWork = 1024;         // row-chunks a block of the grid takes at least
+constexpr int kSrcSmallLanes = 16384;       // the small path's most lanes ...
+constexpr int kSrcSmallRows = 2048;         // ... rows a block ...
+constexpr int kSrcSmallGroup = 256;         // ... lanes of 32 rows a warp orders at once
+constexpr int kSrcSmallWork = 256;          // its row-chunks a block
+constexpr int kSrcSmallLongRow = 16;        // its rows of more lanes are summed by the block
+constexpr int kSrcSmallPerThread = 16;      // lanes a thread holds: kSrcSmallLanes / kSrcThreads
+constexpr int kSrcCols = 128;               // columns a warp of the sum covers
+constexpr int kLanesInFlight = 8;           // rows the sum has in flight a warp
+static_assert(4 * kSrcWarps * kSrcWarpSortMax <= kSrcSmemBytes, "the warps' sorts must fit");
+static_assert(kSrcSmallPerThread * kSrcThreads == kSrcSmallLanes, "a thread holds its lanes");
+static_assert(4 * (2 * kSrcSmallRows + 1 + kSrcSmallLanes + kSrcSmallLanes / 32 +
+                   kSrcWarps * kSrcSmallGroup + 4) + 16 * 32 * 64 <= kSrcSmemBytes,
+              "the small path and a 64-row batch of one chunk must fit");
+
+// The cols layout's scratch (K4b's and K14b's): counts (then cursors),
+// offsets, the lanes in arrival and in flat-index order, the count tiles'
+// sums, the lists of long segments and their lengths and (K4b only, D >
+// 0) the scaled gradient rows, carved from one buffer of the caller's in
+// 256-byte-aligned parts. Only this file knows the layout; the wrapper
+// asks for its size.
+struct MeanBwdScratch {
+  int32_t *deg, *offsets, *lanes, *sorted, *tile_sums, *order_long, *sum_long, *n_long;
+  float* scaled;
+  long long n_tiles, bytes;
+};
+
+static MeanBwdScratch mean_bwd_scratch(char* base, long long w_src, int w_dst, int k, int D) {
+  MeanBwdScratch s{};
+  long long at = 0;
+  auto take = [&](long long n, size_t elem) {
+    char* p = base == nullptr ? nullptr : base + at;
+    at += (n * static_cast<long long>(elem) + 255) / 256 * 256;
+    return p;
+  };
+  const long long n_lanes = static_cast<long long>(w_dst) * k;
+  s.n_tiles = (w_src + kScanTile - 1) / kScanTile;
+  s.deg = reinterpret_cast<int32_t*>(take(w_src, sizeof(int32_t)));
+  s.offsets = reinterpret_cast<int32_t*>(take(w_src + 1, sizeof(int32_t)));
+  s.lanes = reinterpret_cast<int32_t*>(take(n_lanes, sizeof(int32_t)));
+  s.sorted = reinterpret_cast<int32_t*>(take(n_lanes, sizeof(int32_t)));
+  s.tile_sums = reinterpret_cast<int32_t*>(take(s.n_tiles, sizeof(int32_t)));
+  const long long longs = n_lanes / (kSrcLongRow + 1) + 1;  // segments above kSrcLongRow
+  s.order_long = reinterpret_cast<int32_t*>(take(longs, sizeof(int32_t)));
+  s.sum_long = reinterpret_cast<int32_t*>(take(longs, sizeof(int32_t)));
+  s.n_long = reinterpret_cast<int32_t*>(take(2, sizeof(int32_t)));
+  s.scaled = reinterpret_cast<float*>(take(static_cast<long long>(w_dst) * D, sizeof(float)));
+  s.bytes = at;
+  return s;
 }
 
-// 4. a thread per filled slot p: its lane q, its segment [base, base + n),
-//    and its rank there; sorted[base + rank] = q / div, the lane's row of
-//    the summed rows (div = k: its target row; div = 1: the lane). Slots
-//    past the total (offsets[w_src]: the valid lanes) do nothing.
-__global__ void src_rank_kernel(const int32_t* __restrict__ cols, long long n_lanes,
-                                long long w_src, int div, const int32_t* __restrict__ offsets,
-                                const int32_t* __restrict__ lanes,
-                                int32_t* __restrict__ sorted) {
-  const long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (p >= n_lanes || p >= offsets[w_src]) return;
-  const int32_t q = lanes[p];
-  const long long src = qt_clamp<long long>(cols[q], 0, w_src - 1);
-  const int32_t base = offsets[src];
-  const int32_t n = offsets[src + 1] - base;
-  int32_t rank = 0;
-  for (int32_t t = 0; t < n; ++t) rank += lanes[base + t] < q;
-  sorted[base + rank] = div == 1 ? q : q / div;
-}
-
-// 1-4 of the cols layout (K4b and K14b): each source row's segment of
-// valid lanes, in ascending flat lane index, in sc.offsets and sc.sorted
-static int src_segments(const bool* m, const int32_t* c, long long n_lanes, long long w_src,
-                        int div, const MeanBwdScratch& sc, cudaStream_t st) {
-  const int threads = 256;
-  cudaError_t err = cudaMemsetAsync(sc.deg, 0, sizeof(int32_t) * w_src, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_lanes > 0) {
-    qt_count_launch();
-    lane_count_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(m, c, n_lanes, w_src, 0,
-                                                                       sc.deg);
-    if (int e = qt_launch_status()) return e;
-  }
-  // 2. the scan into segment offsets
-  const long long n_tiles = (w_src + kScanTile - 1) / kScanTile;
-  qt_count_launch();
-  mean_bwd_tile_sums_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
-      sc.deg, w_src, sc.tile_sums);
-  if (int e = qt_launch_status()) return e;
-  qt_count_launch();
-  qt_tile_offsets_kernel<<<1, kScanTile, 0, st>>>(sc.tile_sums, n_tiles, nullptr);
-  if (int e = qt_launch_status()) return e;
-  qt_count_launch();
-  mean_bwd_tile_scan_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, st>>>(
-      sc.deg, w_src, sc.tile_sums, sc.offsets, sc.cursor);
-  if (int e = qt_launch_status()) return e;
-  if (n_lanes > 0) {
-    // 3. the fill, then 4. the rank
-    qt_count_launch();
-    mean_bwd_fill_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
-        m, c, n_lanes, w_src, sc.cursor, sc.lanes);
-    if (int e = qt_launch_status()) return e;
-    qt_count_launch();
-    src_rank_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(c, n_lanes, w_src, div,
-                                                                     sc.offsets, sc.lanes,
-                                                                     sc.sorted);
-    if (int e = qt_launch_status()) return e;
-  }
+// bytes of scratch the cols layout needs at row width D (K4b), or D = 0
+// (K14b); the structural layout needs none
+QT_EXPORT int qt_masked_mean_backward_scratch(long long w_src, int w_dst, int k, int D,
+                                              long long* bytes) {
+  *bytes = mean_bwd_scratch(nullptr, w_src, w_dst, k, D).bytes;
   return 0;
 }
 
-// 5. a warp per (source row, kSrcCols columns): lane l sums columns
-//    c0 + 4l .. c0 + 4l + 3 (vec4: one 4-element load a row) or c0 + l +
-//    32u, u < 4, over the rows x[r] its ordered segment names (K14b: the
-//    lanes' cotangent rows; K4b: the targets' scaled rows)
-constexpr int kSrcCols = 128;
+// the one launch's arguments: the rows summed are x (K14b: g itself, div
+// = 1, a lane's row is q) or, with g_scale (K4b), the scaled rows phase 0
+// writes from it (div = k, a lane's row is its target q / k)
+struct SrcArgs {
+  const void* x;
+  const void* g_scale;
+  const bool* mask;
+  const int32_t* cols;
+  long long n_lanes, w_src;
+  int w_dst, k, F, div, rows_per_item;
+  bool vec4, small;
+  void* gx;
+  MeanBwdScratch sc;
+};
 
-template <typename In, typename Out>
-__global__ void src_sum_kernel(const typename In::T* __restrict__ x, int F, long long w_src,
-                               const int32_t* __restrict__ offsets,
-                               const int32_t* __restrict__ sorted, bool vec4,
-                               typename Out::T* __restrict__ gx) {
-  const long long warp = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int chunks = (F + kSrcCols - 1) / kSrcCols;
-  const long long row = warp / chunks;
-  if (row >= w_src) return;  // warp-uniform
-  const int c0 = static_cast<int>(warp - row * chunks) * kSrcCols;
-  const int32_t base = offsets[row];
-  const int32_t n = offsets[row + 1] - base;
-  int col[4];
+// ascending sort of one value a lane across the warp (bitonic network)
+__device__ __forceinline__ int32_t warp_sort32(int32_t x, int lane) {
 #pragma unroll
-  for (int u = 0; u < 4; ++u) col[u] = vec4 ? c0 + 4 * lane + u : c0 + lane + 32 * u;
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int32_t t = 0; t < n; t += kLanesInFlight) {  // warp-uniform
-    float4 v[kLanesInFlight];
+  for (int size = 2; size <= 32; size <<= 1) {
 #pragma unroll
-    for (int u = 0; u < kLanesInFlight; ++u) {  // all loads first ...
-      v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (t + u < n) {
-        const typename In::T* xr = x + static_cast<long long>(sorted[base + t + u]) * F;
-        if (vec4) {
-          if (col[0] < F) v[u] = In::load4(xr + col[0]);
-        } else {
-          if (col[0] < F) v[u].x = In::load(xr + col[0]);
-          if (col[1] < F) v[u].y = In::load(xr + col[1]);
-          if (col[2] < F) v[u].z = In::load(xr + col[2]);
-          if (col[3] < F) v[u].w = In::load(xr + col[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLanesInFlight; ++u) {  // ... then the adds, in lane order
-      if (t + u < n) {
-        acc.x = __fadd_rn(acc.x, v[u].x);
-        acc.y = __fadd_rn(acc.y, v[u].y);
-        acc.z = __fadd_rn(acc.z, v[u].z);
-        acc.w = __fadd_rn(acc.w, v[u].w);
-      }
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const int32_t other = __shfl_xor_sync(0xFFFFFFFFu, x, stride);
+      const bool up = (lane & size) == 0;
+      const bool low = (lane & stride) == 0;
+      x = (low == up) ? min(x, other) : max(x, other);
     }
   }
-  typename Out::T* out = gx + row * F;
-  if (vec4) {
-    if (col[0] < F) Out::store4(out + col[0], acc);
-  } else {
-    if (col[0] < F) Out::store(out + col[0], acc.x);
-    if (col[1] < F) Out::store(out + col[1], acc.y);
-    if (col[2] < F) Out::store(out + col[2], acc.z);
-    if (col[3] < F) Out::store(out + col[3], acc.w);
+  return x;
+}
+
+// ascending sort of buf[0, P) in shared memory by one warp (bitonic
+// network; P a power of two)
+__device__ __forceinline__ void warp_sort_smem(int32_t* buf, int P, int lane) {
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = lane; i < P / 2; i += 32) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const int32_t x = buf[lo], y = buf[hi];
+        if ((x > y) == ((lo & size) == 0)) {
+          buf[lo] = y;
+          buf[hi] = x;
+        }
+      }
+      __syncwarp();
+    }
   }
 }
 
-// the segments of the cols layout, then the ordered sums (5) of the rows x
-// (K14b: g itself, div = 1; K4b: the scaled rows of the targets, div = k)
+// 4, a block: the segment [base, base + n) of lanes[] in ascending order
+// into sorted[] (lanes and sorted may be one array when one window covers
+// the segment), as lane index / div, through bitmap windows of `words`
+// words of shared memory at bits
+__device__ void src_order_long(const int32_t* lanes, int32_t* sorted, int32_t base, int32_t n,
+                               int div, uint32_t* bits, int words) {
+  __shared__ int32_t red[2][kSrcWarps];
+  int32_t lo = INT32_MAX, hi = -1;
+  for (int32_t p = threadIdx.x; p < n; p += kSrcThreads) {
+    const int32_t q = lanes[base + p];
+    lo = min(lo, q);
+    hi = max(hi, q);
+  }
+  lo = __reduce_min_sync(0xFFFFFFFFu, lo);
+  hi = __reduce_max_sync(0xFFFFFFFFu, hi);
+  if ((threadIdx.x & 31) == 0) {
+    red[0][threadIdx.x >> 5] = lo;
+    red[1][threadIdx.x >> 5] = hi;
+  }
+  __syncthreads();
+  lo = __reduce_min_sync(0xFFFFFFFFu, red[0][threadIdx.x & 31]);
+  hi = __reduce_max_sync(0xFFFFFFFFu, red[1][threadIdx.x & 31]);
+  const int per = (words + kSrcThreads - 1) / kSrcThreads;  // words a thread owns
+  int32_t written = 0;
+  for (long long w0 = lo & ~31; w0 <= hi; w0 += 32LL * words) {  // block-uniform
+    for (int i = threadIdx.x; i < words; i += kSrcThreads) bits[i] = 0;
+    __syncthreads();
+    for (int32_t p = threadIdx.x; p < n; p += kSrcThreads) {
+      const long long rel = lanes[base + p] - w0;
+      if (rel >= 0 && rel < 32LL * words) atomicOr(bits + (rel >> 5), 1u << (rel & 31));
+    }
+    __syncthreads();
+    const int first = threadIdx.x * per, last = first + per < words ? first + per : words;
+    int32_t cnt = 0;
+    for (int i = first; i < last; ++i) cnt += __popc(bits[i]);
+    int32_t total;
+    int32_t at = base + written + qt_block_exclusive_scan(cnt, &total);
+    for (int i = first; i < last; ++i) {
+      for (uint32_t m = bits[i]; m; m &= m - 1) {
+        const long long q = w0 + 32LL * i + __ffs(m) - 1;
+        sorted[at++] = static_cast<int32_t>(div == 1 ? q : q / div);
+      }
+    }
+    written += total;
+    __syncthreads();  // the window is read before the next one clears it
+  }
+}
+
+// 4, the warps: the segments of sources [0, n_src) of at most sort_max
+// lanes (a longer one is left to src_order_long), lanes[off[s], off[s + 1])
+// in ascending order into sorted[] (lanes and sorted may be one array), as
+// lane index / div; warp `warp` of n_warps takes 32 sources at a time,
+// with buf_len words of shared memory at buf (at least sort_max). When the
+// 32 sources' segments are at most 32 lanes each and buf_len together, it
+// reads them at once, sorts each in registers and writes them at once;
+// else it sorts each segment of 2 to sort_max lanes in registers or in buf.
+__device__ void src_order_short(const int32_t* off, const int32_t* lanes, int32_t* sorted,
+                                long long n_src, int div, long long warp, long long n_warps,
+                                int32_t* buf, int buf_len, int sort_max) {
+  const int lane = threadIdx.x & 31;
+  for (long long s0 = warp * 32; s0 < n_src; s0 += n_warps * 32) {  // warp-uniform
+    const long long s = s0 + lane;
+    const int32_t base = s < n_src ? off[s] : 0;
+    const int32_t n = s < n_src ? off[s + 1] - base : 0;
+    const int32_t g0 = __shfl_sync(0xFFFFFFFFu, base, 0);
+    const int32_t g_end =
+        static_cast<int32_t>(__reduce_max_sync(0xFFFFFFFFu, static_cast<unsigned>(base + n)));
+    if (g_end - g0 <= buf_len && __all_sync(0xFFFFFFFFu, n <= 32)) {  // the group at once
+      for (int i = lane; i < g_end - g0; i += 32) buf[i] = lanes[g0 + i];
+      __syncwarp();
+      for (unsigned many = __ballot_sync(0xFFFFFFFFu, n > 1); many; many &= many - 1) {
+        const int who = __ffs(many) - 1;
+        const int32_t b = __shfl_sync(0xFFFFFFFFu, base, who) - g0;
+        const int32_t m = __shfl_sync(0xFFFFFFFFu, n, who);
+        const int32_t q = warp_sort32(lane < m ? buf[b + lane] : INT32_MAX, lane);
+        if (lane < m) buf[b + lane] = q;
+        __syncwarp();
+      }
+      for (int i = lane; i < g_end - g0; i += 32) sorted[g0 + i] = div == 1 ? buf[i] : buf[i] / div;
+      __syncwarp();
+      continue;
+    }
+    if (n == 1) {
+      const int32_t q = lanes[base];
+      sorted[base] = div == 1 ? q : q / div;
+    }
+    for (unsigned many = __ballot_sync(0xFFFFFFFFu, n > 1 && n <= sort_max); many;
+         many &= many - 1) {
+      const int who = __ffs(many) - 1;
+      const int32_t b = __shfl_sync(0xFFFFFFFFu, base, who);
+      const int32_t m = __shfl_sync(0xFFFFFFFFu, n, who);
+      if (m <= 32) {  // in registers
+        const int32_t q = warp_sort32(lane < m ? lanes[b + lane] : INT32_MAX, lane);
+        if (lane < m) sorted[b + lane] = div == 1 ? q : q / div;
+      } else {  // in buf, padded to a power of two
+        int P = 64;
+        while (P < m) P <<= 1;
+        for (int i = lane; i < P; i += 32) buf[i] = i < m ? lanes[b + i] : INT32_MAX;
+        __syncwarp();
+        warp_sort_smem(buf, P, lane);
+        for (int i = lane; i < m; i += 32) sorted[b + i] = div == 1 ? buf[i] : buf[i] / div;
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// Four columns of one row as loaded — float32 in 4 words, bfloat16 in 2 —
+// widened to float32 only when added, so the rows in flight take few
+// registers. Columns at or past F read as +0.
+template <typename T>
+struct SrcCols;
+
+template <>
+struct SrcCols<float> {
+  uint32_t w[4];
+  __device__ __forceinline__ void load(const float* xr, const int (&col)[4], int F, bool vec4) {
+    if (vec4) {
+      const uint4 t = col[0] < F ? *reinterpret_cast<const uint4*>(xr + col[0])
+                                 : make_uint4(0u, 0u, 0u, 0u);
+      w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) w[u] = col[u] < F ? __float_as_uint(xr[col[u]]) : 0u;
+    }
+  }
+  __device__ __forceinline__ float get(int u) const { return __uint_as_float(w[u]); }
+};
+
+template <>
+struct SrcCols<uint16_t> {
+  uint32_t w[2];
+  __device__ __forceinline__ void load(const uint16_t* xr, const int (&col)[4], int F,
+                                       bool vec4) {
+    if (vec4) {
+      const uint2 t =
+          col[0] < F ? *reinterpret_cast<const uint2*>(xr + col[0]) : make_uint2(0u, 0u);
+      w[0] = t.x, w[1] = t.y;
+    } else {
+      uint32_t h[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) h[u] = col[u] < F ? xr[col[u]] : 0u;
+      w[0] = h[0] | (h[1] << 16), w[1] = h[2] | (h[3] << 16);
+    }
+  }
+  __device__ __forceinline__ float get(int u) const {
+    return qt_bf16_to_float((u & 1) ? (w[u >> 1] >> 16) : (w[u >> 1] & 0xffffu));
+  }
+};
+
+// the columns a lane of a warp covers in a 128-column chunk at c0: 4 in a
+// row (vec4) or 32 apart
+__device__ __forceinline__ void src_cols(int c0, int lane, bool vec4, int (&col)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) col[u] = vec4 ? c0 + 4 * lane + u : c0 + lane + 32 * u;
+}
+
+template <typename Out>
+__device__ __forceinline__ void src_store(typename Out::T* o, const int (&col)[4], int F,
+                                          bool vec4, const float4& v) {
+  if (vec4) {
+    if (col[0] < F) Out::store4(o + col[0], v);
+  } else {
+    if (col[0] < F) Out::store(o + col[0], v.x);
+    if (col[1] < F) Out::store(o + col[1], v.y);
+    if (col[2] < F) Out::store(o + col[2], v.z);
+    if (col[3] < F) Out::store(o + col[3], v.w);
+  }
+}
+
+// 5, a warp: rows row0 .. row0 + nr - 1 of gx at columns [c0, c0 +
+// kSrcCols); row i's lanes are list[off[i], off[i + 1])
 template <typename In, typename Out>
-static int src_backward(const typename In::T* x, int F, const bool* m, const int32_t* c,
-                        long long n_lanes, long long w_src, int div, void* gx,
-                        const MeanBwdScratch& sc, cudaStream_t st) {
-  if (n_lanes > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (int e = src_segments(m, c, n_lanes, w_src, div, sc, st)) return e;
-  const int threads = 256;
-  const uintptr_t align = 4 * sizeof(typename Out::T);
-  const bool vec4 = F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(*x)) == 0 &&
-                    reinterpret_cast<uintptr_t>(gx) % align == 0;
-  const long long warps = w_src * ((F + kSrcCols - 1) / kSrcCols);
+__device__ void src_sum_rows(const SrcArgs& a, const int32_t* off, const int32_t* list,
+                             long long row0, int nr, int c0, int lane) {
+  const typename In::T* x = static_cast<const typename In::T*>(a.x);
+  typename Out::T* gx = static_cast<typename Out::T*>(a.gx);
+  const int F = a.F;
+  const int32_t end_l = lane < nr ? off[lane + 1] : 0;  // row lane's list end
+  const int32_t p_end = __shfl_sync(0xFFFFFFFFu, end_l, nr - 1);
+  int col[4];
+  src_cols(c0, lane, a.vec4, col);
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int row = 0;  // warp-uniform from here on
+  int32_t row_end = __shfl_sync(0xFFFFFFFFu, end_l, 0);
+  for (int32_t p = off[0]; p < p_end; p += 32) {
+    const int m = p_end - p < 32 ? p_end - p : 32;
+    const int32_t idx = lane < m ? list[p + lane] : 0;  // 32 entries' rows at once
+    for (int t = 0; t < m; t += kLanesInFlight) {
+      SrcCols<typename In::T> v[kLanesInFlight];
+#pragma unroll
+      for (int u = 0; u < kLanesInFlight; ++u) {  // all loads first ...
+        const int32_t r = __shfl_sync(0xFFFFFFFFu, idx, (t + u) & 31);
+        if (t + u < m) v[u].load(x + static_cast<long long>(r) * F, col, F, a.vec4);
+      }
+#pragma unroll
+      for (int u = 0; u < kLanesInFlight; ++u) {  // ... then the adds, in lane order
+        if (t + u < m) {
+          while (p + t + u >= row_end) {  // the rows before this entry's are complete
+            src_store<Out>(gx + (row0 + row) * F, col, F, a.vec4, acc);
+            acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            ++row;
+            row_end = __shfl_sync(0xFFFFFFFFu, end_l, row);
+          }
+          acc.x = __fadd_rn(acc.x, v[u].get(0));
+          acc.y = __fadd_rn(acc.y, v[u].get(1));
+          acc.z = __fadd_rn(acc.z, v[u].get(2));
+          acc.w = __fadd_rn(acc.w, v[u].get(3));
+        }
+      }
+    }
+  }
+  for (; row < nr; ++row) {
+    src_store<Out>(gx + (row0 + row) * F, col, F, a.vec4, acc);
+    acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// 5, the warps: rows [0, n_rows) of off (row i's lanes list[off[i], off[i
+// + 1]), row i of gx row0 + i), rows_per_item rows and kSrcCols columns an
+// item, warp `warp` of n_warps; each run of rows of at most long_row
+// lanes between longer ones (summed by src_sum_long_row)
+template <typename In, typename Out>
+__device__ void src_sum_short(const SrcArgs& a, const int32_t* off, const int32_t* list,
+                              long long row0, long long n_rows, long long warp, long long n_warps,
+                              int long_row) {
+  const int lane = threadIdx.x & 31;
+  const int chunks = (a.F + kSrcCols - 1) / kSrcCols;
+  const int rpi = a.rows_per_item;
+  const long long n_items = (n_rows + rpi - 1) / rpi * chunks;
+  for (long long item = warp; item < n_items; item += n_warps) {  // warp-uniform
+    const long long i0 = item / chunks * rpi;
+    const int nr = static_cast<int>(n_rows - i0 < rpi ? n_rows - i0 : rpi);
+    const int c0 = static_cast<int>(item % chunks) * kSrcCols;
+    const int32_t n_l = lane < nr ? off[i0 + lane + 1] - off[i0 + lane] : 0;
+    unsigned runs = __ballot_sync(0xFFFFFFFFu, lane < nr && n_l <= long_row);
+    while (runs) {
+      const int r_a = __ffs(runs) - 1;
+      const unsigned above = ~runs & (0xFFFFFFFFu << r_a);  // rows from r_a not in the run
+      const int r_b = above ? __ffs(above) - 1 : 32;
+      src_sum_rows<In, Out>(a, off + i0 + r_a, list, row0 + i0 + r_a, (r_b < nr ? r_b : nr) - r_a,
+                            c0, lane);
+      runs &= r_b < 32 ? ~((1u << r_b) - 1) : 0u;
+    }
+  }
+}
+
+// 5, a block: gx row `row` at column chunks [cg, cg + cn), its lanes
+// list[start, end); batches of the lanes' rows staged in stage (stage_f4
+// float4), warp w adding chunk cg + w (cn <= kSrcWarps)
+template <typename In, typename Out>
+__device__ void src_sum_long_row(const SrcArgs& a, const int32_t* list, long long row,
+                                 int32_t start, int32_t end, int cg, int cn, float4* stage,
+                                 int stage_f4) {
+  const typename In::T* x = static_cast<const typename In::T*>(a.x);
+  const int F = a.F;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int width = cn * 32;  // staged float4 a row
+  const int batch = stage_f4 / width;
+  int col[4];
+  src_cols((cg + warp) * kSrcCols, lane, a.vec4, col);
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  constexpr int kPer = 8;  // staged slots a thread loads at once
+  for (int32_t e0 = start; e0 < end; e0 += batch) {  // block-uniform
+    const int nb = end - e0 < batch ? end - e0 : batch;
+    for (int i0 = 0; i0 < nb * width; i0 += kPer * kSrcThreads) {
+      SrcCols<typename In::T> v[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {  // all loads first ...
+        const int i = i0 + u * kSrcThreads + threadIdx.x;
+        if (i < nb * width) {
+          const int kr = i / width, slot = i - kr * width;
+          int c[4];
+          src_cols((cg + slot / 32) * kSrcCols, slot & 31, a.vec4, c);
+          v[u].load(x + static_cast<long long>(list[e0 + kr]) * F, c, F, a.vec4);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {  // ... then the stores
+        const int i = i0 + u * kSrcThreads + threadIdx.x;
+        if (i < nb * width)
+          stage[i] = make_float4(v[u].get(0), v[u].get(1), v[u].get(2), v[u].get(3));
+      }
+    }
+    __syncthreads();
+    if (warp < cn) {
+#pragma unroll 4
+      for (int kr = 0; kr < nb; ++kr) {
+        const float4 v = stage[kr * width + warp * 32 + lane];
+        acc.x = __fadd_rn(acc.x, v.x);
+        acc.y = __fadd_rn(acc.y, v.y);
+        acc.z = __fadd_rn(acc.z, v.z);
+        acc.w = __fadd_rn(acc.w, v.w);
+      }
+    }
+    __syncthreads();  // the batch is read before the next one is staged
+  }
+  if (warp < cn)
+    src_store<Out>(static_cast<typename Out::T*>(a.gx) + row * F, col, F, a.vec4, acc);
+}
+
+// this thread's lanes q = u * kSrcThreads + threadIdx.x (every lane of a
+// small call: kSrcSmallPerThread * kSrcThreads = kSrcSmallLanes), each its
+// source row's index in [lo, hi) less lo, or -1 (invalid, or another
+// block's row); the mask and cols of all of them read at once
+__device__ __forceinline__ void src_small_read(const SrcArgs& a, long long lo, long long hi,
+                                               int (&loc)[kSrcSmallPerThread]) {
+  bool m[kSrcSmallPerThread];
+  int32_t c[kSrcSmallPerThread];
+#pragma unroll
+  for (int u = 0; u < kSrcSmallPerThread; ++u) {
+    const long long q = u * kSrcThreads + threadIdx.x;
+    m[u] = q < a.n_lanes && a.mask[q];
+    c[u] = q < a.n_lanes ? a.cols[q] : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < kSrcSmallPerThread; ++u) {
+    const long long s = qt_clamp<long long>(c[u], 0, a.w_src - 1);
+    loc[u] = m[u] && s >= lo && s < hi ? static_cast<int>(s - lo) : -1;
+  }
+}
+
+// A call small enough (kSrcSmallLanes lanes, kSrcSmallRows rows a block)
+// takes no grid barrier (K4b: one, after the scaling): block b reads every
+// lane, keeps those of its own rows [b R, b R + R) and counts, orders and
+// sums them in its shared memory. Its segments of more than 32 lanes are
+// ordered through a bitmap of every lane index (one window), the others by
+// its warps; its rows of more than kSrcSmallLongRow lanes are summed by the
+// block, the others by its warps.
+template <typename In, typename Out>
+__device__ void src_small(const SrcArgs& a, int32_t* smem) {
+  const int warp = threadIdx.x >> 5;
+  const long long R = (a.w_src + gridDim.x - 1) / gridDim.x;
+  const long long lo = blockIdx.x * R, hi = lo + R < a.w_src ? lo + R : a.w_src;
+  const int n_rows = lo < hi ? static_cast<int>(hi - lo) : 0;
+  const int words = a.n_lanes > 32 ? static_cast<int>((a.n_lanes + 31) / 32) : 1;
+  int32_t* base = smem;                                  // [kSrcSmallRows + 1]
+  int32_t* lanes = base + kSrcSmallRows + 1;             // [kSrcSmallLanes]
+  int32_t* longs = lanes + kSrcSmallLanes;               // [kSrcSmallRows]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(longs + kSrcSmallRows);  // [kSrcSmallLanes / 32]
+  int32_t* bufs = reinterpret_cast<int32_t*>(bits + kSrcSmallLanes / 32);  // a warp's groups
+  float4* stage = reinterpret_cast<float4*>(bufs + kSrcWarps * kSrcSmallGroup + 3);
+  stage = reinterpret_cast<float4*>((reinterpret_cast<uintptr_t>(stage) + 15) & ~uintptr_t{15});
+  const int stage_f4 = static_cast<int>(
+      (reinterpret_cast<char*>(smem) + kSrcSmemBytes - reinterpret_cast<char*>(stage)) /
+      static_cast<long long>(sizeof(float4)));
+  __shared__ int32_t n_longs;
+  // counts of the own rows, base[i + 1] for row lo + i
+  for (int i = threadIdx.x; i <= n_rows; i += kSrcThreads) base[i] = 0;
+  if (threadIdx.x == 0) n_longs = 0;
+  __syncthreads();
+  int loc[kSrcSmallPerThread];  // this thread's lanes, read once for the count and the fill
+  src_small_read(a, lo, hi, loc);
+#pragma unroll
+  for (int u = 0; u < kSrcSmallPerThread; ++u) {
+    if (loc[u] >= 0) atomicAdd(base + loc[u] + 1, 1);
+  }
+  __syncthreads();
+  // their starts (a block scan), and the rows of more than 32 lanes
+  int32_t carry = 0;
+  for (int c0 = 0; c0 < n_rows; c0 += kSrcThreads) {  // block-uniform
+    const int i = c0 + threadIdx.x;
+    const int32_t v = i < n_rows ? base[i + 1] : 0;
+    int32_t total;
+    const int32_t ex = qt_block_exclusive_scan(v, &total);
+    if (i < n_rows) {
+      base[i + 1] = carry + ex;
+      if (v > min(32, kSrcSmallLongRow)) longs[atomicAdd(&n_longs, 1)] = i;
+    }
+    carry += total;
+  }
+  __syncthreads();
+  // the fill: base[i + 1] ends as row lo + i's end
+#pragma unroll
+  for (int u = 0; u < kSrcSmallPerThread; ++u) {
+    if (loc[u] >= 0) lanes[atomicAdd(base + loc[u] + 1, 1)] = u * kSrcThreads + threadIdx.x;
+  }
+  __syncthreads();
+  // the order, in place: the segments of more than 32 lanes by the block,
+  // then the others by the warps
+  const int n_long = n_longs;
+  for (int j = 0; j < n_long; ++j) {  // block-uniform
+    const int i = longs[j];
+    if (base[i + 1] - base[i] > 32)
+      src_order_long(lanes, lanes, base[i], base[i + 1] - base[i], a.div, bits, words);
+  }
+  src_order_short(base, lanes, lanes, n_rows, a.div, warp, kSrcWarps,
+                  bufs + warp * kSrcSmallGroup, kSrcSmallGroup, 32);
+  __syncthreads();
+  // the sums: the long rows by the block, every chunk at once, then the others
+  const int chunks = (a.F + kSrcCols - 1) / kSrcCols;
+  for (int j = 0; j < n_long; ++j) {  // block-uniform
+    const int i = longs[j];
+    if (base[i + 1] - base[i] <= kSrcSmallLongRow) continue;
+    for (int cg = 0; cg < chunks; cg += kSrcWarps)
+      src_sum_long_row<In, Out>(a, lanes, lo + i, base[i], base[i + 1], cg,
+                                chunks - cg < kSrcWarps ? chunks - cg : kSrcWarps, stage,
+                                stage_f4);
+  }
+  src_sum_short<In, Out>(a, base, lanes, lo, n_rows, warp, kSrcWarps, kSrcSmallLongRow);
+}
+
+template <typename In, typename Out, bool kScale>
+__global__ void __launch_bounds__(kSrcThreads, 1) src_backward_kernel(const SrcArgs a) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 src_smem[];  // kSrcSmemBytes: steps 4 and 5, or the small path
+  const MeanBwdScratch& sc = a.sc;
+  const long long tid = blockIdx.x * static_cast<long long>(kSrcThreads) + threadIdx.x;
+  const long long n_threads = static_cast<long long>(gridDim.x) * kSrcThreads;
+  const int lane = threadIdx.x & 31;
+  const long long warp = tid >> 5, n_warps = n_threads >> 5;
+  const long long w_src = a.w_src;
+
+  // K4b: the targets' rows scaled
+  if constexpr (kScale) {
+    const typename Out::T* g = static_cast<const typename Out::T*>(a.g_scale);
+    for (long long row = warp; row < a.w_dst; row += n_warps) {  // warp-uniform
+      const int cnt = mean_row_count(a.mask, a.k, row, lane);
+      const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
+      for (int c = lane; c < a.F; c += 32)
+        sc.scaled[row * a.F + c] = __fdiv_rn(Out::load(g + row * a.F + c), denom);
+    }
+  }
+  if (a.small) {
+    if constexpr (kScale) grid.sync();
+    src_small<In, Out>(a, reinterpret_cast<int32_t*>(src_smem));
+    return;
+  }
+
+  // 0. counts, tile sums and list lengths zeroed
+  for (long long i = tid; i < w_src; i += n_threads) sc.deg[i] = 0;
+  for (long long i = tid; i < sc.n_tiles; i += n_threads) sc.tile_sums[i] = 0;
+  if (tid < 2) sc.n_long[tid] = 0;
+  grid.sync();
+
+  // 1. count, and each count tile's sum: a warp adds its lanes of a tile at once
+  for (long long q0 = warp * 32; q0 < a.n_lanes; q0 += n_warps * 32) {  // warp-uniform
+    const long long q = q0 + lane;
+    long long tile = -1;
+    if (q < a.n_lanes && a.mask[q]) {
+      const long long s = qt_clamp<long long>(a.cols[q], 0, w_src - 1);
+      atomicAdd(sc.deg + s, 1);
+      tile = s / kScanTile;
+    }
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, tile);
+    if (tile >= 0 && lane == __ffs(peers) - 1) atomicAdd(sc.tile_sums + tile, __popc(peers));
+  }
+  grid.sync();
+
+  // 2. scan: a block a tile of counts, after the sum of the tiles before it
+  for (long long t = blockIdx.x; t < sc.n_tiles; t += gridDim.x) {  // block-uniform
+    int32_t part = 0;
+    for (long long u = threadIdx.x; u < t; u += kSrcThreads) part += sc.tile_sums[u];
+    int32_t before;
+    qt_block_exclusive_scan(part, &before);
+    const long long i = t * kScanTile + threadIdx.x;
+    const int32_t v = i < w_src ? sc.deg[i] : 0;
+    int32_t total;
+    const int32_t at = before + qt_block_exclusive_scan(v, &total);
+    if (i < w_src) {
+      sc.offsets[i] = at;
+      sc.deg[i] = at;  // the fill's cursor
+      if (v > kSrcWarpSortMax) sc.order_long[atomicAdd(sc.n_long, 1)] = static_cast<int32_t>(i);
+      if (v > kSrcLongRow) sc.sum_long[atomicAdd(sc.n_long + 1, 1)] = static_cast<int32_t>(i);
+    }
+    if (i == w_src - 1) sc.offsets[w_src] = at + v;
+  }
+  grid.sync();
+
+  // 3. fill, in any order within a segment
+  for (long long q = tid; q < a.n_lanes; q += n_threads) {
+    if (a.mask[q]) {
+      const long long s = qt_clamp<long long>(a.cols[q], 0, w_src - 1);
+      sc.lanes[atomicAdd(sc.deg + s, 1)] = static_cast<int32_t>(q);
+    }
+  }
+  grid.sync();
+
+  // 4. order: the longest segments a block each, then the others a warp 32
+  //    sources at a time
+  const int32_t n_order_long = sc.n_long[0];
+  for (int32_t b = blockIdx.x; b < n_order_long; b += gridDim.x) {  // block-uniform
+    const int32_t s = sc.order_long[b];
+    const int32_t base = sc.offsets[s];
+    src_order_long(sc.lanes, sc.sorted, base, sc.offsets[s + 1] - base, a.div,
+                   reinterpret_cast<uint32_t*>(src_smem), kSrcSmemBytes / 4);
+  }
+  src_order_short(sc.offsets, sc.lanes, sc.sorted, w_src, a.div, warp, n_warps,
+                  reinterpret_cast<int32_t*>(src_smem) + (threadIdx.x >> 5) * kSrcWarpSortMax,
+                  kSrcWarpSortMax, kSrcWarpSortMax);
+  grid.sync();
+
+  // 5. the ordered sums: a long row's column chunk a block, then the short
+  //    rows a warp
+  const int chunks = (a.F + kSrcCols - 1) / kSrcCols;
+  const long long n_long_items = static_cast<long long>(sc.n_long[1]) * chunks;
+  for (long long it = blockIdx.x; it < n_long_items; it += gridDim.x) {  // block-uniform
+    const int32_t s = sc.sum_long[it / chunks];
+    src_sum_long_row<In, Out>(a, sc.sorted, s, sc.offsets[s], sc.offsets[s + 1],
+                              static_cast<int>(it % chunks), 1, src_smem,
+                              kSrcSmemBytes / sizeof(float4));
+  }
+  src_sum_short<In, Out>(a, sc.offsets, sc.sorted, 0, w_src, warp, n_warps, kSrcLongRow);
+}
+
+// the one launch of the cols layout (K4b: kScale, In = float32 over the
+// scaled rows; K14b: In = Out, the lanes' own rows)
+template <typename In, typename Out, bool kScale>
+static int src_backward(SrcArgs a, cudaStream_t st) {
+  if (a.n_lanes > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(const SrcArgs) = src_backward_kernel<In, Out, kScale>;
+  static int blocks_per_sm[64] = {};  // per device, from the occupancy API
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (blocks_per_sm[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSrcSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSrcThreads,
+                                                        kSrcSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    blocks_per_sm[dev] = per_sm;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many blocks as the rows' chunks need (kSrcSmallWork, or kSrcBlockWork,
+  // a block), at most the co-resident grid; the small path when every lane
+  // and a block's rows fit its shared memory
+  const long long chunks = (a.F + kSrcCols - 1) / kSrcCols;
+  const long long most = static_cast<long long>(blocks_per_sm[dev]) * sms;
+  auto grid_for = [&](long long work) {
+    const long long need = (a.w_src * chunks + work - 1) / work;
+    return need < most ? (need > 0 ? need : 1) : most;
+  };
+  long long blocks = grid_for(kSrcSmallWork);
+  a.small = a.n_lanes <= kSrcSmallLanes && (a.w_src + blocks - 1) / blocks <= kSrcSmallRows;
+  if (!a.small) blocks = grid_for(kSrcBlockWork);
+  // rows a warp of the sum takes: enough items for every warp, at most 32
+  const long long rows = a.small ? (a.w_src + blocks - 1) / blocks : a.w_src;
+  const long long per_warp = rows * chunks / ((a.small ? 1 : blocks) * kSrcWarps);
+  a.rows_per_item = 1;
+  while (a.rows_per_item < 32 && 2 * a.rows_per_item <= per_warp) a.rows_per_item <<= 1;
+  const uintptr_t in_align = 4 * sizeof(typename In::T), out_align = 4 * sizeof(typename Out::T);
+  const void* x = kScale ? static_cast<const void*>(a.sc.scaled) : a.x;
+  a.x = x;
+  a.vec4 = a.F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % in_align == 0 &&
+           reinterpret_cast<uintptr_t>(a.gx) % out_align == 0;
   qt_count_launch();
-  src_sum_kernel<In, Out><<<qt_blocks(warps * 32, threads), threads, 0, st>>>(
-      x, F, w_src, sc.offsets, sc.sorted, vec4, static_cast<typename Out::T*>(gx));
+  if (a.small && !kScale) {  // no grid barrier: a plain launch
+    kernel<<<static_cast<unsigned>(blocks), kSrcThreads, kSrcSmemBytes, st>>>(a);
+    return qt_launch_status();
+  }
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(static_cast<unsigned>(blocks)), dim3(kSrcThreads),
+                                    params, kSrcSmemBytes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return qt_launch_status();
 }
 
@@ -647,14 +1091,19 @@ static int masked_mean_backward_any(const void* g, int D, const void* mask, cons
   const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k, D);
   if (scratch == nullptr || scratch_bytes < sc.bytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (w_dst > 0) {
-    qt_count_launch();
-    mean_scale_kernel<E><<<qt_blocks(static_cast<long long>(w_dst) * 32, threads), threads, 0,
-                           st>>>(gt, D, m, w_dst, k, sc.scaled);
-    if (int e = qt_launch_status()) return e;
-  }
-  return src_backward<QtF32, E>(sc.scaled, D, m, static_cast<const int32_t*>(cols),
-                                static_cast<long long>(w_dst) * k, w_src, k, gx, sc, st);
+  SrcArgs a{};
+  a.g_scale = g;
+  a.mask = m;
+  a.cols = static_cast<const int32_t*>(cols);
+  a.n_lanes = static_cast<long long>(w_dst) * k;
+  a.w_src = w_src;
+  a.w_dst = w_dst;
+  a.k = k;
+  a.F = D;
+  a.div = k;
+  a.gx = gx;
+  a.sc = sc;
+  return src_backward<QtF32, E, true>(a, st);
 }
 
 template <typename E>
@@ -664,9 +1113,19 @@ static int gather_src_backward_any(const void* g, int F, const void* mask, const
   const MeanBwdScratch sc = mean_bwd_scratch(static_cast<char*>(scratch), w_src, w_dst, k, 0);
   if (scratch == nullptr || scratch_bytes < sc.bytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  return src_backward<E, E>(static_cast<const typename E::T*>(g), F,
-                            static_cast<const bool*>(mask), static_cast<const int32_t*>(cols),
-                            static_cast<long long>(w_dst) * k, w_src, 1, gx, sc, st);
+  SrcArgs a{};
+  a.x = g;
+  a.mask = static_cast<const bool*>(mask);
+  a.cols = static_cast<const int32_t*>(cols);
+  a.n_lanes = static_cast<long long>(w_dst) * k;
+  a.w_src = w_src;
+  a.w_dst = w_dst;
+  a.k = k;
+  a.F = F;
+  a.div = 1;
+  a.gx = gx;
+  a.sc = sc;
+  return src_backward<E, E, false>(a, st);
 }
 
 // g is [w_dst, D], gx [w_src, D]; scratch (the cols layout) as
@@ -709,8 +1168,19 @@ QT_EXPORT int qt_gather_src_backward(const void* g, int F, const void* mask, con
 //
 // Bound on the card: bytes — the mask and cols read once, W_src float32
 // written once (and the [W_src] int32 counts zeroed, counted and read).
-// Design: K14b's count kernel (drop = 1) with integer atomics, then one
-// conversion a row.
+// Design: a thread a lane adds one to its column's count with integer
+// atomics, then one conversion a row.
+__global__ void lane_count_kernel(const bool* __restrict__ mask,
+                                  const int32_t* __restrict__ cols, long long n_lanes,
+                                  long long w_src, int32_t* __restrict__ deg) {
+  const long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (q >= n_lanes || !mask[q]) return;
+  long long c = cols[q];
+  if (c < 0) c += w_src;
+  if (c < 0 || c >= w_src) return;
+  atomicAdd(deg + c, 1);
+}
+
 __global__ void count_to_float_kernel(const int32_t* __restrict__ deg, long long n,
                                       float* __restrict__ out) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
@@ -729,7 +1199,7 @@ QT_EXPORT int qt_block_out_degree(const void* mask, const void* cols, long long 
   if (n_lanes > 0) {
     qt_count_launch();
     lane_count_kernel<<<qt_blocks(n_lanes, threads), threads, 0, st>>>(
-        static_cast<const bool*>(mask), static_cast<const int32_t*>(cols), n_lanes, w_src, 1, d);
+        static_cast<const bool*>(mask), static_cast<const int32_t*>(cols), n_lanes, w_src, d);
     if (int e = qt_launch_status()) return e;
   }
   qt_count_launch();

@@ -156,10 +156,10 @@ def masked_mean_backward_plain(g: torch.Tensor, mask: torch.Tensor,
 def masked_mean_backward(g: torch.Tensor, mask: torch.Tensor, cols: Optional[torch.Tensor],
                          w_src: int) -> torch.Tensor:
     """`masked_mean_backward_plain`'s function; on CUDA tensors one
-    counted launch of K4b, whose C entry point runs its kernels in turn
-    (the cols layout: the targets' scaled rows, then K14b's count, scan,
-    fill, rank and ordered sum). Deterministic: no float atomics, two runs
-    give bit-equal gradients. Any k."""
+    counted launch of K4b, one kernel on the card (the cols layout: K14b's
+    kernel, whose first step writes the targets' scaled rows).
+    Deterministic: no float atomics, two runs give bit-equal gradients. Any
+    k."""
     w, k = mask.shape
     if g.shape[0] != w:
         raise ValueError(f"gradient of {g.shape[0]} rows for {w} targets")

@@ -99,9 +99,10 @@ def gather_src_backward_plain(g: torch.Tensor, mask: torch.Tensor, cols: torch.T
 def gather_src_backward(g: torch.Tensor, mask: torch.Tensor, cols: torch.Tensor,
                         w_src: int) -> torch.Tensor:
     """`gather_src_backward_plain`'s function; on CUDA tensors one counted
-    launch of K14b, whose C entry point runs its kernels in turn (count,
-    scan, fill, rank, ordered sum). Deterministic: no float atomics, two
-    runs give bit-equal gradients."""
+    launch of K14b, one kernel on the card (count, scan, fill, order and the
+    ordered sum: a small call's in each block's shared memory for its own
+    rows, a larger one's in phases apart by grid barriers). Deterministic:
+    no float atomics, two runs give bit-equal gradients."""
     w, k = mask.shape
     if tuple(g.shape[:2]) != (w, k):
         raise ValueError(f"gradient of shape {tuple(g.shape)} for a [{w}, {k}] hop")

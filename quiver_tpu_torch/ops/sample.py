@@ -591,32 +591,33 @@ def build_tiled_device(src: torch.Tensor, row_start: torch.Tensor,
     return out
 
 
-# edges a warp of the probability kernel sums before a segment is cut into
-# tiles whose partials a second pass adds in tile order
-PROB_TILE = 1024
+# K11's merge-path ranges (csrc/prob.cu, which refuses other values): the
+# merge items (an edge, or a node's end) a lane walks, a warp's range of
+# 32 lanes, and the ranges up to which a node's parts are added one by one
+PROB_LANE_ITEMS = 16
+PROB_WARP_ITEMS = 32 * PROB_LANE_ITEMS
+PROB_SEQ_SPAN = 8
 
 
 class TransposedCSR(NamedTuple):
-    """The graph's edges grouped by destination, with the tile table of
-    the probability kernel (K11): the sources of node v are
-    ``tsrc[tindptr[v]:tindptr[v+1]]`` in stable edge order; node v's
-    edges are cut into ``tile_ptr[v+1] - tile_ptr[v]`` tiles of ``tile``
-    edges (at least one), tile m belonging to ``tile_node[m]``;
-    ``long_nodes`` are the nodes of more than one tile."""
+    """The graph's edges grouped by destination, which the probability
+    kernel (K11) pulls over: the sources of node v are
+    ``tsrc[tindptr[v]:tindptr[v+1]]`` in stable edge order. The merge of
+    the node ends with the edges (node v's edges, then its end, then v + 1's
+    edges) is cut into ranges of ``PROB_WARP_ITEMS`` items, range r
+    starting at node ``range_node[r]`` and edge ``range_edge[r]``."""
 
     tindptr: torch.Tensor     # [N+1] int64
     tsrc: torch.Tensor        # [E'] int32 (E' edges with a destination in [0, N))
     deg: torch.Tensor         # [N] int32 out-degree
-    tile_node: torch.Tensor   # [M] int32
-    tile_ptr: torch.Tensor    # [N+1] int64
-    long_nodes: torch.Tensor  # [L] int32
-    tile: int
+    range_node: torch.Tensor  # [R+1] int32
+    range_edge: torch.Tensor  # [R+1] int64
 
     def to(self, device) -> "TransposedCSR":
-        return TransposedCSR(*(t.to(device) for t in self[:-1]), self.tile)
+        return TransposedCSR(*(t.to(device) for t in self))
 
 
-def build_transposed_host(indptr, indices, tile: int = PROB_TILE) -> TransposedCSR:
+def build_transposed_host(indptr, indices) -> TransposedCSR:
     """Host build of the `TransposedCSR` (CPU tensors). Edges are stored
     by source, so among the edges into one node the stable edge order is
     ascending source order (duplicate edges, equal in source, carry equal
@@ -636,18 +637,26 @@ def build_transposed_host(indptr, indices, tile: int = PROB_TILE) -> TransposedC
     key = (indices << 32) | src
     key.sort()
     tsrc = (key & 0xFFFFFFFF).astype(np.int32)
-    tcount = np.bincount(indices, minlength=n)
     tindptr = np.zeros(n + 1, np.int64)
-    np.cumsum(tcount, out=tindptr[1:])
-    ntiles = np.maximum(-(-tcount // tile), 1)
-    tile_ptr = np.zeros(n + 1, np.int64)
-    np.cumsum(ntiles, out=tile_ptr[1:])
-    return TransposedCSR(
-        torch.from_numpy(tindptr), torch.from_numpy(tsrc),
-        torch.from_numpy(deg.astype(np.int32)),
-        torch.from_numpy(np.repeat(np.arange(n, dtype=np.int32), ntiles)),
-        torch.from_numpy(tile_ptr), torch.from_numpy(np.nonzero(ntiles > 1)[0].astype(np.int32)),
-        int(tile))
+    np.cumsum(np.bincount(indices, minlength=n), out=tindptr[1:])
+    node, edge = merge_path_ranges(tindptr, PROB_WARP_ITEMS)
+    return TransposedCSR(torch.from_numpy(tindptr), torch.from_numpy(tsrc),
+                         torch.from_numpy(deg.astype(np.int32)), torch.from_numpy(node),
+                         torch.from_numpy(edge))
+
+
+def merge_path_ranges(tindptr, items: int):
+    """Where each range of ``items`` merge items starts in the merge of the
+    node ends with the edges of ``tindptr [N+1]``: ``(node [R+1] int32,
+    edge [R+1] int64)``, the last entry ``(N, E)``. At merge position d,
+    the nodes whose end lies before d (node v's end sits at v + tindptr[v +
+    1]) number ``node``, and ``edge = d - node``."""
+    tindptr = np.asarray(tindptr, np.int64)
+    n = tindptr.shape[0] - 1
+    total = n + int(tindptr[-1])
+    d = np.minimum(np.arange(-(-total // items) + 1, dtype=np.int64) * items, total)
+    node = np.searchsorted(np.arange(n, dtype=np.int64) + tindptr[1:], d, side="left")
+    return node.astype(np.int32), d - node
 
 
 def _prob_weights(deg: torch.Tensor, prob: torch.Tensor, k: int) -> torch.Tensor:
@@ -678,14 +687,20 @@ def neighbor_prob_plain(indptr, indices, prob: torch.Tensor, k: int,
 
 def neighbor_prob_depth(t: TransposedCSR) -> torch.Tensor:
     """``[N]`` int64: for each node, a bound on the float32 additions any
-    of its terms passes through in K11's order — a lane's sequential sum
-    of at most ``ceil(min(in_deg, tile) / 32)`` edges, the warp's 5-level
-    butterfly, then the in-order sum of the node's tile partials. The terms
-    are nonnegative, so the kernel's ``next[v]`` lies within ``d u / (1 -
-    d u)`` (``d`` the depth, ``u = 2^-24``) of their exact sum, relative."""
-    in_deg = t.tindptr[1:] - t.tindptr[:-1]
-    tiles = t.tile_ptr[1:] - t.tile_ptr[:-1]
-    return (torch.clamp(in_deg, max=t.tile) + 31) // 32 + 5 + tiles
+    of its terms passes through in K11's order. In its range of the merge
+    of node ends and edges, a term passes a lane's sequential sum (at most
+    ``PROB_LANE_ITEMS`` items), the 5-level segmented scan over the lanes
+    and one addition of the lane's part to the earlier lanes'. A node whose
+    items span S > 1 ranges then adds its S parts: one by one (S - 1
+    additions) up to ``PROB_SEQ_SPAN`` parts, else strided over 32 lanes
+    (``ceil(S / 32)``) and a 5-level butterfly. The terms are nonnegative,
+    so the kernel's ``next[v]`` lies within ``d u / (1 - d u)`` (``d`` the
+    depth, ``u = 2^-24``) of their exact sum, relative."""
+    v = torch.arange(t.tindptr.shape[0] - 1, dtype=torch.int64, device=t.tindptr.device)
+    first = (v + t.tindptr[:-1]) // PROB_WARP_ITEMS  # the range of v's first item
+    span = (v + t.tindptr[1:]) // PROB_WARP_ITEMS - first + 1  # ranges up to its end's
+    parts = torch.where(span <= PROB_SEQ_SPAN, span - 1, (span + 31) // 32 + 5)
+    return PROB_LANE_ITEMS + 6 + parts
 
 
 def neighbor_prob(indptr, indices, prob: torch.Tensor, k: int,
@@ -695,8 +710,9 @@ def neighbor_prob(indptr, indices, prob: torch.Tensor, k: int,
     1), 1)``. On CUDA tensors one call of ``csrc/prob.cu``'s
     ``qt_neighbor_prob`` (K11) over ``transposed`` (built from the graph
     when not given; `utils.CSRTopo.to_device_transposed` caches it), which
-    adds in a fixed tree order: deterministic, and within float rounding of
-    the reference's sequential sum. On CPU tensors `neighbor_prob_plain`."""
+    adds in a fixed merge-path order: deterministic, and within float
+    rounding of the reference's sequential sum (`neighbor_prob_depth`). On
+    CPU tensors `neighbor_prob_plain`."""
     n = indptr.shape[0] - 1
     if prob.dim() != 1 or prob.shape[0] != n:
         raise ValueError(f"prob must be [N] = [{n}]; got {tuple(prob.shape)}")
@@ -714,13 +730,14 @@ def neighbor_prob(indptr, indices, prob: torch.Tensor, k: int,
     out = torch.empty(n, dtype=torch.float32, device=prob.device)
     if n == 0:
         return out
-    w = torch.empty(n, dtype=torch.float32, device=prob.device)
-    partial = torch.empty(t.tile_node.shape[0], dtype=torch.float32, device=prob.device)
+    e = t.tsrc.shape[0]
+    n_bytes = _kernels.neighbor_prob_scratch_bytes(n, e)
+    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=prob.device)
     _kernels.launch("neighbor_prob", prob.data_ptr(), t.deg.data_ptr(), n, float(k),
-                    t.tindptr.data_ptr(), t.tsrc.data_ptr(), t.tile_node.data_ptr(),
-                    t.tile_ptr.data_ptr(), t.tile_node.shape[0], t.tile,
-                    t.long_nodes.data_ptr(), t.long_nodes.shape[0], w.data_ptr(),
-                    partial.data_ptr(), out.data_ptr(), _kernels.stream_of(prob))
+                    t.tindptr.data_ptr(), t.tsrc.data_ptr(), e, t.range_node.data_ptr(),
+                    t.range_edge.data_ptr(),
+                    t.range_node.shape[0] - 1, PROB_LANE_ITEMS, PROB_SEQ_SPAN,
+                    scratch.data_ptr(), n_bytes, out.data_ptr(), _kernels.stream_of(prob))
     return out
 
 

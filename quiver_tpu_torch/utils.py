@@ -247,8 +247,8 @@ class CSRTopo:
         return w
 
     def to_device_transposed(self, device=None):
-        """The edges grouped by destination with the probability kernel's
-        tile table (`ops.sample.TransposedCSR`) on ``device``, built on the
+        """The edges grouped by destination that the probability kernel
+        pulls over (`ops.sample.TransposedCSR`) on ``device``, built on the
         host once (`ops.sample.build_transposed_host`) and cached."""
         from .ops.sample import build_transposed_host
 

@@ -2,22 +2,35 @@
 """The neighbor mean's gradient (K4b, cols layout) and the hop-source
 gather's gradient (K14b) on the products-shaped graph, through builds of
 ``quiver_tpu_torch/csrc/aggregate.cu`` that differ, timed in turns in one
-process, and the device time of each of their kernels.
+process, with the kernels each call launches and the device time of each
+kernel.
 
-    python3 scripts/torch_backward_probe.py [--in-flight 8,16] [--variant name=file.cu ...]
+    python3 scripts/torch_backward_probe.py [--set NAME=VALUE ...] [--steps]
+                                            [--variant name=file.cu ...]
 
-Needs one CUDA card. Builds ``csrc/aggregate.cu`` once for each value of
-``--in-flight`` (its ``kLanesInFlight``) and each ``--variant`` source (for
-example an earlier commit's ``aggregate.cu``, written beside the repo),
-and calls their C entry points through ctypes at the shapes of
-``chip_smoke.py``: K4b on layers 1 and 2 of a dedup ``sample_dense`` of
-1,024 seeds at [15, 10, 5] (float32 and bfloat16), K14b at GAT's widths
-(1,024, 1,024, 47) and at F = 256 on layer 1. Each output is checked
-bit-equal to the first build's. Prints one JSON object a line: per shape
-and build the median milliseconds of CUDA-event timed runs with the L2
-cache flushed, taken in the order first to last, then last to first (the
-two medians and their mean); then, for the first build, the device time
-of every kernel of one call of each shape from ``torch.profiler``.
+Needs one CUDA card. Builds the tree's ``csrc/aggregate.cu``, once more
+for each ``--set NAME=VALUE`` (its ``constexpr int NAME`` set to VALUE,
+say kLanesInFlight=16; several joined by ";" make one build), with
+``--steps`` once for each of the one-launch kernel's steps (the kernel
+returning where the step begins, at the comment lines of `STEPS`, so that
+the differences of their times are the steps' times; their outputs are
+not the gradient), and each
+``--variant`` source (for example an earlier commit's ``aggregate.cu``,
+written under a git-ignored directory), and calls their C entry points
+through ctypes at the shapes of ``chip_smoke.py``: K4b on layers 1 and 2
+of a dedup ``sample_dense`` of 1,024 seeds at [15, 10, 5] (float32 and
+bfloat16, D = 256), and every K14b call of chip_smoke's kernels-7 phase
+(GAT's widths 1,024, 1,024 and 47 and GCN's 256 on layers 1 and 2, float32,
+and the bfloat16 calls at 1,024 and 256). Each output is checked bit-equal
+to the first build's. Prints one JSON object a line: per shape and build
+the median milliseconds of CUDA-event timed runs with the L2 cache flushed
+(`chip_smoke.time_ms`) and the same queued behind a 1 ms spin
+(`chip_smoke.time_ms_queued`: the card's time alone), taken in the order
+first to last, then last to first, and the kernels one call launches (the
+build's own launch counter); beside each K14b shape, ``index_add_`` of
+its valid rows (given) by both timers; then, for the first build, the
+device time of every kernel of one call of each shape from
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -37,35 +50,27 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke as cs  # noqa: E402
 from quiver_tpu_torch import GraphSageSampler, _kernels  # noqa: E402
 from quiver_tpu_torch.datasets import PRODUCTS, powerlaw_csr  # noqa: E402
 from quiver_tpu_torch.utils import CSRTopo  # noqa: E402
 
-_FLUSH = None
 P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# where each step of csrc/aggregate.cu's one launch begins, as (the function,
+# the line): the kernel's first (so the first variant times the launch
+# alone), the grid path's count, scan, fill, order, the long rows' sums and
+# the warps' sums; the small path's scan, fill, order, long and short rows' sums
+GRID, SMALL = "src_backward_kernel(const SrcArgs a)", "__device__ void src_small("
+STEPS = ((GRID, "// K4b: the targets' rows scaled"), (GRID, "// 1. count"),
+         (GRID, "// 2. scan"), (GRID, "// 3. fill"), (GRID, "// 4. order"),
+         (GRID, "// 5. the ordered sums"),
+         (GRID, "const int chunks = (a.F + kSrcCols"), (SMALL, "// their starts"),
+         (SMALL, "// the fill: base"), (SMALL, "// the order, in place"),
+         (SMALL, "// the sums: the long rows"), (SMALL, "src_sum_short<In, Out>(a, base"))
 
 
 def log(obj):
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, reps=15, warm=3):
-    """Median device ms of ``fn()``, each run after a 256 MB write."""
-    global _FLUSH
-    if _FLUSH is None:
-        _FLUSH = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        _FLUSH.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 class Build:
@@ -74,6 +79,10 @@ class Build:
     def __init__(self, name: str, so: Path, text: str):
         self.name = name
         self.lib = ctypes.CDLL(str(so))
+        # the build's own count of kernel launches (csrc/common.cuh)
+        self.launches = ctypes.c_ulonglong(0)
+        self.lib.qt_bind_launch_counter.argtypes = [P]
+        self.lib.qt_bind_launch_counter(ctypes.addressof(self.launches))
         # an earlier scratch helper takes no row width
         self.scratch_takes_d = bool(re.search(
             r"qt_masked_mean_backward_scratch\(long long w_src, int w_dst, int k, int D", text))
@@ -103,16 +112,22 @@ class Build:
         return gx
 
 
-def build_all(in_flight, variants):
+def build_all(sets, steps, variants):
     tmp = Path(tempfile.mkdtemp(dir=_kernels.BUILD_DIR))
     src = (_kernels.CSRC / "aggregate.cu").read_text()
-    jobs = []
-    for n in in_flight:
-        text, hits = re.subn(r"constexpr int kLanesInFlight = \d+;",
-                             f"constexpr int kLanesInFlight = {n};", src)
-        if hits != 1:
-            raise RuntimeError("kLanesInFlight not found in csrc/aggregate.cu")
-        jobs.append((f"in_flight={n}", text))
+    jobs = [("tree", src)]
+    for spec in sets:  # NAME=VALUE, or several joined by ";"
+        text = src
+        for one in spec.split(";"):
+            name, value = one.split("=", 1)
+            text, hits = re.subn(rf"constexpr int {name} = [^;]+;",
+                                 f"constexpr int {name} = {value};", text)
+            if hits != 1:
+                raise RuntimeError(f"{name} not found in csrc/aggregate.cu")
+        jobs.append((spec, text))
+    for n, (where, marker) in enumerate(STEPS if steps else ()):
+        at = src.index(marker, src.index(where))
+        jobs.append((f"stop_before={n + 1}", src[:at] + "return;\n" + src[at:]))
     for spec in variants:
         name, path = spec.split("=", 1)
         jobs.append((name, Path(path).read_text()))
@@ -129,8 +144,8 @@ def build_all(in_flight, variants):
         out, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        regs = re.findall(r"Function properties for (\w*src_sum\w*|\w*mean_bwd_sum\w*)\n.*\n"
-                          r"ptxas info\s+: Used (\d+) registers", out)
+        regs = re.findall(r"Function properties for (\w*(?:src_sum|src_backward_kernel)\w*)\n"
+                          r".*\nptxas info\s+: Used (\d+) registers", out)
         log({"build": name, "sum_kernel_registers": regs})
         builds.append(Build(name, so, text))
     return builds
@@ -139,7 +154,8 @@ def build_all(in_flight, variants):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--in-flight", default="8,16")
+    ap.add_argument("--set", action="append", default=[])
+    ap.add_argument("--steps", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -149,7 +165,7 @@ def main() -> int:
     log({"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                  "--format=csv,noheader"], capture_output=True, text=True,
                                 timeout=60).stdout.strip()})
-    builds = build_all([int(x) for x in args.in_flight.split(",")], args.variant)
+    builds = build_all(args.set, args.steps, args.variant)
 
     n, e = PRODUCTS["n_nodes"], 2 * PRODUCTS["n_edges"]
     indptr, indices = powerlaw_csr(n, e, seed=args.seed)
@@ -170,11 +186,15 @@ def main() -> int:
                           adj, w_src, 256))
     ds = GraphSageSampler(topo, (15, 10, 5), device=dev, seed=args.seed + 70).sample_dense(seeds)
     w_srcs = [int(ds.n_id.shape[0])] + [a.w_dst for a in ds.adjs[:-1]]
-    for layer, F in ((0, 1024), (1, 1024), (2, 47), (1, 256)):
+    for layer, F, dt in ((0, 1024, torch.float32), (1, 1024, torch.float32),
+                         (2, 47, torch.float32), (1, 256, torch.float32), (2, 256, torch.float32),
+                         (0, 1024, torch.bfloat16), (1, 1024, torch.bfloat16),
+                         (1, 256, torch.bfloat16), (2, 256, torch.bfloat16)):
         adj, w_src = ds.adjs[layer], w_srcs[layer]
         W, k = adj.mask.shape
-        g = torch.randn((W, k, F), generator=gen, device=dev)
-        cases.append((f"K14b layer {layer} F={F}", "qt_gather_src_backward", g, F, adj, w_src, 0))
+        g = torch.randn((W, k, F), generator=gen, device=dev).to(dt)
+        cases.append((f"K14b layer {layer} F={F} {str(dt)[6:]}", "qt_gather_src_backward", g, F,
+                      adj, w_src, 0))
 
     for name, fn, g, F, adj, w_src, d_scratch in cases:
         outs = [b.call(fn, g, F, adj.mask, adj.cols, w_src, d_scratch) for b in builds]
@@ -183,15 +203,37 @@ def main() -> int:
         del outs
         order = list(range(len(builds)))
         ms = {b.name: [] for b in builds}
+        queued = {b.name: [] for b in builds}
+        launches = {}
         for i in order + order[::-1]:
             b = builds[i]
-            ms[b.name].append(time_ms(lambda: b.call(fn, g, F, adj.mask, adj.cols, w_src,
-                                                     d_scratch)))
-        segs = torch.bincount(torch.clamp(adj.cols.long(), 0, w_src - 1)[adj.mask],
-                              minlength=w_src)
-        log({"case": name, "W": list(adj.mask.shape), "w_src": w_src,
-             "segment_max": int(segs.max()), "bit_equal_to_first": same,
-             "ms": {k: {"runs": v, "mean": sum(v) / len(v)} for k, v in ms.items()}})
+
+            def one(b=b):
+                return b.call(fn, g, F, adj.mask, adj.cols, w_src, d_scratch)
+            ms[b.name].append(cs.time_ms(one))
+            queued[b.name].append(cs.time_ms_queued(one))
+            torch.cuda.synchronize()
+            b.launches.value = 0
+            one()
+            launches[b.name] = b.launches.value
+        src = torch.clamp(adj.cols.long(), 0, w_src - 1)
+        segs = torch.bincount(src[adj.mask], minlength=w_src)
+        entry = {"case": name, "W": list(adj.mask.shape), "w_src": w_src,
+                 "segment_max": int(segs.max()), "bit_equal_to_first": same,
+                 "launches": launches,
+                 "ms": {k: {"runs": v, "mean": sum(v) / len(v)} for k, v in ms.items()},
+                 "queued_ms": {k: {"runs": v, "mean": sum(v) / len(v)}
+                               for k, v in queued.items()}}
+        if fn == "qt_gather_src_backward":  # the library call: index_add_ of the valid rows
+            idx = src[adj.mask].contiguous()
+            rows = g.reshape(-1, F)[adj.mask.reshape(-1)].contiguous()
+
+            def lib():
+                return torch.zeros((w_src, F), dtype=g.dtype, device=dev).index_add_(0, idx, rows)
+            entry["index_add_ms"] = cs.time_ms(lib)
+            entry["index_add_queued_ms"] = cs.time_ms_queued(lib)
+            del idx, rows
+        log(entry)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

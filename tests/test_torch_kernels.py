@@ -24,11 +24,12 @@ narrower accesses. The out-of-core slice's kernels: the row scatter of a
 placement batch (K6) over fp32, bf16 and int8 tables, bit-equal to its
 plain version on the card and on the CPU, with drop-padding, and leaving
 its input table untouched (copy-on-write); the probability propagation
-(K11) on a graph whose hub spans many of the kernel's edge tiles, within
-rtol 1e-4 (atol 1e-6) of its plain version run on the CPU (a sequential
-float32 sum, whose rounding error over a 40,000-edge segment is ~2e-6 of
-the sum; the kernel adds in a fixed tree order) and bit-equal when run
-twice;
+(K11) on a graph whose hub spans ~78 of the kernel's merge-path ranges,
+within rtol 1e-4 (atol 1e-6) of its plain version run on the CPU (a
+sequential float32 sum, whose rounding error over a 40,000-edge segment
+is ~2e-6 of the sum; the kernel adds in a fixed merge-path order), within
+its order's bound of the float64 sum and bit-equal when run twice, and
+bit-equal to the numpy replay of its order on a smaller graph;
 the tiered gather with a disk tail (K3t's gather, then the staged disk
 rows' scatter), bit-equal to the CPU store. The weighted and temporal
 slice's kernels at the three hops of a B = 64 sample: the weighted draw
@@ -94,7 +95,16 @@ the owner windows' edges, bit-equal to its plain version, with K13b's
 stacked slab of 2 and 3 groups; kernel launches counted on the host
 (`_kernels.kernel_launches`): one a K1 or K13b call, two a grouped hop
 (K13e: K13b into the stacked slab, one K13c unpack) on each of four rank
-threads, and K2's one or eight."""
+threads, and K2's one or eight.
+The redesigned K14b (one cooperative kernel a call, on the host's launch
+count, at the zoo's shapes) bit-equal to its plain version on a CPU copy
+and when run twice, on its small path and its grid path, with no valid
+lane, W_src = 1, segments of 2, 32, 33, 256, 257, 1,024 and 1,025 lanes,
+rows of 64 and 65 lanes, more column chunks than warps, cols outside the
+source, 65,536 lanes on one source, a hub across two bitmap windows, a
+products-sized source at F = 1, F = 1,024 and 256-wide rows whose pointer
+is not 16-byte aligned, and in bfloat16 equal to the float32 sum rounded
+once."""
 
 import numpy as np
 import pytest
@@ -124,6 +134,9 @@ from quiver_tpu_torch.utils import round_up_pow2
 from quiver_tpu_torch.pyg.sage_sampler import DenseAdj
 from quiver_tpu_torch.utils import CSRTopo
 from quiver_tpu_torch.ops.sample import (
+    PROB_LANE_ITEMS,
+    PROB_SEQ_SPAN,
+    PROB_WARP_ITEMS,
     build_transposed_host,
     neighbor_prob,
     neighbor_prob_depth,
@@ -141,6 +154,7 @@ from quiver_tpu_torch.ops.gather_src import (
 )
 
 from torch_fixtures import cuda_device  # noqa: F401 (fixture)
+from torch_fixtures import prob_kernel_order
 
 # tiny shapes: one intra-op thread leaves the cores to the other test workers
 torch.set_num_threads(1)
@@ -727,11 +741,14 @@ def test_neighbor_prob_kernel_on_a_hub_graph_reruns_bit_equal(cuda_device):
     n, e = 200000, 3000000
     src = rng.integers(0, n, e)
     dst = (rng.pareto(1.2, e) * 50).astype(np.int64) % n  # power-law in-degrees
-    dst[:40000] = 5  # a hub of ~39 tiles
+    dst[:40000] = 5  # a hub across ~78 of the kernel's ranges
     topo = CSRTopo(edge_index=np.stack([src, dst]), num_nodes=n)
     indptr, indices = topo.to_device(cuda_device)
     t = build_transposed_host(topo.indptr, topo.indices)
-    assert int(t.long_nodes.numel()) > 0 and int(t.tile_ptr[6] - t.tile_ptr[5]) >= 39
+    tp = t.tindptr
+    assert int((5 + tp[6]) // PROB_WARP_ITEMS - (5 + tp[5]) // PROB_WARP_ITEMS) >= 40000 // (
+        PROB_WARP_ITEMS + 1)
+    assert int((tp[1:] == tp[:-1]).sum()) > 0  # nodes without in-edges
     t = t.to(cuda_device)
     prob = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda_device)
     for k in (15, 10, 5):
@@ -752,6 +769,36 @@ def test_neighbor_prob_kernel_on_a_hub_graph_reruns_bit_equal(cuda_device):
         # plus 1e-9 relative for the float64 sum's own rounding
         tol = (d * 2.0**-24 / (1 - d * 2.0**-24) + 1e-9) * exact
         assert bool(((got.double() - exact).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_neighbor_prob_kernel_adds_in_its_emulated_order(cuda_device):
+    """K11 bit-equal to the numpy replay of its order of additions
+    (`torch_fixtures.prob_kernel_order`) on a graph with a hub across more
+    ranges than it adds one by one, a node across a few and nodes without
+    in-edges; three kernels a call on the host's launch count."""
+    rng = np.random.default_rng(19)
+    n, e = 3000, 40000
+    src = rng.integers(0, n - 50, e)
+    dst = rng.integers(0, n - 50, e)
+    dst[:5000] = 7
+    dst[5000:5700] = 13
+    topo = CSRTopo(edge_index=np.stack([src, dst]), num_nodes=n)
+    t = build_transposed_host(topo.indptr, topo.indices)
+    prob = rng.random(n).astype(np.float32)
+    indptr, indices = topo.to_device(cuda_device)
+    td = t.to(cuda_device)
+    for k in (15, 10, 5):
+        deg = np.diff(topo.indptr).astype(np.float32)
+        w = prob * np.minimum(np.float32(k) / np.maximum(deg, np.float32(1)), np.float32(1))
+        want, _ = prob_kernel_order(t.tindptr.numpy(), t.tsrc.numpy(), w, PROB_LANE_ITEMS,
+                                    PROB_SEQ_SPAN)
+        _kernels.reset_kernel_launches()
+        got = neighbor_prob(indptr, indices, torch.from_numpy(prob).to(cuda_device), k, td)
+        torch.cuda.synchronize()
+        assert _kernels.kernel_launches() == 3
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        assert float(got[7]) > 0 and not got[n - 50:].any()
 
 
 @pytest.mark.cuda
@@ -1247,6 +1294,146 @@ def test_gather_src_autograd_on_card_matches_cpu(cuda_device):
         (gather_src(xs, m, cols.to(dev)) * R.to(dev) * m[..., None, None]).sum().backward()
         grads.append(xs.grad.cpu())
     assert torch.equal(grads[1], grads[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_src_backward_launches_one_kernel_a_call(cuda_device, dtype):
+    """K14b at the zoo's shapes (the three hops of a batch-1024 step at
+    sizes [15, 10, 5], GAT's and GCN's widths): one counted wrapper call
+    and one kernel on the host's launch count a call, bit-equal run twice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    hops = (((180224, 5, 1081344), (1024,)), ((16384, 10, 180224), (1024,)),
+            ((16384, 10, 180224), (256,)), ((1024, 15, 16384), (256,)),
+            ((1024, 15, 16384), (47,)))
+    for (W, k, w_src), rows in hops:
+        if dtype == torch.bfloat16 and rows == (47,):
+            continue
+        mask = torch.rand((W, k), generator=gen, device=cuda_device) < 0.8
+        cols = torch.randint(0, w_src, (W, k), generator=gen, device=cuda_device,
+                             dtype=torch.int32)
+        g = torch.randn((W, k) + rows, generator=gen, device=cuda_device).to(dtype)
+        got = gather_src_backward(g, mask, cols, w_src)
+        torch.cuda.synchronize()
+        before = _kernels.counts()["gather_src_backward"]
+        _kernels.reset_kernel_launches()
+        again = gather_src_backward(g, mask, cols, w_src)
+        launches = _kernels.kernel_launches()
+        torch.cuda.synchronize()
+        assert launches == 1, (W, k, w_src, rows, launches)
+        assert _kernels.counts()["gather_src_backward"] == before + 1
+        assert _same(got, again)
+        del g, got, again
+
+
+def _src_backward_case(name, W, rng):
+    """(g [W, k, F] float32, mask, cols, w_src) of a K14b boundary case over
+    W targets (1,024: the small path's at most 32,768 lanes; 4,096: the
+    grid's path)."""
+    k, w_src, F = 15, 16384, 47
+    mask = rng.random((W, k)) < 0.8
+    cols = rng.integers(0, w_src, (W, k)).astype(np.int32)
+    if name == "no valid lane":
+        mask[:] = False
+    elif name == "one source row":
+        w_src = 1
+    elif name == "65,536 lanes on one source":
+        W, k = 4096, 16
+        mask, cols = np.ones((W, k), bool), np.full((W, k), 5, np.int32)
+    elif name == "a hub across bitmap windows":
+        W, k, w_src = 400000, 5, 500000
+        mask = rng.random((W, k)) < 0.9
+        cols = rng.integers(0, w_src, (W, k)).astype(np.int32)
+        cols[rng.random((W, k)) < 0.01] = 3  # ~18,000 lanes over 2,000,000 lane indices
+    elif name == "segments of 2, 32, 33, 256 and 257 lanes":
+        cols = rng.integers(100, w_src, (W, k)).astype(np.int32)
+        mask[:] = True
+        sizes = (2, 32, 33, 256, 257)
+        flat = cols.reshape(-1)
+        flat[rng.choice(W * k, sum(sizes), replace=False)] = np.repeat(np.arange(5), sizes)
+    elif name == "segments of 1,024 and 1,025 lanes":
+        W, k = 4096, 16
+        mask = np.ones((W, k), bool)
+        cols = rng.integers(100, w_src, (W, k)).astype(np.int32)
+        flat = cols.reshape(-1)
+        flat[rng.choice(W * k, 1024 + 1025, replace=False)] = [0] * 1024 + [1] * 1025
+    elif name == "rows of 64 and 65 lanes":
+        cols = rng.integers(100, w_src, (W, k)).astype(np.int32)
+        mask[:] = True
+        flat = cols.reshape(-1)
+        flat[rng.choice(W * k, 64 + 65, replace=False)] = [1] * 64 + [2] * 65
+    elif name == "more column chunks than warps":
+        W, k, w_src, F = W // 4, 4 if W == 1024 else 33, 3000, 33 * 128
+        mask = rng.random((W, k)) < 0.9
+        cols = rng.integers(0, w_src, (W, k)).astype(np.int32)
+        cols[:100, 0], mask[:100, 0] = 3, True  # a row the whole block sums
+    elif name == "cols outside the source":
+        cols = rng.integers(-w_src, 2 * w_src, (W, k)).astype(np.int32)
+    elif name == "F = 1 over a products-sized source":
+        W, k, w_src, F = 180224, 5, 1081344, 1
+        mask = rng.random((W, k)) < 0.7
+        cols = rng.integers(0, w_src, (W, k)).astype(np.int32)
+    elif name == "F = 1,024":
+        W, k, w_src, F = W if W == 1024 else 2 * W, 5, 24576, 1024
+        mask = rng.random((W, k)) < 0.8
+        cols = rng.integers(0, w_src, (W, k)).astype(np.int32)
+        cols[rng.random((W, k)) < 0.05] = 3
+    elif name == "F = 256 rows misaligned":
+        F = 256
+    g = rng.standard_normal((W, k, F)).astype(np.float32)
+    return torch.from_numpy(g), torch.from_numpy(mask), torch.from_numpy(cols), w_src
+
+
+SRC_BACKWARD_CASES = [
+    (name, W)
+    for name in ("no valid lane", "one source row", "segments of 2, 32, 33, 256 and 257 lanes",
+                 "rows of 64 and 65 lanes", "more column chunks than warps",
+                 "cols outside the source", "F = 1,024", "F = 256 rows misaligned", "bfloat16")
+    for W in (1024, 4096)
+] + [(name, 4096) for name in ("65,536 lanes on one source", "a hub across bitmap windows",
+                               "segments of 1,024 and 1,025 lanes",
+                               "F = 1 over a products-sized source")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,W", SRC_BACKWARD_CASES,
+                         ids=[f"{n}, {w} targets" for n, w in SRC_BACKWARD_CASES])
+def test_gather_src_backward_kernel_at_its_design_boundaries(cuda_device, name, W):
+    """K14b across its switch points, on its small path (1,024 targets of
+    15 lanes: every block orders and sums its own rows in shared memory)
+    and its grid path (4,096 and more): no valid lane, W_src = 1, segments
+    at the warps' batched and register sorts' bounds (32, 33), the small
+    path's shared-memory sort's (256, 257) and the grid path's (1,024,
+    1,025), rows at the block sum's bound (64, 65), more column chunks
+    than a block has warps, clipped cols, one source of 65,536 lanes, a hub
+    whose lane indices span two bitmap windows, 1,056 count tiles at F = 1,
+    F = 1,024 and F = 256 rows whose pointer is not 16-byte aligned (the
+    scalar path): bit-equal run twice and to the plain version on a CPU
+    copy, in one kernel a call; bfloat16 equal to the float32 sum rounded
+    once."""
+    rng = np.random.default_rng(SRC_BACKWARD_CASES.index((name, W)) + 21)
+    g, mask, cols, w_src = _src_backward_case(name if name != "bfloat16" else "", W, rng)
+    m, c = mask.to(cuda_device), cols.to(cuda_device)
+    gd = g.to(cuda_device)
+    if name == "F = 256 rows misaligned":  # a view one element into its storage
+        flat = torch.empty(g.numel() + 1, device=cuda_device)
+        flat[1:] = gd.reshape(-1)
+        gd = flat[1:].view(g.shape)
+        assert gd.data_ptr() % 16 != 0
+    if name == "bfloat16":
+        gd = gd.to(torch.bfloat16)
+    _kernels.reset_kernel_launches()
+    got = gather_src_backward(gd, m, c, w_src)
+    assert _kernels.kernel_launches() == 1
+    again = gather_src_backward(gd, m, c, w_src)
+    torch.cuda.synchronize()
+    assert got.shape == (w_src,) + tuple(g.shape[2:]) and got.dtype == gd.dtype
+    assert _same(got, again)
+    assert _same(got, gather_src_backward_plain(gd.cpu(), mask, cols, w_src))
+    if name == "bfloat16":
+        assert _same(got, gather_src_backward(gd.float(), m, c, w_src).to(torch.bfloat16))
+    if name == "no valid lane":
+        assert not got.any()
 
 
 @pytest.mark.cuda

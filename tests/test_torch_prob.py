@@ -4,19 +4,22 @@ feeds with quiver_tpu's, on the CPU: `ops.sample.neighbor_prob` and
 transposed graph the card's kernel pulls over, `utils.heat_reorder` and
 `partition`.
 
-Shapes: a few thousand nodes with a hub whose in-edges span several of the
-kernel's tiles, degree-0 nodes and duplicate edges. Inputs come from
+Shapes: a few thousand nodes with a hub whose in-edges span more of the
+kernel's ranges than it adds one by one, a node that spans a few, nodes
+without in-edges and duplicate edges. Inputs come from
 seeded numpy and go through both packages. Bars:
 - `neighbor_prob_plain` and `sample_prob` bit-equal to the JAX functions:
   both add each node's sources one by one in edge order (the JAX function
   scatter-adds the edge list in order, the plain version ``index_add_``s
   it, which on the CPU is the same sequential sum), from the same float32
   weights;
-- the kernel's order of additions (tiles of lane-strided sums, a butterfly
-  per warp, tile partials in order), replayed here in numpy, within
-  rtol 1e-5 of the sequential sum: both round float32 sums of positive
-  terms, in different orders; and within its own depth bound
-  (`neighbor_prob_depth`) of the float64 sum of the same terms;
+- the kernel's order of additions (merge-path ranges of node ends and
+  edges, a lane's sequential sum, a segmented scan over the lanes, the
+  parts of a node that crosses ranges in range order), replayed in numpy
+  (`torch_fixtures.prob_kernel_order`), within rtol 1e-5 of the
+  sequential sum: both round float32 sums of positive terms, in different
+  orders; and within its own depth bound (`neighbor_prob_depth`) of the
+  float64 sum of the same terms;
 - reorders, partitions and artifacts bit-equal."""
 
 import numpy as np
@@ -33,7 +36,9 @@ from quiver_tpu.pyg.sage_sampler import GraphSageSampler as JSampler
 from quiver_tpu.utils import heat_reorder as j_heat_reorder
 from quiver_tpu_torch import CSRTopo, GraphSageSampler, partition
 from quiver_tpu_torch.ops.sample import (
-    PROB_TILE,
+    PROB_LANE_ITEMS,
+    PROB_SEQ_SPAN,
+    PROB_WARP_ITEMS,
     build_transposed_host,
     neighbor_prob,
     neighbor_prob_depth,
@@ -41,21 +46,24 @@ from quiver_tpu_torch.ops.sample import (
     sample_prob,
 )
 from quiver_tpu_torch.utils import heat_reorder
+from torch_fixtures import prob_kernel_order
 
 # tiny shapes: one intra-op thread leaves the cores to the other test workers
 torch.set_num_threads(1)
 
-N, E, HUB = 3000, 40000, 7
+N, E, HUB, MID = 3000, 40000, 7, 13
 SIZES = (15, 10, 5)
 
 
 def _graph(seed=0):
-    """A random graph plus a hub with 3 * PROB_TILE + 5 in-edges, a source
-    with 4,000 out-edges, duplicate edges and isolated nodes."""
+    """A random graph plus a hub with 5,000 in-edges (about 10 of the
+    kernel's ranges), a node with 700 (about 2), a source with 4,000
+    out-edges, duplicate edges and isolated nodes."""
     rng = np.random.default_rng(seed)
-    src = rng.integers(0, N - 50, E)  # the last 50 nodes have no out-edges
+    src = rng.integers(0, N - 50, E)  # the last 50 nodes have no edges
     dst = rng.integers(0, N - 50, E)
-    dst[: 3 * PROB_TILE + 5] = HUB
+    dst[:5000] = HUB
+    dst[5000:5700] = MID
     src[-4000:] = 11
     src = np.concatenate([src, [3, 3, 3]])
     dst = np.concatenate([dst, [9, 9, 9]])  # duplicate edges
@@ -101,6 +109,9 @@ def test_sample_prob_and_the_sampler_bit_equal_to_reference():
 
 
 def test_transposed_graph_lists_sources_in_stable_edge_order_and_tiles_cover_it():
+    """The transposed graph, and the kernel's merge-path ranges over it:
+    consecutive, PROB_WARP_ITEMS items each but the last, each starting
+    inside a node's edges, together covering every edge and node end."""
     indptr, indices = _csr(_graph())
     t = build_transposed_host(indptr, indices)
     src = np.repeat(np.arange(N), np.diff(indptr))
@@ -108,42 +119,29 @@ def test_transposed_graph_lists_sources_in_stable_edge_order_and_tiles_cover_it(
     np.testing.assert_array_equal(t.tsrc.numpy(), src[order])
     np.testing.assert_array_equal(np.diff(t.tindptr.numpy()), np.bincount(indices, minlength=N))
     np.testing.assert_array_equal(t.deg.numpy(), np.diff(indptr))
-    tile_ptr, tile_node = t.tile_ptr.numpy(), t.tile_node.numpy()
-    ntiles = np.diff(tile_ptr)
-    assert ntiles.min() == 1 and ntiles[HUB] == 4 and t.tile == PROB_TILE
-    np.testing.assert_array_equal(tile_node, np.repeat(np.arange(N), ntiles))
-    np.testing.assert_array_equal(t.long_nodes.numpy(), np.nonzero(ntiles > 1)[0])
+    tindptr = t.tindptr.numpy()
+    _, start = prob_kernel_order(tindptr, t.tsrc.numpy(), np.ones(N, np.float32),
+                                 PROB_LANE_ITEMS, PROB_SEQ_SPAN)
+    e = tindptr[-1]
+    np.testing.assert_array_equal(np.stack([t.range_node.numpy(), t.range_edge.numpy()], 1),
+                                  start)
+    assert tuple(start[0]) == (0, 0) and tuple(start[-1]) == (N, e)
+    items = np.diff(start.sum(axis=1))
+    assert (items[:-1] == PROB_WARP_ITEMS).all() and 0 < items[-1] <= PROB_WARP_ITEMS
+    assert (np.diff(start, axis=0) >= 0).all()
+    v, at = start[:-1, 0], start[:-1, 1]
+    assert ((tindptr[v] <= at) & (at <= tindptr[v + 1])).all()
+    hub_ranges = (HUB + tindptr[HUB + 1]) // PROB_WARP_ITEMS - (HUB + tindptr[HUB]) // PROB_WARP_ITEMS
+    assert hub_ranges + 1 > PROB_SEQ_SPAN
     # out-of-range destinations are left out, as the reference drops them
     bad = build_transposed_host(np.array([0, 2, 3]), np.array([1, 5, -1]))
     assert bad.tsrc.tolist() == [0] and bad.tindptr.tolist() == [0, 0, 1]
 
 
 def _kernel_order(t, w):
-    """`csrc/prob.cu`'s additions in numpy float32: a warp a tile, lane l
-    adding the tile's edges l, l + 32, ...; a butterfly over the 32 lanes;
-    then the tile partials of a long node in order."""
-    f32 = np.float32
-    tindptr, tsrc = t.tindptr.numpy(), t.tsrc.numpy()
-    tile_ptr, tile_node = t.tile_ptr.numpy(), t.tile_node.numpy()
-    partial = np.zeros(tile_node.shape[0], f32)
-    for m, v in enumerate(tile_node):
-        lo = tindptr[v] + (m - tile_ptr[v]) * t.tile
-        hi = min(lo + t.tile, tindptr[v + 1])
-        lanes = np.zeros(32, f32)
-        for j in range(lo, hi):
-            lanes[(j - lo) % 32] = f32(lanes[(j - lo) % 32] + w[tsrc[j]])
-        off = 16
-        while off:
-            lanes = (lanes + lanes[np.arange(32) ^ off]).astype(f32)
-            off //= 2
-        partial[m] = lanes[0]
-    out = np.zeros(tile_ptr.shape[0] - 1, f32)
-    for v in range(out.shape[0]):
-        acc = f32(0)
-        for m in range(tile_ptr[v], tile_ptr[v + 1]):
-            acc = f32(acc + partial[m])
-        out[v] = acc
-    return out
+    """`csrc/prob.cu`'s additions in numpy float32 (K11's order)."""
+    return prob_kernel_order(t.tindptr.numpy(), t.tsrc.numpy(), w, PROB_LANE_ITEMS,
+                             PROB_SEQ_SPAN)[0]
 
 
 def test_the_kernels_order_of_additions_agrees_with_the_sequential_sum():
@@ -156,13 +154,15 @@ def test_the_kernels_order_of_additions_agrees_with_the_sequential_sum():
     want = neighbor_prob_plain(torch.from_numpy(indptr), torch.from_numpy(indices),
                                torch.from_numpy(prob), 10).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
-    assert got[HUB] != 0 and (got[want == 0] == 0).all()
+    assert got[HUB] != 0 and got[MID] != 0 and (got[want == 0] == 0).all()
+    assert (got[N - 50:] == 0).all()  # no in-edges
 
 
 def test_the_kernels_order_lies_within_its_depth_bound_of_the_exact_sum():
     """The card's check: K11 against the float64 sum of the same float32
     terms, within ``d u / (1 - d u)`` relative (`neighbor_prob_depth`). The
-    bound is tight enough at the hub that a tile dropped there fails it."""
+    bound is tight enough at the hub that one of its ranges dropped there
+    fails it."""
     indptr, indices = _csr(_graph(5))
     prob = np.random.default_rng(6).random(N).astype(np.float32)
     t = build_transposed_host(indptr, indices)
@@ -175,12 +175,20 @@ def test_the_kernels_order_lies_within_its_depth_bound_of_the_exact_sum():
                                                                           np.diff(indptr))]
                                                      .astype(np.float64), minlength=N))
     d = neighbor_prob_depth(t).numpy().astype(np.float64)
-    assert d[HUB] == 32 + 5 + 4 and d[0] == -(-np.diff(t.tindptr.numpy())[0] // 32) + 5 + 1
+    tindptr = t.tindptr.numpy()
+    v = np.arange(N)
+    span = (v + tindptr[1:]) // PROB_WARP_ITEMS - (v + tindptr[:-1]) // PROB_WARP_ITEMS + 1
+    assert span[HUB] > PROB_SEQ_SPAN >= span[MID] > 1 and span[N - 1] == 1
+    assert d[HUB] == PROB_LANE_ITEMS + 6 + -(-span[HUB] // 32) + 5
+    assert d[MID] == PROB_LANE_ITEMS + 6 + span[MID] - 1 and d[N - 1] == PROB_LANE_ITEMS + 6
     tol = d * 2.0**-24 / (1 - d * 2.0**-24) * exact
     assert (np.abs(got - exact) <= tol).all()
-    # one of the hub's four tiles dropped: far outside the bound
-    tsrc, lo = t.tsrc.numpy(), t.tindptr.numpy()[HUB]
-    assert w[tsrc[lo: lo + PROB_TILE]].astype(np.float64).sum() > 100 * tol[HUB]
+    # the hub's edges of its second range dropped: far outside the bound
+    tsrc = t.tsrc.numpy()
+    r = (HUB + tindptr[HUB]) // PROB_WARP_ITEMS + 1
+    lo, hi = r * PROB_WARP_ITEMS - HUB, (r + 1) * PROB_WARP_ITEMS - HUB
+    assert tindptr[HUB] < lo < hi < tindptr[HUB + 1]
+    assert w[tsrc[lo:hi]].astype(np.float64).sum() > 100 * tol[HUB]
 
 
 def test_neighbor_prob_refuses_a_prob_of_another_shape():

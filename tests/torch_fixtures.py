@@ -1,5 +1,6 @@
 """Fixtures shared by the port's tests (tests/test_torch_*.py)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -11,3 +12,93 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     return torch.device("cuda")
+
+
+def prob_kernel_order(tindptr, tsrc, w, lane_items, seq_span):
+    """``csrc/prob.cu``'s additions (K11) replayed in numpy float32 over
+    the transposed graph (``tindptr [N+1]``, ``tsrc [E]``) and the weights
+    ``w [N]``: the merge of node ends and edges cut into ranges of 32 x
+    ``lane_items`` items; in a range, each lane's sequential sum over its
+    items, the inclusive segmented scan over the lanes (Kogge-Stone, 5
+    levels), one addition of a lane's part to the earlier lanes'; then the
+    parts of a node that crosses ranges, in range order, one by one up to
+    ``seq_span`` parts, else strided over 32 lanes and a butterfly.
+    Returns ``(next [N] float32, start [n_ranges + 1, 2])``, the second the
+    (node, edge) where each range starts."""
+    f32 = np.float32
+    tindptr = np.asarray(tindptr, np.int64)
+    n, E = tindptr.shape[0] - 1, int(np.asarray(tsrc).shape[0])
+    IW = 32 * lane_items
+    total = n + E
+    n_ranges = -(-total // IW)
+    d = np.minimum(np.arange(n_ranges + 1, dtype=np.int64) * IW, total)
+    cv = np.searchsorted(np.arange(n) + tindptr[1:], d, side="left")  # ends before d
+    ce = d - cv
+    vals = np.asarray(w, f32)[np.asarray(tsrc, np.int64)]
+    out = np.zeros(n, f32)
+    head = np.zeros(n_ranges, f32)
+    tail = np.zeros(n_ranges, f32)
+    for r in range(n_ranges):
+        v0, e0 = int(cv[r]), int(ce[r])
+        n_rows, n_e = int(cv[r + 1]) - v0, int(ce[r + 1]) - e0
+        rend = np.append(tindptr[v0 + 1: v0 + 1 + n_rows] - e0, n_e)
+        c, f, h = np.zeros(32, f32), np.zeros(32, bool), np.zeros(32, f32)
+        first = np.zeros(32, np.int64)
+        for lane in range(32):
+            dd = lane * lane_items
+            i = int(np.sum(np.arange(n_rows) + rend[:n_rows] < dd))
+            first[lane], j = i, dd - i
+            acc, ends = f32(0), False
+            for t in range(lane_items):
+                if dd + t >= n_rows + n_e:
+                    break
+                if j < rend[i]:
+                    acc = f32(acc + vals[e0 + j])
+                    j += 1
+                else:
+                    if ends:
+                        out[v0 + i] = acc
+                    else:
+                        h[lane], ends = acc, True
+                    acc = f32(0)
+                    i += 1
+            if not ends:
+                h[lane] = acc
+            c[lane], f[lane] = acc, ends
+        ends = f.copy()
+        off = 1
+        while off < 32:
+            c2, f2 = c.copy(), f.copy()
+            for lane in range(off, 32):
+                if not f[lane]:
+                    c2[lane] = f32(c[lane - off] + c[lane])
+                f2[lane] = f[lane] or f[lane - off]
+            c, f = c2, f2
+            off *= 2
+        for lane in np.nonzero(ends)[0]:
+            s = f32((c[lane - 1] if lane else f32(0)) + h[lane])
+            if first[lane] == 0 and tindptr[v0] < e0:
+                head[r] = s
+            else:
+                out[v0 + first[lane]] = s
+        tail[r] = c[31]
+    for r in range(n_ranges):
+        v = int(cv[r])
+        start = int(tindptr[v])
+        if not (start < ce[r] and v < cv[r + 1]):
+            continue
+        ra = (v + start) // IW
+        parts = [tail[q] for q in range(ra, r)] + [head[r]]
+        if len(parts) <= seq_span:
+            acc = f32(0)
+            for p in parts:
+                acc = f32(acc + p)
+        else:
+            lanes = np.zeros(32, f32)
+            for i, p in enumerate(parts):
+                lanes[i % 32] = f32(lanes[i % 32] + p)
+            for off in (16, 8, 4, 2, 1):
+                lanes = (lanes + lanes[np.arange(32) ^ off]).astype(f32)
+            acc = lanes[0]
+        out[v] = acc
+    return out, np.stack([cv, ce], axis=1)
