@@ -719,7 +719,13 @@ K14B_QUEUED_MS_BEFORE = {
     "layer 2 F=256 bfloat16": 0.0959}
 K11_MS_BEFORE = [1.068, 1.023, 1.024]
 K11_QUEUED_MS_BEFORE = [1.0216, 1.0229, 1.0228]
-REDESIGN = {}  # this run's times of K4, K2, K1, K13e, K14b and K11 at those shapes
+# K14c and K13d's compaction before their redesign (NVIDIA H100 80GB HBM3, 700 W;
+# PR 15's final run, queued behind a spin): K14c's three kernels-7 hops (a
+# memset and two kernels a call) and the compaction's frontier and leaves
+# calls of kernels-9 (three kernels a call)
+K14C_QUEUED_MS_BEFORE, K14C_LAUNCHES_BEFORE = [0.02576, 0.01338, 0.01110], 2
+K13D_COMPACT_QUEUED_MS_BEFORE, K13D_COMPACT_LAUNCHES_BEFORE = [0.01395, 0.02166], 3
+REDESIGN = {}  # this run's times of the redesigned kernels at those shapes
 
 
 def log(*a):
@@ -822,15 +828,18 @@ def sample_bound(indptr, cur, cur_valid, k):
 
 
 def record(rows, name, err, ms, plain_ms, b, lib_ms=None, shape="", report=True,
-           queued_ms=None):
+           queued_ms=None, **logged):
     """Log one timed kernel call (``queued_ms``, where given: the same call
-    timed by `time_ms_queued`, logged only); with ``report`` also add it to
-    the kernel's row of the report line (sums over the calls of one pass)."""
+    timed by `time_ms_queued`; ``logged``: more keys of the log entry, such
+    as a call's kernel launches or the library call queued); with
+    ``report`` also add it to the kernel's row of the report line (sums
+    over the calls of one pass)."""
     entry = {"kernel": name, "shape": shape, "kernel_ms": ms, "plain_ms": plain_ms,
              "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
              "max_abs_err": float(err)}
     if queued_ms is not None:
         entry["queued_ms"] = queued_ms
+    entry.update(logged)
     log(json.dumps(entry))
     if not report:
         return
@@ -1401,7 +1410,11 @@ def redesign_line() -> dict:
     beside this run's pair of slabs and two unpacks); K14b's kernels-7
     calls and K11's hops by both timers with their kernels a call, beside
     K14B_MS_BEFORE, K14B_QUEUED_MS_BEFORE, K11_MS_BEFORE and
-    K11_QUEUED_MS_BEFORE (K14b also beside index_add_'s queued time)."""
+    K11_QUEUED_MS_BEFORE (K14b also beside index_add_'s queued time); K14c's
+    kernels-7 hops and K13d's kernels-9 compactions by both timers with
+    their kernels a call and their library calls (index_add_, the stable
+    argsort) by both, beside K14C_QUEUED_MS_BEFORE and
+    K13D_COMPACT_QUEUED_MS_BEFORE."""
     def cols(entries):
         return {key: [e[key] for e in entries] for key in entries[0]}
 
@@ -1422,7 +1435,12 @@ def redesign_line() -> dict:
                          queued_ms_before=[K14B_QUEUED_MS_BEFORE[e["shape"]]
                                            for e in REDESIGN["K14b"]]),
             "K11": dict(cols(REDESIGN["K11"]), ms_before=K11_MS_BEFORE,
-                        queued_ms_before=K11_QUEUED_MS_BEFORE)}
+                        queued_ms_before=K11_QUEUED_MS_BEFORE),
+            "K14c": dict(cols(REDESIGN["K14c"]), queued_ms_before=K14C_QUEUED_MS_BEFORE,
+                         launches_before=K14C_LAUNCHES_BEFORE),
+            "K13d compaction": dict(cols(REDESIGN["K13d compaction"]),
+                                    queued_ms_before=K13D_COMPACT_QUEUED_MS_BEFORE,
+                                    launches_before=K13D_COMPACT_LAUNCHES_BEFORE)}
 
 
 def train_phase(topo, table, resident, tiered, train_idx, seed):
@@ -2704,13 +2722,25 @@ def kernel_phase_7(topo, seeds, rows, seed):
         # so clipping drops nothing
         check(bool(((cols >= 0) & (cols < w_src)).all()), "a sampled col lies outside the source")
         ones = mask.reshape(-1).to(torch.float32)
-        record(rows, "block_out_degree", 0.0,
-               time_ms(lambda: block_out_degree(mask, cols, w_src)),
-               time_ms(lambda: block_out_degree_plain(mask, cols, w_src), reps=5),
-               bound(n_lanes * 5 + w_src * 4, int_ops=n_valid),
-               time_ms(lambda: torch.zeros(w_src, device=dev).index_add_(0, flat_idx, ones)),
-               shape=f"layer {layer} W={W} k={k} W_src={w_src}",
-               queued_ms=time_ms_queued(lambda: block_out_degree(mask, cols, w_src)))
+
+        def k14c():
+            return block_out_degree(mask, cols, w_src)
+
+        def lib():
+            return torch.zeros(w_src, device=dev).index_add_(0, flat_idx, ones)
+        b = bound(n_lanes * 5 + w_src * 4, int_ops=n_valid)
+        call = dict(shape=f"layer {layer} W={W} k={k} W_src={w_src}", ms=time_ms(k14c),
+                    queued_ms=time_ms_queued(k14c), launches=kernel_launches(k14c),
+                    plan_blocks_table_slots=_kernels.block_out_degree_plan(n_lanes, w_src),
+                    index_add_ms=time_ms(lib), index_add_queued_ms=time_ms_queued(lib),
+                    bound_ms=b[0])
+        REDESIGN.setdefault("K14c", []).append(call)
+        check(call["launches"] == 1,
+              f"K14c launched {call['launches']} kernels in one call at layer {layer}")
+        record(rows, "block_out_degree", 0.0, call["ms"],
+               time_ms(lambda: block_out_degree_plain(mask, cols, w_src), reps=5), b,
+               call["index_add_ms"], shape=call["shape"], queued_ms=call["queued_ms"],
+               launches=call["launches"], library_queued_ms=call["index_add_queued_ms"])
         widths = sorted({GCN_WIDTHS[layer], GAT_WIDTHS[layer], 1})
         for F_ in widths:
             for dtype in (torch.float32, bf16):
@@ -3938,12 +3968,24 @@ def kernel_phase_9(topo, table, host, rows, seed):
               f"K13d's compaction ({what}) differs from its plain version")
         n_cold = int(got[2][0])
         flag = ((ids >= lo) & (ids < hi)).to(torch.int32)
-        record(rows, "cold_compact", 0.0, time_ms(lambda: cold_compact(ids, lo, hi, budget)),
-               time_ms(lambda: cold_compact_plain(ids, lo, hi, budget), reps=5),
-               bound(w * 4 + budget * 8 + 8),
-               time_ms(lambda: torch.argsort(1 - flag, stable=True)[:budget]),
-               shape=f"{what} W={w} budget={budget} n_cold={n_cold}",
-               queued_ms=time_ms_queued(lambda: cold_compact(ids, lo, hi, budget)))
+
+        def compact(ids=ids, lo=lo, hi=hi, budget=budget):
+            return cold_compact(ids, lo, hi, budget)
+
+        def lib(flag=flag, budget=budget):
+            return torch.argsort(1 - flag, stable=True)[:budget]
+        b = bound(w * 4 + budget * 8 + 8)
+        call = dict(shape=f"{what} W={w} budget={budget} n_cold={n_cold}", ms=time_ms(compact),
+                    queued_ms=time_ms_queued(compact), launches=kernel_launches(compact),
+                    argsort_ms=time_ms(lib), argsort_queued_ms=time_ms_queued(lib),
+                    bound_ms=b[0])
+        REDESIGN.setdefault("K13d compaction", []).append(call)
+        check(call["launches"] == 1,
+              f"K13d's compaction launched {call['launches']} kernels in one call ({what})")
+        record(rows, "cold_compact", 0.0, call["ms"],
+               time_ms(lambda: cold_compact_plain(ids, lo, hi, budget), reps=5), b,
+               call["argsort_ms"], shape=call["shape"], queued_ms=call["queued_ms"],
+               launches=call["launches"], library_queued_ms=call["argsort_queued_ms"])
         sel, cold_local, counts = got
         inr = (ids >= 0) & (ids < hot_rows)
         hot = torch.where(inr[:, None], table_r[torch.clamp(ids.long(), 0, hot_rows - 1)], 0.0)
@@ -4635,6 +4677,13 @@ def main() -> int:
     phase_done("host")
     for name in ("grouped_unpack", "cold_compact", "cold_merge"):
         launches[name] = host_counts[name]
+    # K13a's and K13c's narrow variants on the rank legs (a)-(f): rule 2's
+    # launches x gap needs their main-path launches
+    log("rank legs variants: " + json.dumps(
+        {name: mc_counts.get(name, 0) + host_counts.get(name, 0)
+         for name in ("sharded_rows/float32", "sharded_rows/bfloat16", "sharded_rows/int8",
+                      "grouped_unpack/float32", "grouped_unpack/bfloat16",
+                      "grouped_unpack/int8", "grouped_unpack/int32")}))
     del host
     torch.cuda.empty_cache()
     host_learn_phase()
@@ -4650,7 +4699,7 @@ def main() -> int:
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))
 
-    log("redesign K4 K2 K1 K13e K14b K11: " + json.dumps(redesign_line()))
+    log("redesign K4 K2 K1 K13e K14b K11 K14c K13d: " + json.dumps(redesign_line()))
     log(f"every phase passed in {time.perf_counter() - t_run:.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -61,7 +61,7 @@ KERNELS = {
     "gather_src": ("gather", "qt_gather_src", [_P, _LL, _I, _I, _P, _LL, _P, _P]),
     "gather_src_backward": ("aggregate", "qt_gather_src_backward",
                             [_P, _I, _P, _P, _I, _I, _LL, _P, _P, _LL, _I, _P]),
-    "block_out_degree": ("aggregate", "qt_block_out_degree", [_P, _P, _LL, _LL, _P, _P, _P]),
+    "block_out_degree": ("aggregate", "qt_block_out_degree", [_P, _P, _LL, _LL, _P, _P]),
     "tiered_gather": ("gather", "qt_tiered_gather",
                       [_P, _LL, _P, _LL, _I, _P, _LL, _LL, _P, _P, _LL, _P, _P, _P]),
     "full_mean": ("full_mean", "qt_full_mean",
@@ -117,6 +117,8 @@ HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_voi
            "qt_local_reindex_scratch": ("reindex", [_I, _I, ctypes.POINTER(_LL)]),
            "qt_masked_mean_backward_scratch": ("aggregate",
                                                [_LL, _I, _I, _I, ctypes.POINTER(_LL)]),
+           "qt_block_out_degree_plan": ("aggregate", [_LL, _LL, ctypes.POINTER(_LL),
+                                                      ctypes.POINTER(_I)]),
            "qt_cold_compact_scratch": ("collective", [_LL, ctypes.POINTER(_LL)]),
            "qt_neighbor_prob_scratch": ("prob", [_LL, _LL, ctypes.POINTER(_LL)]),
            "qt_full_mean_scratch": ("full_mean", [_LL, _LL, _I, ctypes.POINTER(_LL)]),
@@ -324,10 +326,24 @@ def full_mean_segment_edges() -> int:
     return out.value
 
 
+def block_out_degree_plan(n_lanes: int, w_src: int) -> tuple:
+    """``(blocks, table_slots)`` of one ``block_out_degree`` call at
+    ``n_lanes`` lanes and ``w_src`` sources on the current card: the
+    cooperative grid's blocks and each block's shared-memory table (0: the
+    lanes add to the output at once); the plan is ``csrc/aggregate.cu``'s."""
+    lib = _lib(HELPERS["qt_block_out_degree_plan"][0])
+    blocks, slots = ctypes.c_longlong(), ctypes.c_int()
+    rc = lib.qt_block_out_degree_plan(n_lanes, w_src, ctypes.byref(blocks), ctypes.byref(slots))
+    if rc != 0:
+        raise RuntimeError(f"block_out_degree's plan failed: error {rc} "
+                           f"({lib.qt_error_string(rc).decode()})")
+    return blocks.value, slots.value
+
+
 def cold_compact_scratch_len(w: int) -> int:
     """int32 elements of device scratch ``cold_compact`` takes at ``w``
-    lanes (one count a tile); the tile size is known to ``csrc/scan.cuh``
-    alone."""
+    lanes (one count a block, at most a block a tile); the tile size is
+    known to ``csrc/scan.cuh`` alone."""
     lib = _lib(HELPERS["qt_cold_compact_scratch"][0])
     out = ctypes.c_longlong()
     lib.qt_cold_compact_scratch(w, ctypes.byref(out))

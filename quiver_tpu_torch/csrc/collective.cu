@@ -12,6 +12,7 @@
 // width and the grouped draw is K13b (sample.cu). K13f replaces the owner
 // gather between the two all_to_alls of quiver_tpu/comm.py:183
 // _exchange_jit (whose :213 and :234 halves are collectives alone).
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "common.cuh"
@@ -145,77 +146,204 @@ QT_EXPORT int qt_grouped_unpack(const void* slabs, int G, long long n, int code,
 // collectives.py:150 takes the stable argsort of the cold flag (ids in
 // [lo, hi)) and keeps its first `budget` lanes: sel lists the cold lanes in
 // lane order, then the other lanes in lane order; cold_local[j] is
-// ids[sel[j]] - lo on the first n_cold lanes and -1 after them. Here: one
-// count, scan and fill over the W lanes (aggregate.cu's K14b shape). A
-// lane's place in that order is its count of cold lanes before it (cold
-// lanes) or n_cold plus its count of other lanes before it (the rest).
-// Writes sel, cold_local and counts = (n_cold, max(n_cold - budget, 0)).
+// ids[sel[j]] - lo on the first n_cold lanes and -1 after them. A lane's
+// place in that order is its count of cold lanes before it (a cold lane)
+// or n_cold plus its count of other lanes before it (the rest). Writes
+// sel, cold_local and counts = (n_cold, max(n_cold - budget, 0)).
 //
-// Bound on the card: bytes — W ids read, budget lanes of sel and cold_local
-// written. Design: a block of kScanTile lanes counts its cold lanes, one
-// block scans the tile counts, then each block scans its flags again and
-// writes the lanes that land inside the budget.
+// Bound on the card: bytes — W ids read, budget lanes of sel and
+// cold_local written (0.5-2.6 us at the hot/cold leg's widths), under the
+// cost of a launch. Where the budget passes n_cold, as it does on that leg,
+// the other lanes are written too, and their places need the global n_cold
+// before any can be placed: a single-pass decoupled look-back (CUB's
+// select) places only the cold ones, so the design takes a grid barrier.
+//
+// Design: one cooperative launch of the co-resident grid (blocks of
+// kScanTile threads, the grid sized by the occupancy API). Each block takes
+// a contiguous run of lanes, keeps its first kCompactSmemLanes ids in shared
+// memory as it reads them, counts its cold lanes (warp sums) and publishes
+// the count; one grid barrier; each block then reads every block's count
+// (a few hundred ints, from L2; warp sums) for its own prefix and n_cold,
+// and fills its lanes in lane order from shared memory, a thread a lane of
+// each 1,024-lane tile (coalesced writes) and one scan of warp ballots a
+// pass of up to eight tiles, so the ids cross HBM once. A run longer than kCompactSmemLanes
+// (W past one pass of the resident grid) reads the rest again from device
+// memory. Rank threads that share a card launch it on their own streams at
+// once: a cooperative launch starts only when all of its blocks can be
+// resident, each sizes its grid alone and none waits on another's blocks,
+// so overlapping calls queue and do not deadlock (held by a card test
+// that runs it from four threads, and by the hot/cold leg's rank threads).
+
+constexpr int kCompactSmemLanes = 8192;  // ids a block keeps in shared memory (32 KB)
+constexpr int kCompactUnroll = 8;        // loads a thread issues at once; tiles a fill pass, most
 
 __device__ __forceinline__ int qt_is_cold(int32_t id, long long lo, long long hi) {
   const long long v = id;
   return v >= lo && v < hi;
 }
 
-__global__ void cold_count_kernel(const int32_t* __restrict__ ids, long long W, long long lo,
-                                  long long hi, int32_t* __restrict__ tile_counts) {
-  const long long lane = blockIdx.x * static_cast<long long>(kScanTile) + threadIdx.x;
-  const int cold = lane < W ? qt_is_cold(ids[lane], lo, hi) : 0;
-  const int n = __syncthreads_count(cold);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = n;
-}
-
-__global__ void cold_fill_kernel(const int32_t* __restrict__ ids, long long W, long long lo,
-                                 long long hi, long long budget,
-                                 const int32_t* __restrict__ tile_offsets,
-                                 int32_t* __restrict__ counts, int32_t* __restrict__ sel,
-                                 int32_t* __restrict__ cold_local) {
-  const long long lane = blockIdx.x * static_cast<long long>(kScanTile) + threadIdx.x;
-  const int cold = lane < W ? qt_is_cold(ids[lane], lo, hi) : 0;
-  int32_t tile_total;
-  const long long before = tile_offsets[blockIdx.x] + qt_block_exclusive_scan(cold, &tile_total);
-  const long long n_cold = counts[0];
-  if (lane == 0) counts[1] = static_cast<int32_t>(n_cold > budget ? n_cold - budget : 0);
-  if (lane >= W) return;
-  const long long pos = cold ? before : n_cold + (lane - before);
-  if (pos < budget) {
-    sel[pos] = static_cast<int32_t>(lane);
-    cold_local[pos] = cold ? static_cast<int32_t>(ids[lane] - lo) : -1;
+__global__ void __launch_bounds__(kScanTile)
+    cold_compact_kernel(const int32_t* __restrict__ ids, long long W, long long lo,
+                        long long hi, long long budget, long long run,
+                        int32_t* __restrict__ block_counts, int32_t* __restrict__ counts,
+                        int32_t* __restrict__ sel, int32_t* __restrict__ cold_local) {
+  namespace cg = cooperative_groups;
+  __shared__ __align__(16) int32_t s_ids[kCompactSmemLanes];
+  __shared__ int32_t s_sum[3];  // this run's cold lanes; those of the runs before; all
+  cg::grid_group grid = cg::this_grid();
+  const long long begin = blockIdx.x * run < W ? blockIdx.x * run : W;
+  const long long end = begin + run < W ? begin + run : W;
+  // 1. read the run once, keep its head in shared memory, count its cold lanes
+  if (threadIdx.x < 3) s_sum[threadIdx.x] = 0;
+  __syncthreads();
+  int cold = 0;
+  for (long long q0 = begin + threadIdx.x; q0 < end; q0 += kCompactUnroll * kScanTile) {
+    int32_t id[kCompactUnroll];
+#pragma unroll
+    for (int u = 0; u < kCompactUnroll; ++u) {
+      const long long q = q0 + u * kScanTile;
+      id[u] = q < end ? ids[q] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kCompactUnroll; ++u) {
+      const long long q = q0 + u * kScanTile;
+      if (q >= end) break;
+      if (q - begin < kCompactSmemLanes) s_ids[q - begin] = id[u];
+      cold += qt_is_cold(id[u], lo, hi);
+    }
+  }
+  cold = __reduce_add_sync(0xFFFFFFFFu, cold);
+  if ((threadIdx.x & 31) == 0 && cold) atomicAdd(s_sum, cold);
+  __syncthreads();
+  if (threadIdx.x == 0) block_counts[blockIdx.x] = s_sum[0];
+  grid.sync();
+  // 2. the cold lanes of the runs before this one, and n_cold
+  int before = 0, all = 0;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += kScanTile) {
+    const int32_t v = block_counts[b];
+    all += v;
+    if (b < blockIdx.x) before += v;
+  }
+  before = __reduce_add_sync(0xFFFFFFFFu, before);
+  all = __reduce_add_sync(0xFFFFFFFFu, all);
+  if ((threadIdx.x & 31) == 0) {
+    if (before) atomicAdd(s_sum + 1, before);
+    if (all) atomicAdd(s_sum + 2, all);
+  }
+  __syncthreads();
+  int32_t carry = s_sum[1];
+  const long long n_cold = s_sum[2];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    counts[0] = static_cast<int32_t>(n_cold);
+    counts[1] = static_cast<int32_t>(n_cold > budget ? n_cold - budget : 0);
+  }
+  // 3. fill in lane order, a pass of `tiles` tiles of kScanTile lanes at a
+  //    time (the run's, up to kCompactUnroll), a thread a lane of each tile
+  //    (coalesced writes): a lane's place among the pass's cold lanes from
+  //    its warp's ballot and the exclusive scan of the (tile, warp) counts,
+  //    which warp 0 takes
+  __shared__ int32_t s_warp[kCompactUnroll * 32 + 1];  // then the pass's total
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long run_tiles = (end - begin + kScanTile - 1) / kScanTile;
+  const int tiles = run_tiles < kCompactUnroll ? static_cast<int>(run_tiles) : kCompactUnroll;
+  for (long long t = begin; t < end; t += tiles * kScanTile) {  // block-uniform
+    int32_t id[kCompactUnroll];
+    unsigned bits[kCompactUnroll];
+#pragma unroll
+    for (int u = 0; u < kCompactUnroll; ++u) {
+      if (u >= tiles) break;
+      const long long q = t + u * kScanTile + threadIdx.x;
+      id[u] = 0;
+      if (q < end) id[u] = q - begin < kCompactSmemLanes ? s_ids[q - begin] : ids[q];
+      bits[u] = __ballot_sync(0xFFFFFFFFu, q < end && qt_is_cold(id[u], lo, hi));
+      if (lane == 0) s_warp[u * 32 + warp] = __popc(bits[u]);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int32_t v[kCompactUnroll], mine = 0;
+#pragma unroll
+      for (int u = 0; u < kCompactUnroll; ++u) {
+        if (u >= tiles) break;
+        mine += v[u] = s_warp[lane * tiles + u];
+      }
+      int32_t x = mine;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+        if (lane >= d) x += y;
+      }
+      int32_t at = x - mine;
+#pragma unroll
+      for (int u = 0; u < kCompactUnroll; ++u) {
+        if (u >= tiles) break;
+        s_warp[lane * tiles + u] = at;
+        at += v[u];
+      }
+      if (lane == 31) s_warp[kCompactUnroll * 32] = x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kCompactUnroll; ++u) {
+      const long long q = t + u * kScanTile + threadIdx.x;
+      if (u >= tiles || q >= end) break;
+      const bool c = (bits[u] >> lane) & 1u;
+      const long long cold_before =
+          carry + s_warp[u * 32 + warp] + __popc(bits[u] & ((1u << lane) - 1u));
+      const long long pos = c ? cold_before : n_cold + (q - cold_before);
+      if (pos < budget) {
+        sel[pos] = static_cast<int32_t>(q);
+        cold_local[pos] = c ? static_cast<int32_t>(id[u] - lo) : -1;
+      }
+    }
+    carry += s_warp[kCompactUnroll * 32];
+    __syncthreads();  // s_warp is the next pass's
   }
 }
 
-// int32 elements of scratch qt_cold_compact takes at W lanes: one count a tile
+// int32 elements of scratch qt_cold_compact takes at W lanes: one count a
+// block, at most one block a tile
 QT_EXPORT int qt_cold_compact_scratch(long long W, long long* n_ints) {
   *n_ints = W > 0 ? (W + kScanTile - 1) / kScanTile : 0;
   return 0;
 }
 
 // ids: [W] int32; sel, cold_local: [budget] int32; counts: [2] int32;
-// scratch: qt_cold_compact_scratch(W) int32
+// scratch: qt_cold_compact_scratch(W) int32; one kernel launch
 QT_EXPORT int qt_cold_compact(const void* ids, long long W, long long lo, long long hi,
                               long long budget, void* sel, void* cold_local, void* counts,
                               void* scratch, void* stream) {
   if (W <= 0) return 0;
-  if (budget < 0 || budget > W) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (budget < 0 || budget > W || W > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  static int blocks_per_sm[64] = {};  // per device, from the occupancy API
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (blocks_per_sm[dev] == 0) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cold_compact_kernel, kScanTile,
+                                                        0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    blocks_per_sm[dev] = per_sm;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_tiles = (W + kScanTile - 1) / kScanTile;
+  const long long most = static_cast<long long>(blocks_per_sm[dev]) * sms;
+  const long long blocks = n_tiles < most ? n_tiles : most;
+  long long run = (W + blocks - 1) / blocks;
   const auto* id = static_cast<const int32_t*>(ids);
   auto* tiles = static_cast<int32_t*>(scratch);
   auto* cnt = static_cast<int32_t*>(counts);
+  auto* s = static_cast<int32_t*>(sel);
+  auto* cl = static_cast<int32_t*>(cold_local);
+  void* params[] = {&id, &W, &lo, &hi, &budget, &run, &tiles, &cnt, &s, &cl};
   qt_count_launch();
-  cold_count_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, s>>>(id, W, lo, hi, tiles);
-  if (int e = qt_launch_status()) return e;
-  qt_count_launch();
-  qt_tile_offsets_kernel<<<1, kScanTile, 0, s>>>(tiles, n_tiles, cnt);
-  if (int e = qt_launch_status()) return e;
-  qt_count_launch();
-  cold_fill_kernel<<<static_cast<unsigned>(n_tiles), kScanTile, 0, s>>>(
-      id, W, lo, hi, budget, tiles, cnt, static_cast<int32_t*>(sel),
-      static_cast<int32_t*>(cold_local));
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cold_compact_kernel),
+                                    dim3(static_cast<unsigned>(blocks)), dim3(kScanTile), params,
+                                    0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return qt_launch_status();
 }
 

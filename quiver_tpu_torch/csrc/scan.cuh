@@ -1,5 +1,6 @@
 // The block-wide exclusive scan of the count-scan-fill kernels
-// (aggregate.cu's K4b/K14b segments, collective.cu's K13d compaction).
+// (aggregate.cu's K4b/K14b segments, full_mean.cu's K10 segments); K13d's
+// compaction (collective.cu) takes its tile of kScanTile lanes.
 #pragma once
 
 #include <cstdint>

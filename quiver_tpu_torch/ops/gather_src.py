@@ -173,7 +173,10 @@ def block_out_degree_plain(mask: torch.Tensor, cols: torch.Tensor, w_src: int) -
 
 def block_out_degree(mask: torch.Tensor, cols: torch.Tensor, w_src: int) -> torch.Tensor:
     """`block_out_degree_plain`'s function; on CUDA tensors one counted
-    launch of K14c (integer atomics, then one conversion: exact)."""
+    launch of K14c, one cooperative kernel: the output zeroed, one grid
+    barrier, then float atomics, merged by source in each block's table in
+    shared memory where a block has many lanes (exact: every partial is an
+    integer, and past 2^24 lanes the kernel counts in integers)."""
     if not mask.is_cuda:
         return block_out_degree_plain(mask, cols, w_src)
     _check_lanes(mask, cols, "block_out_degree")
@@ -181,7 +184,6 @@ def block_out_degree(mask: torch.Tensor, cols: torch.Tensor, w_src: int) -> torc
     out = torch.empty(w_src, dtype=torch.float32, device=mask.device)
     if w_src == 0:
         return out
-    deg = torch.empty(w_src, dtype=torch.int32, device=mask.device)
     _kernels.launch("block_out_degree", mask.data_ptr(), cols.data_ptr(), mask.numel(), w_src,
-                    deg.data_ptr(), out.data_ptr(), _kernels.stream_of(mask))
+                    out.data_ptr(), _kernels.stream_of(mask))
     return out

@@ -333,8 +333,9 @@ def cold_compact_plain(ids: torch.Tensor, lo: int, hi: int, budget: int):
 
 def cold_compact(ids: torch.Tensor, lo: int, hi: int, budget: int):
     """K13d's compaction of a gather's cold ids into ``budget`` lanes (see
-    `cold_compact_plain`): kernel ``cold_compact`` (one count, scan and fill
-    over the lanes) on CUDA tensors, the plain version on CPU tensors."""
+    `cold_compact_plain`): kernel ``cold_compact`` (one cooperative launch:
+    count, one grid barrier, fill) on CUDA tensors, the plain version on CPU
+    tensors."""
     if ids.dim() != 1:
         raise ValueError(f"ids [W] expected; got {tuple(ids.shape)}")
     _check_ids(ids)
@@ -348,13 +349,14 @@ def cold_compact(ids: torch.Tensor, lo: int, hi: int, budget: int):
     W = ids.shape[0]
     sel = torch.empty(budget, dtype=torch.int32, device=ids.device)
     cold_local = torch.empty_like(sel)
-    counts = torch.zeros(2, dtype=torch.int32, device=ids.device)
-    if W:
-        scratch = torch.empty(_kernels.cold_compact_scratch_len(W), dtype=torch.int32,
-                              device=ids.device)
-        _kernels.launch("cold_compact", ids.data_ptr(), W, int(lo), int(hi), budget,
-                        sel.data_ptr(), cold_local.data_ptr(), counts.data_ptr(),
-                        scratch.data_ptr(), _kernels.stream_of(ids))
+    if not W:
+        return sel, cold_local, torch.zeros(2, dtype=torch.int32, device=ids.device)
+    counts = torch.empty(2, dtype=torch.int32, device=ids.device)  # the kernel writes both
+    scratch = torch.empty(_kernels.cold_compact_scratch_len(W), dtype=torch.int32,
+                          device=ids.device)
+    _kernels.launch("cold_compact", ids.data_ptr(), W, int(lo), int(hi), budget, sel.data_ptr(),
+                    cold_local.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+                    _kernels.stream_of(ids))
     return sel, cold_local, counts
 
 

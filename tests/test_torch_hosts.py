@@ -354,6 +354,36 @@ def test_cold_compaction_and_merge_plain_versions():
     assert collectives.cold_budget_lanes(100, 0.3) == 100
 
 
+@pytest.mark.parametrize("W", [1, 1023, 1024, 1025])
+@pytest.mark.parametrize("cold", ["none", "all", "some"])
+def test_cold_compaction_plain_at_edge_cases(W, cold):
+    """K13d's plain compaction (the card kernel's reference) against
+    collectives.py:210-215's stable argsort at the card tests' edge cases:
+    n_cold = 0, n_cold = W and a third cold, budgets 0, n_cold and W (and
+    either side of n_cold), W = 1 and one 1,024-lane tile and either side."""
+    rng = np.random.default_rng(W + len(cold))
+    lo, hi = 400, 1000
+    share = {"none": 0.0, "all": 1.0, "some": 1 / 3}[cold]
+    ids = np.where(rng.random(W) < share, rng.integers(lo, hi, W),
+                   rng.integers(-3, lo, W)).astype(np.int32)
+    if cold == "some":
+        ids[rng.random(W) < 0.05] = 2**31 - 1  # a padding sentinel: neither hot nor cold
+    jids = jnp.asarray(ids)
+    is_cold = (jids >= lo) & (jids < hi)
+    n_cold = int(is_cold.sum().astype(jnp.int32))
+    assert n_cold == {"none": 0, "all": W}.get(cold, n_cold)
+    order = jnp.argsort(jnp.where(is_cold, 0, 1), stable=True)
+    for budget in sorted({0, max(n_cold - 1, 0), n_cold, min(n_cold + 1, W), W}):
+        sel = order[:budget]
+        lane_ok = jnp.arange(budget, dtype=jnp.int32) < n_cold
+        cold_local = jnp.where(lane_ok, jnp.take(jids, sel) - lo, -1)
+        got = collectives.cold_compact(torch.from_numpy(ids), lo, hi, budget)
+        assert all(t.dtype == torch.int32 for t in got)
+        assert np.array_equal(got[0].numpy(), np.asarray(sel))
+        assert np.array_equal(got[1].numpy(), np.asarray(cold_local))
+        assert got[2].tolist() == [n_cold, max(n_cold - budget, 0)]
+
+
 def test_grouped_unpack_plain_sums_in_group_order():
     """K13c's plain unpack: floats summed in float32 (bf16 rounded once), a
     -0.0 owner plus +0.0 is +0.0, int8 and int32 exact (the grouped draw's

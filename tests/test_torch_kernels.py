@@ -104,7 +104,10 @@ rows of 64 and 65 lanes, more column chunks than warps, cols outside the
 source, 65,536 lanes on one source, a hub across two bitmap windows, a
 products-sized source at F = 1, F = 1,024 and 256-wide rows whose pointer
 is not 16-byte aligned, and in bfloat16 equal to the float32 sum rounded
-once."""
+once. The redesigned K14c (one cooperative kernel a call, a table in
+shared memory for a block of many lanes) and K13d's compaction (one
+cooperative kernel a call) at each of their switch points, bit-equal to
+their plain versions, and both launched from four threads at once."""
 
 import numpy as np
 import pytest
@@ -1439,19 +1442,84 @@ def test_gather_src_backward_kernel_at_its_design_boundaries(cuda_device, name, 
 @pytest.mark.cuda
 def test_block_out_degree_kernel_matches_plain(cuda_device):
     """K14c on the three hops of a batch-1024 step, with negative cols
-    (counted from the end) and cols outside [-W_src, W_src) (dropped)."""
+    (counted from the end) and cols outside [-W_src, W_src) (dropped): one
+    kernel a call on the host's launch count, a table in shared memory on
+    the outer hop only."""
     rng = np.random.default_rng(14)
-    for W, k, w_src in ((1024, 15, 16384), (16384, 10, 180224), (180224, 5, 1081344)):
+    for (W, k, w_src), table in zip(((1024, 15, 16384), (16384, 10, 180224),
+                                     (180224, 5, 1081344)), (False, False, True)):
         mask, cols = _padded_hop(rng, W, k, w_src)
         cols[1] = torch.tensor([-1, -w_src, -w_src - 1, w_src, 0] * 3, dtype=torch.int32)[:k]
         mask[1] = True
         m, c = mask.to(cuda_device), cols.to(cuda_device)
+        assert (_kernels.block_out_degree_plan(W * k, w_src)[1] > 0) == table
+        _kernels.reset_kernel_launches()
         got = block_out_degree(m, c, w_src)
+        assert _kernels.kernel_launches() == 1
         torch.cuda.synchronize()
         assert got.dtype == torch.float32
         assert _same(got, block_out_degree_plain(m, c, w_src))
         assert _same(got, block_out_degree_plain(mask, cols, w_src))
         assert int(got.sum()) == int(mask.sum()) - 2 * (k // 5)  # -W_src - 1 and W_src drop
+
+
+# K14c's switch points (csrc/aggregate.cu): one cooperative grid of at most
+# `blocks` (the co-resident count, from the plan of a large call); a block
+# of at least 4,096 lanes merges them in a table of at most 16,384 slots;
+# float atomics count up to 2^24 lanes. A case: blocks -> (W, k, W_src,
+# whether a block takes a table); "aligned" cases start 3 lanes into their
+# tensors, so the cols are not 16-byte aligned (one lane a load)
+K14C_HASH_MIN_LANES = 4096
+K14C_CASES = {
+    "no lanes": lambda b: (0, 15, 1000, False),
+    "every lane masked out": lambda b: (1024, 15, 16384, False),
+    "one source": lambda b: (1024, 15, 1, False),
+    "lanes not a multiple of 4": lambda b: (1023, 3, 5000, False),
+    "cols not 16-byte aligned": lambda b: (1023, 3, 5000, False),
+    "a lane short of a table": lambda b: ((K14C_HASH_MIN_LANES - 1) * b, 1, 5000, False),
+    "a table's fewest lanes": lambda b: (K14C_HASH_MIN_LANES * b // 8, 8, 5000, True),
+    "more sources than lanes": lambda b: (20_000, 5, 180_224, False),
+    "every lane on one source": lambda b: (300_000, 5, 1, True),
+    "crowded tables": lambda b: (600_000, 5, 4_000_000, True),
+    "integer counts past 2^24 lanes": lambda b: ((1 << 20) + 1, 16, 1_081_344, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K14C_CASES))
+def test_block_out_degree_kernel_at_its_design_boundaries(cuda_device, name):
+    """K14c on both sides of its table switch and at its edges: bit-equal
+    to its plain version on the card and on the CPU and when run twice, one
+    kernel a call, a table where the plan says; cols in [-W_src - 2,
+    W_src + 2) (negative ones count from the end, the others past the
+    source drop), a twentieth of the lanes on one hub; no lanes, every lane
+    masked out, one source, a tail of lanes past the last 4-lane load,
+    unaligned cols (one lane a load), more sources a block than its table
+    holds and integer counts past 2^24 lanes."""
+    blocks = _kernels.block_out_degree_plan(10**7, 10**7)[0]
+    W, k, w_src, table = K14C_CASES[name](blocks)
+    skew = 3 if "aligned" in name else 0
+    n = W * k + skew
+    rng = np.random.default_rng(sum(map(ord, name)))
+    mask = torch.from_numpy(rng.random(n) < (0.0 if "masked" in name else 0.8))
+    c = rng.integers(-w_src - 2, w_src + 2, n)
+    c[rng.random(n) < 0.05] = w_src // 2
+    cols = torch.from_numpy(c.astype(np.int32))
+    m, cc = mask.to(cuda_device)[skew:].view(W, k), cols.to(cuda_device)[skew:].view(W, k)
+    mask, cols = mask[skew:].view(W, k), cols[skew:].view(W, k)
+    assert (cc.data_ptr() % 16 != 0) == bool(skew)
+    assert (_kernels.block_out_degree_plan(W * k, w_src)[1] > 0) == table
+    _kernels.reset_kernel_launches()
+    got = block_out_degree(m, cc, w_src)
+    assert _kernels.kernel_launches() == 1
+    again = block_out_degree(m, cc, w_src)
+    torch.cuda.synchronize()
+    want = block_out_degree_plain(mask, cols, w_src)
+    assert got.dtype == torch.float32 and got.shape == (w_src,)
+    assert _same(got, want) and _same(got, again)
+    assert _same(got, block_out_degree_plain(m, cc, w_src))
+    if W == 0 or "masked" in name:
+        assert not got.any()
 
 
 @pytest.mark.cuda
@@ -1747,10 +1815,10 @@ def test_grouped_unpack_kernel_matches_plain(cuda_device, dtype, D):
 @pytest.mark.parametrize("W", [5000, 1_081_344 + 77])
 def test_cold_compact_kernel_matches_plain(cuda_device, W):
     """K13d's compaction with n_cold below, at and above the budget, W not a
-    multiple of the 1,024-lane tile (and past 1,024 tiles: the scan's
-    loop), ids out of range: sel, cold_local and (n_cold, overflow)
-    bit-equal to its plain version (the stable argsort) on the card and on
-    the CPU."""
+    multiple of the 1,024-lane tile (and past 1,024 tiles), ids out of
+    range: sel, cold_local and (n_cold, overflow) bit-equal to its plain
+    version (the stable argsort) on the card and on the CPU, one kernel a
+    call on the host's launch count."""
     from quiver_tpu_torch.parallel.collectives import cold_compact, cold_compact_plain
 
     rng = np.random.default_rng(W % 97)
@@ -1760,7 +1828,9 @@ def test_cold_compact_kernel_matches_plain(cuda_device, W):
     n_cold = int(((ids >= lo) & (ids < hi)).sum())
     for budget in (n_cold - 1000, n_cold, n_cold + 777, W, 0):
         _kernels.reset_counts()
+        _kernels.reset_kernel_launches()
         got = cold_compact(ids.to(cuda_device), lo, hi, budget)
+        assert _kernels.kernel_launches() == 1
         want = cold_compact_plain(ids.to(cuda_device), lo, hi, budget)
         cpu = cold_compact_plain(ids, lo, hi, budget)
         torch.cuda.synchronize()
@@ -1768,6 +1838,92 @@ def test_cold_compact_kernel_matches_plain(cuda_device, W):
         for x, y, z in zip(got, want, cpu):
             assert x.dtype == torch.int32 and _same(x, y) and _same(x, z)
         assert got[2].tolist() == [n_cold, max(n_cold - budget, 0)]
+
+
+# the compaction's widths: one lane, a tile (1,024 lanes) and one either side,
+# and past the lanes the resident grid keeps in shared memory (at most 2
+# blocks of 1,024 threads an SM, 8,192 ids a block)
+COMPACT_WIDTHS = (1, 1023, 1024, 1025, 2_500_077)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", COMPACT_WIDTHS)
+@pytest.mark.parametrize("cold", ["none", "all", "some"])
+def test_cold_compact_kernel_at_its_design_boundaries(cuda_device, W, cold):
+    """K13d's compaction with no cold lane, every lane cold and a third
+    cold, at budgets 0, n_cold and W (and either side of n_cold): bit-equal
+    to its plain version on the card and on the CPU, one kernel a call;
+    the widest W reads past one pass of the resident grid's shared memory."""
+    from quiver_tpu_torch.parallel.collectives import cold_compact, cold_compact_plain
+
+    if W == COMPACT_WIDTHS[-1]:
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        assert W > sms * 2 * 8192
+    rng = np.random.default_rng(W + len(cold))
+    lo, hi = 1000, 2000
+    share = {"none": 0.0, "all": 1.0, "some": 1 / 3}[cold]
+    ids = np.where(rng.random(W) < share, rng.integers(lo, hi, W), rng.integers(0, lo, W))
+    if cold != "all":
+        ids[rng.random(W) < 0.01] = np.iinfo(np.int32).max  # neither hot nor cold
+    ids = torch.from_numpy(ids.astype(np.int32))
+    n_cold = int(((ids >= lo) & (ids < hi)).sum())
+    assert n_cold == {"none": 0, "all": W}.get(cold, n_cold)
+    d = ids.to(cuda_device)
+    for budget in sorted({0, max(n_cold - 1, 0), n_cold, min(n_cold + 1, W), W}):
+        _kernels.reset_kernel_launches()
+        got = cold_compact(d, lo, hi, budget)
+        assert _kernels.kernel_launches() == 1
+        cpu = cold_compact_plain(ids, lo, hi, budget)
+        torch.cuda.synchronize()
+        for x, z in zip(got, cpu):
+            assert x.dtype == torch.int32 and _same(x, z)
+
+
+@pytest.mark.cuda
+def test_cooperative_kernels_from_four_threads_at_once(cuda_device):
+    """Four threads, each on its own stream, launch K13d's compaction and
+    K14c's grid path (both cooperative launches of the co-resident grid)
+    twenty times each at once, as the host legs' rank threads do on one
+    card: no launch fails, none hangs, every result is the plain version's."""
+    import threading
+
+    from quiver_tpu_torch.parallel.collectives import cold_compact, cold_compact_plain
+
+    rng = np.random.default_rng(44)
+    W, lo, hi, budget = 901_120, 1000, 2000, 619_008
+    ids = torch.from_numpy(np.where(rng.random(W) < 0.36, rng.integers(lo, hi, W),
+                                    rng.integers(0, lo, W)).astype(np.int32))
+    mask, cols = _padded_hop(rng, 180_224, 5, 1_081_344)
+    want = cold_compact_plain(ids, lo, hi, budget)
+    want_deg = block_out_degree_plain(mask, cols, 1_081_344)
+    d, m, c = ids.to(cuda_device), mask.to(cuda_device), cols.to(cuda_device)
+    torch.cuda.synchronize()  # the inputs are on the card before the threads' streams read them
+    start = threading.Barrier(4)
+    results, errors = [None] * 4, []
+
+    def worker(i):
+        try:
+            stream = torch.cuda.Stream(cuda_device)
+            start.wait()
+            outs = []
+            with torch.cuda.stream(stream):
+                for _ in range(20):
+                    outs.append((cold_compact(d, lo, hi, budget),
+                                 block_out_degree(m, c, 1_081_344)))
+            stream.synchronize()
+            results[i] = outs
+        except Exception as exc:  # reported below with the thread's index
+            errors.append((i, exc))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for outs in results:
+        for compact, deg in outs:
+            assert all(_same(x, y) for x, y in zip(compact, want)) and _same(deg, want_deg)
 
 
 @pytest.mark.cuda

@@ -217,6 +217,37 @@ def test_block_out_degree_bit_equal_to_gcn_count():
     assert want[39] >= 1 and want[0] >= 1  # -1 and -40 counted, -41 and 40 dropped
 
 
+# the edge cases of K14c's card paths (csrc/aggregate.cu): (W, k, W_src, masked share)
+K14C_EDGE_CASES = {
+    "no lanes": (0, 5, 40, 0.4),
+    "every lane masked out": (12, 5, 40, 1.0),
+    "one source": (12, 5, 1, 0.4),
+    "negative and dropped cols": (64, 10, 30, 0.0),
+    "one hub": (200, 15, 500, 0.2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K14C_EDGE_CASES))
+def test_block_out_degree_plain_at_edge_cases(name):
+    """K14c's plain version (the card kernel's reference) against
+    gcn.py:69-71's scatter count at the card tests' edge cases: no lanes,
+    every lane masked out, W_src = 1, cols in [-W_src - 3, W_src + 3)
+    (negative ones count from the end, the rest past the source drop) and
+    a hub named by half the lanes."""
+    W, k, w_src, masked = K14C_EDGE_CASES[name]
+    rng = np.random.default_rng(len(name))
+    mask = rng.random((W, k)) >= masked
+    cols = rng.integers(-w_src - 3, w_src + 3, (W, k)).astype(np.int32)
+    if name == "one hub":
+        cols[rng.random((W, k)) < 0.5] = 17
+    want = np.asarray(jnp.zeros(w_src, jnp.float32).at[jnp.asarray(cols).reshape(-1)].add(
+        jnp.asarray(mask).reshape(-1).astype(jnp.float32), mode="drop"))
+    got = block_out_degree_plain(torch.from_numpy(mask), torch.from_numpy(cols), w_src)
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+    if name in ("no lanes", "every lane masked out"):
+        assert not want.any()
+
+
 # -- GCN and GAT against the JAX models ----------------------------------------------
 
 def _init_pair(name, jds, jx):
