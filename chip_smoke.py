@@ -36,9 +36,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
              after). Then 8 dispatches replayed through batch_logits with a
              fresh sampler must equal the served rows bit for bit, and 2
              dispatches replayed with the plain torch versions on the CPU
-             must agree within 1e-3;
+             must agree within 1e-3. Then the ``late:`` lines: the same
+             load at max_in_flight 1 and 2 with late admission on (the
+             default; the run above is (2, on)) and off, each a line of
+             late admissions and their share of the dispatched seeds,
+             flushes, mean and largest flush width, padded lanes, QPS and
+             p50/p99, and each run's served rows equal bit for bit to a
+             fresh late-off engine fed its dispatch log's final batches,
+             one flush each; the same four runs again with 32 ids a client
+             call (``serve burst``: submitters fill max_batch and flush
+             inline beside the pollers, so flushes wait for permits);
 6. flat    — a shorter serve run on the flat layout (the flat sampling
-             kernel's path), counts read the same way;
+             kernel's path), counts read the same way; its ``late:`` lines
+             and late-off replays as in 5;
 7. kernels-2 — the training slice's kernels at the shapes a batch-1024
              step gives them, against their plain versions: the
              neighbor-mean backward (K4b) on layers 1 and 2 in the cols
@@ -263,7 +273,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              path within 1e-3; a temporal engine at recency 0 queried at
              t = +inf bit-equal to a plain ServeEngine over a weighted
              sampler with unit weights; 256 lp_trace pairs through
-             predict_pairs with finite scores. Lines start ``temporal``;
+             predict_pairs with finite scores. Lines start ``temporal``,
+             but for the ``late:`` lines and late-off replays, as in 5;
 21. mc setup — the multi-device slice's state: 4 rank threads (dp 2 x ici
              2) on the card over gloo (local_meshes), the table's two ici
              stripes (one tensor a stripe, shared by the dp pair that reads
@@ -383,7 +394,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              owner's first 8 dispatches replayed through replay_shard_oracle
              with a fresh full-graph sampler on the card, bit-equal to the
              served rows, and the first 2 on the CPU plain path, within
-             1e-3. Lines start ``fleet``;
+             1e-3. Each leg's router ``late:`` line (flush widths are routed
+             seeds, padded lanes the owners'), and each owner's whole
+             dispatch log fed to a late-off ServeEngine over the full graph,
+             bit-equal to the served rows; leg (a) again at max_in_flight 1
+             and 2 with late admission on and off (legs ``a/mif1/late-on``
+             and so on). Lines start ``fleet``, but for ``late:``;
 30. kernels-10 — K13f alone: owner 0's [1,224,515, 100] block and the
              [2, 131072] id slab it receives (requester 1 asks the owner-0
              rows of one B = 64 flush of its own seeds, then 64 ids past
@@ -1040,22 +1056,23 @@ def kernel_phase(topo, table, model, seeds):
     return rows
 
 
-def serve_phase(engine, trace, clients, t=None):
-    """Requests from ``clients`` threads, 8 ids a call (with their query
-    times ``t`` on a temporal engine); returns (key -> first served row,
-    wall seconds), the key a node or a (node, float32 t bucket) pair."""
+def serve_phase(engine, trace, clients, t=None, per_call=8):
+    """Requests from ``clients`` threads, ``per_call`` ids a call (with
+    their query times ``t`` on a temporal engine); returns (key -> first
+    served row, wall seconds), the key a node or a (node, float32 t bucket)
+    pair."""
     served = {}
     lock = threading.Lock()
     errors = []
 
     def client(chunk, tchunk):
         try:
-            for j in range(0, len(chunk), 8):
-                ids = chunk[j:j + 8]
+            for j in range(0, len(chunk), per_call):
+                ids = chunk[j:j + per_call]
                 if tchunk is None:
                     out, keys = engine.predict(ids, timeout=120), ids.tolist()
                 else:
-                    tq = tchunk[j:j + 8]
+                    tq = tchunk[j:j + per_call]
                     out = engine.predict(ids, t=tq, timeout=120)
                     keys = [(int(a), float(np.float32(quantize_t(b, engine.t_quantum))))
                             for a, b in zip(ids, tq)]
@@ -1098,6 +1115,100 @@ def replay_check(topo, model, params, table, engine, served, device, n_dispatch,
                 worst = max(worst, float(np.abs(row - out[i]).max()))
     check(worst <= atol, f"replay on {device} differs from the served rows by {worst}")
     return worst
+
+
+LATE_RUNS = ((1, True), (1, False), (2, True), (2, False))  # (max_in_flight, late)
+BURST_PER_CALL = 32  # ids a client call in the serve phase's burst runs
+
+
+def late_line(phase, engine, wall, replayed, router=False) -> dict:
+    """A ``late:`` line of one serving run: late admissions and their share
+    of the dispatched seeds, flushes, mean and largest flush width (the
+    dispatch log's valid lanes; the router's routed seeds), padded lanes
+    (the owners' on the router), QPS, p50/p99 and the keys whose rows the
+    late-off replay matched bit for bit."""
+    cfg, st = engine.config, engine.stats
+    if router:
+        widths = [len(seeds) for seeds, _ in engine.dispatch_log]
+        dispatches = st.router_dispatches
+        padded = sum(e.stats.padded_seeds for e in engine.engines.values())
+    else:
+        widths = [entry[1] for entry in engine.dispatch_log]
+        dispatches, padded = st.dispatches, st.padded_seeds
+    check(len(widths) == dispatches, f"{phase}: dispatch log and dispatches disagree")
+    line = {"phase": phase, "max_in_flight": cfg.max_in_flight,
+            "late_admission": cfg.late_admission, "requests": st.requests,
+            "late_admitted": st.late_admitted,
+            "late_share": st.late_admitted / max(sum(widths), 1), "dispatches": dispatches,
+            "mean_flush_width": sum(widths) / max(len(widths), 1),
+            "max_flush_width": max(widths, default=0), "padded_seeds": padded,
+            "qps": st.requests / wall, "p50_ms": st.latency.percentile(50),
+            "p99_ms": st.latency.percentile(99), "wall_s": wall,
+            "replayed_bit_equal": replayed}
+    log("late: " + json.dumps(line))
+    return line
+
+
+def late_off_replay(phase, ref, entries, served, key_of, submit) -> set:
+    """Feed ``ref`` (a fresh engine of the same seed with late admission
+    off) each final batch of the dispatch log ``entries`` as one flush; every
+    row must equal the served row of its key bit for bit, and ``ref`` must
+    write the same log. Returns the keys replayed."""
+    seen = set()
+    for entry in entries:
+        keys = key_of(entry)
+        handles = submit(ref, entry)
+        ref.flush()
+        for key, h in zip(keys, handles):
+            row = h.result(timeout=120)
+            got = served.get(key)
+            check(got is not None and np.array_equal(got, row),
+                  f"{phase}: the served row of {key} differs from the late-off replay")
+            seen.add(key)
+    check(ref.stats.late_admitted == 0 and len(ref.dispatch_log) == len(entries)
+          and all(np.array_equal(a[0], b[0]) and a[1] == b[1]
+                  for a, b in zip(ref.dispatch_log, entries)),
+          f"{phase}: the late-off replay wrote another dispatch log")
+    return seen
+
+
+def node_batch(entry):
+    return [int(x) for x in entry[0][:entry[1]]]
+
+
+def submit_node_batch(engine, entry):
+    return list(engine.submit_many(entry[0][:entry[1]]))
+
+
+def late_serve_runs(phase, make_engine, trace, clients, main=None, t=None, temporal=False,
+                    per_call=8):
+    """The ``late:`` lines of a serving phase under its client load, at
+    max_in_flight 1 and 2 with late admission on (the default) and off (the
+    batching before it), each run's rows held against a late-off replay of
+    its own dispatch log (`late_off_replay`). ``make_engine(mif, late)``
+    builds a recording engine; ``main`` is the phase's own run at (2, on) as
+    (engine, served, wall). Returns the lines."""
+    lines = []
+    for mif, late in LATE_RUNS:
+        if main is not None and (mif, late) == (2, True):
+            engine, served, wall = main
+        else:
+            engine = make_engine(mif, late)
+            engine.warmup()
+            engine.reset_stats()
+            served, wall = serve_phase(engine, trace, clients, t=t, per_call=per_call)
+        if temporal:
+            seen = late_off_replay(
+                phase, make_engine(1, False), engine.dispatch_log, served,
+                lambda e: [(int(n), float(tq)) for n, tq in zip(e[0][:e[1]], e[2][:e[1]])],
+                lambda r, e: list(r.submit_many(e[0][:e[1]], t=e[2][:e[1]])))
+        else:
+            seen = late_off_replay(phase, make_engine(1, False), engine.dispatch_log, served,
+                                   node_batch, submit_node_batch)
+        check(seen == set(served), f"{phase}: a served key is missing from the dispatch log")
+        lines.append(late_line(phase, engine, wall, len(seen)))
+        del engine
+    return lines
 
 
 # -- the training slice ----------------------------------------------------------
@@ -2930,9 +3041,13 @@ def temporal_serve_phase(topo, tg, model, params, table, trace, seed):
         s = GraphSageSampler(topo, SIZES, device=dev, seed=seed, dedup=False, max_deg=MAX_DEG)
         return s.bind_temporal(tg, recency=recency)
 
-    engine = TemporalServeEngine(model, params, sampler(), table,
-                                 ServeConfig(max_batch=BATCH, record_dispatches=True),
-                                 t_quantum=T_QUANTUM)
+    def temporal_engine(mif=2, late=True):
+        return TemporalServeEngine(model, params, sampler(), table,
+                                   ServeConfig(max_batch=BATCH, max_in_flight=mif,
+                                               late_admission=late, record_dispatches=True),
+                                   t_quantum=T_QUANTUM)
+
+    engine = temporal_engine()
     _kernels.reset_counts()
     wt = tg.recency_wtiles(RECENCY)  # the frozen graph's weights: K8w
     k8w_launches = _kernels.counts()["recency_weights"]
@@ -2990,6 +3105,8 @@ def temporal_serve_phase(topo, tg, model, params, table, trace, seed):
     log(f"temporal replay: 8 dispatches on the card max |diff| {dev_worst} (bit-equal); "
         f"2 on the CPU plain path max |diff| {cpu_worst:.3g}")
     del cpu_tg, cpu_s, cpu_topo
+    late_serve_runs("temporal serve", temporal_engine, trace.requests, 4,
+                    main=(engine, served, wall), t=trace.t_query, temporal=True)
 
     # the serving-grain pin: recency 0, t = +inf against a plain engine over unit weights
     unit = CSRTopo(indptr=topo.indptr, indices=topo.indices,
@@ -4301,16 +4418,17 @@ def count_owner_launches(dist, names):
     return per_owner
 
 
-def fleet_leg(leg, topo, table, model, params, trace, residency, seed):
+def fleet_leg(leg, topo, table, model, params, trace, residency, seed, mif=2, late=True):
     """One fleet leg: DistServeEngine.build over the products graph and
-    table (its owners' tile tables built by K12 on the card), warmup, then
+    table (its owners' tile tables built by K12 on the card) at
+    ``max_in_flight`` ``mif`` with late admission ``late``, warmup, then
     ``trace`` from 4 client threads with the counts set to 0 just before and
     read just after. Checks that every request was answered with finite
     logits; returns (dist, served, summary, counts, per-owner launches)."""
     names = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean", "tiered_gather",
              "exchange_rows")
     cfg = DistServeConfig(hosts=FLEET_HOSTS, max_batch=BATCH, record_dispatches=True,
-                          feature_residency=residency)
+                          feature_residency=residency, max_in_flight=mif, late_admission=late)
     t0 = time.perf_counter()
     dist = tile_build(f"fleet owner ids ({residency} residency, {FLEET_HOSTS} owners)",
                       lambda: DistServeEngine.build(model, params, topo, table, SIZES,
@@ -4384,6 +4502,23 @@ def fleet_replay(leg, dist, model, params, full, served, seed):
     log(f"fleet {leg} replay: " + json.dumps(worst))
 
 
+def fleet_late(leg, dist, served, wall, model, params, topo, table, seed):
+    """The router's ``late:`` line of a fleet leg, then each owner's
+    dispatch log fed, final batch by final batch, to a late-off ServeEngine
+    over the full graph and table with the owners' seed: every row bit-equal
+    to the served row of its node, and every served node replayed."""
+    seen = set()
+    for h, eng in sorted(dist.engines.items()):
+        ref = ServeEngine(model, params, GraphSageSampler(topo, SIZES, device=table.device,
+                                                          seed=seed),
+                          table, ServeConfig(max_batch=BATCH, late_admission=False,
+                                             record_dispatches=True))
+        seen |= late_off_replay(f"fleet {leg} owner {h}", ref, eng.dispatch_log, served,
+                                node_batch, submit_node_batch)
+    check(seen == set(served), f"fleet {leg}: a served node is missing from the owners' logs")
+    late_line(f"fleet {leg}", dist, wall, len(seen), router=True)
+
+
 def fleet_phase(topo, table, model, params, trace, seed):
     """The fleet's main path, two legs over 2 owners (contiguous partition,
     max_batch 64): (a) the closure residency over the collective exchange,
@@ -4395,22 +4530,34 @@ def fleet_phase(topo, table, model, params, trace, seed):
     # the CPU replays get their own CSRTopo: the card's tile table stays cached
     full = {table.device.type: (topo, table),
             "cpu": (CSRTopo(indptr=topo.indptr, indices=topo.indices), table.cpu())}
-    dist, served, _, _, per_owner = fleet_leg("a", topo, table, model, params, trace,
-                                              "closure", seed)
+    dist, served, summary, _, per_owner = fleet_leg("a", topo, table, model, params, trace,
+                                                    "closure", seed)
     for h, c in per_owner.items():
         for name in MAIN_PATH:
             check(c[name] > 0, f"owner {h} never launched {name} in fleet leg (a)")
+    fleet_late("a", dist, served, summary["wall_s"], model, params, topo, table, seed)
     fleet_replay("a", dist, model, params, full, served, seed)
     del dist
     gc.collect()  # the comm's answerers hold the engine in a cycle
     torch.cuda.empty_cache()
-    dist, served, _, counts, per_owner = fleet_leg(
+    for mif, late in LATE_RUNS:  # leg (a) at max_in_flight 1 and 2, late admission on and off
+        if (mif, late) == (2, True):
+            continue  # the run above
+        leg = f"a/mif{mif}/late-{'on' if late else 'off'}"
+        dist, served, summary, _, _ = fleet_leg(leg, topo, table, model, params, trace,
+                                                "closure", seed, mif=mif, late=late)
+        fleet_late(leg, dist, served, summary["wall_s"], model, params, topo, table, seed)
+        del dist
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist, served, summary, counts, per_owner = fleet_leg(
         "b", topo, table, model, params, trace[:FLEET_EXCHANGE_REQUESTS], "exchange", seed)
     check(counts["exchange_rows"] > 0, "exchange_rows never launched in fleet leg (b)")
     for h, c in per_owner.items():
         for name in ("sample_tiled", "local_reindex", "masked_mean", "tiered_gather",
                      "exchange_rows"):
             check(c[name] > 0, f"owner {h} never launched {name} in fleet leg (b)")
+    fleet_late("b", dist, served, summary["wall_s"], model, params, topo, table, seed)
     fleet_replay("b", dist, model, params, full, served, seed)
     del dist
     gc.collect()
@@ -4556,20 +4703,35 @@ def main() -> int:
     replay_cpu = replay_check(topo, model, params, table, engine, served, "cpu", 2, 1e-3)
     log(f"replay: 8 dispatches on the card max |diff| {replay_dev} (bit-equal); "
         f"2 on the CPU plain path max |diff| {replay_cpu:.3g}")
+
+    def serve_engine(layout):
+        return lambda mif, late: ServeEngine(
+            model, params, GraphSageSampler(topo, SIZES, device=dev, seed=args.seed,
+                                            layout=layout),
+            table, ServeConfig(max_batch=BATCH, max_in_flight=mif, late_admission=late,
+                               record_dispatches=True))
+
+    late_serve_runs("serve", serve_engine("tiled"), trace, 4, main=(engine, served, wall))
+    # a burstier load (32 ids a call): submitters fill max_batch and flush
+    # inline beside the pollers, so a flush can wait for a permit
+    late_serve_runs("serve burst", serve_engine("tiled"), trace, 4, per_call=BURST_PER_CALL)
     phase_done("serve")
 
     # -- the flat layout's path ------------------------------------------------
     flat = GraphSageSampler(topo, SIZES, device=dev, seed=args.seed, layout="flat")
-    fengine = ServeEngine(model, params, flat, table, ServeConfig(max_batch=BATCH))
+    fengine = ServeEngine(model, params, flat, table,
+                          ServeConfig(max_batch=BATCH, record_dispatches=True))
     fengine.warmup()
+    ftrace = trace[: max(args.requests // 8, 64)]
     _kernels.reset_counts()
-    fserved, fwall = serve_phase(fengine, trace[: max(args.requests // 8, 64)], clients=2)
+    fserved, fwall = serve_phase(fengine, ftrace, clients=2)
     fcounts = _kernels.counts()
     log("flat serve: " + json.dumps({"requests": fengine.stats.requests, "wall_s": fwall,
                                      "launches": fcounts}))
     for name in ("sample_flat", "local_reindex", "gather_rows", "masked_mean"):
         check(fcounts[name] > 0, f"kernel {name} never launched on the flat path")
     launches["sample_flat"] = fcounts["sample_flat"]
+    late_serve_runs("flat serve", serve_engine("flat"), ftrace, 2, main=(fengine, fserved, fwall))
     phase_done("flat serve")
     del engine, fengine
 

@@ -34,6 +34,7 @@ and the IPC handles.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -177,6 +178,7 @@ class Feature:
         self.adaptive_tiers = bool(adaptive_tiers)
         self.disk_read_workers = int(disk_read_workers)
         self.read_pool = read_pool
+        self._pool_finalizer: Optional[weakref.finalize] = None
         self.tier_store = None  # tiers.TierStore when adaptive
         # (disk-local ids -> bool mask) of rows a flush-ahead prefetch has
         # staged in DRAM, installed by the pipeline that runs the prefetch
@@ -225,6 +227,8 @@ class Feature:
             from .pipeline import AsyncReadPool
 
             self.read_pool = AsyncReadPool(self.disk_read_workers)
+            # a pool of the feature's own: its threads end with the feature
+            self._pool_finalizer = weakref.finalize(self, self.read_pool.shutdown, False)
         if self.adaptive_tiers:
             from .tiers import TierStore
 
@@ -242,6 +246,13 @@ class Feature:
             st.append_disk(rows[cache_rows + host_rows:], self.disk_path,
                            read_pool=self.read_pool)
         self.shard_tensor = st
+
+    def close(self) -> None:
+        """Shut down the disk read pool this feature built and wait for its
+        threads (a pool handed in as ``read_pool`` stays its caller's)."""
+        fin = self._pool_finalizer
+        if fin is not None and fin.detach() is not None:
+            self.read_pool.shutdown(wait=True)
 
     def _float32_only(self, what: str) -> None:
         if self.dtype != torch.float32:

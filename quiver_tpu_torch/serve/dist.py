@@ -9,7 +9,9 @@ A request's path:
 
 1. the router (`DistServeEngine`) answers repeats from its result cache,
    coalesces the rest and flushes on ``max_batch`` / ``max_delay_ms``, as
-   `ServeEngine` does (it borrows that engine's admission and flush code);
+   `ServeEngine` does (it borrows that engine's admission and flush code,
+   late admission included: a seed arriving while a routed flush waits for
+   its window permit joins it, up to ``max_batch``, before the owner split);
 2. each flush splits its seeds by owner (``global2host``, a stable argsort);
 3. ``exchange="collective"`` ships the per-owner seed ids over the serve
    exchange (`comm.TorchComm.exchange_serve`: an id all_to_all over the
@@ -29,18 +31,18 @@ dispatch log through a sampler over the FULL graph (`replay_shard_oracle`),
 and ``hosts=1`` is the single-host `ServeEngine` bit for bit.
 
 Deliberate differences from the JAX package (ROADMAP): ``exchange="auto"``
-is collective (rank threads stand in for hosts on any device count); the
-router has no late admission (ROADMAP A12); host-mode legs run one after
-another (``sequential_legs`` is accepted either way; results are the same);
-answerers run on the calling thread. Not ported: the replica, hedging and
-failover, faults, tenants and shedding, tiers and prefetch, the workload
-monitor and journal, the elastic fleet and streaming — `DistServeConfig`
-refuses a non-default value of any of their fields, naming its ROADMAP item.
+is collective (rank threads stand in for hosts on any device count);
+host-mode legs run one after another (``sequential_legs`` is accepted
+either way; results are the same); answerers run on the calling thread.
+Not ported: the replica, hedging and failover, faults, tenants and
+shedding, tiers and prefetch, the workload monitor and journal, the
+elastic fleet and streaming — `DistServeConfig` refuses a non-default
+value of any of their fields, naming its ROADMAP item — and the
+vectorised whole-batch admission (the router admits request by request).
 """
 
 from __future__ import annotations
 
-import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -307,6 +309,9 @@ class DistServeConfig:
     sequential_legs : accepted either way: the port runs host-mode legs one
                      after another (the JAX package's bit-parity twin of
                      its concurrent fan-out).
+    late_admission : seeds arriving while a routed flush waits for its
+                     window permit join it up to ``max_batch`` (and, through
+                     the default shard config, the same at each owner).
 
     The other fields are the JAX package's fleet policies and observers
     that the port does not have yet; each must keep its default.
@@ -326,7 +331,7 @@ class DistServeConfig:
     record_dispatches: bool = False
     feature_residency: str = "closure"
     sequential_legs: bool = False
-    late_admission: bool = _unported(False, "late admission", "A12")
+    late_admission: bool = True
     journal_events: int = _unported(0, "the event journal", "A12")
     workload: Optional[object] = _unported(None, "workload telemetry", "A12")
     tenant_weights: Optional[Dict[str, float]] = _unported(None, "tenants", "A12")
@@ -372,7 +377,8 @@ class DistServeConfig:
             return self.shard_config
         return ServeConfig(max_batch=self.max_batch, max_delay_ms=self.max_delay_ms,
                            max_in_flight=self.max_in_flight, cache_entries=self.cache_entries,
-                           clock=self.clock, record_dispatches=self.record_dispatches)
+                           clock=self.clock, record_dispatches=self.record_dispatches,
+                           late_admission=self.late_admission)
 
 
 @dataclass
@@ -386,6 +392,7 @@ class DistServeStats:
     coalesced: int = 0
     router_dispatches: int = 0
     routed_seeds: int = 0
+    late_admitted: int = 0
     request_errors: int = 0
     inflight_peak: int = 0
     sub_batches: Dict[int, int] = field(default_factory=dict)
@@ -405,6 +412,7 @@ class DistServeStats:
             "coalesced": self.coalesced,
             "router_dispatches": self.router_dispatches,
             "routed_seeds": self.routed_seeds,
+            "late_admitted": self.late_admitted,
             "request_errors": self.request_errors,
             "inflight_peak": self.inflight_peak,
             "sub_batches": dict(self.sub_batches),
@@ -418,16 +426,19 @@ class DistServeStats:
 
 
 class _RoutedFlush:
-    """Router state of one flush between assemble and resolve. ``split`` is
-    ``[(owner, ids, positions)]``, built at seal; ``error`` fails the whole
+    """Router state of one flush between assemble and resolve. ``bucket``
+    is the late-admission cap (``max_batch``: the router pads nothing);
+    ``split`` is ``[(owner, ids, positions)]``, built at seal, so that
+    late-admitted seeds route with their flush; ``error`` fails the whole
     flush, ``slot_errors`` (position -> exception) only the slots of an
     owner sub-batch that failed in host mode."""
 
-    __slots__ = ("keys", "slots", "split", "error", "slot_errors")
+    __slots__ = ("keys", "slots", "bucket", "split", "error", "slot_errors")
 
     def __init__(self, keys, slots):
         self.keys = keys
         self.slots = slots
+        self.bucket = 0
         self.split: List[Tuple[int, np.ndarray, np.ndarray]] = []
         self.error: Optional[BaseException] = None
         self.slot_errors: Dict[int, BaseException] = {}
@@ -476,6 +487,7 @@ class DistServeEngine:
         self.dispatch_log: List[Tuple[np.ndarray, List[Tuple[int, np.ndarray]]]] = []
         self._pending: "OrderedDict[int, object]" = OrderedDict()
         self._inflight: Dict[int, object] = {}
+        self._open: Optional[_RoutedFlush] = None  # as ServeEngine._open
         self._lock = threading.Lock()           # queue, cache version, stats
         self._fence = threading.Condition(self._lock)
         self._seq = threading.Lock()            # drain + split + dispatch log
@@ -605,8 +617,11 @@ class DistServeEngine:
             raise ValueError(f"node id {int(ids[bad][0])} outside [0, {n_ids})")
         return self._submit_keyed_many(ids.tolist())
 
+    # the router admits as the engine does: its extra state matters only
+    # after the drain
     _submit_keyed_many = ServeEngine._submit_keyed_many
     _admit_locked = ServeEngine._admit_locked
+    _drain_locked = ServeEngine._drain_locked
     flush_inline = ServeEngine.flush_inline
     results_many = ServeEngine.results_many
     should_flush = ServeEngine.should_flush
@@ -630,23 +645,27 @@ class DistServeEngine:
     # -- the router's flush stages (driven by `ServeEngine.flush`) -----------------
 
     def _assemble(self) -> Optional[_RoutedFlush]:
-        """Drain up to ``max_batch`` pending slots, FIFO (caller holds
-        ``_seq``)."""
+        """Drain up to ``max_batch`` pending slots in arrival order and, with
+        late admission on and room left, publish the flush (caller holds
+        ``_seq``), as `ServeEngine._assemble`."""
         with self._lock:
             if not self._pending:
                 return None
-            keys = list(itertools.islice(self._pending, self.config.max_batch))
-            slots = [self._pending.pop(k) for k in keys]
-            self._inflight.update(zip(keys, slots))
+            keys, slots = self._drain_locked()
             fl = _RoutedFlush(keys, slots)
+            fl.bucket = self.config.max_batch
             self._inflight_flushes += 1
             self.stats.inflight_peak = max(self.stats.inflight_peak, self._inflight_flushes)
+            if self.config.late_admission and len(keys) < fl.bucket:
+                self._open = fl
         return fl
 
     def _seal_assembled(self, fl: _RoutedFlush) -> None:
-        """The owner split (a stable argsort of the owners: hosts ascending,
-        positions ascending within each) and the dispatch-log entry, in
-        dispatch order (caller holds ``_seq``)."""
+        """Close late admission, then the owner split (a stable argsort of
+        the owners: hosts ascending, positions ascending within each) and
+        the dispatch-log entry, in dispatch order (caller holds ``_seq``)."""
+        with self._lock:
+            self._open = None
         try:
             arr = np.asarray(fl.keys, np.int64)
             owners = self.global2host[arr].astype(np.int64)

@@ -7,9 +7,12 @@ oldest has aged ``max_delay_ms``, then flush as one batch padded to a
 fixed bucket. A flush runs three stages:
 
 - **assemble** (under the sequencing lock): drain up to ``max_batch``
-  pending slots, take an in-flight window permit, then seal: append the
-  dispatch-log entry and consume the sampler's next key — so the key stream and the replay log follow
-  dispatch order however many flushes are in flight;
+  pending slots and fix the flush's bucket; with late admission on and pad
+  slack left, publish the flush so that seeds arriving while it waits for
+  an in-flight window permit fill its pad lanes; then take the permit and
+  seal: close admission, append the dispatch-log entry and consume the
+  sampler's next key, so the key stream and the replay log see each final
+  batch once, in dispatch order, however many flushes are in flight;
 - **dispatch**: the fused step (sample + gather + forward,
   `inference.BucketPrograms`) or the split pair (`sample_batch` in the
   seal, `forward_logits` here) is queued on the current CUDA stream; the
@@ -17,6 +20,13 @@ fixed bucket. A flush runs three stages:
   (`inference.to_host`), so with ``max_in_flight=2`` one flush's host
   work overlaps the other's device work;
 - **resolve**: cache writeback, slot resolution, latency accounting.
+
+Admission has one body, `_admit_locked`, run request by request under
+``_lock`` by `submit` and `submit_many` alike, so a batch makes the
+decisions, and writes the dispatch log, of N scalar submits. The pending
+queue is one insertion-ordered dict under that lock: every admission and
+every drain takes the whole queue, so the JAX package's stripes
+(``submit_stripes``) would add only lock traffic here.
 
 `update_params` fences: it blocks new assembles, waits for every
 in-flight flush, swaps the weights and bumps the version. `warmup` runs
@@ -28,17 +38,18 @@ key: the node id here, ``(node, t_bucket)`` on the temporal engine
 (`quiver_tpu_torch.workloads.TemporalServeEngine`), which overrides the
 hooks that turn a flush's keys into dispatch arrays (`_flush_arrays`)
 and a dispatch-log entry (`_dispatch_log_entry`); this engine refuses a
-temporal-bound sampler. Tenants
-and shedding, late admission, the journal and workload monitor, tiers and
-prefetch, streaming graphs and the metrics registry wait for a later
-slice (ROADMAP A12); with them off the JAX engine makes the same batching
-decisions as this one, so the two write equal dispatch logs.
+temporal-bound sampler. Tenants and shedding, the journal and workload
+monitor, tiers and prefetch, streaming graphs and the metrics registry
+wait for a later slice (ROADMAP A12); with them off the JAX engine makes
+the same batching decisions as this one, late admission included, so the
+two write equal dispatch logs.
 """
 
 from __future__ import annotations
 
 import collections.abc
 import copy
+import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -95,6 +106,13 @@ class ServeConfig:
     dispatch_mode  : "auto" (fused when the feature can be gathered in the
                      step, else split), "fused" (error if it cannot) or
                      "split".
+    late_admission : a seed arriving while an assembled flush waits for its
+                     window permit rides that flush's pad lanes (up to its
+                     bucket) instead of waiting for the next flush.
+    submit_stripes : the JAX package's stripe count for its pending queue,
+                     kept so that configs carry over; the port's queue is
+                     one dict (see the module docstring), and batches and
+                     dispatch logs do not depend on it there either.
     """
 
     max_batch: int = 64
@@ -106,6 +124,8 @@ class ServeConfig:
     flush_poll_ms: float = 0.2
     record_dispatches: bool = False
     dispatch_mode: str = "auto"
+    late_admission: bool = True
+    submit_stripes: int = 8
 
     def resolved_buckets(self) -> Tuple[int, ...]:
         if self.buckets is None:
@@ -204,7 +224,8 @@ class ResultBatch(collections.abc.Sequence):
 @dataclass
 class ServeStats:
     """Engine counters: ``requests`` counts every submit, ``coalesced``
-    those attached to a pending or in-flight slot, ``dispatches`` the
+    those attached to a pending or in-flight slot, ``late_admitted`` the
+    new slots that joined an assembled flush's pad lanes, ``dispatches`` the
     device batches resolved, ``dispatch_calls``/``execute_calls`` the
     dispatch stages entered and the step calls they ran (1 per flush
     fused, 2 split), ``inflight_peak`` the most flushes seen between
@@ -212,6 +233,7 @@ class ServeStats:
 
     requests: int = 0
     coalesced: int = 0
+    late_admitted: int = 0
     dispatches: int = 0
     dispatched_seeds: int = 0
     padded_seeds: int = 0
@@ -224,8 +246,8 @@ class ServeStats:
     latency: LatencyHistogram = field(default_factory=LatencyHistogram)
     spans: SpanRecorder = field(default_factory=SpanRecorder)
 
-    _COUNTERS = ("requests", "coalesced", "dispatches", "dispatched_seeds", "padded_seeds",
-                 "dispatch_calls", "execute_calls", "request_errors")
+    _COUNTERS = ("requests", "coalesced", "late_admitted", "dispatches", "dispatched_seeds",
+                 "padded_seeds", "dispatch_calls", "execute_calls", "request_errors")
 
     def merge(self, other: "ServeStats") -> "ServeStats":
         """Fold another engine's stats into this one (the fleet's merged
@@ -252,7 +274,9 @@ class ServeStats:
 
 
 class _Flush:
-    """Per-flush state between assemble and resolve."""
+    """Per-flush state between assemble and resolve. ``bucket`` is fixed at
+    the drain; late admission appends to ``keys`` and ``slots`` up to it
+    until `ServeEngine._seal_assembled` closes the flush."""
 
     __slots__ = ("keys", "slots", "model", "bucket", "ds", "key", "padded", "extra", "error")
 
@@ -321,6 +345,9 @@ class ServeEngine:
         self.dispatch_log: List[tuple] = []
         self._pending: "OrderedDict[int, _Slot]" = OrderedDict()
         self._inflight: Dict[int, _Slot] = {}
+        # the assembled flush that takes late admissions (guarded by _lock;
+        # set only while its flusher holds _seq, before its seal)
+        self._open: Optional[_Flush] = None
         self._lock = threading.Lock()           # queue, cache version, stats
         self._fence = threading.Condition(self._lock)
         self._seq = threading.Lock()            # drain + dispatch log + key draw
@@ -332,14 +359,17 @@ class ServeEngine:
     # -- request path -----------------------------------------------------
 
     def submit(self, node_id: int) -> ServeResult:
-        """Enqueue one request; a fill of ``max_batch`` flushes inline."""
+        """Enqueue one request; a fill of ``max_batch`` flushes inline. A
+        seed arriving while an assembled flush waits for its window permit
+        rides that flush's pad lanes (late admission)."""
         return self.submit_many((node_id,))[0]
 
     def submit_many(self, node_ids, t=None) -> ResultBatch:
-        """Admit requests in order (cache hit, else coalesce, else a new
-        pending slot), flushing inline at every fill of ``max_batch`` —
-        exactly where N single submits would flush. ``t`` is refused here
-        (the temporal engine takes query times)."""
+        """Admit requests in order (cache hit, else coalesce, else late
+        admission or a new pending slot), flushing inline at every fill of
+        ``max_batch``: the decisions, and so the dispatch log, of N single
+        submits. ``t`` is refused here (the temporal engine takes query
+        times)."""
         if t is not None:
             raise TypeError("t= is a temporal-serving argument (TemporalServeEngine); "
                             "this engine serves untimed nodes")
@@ -366,7 +396,10 @@ class ServeEngine:
                 self.flush()
         return ResultBatch(results)
 
-    def _admit_locked(self, key: int, now: float) -> ServeResult:
+    def _admit_locked(self, key, now: float) -> ServeResult:
+        """One request's cache check, coalescing and admission (caller
+        holds ``_lock``). A new slot joins the open flush while it has pad
+        slack (late admission), else the pending queue."""
         self.stats.requests += 1
         cached = self.cache.get(key, self.params_version)
         if cached is not None:
@@ -377,7 +410,16 @@ class ServeEngine:
             self.stats.coalesced += 1
         else:
             slot = _Slot(key, self.params_version, now)
-            self._pending[key] = slot
+            fl = self._open
+            if fl is not None and len(fl.keys) < fl.bucket:
+                # the open flush's update_params fence holds: _open only
+                # exists while its flusher holds _seq, so versions agree
+                fl.keys.append(key)
+                fl.slots.append(slot)
+                self._inflight[key] = slot
+                self.stats.late_admitted += 1
+            else:
+                self._pending[key] = slot
         slot.waiters.append(now)
         return ServeResult(slot=slot)
 
@@ -424,29 +466,39 @@ class ServeEngine:
 
     # -- the three flush stages -------------------------------------------
 
+    def _drain_locked(self) -> Tuple[List, List[_Slot]]:
+        """Move up to ``max_batch`` pending slots, oldest first, into
+        ``_inflight`` (caller holds ``_lock``)."""
+        keys = list(itertools.islice(self._pending, self.config.max_batch))
+        slots = [self._pending.pop(k) for k in keys]
+        self._inflight.update(zip(keys, slots))
+        return keys, slots
+
     def _assemble(self) -> Optional[_Flush]:
-        """Drain up to ``max_batch`` pending slots (caller holds ``_seq``)."""
+        """Drain up to ``max_batch`` pending slots and fix the bucket; with
+        late admission on and pad slack left, publish the flush so that
+        submits fill the slack until `_seal_assembled` closes it (caller
+        holds ``_seq``)."""
         with self._lock:
             if not self._pending:
                 return None
-            keys = []
-            for k in self._pending:
-                keys.append(k)
-                if len(keys) == self.config.max_batch:
-                    break
-            slots = [self._pending.pop(k) for k in keys]
-            self._inflight.update(zip(keys, slots))
+            keys, slots = self._drain_locked()
             fl = _Flush(keys, slots, self._model)
             fl.bucket = self._bucket_for(len(keys))
             self._inflight_flushes += 1
             self.stats.inflight_peak = max(self.stats.inflight_peak, self._inflight_flushes)
+            if self.config.late_admission and len(keys) < fl.bucket:
+                self._open = fl
         return fl
 
     def _seal_assembled(self, fl: _Flush) -> None:
-        """Log the dispatch and consume the next key, in dispatch order
-        (caller holds ``_seq`` and a permit). Errors are kept in
+        """Close late admission, then log the dispatch and consume the next
+        key, in dispatch order (caller holds ``_seq`` and a permit): the log
+        and the key stream see the final batch once. Errors are kept in
         ``fl.error`` and re-raised by `flush` after every slot of the flush
         is resolved with them."""
+        with self._lock:
+            self._open = None
         try:
             seeds, extras = self._flush_arrays(fl)
             padded = pad_seed_batch(seeds, fl.bucket)
@@ -519,10 +571,12 @@ class ServeEngine:
 
     def flush(self) -> int:
         """Dispatch up to ``max_batch`` pending seeds now (policy
-        bypassed); returns the seeds dispatched. Synchronous on the
-        calling thread; a stage error re-raises here after the flush's
-        slots are resolved with it. Overlap comes from concurrent
-        callers, up to ``max_in_flight`` flushes."""
+        bypassed); returns the seeds dispatched, late-admitted ones
+        included. Synchronous on the calling thread; a stage error
+        re-raises here after the flush's slots are resolved with it.
+        Overlap comes from concurrent callers, up to ``max_in_flight``
+        flushes; the window permit is taken under ``_seq`` after the drain,
+        so seeds arriving while a flush waits for it join that flush."""
         fl = None
         have_permit = False
         try:
@@ -532,11 +586,18 @@ class ServeEngine:
                 if fl is None:
                     return 0
                 self.stats.spans.record("assemble", t0, self._clock())
-                self._window.acquire()
-                have_permit = True
-                t0 = self._clock()
-                self._seal_assembled(fl)
-                self.stats.spans.record("assemble", t0, self._clock())
+                try:
+                    # late seeds fill the pad lanes while this waits
+                    self._window.acquire()
+                    have_permit = True
+                    t0 = self._clock()
+                    self._seal_assembled(fl)
+                    self.stats.spans.record("assemble", t0, self._clock())
+                finally:
+                    # the seal closed admission first; this covers an
+                    # interrupt between the permit and the seal
+                    with self._lock:
+                        self._open = None
             logits = None
             if fl.error is None:
                 t0 = self._clock()

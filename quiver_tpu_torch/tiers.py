@@ -753,8 +753,10 @@ class TierStore:
             raise ValueError("prefetch needs an AsyncReadPool (build the Feature with "
                              "read_pool=/disk_read_workers=)")
         if self.prefetch is None:
-            self.prefetch = PrefetchBuffer(lambda ids: self.backing.read_block(ids),
-                                           self.read_pool, max_rows=max_rows)
+            # the backing's own method: a closure over self would keep the
+            # store (and its pool's threads) alive in a cycle
+            self.prefetch = PrefetchBuffer(self.backing.read_block, self.read_pool,
+                                           max_rows=max_rows)
         else:
             self.prefetch.max_rows = int(max_rows)
         if listener is not None:

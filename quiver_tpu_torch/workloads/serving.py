@@ -16,7 +16,8 @@ Not ported yet: the routed temporal engine (``TemporalDistServeEngine`` in
 ``serve/dist.py``, which ROADMAP A16 leaves after the single-host training
 half of ``parallel/``: it needs the host axis, ``comm.py``'s exchanges and
 ``DistFeature`` first), streaming temporal graphs (A14) and the vectorised
-whole-batch admission (this engine admits request by request).
+whole-batch admission (this engine admits request by request, through the
+base engine's `_admit_locked`, late admission included).
 """
 
 from __future__ import annotations

@@ -9,10 +9,7 @@ threads over gloo, the JAX package's 8 virtual devices).
 - Pumped from one thread under one manual clock, the router's and every
   owner's dispatch logs equal JAX's at hosts 1 and 2 and max_in_flight 1
   and 2, and the logits agree within atol = rtol = 1e-5 (XLA-CPU and
-  torch-CPU sum in different orders). One thread is what makes the two
-  comparable: JAX's router late-admits seeds that arrive while an
-  assembled flush waits for a window permit, which the port's router does
-  not (ROADMAP A12), and from one thread no flush ever waits.
+  torch-CPU sum in different orders).
 - Inside the port everything is bit-equal: each served row to the replay of
   its owner's log through a full-graph sampler, ``hosts=1`` to the
   single-host `ServeEngine` (logits, dispatch log, cache counts), host mode
@@ -20,6 +17,12 @@ threads over gloo, the JAX package's 8 virtual devices).
   Threaded clients are held against the replay oracle alone.
 - A failing owner fails only its own requests in host mode, and the whole
   flush (an OwnerAnswerError naming it) in collective mode.
+- Late admission under the gated trace (`torch_fixtures.gated_late_run`:
+  routed flushes held in their dispatch stage with every window permit,
+  one waiting for a permit, late seeds of both owners arriving) gives the
+  JAX router's and owners' logs and counts at max_in_flight 1 and 2, and
+  rows bit-equal to the owners' replays; `submit_many` routes as scalar
+  submits do.
 
 Each JAX fleet is built once per module (the ``jax_runs`` fixture)."""
 
@@ -55,6 +58,7 @@ from quiver_tpu_torch.serve import (
 from quiver_tpu_torch.utils import resolve_device
 
 from conftest import make_random_graph
+from torch_fixtures import gated_late_run
 
 # tiny shapes: one intra-op thread leaves the cores to the other test workers
 torch.set_num_threads(1)
@@ -394,8 +398,91 @@ def test_owner_failure_fails_its_requests(setup, exchange):
         assert dist.stats.request_errors == 4 and len(dist.cache) == 0
 
 
+# -- late admission at the router -----------------------------------------------------------
+
+R_PRE = [40, 141]                          # 40 and 141 hit the router cache later
+R_STALLED = [[0, 101, 2], [130, 31, 132]]  # owners 0 and 1 alike
+R_WAITING = [10, 11, 112, 113, 14]         # 3 seeds of room to max_batch 8
+# 20, 121, 122 join the waiting flush; repeats of 20, 11 and 101 coalesce;
+# 23 waits; 141 hits the router cache
+R_LATE = [20, 121, 20, 11, 101, 122, 23, 141]
+
+
+def _submit(dist, reqs):
+    return [dist.submit(int(n)) for n in reqs]
+
+
+def _submit_many(dist, reqs):
+    return list(dist.submit_many(reqs))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("mif", [1, 2])
+def test_gated_late_admission_matches_reference(setup, mif, batched):
+    cfg = dict(max_batch=8, max_delay_ms=1e9, max_in_flight=mif, cache_entries=64,
+               record_dispatches=True)
+    jd = JDistServeEngine.build(setup["jmodel"], setup["params"], JCSRTopo(edge_index=EDGE_INDEX),
+                                setup["feat"], SIZES, hosts=2, sampler_seed=SEED,
+                                config=JDistServeConfig(hosts=2, **cfg))
+    td = _port_dist(setup, 2, **cfg)
+    assert td.config.late_admission and td.engines[0].config.late_admission
+    rows = []
+    for dist in (jd, td):
+        dist.predict(R_PRE)
+        hs = gated_late_run(dist, _submit, mif, R_STALLED, R_WAITING, R_LATE,
+                            submit_late=_submit_many if batched else None)
+        rows.append(np.stack([h.result(timeout=60) for h in hs]))
+    flat = [[int(x) for x in a] for a, _ in td.dispatch_log]
+    assert flat == [R_PRE, *R_STALLED[:mif], R_WAITING + [20, 121, 122], [23]]
+    assert len(td.dispatch_log) == len(jd.dispatch_log)
+    for (ta, tsplit), (ja, jsplit) in zip(td.dispatch_log, jd.dispatch_log):
+        assert np.array_equal(ta, ja) and [h for h, _ in tsplit] == [h for h, _ in jsplit]
+        assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(tsplit, jsplit))
+    for h in range(2):
+        tlog, jlog = td.engines[h].dispatch_log, jd.engines[h].dispatch_log
+        assert len(tlog) == len(jlog) > 0
+        for (tp, tn), (jp, jn) in zip(tlog, jlog):
+            assert tn == jn and np.array_equal(tp, jp)
+        assert td.engines[h].stats.late_admitted == jd.engines[h].stats.late_admitted
+    for name in ("requests", "coalesced", "late_admitted", "router_dispatches", "routed_seeds",
+                 "sub_batch_seeds"):
+        assert getattr(td.stats, name) == getattr(jd.stats, name), name
+    assert td.stats.late_admitted == 3 and td.stats.coalesced == 3
+    assert td.stats.snapshot()["late_admitted"] == 3
+    assert td.stats.router_cache.hits == jd.stats.router_cache.hits == 1
+    np.testing.assert_allclose(rows[1], rows[0], **TOL)
+    oracle = replay_shard_oracle(td, _model(), setup["tparams"], _full_sampler, setup["feat"])
+    requests = [n for b in R_STALLED[:mif] for n in b] + R_WAITING + R_LATE
+    for node, row in zip(requests, rows[1]):
+        assert np.array_equal(row, oracle[node]), node
+
+
+@pytest.mark.parametrize("router_cache", [0, 64])
+def test_router_submit_many_bit_equal_scalar_submits(setup, router_cache):
+    """The router's batch admission routes as scalar submits, with its
+    result cache off and on: router and owner logs and rows bit-equal."""
+    trace = zipfian_trace(N_NODES, 40, alpha=0.9, seed=13)
+    a, b = (_port_dist(setup, 2, router_cache_entries=router_cache) for _ in range(2))
+    ha = _submit(a, trace)
+    hb = [h for j in range(0, 40, 4) for h in b.submit_many(trace[j:j + 4])]
+    for dist in (a, b):
+        while dist.flush():
+            pass
+    assert np.array_equal(np.stack([h.result(60) for h in ha]),
+                          np.stack([h.result(60) for h in hb]))
+    assert len(a.dispatch_log) == len(b.dispatch_log) >= 3
+    for (ra, sa), (rb, sb) in zip(a.dispatch_log, b.dispatch_log):
+        assert np.array_equal(ra, rb) and len(sa) == len(sb)
+        assert all(h0 == h1 and np.array_equal(i0, i1) for (h0, i0), (h1, i1) in zip(sa, sb))
+    for h in range(2):
+        for (p0, n0), (p1, n1) in zip(a.engines[h].dispatch_log, b.engines[h].dispatch_log):
+            assert n0 == n1 and np.array_equal(p0, p1)
+    assert (a.stats.requests, a.stats.coalesced) == (b.stats.requests, b.stats.coalesced)
+    assert a.stats.coalesced > 0
+
+
 @pytest.mark.parametrize("name,value,item", [
-    ("late_admission", True, "A12"), ("tenant_weights", {"a": 1.0}, "A12"),
+    ("tenant_weights", {"a": 1.0}, "A12"),
     ("journal_events", 64, "A12"), ("tier_prefetch", True, "A12"),
     ("replicate_top_k", 4, "A16"), ("hedge_deadline_ms", 5.0, "A16"),
     ("full_graph_fallback", True, "A16"), ("fault_injector", object(), "A16"),

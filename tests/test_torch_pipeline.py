@@ -207,7 +207,15 @@ def test_train_pipeline_loss_curve_matches_jax_and_depth2_equals_depth1():
     assert {s for s, _, _ in measured.stats.spans} == {"sample", "gather", "upload", "step"}
 
 
+def _stage_threads():
+    """The pipeline's own stage threads (other owners' pools, such as disk
+    read pools of features built elsewhere in the process, are not)."""
+    return {t for t in threading.enumerate()
+            if t.name.startswith(("qt-sample", "qt-gather", "qt-upload"))}
+
+
 def test_stage_error_reraises_and_the_pipeline_still_trains():
+    stages_before = _stage_threads()
     edge_index, feat, labels, n, jf, tf = _features()
     batches = _batches(n, 6)
     params = _jax_run(edge_index, feat, labels, n, jf, batches[:1])[0]
@@ -227,7 +235,7 @@ def test_stage_error_reraises_and_the_pipeline_still_trains():
     bad = TrainPipeline(tp.sampler, tf, bad_step, depth=2, tiered=tp.tiered)
     with pytest.raises(RuntimeError, match="step exploded"):
         bad.run_epoch(batches)
-    assert not [t for t in threading.enumerate() if t.name.startswith("qt-")]
+    assert not _stage_threads() - stages_before  # both failed epochs joined their stages
     losses = tp.run_epoch(batches[:3])
     assert len(losses) == 3 and all(np.isfinite(losses))
     # run_epoch_iter takes bare samples and (task, sample) pairs; seeds are

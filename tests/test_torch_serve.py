@@ -3,10 +3,17 @@ tests/test_serve.py (200 nodes, 2,000 edges, DIM 16, sizes [4, 4],
 sampler seed 3): both ServeEngines driven synchronously on one Zipf trace
 under one deterministic clock must write equal dispatch logs, and serve
 logits within atol = rtol = 1e-5 (XLA-CPU and torch-CPU sum in different
-orders). Also: a threaded predict smoke with replay parity, weight
-updates, warmup leaving the key stream alone, the package's import
-isolation, and entry points refusing to run without a card unless asked
-for the CPU."""
+orders). Late admission under a gated trace (`torch_fixtures.
+gated_late_run`: flushes held in their dispatch stage with every window
+permit, a flush waiting for one, late seeds arriving) gives the JAX
+engine's dispatch log and counts at max_in_flight 1 and 2, and rows
+bit-equal to a late-off engine fed the same final batches; `submit_many`
+writes the dispatch log of N scalar submits. Also: a threaded predict
+smoke with replay parity, weight updates, warmup leaving the key stream
+alone, the package's import isolation, and entry points refusing to run
+without a card unless asked for the CPU. The cuda-marked test runs the
+gated trace on the card (`python -m pytest --noconftest -m cuda
+tests/test_torch_serve.py`; this file imports without JAX there)."""
 
 import subprocess
 import sys
@@ -15,16 +22,8 @@ import threading
 import numpy as np
 import pytest
 
-import jax
-import jax.numpy as jnp
 import torch
 
-from quiver_tpu import CSRTopo as JCSRTopo
-from quiver_tpu.models import GraphSAGE as JGraphSAGE
-from quiver_tpu.pyg.sage_sampler import GraphSageSampler as JSampler
-from quiver_tpu.serve import ServeConfig as JServeConfig
-from quiver_tpu.serve import ServeEngine as JServeEngine
-from quiver_tpu.serve import zipfian_trace as jzipf
 from quiver_tpu_torch import (
     CSRTopo,
     GraphSAGE,
@@ -45,7 +44,21 @@ from quiver_tpu_torch.shard_tensor import ShardTensor
 from quiver_tpu_torch.serve import default_buckets, zipfian_trace
 from quiver_tpu_torch.utils import resolve_device
 
-from conftest import make_random_graph
+from torch_fixtures import cuda_device, gated_late_run  # noqa: F401 (a fixture)
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from quiver_tpu import CSRTopo as JCSRTopo
+    from quiver_tpu.models import GraphSAGE as JGraphSAGE
+    from quiver_tpu.pyg.sage_sampler import GraphSageSampler as JSampler
+    from quiver_tpu.serve import ServeConfig as JServeConfig
+    from quiver_tpu.serve import ServeEngine as JServeEngine
+    from quiver_tpu.serve import zipfian_trace as jzipf
+    from conftest import make_random_graph
+except ImportError:  # the card's machine has no JAX: only the cuda tests run there
+    jax = None
 
 # tiny shapes: one intra-op thread leaves the cores to the other test workers
 torch.set_num_threads(1)
@@ -252,3 +265,142 @@ def test_entry_points_refuse_without_a_card_unless_cpu_is_asked(setup, monkeypat
     out = full_mean_aggregate(indptr, indices, h)
     assert torch.equal(out, full_mean_aggregate_plain(indptr, indices, h))
     assert _kernels.counts()["full_mean"] == before
+
+
+# -- late admission -------------------------------------------------------------------
+
+STALLED = [[0, 1, 2], [30, 31, 32]]  # the flushes held with a window permit each
+WAITING = [10, 11, 12, 13, 14]       # drained into bucket 8: 3 lanes of slack
+PRE = [40, 41]                       # served first: 40 is a cache hit later
+# 20, 21, 22 fill the slack; a repeat of 20, of a waiting seed (11) and of
+# a held one (1) coalesce; 23 finds no slack and waits; 40 hits the cache
+LATE = [20, 21, 20, 11, 1, 22, 23, 40]
+
+
+def _submit(eng, reqs):
+    return [eng.submit(int(n)) for n in reqs]
+
+
+def _submit_many(eng, reqs):
+    return list(eng.submit_many(reqs))
+
+
+def _late_off_rows(make_engine, log, batch_of, submit_batch):
+    """{key: row} from a late-admission-off engine fed ``log``'s final
+    batches one flush each, and its dispatch log."""
+    ref = make_engine()
+    rows = {}
+    for entry in log:
+        keys = batch_of(entry)
+        hs = submit_batch(ref, entry)
+        ref.flush()
+        for k, h in zip(keys, hs):
+            rows[k] = h.result(timeout=60)
+    assert ref.stats.late_admitted == 0
+    return rows, ref.dispatch_log
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("mif", [1, 2])
+def test_gated_late_admission_matches_reference(setup, mif, batched):
+    s = setup
+    cfg = dict(max_batch=8, max_delay_ms=1e9, max_in_flight=mif, cache_entries=64,
+               record_dispatches=True)
+    jeng = JServeEngine(s["jmodel"], s["params"],
+                        JSampler(JCSRTopo(edge_index=s["edge_index"]), sizes=SIZES, mode="TPU",
+                                 seed=SEED), s["feat"], JServeConfig(**cfg))
+    teng = _port_engine(s, **cfg)
+    assert teng.config.late_admission and teng.config.submit_stripes == 8
+    rows = []
+    for eng in (jeng, teng):
+        eng.predict(PRE)
+        hs = gated_late_run(eng, _submit, mif, STALLED, WAITING, LATE,
+                            submit_late=_submit_many if batched else None)
+        rows.append(np.stack([h.result(timeout=60) for h in hs]))
+    flat = [[int(x) for x in p[:n]] for p, n in teng.dispatch_log]
+    assert flat == [PRE, *STALLED[:mif], WAITING + [20, 21, 22], [23]]
+    assert len(jeng.dispatch_log) == len(teng.dispatch_log)
+    for (jp, jn), (tp, tn) in zip(jeng.dispatch_log, teng.dispatch_log):
+        assert jn == tn and np.array_equal(jp, tp)
+    for field in ("requests", "coalesced", "late_admitted", "dispatches", "dispatched_seeds",
+                  "padded_seeds"):
+        assert getattr(jeng.stats, field) == getattr(teng.stats, field), field
+    assert teng.stats.late_admitted == 3 and teng.stats.coalesced == 3
+    assert jeng.stats.cache.hits == teng.stats.cache.hits == 1
+    assert teng.stats.snapshot()["late_admitted"] == 3
+    np.testing.assert_allclose(rows[1], rows[0], **TOL)
+    # bit-equal to a late-off engine fed the same final batches
+    ref_rows, ref_log = _late_off_rows(
+        lambda: _port_engine(s, max_batch=8, max_delay_ms=1e9, cache_entries=64,
+                             late_admission=False),
+        teng.dispatch_log, lambda e: [int(x) for x in e[0][:e[1]]],
+        lambda eng, e: _submit_many(eng, e[0][:e[1]]))
+    assert all(np.array_equal(a[0], b[0]) and a[1] == b[1]
+               for a, b in zip(ref_log, teng.dispatch_log))
+    requests = [n for b in STALLED[:mif] for n in b] + WAITING + LATE
+    assert len(requests) == rows[1].shape[0]
+    for node, row in zip(requests, rows[1]):
+        assert np.array_equal(row, ref_rows[node]), node
+
+
+@pytest.mark.parametrize("chunk", [48, 4])
+@pytest.mark.parametrize("cache", [0, 64])
+@pytest.mark.parametrize("late", [True, False])
+def test_submit_many_dispatch_log_bit_equal_scalar_submits(setup, late, cache, chunk):
+    """One `submit_many` a chunk (inline fills mid-chunk where a chunk
+    overruns ``max_batch``) against the same ids through scalar `submit`:
+    rows, dispatch log and counts bit-equal."""
+    trace = zipfian_trace(N_NODES, 48, alpha=0.9, seed=11)
+    cfg = dict(max_batch=8, max_delay_ms=1e9, late_admission=late, cache_entries=cache)
+    a, b = _port_engine(setup, **cfg), _port_engine(setup, **cfg)
+    ha = _submit(a, trace)
+    hb = [h for j in range(0, len(trace), chunk) for h in b.submit_many(trace[j:j + chunk])]
+    for eng in (a, b):
+        while eng.flush():
+            pass
+    assert np.array_equal(np.stack([h.result(30) for h in ha]),
+                          np.stack([h.result(30) for h in hb]))
+    assert len(a.dispatch_log) == len(b.dispatch_log) > 3
+    for (pa, na), (pb, nb) in zip(a.dispatch_log, b.dispatch_log):
+        assert na == nb and np.array_equal(pa, pb)
+    for field in ("requests", "coalesced", "late_admitted", "dispatches"):
+        assert getattr(a.stats, field) == getattr(b.stats, field), field
+    assert (a.stats.cache.hits, a.stats.cache.misses) == (b.stats.cache.hits, b.stats.cache.misses)
+    assert a.stats.coalesced > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mif", [1, 2])
+def test_gated_late_admission_on_the_card_replays_bit_equal(cuda_device, mif):
+    """The gated trace on the card (fused step: K1, K2, K3, K4): three
+    seeds ride the waiting flush's pad lanes, and every served row is
+    bit-equal to a late-off engine fed the same final batches."""
+    rng = np.random.default_rng(0)
+    edge_index = np.stack([rng.integers(0, N_NODES, 2000), rng.integers(0, N_NODES, 2000)])
+    feat = torch.from_numpy(rng.standard_normal((N_NODES, DIM)).astype(np.float32))
+    torch.manual_seed(0)
+    model = GraphSAGE(DIM, 16, 5, num_layers=2, dropout=0.0)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    topo = CSRTopo(edge_index=edge_index)
+
+    def engine(**cfg):
+        return ServeEngine(model, params, GraphSageSampler(topo, SIZES, seed=SEED,
+                                                           device=cuda_device),
+                           feat.to(cuda_device),
+                           ServeConfig(max_batch=8, max_delay_ms=1e9, cache_entries=64,
+                                       record_dispatches=True, **cfg))
+
+    eng = engine(max_in_flight=mif)
+    eng.warmup()
+    eng.predict(PRE)
+    hs = gated_late_run(eng, _submit, mif, STALLED, WAITING, LATE)
+    assert eng.stats.late_admitted == 3 and eng.stats.coalesced == 3
+    assert [[int(x) for x in p[:n]] for p, n in eng.dispatch_log][-2:] == \
+        [WAITING + [20, 21, 22], [23]]
+    ref_rows, ref_log = _late_off_rows(
+        lambda: engine(late_admission=False), eng.dispatch_log,
+        lambda e: [int(x) for x in e[0][:e[1]]], lambda r, e: _submit_many(r, e[0][:e[1]]))
+    assert all(np.array_equal(a[0], b[0]) for a, b in zip(ref_log, eng.dispatch_log))
+    requests = [n for b in STALLED[:mif] for n in b] + WAITING + LATE
+    for node, h in zip(requests, hs):
+        assert np.array_equal(h.result(timeout=60), ref_rows[node]), node

@@ -16,7 +16,11 @@ Inside the port, bit for bit: a tiled draw against the host-masked
 oracle, a draw at t = +inf against the weighted draw over the recency
 weight tiles, the same (key, seeds, t) against itself, replayed dispatch
 logs against the served rows, and a temporal engine at recency 0 and
-t = +inf against a plain engine over unit weights."""
+t = +inf against a plain engine over unit weights. Late admission under
+the gated trace (`torch_fixtures.gated_late_run`) writes the JAX engine's
+dispatch log and counts at max_in_flight 1 and 2, and serves rows
+bit-equal to a late-off engine fed the same final batches; `submit_many`
+writes the dispatch log of scalar submits."""
 
 import math
 
@@ -59,6 +63,7 @@ from quiver_tpu_torch.workloads import (
 )
 
 from conftest import make_random_graph
+from torch_fixtures import gated_late_run
 from test_torch_weighted import assert_draws_agree
 
 # tiny shapes: one intra-op thread leaves the cores to the other test workers
@@ -473,3 +478,93 @@ def test_linkpredictor_on_a_plain_engine(setup):
     assert lp.predict_pairs([[1, 2], [3, 4]]).shape == (2,)
     with pytest.raises(TypeError):
         lp.submit_pair(1, 2, t=5.0)  # a plain engine takes no query time
+
+
+# -- late admission -------------------------------------------------------------------
+
+# (node, t) requests, t_quantum 4: the keys are (node, the 4-wide t bucket)
+T_PRE = [(40, 21.0), (41, 21.0)]
+T_STALLED = [[(0, 1.0), (1, 2.0), (2, 3.0)], [(30, 1.0), (31, 2.0), (32, 3.0)]]
+T_WAITING = [(10, 5.0), (11, 5.0), (12, 9.0), (13, 13.0), (14, 17.0)]  # bucket 8
+# (20, 4), (21, 4) and (20, 8) fill the slack; (20, 6.5), (11, 7.9) and (1, 3.5)
+# coalesce by t bucket; (23, 0) waits; (40, 22.0) hits the cache
+T_LATE = [(20, 5.0), (21, 6.0), (20, 6.5), (11, 7.9), (1, 3.5), (20, 9.0), (23, 1.0),
+          (40, 22.0)]
+
+
+def _tsubmit(eng, reqs):
+    return [eng.submit(n, t=t) for n, t in reqs]
+
+
+def _tsubmit_many(eng, reqs):
+    return list(eng.submit_many([n for n, _ in reqs], t=[t for _, t in reqs]))
+
+
+def _tkey(n, t):
+    return int(n), float(np.float32(quantize_t(t, 4.0)))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("mif", [1, 2])
+def test_gated_late_admission_matches_reference(setup, mif, batched):
+    s = setup
+    cfg = dict(max_batch=8, buckets=(4, 8), max_delay_ms=1e9, max_in_flight=mif,
+               cache_entries=64, record_dispatches=True)
+    jeng = JTemporalServeEngine(s["jmodel"], s["params"], _jsampler(), s["feat"],
+                                JServeConfig(**cfg), t_quantum=4.0)
+    teng = _engine(s, **cfg)
+    rows = []
+    for eng in (jeng, teng):
+        _tsubmit(eng, T_PRE)
+        eng.flush()
+        hs = gated_late_run(eng, _tsubmit, mif, T_STALLED, T_WAITING, T_LATE,
+                            submit_late=_tsubmit_many if batched else None)
+        rows.append(np.stack([h.result(timeout=60) for h in hs]))
+    keys = [[(int(n), float(t)) for n, t in zip(p[:nv], tt[:nv])]
+            for p, nv, tt in teng.dispatch_log]
+    assert keys[-2:] == [[_tkey(*r) for r in T_WAITING] + [(20, 4.0), (21, 4.0), (20, 8.0)],
+                         [(23, 0.0)]]
+    assert len(jeng.dispatch_log) == len(teng.dispatch_log) == 3 + mif
+    for (jp, jn, jt), (tp, tn, tt) in zip(jeng.dispatch_log, teng.dispatch_log):
+        assert jn == tn and np.array_equal(jp, tp) and np.array_equal(jt, tt)
+    for field in ("requests", "coalesced", "late_admitted", "dispatches", "padded_seeds"):
+        assert getattr(jeng.stats, field) == getattr(teng.stats, field), field
+    assert teng.stats.late_admitted == 3 and teng.stats.coalesced == 3
+    assert jeng.stats.cache.hits == teng.stats.cache.hits == 1
+    np.testing.assert_allclose(rows[1], rows[0], **TOL)
+    # bit-equal to a late-off engine fed the same final batches
+    ref = _engine(s, cache_entries=64, late_admission=False)
+    ref_rows = {}
+    for p, nv, tt in teng.dispatch_log:
+        hs = ref.submit_many(p[:nv], t=tt[:nv])
+        ref.flush()
+        for n, t, h in zip(p[:nv], tt[:nv], hs):
+            ref_rows[(int(n), float(t))] = h.result(timeout=60)
+    assert ref.stats.late_admitted == 0 and len(ref.dispatch_log) == len(teng.dispatch_log)
+    requests = [r for b in T_STALLED[:mif] for r in b] + T_WAITING + T_LATE
+    for r, row in zip(requests, rows[1]):
+        assert np.array_equal(row, ref_rows[_tkey(*r)]), r
+
+
+@pytest.mark.parametrize("cache", [0, 32])
+def test_submit_many_dispatch_log_bit_equal_scalar_submits(setup, cache):
+    """`submit_many` in chunks of 4 over (node, t_bucket) keys, with the
+    cache off and on, against scalar submits: rows, dispatch log and
+    counts bit-equal."""
+    rng = np.random.default_rng(17)
+    nodes = rng.integers(0, 10, 40)  # repeats within a t bucket coalesce
+    ts = rng.uniform(0, 12, 40)
+    a, b = (_engine(setup, cache_entries=cache) for _ in range(2))
+    ha = _tsubmit(a, list(zip(nodes.tolist(), ts.tolist())))
+    hb = [h for j in range(0, 40, 4) for h in b.submit_many(nodes[j:j + 4], t=ts[j:j + 4])]
+    for eng in (a, b):
+        while eng.flush():
+            pass
+    assert np.array_equal(np.stack([h.result(30) for h in ha]),
+                          np.stack([h.result(30) for h in hb]))
+    assert len(a.dispatch_log) == len(b.dispatch_log) >= 3
+    for (pa, na, ta), (pb, nb, tb) in zip(a.dispatch_log, b.dispatch_log):
+        assert na == nb and np.array_equal(pa, pb) and np.array_equal(ta, tb)
+    for field in ("requests", "coalesced", "dispatches"):
+        assert getattr(a.stats, field) == getattr(b.stats, field), field
+    assert a.stats.coalesced > 0

@@ -14,6 +14,7 @@ from seeded numpy and go through both packages. Bars:
   tests/test_torch_pipeline.py) and bit-equal to the port's own all-DRAM
   epoch (placement and prefetch never change a byte)."""
 
+import gc
 import threading
 import time
 
@@ -531,3 +532,36 @@ def test_int8_disk_rows_match_reference_and_decode_bit_exact(tmp_path, adaptive)
     valid = (ids >= 0) & (ids < 200)
     np.testing.assert_array_equal(out.numpy()[valid], tq[ids].numpy()[valid])
     assert tp.disk_rows_seen > 0
+
+
+def test_disk_read_threads_end_with_their_owner(tmp_path):
+    """With the cyclic collector off: a feature's own read pool stops at
+    `Feature.close` or when the feature is released, and a pool handed to
+    an adaptive store with its prefetch buffer on stops when the feature
+    goes (no cycle keeps the store, its pool or their threads)."""
+    def pool_threads():
+        return {t for t in threading.enumerate() if t.name.startswith("qt-diskread")}
+
+    before = pool_threads()
+    gc.disable()
+    try:
+        for i, (adaptive, close) in enumerate(((False, True), (False, False), (True, False))):
+            f = Feature(rank=0, disk_path=str(tmp_path / f"own{i}.npy"),
+                        device_cache_size=HBM * ROW, host_memory_budget=HOST * ROW,
+                        adaptive_tiers=adaptive, device="cpu",
+                        read_pool=AsyncReadPool(2) if adaptive else None, disk_read_workers=2)
+            f.from_cpu_tensor(_table(200))
+            if adaptive:
+                f.tier_store.enable_prefetch()
+                f.tier_store.prefetch_rows(np.arange(200))
+            f[_ids(200)]
+            new = pool_threads() - before
+            assert new, "the gather used no pool thread"
+            if close:
+                f.close()
+            del f
+            for t in new:
+                t.join(timeout=10)
+            assert not [t for t in new if t.is_alive()], (adaptive, close)
+    finally:
+        gc.enable()

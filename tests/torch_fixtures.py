@@ -1,5 +1,8 @@
 """Fixtures shared by the port's tests (tests/test_torch_*.py)."""
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -102,3 +105,88 @@ def prob_kernel_order(tindptr, tsrc, w, lane_items, seq_span):
             acc = lanes[0]
         out[v] = acc
     return out, np.stack([cv, ce], axis=1)
+
+
+class DispatchGate:
+    """Holds every call of an engine's dispatch stage (``_dispatch``, which
+    a flush enters holding its window permit) until `release` lets the
+    next one run, in arrival order. The lever of the late-admission tests,
+    on either package's engines and routers alike."""
+
+    def __init__(self, engine):
+        self._inner = engine._dispatch
+        engine._dispatch = self
+        self._cv = threading.Condition()
+        self.arrived = self.allowed = self.done = 0
+
+    def __call__(self, fl):
+        with self._cv:
+            me = self.arrived
+            self.arrived += 1
+            self._cv.notify_all()
+            self._cv.wait_for(lambda: self.allowed > me)
+        try:
+            return self._inner(fl)
+        finally:
+            with self._cv:
+                self.done += 1
+                self._cv.notify_all()
+
+    def wait_arrived(self, n: int, timeout: float = 60.0) -> None:
+        with self._cv:
+            assert self._cv.wait_for(lambda: self.arrived >= n, timeout), \
+                f"only {self.arrived} of {n} dispatches arrived"
+
+    def release(self, timeout: float = 60.0) -> None:
+        """Let the next held dispatch run, once it has arrived, and wait
+        until it returns."""
+        with self._cv:
+            n = self.allowed + 1
+            assert self._cv.wait_for(lambda: self.arrived >= n, timeout), "no dispatch came"
+            self.allowed = n
+            self._cv.notify_all()
+            assert self._cv.wait_for(lambda: self.done >= n, timeout), "a dispatch hung"
+
+    def open(self) -> None:
+        with self._cv:
+            self.allowed = 1 << 60
+            self._cv.notify_all()
+
+
+def gated_late_run(engine, submit, mif, stalled, waiting, late, submit_late=None):
+    """The late-admission trace: each of the ``mif`` batches of ``stalled``
+    is flushed from a thread and held in its dispatch stage with a window
+    permit; then ``waiting`` is flushed from a thread, which drains it,
+    publishes the open flush and waits for a permit; ``late`` arrives then
+    (through ``submit_late``, default ``submit``); then the held dispatches
+    run one at a time in order, and whatever is still pending is flushed.
+    ``submit(engine, requests)`` returns handles. Returns all the handles
+    in request order."""
+    gate = DispatchGate(engine)
+    handles, threads = [], []
+
+    def flush_in_thread():
+        t = threading.Thread(target=engine.flush, daemon=True)
+        t.start()
+        threads.append(t)
+
+    for i, batch in enumerate(stalled[:mif]):
+        handles += submit(engine, batch)
+        flush_in_thread()
+        gate.wait_arrived(i + 1)
+    handles += submit(engine, waiting)
+    flush_in_thread()
+    deadline = time.monotonic() + 60
+    while engine._open is None:
+        assert time.monotonic() < deadline, "the waiting flush never opened"
+        time.sleep(0.002)
+    handles += (submit_late or submit)(engine, late)
+    for _ in range(mif + 1):
+        gate.release()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    gate.open()
+    while engine.flush():
+        pass
+    return handles
