@@ -29,11 +29,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
              draws a k-subset per CSR row (K1) or dedups with the seeds
              kept in their slots (K2). K4 is also bit-equal when run twice;
              K1 and K1b launch one kernel a call (the host's launch count,
-             `_kernels.kernel_launches`), also timed queued;
-5. serve   — ServeEngine(max_batch=64) on the tiled sampler: warmup, then
-             Zipf requests from 4 client threads; every kernel of the path
-             must have launched (counts zeroed just before, read just
-             after). Then 8 dispatches replayed through batch_logits with a
+             `_kernels.kernel_launches`), also timed queued; their
+             device-key forms (the hop's key words read from the card, as a
+             captured serve step replays them) bit-equal to the by-value
+             forms, both timed queued (the ``device keys:`` line);
+5. serve   — ServeEngine(max_batch=64) on the tiled sampler: warmup, which
+             captures one CUDA graph a bucket and seals, then Zipf requests
+             from 4 client threads; every kernel of the path must have
+             launched (the counts and the graphs' replays zeroed just
+             before, read just after: a graph's launches are its capture's
+             counts times its replays, since the host counters see only the
+             capture) through its device-key form, and no kernel of the
+             path launched eagerly. A ``graphs:`` line: graphs captured,
+             kernels in one graph (`_kernels.kernel_launches` over its
+             capture), capture seconds, the graphs' pool bytes, replays,
+             and the host's launches a flush (torch.profiler's launch API
+             calls and the port's kernel counter) of the eager step against
+             the captured one at bucket 64, whose rows must be bit-equal,
+             and the seconds a same-shaped rebind takes to capture every
+             warmed bucket anew (bit-equal after it too).
+             Then 8 dispatches replayed through batch_logits with a
              fresh sampler must equal the served rows bit for bit, and 2
              dispatches replayed with the plain torch versions on the CPU
              must agree within 1e-3. Then the ``late:`` lines: the same
@@ -47,8 +62,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              call (``serve burst``: submitters fill max_batch and flush
              inline beside the pollers, so flushes wait for permits);
 6. flat    — a shorter serve run on the flat layout (the flat sampling
-             kernel's path), counts read the same way; its ``late:`` lines
-             and late-off replays as in 5;
+             kernel's path), counts and its ``graphs:`` line read the same
+             way; its ``late:`` lines and late-off replays as in 5;
 7. kernels-2 — the training slice's kernels at the shapes a batch-1024
              step gives them, against their plain versions: the
              neighbor-mean backward (K4b) on layers 1 and 2 in the cols
@@ -199,7 +214,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              cutoff of 10 and at recency 0, logging the share of lanes
              the time mask removed; the recency weights (K8w) over the
              whole timestamp table; K8 at t = +inf equal to K7 over K8w's
-             tiles and K8 equal to the host-masked oracle (1,024 rows).
+             tiles and K8 equal to the host-masked oracle (1,024 rows);
+             the device-key forms of K7, K7 flat and K8 (recency 0.02)
+             bit-equal to the by-value forms at each hop, both timed
+             queued (the ``device keys:`` line).
              Bounds: each row's window, pair, ids and flags read and
              written once, against a threefry uniform and the float64
              logarithms (and exp) of each live lane, their FP64
@@ -264,11 +282,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              bind_temporal(TemporalTiledGraph, recency=0.02): the recency
              weight tiles (K8w must have launched building them; the
              kernels line's K8w launches are these) and the t = +inf
-             layer pin over them, warmup, then, with the counts set to 0,
-             the temporal_trace's requests (Zipf 0.99, query times at 40
-             a second from 0) from 4 client threads: QPS, p50/p99, cache
-             hits, coalescing, launches of the served run (K8, K3, K4
-             must have launched); 8 dispatches replayed through
+             layer pin over them, warmup (captures and seals), then, with
+             the counts and replays set to 0, the temporal_trace's
+             requests (Zipf 0.99, query times at 40 a second from 0) from
+             4 client threads: QPS, p50/p99, cache hits, coalescing,
+             launches of the served run (K8, K3, K4 must have launched,
+             through the graphs) and its ``graphs:`` line as in 5; 8
+             dispatches replayed through
              replay_temporal_log on the card bit-equal, 2 on the CPU plain
              path within 1e-3; a temporal engine at recency 0 queried at
              t = +inf bit-equal to a plain ServeEngine over a weighted
@@ -388,7 +408,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              logit bytes, mean sub-batch width per owner, each owner's
              topo_stats (owned, closure and feature-closure nodes, edge
              share), its dispatches and latency, each owner's launches
-             (counted around its answerer; K1, K2, K4 and its gather must
+             (counted around its answerer, with its graphs' replays in (a),
+             whose owners serve through captured graphs and print a
+             ``graphs:`` line as in 5; K1, K2, K4 and its gather must
              launch, K13f in (b)), the ms a router flush spends in
              run_ranks and each rank in gloo's all_to_all; then each
              owner's first 8 dispatches replayed through replay_shard_oracle
@@ -459,8 +481,11 @@ from quiver_tpu_torch.inference import (
     bind_params,
     full_mean_aggregate,
     full_mean_aggregate_plain,
+    make_serve_step,
+    make_temporal_serve_step,
     sage_full_inference,
     strict_float32,
+    to_host,
 )
 from quiver_tpu_torch.pipeline import (
     TieredFeaturePipeline,
@@ -979,6 +1004,8 @@ def kernel_phase(topo, table, model, seeds):
             queued = time_ms_queued(lambda: fn(*g, *args))
             REDESIGN.setdefault(f"K1 flush {name}", []).append(dict(queued_ms=queued,
                                                                     kernels=n_kernels))
+            device_key_form(name, lambda kk: fn(*g, h["cur"], h["cur_valid"], k, kk), h["key"],
+                            got, f"W={W} k={k}")
             add(name, err, time_ms(lambda: fn(*g, *args)), time_ms(lambda: plain(*g, *args), reps=5),
                 b, shape=f"W={W} k={k}", queued_ms=queued)
 
@@ -1209,6 +1236,155 @@ def late_serve_runs(phase, make_engine, trace, clients, main=None, t=None, tempo
         lines.append(late_line(phase, engine, wall, len(seen)))
         del engine
     return lines
+
+
+# -- the captured serve step: launches, graphs, device keys ----------------------
+
+# the CUDA API calls that launch one kernel each (the runtime's and the
+# low-level cu* forms), as the profiler names them on the host
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaLaunchCooperativeKernel")
+DEVICE_KEYS = {}  # each draw's calls: by-value and device-key forms, queued ms
+
+
+def reset_path_counts(*engines) -> None:
+    """Set the wrappers' launch counts and every engine's graph replays to 0."""
+    _kernels.reset_counts()
+    for eng in engines:
+        if eng._programs is not None:
+            eng._programs.reset_replays()
+
+
+def path_counts(*engines) -> dict:
+    """The launches of a serving path since `reset_path_counts`: the
+    wrappers' counts (eager launches) plus each captured graph's launches
+    times its replays (the host counters see only a capture)."""
+    counts = _kernels.counts()
+    for eng in engines:
+        if eng._programs is not None:
+            for name, n in eng._programs.replayed_launches().items():
+                counts[name] = counts.get(name, 0) + n
+    return counts
+
+
+def check_graph_path(phase, engines, counts, names):
+    """Every kernel of ``names`` launched on the path, each draw through
+    its device-key form, and none of them eagerly (the host counters move
+    only with eager launches once the graphs are captured)."""
+    eager = _kernels.counts()
+    for name in names:
+        check(counts[name] > 0, f"kernel {name} never launched on the {phase} path")
+        check(eager[name] == 0, f"{phase}: {name} launched eagerly {eager[name]} times "
+                                "beside the captured graphs")
+        if name in _kernels.DEVICE_KEY:
+            check(counts[f"{name}/device_key"] == counts[name],
+                  f"{phase}: {name} launched without its device-key form")
+    check(all(e._programs is not None and e._programs.sealed for e in engines),
+          f"{phase}: not served through sealed captured graphs")
+
+
+def host_launches(fn, flushes=5) -> dict:
+    """The host's launches a call of ``fn`` (after one warm call): the
+    profiler's kernel launch API calls, graph launches and copies, and the
+    port's kernel counter (`_kernels.kernel_launches`), each over
+    ``flushes`` calls; plus the profiler's device events (kernels and
+    copies the card ran) a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    _kernels.reset_kernel_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(flushes):
+            fn()
+        torch.cuda.synchronize()
+    port = _kernels.kernel_launches()
+    host, device = {}, 0
+    for e in prof.events():
+        if str(e.device_type).endswith("CPU"):
+            host[e.name] = host.get(e.name, 0) + 1
+        elif str(e.device_type).endswith("CUDA"):
+            device += 1
+    return {"kernel_launch_calls": sum(host.get(n, 0) for n in LAUNCH_APIS) / flushes,
+            "graph_launches": host.get("cudaGraphLaunch", 0) / flushes,
+            "copies": sum(n for k, n in host.items() if "Memcpy" in k or "Memset" in k) / flushes,
+            "port_kernels_counted": port / flushes, "device_events": device / flushes}
+
+
+def graphs_line(phase, engines, temporal=False, bucket=BATCH) -> dict:
+    """The ``graphs:`` line of a serving phase's engines (read after its
+    counts): graphs bound and captured, kernels in one graph by bucket,
+    capture seconds, the graphs' pool bytes, replays; then, on the first
+    engine at ``bucket``, the eager step and the captured graph on one key
+    (bit-equal) and the host's launches a flush of each, and the seconds
+    a same-shaped rebind takes to capture its warmed buckets anew."""
+    stats = [e._programs.graph_stats() for e in engines]
+    eng = engines[0]
+    progs = eng._programs
+    step = (make_temporal_serve_step if temporal else make_serve_step)(eng._sampler)[0]
+    table, index_map, graph = progs.binding()
+    key = qrandom.fold_in(qrandom.key(4321), 0)
+    seeds = (np.arange(bucket, dtype=np.int64) * 7919) % eng._sampler.csr_topo.node_count
+    extra = (np.full(bucket, np.inf, np.float32),) if temporal else ()
+
+    def eager():
+        strict_float32()
+        with torch.inference_mode():
+            return to_host(step(eng._model, key, eng._sampler.as_seeds(seeds), table,
+                                index_map, graph,
+                                *(torch.from_numpy(x).to(eng.device) for x in extra)))
+
+    def captured():
+        return progs(bucket, eng._model, key, seeds, *extra)
+
+    check(np.array_equal(eager(), captured()),
+          f"{phase}: bucket {bucket}'s graph differs from the eager step on one key")
+    launches = {"bucket": bucket, "eager": host_launches(eager), "captured": host_launches(captured)}
+    # a same-shaped rebind (the same arrays) captures every warmed bucket anew
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    progs.rebind(table=table)
+    torch.cuda.synchronize()
+    rebind_s = time.perf_counter() - t0
+    check(np.array_equal(eager(), captured()), f"{phase}: the graphs differ after a rebind")
+    line = {"phase": phase, "engines": len(engines),
+            "graphs_bound": sum(st["graphs"] for st in stats),
+            "graphs_captured": sum(st["captured"] for st in stats),
+            "kernels_per_graph": stats[0]["kernels"],
+            "capture_s": sum(st["capture_s"] for st in stats),
+            "pool_bytes": sum(st["pool_bytes"] for st in stats),
+            "replays": sum(st["replays"] for st in stats),
+            "host_launches_per_flush": launches, "rebind_s": rebind_s}
+    log("graphs: " + json.dumps(line))
+    return line
+
+
+def device_key_form(name, call, key, got, shape):
+    """A draw's device-key form: ``call(k)`` runs the draw on key ``k``;
+    on ``key``'s two words in device memory it must equal ``got`` (the
+    by-value form's output on ``key``) bit for bit. Both forms are timed
+    queued, one after the other, for the ``device keys:`` line."""
+    words = torch.from_numpy(qrandom.key_data(key).view(np.int32)).to(got[0].device)
+    words = words.view(torch.uint32)
+    before = _kernels.counts()[f"{name}/device_key"]
+    dk = call(words)
+    check(_kernels.counts()[f"{name}/device_key"] == before + 1,
+          f"{name}'s device-key form did not launch")
+    check(torch.equal(dk[0], got[0]) and torch.equal(dk[1], got[1]),
+          f"{name}'s device-key form differs from its by-value form at {shape}")
+    DEVICE_KEYS.setdefault(name, []).append(
+        {"shape": shape, "by_value_queued_ms": time_ms_queued(lambda: call(key)),
+         "device_key_queued_ms": time_ms_queued(lambda: call(words))})
+
+
+def device_keys_line() -> dict:
+    """Each draw's calls of the ``device keys:`` line and their sums."""
+    line = {name: {"calls": calls,
+                   "by_value_queued_ms": sum(c["by_value_queued_ms"] for c in calls),
+                   "device_key_queued_ms": sum(c["device_key_queued_ms"] for c in calls)}
+            for name, calls in DEVICE_KEYS.items()}
+    log("device keys: " + json.dumps(line))
+    return line
 
 
 # -- the training slice ----------------------------------------------------------
@@ -2506,6 +2682,9 @@ def kernel_phase_5(topo, wtopo, tg, ts_np, seeds_1024, tseeds, tvals, rows, seed
                    time_ms(lambda: plain(*g, *args), reps=5), b,
                    time_ms(lambda: torch.topk(scores, k)), shape=f"W={W} k={k} live={live}",
                    queued_ms=time_ms_queued(lambda: fn(*g, *args)))
+            device_key_form(f"weighted_sample_{layout}",
+                            lambda kk: fn(*g, h["cur"], h["cur_valid"], k, kk, MAX_DEG),
+                            h["key"], got, f"W={W} k={k}")
         if layout == "tiled":  # draw-equal to the flat layout at max_deg % 128 == 0
             for h in hops:
                 args = (h["cur"], h["cur_valid"], h["k"], h["key"], MAX_DEG)
@@ -2546,6 +2725,11 @@ def kernel_phase_5(topo, wtopo, tg, ts_np, seeds_1024, tseeds, tvals, rows, seed
                    shape=f"{name} W={W} k={k} live={live}", report=report,
                    queued_ms=time_ms_queued(
                        lambda: sample.tiled_temporal_sample_layer(*graph, *args)))
+            if report:
+                device_key_form("temporal_sample_tiled",
+                                lambda kk: sample.tiled_temporal_sample_layer(
+                                    *graph, h["cur"], h["cur_valid"], k, kk, h["t"], MAX_DEG,
+                                    rec, cutoff), h["key"], got, f"W={W} k={k}")
 
     # K8w over the whole timestamp table, then the two pins
     wt = tg.recency_wtiles(RECENCY)
@@ -3064,9 +3248,9 @@ def temporal_serve_phase(topo, tg, model, params, table, trace, seed):
     warm = engine.warmup()
     log(f"temporal warmup: {json.dumps({str(k): round(v, 4) for k, v in warm.items()})}")
     engine.reset_stats()
-    _kernels.reset_counts()
+    reset_path_counts(engine)
     served, wall = serve_phase(engine, trace.requests, clients=4, t=trace.t_query)
-    counts = _kernels.counts()
+    counts = path_counts(engine)
     st = engine.stats
     check(st.requests == requests, "not every temporal request was answered")
     out = np.stack(list(served.values()))
@@ -3078,8 +3262,9 @@ def temporal_serve_phase(topo, tg, model, params, table, trace, seed):
         "dispatched_seeds": st.dispatched_seeds, "distinct_keys": len(served),
         "t_query_span": [float(trace.t_query[0]), float(trace.t_query[-1])],
         "launches": {k: v for k, v in counts.items() if v}}))
-    for name in ("temporal_sample_tiled", "gather_rows", "masked_mean"):
-        check(counts[name] > 0, f"kernel {name} never launched on the temporal path")
+    check_graph_path("temporal", [engine], counts,
+                     ("temporal_sample_tiled", "gather_rows", "masked_mean"))
+    graphs_line("temporal serve", [engine], temporal=True)
 
     # replay: 8 dispatches on the card bit-equal, 2 on the CPU plain path within 1e-3
     def replay_worst(log_entries, s, feat, device):
@@ -4403,14 +4588,16 @@ def count_owner_launches(dist, names):
     per_owner = {h: dict.fromkeys(names, 0) for h in dist.engines}
 
     def counted(h, fn):
+        eng = dist.engines[h]
+
         def predict(ids, *a, **k):
-            before = _kernels.counts()
+            before = path_counts(eng)
             try:
                 return fn(ids, *a, **k)
             finally:
-                after = _kernels.counts()
+                after = path_counts(eng)
                 for name in names:
-                    per_owner[h][name] += after[name] - before[name]
+                    per_owner[h][name] += after.get(name, 0) - before.get(name, 0)
         return predict
 
     for h, eng in dist.engines.items():
@@ -4442,9 +4629,9 @@ def fleet_leg(leg, topo, table, model, params, trace, residency, seed, mif=2, la
     dist.reset_stats()
     per_owner = count_owner_launches(dist, names)
     with ExchangeClock() as xclock:
-        _kernels.reset_counts()
+        reset_path_counts(*dist.engines.values())
         served, wall = serve_phase(dist, trace, clients=4)
-        counts = _kernels.counts()
+        counts = path_counts(*dist.engines.values())
     st = dist.stats
     agg = dist.aggregate_stats()
     check(st.requests == len(trace) and len(served) == len(set(trace.tolist())),
@@ -4530,11 +4717,13 @@ def fleet_phase(topo, table, model, params, trace, seed):
     # the CPU replays get their own CSRTopo: the card's tile table stays cached
     full = {table.device.type: (topo, table),
             "cpu": (CSRTopo(indptr=topo.indptr, indices=topo.indices), table.cpu())}
-    dist, served, summary, _, per_owner = fleet_leg("a", topo, table, model, params, trace,
-                                                    "closure", seed)
+    dist, served, summary, counts, per_owner = fleet_leg("a", topo, table, model, params,
+                                                         trace, "closure", seed)
     for h, c in per_owner.items():
         for name in MAIN_PATH:
             check(c[name] > 0, f"owner {h} never launched {name} in fleet leg (a)")
+    check_graph_path("fleet a", list(dist.engines.values()), counts, MAIN_PATH)
+    graphs_line("fleet a", [dist.engines[h] for h in sorted(dist.engines)])
     fleet_late("a", dist, served, summary["wall_s"], model, params, topo, table, seed)
     fleet_replay("a", dist, model, params, full, served, seed)
     del dist
@@ -4679,9 +4868,9 @@ def main() -> int:
     warm = engine.warmup()
     log(f"warmup: {json.dumps({str(b): round(t, 4) for b, t in warm.items()})}")
     engine.reset_stats()
-    _kernels.reset_counts()
+    reset_path_counts(engine)
     served, wall = serve_phase(engine, trace, clients=4)
-    counts = _kernels.counts()
+    counts = path_counts(engine)
     st = engine.stats
     check(st.requests == args.requests and len(served) == len(set(trace.tolist())),
           "not every request was answered")
@@ -4696,8 +4885,8 @@ def main() -> int:
         "overlap": st.spans.overlap_summary(),
     }
     log("serve: " + json.dumps(summary))
-    for name in MAIN_PATH:
-        check(counts[name] > 0, f"kernel {name} never launched on the main path")
+    check_graph_path("serve", [engine], counts, MAIN_PATH)
+    graphs_line("serve", [engine])
     launches = dict(counts)
     replay_dev = replay_check(topo, model, params, table, engine, served, dev, 8, 0.0)
     replay_cpu = replay_check(topo, model, params, table, engine, served, "cpu", 2, 1e-3)
@@ -4723,13 +4912,14 @@ def main() -> int:
                           ServeConfig(max_batch=BATCH, record_dispatches=True))
     fengine.warmup()
     ftrace = trace[: max(args.requests // 8, 64)]
-    _kernels.reset_counts()
+    reset_path_counts(fengine)
     fserved, fwall = serve_phase(fengine, ftrace, clients=2)
-    fcounts = _kernels.counts()
+    fcounts = path_counts(fengine)
     log("flat serve: " + json.dumps({"requests": fengine.stats.requests, "wall_s": fwall,
                                      "launches": fcounts}))
-    for name in ("sample_flat", "local_reindex", "gather_rows", "masked_mean"):
-        check(fcounts[name] > 0, f"kernel {name} never launched on the flat path")
+    check_graph_path("flat", [fengine], fcounts,
+                     ("sample_flat", "local_reindex", "gather_rows", "masked_mean"))
+    graphs_line("flat serve", [fengine])
     launches["sample_flat"] = fcounts["sample_flat"]
     late_serve_runs("flat serve", serve_engine("flat"), ftrace, 2, main=(fengine, fserved, fwall))
     phase_done("flat serve")
@@ -4862,6 +5052,7 @@ def main() -> int:
                                 "launches": launches["build_tiles"]}))
 
     log("redesign K4 K2 K1 K13e K14b K11 K14c K13d: " + json.dumps(redesign_line()))
+    device_keys_line()
     log(f"every phase passed in {time.perf_counter() - t_run:.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -98,6 +98,23 @@ KERNELS = {
     "cold_merge": ("collective", "qt_cold_merge", [_P, _I, _P, _P, _P, _LL, _I, _P]),
     "exchange_rows": ("collective", "qt_exchange_rows", [_P, _LL, _I, _P, _LL, _P, _P]),
 }
+# the draws with a device-key form: name -> its C entry point, which takes
+# a pointer to the hop's two uint32 key words in device memory in place of
+# the two words by value (the form a captured CUDA graph replays with new
+# keys); its launches count under the kernel's name and "name/device_key"
+DEVICE_KEY = {"sample_tiled": "qt_sample_tiled_dk", "sample_flat": "qt_sample_flat_dk",
+              "weighted_sample_tiled": "qt_weighted_sample_tiled_dk",
+              "weighted_sample_flat": "qt_weighted_sample_flat_dk",
+              "temporal_sample_tiled": "qt_temporal_sample_tiled_dk"}
+
+
+def _device_key_argtypes(argtypes):
+    """The by-value form's argument types with its two key words (the one
+    pair of unsigned ints) replaced by one pointer."""
+    i = next(j for j in range(len(argtypes) - 1) if argtypes[j] is _U and argtypes[j + 1] is _U)
+    return argtypes[:i] + [_P] + argtypes[i + 2:]
+
+
 # kernels whose launches are also counted per layout, as "name/variant"
 VARIANTS = {"masked_mean": ("float32", "bfloat16"),
             "masked_mean_backward": ("cols", "structural", "float32", "bfloat16"),
@@ -111,7 +128,8 @@ VARIANTS = {"masked_mean": ("float32", "bfloat16"),
             "sharded_rows": ("float32", "bfloat16", "int8"),
             "sharded_dequant": ("fp32", "bf16", "int8"),
             "grouped_unpack": ("float32", "bfloat16", "int8", "int32"),
-            "cold_merge": ("float32", "bfloat16")}
+            "cold_merge": ("float32", "bfloat16"),
+            **{name: ("device_key",) for name in DEVICE_KEY}}
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
            "qt_local_reindex_scratch": ("reindex", [_I, _I, ctypes.POINTER(_LL)]),
@@ -222,6 +240,8 @@ def _lib(stem: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(_lib_path(stem)))
             entries = [(fn, a) for s, fn, a in KERNELS.values() if s == stem]
+            entries += [(DEVICE_KEY[name], _device_key_argtypes(a))
+                        for name, (s, _, a) in KERNELS.items() if s == stem and name in DEVICE_KEY]
             entries += [(fn, a) for fn, (s, a) in HELPERS.items() if s == stem]
             for fn, argtypes in entries:
                 f = getattr(lib, fn)
@@ -245,10 +265,14 @@ def launch(name: str, *args, variant=None) -> None:
     """Launch kernel ``name`` with C arguments ``args`` (pointers and the
     stream as ints). Counts the launch (under ``name/variant`` too, for a
     kernel listed in `VARIANTS`; ``variant`` may be a tuple of them) and
-    raises if CUDA refused it."""
+    raises if CUDA refused it. The variant "device_key" launches the
+    kernel's device-key form (`DEVICE_KEY`): ``args`` then carry one
+    pointer to the key words where the by-value form takes two words."""
     stem, fn, _ = KERNELS[name]
     lib = _lib(stem)
     variants = (variant,) if isinstance(variant, str) else (variant or ())
+    if "device_key" in variants:
+        fn = DEVICE_KEY[name]
     with _lock:
         _counts[name] += 1
         for v in variants:

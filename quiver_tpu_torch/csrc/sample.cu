@@ -17,7 +17,9 @@
 // tail slot winning) and emits pos_i = A[j_i], read before the swap. Rows
 // with deg <= k copy positions 0..k-1; valid = i < min(deg, k). Invalid
 // seeds have deg 0. Outputs are bit-equal to the plain torch version and to
-// the JAX package.
+// the JAX package. K1 and K1b also read the two key words from device
+// memory (the _dk entry points, a template flag on the one body), so that a
+// captured serve step replays with each flush's keys; the draw is the same.
 //
 // Bound on the card: bytes at the batch widths (each row reads its (base,
 // deg) pair and k neighbor ids scattered over the graph, and writes k ids
@@ -88,12 +90,20 @@ struct OwnedRows {
 };
 
 // Q: steps a lane (1 for k <= 32; a power of two >= k / 32 above).
-template <int Q, class Fetch, class Rows>
+// kDevKey: the hop's key words are read from key_words[0..1] in device
+// memory (the form a captured CUDA graph replays with new keys), else they
+// are key0 and key1, passed by value.
+template <int Q, bool kDevKey, class Fetch, class Rows>
 __global__ void __launch_bounds__(QT_SAMPLE_THREADS)
     sample_kernel(Fetch g, Rows rows, int32_t n_nodes, const int32_t* __restrict__ seeds,
                   const bool* __restrict__ seed_valid, int32_t W, int32_t k, uint32_t key0,
-                  uint32_t key1, int32_t group_w, long long group_stride,
-                  int32_t* __restrict__ out, typename Rows::Valid* __restrict__ out_valid) {
+                  uint32_t key1, const uint32_t* __restrict__ key_words, int32_t group_w,
+                  long long group_stride, int32_t* __restrict__ out,
+                  typename Rows::Valid* __restrict__ out_valid) {
+  if (kDevKey) {
+    key0 = key_words[0];
+    key1 = key_words[1];
+  }
   const int lane = threadIdx.x & 31;
   const int kt = k < 32 ? k : 32;  // lanes a row
   const int per_warp = 32 / kt;    // rows a warp
@@ -162,25 +172,26 @@ __global__ void __launch_bounds__(QT_SAMPLE_THREADS)
   }
 }
 
-template <int Q, class Fetch, class Rows>
+template <int Q, bool kDevKey, class Fetch, class Rows>
 static int launch_q(Fetch g, Rows rows, int n_nodes, const int32_t* seeds, const bool* seed_valid,
-                    int W, int k, unsigned key0, unsigned key1, int group_w,
-                    long long group_stride, int32_t* out, typename Rows::Valid* out_valid,
-                    cudaStream_t s) {
+                    int W, int k, unsigned key0, unsigned key1, const uint32_t* key_words,
+                    int group_w, long long group_stride, int32_t* out,
+                    typename Rows::Valid* out_valid, cudaStream_t s) {
   const int kt = k < 32 ? k : 32;
   const long long warps = (W + 32 / kt - 1) / (32 / kt);
   qt_count_launch();
-  sample_kernel<Q, Fetch, Rows><<<qt_blocks(warps * 32, QT_SAMPLE_THREADS), QT_SAMPLE_THREADS,
-                                  0, s>>>(g, rows, n_nodes, seeds, seed_valid, W, k, key0, key1,
-                                          group_w, group_stride, out, out_valid);
+  sample_kernel<Q, kDevKey, Fetch, Rows>
+      <<<qt_blocks(warps * 32, QT_SAMPLE_THREADS), QT_SAMPLE_THREADS, 0, s>>>(
+          g, rows, n_nodes, seeds, seed_valid, W, k, key0, key1, key_words, group_w,
+          group_stride, out, out_valid);
   return qt_launch_status();
 }
 
-template <class Fetch, class Rows>
+template <bool kDevKey, class Fetch, class Rows>
 static int launch_sample(Fetch g, Rows rows, int n_nodes, const void* seeds,
                          const void* seed_valid, int W, int k, unsigned key0, unsigned key1,
-                         int group_w, long long group_stride, void* out, void* out_valid,
-                         void* stream) {
+                         const void* key_words, int group_w, long long group_stride, void* out,
+                         void* out_valid, void* stream) {
   if (W <= 0 || k <= 0) return 0;
   if (k > QT_SAMPLE_KMAX || group_w <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto sd = static_cast<const int32_t*>(seeds);
@@ -188,9 +199,12 @@ static int launch_sample(Fetch g, Rows rows, int n_nodes, const void* seeds,
   const auto o = static_cast<int32_t*>(out);
   const auto ov = static_cast<typename Rows::Valid*>(out_valid);
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto kw = static_cast<const uint32_t*>(key_words);
+  if (kDevKey && kw == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int q = (k + 31) / 32;
-#define QT_SAMPLE_LAUNCH(Q) \
-  launch_q<Q>(g, rows, n_nodes, sd, sv, W, k, key0, key1, group_w, group_stride, o, ov, s)
+#define QT_SAMPLE_LAUNCH(Q)                                                                     \
+  launch_q<Q, kDevKey>(g, rows, n_nodes, sd, sv, W, k, key0, key1, kw, group_w, group_stride, o, \
+                       ov, s)
   if (q <= 1) return QT_SAMPLE_LAUNCH(1);
   if (q <= 2) return QT_SAMPLE_LAUNCH(2);
   if (q <= 4) return QT_SAMPLE_LAUNCH(4);
@@ -204,8 +218,8 @@ QT_EXPORT int qt_sample_tiled(const void* bd, const void* tiles, long long m_row
                               int W, int k, unsigned key0, unsigned key1, void* out,
                               void* out_valid, void* stream) {
   TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
-  return launch_sample(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, key0, key1, W, 0, out,
-                       out_valid, stream);
+  return launch_sample<false>(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, key0, key1,
+                              nullptr, W, 0, out, out_valid, stream);
 }
 
 QT_EXPORT int qt_sample_flat(const void* indptr, const void* indices, long long n_edges,
@@ -214,8 +228,30 @@ QT_EXPORT int qt_sample_flat(const void* indptr, const void* indices, long long 
                              void* out_valid, void* stream) {
   FlatFetch g{static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
               n_edges};
-  return launch_sample(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, key0, key1, W, 0, out,
-                       out_valid, stream);
+  return launch_sample<false>(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, key0, key1,
+                              nullptr, W, 0, out, out_valid, stream);
+}
+
+// K1 and K1b with the hop's two key words read from device memory
+// (key_words: uint32[2]) in place of key0 and key1: the same draw, the
+// form a captured serve step replays.
+QT_EXPORT int qt_sample_tiled_dk(const void* bd, const void* tiles, long long m_rows,
+                                 int n_nodes, const void* seeds, const void* seed_valid,
+                                 int W, int k, const void* key_words, void* out,
+                                 void* out_valid, void* stream) {
+  TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
+  return launch_sample<true>(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, 0, 0, key_words,
+                             W, 0, out, out_valid, stream);
+}
+
+QT_EXPORT int qt_sample_flat_dk(const void* indptr, const void* indices, long long n_edges,
+                                int n_nodes, const void* seeds, const void* seed_valid,
+                                int W, int k, const void* key_words, void* out,
+                                void* out_valid, void* stream) {
+  FlatFetch g{static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
+              n_edges};
+  return launch_sample<true>(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, 0, 0, key_words,
+                             W, 0, out, out_valid, stream);
 }
 
 // K13b over the tile layout: bd [n_rows, 2], tiles [m_rows, 128] of one
@@ -228,8 +264,8 @@ QT_EXPORT int qt_sharded_sample_tiled(const void* bd, const void* tiles, long lo
                                       long long group_stride, void* out, void* out_valid,
                                       void* stream) {
   TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
-  return launch_sample(g, OwnedRows{start, end}, n_rows, seeds, seed_valid, W, k, key0, key1,
-                       group_w, group_stride, out, out_valid, stream);
+  return launch_sample<false>(g, OwnedRows{start, end}, n_rows, seeds, seed_valid, W, k, key0,
+                              key1, nullptr, group_w, group_stride, out, out_valid, stream);
 }
 
 // K13b over the flat block: indptr [n_rows + 1] local offsets, indices
@@ -242,8 +278,8 @@ QT_EXPORT int qt_sharded_sample_flat(const void* indptr, const void* indices, lo
                                      void* stream) {
   FlatFetch g{static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
               n_edges};
-  return launch_sample(g, OwnedRows{start, end}, n_rows, seeds, seed_valid, W, k, key0, key1,
-                       group_w, group_stride, out, out_valid, stream);
+  return launch_sample<false>(g, OwnedRows{start, end}, n_rows, seeds, seed_valid, W, k, key0,
+                              key1, nullptr, group_w, group_stride, out, out_valid, stream);
 }
 
 QT_DEFINE_ERROR_STRING

@@ -20,7 +20,9 @@
 // then the top k of (score desc, lane asc) -- lax.top_k's order, -inf
 // lanes included -- and valid = r < min(deg, k) && score > -inf. Every
 // log and exp is float64 rounded once to float32 (gumbel.cuh), so the
-// outputs are bit-equal to the plain torch versions.
+// outputs are bit-equal to the plain torch versions. K7, K7 flat and K8
+// also read the two key words from device memory (the _dk entry points, a
+// template flag on the one body) for a captured serve step's replays.
 //
 // Design. A block of 256 threads (8 blocks an SM at 32 registers) takes R
 // consecutive rows, 1 to 32: the most that still leaves a wave of blocks
@@ -356,13 +358,21 @@ __device__ __forceinline__ void qt_select(const Sink& sink, uint32_t* rk, uint32
   else qt_select_by_rank(sink, rk, ws, span, k, lane);
 }
 
-// every block an SM can hold by threads: at most 32 registers a thread
-template <class Fetch, class Window>
+// every block an SM can hold by threads: at most 32 registers a thread.
+// kDevKey: the hop's key words are read from key_words[0..1] in device
+// memory (the form a captured CUDA graph replays with new keys), else they
+// are key0 and key1, passed by value.
+template <class Fetch, class Window, bool kDevKey>
 __global__ void __launch_bounds__(QT_GUMBEL_THREADS, QT_GUMBEL_BLOCKS_SM)
     gumbel_sample_kernel(Fetch g, Window win, int32_t n_nodes, const int32_t* __restrict__ seeds,
                          const bool* __restrict__ seed_valid, int32_t W, int32_t k,
                          int32_t max_deg, int32_t wwin, int32_t rows, uint32_t key0,
-                         uint32_t key1, int32_t* __restrict__ out, bool* __restrict__ out_valid) {
+                         uint32_t key1, const uint32_t* __restrict__ key_words,
+                         int32_t* __restrict__ out, bool* __restrict__ out_valid) {
+  if (kDevKey) {
+    key0 = key_words[0];
+    key1 = key_words[1];
+  }
   __shared__ uint32_t keys[QT_LANE_BUDGET];
   __shared__ uint32_t scratch[QT_GUMBEL_WARPS][256];
   __shared__ int32_t picks[QT_PICKS_CAP];
@@ -484,34 +494,86 @@ static inline int qt_gumbel_rows(int W) {
   return rows;
 }
 
-template <class Fetch, class Window>
+template <bool kDevKey, class Fetch, class Window>
 static int launch_gumbel(Fetch g, Window win, int n_nodes, const void* seeds,
                          const void* seed_valid, int W, int k, int max_deg, int wwin,
-                         unsigned key0, unsigned key1, void* out, void* out_valid, void* stream) {
+                         unsigned key0, unsigned key1, const void* key_words, void* out,
+                         void* out_valid, void* stream) {
   if (W <= 0 || k <= 0) return 0;
-  if (k > wwin || max_deg < 1 || wwin > QT_MAX_WINDOW)
+  if (k > wwin || max_deg < 1 || wwin > QT_MAX_WINDOW || (kDevKey && key_words == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = qt_gumbel_rows(W);
   qt_count_launch();
-  gumbel_sample_kernel<Fetch, Window>
+  gumbel_sample_kernel<Fetch, Window, kDevKey>
       <<<qt_blocks(W, rows), QT_GUMBEL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           g, win, n_nodes, static_cast<const int32_t*>(seeds),
           static_cast<const bool*>(seed_valid), W, k, max_deg, wwin, rows, key0, key1,
-          static_cast<int32_t*>(out), static_cast<bool*>(out_valid));
+          static_cast<const uint32_t*>(key_words), static_cast<int32_t*>(out),
+          static_cast<bool*>(out_valid));
   return qt_launch_status();
 }
 
 static inline int qt_tiled_window(int max_deg) { return (max_deg + 127) / 128 * 128; }
+
+// Each draw has two entry points: the hop's key words by value (key0,
+// key1), and, with the _dk suffix, read from device memory (key_words:
+// uint32[2]), the form a captured serve step replays. Both run one body.
+template <bool kDevKey>
+static int weighted_tiled(const void* bd, const void* tiles, const void* wtiles, long long m_rows,
+                          int n_nodes, const void* seeds, const void* seed_valid, int W, int k,
+                          int max_deg, unsigned key0, unsigned key1, const void* key_words,
+                          void* out, void* out_valid, void* stream) {
+  TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
+  TiledWeights win{static_cast<const float*>(wtiles), m_rows};
+  return launch_gumbel<kDevKey>(g, win, n_nodes, seeds, seed_valid, W, k, max_deg,
+                                qt_tiled_window(max_deg), key0, key1, key_words, out,
+                                out_valid, stream);
+}
+
+template <bool kDevKey>
+static int weighted_flat(const void* indptr, const void* indices, const void* weights,
+                         long long n_edges, int n_nodes, const void* seeds,
+                         const void* seed_valid, int W, int k, int max_deg, unsigned key0,
+                         unsigned key1, const void* key_words, void* out, void* out_valid,
+                         void* stream) {
+  FlatFetch g{static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
+              n_edges};
+  FlatWeights win{static_cast<const float*>(weights), n_edges};
+  return launch_gumbel<kDevKey>(g, win, n_nodes, seeds, seed_valid, W, k, max_deg, max_deg,
+                                key0, key1, key_words, out, out_valid, stream);
+}
+
+template <bool kDevKey>
+static int temporal_tiled(const void* bd, const void* tiles, const void* ttiles,
+                          long long m_rows, int n_nodes, const void* seeds,
+                          const void* seed_valid, const void* t, int W, int k, int max_deg,
+                          float recency, int has_cutoff, float cutoff, unsigned key0,
+                          unsigned key1, const void* key_words, void* out, void* out_valid,
+                          void* stream) {
+  TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
+  TemporalWeights win{TiledWeights{static_cast<const float*>(ttiles), m_rows},
+                      static_cast<const float*>(t), recency, has_cutoff, cutoff};
+  return launch_gumbel<kDevKey>(g, win, n_nodes, seeds, seed_valid, W, k, max_deg,
+                                qt_tiled_window(max_deg), key0, key1, key_words, out,
+                                out_valid, stream);
+}
 
 QT_EXPORT int qt_weighted_sample_tiled(const void* bd, const void* tiles, const void* wtiles,
                                        long long m_rows, int n_nodes, const void* seeds,
                                        const void* seed_valid, int W, int k, int max_deg,
                                        unsigned key0, unsigned key1, void* out, void* out_valid,
                                        void* stream) {
-  TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
-  TiledWeights win{static_cast<const float*>(wtiles), m_rows};
-  return launch_gumbel(g, win, n_nodes, seeds, seed_valid, W, k, max_deg,
-                       qt_tiled_window(max_deg), key0, key1, out, out_valid, stream);
+  return weighted_tiled<false>(bd, tiles, wtiles, m_rows, n_nodes, seeds, seed_valid, W, k,
+                               max_deg, key0, key1, nullptr, out, out_valid, stream);
+}
+
+QT_EXPORT int qt_weighted_sample_tiled_dk(const void* bd, const void* tiles, const void* wtiles,
+                                          long long m_rows, int n_nodes, const void* seeds,
+                                          const void* seed_valid, int W, int k, int max_deg,
+                                          const void* key_words, void* out, void* out_valid,
+                                          void* stream) {
+  return weighted_tiled<true>(bd, tiles, wtiles, m_rows, n_nodes, seeds, seed_valid, W, k,
+                              max_deg, 0, 0, key_words, out, out_valid, stream);
 }
 
 QT_EXPORT int qt_weighted_sample_flat(const void* indptr, const void* indices,
@@ -519,11 +581,17 @@ QT_EXPORT int qt_weighted_sample_flat(const void* indptr, const void* indices,
                                       const void* seeds, const void* seed_valid, int W, int k,
                                       int max_deg, unsigned key0, unsigned key1, void* out,
                                       void* out_valid, void* stream) {
-  FlatFetch g{static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
-              n_edges};
-  FlatWeights win{static_cast<const float*>(weights), n_edges};
-  return launch_gumbel(g, win, n_nodes, seeds, seed_valid, W, k, max_deg, max_deg, key0, key1,
-                       out, out_valid, stream);
+  return weighted_flat<false>(indptr, indices, weights, n_edges, n_nodes, seeds, seed_valid, W,
+                              k, max_deg, key0, key1, nullptr, out, out_valid, stream);
+}
+
+QT_EXPORT int qt_weighted_sample_flat_dk(const void* indptr, const void* indices,
+                                         const void* weights, long long n_edges, int n_nodes,
+                                         const void* seeds, const void* seed_valid, int W, int k,
+                                         int max_deg, const void* key_words, void* out,
+                                         void* out_valid, void* stream) {
+  return weighted_flat<true>(indptr, indices, weights, n_edges, n_nodes, seeds, seed_valid, W,
+                             k, max_deg, 0, 0, key_words, out, out_valid, stream);
 }
 
 QT_EXPORT int qt_temporal_sample_tiled(const void* bd, const void* tiles, const void* ttiles,
@@ -532,11 +600,20 @@ QT_EXPORT int qt_temporal_sample_tiled(const void* bd, const void* tiles, const 
                                        int max_deg, float recency, int has_cutoff, float cutoff,
                                        unsigned key0, unsigned key1, void* out, void* out_valid,
                                        void* stream) {
-  TiledFetch g{static_cast<const int32_t*>(bd), static_cast<const int32_t*>(tiles), m_rows};
-  TemporalWeights win{TiledWeights{static_cast<const float*>(ttiles), m_rows},
-                      static_cast<const float*>(t), recency, has_cutoff, cutoff};
-  return launch_gumbel(g, win, n_nodes, seeds, seed_valid, W, k, max_deg,
-                       qt_tiled_window(max_deg), key0, key1, out, out_valid, stream);
+  return temporal_tiled<false>(bd, tiles, ttiles, m_rows, n_nodes, seeds, seed_valid, t, W, k,
+                               max_deg, recency, has_cutoff, cutoff, key0, key1, nullptr, out,
+                               out_valid, stream);
+}
+
+QT_EXPORT int qt_temporal_sample_tiled_dk(const void* bd, const void* tiles, const void* ttiles,
+                                          long long m_rows, int n_nodes, const void* seeds,
+                                          const void* seed_valid, const void* t, int W, int k,
+                                          int max_deg, float recency, int has_cutoff,
+                                          float cutoff, const void* key_words, void* out,
+                                          void* out_valid, void* stream) {
+  return temporal_tiled<true>(bd, tiles, ttiles, m_rows, n_nodes, seeds, seed_valid, t, W, k,
+                              max_deg, recency, has_cutoff, cutoff, 0, 0, key_words, out,
+                              out_valid, stream);
 }
 
 // K8w: out[i] = qt_recency_weight(ts[i], recency) over a flat array.

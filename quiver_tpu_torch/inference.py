@@ -17,14 +17,20 @@ All of them run the model in eval mode with TF32 off
 - `make_serve_step`: sample + gather + forward as one step function, the
   engine's fused path, and `make_temporal_serve_step`, its temporal twin
   that takes the padded per-seed query times as one more argument;
-  `BucketPrograms` keeps one entry per bucket with the hard miss after
-  `seal()`. Each bucket stays a plain call in this
-  slice (CUDA-graph capture per bucket is later work).
+  `BucketPrograms` keeps one program per bucket with the hard miss after
+  `seal()`: on the card one captured CUDA graph a bucket, whose inputs
+  (seeds, the hops' key words, query times) reach it through device
+  buffers, with the reference's `rebind`, `reprovision`, `binding` and
+  `sealed`;
+- `time_eval_split`: the split step's two stages timed apart.
 """
 
 from __future__ import annotations
 
 import copy
+import threading
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -286,76 +292,409 @@ def make_temporal_serve_step(sampler):
     return serve_step, graph, graph[1].dtype
 
 
+class Binding(tuple):
+    """A `BucketPrograms.binding()` snapshot: the ``(table, index_map,
+    graph)`` triple bound when it was taken and, on the card, the graphs
+    captured against those arrays (``captures``: bucket -> `_Capture`). A
+    flush that holds it keeps its graphs and arrays alive after a
+    `BucketPrograms.rebind`."""
+
+    def __new__(cls, table, index_map, graph, token):
+        b = super().__new__(cls, (table, index_map, graph))
+        b.token = token  # the BucketPrograms it belongs to
+        b.captures = {}
+        return b
+
+
+def _spec(x):
+    """Shape, dtype and device of a tensor, of each tensor of a tuple, or
+    None: all a captured step bakes in besides the addresses."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype, x.device
+    return tuple(_spec(t) for t in x)
+
+
+def _input_fields(bucket: int, hops: int, id_dtype: torch.dtype, temporal: bool):
+    """The byte layout of a call's inputs: ``[(offset, bytes, dtype,
+    shape)]`` of the padded seeds, the hops' key words and, for a temporal
+    step, the query times, each 8-byte aligned, and the total bytes."""
+    fields = [(id_dtype, (bucket,)), (torch.uint32, (hops, 2))]
+    if temporal:
+        fields.append((torch.float32, (bucket,)))
+    out, off = [], 0
+    for dtype, shape in fields:
+        n = int(np.prod(shape)) * dtype.itemsize
+        out.append((off, n, dtype, shape))
+        off += -(-n // 8) * 8
+    return out, off
+
+
+def _input_views(buf: torch.Tensor, fields):
+    """Typed views of a byte buffer laid out by `_input_fields`."""
+    return tuple(buf[o:o + n].view(dtype).view(shape) for o, n, dtype, shape in fields)
+
+
+class _Tally:
+    """What one captured graph launches and how often it ran: the
+    wrappers' launch counts and the kernels (`_kernels.kernel_launches`)
+    of its capture, the capture's seconds and the replays since."""
+
+    __slots__ = ("counts", "kernels", "seconds", "replays")
+
+    def __init__(self, counts, kernels, seconds):
+        self.counts, self.kernels, self.seconds, self.replays = counts, kernels, seconds, 0
+
+
+class _Capture:
+    """One bucket's captured serve step: the graph, its static input
+    bytes (`_input_fields`) and output, the lock a call holds from its
+    input copy to its read-back's enqueue, and its `_Tally`."""
+
+    __slots__ = ("graph", "static", "fields", "out", "lock", "tally")
+
+
 class BucketPrograms:
-    """The fused serve step per bucket. `compile_bucket` runs a bucket
-    once on a fixed key (the sampler's key stream is untouched) so that
-    the kernels are built and the allocator warm; `seal()` turns a later
-    call at an unwarmed bucket into a hard RuntimeError. A temporal-bound
-    sampler's step takes the padded query-time vector as one more
-    argument of each call (the warm run passes ``t = +inf``)."""
+    """The fused serve step, one program per bucket, with the hard miss
+    after `seal()` (the JAX package's ``BucketPrograms``; its
+    ahead-of-time executable a bucket is, on the card, one captured
+    ``torch.cuda.CUDAGraph`` a bucket).
+
+    `compile_bucket` on a CUDA sampler runs the step once eagerly on a
+    side stream (kernels built, cuBLAS up), then captures it reading
+    static device inputs: the padded seeds, the hops' key words (the draw
+    kernels read them from the card) and, for a temporal step, the padded
+    query times. A call fills one pinned staging buffer with those, copies
+    it into the static inputs with one asynchronous copy, replays the
+    graph and reads the output back (`to_host`), all on the programs' own
+    stream, and returns the logits as a numpy array. A capture that fails,
+    or a replay that CUDA refuses, raises: nothing runs the eager step in
+    its place. On a CPU sampler the same object runs the step eagerly
+    (`compile_bucket` warms it on a fixed key; the sampler's key stream
+    is untouched).
+
+    The graphs bake in addresses. They are captured with one module
+    (`compile_bucket`'s ``model``), whose weights a caller updates in
+    place (`ServeEngine.update_params`); the table, map and graph arrays
+    are a `Binding`, and a same-shaped `rebind` captures every warmed
+    bucket anew against the new arrays (nothing is written into the
+    captured buffers), while a flush holding the old `binding()` keeps
+    running the old graphs. Concurrent calls at one bucket share its
+    static buffers, so each holds the bucket's lock from its staging copy
+    to its read-back's enqueue and waits for the read-back outside it:
+    one graph a bucket (captures and graph memory do not grow with the
+    engine's ``max_in_flight``), and the card runs the flushes in turn on
+    one stream, as the eager flushes did, while the next flush's host
+    work overlaps the device work before it."""
 
     _WARM_KEY = qrandom.fold_in(qrandom.key(0), 0)
 
     def __init__(self, sampler, feature):
         self._temporal = getattr(sampler, "temporal", None) is not None
         make = make_temporal_serve_step if self._temporal else make_serve_step
-        self._fn, self._graph, self._id_dtype = make(sampler)
+        self._fn, graph, self._id_dtype = make(sampler)
         self._sampler = sampler
+        self._hops = len(sampler.sizes)
         self._caps = sampler.caps  # the caps the step was built for
-        self._table, self._map = feature_gather_spec(feature, sampler.device)
+        self._token = object()
+        table, index_map = feature_gather_spec(feature, sampler.device)
+        self._binding = Binding(table, index_map, tuple(graph), self._token)
+        self._device = torch.device(sampler.device)
+        self._cuda = self._device.type == "cuda"
         self._buckets = set()
         self._sealed = False
+        self._model = None  # the module the graphs were captured with
+        self._lock = threading.Lock()  # captures and binding changes
+        self._stream = torch.cuda.Stream(self._device) if self._cuda else None
+        self._tallies = []  # one a graph captured, kept after the graph is gone
 
     @property
     def buckets(self):
         return tuple(sorted(self._buckets))
 
+    @property
+    def sealed(self) -> bool:
+        return self._sealed
+
     def seal(self) -> None:
         self._sealed = True
 
-    def compile_bucket(self, bucket: int, model: nn.Module) -> None:
-        bucket = int(bucket)
-        if bucket in self._buckets:
-            return
-        extra = (np.full(bucket, np.inf, np.float32),) if self._temporal else ()
-        self._run(model, self._WARM_KEY, np.zeros(bucket, np.int64), *extra)
-        if self._table.is_cuda:
-            torch.cuda.synchronize(self._table.device)
-        self._buckets.add(bucket)
+    def binding(self) -> Binding:
+        """The ``(table, index_map, graph)`` bound now, as a snapshot that
+        a later call takes through ``binding=`` (the engine records it at
+        a flush's seal, so the flush runs against the arrays of its own
+        dispatch even if a `rebind` comes before it runs)."""
+        return self._binding
 
-    def _run(self, model, key, seeds, *extra):
-        strict_float32()
+    def rebind(self, graph=None, table=None, index_map=None) -> None:
+        """Bind same-shaped new arrays: a ``graph`` tuple, a feature
+        ``table`` or an ``index_map`` (where one is bound). A shape, dtype
+        or device change raises ValueError. On the card every warmed bucket
+        is captured anew against the new arrays; the sealed state stays."""
+        with self._lock:
+            t, m, g = self._binding
+            if graph is not None:
+                if _spec(tuple(graph)) != _spec(g):
+                    raise ValueError(f"rebind graph {_spec(tuple(graph))} differs from the bound "
+                                     f"{_spec(g)}: a rebind swaps contents, never shapes")
+                g = tuple(graph)
+            if table is not None:
+                if _spec(table) != _spec(t):
+                    raise ValueError(f"rebind table {_spec(table)} differs from the bound "
+                                     f"{_spec(t)}")
+                t = table
+            if index_map is not None:
+                if m is None or _spec(index_map) != _spec(m):
+                    raise ValueError(f"rebind index_map {_spec(index_map)} differs from the "
+                                     f"bound {_spec(m)}")
+                m = index_map
+            new = Binding(t, m, g, self._token)
+            if self._cuda:
+                for b in sorted(self._buckets):
+                    new.captures[b] = self._capture(b, new, self._model)
+            self._binding = new
+
+    def reprovision(self, graph, model=None) -> int:
+        """Bind a graph of another shape (the reference's reserve
+        re-provisioning): every warmed bucket is dropped and, when
+        ``model`` is given, built anew against it; the sealed state stays
+        (a sealed table without its buckets misses hard). Returns the
+        buckets rebuilt: 0 when the shapes are unchanged, which is a
+        `rebind` (captured anew on the card)."""
+        graph = tuple(graph)
+        if _spec(graph) == _spec(self._binding[2]):
+            self.rebind(graph=graph)
+            return 0
+        with self._lock:
+            t, m, _ = self._binding
+            self._binding = Binding(t, m, graph, self._token)
+            warmed = sorted(self._buckets)
+            self._buckets = set()
+        if model is not None:
+            for b in warmed:
+                self.compile_bucket(b, model)
+        return len(warmed)
+
+    def compile_bucket(self, bucket: int, model: nn.Module) -> None:
+        """Build ``bucket``'s program: on the card capture its graph (after
+        one eager run on a side stream), on the CPU run it once on a fixed
+        key (the sampler's key stream is untouched)."""
+        bucket = int(bucket)
+        with self._lock:
+            if bucket in self._buckets:
+                return
+            if self._cuda:
+                self._claim(model)
+                b = self._binding
+                b.captures[bucket] = self._capture(bucket, b, model)
+            else:
+                extra = (np.full(bucket, np.inf, np.float32),) if self._temporal else ()
+                self._eager(bucket, model, self._binding, self._WARM_KEY,
+                            np.zeros(bucket, np.int64), extra)
+            self._buckets.add(bucket)
+
+    def __call__(self, bucket: int, model: nn.Module, key, seeds, *extra,
+                 binding: Optional[Binding] = None) -> np.ndarray:
+        """Sample + gather + forward of one padded seed batch at
+        ``bucket`` with host key ``key`` (``extra``: the padded query
+        times of a temporal step), against ``binding`` (a `binding()`
+        snapshot) or the arrays bound now. Returns the logits ``[bucket,
+        C]`` on the host. Misses build lazily before `seal()` and raise
+        after."""
         if len(extra) != int(self._temporal):
             raise TypeError(f"the serve step takes {int(self._temporal)} per-seed array(s) "
                             f"besides the seeds; got {len(extra)}")
-        t = tuple(self._on_device(np.asarray(e, np.float32)) for e in extra)
-        with torch.inference_mode():
-            return self._fn(model.eval(), key, self._sampler.as_seeds(seeds), self._table,
-                            self._map, self._graph, *t)
-
-    def _on_device(self, arr: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(arr)
-        if self._sampler.device.type == "cuda":
-            return host.pin_memory().to(self._sampler.device, non_blocking=True)
-        return host
-
-    def __call__(self, bucket: int, model: nn.Module, key, seeds, *extra) -> torch.Tensor:
-        """Sample + gather + forward of one padded seed batch at
-        ``bucket`` (``extra``: the padded query times of a temporal step);
-        misses register lazily before `seal()` and raise after."""
         if self._sampler.caps != self._caps:
             raise RuntimeError(
                 f"sampler caps changed from {self._caps} to {self._sampler.caps} "
                 "after the serve step was built — set caps before the engine"
             )
-        if int(bucket) not in self._buckets:
+        bucket = int(bucket)
+        if np.shape(seeds) != (bucket,):
+            raise ValueError(f"bucket {bucket} takes {bucket} padded seeds; got "
+                             f"{np.shape(seeds)}")
+        if bucket not in self._buckets:
             if self._sealed:
                 raise RuntimeError(
                     f"serve bucket {bucket} was not warmed (warmed: {self.buckets}) — "
                     "warmup() seals the bucket table"
                 )
-            self._buckets.add(int(bucket))
-        return self._run(model, key, seeds, *extra)
+            self.compile_bucket(bucket, model)
+        if binding is None:
+            binding = self._binding
+        elif not isinstance(binding, Binding) or binding.token is not self._token:
+            raise TypeError("binding= takes a binding() snapshot of these programs")
+        if not self._cuda:
+            return self._eager(bucket, model, binding, key, seeds, extra)
+        self._claim(model)  # compile_bucket claimed the capturing module: a check here
+        cap = binding.captures.get(bucket)
+        if cap is None:  # a bucket warmed after this snapshot was taken
+            with self._lock:
+                cap = binding.captures.get(bucket)
+                if cap is None:
+                    cap = binding.captures[bucket] = self._capture(bucket, binding, model)
+        staging = self._stage(cap.fields, cap.static.shape[0], key, seeds, extra, pin=True)
+        with cap.lock:
+            self._stream.wait_stream(torch.cuda.current_stream(self._device))
+            with torch.cuda.stream(self._stream):
+                cap.static.copy_(staging, non_blocking=True)
+                cap.graph.replay()
+                host, done = _read_back(cap.out)
+            cap.tally.replays += 1
+        done.synchronize()
+        return host.numpy().copy()
+
+    # -- internals --------------------------------------------------------------
+
+    def _claim(self, model: nn.Module) -> None:
+        if self._model is None:
+            self._model = model
+        elif model is not self._model:
+            raise ValueError("the serve graphs were captured with another module: load new "
+                             "weights into that one in place (ServeEngine.update_params)")
+
+    def _fields(self, bucket: int):
+        return _input_fields(bucket, self._hops, self._id_dtype, self._temporal)
+
+    def _stage(self, fields, nbytes: int, key, seeds, extra, pin: bool) -> torch.Tensor:
+        """A host byte buffer holding a call's inputs: the seeds in the id
+        dtype, the words of each hop's sub-key and the query times."""
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+        raw = buf.numpy()
+        values = [np.asarray(seeds).astype(np.int32 if self._id_dtype == torch.int32
+                                           else np.int64),
+                  qrandom.hop_key_words(key, self._hops)]
+        values += [np.asarray(e, np.float32) for e in extra]
+        for (o, n, dtype, _), v in zip(fields, values):
+            raw[o:o + n].view(v.dtype)[:] = v.reshape(-1)
+        return buf
+
+    def _step(self, model, binding, seeds, keys, *t) -> torch.Tensor:
+        strict_float32()
+        table, index_map, graph = binding
+        with torch.inference_mode():
+            return self._fn(model.eval(), keys, seeds, table, index_map, graph, *t)
+
+    def _eager(self, bucket, model, binding, key, seeds, extra) -> np.ndarray:
+        fields, nbytes = self._fields(bucket)
+        staging = self._stage(fields, nbytes, key, seeds, extra, pin=False)
+        return to_host(self._step(model, binding, *_input_views(staging, fields)))
+
+    def _capture(self, bucket: int, binding: Binding, model: nn.Module) -> _Capture:
+        """Capture ``bucket``'s step against ``binding`` (caller holds
+        ``_lock``): one eager run on a side stream, then the capture, both
+        on a stream of their own (a flush replaying meanwhile runs on
+        ``_stream``)."""
+        dev = self._device
+        cap = _Capture()
+        cap.fields, nbytes = self._fields(bucket)
+        warm_t = (np.full(bucket, np.inf, np.float32),) if self._temporal else ()
+        cap.static = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        cap.static.copy_(self._stage(cap.fields, nbytes, self._WARM_KEY,
+                                     np.zeros(bucket, np.int64), warm_t, pin=False))
+        inputs = _input_views(cap.static, cap.fields)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step(model, binding, *inputs)
+            side.synchronize()
+            cap.graph = torch.cuda.CUDAGraph()
+            counts0, kernels0 = _kernels.counts(), _kernels.kernel_launches()
+            t0 = time.perf_counter()
+            # thread_local: a flush replaying on another thread meanwhile is
+            # not an error of this capture
+            cap.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                cap.out = self._step(model, binding, *inputs)
+            except BaseException:
+                _end_failed_capture(cap.graph)
+                raise
+            cap.graph.capture_end()
+            seconds = time.perf_counter() - t0
+        counts = {n: c - counts0[n] for n, c in _kernels.counts().items() if c != counts0[n]}
+        cap.tally = _Tally(counts, _kernels.kernel_launches() - kernels0, seconds)
+        self._tallies.append(cap.tally)
+        cap.lock = threading.Lock()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return cap
+
+    # -- what the graphs did -----------------------------------------------------
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Launches of each kernel the replays made since the last
+        `reset_replays`: each graph's capture counts times its replays
+        (the host counters see only a capture)."""
+        out: Dict[str, int] = {}
+        for t in self._tallies:
+            for name, c in t.counts.items():
+                out[name] = out.get(name, 0) + c * t.replays
+        return out
+
+    def reset_replays(self) -> None:
+        for t in self._tallies:
+            t.replays = 0
+
+    def graph_stats(self) -> Dict[str, object]:
+        """The bound graphs: how many, the kernels of each (by bucket), the
+        seconds their captures took, their memory pools' bytes on the card
+        (reserved segments), and every graph's replays since the last
+        `reset_replays`; ``captured`` counts every capture made."""
+        caps = self._binding.captures
+        pools = {tuple(c.graph.pool()) for c in caps.values()}
+        pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                         if tuple(seg.get("segment_pool_id", ())) in pools) if pools else 0
+        return {"graphs": len(caps), "captured": len(self._tallies),
+                "kernels": {b: c.tally.kernels for b, c in sorted(caps.items())},
+                "capture_s": sum(c.tally.seconds for c in caps.values()),
+                "pool_bytes": pool_bytes,
+                "replays": sum(t.replays for t in self._tallies)}
+
+
+def _end_failed_capture(graph) -> None:
+    """End a capture whose step raised; the step's error is the one the
+    caller sees, so the capture's own (an invalidated capture) is
+    dropped."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass
+
+
+def time_eval_split(model: nn.Module, sampler, feature, padded_batch,
+                    iters: int = 10) -> Tuple[float, float]:
+    """Seconds a call of the split step's two stages, ``(t_sample_s,
+    t_forward_s)``, at this batch shape: one untimed `sample_batch` and
+    `forward_logits` first, then ``iters`` samples and ``iters`` forwards
+    of the last sample, each leg synchronized once at its end (the
+    reference's method; it takes ``1 + iters`` keys of the sampler)."""
+    def sync(t: torch.Tensor) -> None:
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    ds = sample_batch(sampler, padded_batch)
+    sync(ds.n_id)
+    sync(forward_logits(model, feature, ds))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ds = sample_batch(sampler, padded_batch)
+    sync(ds.n_id)
+    t_sample = (time.perf_counter() - t0) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = forward_logits(model, feature, ds)
+    sync(out)
+    return t_sample, (time.perf_counter() - t0) / iters
+
+
+def _read_back(out: torch.Tensor):
+    """Queue ``out``'s copy to pinned host memory on the current stream;
+    returns the host tensor and the CUDA event after the copy."""
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(out.device))
+    return host, done
 
 
 def to_host(out: torch.Tensor) -> np.ndarray:
@@ -365,9 +704,6 @@ def to_host(out: torch.Tensor) -> np.ndarray:
     not waited for."""
     if not out.is_cuda:
         return out.numpy()
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out, non_blocking=True)
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(out.device))
-    ev.synchronize()
+    host, done = _read_back(out)
+    done.synchronize()
     return host.numpy().copy()

@@ -160,6 +160,20 @@ def tiled_sample_layer_plain(bd, tiles, seeds, seed_valid, k, key):
     return _tiled_resolve(tiles, base, pos), valid
 
 
+def _key_args(key, seeds):
+    """The key arguments of a draw launch and its variant: a host key's two
+    words by value, or one pointer to ``uint32[2]`` key words on the card
+    (the device-key form, `_kernels.DEVICE_KEY`)."""
+    if not isinstance(key, torch.Tensor):
+        return (int(key[0]), int(key[1])), None
+    if key.device != seeds.device:
+        raise ValueError(f"key words on {key.device} but seeds on {seeds.device}")
+    if key.dtype not in (torch.uint32, torch.int32) or key.numel() != 2 or not key.is_contiguous():
+        raise TypeError(f"key words must be 2 contiguous uint32; got {key.dtype} "
+                        f"{tuple(key.shape)}")
+    return (key.data_ptr(),), "device_key"
+
+
 def _launch_sample(kind, a, b, seeds, seed_valid, k, key):
     """Launch the sampling kernel: ``kind`` is "tiled" (``a=bd``,
     ``b=tiles``) or "flat" (``a=indptr``, ``b=indices``)."""
@@ -173,6 +187,7 @@ def _launch_sample(kind, a, b, seeds, seed_valid, k, key):
     W = seeds.shape[0]
     nbrs = torch.empty((W, k), dtype=torch.int32, device=seeds.device)
     valid = torch.empty((W, k), dtype=torch.bool, device=seeds.device)
+    key_args, variant = _key_args(key, seeds)
     if W == 0 or k == 0:
         return nbrs, valid
     if kind == "tiled":
@@ -182,20 +197,22 @@ def _launch_sample(kind, a, b, seeds, seed_valid, k, key):
     _kernels.launch(
         "sample_" + kind, a.data_ptr(), b.data_ptr(), extent, n_nodes,
         seeds.data_ptr(), seed_valid.data_ptr(), W, int(k),
-        int(key[0]), int(key[1]), nbrs.data_ptr(), valid.data_ptr(),
-        _kernels.stream_of(seeds),
+        *key_args, nbrs.data_ptr(), valid.data_ptr(),
+        _kernels.stream_of(seeds), variant=variant,
     )
     return nbrs, valid
 
 
 def sample_layer(indptr, indices, seeds, seed_valid, k: int, key):
     """One-hop sample over the flat CSR: ``(nbrs [W, k], valid [W, k])``.
-    ``key`` is a host key (`quiver_tpu_torch.random.key`). Kernel on CUDA
-    tensors, plain torch on CPU tensors."""
+    ``key`` is a host key (`quiver_tpu_torch.random.key`) or its two words
+    as a ``uint32[2]`` tensor on the seeds' device (on the card the kernel
+    then reads them from device memory). Kernel on CUDA tensors, plain
+    torch on CPU tensors."""
     _check_layer_args(seeds, seed_valid, k, (indptr, indices))
     if seeds.is_cuda:
         return _launch_sample("flat", indptr, indices, seeds, seed_valid, k, key)
-    return sample_layer_plain(indptr, indices, seeds, seed_valid, k, key)
+    return sample_layer_plain(indptr, indices, seeds, seed_valid, k, qrandom.host_key(key))
 
 
 def tiled_sample_layer(bd, tiles, seeds, seed_valid, k: int, key):
@@ -204,7 +221,7 @@ def tiled_sample_layer(bd, tiles, seeds, seed_valid, k: int, key):
     _check_layer_args(seeds, seed_valid, k, (bd, tiles))
     if seeds.is_cuda:
         return _launch_sample("tiled", bd, tiles, seeds, seed_valid, k, key)
-    return tiled_sample_layer_plain(bd, tiles, seeds, seed_valid, k, key)
+    return tiled_sample_layer_plain(bd, tiles, seeds, seed_valid, k, qrandom.host_key(key))
 
 
 # -- weighted and temporal draws (K7, K8, K8w) ---------------------------------
@@ -382,8 +399,8 @@ def weighted_sample_layer(indptr, indices, weights, seeds, seed_valid, k: int, k
     on CUDA tensors, `weighted_sample_layer_plain` on CPU tensors."""
     _check_layer_args(seeds, seed_valid, k, (indptr, indices, weights))
     if not seeds.is_cuda:
-        return weighted_sample_layer_plain(indptr, indices, weights, seeds, seed_valid, k, key,
-                                           max_deg)
+        return weighted_sample_layer_plain(indptr, indices, weights, seeds, seed_valid, k,
+                                           qrandom.host_key(key), max_deg)
     _check_gumbel_args(k, max_deg, int(max_deg), ((weights, "weights"),))
     if weights.shape != indices.shape:
         raise ValueError(f"weights {tuple(weights.shape)} must align with indices "
@@ -392,13 +409,14 @@ def weighted_sample_layer(indptr, indices, weights, seeds, seed_valid, k: int, k
     indptr, indices, weights = indptr.contiguous(), indices.contiguous(), weights.contiguous()
     seeds, seed_valid = seeds.contiguous(), seed_valid.contiguous()
     nbrs, valid = _gumbel_outputs(seeds, k)
+    key_args, variant = _key_args(key, seeds)
     if seeds.shape[0] == 0 or k == 0:
         return nbrs, valid
     _kernels.launch("weighted_sample_flat", indptr.data_ptr(), indices.data_ptr(),
                     weights.data_ptr(), indices.shape[0], indptr.shape[0] - 1,
                     seeds.data_ptr(), seed_valid.data_ptr(), seeds.shape[0], int(k),
-                    int(max_deg), int(key[0]), int(key[1]), nbrs.data_ptr(), valid.data_ptr(),
-                    _kernels.stream_of(seeds))
+                    int(max_deg), *key_args, nbrs.data_ptr(), valid.data_ptr(),
+                    _kernels.stream_of(seeds), variant=variant)
     return nbrs, valid
 
 
@@ -412,8 +430,8 @@ def tiled_weighted_sample_layer(bd, tiles, wtiles, seeds, seed_valid, k: int, ke
     CPU tensors."""
     _check_layer_args(seeds, seed_valid, k, (bd, tiles, wtiles))
     if not seeds.is_cuda:
-        return tiled_weighted_sample_layer_plain(bd, tiles, wtiles, seeds, seed_valid, k, key,
-                                                 max_deg)
+        return tiled_weighted_sample_layer_plain(bd, tiles, wtiles, seeds, seed_valid, k,
+                                                 qrandom.host_key(key), max_deg)
     wwin = gumbel_window(max_deg, "tiled")
     _check_gumbel_args(k, max_deg, wwin, ((wtiles, "weight tiles"),))
     _same_tile_map(tiles, wtiles)
@@ -421,13 +439,14 @@ def tiled_weighted_sample_layer(bd, tiles, wtiles, seeds, seed_valid, k: int, ke
     bd, tiles, wtiles = bd.contiguous(), tiles.contiguous(), wtiles.contiguous()
     seeds, seed_valid = seeds.contiguous(), seed_valid.contiguous()
     nbrs, valid = _gumbel_outputs(seeds, k)
+    key_args, variant = _key_args(key, seeds)
     if seeds.shape[0] == 0 or k == 0:
         return nbrs, valid
     _kernels.launch("weighted_sample_tiled", bd.data_ptr(), tiles.data_ptr(),
                     wtiles.data_ptr(), tiles.shape[0], bd.shape[0], seeds.data_ptr(),
                     seed_valid.data_ptr(), seeds.shape[0], int(k), int(max_deg),
-                    int(key[0]), int(key[1]), nbrs.data_ptr(), valid.data_ptr(),
-                    _kernels.stream_of(seeds))
+                    *key_args, nbrs.data_ptr(), valid.data_ptr(),
+                    _kernels.stream_of(seeds), variant=variant)
     return nbrs, valid
 
 
@@ -446,8 +465,9 @@ def tiled_temporal_sample_layer(bd, tiles, ttiles, seeds, seed_valid, k: int, ke
     if t.shape != seeds.shape:
         raise ValueError(f"t must be [W] = {tuple(seeds.shape)}; got {tuple(t.shape)}")
     if not seeds.is_cuda:
-        return tiled_temporal_sample_layer_plain(bd, tiles, ttiles, seeds, seed_valid, k, key,
-                                                 t, max_deg, recency, cutoff)
+        return tiled_temporal_sample_layer_plain(bd, tiles, ttiles, seeds, seed_valid, k,
+                                                 qrandom.host_key(key), t, max_deg, recency,
+                                                 cutoff)
     wwin = gumbel_window(max_deg, "tiled")
     _check_gumbel_args(k, max_deg, wwin, ((ttiles, "timestamp tiles"), (t, "t")))
     _same_tile_map(tiles, ttiles)
@@ -455,14 +475,16 @@ def tiled_temporal_sample_layer(bd, tiles, ttiles, seeds, seed_valid, k: int, ke
     bd, tiles, ttiles, t = bd.contiguous(), tiles.contiguous(), ttiles.contiguous(), t.contiguous()
     seeds, seed_valid = seeds.contiguous(), seed_valid.contiguous()
     nbrs, valid = _gumbel_outputs(seeds, k)
+    key_args, variant = _key_args(key, seeds)
     if seeds.shape[0] == 0 or k == 0:
         return nbrs, valid
     _kernels.launch("temporal_sample_tiled", bd.data_ptr(), tiles.data_ptr(),
                     ttiles.data_ptr(), tiles.shape[0], bd.shape[0], seeds.data_ptr(),
                     seed_valid.data_ptr(), t.data_ptr(), seeds.shape[0], int(k), int(max_deg),
                     float(recency), int(cutoff is not None),
-                    0.0 if cutoff is None else float(cutoff), int(key[0]), int(key[1]),
-                    nbrs.data_ptr(), valid.data_ptr(), _kernels.stream_of(seeds))
+                    0.0 if cutoff is None else float(cutoff), *key_args,
+                    nbrs.data_ptr(), valid.data_ptr(), _kernels.stream_of(seeds),
+                    variant=variant)
     return nbrs, valid
 
 

@@ -101,7 +101,8 @@ def sample_dense_fused(indptr, indices, key, seeds: torch.Tensor,
                        sizes: Sequence[int], sample_fn=None) -> DenseSample:
     """Multi-hop sample with no per-hop dedup: neighbor (i, j) of a hop
     of width w lands at ``n_id`` position ``w + j*w + i`` (structural
-    layout, ``cols=None``)."""
+    layout, ``cols=None``). ``key`` is a host key, split a hop, or the
+    hops' key words (`random.hop_keys`)."""
     if sample_fn is None:
         sample_fn = _default_sample_fn(indptr, indices)
     B = seeds.shape[0]
@@ -110,8 +111,7 @@ def sample_dense_fused(indptr, indices, key, seeds: torch.Tensor,
     cur_valid = torch.ones(B, dtype=torch.bool, device=dev)
     adjs: List[DenseAdj] = []
     prev_count = torch.full((), B, dtype=torch.int32, device=dev)
-    for k in sizes:
-        key, sub = qrandom.split(key)
+    for k, sub in zip(sizes, qrandom.hop_keys(key, len(sizes))):
         nbrs, valid = sample_fn(cur, cur_valid, k, sub)
         n_id = torch.cat([cur, nbrs.t().reshape(-1)])
         n_valid = torch.cat([cur_valid, valid.t().reshape(-1)])
@@ -124,7 +124,8 @@ def sample_dense_fused(indptr, indices, key, seeds: torch.Tensor,
 def sample_dense_pure(indptr, indices, key, seeds: torch.Tensor,
                       sizes: Sequence[int], caps=None, sample_fn=None) -> DenseSample:
     """Multi-hop sample with a dedup reindex after every hop (the
-    reference's hash-table contract) and optional static caps."""
+    reference's hash-table contract) and optional static caps. ``key`` as
+    in `sample_dense_fused`."""
     if sample_fn is None:
         sample_fn = _default_sample_fn(indptr, indices)
     B = seeds.shape[0]
@@ -136,8 +137,7 @@ def sample_dense_pure(indptr, indices, key, seeds: torch.Tensor,
     raws: List[torch.Tensor] = []
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     prev_count = torch.full((), B, dtype=torch.int32, device=dev)
-    for l, k in enumerate(sizes):
-        key, sub = qrandom.split(key)
+    for l, (k, sub) in enumerate(zip(sizes, qrandom.hop_keys(key, len(sizes)))):
         nbrs, valid = sample_fn(cur, cur_valid, k, sub)
         res = local_reindex(cur, cur_valid, nbrs, valid)
         n_id, count = res.n_id, res.count

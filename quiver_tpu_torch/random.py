@@ -79,6 +79,40 @@ def key_data(k: Key) -> np.ndarray:
     return np.asarray(k, np.uint32)
 
 
+def hop_keys(k, hops: int) -> list:
+    """The sub-key of each hop of a ``hops``-hop draw: ``k, sub = split(k)``
+    a hop, as every multi-hop sampler of the JAX package splits. ``k`` may
+    instead be a ``[hops, 2]`` tensor of the hops' key words (see
+    `hop_key_words`); its rows are then the sub-keys, views a draw kernel
+    reads on the device (a captured serve step replays with new words)."""
+    if isinstance(k, torch.Tensor):
+        if tuple(k.shape) != (hops, 2):
+            raise ValueError(f"hop key words must be [{hops}, 2]; got {tuple(k.shape)}")
+        return [k[h] for h in range(hops)]
+    subs = []
+    for _ in range(int(hops)):
+        k, sub = split(k)
+        subs.append(sub)
+    return subs
+
+
+def hop_key_words(k: Key, hops: int) -> np.ndarray:
+    """``uint32[hops, 2]``: the words of each hop's sub-key (`hop_keys`)."""
+    return np.asarray(hop_keys(k, hops), np.uint32).reshape(int(hops), 2)
+
+
+def host_key(k) -> Key:
+    """A key as two Python ints: a host key as it is, or a ``uint32[2]``
+    tensor of key words on the CPU (a plain draw reads its words; a tensor
+    on the card goes to a device-key kernel instead)."""
+    if isinstance(k, torch.Tensor):
+        if k.is_cuda:
+            raise ValueError("key words on the card go to the draw kernels, not the plain draws")
+        w = k.reshape(-1).to(torch.int64) & _M32
+        return int(w[0]), int(w[1])
+    return k
+
+
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _M32
 

@@ -14,11 +14,12 @@ fixed bucket. A flush runs three stages:
   sampler's next key, so the key stream and the replay log see each final
   batch once, in dispatch order, however many flushes are in flight;
 - **dispatch**: the fused step (sample + gather + forward,
-  `inference.BucketPrograms`) or the split pair (`sample_batch` in the
-  seal, `forward_logits` here) is queued on the current CUDA stream; the
-  logits are read back after the flush's own CUDA event
-  (`inference.to_host`), so with ``max_in_flight=2`` one flush's host
-  work overlaps the other's device work;
+  `inference.BucketPrograms`: on the card the bucket's captured CUDA
+  graph, replayed against the `binding()` recorded at the seal) or the
+  split pair (`sample_batch` in the seal, `forward_logits` here) is
+  queued on the card; the logits are read back after the flush's own
+  CUDA event (`inference.to_host`), so with ``max_in_flight=2`` one
+  flush's host work overlaps the other's device work;
 - **resolve**: cache writeback, slot resolution, latency accounting.
 
 Admission has one body, `_admit_locked`, run request by request under
@@ -29,9 +30,11 @@ every drain takes the whole queue, so the JAX package's stripes
 (``submit_stripes``) would add only lock traffic here.
 
 `update_params` fences: it blocks new assembles, waits for every
-in-flight flush, swaps the weights and bumps the version. `warmup` runs
-every bucket once on a fixed key (fused) or through a twin sampler
-(split), so the serving key stream stays untouched.
+in-flight flush, copies the new weights into the engine's one module in
+place (the graphs were captured with it) and bumps the version. `warmup`
+captures every bucket (fused, on the card; on the CPU a run on a fixed
+key) or runs it through a twin sampler (split), so the serving key
+stream stays untouched, then seals the fused table.
 
 This slice ports the single-host core. A request is admitted under a
 key: the node id here, ``(node, t_bucket)`` on the temporal engine
@@ -57,6 +60,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..inference import (
     BucketPrograms,
@@ -278,15 +282,17 @@ class _Flush:
     the drain; late admission appends to ``keys`` and ``slots`` up to it
     until `ServeEngine._seal_assembled` closes the flush."""
 
-    __slots__ = ("keys", "slots", "model", "bucket", "ds", "key", "padded", "extra", "error")
+    __slots__ = ("keys", "slots", "model", "bucket", "ds", "key", "binding", "padded", "extra",
+                 "error")
 
     def __init__(self, keys, slots, model):
         self.keys = keys
         self.slots = slots
-        self.model = model  # the weights snapshot this flush runs under
+        self.model = model  # the module this flush runs (weights change only under the fence)
         self.bucket = 0
         self.ds = None
         self.key = None
+        self.binding = None  # the fused programs' binding() at the seal
         self.padded = None
         self.extra: Tuple[np.ndarray, ...] = ()  # per-seed arrays padded like the seeds
         self.error: Optional[BaseException] = None
@@ -325,8 +331,9 @@ class ServeEngine:
         self._buckets = self.config.resolved_buckets()
         self.device = sampler.device
         strict_float32()
-        self._base_model = model
-        self._model = bind_params(model, params, self.device)
+        # the engine's own module: update_params loads weights into it in place
+        self._model = bind_params(model, model.state_dict() if params is None else params,
+                                  self.device)
         self._sampler = sampler
         self._feature = feature
         self._programs: Optional[BucketPrograms] = None
@@ -508,6 +515,8 @@ class ServeEngine:
             if self._programs is not None:
                 fl.key = draw_sample_key(self._sampler)
                 fl.padded = padded
+                # the arrays this flush runs against, whatever rebinds before it runs
+                fl.binding = self._programs.binding()
             else:
                 fl.ds = sample_batch(self._sampler, padded)
         except BaseException as exc:
@@ -528,12 +537,12 @@ class ServeEngine:
         with self._lock:
             self.stats.dispatch_calls += 1
         if fl.ds is None and self._programs is not None:
-            out = self._programs(fl.bucket, fl.model, fl.key, fl.padded, *fl.extra)
+            logits = self._programs(fl.bucket, fl.model, fl.key, fl.padded, *fl.extra,
+                                    binding=fl.binding)
             n_exec = 1
         else:
-            out = forward_logits(fl.model, self._feature, fl.ds)
+            logits = to_host(forward_logits(fl.model, self._feature, fl.ds))
             n_exec = 2  # the sample ran in _seal_assembled
-        logits = to_host(out)
         with self._lock:
             self.stats.execute_calls += n_exec
         logits.setflags(write=False)  # rows go to every waiter and the cache
@@ -638,10 +647,11 @@ class ServeEngine:
         return twin
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> Dict[int, float]:
-        """Run every bucket once so the first real request at each does
-        not pay for kernel builds and allocations; no serving key is
-        consumed. The fused table is then sealed (a later miss raises).
-        Returns {bucket: seconds}."""
+        """Build every bucket so the first real request at each does not
+        pay for kernel builds, allocations or a capture: on the card the
+        fused step's graph a bucket is captured (a failed capture raises).
+        No serving key is consumed. The fused table is then sealed (a later
+        miss raises). Returns {bucket: seconds}."""
         buckets = self._buckets if buckets is None else tuple(sorted(int(b) for b in buckets))
         with self._lock:
             model = self._model
@@ -662,15 +672,18 @@ class ServeEngine:
 
     def update_params(self, params) -> None:
         """Install new weights behind a fence: no new assemble, every
-        in-flight flush resolved, then the swap, a version bump and a
-        cache invalidation. Pending slots are re-stamped to the new
-        version."""
-        model = bind_params(self._base_model, params, self.device)
+        in-flight flush resolved, then the weights copied into the
+        engine's module in place (the captured graphs read its parameters;
+        no graph is captured anew), a version bump and a cache
+        invalidation. Pending slots are re-stamped to the new version."""
         with self._seq:
             with self._fence:
                 while self._inflight_flushes:
                     self._fence.wait()
-                self._model = model
+                self._model.load_state_dict(params)
+                if self.device.type == "cuda":
+                    # the copies precede every later flush on any stream
+                    torch.cuda.current_stream(self.device).synchronize()
                 self.params_version += 1
                 self.cache.invalidate()
                 for slot in self._pending.values():

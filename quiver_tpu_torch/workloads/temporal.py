@@ -85,8 +85,9 @@ def temporal_sample_dense(graph, key, seeds: torch.Tensor, t_seed: torch.Tensor,
                           recency: float = 0.0, max_deg: int = 512) -> DenseSample:
     """Multi-hop temporal sample in the structural layout: each hop draws
     only edges with ``ts <= t`` of the expanding seed's own query time.
-    Keys split per hop as `pyg.sage_sampler.sample_dense_fused` does, so
-    the draw replays from ``(key, seeds, t_seed)``."""
+    Keys split per hop as `pyg.sage_sampler.sample_dense_fused` does (or
+    come as the hops' key words), so the draw replays from ``(key, seeds,
+    t_seed)``."""
     bd, tiles, ttiles = graph
     B = seeds.shape[0]
     dev = seeds.device
@@ -95,8 +96,7 @@ def temporal_sample_dense(graph, key, seeds: torch.Tensor, t_seed: torch.Tensor,
     cur_t = t_seed.to(dev, torch.float32)
     adjs: List[DenseAdj] = []
     prev_count = torch.full((), B, dtype=torch.int32, device=dev)
-    for k in sizes:
-        key, sub = qrandom.split(key)
+    for k, sub in zip(sizes, qrandom.hop_keys(key, len(sizes))):
         nbrs, valid = tiled_temporal_sample_layer(bd, tiles, ttiles, cur, cur_valid, k, sub,
                                                   cur_t, max_deg=max_deg, recency=recency)
         # neighbor (i, j) -> position w + j*w + i: its query time is cur_t[i]

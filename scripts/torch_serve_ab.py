@@ -1,7 +1,8 @@
 """Time two checkouts of the port's serving against each other on one card:
-`ServeEngine` (chip_smoke's serve phase) and `DistServeEngine` fleet leg (a).
+`ServeEngine` (chip_smoke's serve phase), `TemporalServeEngine` (its
+temporal serve phase) and `DistServeEngine` fleet leg (a).
 
-    python scripts/torch_serve_ab.py --trees OLD,NEW [--order 0,1,1,0]
+    python scripts/torch_serve_ab.py --trees OLD,NEW [--order 0,1,1,0] [--late-off]
 
 Each tree is a checkout holding ``quiver_tpu_torch/`` and ``chip_smoke.py``
 (unpack the older commit with ``git archive`` into a git-ignored directory).
@@ -14,16 +15,25 @@ table), the same seeded weights and the same zipfian trace. Per slot:
   max_in_flight 1 and 2, 4 client threads calling ``predict`` with 8 ids a
   call (chip_smoke's serve load) and with 32 (its ``serve burst``), ``--reps``
   runs each;
+- ``temporal``: a fresh `TemporalServeEngine` over the tiled no-dedup
+  sampler bound to seeded timestamps (max_batch 64, t quantum 0.05, recency
+  0.02) at max_in_flight 1 and 2, chip_smoke's temporal trace (query times
+  at 40 a second) from 4 clients of 8 ids, ``--reps`` runs each;
 - ``fleet``: a fresh `DistServeEngine.build` (2 owners, closure residency,
   collective exchange) at max_in_flight 1 and 2, the whole trace from 4
   clients of 8 ids, ``--fleet-reps`` runs each;
 
-each at the tree's default config and, where that turns late admission on,
-with ``late_admission=False`` too. Every run prints an ``ab:`` JSON line (QPS,
-p50/p99 from the engine's latency histogram, flushes, mean flush width,
-padded lanes, late admissions); the last lines are ``ab summary:``, the
-median of each (tree, case) over its runs in every slot, and the card's name
-and power limit. Needs one CUDA card (``--device cpu`` is a small dry run).
+each at the tree's default config and, with ``--late-off`` where the default
+turns late admission on, with ``late_admission=False`` too. Every run prints
+an ``ab:`` JSON line (QPS, p50/p99 from the engine's latency histogram,
+flushes, mean flush width, padded lanes, late admissions). After the timed
+runs of each serve and temporal setting, one more run under
+``torch.profiler`` gives the card's idle share over the run (1 - the union
+of the device events' intervals over the run's wall time; its line's
+``rep`` is "profiled", and its QPS, slowed by the profiler, is not
+summarized). The last lines are ``ab summary:``, the median of each (tree,
+case) over its runs in every slot, and the card's name and power limit.
+Needs one CUDA card (``--device cpu`` is a small dry run).
 """
 
 from __future__ import annotations
@@ -65,24 +75,28 @@ def load_tree(tree: Path):
     return cs, pkg
 
 
-def drive(engine, trace, per_call):
-    """``trace`` from CLIENTS threads, ``per_call`` ids a predict call, under
-    the engine's background flushers; returns the wall seconds."""
+def drive(engine, trace, per_call, t=None):
+    """``trace`` from CLIENTS threads, ``per_call`` ids a predict call (with
+    their query times ``t`` on a temporal engine), under the engine's
+    background flushers; returns the wall seconds."""
     errors = []
 
-    def client(chunk):
+    def client(chunk, tchunk):
         try:
             for j in range(0, len(chunk), per_call):
-                out = engine.predict(chunk[j:j + per_call], timeout=120)
-                if out.shape[0] != len(chunk[j:j + per_call]) or not np.isfinite(out).all():
+                ids = chunk[j:j + per_call]
+                kw = {} if tchunk is None else {"t": tchunk[j:j + per_call]}
+                out = engine.predict(ids, timeout=120, **kw)
+                if out.shape[0] != len(ids) or not np.isfinite(out).all():
                     raise RuntimeError("malformed served rows")
         except Exception as exc:  # noqa: BLE001 — re-raised below
             errors.append(exc)
 
     t0 = time.perf_counter()
+    tparts = [None] * CLIENTS if t is None else np.array_split(t, CLIENTS)
     with engine:
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in np.array_split(trace, CLIENTS)]
+        threads = [threading.Thread(target=client, args=(c, tc))
+                   for c, tc in zip(np.array_split(trace, CLIENTS), tparts)]
         for t in threads:
             t.start()
         for t in threads:
@@ -93,12 +107,43 @@ def drive(engine, trace, per_call):
     return wall
 
 
-def config_cases(cls) -> list:
-    """The tree's default config, then late admission off where it is on
-    by default."""
+def config_cases(cls, late_off: bool) -> list:
+    """The tree's default config, then, with ``late_off``, late admission
+    off where it is on by default."""
     late = cls.__dataclass_fields__.get("late_admission")
     return [("default", {})] + ([("late-off", {"late_admission": False})]
-                                if late is not None and late.default is True else [])
+                                if late_off and late is not None and late.default is True
+                                else [])
+
+
+def idle_share(run, dev) -> dict:
+    """``run()`` (returning its wall seconds) under torch.profiler: the
+    card's idle share over the run, 1 - the union of its device events'
+    intervals (kernels and copies) over the wall time, and those events."""
+    if dev.type != "cuda":
+        return {"idle_share": None, "device_events": 0, "profiled_wall_s": run()}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"idle_share": 1.0 - busy / (wall * 1e6), "device_busy_s": busy / 1e6,
+            "device_events": len(spans), "profiled_wall_s": wall}
+
+
+def stats_record(st, wall, router=False) -> dict:
+    lat = st.latency.snapshot()
+    flushes = st.router_dispatches if router else st.dispatches
+    seeds = st.routed_seeds if router else st.dispatched_seeds
+    return dict(qps=st.requests / wall, p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
+                wall_s=wall, dispatches=flushes, mean_flush_width=seeds / max(flushes, 1),
+                late_admitted=getattr(st, "late_admitted", 0))
 
 
 def run_slot(label, tree, order_ix, shared, args, dev, out):
@@ -117,32 +162,60 @@ def run_slot(label, tree, order_ix, shared, args, dev, out):
     trace = cs.zipfian_trace(topo.node_count, args.requests, alpha=0.99, seed=args.seed + 1)
     base = {"tree": label, "slot": order_ix}
 
-    for case, extra in config_cases(pkg.ServeConfig):
+    for case, extra in config_cases(pkg.ServeConfig, args.late_off):
         for mif in IN_FLIGHT:
             for per_call in PER_CALLS:
-                for rep in range(args.reps):
+                for rep in [*range(args.reps), "profiled"]:
                     sampler = pkg.GraphSageSampler(topo, cs.SIZES, device=dev, seed=args.seed)
                     eng = pkg.ServeEngine(model, params, sampler, table,
                                           pkg.ServeConfig(max_batch=cs.BATCH, max_in_flight=mif,
                                                           **extra))
                     eng.warmup()
                     eng.reset_stats()
-                    wall = drive(eng, trace, per_call)
-                    st = eng.stats
-                    lat = st.latency.snapshot()
+                    if rep == "profiled":
+                        prof = idle_share(lambda: drive(eng, trace, per_call), dev)
+                        rec = dict(stats_record(eng.stats, prof["profiled_wall_s"]), **prof)
+                    else:
+                        rec = stats_record(eng.stats, drive(eng, trace, per_call))
                     emit(out, dict(base, what="serve", case=case, max_in_flight=mif,
-                                   per_call=per_call, rep=rep, qps=st.requests / wall,
-                                   p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"], wall_s=wall,
-                                   dispatches=st.dispatches,
-                                   mean_flush_width=st.dispatched_seeds / max(st.dispatches, 1),
-                                   padded_seeds=st.padded_seeds,
-                                   late_admitted=getattr(st, "late_admitted", 0)))
+                                   per_call=per_call, rep=rep,
+                                   padded_seeds=eng.stats.padded_seeds, **rec))
                     del eng, sampler
     gc.collect()
     torch.cuda.empty_cache()
 
+    wl = importlib.import_module("quiver_tpu_torch.workloads")
+    ts = np.random.default_rng(args.seed + 20).uniform(0.0, cs.TS_SPAN, topo.edge_count)
+    tg = wl.TemporalTiledGraph(topo, ts.astype(np.float32), device=dev)
+    ttrace = cs.temporal_trace(topo.node_count, args.requests, alpha=0.99,
+                               seed=args.seed + 31, qps=cs.TEMPORAL_QPS, t0=0.0)
+    for case, extra in config_cases(pkg.ServeConfig, args.late_off):
+        for mif in IN_FLIGHT:
+            for rep in [*range(args.reps), "profiled"]:
+                sampler = pkg.GraphSageSampler(topo, cs.SIZES, device=dev, seed=args.seed,
+                                               dedup=False, max_deg=cs.MAX_DEG)
+                sampler.bind_temporal(tg, recency=cs.RECENCY)
+                eng = wl.TemporalServeEngine(model, params, sampler, table,
+                                             pkg.ServeConfig(max_batch=cs.BATCH,
+                                                             max_in_flight=mif, **extra),
+                                             t_quantum=cs.T_QUANTUM)
+                eng.warmup()
+                eng.reset_stats()
+                run = lambda: drive(eng, ttrace.requests, 8, t=ttrace.t_query)  # noqa: E731
+                if rep == "profiled":
+                    prof = idle_share(run, dev)
+                    rec = dict(stats_record(eng.stats, prof["profiled_wall_s"]), **prof)
+                else:
+                    rec = stats_record(eng.stats, run())
+                emit(out, dict(base, what="temporal", case=case, max_in_flight=mif,
+                               per_call=8, rep=rep, padded_seeds=eng.stats.padded_seeds, **rec))
+                del eng, sampler
+    del tg
+    gc.collect()
+    torch.cuda.empty_cache()
+
     serve = importlib.import_module("quiver_tpu_torch.serve")
-    for case, extra in config_cases(serve.DistServeConfig):
+    for case, extra in config_cases(serve.DistServeConfig, args.late_off):
         for mif in IN_FLIGHT:
             for rep in range(args.fleet_reps):
                 cfg = serve.DistServeConfig(hosts=FLEET_HOSTS, max_batch=cs.BATCH,
@@ -155,17 +228,11 @@ def run_slot(label, tree, order_ix, shared, args, dev, out):
                     raise RuntimeError("the fleet did not take the collective exchange")
                 dist.warmup()
                 dist.reset_stats()
-                wall = drive(dist, trace, 8)
-                st = dist.stats
-                lat = st.latency.snapshot()
+                rec = stats_record(dist.stats, drive(dist, trace, 8), router=True)
                 emit(out, dict(base, what="fleet", case=case, max_in_flight=mif, per_call=8,
-                               rep=rep, qps=st.requests / wall, p50_ms=lat["p50_ms"],
-                               p99_ms=lat["p99_ms"], wall_s=wall,
-                               dispatches=st.router_dispatches,
-                               mean_flush_width=st.routed_seeds / max(st.router_dispatches, 1),
-                               padded_seeds=sum(e.stats.padded_seeds
-                                                for e in dist.engines.values()),
-                               late_admitted=getattr(st, "late_admitted", 0)))
+                               rep=rep, padded_seeds=sum(e.stats.padded_seeds
+                                                         for e in dist.engines.values()),
+                               **rec))
                 del dist
                 gc.collect()  # the comm's answerers hold the engine in a cycle
                 torch.cuda.empty_cache()
@@ -187,14 +254,17 @@ def summarize(out):
         groups.setdefault(key, []).append(r)
     for key, rs in sorted(groups.items()):
         what, tree, case, mif, per_call = key
-        med = {m: statistics.median(r[m] for r in rs)
+        timed = [r for r in rs if r["rep"] != "profiled"]
+        idle = [r["idle_share"] for r in rs if r.get("idle_share") is not None]
+        med = {m: statistics.median(r[m] for r in timed)
                for m in ("qps", "p50_ms", "p99_ms", "dispatches", "mean_flush_width",
                          "padded_seeds", "late_admitted")}
         log("ab summary: " + json.dumps(dict(what=what, tree=tree, case=case,
                                              max_in_flight=mif, per_call=per_call,
-                                             runs=len(rs), **med,
-                                             qps_range=[min(r["qps"] for r in rs),
-                                                        max(r["qps"] for r in rs)])))
+                                             runs=len(timed), **med,
+                                             qps_range=[min(r["qps"] for r in timed),
+                                                        max(r["qps"] for r in timed)],
+                                             idle_share=idle)))
 
 
 def main() -> int:
@@ -207,6 +277,8 @@ def main() -> int:
     ap.add_argument("--fleet-reps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda, or cpu for a small dry run")
+    ap.add_argument("--late-off", action="store_true",
+                    help="also run each engine with late admission off")
     args = ap.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         print("torch_serve_ab: no CUDA device", file=sys.stderr)

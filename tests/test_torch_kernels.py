@@ -107,7 +107,11 @@ is not 16-byte aligned, and in bfloat16 equal to the float32 sum rounded
 once. The redesigned K14c (one cooperative kernel a call, a table in
 shared memory for a block of many lanes) and K13d's compaction (one
 cooperative kernel a call) at each of their switch points, bit-equal to
-their plain versions, and both launched from four threads at once."""
+their plain versions, and both launched from four threads at once. The
+draws' device-key forms (K1, K1b, K7, K7 flat and K8 reading the hop's key
+words from a row of a [3, 2] uint32 buffer on the card, as a captured
+serve step does) bit-equal to their by-value forms at a B = 64 sample's
+three hops."""
 
 import numpy as np
 import pytest
@@ -2120,3 +2124,50 @@ def test_exchange_rows_kernel_matches_plain(cuda_device, D):
             assert not rows[flat < 0].any()
             past = flat >= R
             assert _same_bits(rows[past], table[-1].expand(int(past.sum()), D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["K1", "K1b", "K7", "K7 flat", "K8"])
+def test_device_key_forms_equal_the_by_value_forms(cuda_device, kind):
+    """Each draw's device-key form, reading the hop's two key words from a
+    row of a [3, 2] uint32 buffer on the card (a captured serve step's
+    layout), is bit-equal to its by-value form on the same words, at the
+    three hops of a B = 64 sample; its launches count under
+    ``name/device_key``."""
+    topo, ts, n = _weighted_topo()
+    name, fn, g = {
+        "K1": ("sample_tiled", sample.tiled_sample_layer, topo.to_device_tiled(cuda_device)),
+        "K1b": ("sample_flat", sample.sample_layer, topo.to_device(cuda_device)),
+        "K7": ("weighted_sample_tiled", sample.tiled_weighted_sample_layer,
+               (*topo.to_device_tiled(cuda_device), topo.to_device_tiled_weights(cuda_device))),
+        "K7 flat": ("weighted_sample_flat", sample.weighted_sample_layer,
+                    (*topo.to_device(cuda_device), topo.to_device_weights(cuda_device))),
+        "K8": ("temporal_sample_tiled", sample.tiled_temporal_sample_layer, None),
+    }[kind]
+    if kind == "K8":
+        from quiver_tpu_torch.workloads import TemporalTiledGraph
+
+        g = TemporalTiledGraph(topo, ts, device=cuda_device).temporal_graph()
+    rng = np.random.default_rng(4)
+    key = qrandom.fold_in(qrandom.key(11), 2)
+    words = torch.from_numpy(qrandom.hop_key_words(key, len(HOPS)).view(np.int32))
+    words = words.to(cuda_device).view(torch.uint32)
+    _kernels.reset_counts()
+    for h, ((W, k), sub) in enumerate(zip(HOPS, qrandom.hop_keys(key, len(HOPS)))):
+        seeds, valid = _hop_seeds(rng, W, n)
+        seeds, valid = seeds.to(cuda_device), valid.to(cuda_device)
+        extra = ()
+        if kind == "K8":
+            t = rng.uniform(0.0, 60.0, W).astype(np.float32)
+            extra = (torch.from_numpy(t).to(cuda_device), 512, 0.02)
+        elif kind.startswith("K7"):
+            extra = (512,)
+        by_value = fn(*g, seeds, valid, k, sub, *extra)
+        on_card = fn(*g, seeds, valid, k, words[h], *extra)
+        torch.cuda.synchronize()
+        for a, b in zip(by_value, on_card):
+            assert _same(a, b), (kind, W, k)
+    counts = _kernels.counts()
+    assert counts[name] == 2 * len(HOPS) and counts[f"{name}/device_key"] == len(HOPS)
+    with pytest.raises(ValueError):  # key words must lie on the seeds' device
+        fn(*g, seeds, valid, 5, words[0].cpu(), *extra)

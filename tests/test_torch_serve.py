@@ -11,9 +11,16 @@ bit-equal to a late-off engine fed the same final batches; `submit_many`
 writes the dispatch log of N scalar submits. Also: a threaded predict
 smoke with replay parity, weight updates, warmup leaving the key stream
 alone, the package's import isolation, and entry points refusing to run
-without a card unless asked for the CPU. The cuda-marked test runs the
-gated trace on the card (`python -m pytest --noconftest -m cuda
-tests/test_torch_serve.py`; this file imports without JAX there)."""
+without a card unless asked for the CPU; a same-shaped rebind while a
+flush is held in its dispatch stage leaves that flush on the old table.
+The cuda-marked tests run the gated trace on the card and the captured
+serve step (one CUDA graph a bucket): replays at every bucket bit-equal
+to the eager step on the same key for the tiled, flat, weighted and
+temporal samplers, two threads flushing one bucket's graph at once, a
+weight update that captures nothing anew and equals a fresh engine, a
+post-seal miss, and a rebind during an in-flight flush (`python -m pytest
+--noconftest -m cuda tests/test_torch_serve.py`; this file imports
+without JAX there)."""
 
 import subprocess
 import sys
@@ -33,18 +40,21 @@ from quiver_tpu_torch import (
     sage_params_from_flax,
 )
 from quiver_tpu_torch import Feature, _kernels
+from quiver_tpu_torch import random as qrandom
 from quiver_tpu_torch.examples import reddit_sage
 from quiver_tpu_torch.inference import (
     batch_logits,
     bind_params,
     full_mean_aggregate,
     full_mean_aggregate_plain,
+    make_serve_step,
+    make_temporal_serve_step,
 )
 from quiver_tpu_torch.shard_tensor import ShardTensor
 from quiver_tpu_torch.serve import default_buckets, zipfian_trace
 from quiver_tpu_torch.utils import resolve_device
 
-from torch_fixtures import cuda_device, gated_late_run  # noqa: F401 (a fixture)
+from torch_fixtures import DispatchGate, cuda_device, gated_late_run  # noqa: F401 (a fixture)
 
 try:
     import jax
@@ -404,3 +414,220 @@ def test_gated_late_admission_on_the_card_replays_bit_equal(cuda_device, mif):
     requests = [n for b in STALLED[:mif] for n in b] + WAITING + LATE
     for node, h in zip(requests, hs):
         assert np.array_equal(h.result(timeout=60), ref_rows[node]), node
+
+
+# -- the captured serve step: bindings, weights, concurrency -------------------------
+
+
+def _rebind_in_flight(eng, table2, submit_nodes):
+    """Hold one flush of ``submit_nodes`` in its dispatch stage (sealed: its
+    key drawn, its `binding()` recorded), rebind the programs to the
+    same-shaped ``table2`` meanwhile, then let it run; a second flush of the
+    same nodes runs after. Returns both flushes' rows."""
+    gate = DispatchGate(eng)
+    hs = [eng.submit(int(n)) for n in submit_nodes]
+    t = threading.Thread(target=eng.flush, daemon=True)
+    t.start()
+    gate.wait_arrived(1)
+    eng._programs.rebind(table=table2)
+    gate.release()
+    t.join(timeout=60)
+    held = np.stack([h.result(timeout=60) for h in hs])
+    gate.open()
+    eng.cache.invalidate()
+    after = eng.predict(list(submit_nodes))
+    return held, after
+
+
+def _replayed(engine_of, log, table):
+    """Rows of a fresh engine over ``table`` fed each logged batch in turn:
+    the dispatch-index key stream replayed."""
+    ref = engine_of(table)
+    out = []
+    for padded, n in log:
+        out.append(ref.predict([int(x) for x in padded[:n]]))
+        ref.cache.invalidate()
+    return out
+
+
+def test_rebind_during_an_in_flight_flush_keeps_its_binding(setup):
+    """The flush sealed before a same-shaped rebind runs against the old
+    table; the next one against the new (the CPU eager path; the card test
+    below runs the captured graphs)."""
+    s = setup
+    table2 = torch.from_numpy((s["feat"] * 3.0 - 1.0).astype(np.float32))
+
+    def engine_of(table):
+        return ServeEngine(GraphSAGE(DIM, 16, 5, num_layers=2, dropout=0.0), s["tparams"],
+                           _port_sampler(s), table,
+                           ServeConfig(max_batch=8, max_delay_ms=1e9, record_dispatches=True))
+
+    eng = engine_of(torch.from_numpy(s["feat"]))
+    eng.warmup()
+    held, after = _rebind_in_flight(eng, table2, [3, 14, 15, 92, 65])
+    old, _ = _replayed(engine_of, eng.dispatch_log, torch.from_numpy(s["feat"]))
+    _, new = _replayed(engine_of, eng.dispatch_log, table2)
+    assert np.array_equal(held, old) and np.array_equal(after, new)
+    assert not np.allclose(held, after)
+
+
+def _card_engine(kind, dev, **cfg):
+    """A small engine on the card: the tiled (dedup), flat (no dedup),
+    weighted (tiled, dedup) or temporal sampler over a random graph."""
+    rng = np.random.default_rng(0)
+    edge_index = np.stack([rng.integers(0, N_NODES, 2000), rng.integers(0, N_NODES, 2000)])
+    weights = rng.uniform(0.0, 1.0, 2000).astype(np.float32)
+    feat = torch.from_numpy(rng.standard_normal((N_NODES, DIM)).astype(np.float32))
+    torch.manual_seed(0)
+    model = GraphSAGE(DIM, 16, 5, num_layers=2, dropout=0.0)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    topo = CSRTopo(edge_index=edge_index, edge_weights=weights if kind == "weighted" else None)
+    sampler = GraphSageSampler(topo, SIZES, seed=SEED, device=dev,
+                               layout="flat" if kind == "flat" else "tiled",
+                               dedup=kind in ("tiled", "weighted"), weighted=kind == "weighted")
+    config = ServeConfig(**{**dict(max_batch=8, max_delay_ms=1e9, record_dispatches=True),
+                            **cfg})
+    if kind == "temporal":
+        from quiver_tpu_torch.workloads import TemporalServeEngine, TemporalTiledGraph
+
+        ts = rng.uniform(0.0, 50.0, topo.edge_count).astype(np.float32)
+        sampler.bind_temporal(TemporalTiledGraph(topo, ts, device=dev), recency=0.02)
+        return TemporalServeEngine(model, params, sampler, feat.to(dev), config)
+    return ServeEngine(model, params, sampler, feat.to(dev), config)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tiled", "flat", "weighted", "temporal"])
+def test_captured_replays_equal_the_eager_step_at_every_bucket(cuda_device, kind):
+    """Each warmed bucket's graph, replayed with fresh keys and seeds, is
+    bit-equal to the same step run eagerly (by-value keys) on the same key;
+    the replays launch the draws' device-key forms, counted as replays x
+    the graph's launches."""
+    eng = _card_engine(kind, cuda_device)
+    eng.warmup()
+    progs = eng._programs
+    assert progs.sealed and progs.buckets == default_buckets(8)
+    temporal = kind == "temporal"
+    step = (make_temporal_serve_step if temporal else make_serve_step)(eng._sampler)[0]
+    table, index_map, graph = progs.binding()
+    rng = np.random.default_rng(1)
+    progs.reset_replays()
+    for b in default_buckets(8) * 2:
+        key = eng._sampler.next_key()
+        seeds = rng.integers(0, N_NODES, b)
+        extra = (rng.uniform(10.0, 60.0, b).astype(np.float32),) if temporal else ()
+        got = progs(b, eng._model, key, seeds, *extra)
+        with torch.inference_mode():
+            want = step(eng._model, key, eng._sampler.as_seeds(seeds), table, index_map, graph,
+                        *(torch.from_numpy(e).to(cuda_device) for e in extra))
+        assert np.array_equal(got, want.cpu().numpy()), (kind, b)
+    stats = progs.graph_stats()
+    assert stats["graphs"] == len(default_buckets(8)) == stats["captured"]
+    assert stats["replays"] == 2 * len(default_buckets(8)) and stats["pool_bytes"] > 0
+    assert all(k > 0 for k in stats["kernels"].values())
+    draw = {"tiled": "sample_tiled", "flat": "sample_flat", "weighted": "weighted_sample_tiled",
+            "temporal": "temporal_sample_tiled"}[kind]
+    launches = progs.replayed_launches()
+    assert launches[draw] == launches[f"{draw}/device_key"] == stats["replays"] * len(SIZES)
+
+
+@pytest.mark.cuda
+def test_two_threads_flushing_one_bucket_each_get_their_own_rows(cuda_device):
+    """max_in_flight=2, two clients flushing full buckets of distinct ids
+    at once through the one graph of bucket 8: every row equals the split
+    path's replay of its own dispatch."""
+    eng = _card_engine("tiled", cuda_device, max_in_flight=2, cache_entries=0)
+    eng.warmup()
+    out = {}
+
+    def client(ids):
+        for j in range(0, len(ids), 8):
+            for node, row in zip(ids[j:j + 8], eng.predict(ids[j:j + 8], timeout=60)):
+                out[int(node)] = row
+
+    ids = np.random.default_rng(2).permutation(N_NODES)[:160]
+    threads = [threading.Thread(target=client, args=(c,)) for c in (ids[:80], ids[80:])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and len(out) == 160
+    assert set(eng.stats.dispatch_buckets) == {8}
+    sampler = GraphSageSampler(eng._sampler.csr_topo, SIZES, seed=SEED, device=cuda_device)
+    for padded, n in eng.dispatch_log:
+        rows = batch_logits(eng._model, sampler, eng._feature, padded).cpu().numpy()
+        for i in range(n):
+            assert np.array_equal(out[int(padded[i])], rows[i])
+    # the bucket's graph called from two threads at once, 40 calls each
+    progs, step = eng._programs, make_serve_step(eng._sampler)[0]
+    table, index_map, graph = progs.binding()
+    calls = [[(qrandom.fold_in(qrandom.key(t), i), np.random.default_rng(10 * t + i)
+               .integers(0, N_NODES, 8)) for i in range(40)] for t in (1, 2)]
+    got = [[None] * 40, [None] * 40]
+
+    def caller(t):
+        for i, (key, seeds) in enumerate(calls[t]):
+            got[t][i] = progs(8, eng._model, key, seeds)
+
+    threads = [threading.Thread(target=caller, args=(t,)) for t in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    with torch.inference_mode():
+        for t in (0, 1):
+            for (key, seeds), row in zip(calls[t], got[t]):
+                want = step(eng._model, key, eng._sampler.as_seeds(seeds), table, index_map,
+                            graph)
+                assert np.array_equal(row, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_update_params_keeps_the_graphs_and_equals_a_fresh_engine(cuda_device):
+    eng = _card_engine("tiled", cuda_device)
+    eng.warmup()
+    captured = eng._programs.graph_stats()["captured"]
+    nodes = [3, 4, 5, 6, 7]
+    before = eng.predict(nodes)
+    scaled = {k: v * 2 for k, v in eng._model.state_dict().items()}
+    eng.update_params(scaled)
+    after = eng.predict(nodes)
+    assert eng._programs.graph_stats()["captured"] == captured
+    fresh = _card_engine("tiled", cuda_device)
+    fresh.update_params(scaled)
+    fresh.warmup()
+    fresh._sampler.next_key()  # the updated engine served one flush first
+    assert np.array_equal(after, fresh.predict(nodes)) and not np.allclose(before, after)
+
+
+@pytest.mark.cuda
+def test_a_post_seal_miss_raises_on_the_card(cuda_device):
+    eng = _card_engine("tiled", cuda_device, buckets=(4, 8))
+    eng.warmup(buckets=[8])
+    assert eng._programs.sealed and eng._programs.buckets == (8,)
+    with pytest.raises(RuntimeError):
+        eng.predict([1, 2, 3])  # bucket 4 was never captured
+
+
+@pytest.mark.cuda
+def test_rebind_during_an_in_flight_flush_keeps_its_graph_on_the_card(cuda_device):
+    """The held flush replays the graphs captured against the old table;
+    the rebind captured every warmed bucket anew against the new one."""
+    eng = _card_engine("tiled", cuda_device)
+    eng.warmup()
+    table = eng._programs.binding()[0]
+    table2 = table * 3.0 - 1.0
+    captured = eng._programs.graph_stats()["captured"]
+    held, after = _rebind_in_flight(eng, table2, [3, 14, 15, 92, 65])
+    assert eng._programs.graph_stats()["captured"] == captured + len(default_buckets(8))
+    old, _ = _replayed(lambda t: _card_engine_over(eng, t), eng.dispatch_log, table)
+    _, new = _replayed(lambda t: _card_engine_over(eng, t), eng.dispatch_log, table2)
+    assert np.array_equal(held, old) and np.array_equal(after, new)
+
+
+def _card_engine_over(eng, table):
+    """A split-path twin of ``eng`` over ``table``: a fresh sampler of the
+    same seed and the same weights."""
+    sampler = GraphSageSampler(eng._sampler.csr_topo, SIZES, seed=SEED, device=eng.device)
+    return ServeEngine(eng._model, None, sampler, table,
+                       ServeConfig(max_batch=8, max_delay_ms=1e9, dispatch_mode="split"))
