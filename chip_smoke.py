@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's GraphSAGE serving, training,
 capped training, out-of-core training, weighted training, GCN and GAT
 training (float32 and bfloat16), temporal serving, (dp, ici) and
-(host, dp, ici) data-parallel training and routed fleet serving paths on
-one card, with every tile table built on it.
+(host, dp, ici) data-parallel training, routed fleet serving and
+streaming-graph serving paths on one card, with every tile table built on
+it.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -428,7 +429,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the block, then -1 pads), bit-equal to its plain version.
              Yardstick: index_select of the clamped ids, then masked_fill_
              of the -1 lanes;
-31. report — a ``redesign K4 K2 K1 K13e:`` line (K4 and K2 before and
+31. stream — streaming graphs (`quiver_tpu_torch.stream`): the products
+             graph as a StreamingTiledGraph (its tables built on the card by
+             K12, 16,384 reserve rows) under ServeEngine(max_batch=64,
+             max_in_flight=2): 16,000 Zipf requests from 4 client threads,
+             once without commits and once while a committer thread applies
+             40 zero-stall commits of a delta_interleaved_trace (4 appends a
+             commit, 2 removals of the edges two commits back); each commit
+             scatters the tile and (base, deg) rows through B1 (K6's body at
+             int32) and flips under ``_seq``, and the captured serve graphs
+             read each flush's graph addresses from its staged inputs (K1's
+             device-graph form). Fails unless B1 launched 2 a commit, K1
+             launched only in its device-graph form and nothing eagerly, no
+             graph was captured anew, the flushes saw more than one graph
+             version, and 8 dispatches of several kept epochs, replayed
+             through batch_logits against their sealed epoch's arrays, equal
+             the served rows bit for bit. The ``stream:`` line: commit
+             latency p50/p99, the ``_seq`` hold, the versions served, QPS
+             with and without commits; then B1 at a commit's rows against
+             its plain version and index_copy_ on clones (the tiles and the
+             (base, deg) table, byte bound 2 x m_cap x 512 B + 2 x N x 8 B),
+             and K1's device-graph form at a flush's three hops on the live
+             arrays against the by-value form. Then the temporal engine
+             (TemporalServeEngine over the graph with the timestamps, 8
+             reserve rows, a retention window of TS_SPAN, provisioning banks
+             of 4,096 rows): 16,000 requests with query times just past
+             TS_SPAN while 5 commits, 0.1 s apart, append, remove and
+             re-time edges and expire the edges their clock leaves behind,
+             and one appends 384 edges to a low-degree node, which
+             provisions a bank and captures every bucket anew once; a
+             ``stream temporal:`` line as the node run's, and B1 on its
+             three tables and K8's device-graph form logged; fails unless K8
+             launched only in its device-graph form, one commit provisioned,
+             edges expired and were deleted. Lines start ``stream``;
+32. report — a ``redesign K4 K2 K1 K13e:`` line (K4 and K2 before and
              after their redesign: K4 at a flush's three layers, the
              bfloat16 layers of kernels-7 and the k = 64 layer of the fanout
              phase, with embedding_bag's time and the bound; K2 at a
@@ -566,7 +600,8 @@ from quiver_tpu_torch.pyg.sage_sampler import (
 from quiver_tpu_torch.comm import exchange_rows, exchange_rows_plain
 from quiver_tpu_torch.parallel import train as ptrain
 from quiver_tpu_torch.serve import (DistServeConfig, DistServeEngine, contiguous_partition,
-                                    lp_trace, replay_shard_oracle, temporal_trace, zipfian_trace)
+                                    delta_interleaved_trace, lp_trace, replay_shard_oracle,
+                                    temporal_trace, zipfian_trace)
 from quiver_tpu_torch.shard_tensor import tiered_gather_plain
 from quiver_tpu_torch.ops.sample import (
     PROB_WARP_ITEMS,
@@ -583,6 +618,7 @@ from quiver_tpu_torch.tiers import (
     set_rows,
     set_rows_plain,
 )
+from quiver_tpu_torch.stream import GraphDelta, StreamingTiledGraph, _bucketed
 from quiver_tpu_torch.trace import median_min_max, seps
 from quiver_tpu_torch.utils import CSRTopo, heat_reorder, round_up_pow2
 from quiver_tpu_torch.workloads import (
@@ -655,6 +691,11 @@ SOURCES = {
                      "quiver_tpu/parallel/collectives.py:150"),
     "cold_merge": ("quiver_tpu_torch/csrc/collective.cu", "quiver_tpu/parallel/collectives.py:150"),
     "exchange_rows": ("quiver_tpu_torch/csrc/collective.cu", "quiver_tpu/comm.py:183"),
+    "stream_row_scatter": ("quiver_tpu_torch/csrc/gather.cu", "quiver_tpu/shard_tensor.py:86"),
+    "sample_tiled/device_graph": ("quiver_tpu_torch/csrc/sample.cu",
+                                  "quiver_tpu/ops/sample.py:526"),
+    "temporal_sample_tiled/device_graph": ("quiver_tpu_torch/csrc/weighted.cu",
+                                           "quiver_tpu/ops/sample.py:476"),
 }
 MAIN_PATH = ("sample_tiled", "local_reindex", "gather_rows", "masked_mean")
 # the training slice: batch, timed steps a leg, the tiered leg's cache share
@@ -767,6 +808,17 @@ K11_QUEUED_MS_BEFORE = [1.0216, 1.0229, 1.0228]
 K14C_QUEUED_MS_BEFORE, K14C_LAUNCHES_BEFORE = [0.02576, 0.01338, 0.01110], 2
 K13D_COMPACT_QUEUED_MS_BEFORE, K13D_COMPACT_LAUNCHES_BEFORE = [0.01395, 0.02166], 3
 REDESIGN = {}  # this run's times of the redesigned kernels at those shapes
+# the streaming graph: commits of the node run (appends a commit, and
+# removals of the edges two commits back), the requests of each run, the
+# node stream's reserve rows, the epochs whose arrays the replay keeps and
+# the dispatches it replays; the temporal run's commits (appends, removals,
+# updates), its small reserve, the bank a provisioning adds, the node a big
+# append spills, its requests, and the retention window (the first cutoffs
+# expire edges with ts <= 0.001 k: a few thousand a commit)
+STREAM_COMMITS, STREAM_EDGES, STREAM_REMOVALS = 40, 4, 2
+STREAM_REQUESTS, STREAM_RESERVE, STREAM_KEEP, STREAM_REPLAYS = 16_000, 1 << 14, 7, 8
+STREAM_T_COMMITS, STREAM_T_RESERVE, STREAM_T_BANK, STREAM_T_BIG = 5, 8, 1 << 12, 3 * 128
+STREAM_T_REQUESTS, STREAM_T_INTERVAL, STREAM_WINDOW = 16_000, 0.1, TS_SPAN
 
 
 def log(*a):
@@ -4792,6 +4844,434 @@ def kernel_phase_10(topo, table, trace, rows, seed):
                  f"{FLEET_PAST_IDS} past the block")
 
 
+# -- the streaming graph: commits while serving --------------------------------
+
+def epoch_indptr(bd: torch.Tensor) -> torch.Tensor:
+    """A flat CSR indptr of a streamed graph's current degrees (its
+    ``(base, deg)`` table), for the draws' bounds."""
+    deg = bd[:, 1].long()
+    return torch.cat([torch.zeros(1, dtype=torch.long, device=bd.device), torch.cumsum(deg, 0)])
+
+
+def b1_record(rows, st, prev, delta, tag, report):
+    """B1 on the last commit of a run: the rows it changed between the
+    kept arrays of the version before (``prev``) and the live ones, with
+    the rows ``delta``'s sources touch at least, scattered from the host
+    mirrors into ``prev`` as one commit's calls. The result is bit-equal
+    to the live arrays and to the plain version, differs from ``prev``,
+    and leaves ``prev`` untouched. Timed as one commit's calls (ms, queued
+    ms) beside the plain version and ``index_copy_`` on clones."""
+    dev = st.device
+    live = st.temporal_graph() if st.temporal else st.graph()
+    check(len(prev) == len(live) and all(p.shape == t.shape for p, t in zip(prev, live)),
+          f"B1 ({tag}): the kept arrays of the version before have other shapes")
+    idx_tiles, idx_bd = commit_rows(st, delta)
+    changed = torch.zeros(live[1].shape[0], dtype=torch.bool, device=dev)
+    for p, t in zip(prev[1:], live[1:]):
+        changed |= (p != t).any(1)
+    idx_tiles = np.union1d(idx_tiles, changed.nonzero().view(-1).cpu().numpy())
+    idx_bd = np.union1d(idx_bd, (prev[0] != live[0]).any(1).nonzero().view(-1).cpu().numpy())
+    calls = []  # (table, positions, rows)
+    for i, table in enumerate(prev):
+        idx, mirror = (idx_bd, st.bd) if i == 0 else (idx_tiles, (st.tiles, st.tiles,
+                                                                    st.ttiles)[i])
+        pos, new = _bucketed(idx, mirror[idx], table.shape[0])
+        calls.append((table, torch.from_numpy(pos).to(dev), torch.from_numpy(new).to(dev)))
+    keep = [t.clone() for t, _, _ in calls]
+    for (t, pos, new), k, want in zip(calls, keep, live):
+        got = set_rows(t, pos, new)
+        check(torch.equal(got, want), f"B1 does not give the live arrays ({tag})")
+        check(torch.equal(got, set_rows_plain(t, pos, new)),
+              f"B1 differs from its plain version ({tag})")
+        check(not torch.equal(got, k), f"B1 ({tag}): the last commit changed no row of a table")
+        check(torch.equal(t, k), f"B1 wrote its input table ({tag})")
+    valid = [(t, pos[pos < t.shape[0]], new[: int((pos < t.shape[0]).sum())])
+             for t, pos, new in calls]
+    del keep
+    n_bytes = sum(2 * t.numel() * t.element_size() + pos.numel() * 8
+                  + new.numel() * new.element_size() for t, pos, new in calls)
+    b = bound(n_bytes)
+    queued = time_ms_queued(lambda: [set_rows(*c) for c in calls])
+    record(rows, "stream_row_scatter", 0.0, time_ms(lambda: [set_rows(*c) for c in calls]),
+           time_ms(lambda: [set_rows_plain(*c) for c in calls], reps=5), b,
+           lib_ms=time_ms(lambda: [t.clone().index_copy_(0, p, r) for t, p, r in valid]),
+           shape=f"{tag}: {len(calls)} tables, rows {len(idx_tiles)} + {len(idx_bd)}, "
+                 f"m_cap={st.m_cap}", report=report, queued_ms=queued,
+           library_queued_ms=time_ms_queued(
+               lambda: [t.clone().index_copy_(0, p, r) for t, p, r in valid]))
+    return queued
+
+
+def check_mirrors(st, tag):
+    """The live device arrays equal the host mirrors: ``(base, deg)``
+    whole, the tile tables outside the free rows (a release zeroes a row's
+    mirror and leaves its device bytes, which no draw reads)."""
+    live = st.temporal_graph() if st.temporal else st.graph()
+    dev = live[0].device
+    check(torch.equal(live[0], torch.from_numpy(st.bd).to(dev)),
+          f"{tag}: the device (base, deg) table differs from its host mirror")
+    used = torch.ones(st.m_cap, dtype=torch.bool, device=dev)
+    for start, k in st._free_ranges:
+        used[start:start + k] = False
+    for t, mirror in zip(live[1:], (st.tiles, st.ttiles)):
+        check(torch.equal(t[used], torch.from_numpy(mirror).to(dev)[used]),
+              f"{tag}: a device tile table differs from its host mirror")
+
+
+def commit_rows(st, delta):
+    """The tile rows and (base, deg) rows a commit of ``delta``'s sources
+    touches at least: each source's last tile row, and the source."""
+    src = delta.sources()
+    deg = np.maximum(st.bd[src, 1].astype(np.int64) - 1, 0)
+    return np.unique(st.bd[src, 0].astype(np.int64) + deg // 128), src
+
+
+def device_graph_record(rows, name, fn, graph, hops, extra_of, bound_of, lib_of):
+    """K1's or K8's device-graph form at a flush's hops on a stream's live
+    arrays: the tables' addresses as words on the card and blank tables
+    of their shapes passed, bit-equal to the by-value form and its plain
+    version, timed (and queued) beside the by-value form."""
+    dev = graph[0].device
+    words = torch.tensor([t.data_ptr() for t in graph], dtype=torch.int64, device=dev)
+    blanks = [torch.empty_like(t) for t in graph]
+    plain = {"sample_tiled": sample.tiled_sample_layer_plain,
+             "temporal_sample_tiled": sample.tiled_temporal_sample_layer_plain}[name]
+    for h in hops:
+        W, k = h["cur"].shape[0], h["k"]
+        kw = torch.from_numpy(qrandom.key_data(h["key"]).view(np.int32)).to(dev)
+        kw = kw.view(torch.uint32)
+        head, tail = (h["cur"], h["cur_valid"], k), extra_of(h)
+
+        def dg():
+            return fn(*blanks, *head, kw, *tail, graph_words=words)
+
+        by_value = fn(*graph, *head, h["key"], *tail)
+        got = dg()
+        want = plain(*graph, *head, h["key"], *tail)
+        check(all(torch.equal(a, c) and torch.equal(a, d) for a, c, d in zip(got, by_value, want)),
+              f"{name}'s device-graph form differs at W={W} k={k}")
+        record(rows, f"{name}/device_graph", 0.0, time_ms(dg),
+               time_ms(lambda: plain(*graph, *head, h["key"], *tail), reps=5), bound_of(h),
+               lib_ms=lib_of(h), shape=f"W={W} k={k}", queued_ms=time_ms_queued(dg),
+               by_value_queued_ms=time_ms_queued(lambda: fn(*graph, *head, h["key"], *tail)))
+
+
+def commit_deltas(dtrace, temporal=False):
+    """The commits of a delta trace: each event's appends (timestamped
+    ``TS_SPAN + 0.001 k`` plus a lane's share on a temporal stream), the
+    removal of the first STREAM_REMOVALS appends of two events back and,
+    temporal, a new timestamp for the last append of the event before."""
+    out = []
+    for i, (src, dst) in enumerate(zip(dtrace.edge_src, dtrace.edge_dst)):
+        ts = (TS_SPAN + 0.001 * (i + 1) + np.arange(src.shape[0], dtype=np.float32) * 1e-5
+              ).astype(np.float32) if temporal else None
+        d = GraphDelta(src, dst, ts=ts)
+        if i >= 2:
+            d.remove_edges(dtrace.edge_src[i - 2][:STREAM_REMOVALS],
+                           dtrace.edge_dst[i - 2][:STREAM_REMOVALS])
+        if temporal and i >= 1:
+            d.update_edges(dtrace.edge_src[i - 1][-1:], dtrace.edge_dst[i - 1][-1:],
+                           [TS_SPAN + 0.001 * (i + 0.5)])
+        out.append(d)
+    return out
+
+
+class DispatchTap:
+    """Keeps each fused flush's dispatch-log index (the key index of its
+    sample), sealed graph version, padded seeds and served logits."""
+
+    def __init__(self, engine):
+        self.rows, self._index = [], {}
+        log_entry, dispatch = engine._dispatch_log_entry, engine._dispatch
+
+        def logged(fl, padded):
+            self._index[id(fl)] = len(engine.dispatch_log)
+            return log_entry(fl, padded)
+
+        def tapped(fl):
+            out = dispatch(fl)
+            self.rows.append((self._index.pop(id(fl)), fl.graph_version, fl.padded.copy(),
+                              len(fl.keys), out))
+            return out
+
+        engine._dispatch_log_entry, engine._dispatch = logged, tapped
+
+
+def serve_with_commits(engine, requests, deltas, interval, kept, keep_versions, t=None):
+    """`serve_phase` of ``requests`` (query times ``t`` on a temporal
+    engine) while a committer thread applies ``deltas`` through
+    ``engine.update_graph``, commit i at ``(i + 1) * interval`` seconds
+    from the start or as soon as the one before returns; keeps the graph
+    arrays of the versions in ``keep_versions``. Returns (served, wall,
+    commit records)."""
+    commits, errors, done = [], [], threading.Event()
+    stream = engine._sampler.stream
+
+    def committer():
+        start = time.perf_counter()
+        try:
+            for i, d in enumerate(deltas):
+                time.sleep(max(start + (i + 1) * interval - time.perf_counter(), 0.0))
+                t0 = time.perf_counter()
+                out = engine.update_graph(d)
+                t1 = time.perf_counter()
+                commits.append(dict(latency_s=t1 - t0, end=t1, stall_us=out.get("commit_stall_us"),
+                                    provisioned=out["provisioned"],
+                                    version=out["graph_version"],
+                                    expired=out.get("edges_expired", 0),
+                                    invalidated=out["cache_invalidated"],
+                                    spills=out["tile_spills"]))
+                if out["graph_version"] in keep_versions:
+                    kept[out["graph_version"]] = (stream.temporal_graph() if stream.temporal
+                                                  else stream.graph())
+        except Exception as exc:  # noqa: BLE001 — reported and failed below
+            errors.append(exc)
+        finally:
+            done.set()
+
+    th = threading.Thread(target=committer, name="stream-committer")
+    th.start()
+    try:
+        served, wall = serve_phase(engine, requests, clients=4, t=t)
+    finally:
+        th.join(timeout=900)
+    check(done.is_set() and not errors, f"committer failed: {errors[:1]}")
+    return served, wall, commits
+
+
+def commit_line(tag, engine, served_wall, commits, t_start) -> dict:
+    lat = np.asarray([c["latency_s"] for c in commits]) * 1e3
+    during = [c for c in commits if c["end"] <= t_start + served_wall]
+    # the flip's hold of _seq, a zero-stall commit's own figure (a fenced
+    # commit's stall is its drain and commit: in the stats' histogram, ms)
+    holds = np.asarray([c["stall_us"] for c in commits if c["stall_us"] is not None] or [0.0])
+    return {"phase": tag, "commits": len(commits), "commits_during_serving": len(during),
+            "commit_latency_ms": {"p50": float(np.percentile(lat, 50)),
+                                  "p99": float(np.percentile(lat, 99)), "max": float(lat.max())},
+            "seq_hold_us": {"p50": float(np.percentile(holds, 50)),
+                            "p99": float(np.percentile(holds, 99)), "max": float(holds.max()),
+                            "count": sum(c["stall_us"] is not None for c in commits)},
+            "commit_stall_ms": engine.stats.commit_stall.snapshot(),
+            "provisioned": sum(bool(c["provisioned"]) for c in commits),
+            "edges_expired": sum(c["expired"] for c in commits),
+            "cache_invalidated": sum(c["invalidated"] for c in commits),
+            "spills": sum(c["spills"] for c in commits)}
+
+
+def stream_phase(topo, table, model, params, ts_np, rows, seed):
+    """Streaming graphs (A14, first part): the node engine over a
+    products-scale StreamingTiledGraph, zero-stall commits while 4 clients
+    serve, the replays against each dispatch's sealed epoch; then the
+    temporal engine with a retention window and one provisioning commit.
+    Returns the launches of both runs (the wrappers' counts plus the
+    graphs' replays)."""
+    dev = table.device
+    t0 = time.perf_counter()
+    st = tile_build("stream ids", lambda: StreamingTiledGraph(topo, reserve_tiles=STREAM_RESERVE,
+                                                              device=dev))
+    build_s = time.perf_counter() - t0
+    sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed).bind_stream(st)
+    engine = ServeEngine(model, params, sampler, table,
+                         ServeConfig(max_batch=BATCH, max_in_flight=2, record_dispatches=True))
+    warm = engine.warmup()
+    captured0 = engine._programs.graph_stats()["captured"]
+    log("stream setup: " + json.dumps({
+        "build_s": build_s, "m_base": st.m_base, "m_cap": st.m_cap,
+        "tile_table_bytes": st.m_cap * 128 * 4, "nodes": st.n,
+        "warmup": {str(b): round(t, 4) for b, t in warm.items()}}))
+    n = topo.node_count
+    dtrace = delta_interleaved_trace(n, STREAM_REQUESTS, alpha=0.99, seed=seed + 41,
+                                     edge_every=STREAM_REQUESTS // (STREAM_COMMITS + 1),
+                                     edges_per_event=STREAM_EDGES)
+    deltas = commit_deltas(dtrace)[:STREAM_COMMITS]
+    check(len(deltas) == STREAM_COMMITS, "the delta trace has too few events")
+    tap = DispatchTap(engine)
+
+    # the same load without commits, then with them (the cache emptied between)
+    _, wall0 = serve_phase(engine, dtrace.requests, clients=4)
+    qps0 = engine.stats.requests / wall0
+    engine.cache.invalidate()
+    engine.reset_stats()
+    reset_path_counts(engine)
+    n_log0 = len(engine.dispatch_log)
+    kept = {0: st.graph()}
+    t_start = time.perf_counter()
+    served, wall, commits = serve_with_commits(engine, dtrace.requests, deltas,
+                                               wall0 / (STREAM_COMMITS + 1), kept,
+                                               set(range(STREAM_KEEP)) | {STREAM_COMMITS - 1})
+    counts = path_counts(engine)
+    b1_launches = counts["set_rows"]
+    check(counts["set_rows/int32"] == b1_launches == 2 * STREAM_COMMITS,
+          f"B1 launched {b1_launches} times over {STREAM_COMMITS} commits, not 2 a commit")
+    check_graph_path("stream", [engine], counts, MAIN_PATH)
+    check(counts["sample_tiled/device_graph"] == counts["sample_tiled"],
+          "stream: K1 launched without its device-graph form")
+    check(engine._programs.graph_stats()["captured"] == captured0,
+          "a same-shaped commit captured a graph anew")
+    out = np.stack(list(served.values()))
+    check(out.shape[1] == CLASSES and np.isfinite(out).all(), "stream: served logits malformed")
+    versions = engine.dispatch_graph_versions[n_log0:]
+    check(engine.graph_version == STREAM_COMMITS and len(set(versions)) > 1,
+          f"stream: the flushes saw graph versions {sorted(set(versions))}")
+    check_mirrors(st, "stream")
+    line = commit_line("stream", engine, wall, commits, t_start)
+    line.update(requests=engine.stats.requests, wall_s=wall, qps=engine.stats.requests / wall,
+                qps_without_commits=qps0, wall_without_commits_s=wall0,
+                versions_served=sorted(set(versions)), dispatches=engine.stats.dispatches,
+                latency=engine.stats.latency.snapshot(),
+                cache_hit_rate=engine.stats.cache.hit_rate,
+                b1_launches=b1_launches, graphs_captured=captured0,
+                launches={k: v for k, v in counts.items() if v})
+    log("stream: " + json.dumps(line))
+
+    # 8 dispatches replayed through batch_logits against their sealed epoch's
+    # arrays, and against the latest arrays, under which at least one must
+    # differ: first in each epoch come dispatches whose seeds a later commit
+    # changed (commit i makes version i + 1)
+    later, acc = {}, set()
+    for v in range(STREAM_COMMITS, -1, -1):
+        later[v] = set(acc)
+        if v:
+            acc |= set(deltas[v - 1].sources().tolist())
+    by_version = {}
+    for entry in tap.rows:
+        if entry[0] >= n_log0 and entry[1] in kept:
+            by_version.setdefault(entry[1], []).append(entry)
+    for v, entries in by_version.items():
+        entries.sort(key=lambda e: not later[v].intersection(e[2][:e[3]].tolist()))
+    picks = []
+    while len(picks) < STREAM_REPLAYS and any(by_version.values()):
+        for v in sorted(by_version):
+            if by_version[v] and len(picks) < STREAM_REPLAYS:
+                picks.append(by_version[v].pop(0))
+    check(len(picks) == STREAM_REPLAYS and len({p[1] for p in picks}) > 1,
+          f"stream: {len(picks)} dispatches of kept epochs to replay")
+    m = engine._model
+
+    def replay(graph, index, padded):
+        twin = copy.copy(sampler)
+        twin._stream, twin._graph, twin._call = None, tuple(graph), index
+        return batch_logits(m, twin, table, padded).cpu().numpy()
+
+    stale = []
+    for index, version, padded, nvalid, logits in picks:
+        check(np.array_equal(replay(kept[version], index, padded)[:nvalid], logits[:nvalid]),
+              f"stream: dispatch {index} (graph version {version}) replays differently")
+        if version != STREAM_COMMITS:
+            latest = replay(st.graph(), index, padded)[:nvalid]
+            stale.append(not np.array_equal(latest, logits[:nvalid]))
+    check(any(stale), "stream: no replayed dispatch differs under the latest arrays, so the "
+          "replays cannot tell epochs apart")
+    log("stream replay: " + json.dumps({"dispatches": [(p[0], p[1]) for p in picks],
+                                        "bit_equal": True,
+                                        "differ_under_latest": int(sum(stale))}))
+    # B1 on the last commit and K1's device-graph form at this run's shapes
+    b1_queued = b1_record(rows, st, kept[STREAM_COMMITS - 1], deltas[-1], "node commit", True)
+    g = st.graph()
+    indptr = epoch_indptr(g[0])
+    s64 = torch.from_numpy(dtrace.requests[:BATCH].astype(np.int32)).to(dev)
+    hops, _ = hop_inputs(g, s64, qrandom.fold_in(qrandom.key(seed + 42), 0))
+    device_graph_record(rows, "sample_tiled", sample.tiled_sample_layer, g, hops,
+                        lambda h: (), lambda h: sample_bound(indptr, h["cur"], h["cur_valid"],
+                                                             h["k"]), lambda h: None)
+    log("stream b1: " + json.dumps({"queued_ms_per_commit": b1_queued,
+                                    "launches": b1_launches}))
+    del engine, sampler, kept, tap, g, hops
+    counts_node = counts
+
+    # the temporal engine: retention, removals, updates and one provisioning
+    t0 = time.perf_counter()
+    tst = tile_build("stream ids and timestamps", lambda: StreamingTiledGraph(
+        topo, reserve_tiles=STREAM_T_RESERVE, edge_ts=ts_np, device=dev))
+    tbuild_s = time.perf_counter() - t0
+    ts_sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed, dedup=False,
+                                  max_deg=MAX_DEG).bind_temporal(tst, recency=RECENCY)
+    tengine = TemporalServeEngine(model, params, ts_sampler, table,
+                                  ServeConfig(max_batch=BATCH, max_in_flight=2,
+                                              record_dispatches=True,
+                                              stream_retention_window=STREAM_WINDOW,
+                                              stream_provision_tiles=STREAM_T_BANK),
+                                  t_quantum=T_QUANTUM)
+    tengine.warmup()
+    tcaptured0 = tengine._programs.graph_stats()["captured"]
+    ttrace = delta_interleaved_trace(n, STREAM_T_REQUESTS, alpha=0.99, seed=seed + 43,
+                                     edge_every=STREAM_T_REQUESTS // (STREAM_T_COMMITS + 1),
+                                     edges_per_event=STREAM_EDGES)
+    tdeltas = commit_deltas(ttrace, temporal=True)[:STREAM_T_COMMITS]
+    big = int(np.argmax(np.diff(topo.indptr)[:1000] < 3))  # a low-degree node: a spill chain
+    tdeltas[STREAM_T_COMMITS // 2].add_edges(
+        np.full(STREAM_T_BIG, big), (np.arange(STREAM_T_BIG) * 7919) % n,
+        ts=np.full(STREAM_T_BIG, TS_SPAN + 0.0045, np.float32))
+    tq = TS_SPAN + np.linspace(0.0, 0.001 * (STREAM_T_COMMITS + 1), STREAM_T_REQUESTS)
+    m_cap0 = tst.m_cap
+    reset_path_counts(tengine)
+    t_start = time.perf_counter()
+    tkept = {}
+    tserved, twall, tcommits = serve_with_commits(tengine, ttrace.requests, tdeltas,
+                                                  STREAM_T_INTERVAL, tkept,
+                                                  {STREAM_T_COMMITS - 1}, t=tq)
+    tcounts = path_counts(tengine)
+    progs = tengine._programs
+    n_buckets = len(progs.buckets)
+    check(sum(bool(c["provisioned"]) for c in tcommits) == 1 and tst.m_cap == m_cap0
+          + STREAM_T_BANK, "stream temporal: not one provisioning commit")
+    check(progs.graph_stats()["captured"] == tcaptured0 + n_buckets,
+          "stream temporal: captures other than the provisioning's one a bucket")
+    # the only eager launches: the provisioning's captures, each after one eager run
+    recaptured = progs._tallies[tcaptured0:]
+    eager = _kernels.counts()
+    for name in ("temporal_sample_tiled", "gather_rows", "masked_mean"):
+        check(tcounts[name] > 0, f"kernel {name} never launched on the stream temporal path")
+        check(eager[name] == 2 * sum(t.counts.get(name, 0) for t in recaptured),
+              f"stream temporal: {name} launched eagerly {eager[name]} times beside the "
+              "provisioning's captures")
+    check(tcounts["temporal_sample_tiled/device_graph"] == tcounts["temporal_sample_tiled"],
+          "stream temporal: K8 launched without its device-graph form")
+    check(tengine.stats.edges_expired > 0 and tengine.stats.edges_deleted > 0,
+          "stream temporal: no edge expired or was deleted")
+    check(tengine.graph_version == STREAM_T_COMMITS and STREAM_T_COMMITS - 1 in tkept,
+          f"stream temporal: graph version {tengine.graph_version} after "
+          f"{STREAM_T_COMMITS} commits")
+    check_mirrors(tst, "stream temporal")
+    tout = np.stack(list(tserved.values()))
+    check(tout.shape[1] == CLASSES and np.isfinite(tout).all(), "stream temporal: logits malformed")
+    tline = commit_line("stream temporal", tengine, twall, tcommits, t_start)
+    tline.update(requests=tengine.stats.requests, wall_s=twall,
+                 qps=tengine.stats.requests / twall, build_s=tbuild_s,
+                 versions_served=sorted(set(tengine.dispatch_graph_versions)),
+                 edges_deleted=tengine.stats.edges_deleted,
+                 retention=tengine.retention.state(), reserve=tst.reserve_report(),
+                 launches={k: v for k, v in tcounts.items() if v})
+    log("stream temporal: " + json.dumps(tline, default=float))
+    # B1 on the temporal stream (three tables) and K8's device-graph form
+    b1_record(rows, tst, tkept.pop(STREAM_T_COMMITS - 1), tdeltas[-1], "temporal commit", False)
+    g = tst.temporal_graph()
+    indptr = epoch_indptr(g[0])
+    tseeds = torch.from_numpy(ttrace.requests[:BATCH].astype(np.int32)).to(dev)
+    tvals = torch.from_numpy(np.float32([quantize_t(t, T_QUANTUM) for t in tq[:BATCH]])).to(dev)
+    thops = temporal_hops(g, tseeds, tvals, qrandom.key(seed + 44))
+
+    def k8_bound(h):
+        base = g[0][torch.clamp(h["cur"].long(), 0, g[0].shape[0] - 1), 0]
+        deg, _ = gumbel_inputs(indptr, h["cur"], h["cur_valid"], MAX_DEG)
+        w_rows = sample.temporal_weight_rows(sample._tiled_payload_window(base, g[2], MAX_DEG),
+                                             h["t"], RECENCY, None)
+        h["scores"] = sample.gumbel_scores(h["key"], deg, w_rows)
+        live = int(torch.isfinite(h["scores"]).sum())
+        return gumbel_bound(indptr, h["cur"], h["cur_valid"], h["k"], MAX_DEG, live, "temporal",
+                            extra_row_bytes=4)
+
+    device_graph_record(rows, "temporal_sample_tiled", sample.tiled_temporal_sample_layer, g,
+                        thops, lambda h: (h["t"], MAX_DEG, RECENCY), k8_bound,
+                        lambda h: time_ms(lambda: torch.topk(h["scores"], h["k"])))
+    del tengine, ts_sampler, tst, st, g
+    torch.cuda.empty_cache()
+    out = {"stream_row_scatter": counts_node["set_rows"] + tcounts["set_rows"],
+           "sample_tiled/device_graph": counts_node["sample_tiled/device_graph"],
+           "temporal_sample_tiled/device_graph": tcounts["temporal_sample_tiled/device_graph"]}
+    return out
+
+
 def learn_phase():
     """The example at ACCURACY.json's args on the card, for GraphSAGE (its
     accuracies beside the reference's recorded ones) and for GCN and GAT
@@ -5047,6 +5527,10 @@ def main() -> int:
     launches["exchange_rows"] = fleet_counts["exchange_rows"]
     kernel_phase_10(topo, table, trace, rows, args.seed)
     phase_done("kernels-10")
+
+    # -- streaming graphs: commits while serving, B1, the device-graph draws ---------
+    launches.update(stream_phase(topo, table, model, params, ts_np, rows, args.seed))
+    phase_done("stream")
     launches["build_tiles"] = sum(b["launches"] for b in TILE_BUILDS)
     log("tiles: " + json.dumps({"tables_built": TILE_BUILDS,
                                 "launches": launches["build_tiles"]}))

@@ -9,8 +9,11 @@ int8 and bf16 feature tables (`quant`), out-of-core training
 tier, static or adaptive (`tiers`) -> the staged pipeline with
 flush-ahead prefetch), weighted sampling (GraphSageSampler(weighted=True))
 and temporal feed-ranking and link-prediction serving (`workloads`),
-data-parallel training on a mesh of ranks (`parallel`) and routed fleet
-serving over the serve exchange (`serve.DistServeEngine` over `comm`).
+data-parallel training on a mesh of ranks (`parallel`), routed fleet
+serving over the serve exchange (`serve.DistServeEngine` over `comm`) and
+serving over a graph that changes while it serves (`stream`, `lifecycle`:
+commits, deletions, expiry, compaction and reserve growth through the
+serve engine's ``update_graph``).
 
 Imports torch and numpy only, never jax or quiver_tpu. Entry points run on
 CUDA unless ``device="cpu"`` is passed, where every kernel's plain torch

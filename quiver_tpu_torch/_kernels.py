@@ -108,6 +108,20 @@ DEVICE_KEY = {"sample_tiled": "qt_sample_tiled_dk", "sample_flat": "qt_sample_fl
               "temporal_sample_tiled": "qt_temporal_sample_tiled_dk"}
 
 
+# the draws with a device-graph form (the serve step over a streaming graph,
+# `stream.StreamingTiledGraph`): name -> (C entry point, argtypes). It takes
+# one pointer to the tables' addresses in device memory (uint64 words: bd and
+# tiles, then ttiles) where the device-key form takes the tables, and the
+# key words by pointer; its launches count under the kernel's name and
+# "name/device_key" and "name/device_graph"
+DEVICE_GRAPH = {
+    "sample_tiled": ("qt_sample_tiled_dg", [_P, _LL, _I, _P, _P, _I, _I, _P, _P, _P, _P]),
+    "temporal_sample_tiled": ("qt_temporal_sample_tiled_dg",
+                              [_P, _LL, _I, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
+                               ctypes.c_float, _P, _P, _P, _P]),
+}
+
+
 def _device_key_argtypes(argtypes):
     """The by-value form's argument types with its two key words (the one
     pair of unsigned ints) replaced by one pointer."""
@@ -121,7 +135,7 @@ VARIANTS = {"masked_mean": ("float32", "bfloat16"),
             "gather_src": ("float32", "bfloat16"),
             "gather_src_backward": ("float32", "bfloat16"),
             "tiered_gather": ("float32", "int8", "bfloat16", "disk"),
-            "set_rows": ("float32", "int8", "bfloat16"),
+            "set_rows": ("float32", "int8", "bfloat16", "int32"),
             "gather_dequant": ("fp32", "bf16", "int8"),
             "quantized_tiered_lookup": ("fp32", "bf16", "int8"),
             "build_tiles": ("int32", "float32"),
@@ -129,7 +143,8 @@ VARIANTS = {"masked_mean": ("float32", "bfloat16"),
             "sharded_dequant": ("fp32", "bf16", "int8"),
             "grouped_unpack": ("float32", "bfloat16", "int8", "int32"),
             "cold_merge": ("float32", "bfloat16"),
-            **{name: ("device_key",) for name in DEVICE_KEY}}
+            **{name: ("device_key",) for name in DEVICE_KEY},
+            **{name: ("device_key", "device_graph") for name in DEVICE_GRAPH}}
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
            "qt_local_reindex_scratch": ("reindex", [_I, _I, ctypes.POINTER(_LL)]),
@@ -242,6 +257,8 @@ def _lib(stem: str) -> ctypes.CDLL:
             entries = [(fn, a) for s, fn, a in KERNELS.values() if s == stem]
             entries += [(DEVICE_KEY[name], _device_key_argtypes(a))
                         for name, (s, _, a) in KERNELS.items() if s == stem and name in DEVICE_KEY]
+            entries += [DEVICE_GRAPH[name] for name, (s, _, _) in KERNELS.items()
+                        if s == stem and name in DEVICE_GRAPH]
             entries += [(fn, a) for fn, (s, a) in HELPERS.items() if s == stem]
             for fn, argtypes in entries:
                 f = getattr(lib, fn)
@@ -267,11 +284,14 @@ def launch(name: str, *args, variant=None) -> None:
     kernel listed in `VARIANTS`; ``variant`` may be a tuple of them) and
     raises if CUDA refused it. The variant "device_key" launches the
     kernel's device-key form (`DEVICE_KEY`): ``args`` then carry one
-    pointer to the key words where the by-value form takes two words."""
+    pointer to the key words where the by-value form takes two words; with
+    "device_graph" as well, its device-graph form (`DEVICE_GRAPH`)."""
     stem, fn, _ = KERNELS[name]
     lib = _lib(stem)
     variants = (variant,) if isinstance(variant, str) else (variant or ())
-    if "device_key" in variants:
+    if "device_graph" in variants:
+        fn = DEVICE_GRAPH[name][0]
+    elif "device_key" in variants:
         fn = DEVICE_KEY[name]
     with _lock:
         _counts[name] += 1

@@ -1,7 +1,9 @@
 // The two neighbor fetches of the sampling kernels (K1/K1b, K7, K8): a
 // drawn position of a row resolves through the 128-lane tile layout
 // (tiles[clip(base + (pos >> 7)), pos & 127], the JAX package's
-// _tiled_resolve) or the flat CSR (indices[clip(ptr + pos)]).
+// _tiled_resolve) or the flat CSR (indices[clip(ptr + pos)]). A tiled
+// fetch can also take its two table addresses from device memory (bind),
+// where a captured serve step reads the graph of its flush's epoch.
 #pragma once
 
 #include "common.cuh"
@@ -10,6 +12,11 @@ struct TiledFetch {
   const int32_t* bd;     // [N, 2] (tile base, degree)
   const int32_t* tiles;  // [M, 128]
   long long m_rows;
+  // the device-graph form: the two addresses read from device memory
+  __device__ __forceinline__ void bind(const unsigned long long* __restrict__ words) {
+    bd = reinterpret_cast<const int32_t*>(words[0]);
+    tiles = reinterpret_cast<const int32_t*>(words[1]);
+  }
   __device__ __forceinline__ void row(int32_t s, int32_t& base, int32_t& deg) const {
     base = bd[2 * static_cast<long long>(s)];
     deg = bd[2 * static_cast<long long>(s) + 1];

@@ -253,6 +253,11 @@ QT_EXPORT int qt_tiered_lookup(const void* hot, long long H, int row_bytes, cons
 // lands in slot slots[i] (int64) of the [H, D] table; slots outside
 // [0, H) are the bucket's padding and are dropped. Rows are copied as
 // bytes (float32, bfloat16 or int8 stores), so the result is bit-equal.
+// B1: the same body replaces quiver_tpu/shard_tensor.py:_scatter_rows on
+// a streaming graph's commit (stream.py's _swap_rows): the int32 tile rows
+// [m_cap, 128], the float32 timestamp tiles and the int32 (base, deg)
+// rows [N, 2] (8-byte rows), each a new table, so a flush holding the old
+// one keeps reading it.
 // The reference returns a new array and leaves its input untouched, which
 // an adaptive pipeline's pinned snapshot of the table relies on: this call
 // writes a new table `out` and only reads `table`.

@@ -20,6 +20,10 @@
 // the JAX package. K1 and K1b also read the two key words from device
 // memory (the _dk entry points, a template flag on the one body), so that a
 // captured serve step replays with each flush's keys; the draw is the same.
+// K1's device-graph form (qt_sample_tiled_dg, a second flag) reads the bd
+// and tiles addresses from two words in device memory as well: a serve step
+// captured once replays against whichever committed epoch of a streaming
+// graph its flush sealed, the words staged beside the keys.
 //
 // Bound on the card: bytes at the batch widths (each row reads its (base,
 // deg) pair and k neighbor ids scattered over the graph, and writes k ids
@@ -92,18 +96,21 @@ struct OwnedRows {
 // Q: steps a lane (1 for k <= 32; a power of two >= k / 32 above).
 // kDevKey: the hop's key words are read from key_words[0..1] in device
 // memory (the form a captured CUDA graph replays with new keys), else they
-// are key0 and key1, passed by value.
-template <int Q, bool kDevKey, class Fetch, class Rows>
+// are key0 and key1, passed by value. kDevGraph: the fetch's table
+// addresses are read from graph_words (TiledFetch::bind).
+template <int Q, bool kDevKey, bool kDevGraph, class Fetch, class Rows>
 __global__ void __launch_bounds__(QT_SAMPLE_THREADS)
     sample_kernel(Fetch g, Rows rows, int32_t n_nodes, const int32_t* __restrict__ seeds,
                   const bool* __restrict__ seed_valid, int32_t W, int32_t k, uint32_t key0,
-                  uint32_t key1, const uint32_t* __restrict__ key_words, int32_t group_w,
+                  uint32_t key1, const uint32_t* __restrict__ key_words,
+                  const unsigned long long* __restrict__ graph_words, int32_t group_w,
                   long long group_stride, int32_t* __restrict__ out,
                   typename Rows::Valid* __restrict__ out_valid) {
   if (kDevKey) {
     key0 = key_words[0];
     key1 = key_words[1];
   }
+  if constexpr (kDevGraph) g.bind(graph_words);
   const int lane = threadIdx.x & 31;
   const int kt = k < 32 ? k : 32;  // lanes a row
   const int per_warp = 32 / kt;    // rows a warp
@@ -172,26 +179,26 @@ __global__ void __launch_bounds__(QT_SAMPLE_THREADS)
   }
 }
 
-template <int Q, bool kDevKey, class Fetch, class Rows>
+template <int Q, bool kDevKey, bool kDevGraph, class Fetch, class Rows>
 static int launch_q(Fetch g, Rows rows, int n_nodes, const int32_t* seeds, const bool* seed_valid,
                     int W, int k, unsigned key0, unsigned key1, const uint32_t* key_words,
-                    int group_w, long long group_stride, int32_t* out,
-                    typename Rows::Valid* out_valid, cudaStream_t s) {
+                    const unsigned long long* graph_words, int group_w, long long group_stride,
+                    int32_t* out, typename Rows::Valid* out_valid, cudaStream_t s) {
   const int kt = k < 32 ? k : 32;
   const long long warps = (W + 32 / kt - 1) / (32 / kt);
   qt_count_launch();
-  sample_kernel<Q, kDevKey, Fetch, Rows>
+  sample_kernel<Q, kDevKey, kDevGraph, Fetch, Rows>
       <<<qt_blocks(warps * 32, QT_SAMPLE_THREADS), QT_SAMPLE_THREADS, 0, s>>>(
-          g, rows, n_nodes, seeds, seed_valid, W, k, key0, key1, key_words, group_w,
-          group_stride, out, out_valid);
+          g, rows, n_nodes, seeds, seed_valid, W, k, key0, key1, key_words, graph_words,
+          group_w, group_stride, out, out_valid);
   return qt_launch_status();
 }
 
-template <bool kDevKey, class Fetch, class Rows>
+template <bool kDevKey, bool kDevGraph = false, class Fetch, class Rows>
 static int launch_sample(Fetch g, Rows rows, int n_nodes, const void* seeds,
                          const void* seed_valid, int W, int k, unsigned key0, unsigned key1,
                          const void* key_words, int group_w, long long group_stride, void* out,
-                         void* out_valid, void* stream) {
+                         void* out_valid, void* stream, const void* graph_words = nullptr) {
   if (W <= 0 || k <= 0) return 0;
   if (k > QT_SAMPLE_KMAX || group_w <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto sd = static_cast<const int32_t*>(seeds);
@@ -200,11 +207,13 @@ static int launch_sample(Fetch g, Rows rows, int n_nodes, const void* seeds,
   const auto ov = static_cast<typename Rows::Valid*>(out_valid);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto kw = static_cast<const uint32_t*>(key_words);
+  const auto gw = static_cast<const unsigned long long*>(graph_words);
   if (kDevKey && kw == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (kDevGraph && gw == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int q = (k + 31) / 32;
-#define QT_SAMPLE_LAUNCH(Q)                                                                     \
-  launch_q<Q, kDevKey>(g, rows, n_nodes, sd, sv, W, k, key0, key1, kw, group_w, group_stride, o, \
-                       ov, s)
+#define QT_SAMPLE_LAUNCH(Q)                                                                  \
+  launch_q<Q, kDevKey, kDevGraph>(g, rows, n_nodes, sd, sv, W, k, key0, key1, kw, gw, group_w, \
+                                  group_stride, o, ov, s)
   if (q <= 1) return QT_SAMPLE_LAUNCH(1);
   if (q <= 2) return QT_SAMPLE_LAUNCH(2);
   if (q <= 4) return QT_SAMPLE_LAUNCH(4);
@@ -252,6 +261,19 @@ QT_EXPORT int qt_sample_flat_dk(const void* indptr, const void* indices, long lo
               n_edges};
   return launch_sample<true>(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, 0, 0, key_words,
                              W, 0, out, out_valid, stream);
+}
+
+// K1's device-graph form: graph_words (uint64[2] in device memory) hold the
+// addresses of bd [n_nodes, 2] and tiles [m_rows, 128]; the key words as in
+// the _dk form. The shapes are launch arguments: a same-shaped commit of a
+// streaming graph changes only the addresses.
+QT_EXPORT int qt_sample_tiled_dg(const void* graph_words, long long m_rows, int n_nodes,
+                                 const void* seeds, const void* seed_valid, int W, int k,
+                                 const void* key_words, void* out, void* out_valid,
+                                 void* stream) {
+  TiledFetch g{nullptr, nullptr, m_rows};
+  return launch_sample<true, true>(g, AllRows{}, n_nodes, seeds, seed_valid, W, k, 0, 0,
+                                   key_words, W, 0, out, out_valid, stream, graph_words);
 }
 
 // K13b over the tile layout: bd [n_rows, 2], tiles [m_rows, 128] of one

@@ -22,7 +22,10 @@
 // log and exp is float64 rounded once to float32 (gumbel.cuh), so the
 // outputs are bit-equal to the plain torch versions. K7, K7 flat and K8
 // also read the two key words from device memory (the _dk entry points, a
-// template flag on the one body) for a captured serve step's replays.
+// template flag on the one body) for a captured serve step's replays, and
+// K8 its three table addresses too (qt_temporal_sample_tiled_dg, a second
+// flag): a step captured once then draws from whichever committed epoch of
+// a streaming temporal graph its flush sealed.
 //
 // Design. A block of 256 threads (8 blocks an SM at 32 registers) takes R
 // consecutive rows, 1 to 32: the most that still leaves a wave of blocks
@@ -108,6 +111,10 @@ struct TemporalWeights {
   float cutoff;
   __device__ __forceinline__ float param(int32_t b) const { return t[b]; }
   __device__ __forceinline__ float raw(int32_t base, int32_t j) const { return ts.raw(base, j); }
+  // the device-graph form: the timestamp tiles' address is the third word
+  __device__ __forceinline__ void bind(const unsigned long long* __restrict__ words) {
+    ts.wtiles = reinterpret_cast<const float*>(words[2]);
+  }
   __device__ __forceinline__ float weight(float x, float tq) const {
     const bool keep = x <= tq && (!has_cutoff || x > cutoff);
     return keep ? qt_recency_weight(x, recency) : 0.0f;
@@ -361,17 +368,23 @@ __device__ __forceinline__ void qt_select(const Sink& sink, uint32_t* rk, uint32
 // every block an SM can hold by threads: at most 32 registers a thread.
 // kDevKey: the hop's key words are read from key_words[0..1] in device
 // memory (the form a captured CUDA graph replays with new keys), else they
-// are key0 and key1, passed by value.
-template <class Fetch, class Window, bool kDevKey>
+// are key0 and key1, passed by value. kDevGraph: the tables' addresses are
+// read from graph_words (the fetch's two, then the window's).
+template <class Fetch, class Window, bool kDevKey, bool kDevGraph>
 __global__ void __launch_bounds__(QT_GUMBEL_THREADS, QT_GUMBEL_BLOCKS_SM)
     gumbel_sample_kernel(Fetch g, Window win, int32_t n_nodes, const int32_t* __restrict__ seeds,
                          const bool* __restrict__ seed_valid, int32_t W, int32_t k,
                          int32_t max_deg, int32_t wwin, int32_t rows, uint32_t key0,
                          uint32_t key1, const uint32_t* __restrict__ key_words,
+                         const unsigned long long* __restrict__ graph_words,
                          int32_t* __restrict__ out, bool* __restrict__ out_valid) {
   if (kDevKey) {
     key0 = key_words[0];
     key1 = key_words[1];
+  }
+  if constexpr (kDevGraph) {
+    g.bind(graph_words);
+    win.bind(graph_words);
   }
   __shared__ uint32_t keys[QT_LANE_BUDGET];
   __shared__ uint32_t scratch[QT_GUMBEL_WARPS][256];
@@ -494,21 +507,23 @@ static inline int qt_gumbel_rows(int W) {
   return rows;
 }
 
-template <bool kDevKey, class Fetch, class Window>
+template <bool kDevKey, bool kDevGraph = false, class Fetch, class Window>
 static int launch_gumbel(Fetch g, Window win, int n_nodes, const void* seeds,
                          const void* seed_valid, int W, int k, int max_deg, int wwin,
                          unsigned key0, unsigned key1, const void* key_words, void* out,
-                         void* out_valid, void* stream) {
+                         void* out_valid, void* stream, const void* graph_words = nullptr) {
   if (W <= 0 || k <= 0) return 0;
-  if (k > wwin || max_deg < 1 || wwin > QT_MAX_WINDOW || (kDevKey && key_words == nullptr))
+  if (k > wwin || max_deg < 1 || wwin > QT_MAX_WINDOW || (kDevKey && key_words == nullptr) ||
+      (kDevGraph && graph_words == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = qt_gumbel_rows(W);
   qt_count_launch();
-  gumbel_sample_kernel<Fetch, Window, kDevKey>
+  gumbel_sample_kernel<Fetch, Window, kDevKey, kDevGraph>
       <<<qt_blocks(W, rows), QT_GUMBEL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           g, win, n_nodes, static_cast<const int32_t*>(seeds),
           static_cast<const bool*>(seed_valid), W, k, max_deg, wwin, rows, key0, key1,
-          static_cast<const uint32_t*>(key_words), static_cast<int32_t*>(out),
+          static_cast<const uint32_t*>(key_words),
+          static_cast<const unsigned long long*>(graph_words), static_cast<int32_t*>(out),
           static_cast<bool*>(out_valid));
   return qt_launch_status();
 }
@@ -614,6 +629,23 @@ QT_EXPORT int qt_temporal_sample_tiled_dk(const void* bd, const void* tiles, con
   return temporal_tiled<true>(bd, tiles, ttiles, m_rows, n_nodes, seeds, seed_valid, t, W, k,
                               max_deg, recency, has_cutoff, cutoff, 0, 0, key_words, out,
                               out_valid, stream);
+}
+
+// K8's device-graph form: graph_words (uint64[3] in device memory) hold the
+// addresses of bd [n_nodes, 2], tiles and ttiles [m_rows, 128]; the key
+// words as in the _dk form.
+QT_EXPORT int qt_temporal_sample_tiled_dg(const void* graph_words, long long m_rows,
+                                          int n_nodes, const void* seeds,
+                                          const void* seed_valid, const void* t, int W, int k,
+                                          int max_deg, float recency, int has_cutoff,
+                                          float cutoff, const void* key_words, void* out,
+                                          void* out_valid, void* stream) {
+  TiledFetch g{nullptr, nullptr, m_rows};
+  TemporalWeights win{TiledWeights{nullptr, m_rows}, static_cast<const float*>(t), recency,
+                      has_cutoff, cutoff};
+  return launch_gumbel<true, true>(g, win, n_nodes, seeds, seed_valid, W, k, max_deg,
+                                   qt_tiled_window(max_deg), 0, 0, key_words, out, out_valid,
+                                   stream, graph_words);
 }
 
 // K8w: out[i] = qt_recency_weight(ts[i], recency) over a flat array.

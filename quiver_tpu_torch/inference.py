@@ -21,7 +21,8 @@ All of them run the model in eval mode with TF32 off
   `seal()`: on the card one captured CUDA graph a bucket, whose inputs
   (seeds, the hops' key words, query times) reach it through device
   buffers, with the reference's `rebind`, `reprovision`, `binding` and
-  `sealed`;
+  `sealed`; over a streaming graph the graph tensors' addresses are one
+  more input, so a commit's `rebind` captures nothing;
 - `time_eval_split`: the split step's two stages timed apart.
 """
 
@@ -297,13 +298,28 @@ class Binding(tuple):
     graph)`` triple bound when it was taken and, on the card, the graphs
     captured against those arrays (``captures``: bucket -> `_Capture`). A
     flush that holds it keeps its graphs and arrays alive after a
-    `BucketPrograms.rebind`."""
+    `BucketPrograms.rebind`. ``ready``: the CUDA event after the commit
+    that wrote a streaming graph's arrays (a replay waits on it), or
+    None."""
 
-    def __new__(cls, table, index_map, graph, token):
-        b = super().__new__(cls, (table, index_map, graph))
+    def __new__(cls, table, index_map, graph, token, captures=None):
+        b = super().__new__(cls, (table, index_map, tuple(graph)))
         b.token = token  # the BucketPrograms it belongs to
-        b.captures = {}
+        b.captures = {} if captures is None else captures
+        b.ready = getattr(graph, "ready", None)
         return b
+
+
+class DeviceGraph(tuple):
+    """The graph tensors a step samples from, with ``words``: their
+    addresses as 64-bit words on the device, which the draws' device-graph
+    forms read in place of the tensors (on the card; the CPU's plain
+    versions read the tensors)."""
+
+    def __new__(cls, graph, words):
+        g = super().__new__(cls, graph)
+        g.words = words
+        return g
 
 
 def _spec(x):
@@ -316,13 +332,18 @@ def _spec(x):
     return tuple(_spec(t) for t in x)
 
 
-def _input_fields(bucket: int, hops: int, id_dtype: torch.dtype, temporal: bool):
+def _input_fields(bucket: int, hops: int, id_dtype: torch.dtype, temporal: bool,
+                  graph_words: int = 0):
     """The byte layout of a call's inputs: ``[(offset, bytes, dtype,
-    shape)]`` of the padded seeds, the hops' key words and, for a temporal
-    step, the query times, each 8-byte aligned, and the total bytes."""
+    shape)]`` of the padded seeds, the hops' key words, for a temporal
+    step the query times and, for a step over a streaming graph, the graph
+    tensors' ``graph_words`` addresses, each 8-byte aligned, and the total
+    bytes."""
     fields = [(id_dtype, (bucket,)), (torch.uint32, (hops, 2))]
     if temporal:
         fields.append((torch.float32, (bucket,)))
+    if graph_words:
+        fields.append((torch.int64, (graph_words,)))
     out, off = [], 0
     for dtype, shape in fields:
         n = int(np.prod(shape)) * dtype.itemsize
@@ -380,7 +401,13 @@ class BucketPrograms:
     are a `Binding`, and a same-shaped `rebind` captures every warmed
     bucket anew against the new arrays (nothing is written into the
     captured buffers), while a flush holding the old `binding()` keeps
-    running the old graphs. Concurrent calls at one bucket share its
+    running the old graphs. Over a streaming graph (a sampler with a
+    ``stream``) the draws take their device-graph form instead: the graph
+    tensors' addresses are staged with each call's inputs, so one capture
+    a bucket serves every epoch, and a same-shaped `rebind` of the graph
+    captures nothing (a replay waits on the epoch's ``ready`` event and
+    marks its tensors in use on the programs' stream; `reprovision`, a
+    shape change, still captures anew). Concurrent calls at one bucket share its
     static buffers, so each holds the bucket's lock from its staging copy
     to its read-back's enqueue and waits for the read-back outside it:
     one graph a bucket (captures and graph memory do not grow with the
@@ -397,9 +424,11 @@ class BucketPrograms:
         self._sampler = sampler
         self._hops = len(sampler.sizes)
         self._caps = sampler.caps  # the caps the step was built for
+        # over a streaming graph: the graph tensors' addresses are inputs
+        self._graph_words = len(graph) if getattr(sampler, "stream", None) is not None else 0
         self._token = object()
         table, index_map = feature_gather_spec(feature, sampler.device)
-        self._binding = Binding(table, index_map, tuple(graph), self._token)
+        self._binding = Binding(table, index_map, graph, self._token)
         self._device = torch.device(sampler.device)
         self._cuda = self._device.type == "cuda"
         self._buckets = set()
@@ -431,14 +460,17 @@ class BucketPrograms:
         """Bind same-shaped new arrays: a ``graph`` tuple, a feature
         ``table`` or an ``index_map`` (where one is bound). A shape, dtype
         or device change raises ValueError. On the card every warmed bucket
-        is captured anew against the new arrays; the sealed state stays."""
+        is captured anew against the new arrays, but for a streaming
+        graph's ``graph`` alone (its addresses are staged inputs: the new
+        binding shares the graphs); the sealed state stays."""
         with self._lock:
             t, m, g = self._binding
+            ready = self._binding.ready
             if graph is not None:
                 if _spec(tuple(graph)) != _spec(g):
                     raise ValueError(f"rebind graph {_spec(tuple(graph))} differs from the bound "
                                      f"{_spec(g)}: a rebind swaps contents, never shapes")
-                g = tuple(graph)
+                g, ready = tuple(graph), getattr(graph, "ready", None)
             if table is not None:
                 if _spec(table) != _spec(t):
                     raise ValueError(f"rebind table {_spec(table)} differs from the bound "
@@ -449,10 +481,15 @@ class BucketPrograms:
                     raise ValueError(f"rebind index_map {_spec(index_map)} differs from the "
                                      f"bound {_spec(m)}")
                 m = index_map
-            new = Binding(t, m, g, self._token)
-            if self._cuda:
-                for b in sorted(self._buckets):
-                    new.captures[b] = self._capture(b, new, self._model)
+            if self._graph_words and table is None and index_map is None:
+                # the graphs read the graph's addresses from their inputs
+                new = Binding(t, m, g, self._token, captures=self._binding.captures)
+            else:
+                new = Binding(t, m, g, self._token)
+                if self._cuda:
+                    for b in sorted(self._buckets):
+                        new.captures[b] = self._capture(b, new, self._model)
+            new.ready = ready
             self._binding = new
 
     def reprovision(self, graph, model=None) -> int:
@@ -462,8 +499,7 @@ class BucketPrograms:
         (a sealed table without its buckets misses hard). Returns the
         buckets rebuilt: 0 when the shapes are unchanged, which is a
         `rebind` (captured anew on the card)."""
-        graph = tuple(graph)
-        if _spec(graph) == _spec(self._binding[2]):
+        if _spec(tuple(graph)) == _spec(self._binding[2]):
             self.rebind(graph=graph)
             return 0
         with self._lock:
@@ -534,13 +570,19 @@ class BucketPrograms:
                 cap = binding.captures.get(bucket)
                 if cap is None:
                     cap = binding.captures[bucket] = self._capture(bucket, binding, model)
-        staging = self._stage(cap.fields, cap.static.shape[0], key, seeds, extra, pin=True)
+        staging = self._stage(cap.fields, cap.static.shape[0], key, seeds, extra, binding,
+                              pin=True)
         with cap.lock:
             self._stream.wait_stream(torch.cuda.current_stream(self._device))
+            if binding.ready is not None:  # the commit's scatters that wrote the graph
+                self._stream.wait_event(binding.ready)
             with torch.cuda.stream(self._stream):
                 cap.static.copy_(staging, non_blocking=True)
                 cap.graph.replay()
                 host, done = _read_back(cap.out)
+            if self._graph_words:
+                for t in binding[2]:  # read here by address, unknown to the allocator
+                    t.record_stream(self._stream)
             cap.tally.replays += 1
         done.synchronize()
         return host.numpy().copy()
@@ -555,31 +597,39 @@ class BucketPrograms:
                              "weights into that one in place (ServeEngine.update_params)")
 
     def _fields(self, bucket: int):
-        return _input_fields(bucket, self._hops, self._id_dtype, self._temporal)
+        return _input_fields(bucket, self._hops, self._id_dtype, self._temporal,
+                             self._graph_words)
 
-    def _stage(self, fields, nbytes: int, key, seeds, extra, pin: bool) -> torch.Tensor:
+    def _stage(self, fields, nbytes: int, key, seeds, extra, binding, pin: bool) -> torch.Tensor:
         """A host byte buffer holding a call's inputs: the seeds in the id
-        dtype, the words of each hop's sub-key and the query times."""
+        dtype, the words of each hop's sub-key, the query times and the
+        addresses of ``binding``'s graph tensors."""
         buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
         raw = buf.numpy()
         values = [np.asarray(seeds).astype(np.int32 if self._id_dtype == torch.int32
                                            else np.int64),
                   qrandom.hop_key_words(key, self._hops)]
         values += [np.asarray(e, np.float32) for e in extra]
+        if self._graph_words:
+            values.append(np.asarray([g.data_ptr() for g in binding[2]], np.int64))
         for (o, n, dtype, _), v in zip(fields, values):
             raw[o:o + n].view(v.dtype)[:] = v.reshape(-1)
         return buf
 
-    def _step(self, model, binding, seeds, keys, *t) -> torch.Tensor:
+    def _step(self, model, binding, inputs) -> torch.Tensor:
+        """The step on ``inputs``, the views of `_input_fields`."""
         strict_float32()
         table, index_map, graph = binding
+        seeds, keys, *rest = inputs
+        if self._graph_words:
+            graph = DeviceGraph(graph, rest.pop())
         with torch.inference_mode():
-            return self._fn(model.eval(), keys, seeds, table, index_map, graph, *t)
+            return self._fn(model.eval(), keys, seeds, table, index_map, graph, *rest)
 
     def _eager(self, bucket, model, binding, key, seeds, extra) -> np.ndarray:
         fields, nbytes = self._fields(bucket)
-        staging = self._stage(fields, nbytes, key, seeds, extra, pin=False)
-        return to_host(self._step(model, binding, *_input_views(staging, fields)))
+        staging = self._stage(fields, nbytes, key, seeds, extra, binding, pin=False)
+        return to_host(self._step(model, binding, _input_views(staging, fields)))
 
     def _capture(self, bucket: int, binding: Binding, model: nn.Module) -> _Capture:
         """Capture ``bucket``'s step against ``binding`` (caller holds
@@ -592,12 +642,14 @@ class BucketPrograms:
         warm_t = (np.full(bucket, np.inf, np.float32),) if self._temporal else ()
         cap.static = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         cap.static.copy_(self._stage(cap.fields, nbytes, self._WARM_KEY,
-                                     np.zeros(bucket, np.int64), warm_t, pin=False))
+                                     np.zeros(bucket, np.int64), warm_t, binding, pin=False))
         inputs = _input_views(cap.static, cap.fields)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
+        if binding.ready is not None:
+            side.wait_event(binding.ready)
         with torch.cuda.stream(side):
-            self._step(model, binding, *inputs)
+            self._step(model, binding, inputs)
             side.synchronize()
             cap.graph = torch.cuda.CUDAGraph()
             counts0, kernels0 = _kernels.counts(), _kernels.kernel_launches()
@@ -606,7 +658,7 @@ class BucketPrograms:
             # not an error of this capture
             cap.graph.capture_begin(capture_error_mode="thread_local")
             try:
-                cap.out = self._step(model, binding, *inputs)
+                cap.out = self._step(model, binding, inputs)
             except BaseException:
                 _end_failed_capture(cap.graph)
                 raise

@@ -174,9 +174,26 @@ def _key_args(key, seeds):
     return (key.data_ptr(),), "device_key"
 
 
-def _launch_sample(kind, a, b, seeds, seed_valid, k, key):
+def _graph_word_args(graph_words, key_args, seeds, n_tables: int):
+    """The device-graph form's first argument, the table addresses'
+    ``uint64[n_tables]`` words on the card, and its variants; the key must
+    be the device-key form's words."""
+    if graph_words.device != seeds.device:
+        raise ValueError(f"graph words on {graph_words.device} but seeds on {seeds.device}")
+    if (graph_words.dtype not in (torch.int64, torch.uint64)
+            or graph_words.numel() != n_tables or not graph_words.is_contiguous()):
+        raise TypeError(f"graph words must be {n_tables} contiguous 64-bit words; got "
+                        f"{graph_words.dtype} {tuple(graph_words.shape)}")
+    if len(key_args) != 1:
+        raise TypeError("the device-graph form takes its key words from the card too")
+    return graph_words.data_ptr(), ("device_key", "device_graph")
+
+
+def _launch_sample(kind, a, b, seeds, seed_valid, k, key, graph_words=None):
     """Launch the sampling kernel: ``kind`` is "tiled" (``a=bd``,
-    ``b=tiles``) or "flat" (``a=indptr``, ``b=indices``)."""
+    ``b=tiles``) or "flat" (``a=indptr``, ``b=indices``). With
+    ``graph_words`` (tiled only) the kernel reads the two tables'
+    addresses from them and ``a``, ``b`` give only the shapes."""
     for t, name in ((a, "graph"), (b, "graph"), (seeds, "seeds")):
         if t.dtype != torch.int32:
             raise TypeError(f"the sampling kernel takes int32 {name}; got {t.dtype}")
@@ -194,6 +211,12 @@ def _launch_sample(kind, a, b, seeds, seed_valid, k, key):
         n_nodes, extent = a.shape[0], b.shape[0]
     else:
         n_nodes, extent = a.shape[0] - 1, b.shape[0]
+    if graph_words is not None:
+        words, variant = _graph_word_args(graph_words, key_args, seeds, 2)
+        _kernels.launch("sample_tiled", words, extent, n_nodes, seeds.data_ptr(),
+                        seed_valid.data_ptr(), W, int(k), *key_args, nbrs.data_ptr(),
+                        valid.data_ptr(), _kernels.stream_of(seeds), variant=variant)
+        return nbrs, valid
     _kernels.launch(
         "sample_" + kind, a.data_ptr(), b.data_ptr(), extent, n_nodes,
         seeds.data_ptr(), seed_valid.data_ptr(), W, int(k),
@@ -215,12 +238,16 @@ def sample_layer(indptr, indices, seeds, seed_valid, k: int, key):
     return sample_layer_plain(indptr, indices, seeds, seed_valid, k, qrandom.host_key(key))
 
 
-def tiled_sample_layer(bd, tiles, seeds, seed_valid, k: int, key):
+def tiled_sample_layer(bd, tiles, seeds, seed_valid, k: int, key, graph_words=None):
     """One-hop sample over the tile layout, draw-identical to
-    `sample_layer` on the same key."""
+    `sample_layer` on the same key. ``graph_words`` (the card, with device
+    key words): the addresses of ``bd`` and ``tiles``, or of same-shaped
+    tables, as two 64-bit words on the card, which the kernel reads in
+    place of the tables passed (K1's device-graph form, which a captured
+    serve step replays against each flush's graph epoch)."""
     _check_layer_args(seeds, seed_valid, k, (bd, tiles))
     if seeds.is_cuda:
-        return _launch_sample("tiled", bd, tiles, seeds, seed_valid, k, key)
+        return _launch_sample("tiled", bd, tiles, seeds, seed_valid, k, key, graph_words)
     return tiled_sample_layer_plain(bd, tiles, seeds, seed_valid, k, qrandom.host_key(key))
 
 
@@ -451,7 +478,8 @@ def tiled_weighted_sample_layer(bd, tiles, wtiles, seeds, seed_valid, k: int, ke
 
 
 def tiled_temporal_sample_layer(bd, tiles, ttiles, seeds, seed_valid, k: int, key, t,
-                                max_deg: int = 512, recency: float = 0.0, cutoff=None):
+                                max_deg: int = 512, recency: float = 0.0, cutoff=None,
+                                graph_words=None):
     """One-hop temporal sample over the tile layout (K8): each row draws
     among its first ``min(deg, max_deg)`` edges those with ``ts <= t[row]``
     (and ``ts > cutoff`` when given), weighted ``exp(recency * ts)``
@@ -460,7 +488,8 @@ def tiled_temporal_sample_layer(bd, tiles, ttiles, seeds, seed_valid, k: int, ke
     the draw equals `tiled_weighted_sample_layer` over
     ``temporal_edge_weights(ttiles, recency)`` bit for bit. Kernel
     ``temporal_sample_tiled`` on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors. ``graph_words`` as in `tiled_sample_layer`, three words: bd,
+    tiles, ttiles (K8's device-graph form)."""
     _check_layer_args(seeds, seed_valid, k, (bd, tiles, ttiles, t))
     if t.shape != seeds.shape:
         raise ValueError(f"t must be [W] = {tuple(seeds.shape)}; got {tuple(t.shape)}")
@@ -477,6 +506,14 @@ def tiled_temporal_sample_layer(bd, tiles, ttiles, seeds, seed_valid, k: int, ke
     nbrs, valid = _gumbel_outputs(seeds, k)
     key_args, variant = _key_args(key, seeds)
     if seeds.shape[0] == 0 or k == 0:
+        return nbrs, valid
+    if graph_words is not None:
+        words, variant = _graph_word_args(graph_words, key_args, seeds, 3)
+        _kernels.launch("temporal_sample_tiled", words, tiles.shape[0], bd.shape[0],
+                        seeds.data_ptr(), seed_valid.data_ptr(), t.data_ptr(), seeds.shape[0],
+                        int(k), int(max_deg), float(recency), int(cutoff is not None),
+                        0.0 if cutoff is None else float(cutoff), *key_args, nbrs.data_ptr(),
+                        valid.data_ptr(), _kernels.stream_of(seeds), variant=variant)
         return nbrs, valid
     _kernels.launch("temporal_sample_tiled", bd.data_ptr(), tiles.data_ptr(),
                     ttiles.data_ptr(), tiles.shape[0], bd.shape[0], seeds.data_ptr(),

@@ -6,8 +6,12 @@
 weighted (``weighted=True``: the Gumbel top-k kernel K7 over the tile or
 flat layout) or temporal (`GraphSageSampler.bind_temporal`: K8, see
 `quiver_tpu_torch.workloads.temporal`), with static-cap calibration, the
-``auto_grow_caps`` overflow ladder and the reference's ragged surface:
-``sample``, ``sample_layer``, ``reindex``).
+``auto_grow_caps`` overflow ladder, the reference's ragged surface
+(``sample``, ``sample_layer``, ``reindex``) and the streaming binding
+(`GraphSageSampler.bind_stream`: every draw reads a
+`stream.StreamingTiledGraph`'s current arrays; the port's
+``calibrate_caps`` keeps no probe cache, so a commit leaves nothing stale
+there)).
 
 The sampler draws one key per call from a deterministic stream
 (``fold_in(key(seed), call)``) and splits a sub-key per hop
@@ -354,12 +358,16 @@ class GraphSageSampler:
         self._call = 0
         self._graph = None
         self._temporal = None  # (source, recency) once bind_temporal ran
+        self._stream = None    # the StreamingTiledGraph once bind_stream ran
         self.lazy_init_quiver()
 
     def lazy_init_quiver(self):
         """Bind the graph to the device: ``(bd, tiles)`` under the tiled
         layout, ``(indptr, indices)`` under the flat one; a weighted
-        sampler appends its weights (``wtiles [M, 128]`` or ``w [E]``)."""
+        sampler appends its weights (``wtiles [M, 128]`` or ``w [E]``). A
+        stream-bound sampler returns the stream's current ``(bd, tiles)``."""
+        if self._stream is not None:
+            return self._stream.graph()
         if self._graph is None:
             if self.layout == "tiled":
                 g = self.csr_topo.to_device_tiled(self.device)
@@ -372,6 +380,36 @@ class GraphSageSampler:
             self._graph = g
         return self._graph
 
+    # -- streaming graphs (quiver_tpu_torch.stream) ---------------------------
+
+    @property
+    def stream(self):
+        """The bound `stream.StreamingTiledGraph`, or None (a frozen graph):
+        the serve engine's ``update_graph`` needs one."""
+        return self._stream
+
+    def _check_stream(self, stream) -> None:
+        if self.layout != "tiled":
+            raise TypeError("a streaming graph needs layout='tiled' — the flat CSR has no pad "
+                            "lanes to append into")
+        if self.weighted:
+            raise TypeError("streaming deltas keep the uniform tile map only; weighted "
+                            "samplers would need wtiles streamed in lockstep")
+        dev = getattr(stream, "device", None)
+        if dev is not None and torch.device(dev) != self.device:
+            raise ValueError(f"the stream's tables live on {dev}, this sampler on {self.device}")
+
+    def bind_stream(self, stream) -> "GraphSageSampler":
+        """Sample from a `stream.StreamingTiledGraph`: every draw, and the
+        fused serve step, reads the stream's current ``(bd, tiles)``, new
+        tensors at each commit with the same shapes (the serve engine
+        stages their addresses with each flush, `inference.
+        BucketPrograms`). Tiled, uniform samplers only."""
+        self._check_stream(stream)
+        self._stream = stream
+        self._graph = None
+        return self
+
     # -- temporal binding (workloads.temporal) ------------------------------
 
     @property
@@ -383,10 +421,13 @@ class GraphSageSampler:
     def bind_temporal(self, source, recency: float = 0.0) -> "GraphSageSampler":
         """Draw every hop among edges with ``ts <= t`` of the expanding
         seed's query time, weighted ``exp(recency * ts)`` (K8). ``source``
-        is a `workloads.TemporalTiledGraph`. Tiled, uniform, ``dedup=False``
-        samplers only: each seed's t rides its frontier lineage through the
-        structural layout."""
-        from ..workloads.temporal import TemporalTiledGraph
+        is a `workloads.TemporalTiledGraph`, or a `stream.StreamingTiledGraph`
+        built with ``edge_ts=``, which this binds as the stream too
+        (`bind_stream`): a committed edge is then drawn by the next query
+        with ``t >= ts``. Tiled, uniform, ``dedup=False`` samplers only:
+        each seed's t rides its frontier lineage through the structural
+        layout."""
+        from ..stream import StreamingTiledGraph
 
         if self.layout != "tiled":
             raise TypeError("bind_temporal needs layout='tiled' — timestamps ride the "
@@ -398,11 +439,12 @@ class GraphSageSampler:
             raise TypeError("temporal sampling threads per-seed query times down the "
                             "frontier lineage — construct with dedup=False")
         if not getattr(source, "temporal", False):
-            raise TypeError("bind_temporal wants a TemporalTiledGraph (got "
-                            f"{type(source).__name__})")
-        if not isinstance(source, TemporalTiledGraph):
-            raise TypeError(f"{type(source).__name__}: streaming temporal graphs "
-                            "(StreamingTiledGraph(edge_ts=)) are not ported yet (ROADMAP A14)")
+            raise TypeError("bind_temporal wants a TemporalTiledGraph or a StreamingTiledGraph "
+                            f"built with edge_ts= (got {type(source).__name__})")
+        if isinstance(source, StreamingTiledGraph):
+            self._check_stream(source)
+            self._stream = source
+            self._graph = None
         self._temporal = (source, float(recency))
         return self
 
@@ -414,7 +456,8 @@ class GraphSageSampler:
 
     def fused_graph_arrays(self):
         """The device graph tensors a fused serve step takes: the temporal
-        triple, or the binding of `lazy_init_quiver`."""
+        triple, or the binding of `lazy_init_quiver` (a stream's current
+        pair)."""
         if self._temporal is not None:
             return self.temporal_graph_arrays()
         return self.lazy_init_quiver()
@@ -440,9 +483,11 @@ class GraphSageSampler:
                                                        key, max_deg)
         elif self.layout == "tiled":
             bd, tiles = graph
+            words = getattr(graph, "words", None)  # a streaming graph's staged addresses
 
             def sample_fn(cur, cur_valid, k, key):
-                return _tiled_sample_layer_op(bd, tiles, cur, cur_valid, k, key)
+                return _tiled_sample_layer_op(bd, tiles, cur, cur_valid, k, key,
+                                              graph_words=words)
         elif self.weighted:
             indptr, indices, w = graph
 

@@ -25,9 +25,11 @@ from .engine import (
     default_buckets,
 )
 from .trace_gen import (
+    DeltaTrace,
     LPTrace,
     TemporalTrace,
     lp_trace,
+    delta_interleaved_trace,
     poisson_arrivals,
     temporal_trace,
     zipfian_trace,
@@ -37,7 +39,7 @@ __all__ = [
     "ClosureFeature", "DistServeConfig", "DistServeEngine", "DistServeStats", "LoopbackComm",
     "closure_masks", "contiguous_partition", "replay_fleet_oracle", "replay_shard_oracle",
     "shard_from_mask", "shard_topology_by_owner", "shard_topology_for_seeds",
-    "EmbeddingCache", "LPTrace", "ResultBatch", "ServeConfig", "ServeEngine", "ServeResult",
-    "ServeStats", "TemporalTrace", "default_buckets", "lp_trace", "poisson_arrivals",
+    "DeltaTrace", "EmbeddingCache", "LPTrace", "ResultBatch", "ServeConfig", "ServeEngine", "ServeResult",
+    "ServeStats", "TemporalTrace", "default_buckets", "delta_interleaved_trace", "lp_trace", "poisson_arrivals",
     "temporal_trace", "zipfian_trace",
 ]

@@ -36,16 +36,35 @@ captures every bucket (fused, on the card; on the CPU a run on a fixed
 key) or runs it through a twin sampler (split), so the serving key
 stream stays untouched, then seals the fused table.
 
+Over a streaming graph (a sampler bound to a `stream.StreamingTiledGraph`)
+the engine commits graph changes while it serves: `stage_edges`,
+`stage_removals` and `stage_updates` gather them in ``pending_delta``, and
+`update_graph` commits them (with the sliding-window expiry of
+``stream_retention_window``), `expire_edges`, `compact_graph` and
+`provision_reserve` run the lifecycle. By default a commit is zero-stall:
+the new device arrays are built beside the live ones (the scatters copy on
+write), then flipped under ``_seq`` with a `BucketPrograms.rebind`, which
+over a streaming graph captures nothing (the graphs read each flush's
+graph addresses from its staged inputs); every flush logs the graph
+version it sealed against (``dispatch_graph_versions``) and runs against
+that epoch's arrays, and the cache refuses rows below its nodes' raised
+floors. ``fenced_commits=True`` drains every in-flight flush first, the
+reference's other mode, which serves the same rows and logs. A commit
+that needs more reserve than is left provisions
+(``stream_provision_tiles``) behind the fence and captures every bucket
+anew, once.
+
 This slice ports the single-host core. A request is admitted under a
 key: the node id here, ``(node, t_bucket)`` on the temporal engine
 (`quiver_tpu_torch.workloads.TemporalServeEngine`), which overrides the
 hooks that turn a flush's keys into dispatch arrays (`_flush_arrays`)
 and a dispatch-log entry (`_dispatch_log_entry`); this engine refuses a
 temporal-bound sampler. Tenants and shedding, the journal and workload
-monitor, tiers and prefetch, streaming graphs and the metrics registry
-wait for a later slice (ROADMAP A12); with them off the JAX engine makes
-the same batching decisions as this one, late admission included, so the
-two write equal dispatch logs.
+monitor, tiers and prefetch, the metrics registry (ROADMAP A12) and the
+stream's wall-clock daemons (A14's second part) wait for later slices;
+with them off the JAX engine makes the same batching decisions as this
+one, late admission and graph commits included, so the two write equal
+dispatch logs.
 """
 
 from __future__ import annotations
@@ -72,6 +91,8 @@ from ..inference import (
     strict_float32,
     to_host,
 )
+from ..lifecycle import RetentionPolicy
+from ..stream import GraphDelta, StreamCapacityError, validate_edge_ids
 from ..trace import HitRateCounter, LatencyHistogram, SpanRecorder
 from .cache import EmbeddingCache
 
@@ -117,6 +138,28 @@ class ServeConfig:
                      kept so that configs carry over; the port's queue is
                      one dict (see the module docstring), and batches and
                      dispatch logs do not depend on it there either.
+    stream_invalidate_hops : reverse-closure depth of a commit's cache
+                     invalidation (default ``len(sampler.sizes) - 1``: the
+                     last frontier is gathered, never expanded).
+    stream_adapt_tiers : the JAX package's tier pass after a commit, kept
+                     so that configs carry over; no effect until the
+                     engine's tier hooks are ported (ROADMAP A12).
+    stream_retention_window : > 0: every commit on a temporal stream
+                     expires the edges older than its clock (the largest
+                     committed timestamp) minus this window, in the same
+                     flip (`lifecycle.RetentionPolicy`).
+    stream_compact_max_moves : a `compact_graph` pass's relocations.
+    stream_compact_min_reclaim : the compaction daemon's threshold
+                     (`lifecycle.CompactionPolicy`), kept so that configs
+                     carry over; the daemon is not ported (below).
+    stream_provision_tiles : > 0: a commit that runs out of reserve grows
+                     the tile bank by this many rows and retries once.
+    stream_compact_every_s, stream_retention_every_s,
+    stream_retention_clock : the wall-clock lifecycle daemons, not ported
+                     (ROADMAP A14, second part): only their defaults run.
+    fenced_commits : False (default): zero-stall commits (built off the
+                     fence, flipped under ``_seq``); True: every commit
+                     drains the in-flight flushes first.
     """
 
     max_batch: int = 64
@@ -130,6 +173,24 @@ class ServeConfig:
     dispatch_mode: str = "auto"
     late_admission: bool = True
     submit_stripes: int = 8
+    stream_invalidate_hops: Optional[int] = None
+    stream_adapt_tiers: bool = True
+    stream_retention_window: float = 0.0
+    stream_compact_every_s: float = 0.0
+    stream_compact_min_reclaim: int = 8
+    stream_compact_max_moves: int = 0
+    stream_provision_tiles: int = 0
+    stream_retention_every_s: float = 0.0
+    stream_retention_clock: Optional[Callable[[], float]] = None
+    fenced_commits: bool = False
+
+    def __post_init__(self):
+        for name in ("stream_compact_every_s", "stream_retention_every_s",
+                     "stream_retention_clock"):
+            if getattr(self, name) not in (0.0, None):
+                raise ValueError(f"ServeConfig.{name}: the stream's wall-clock lifecycle daemons "
+                                 "are not ported yet (ROADMAP A14, second part); call "
+                                 "compact_graph / expire_edges instead")
 
     def resolved_buckets(self) -> Tuple[int, ...]:
         if self.buckets is None:
@@ -233,7 +294,14 @@ class ServeStats:
     device batches resolved, ``dispatch_calls``/``execute_calls`` the
     dispatch stages entered and the step calls they ran (1 per flush
     fused, 2 split), ``inflight_peak`` the most flushes seen between
-    assemble and resolve; ``spans`` holds per-stage spans."""
+    assemble and resolve; ``spans`` holds per-stage spans. Graph commits:
+    ``graph_deltas`` commits, ``delta_edges`` their staged operations,
+    ``delta_tile_writes``/``delta_tile_spills`` pad-lane writes against
+    relocations, ``delta_cache_invalidated`` the cache entries they
+    dropped, ``edges_deleted``/``edges_expired``, ``tiles_reclaimed`` and
+    ``compactions``; ``commit_stall`` the serving stall a commit held, in
+    milliseconds (zero-stall: the flip's ``_seq`` hold; fenced: the drain
+    and the commit)."""
 
     requests: int = 0
     coalesced: int = 0
@@ -244,14 +312,28 @@ class ServeStats:
     dispatch_calls: int = 0
     execute_calls: int = 0
     request_errors: int = 0
+    graph_deltas: int = 0
+    delta_edges: int = 0
+    delta_tile_writes: int = 0
+    delta_tile_spills: int = 0
+    delta_cache_invalidated: int = 0
+    edges_deleted: int = 0
+    edges_expired: int = 0
+    tiles_reclaimed: int = 0
+    compactions: int = 0
     inflight_peak: int = 0
     dispatch_buckets: Dict[int, int] = field(default_factory=dict)
     cache: HitRateCounter = field(default_factory=HitRateCounter)
     latency: LatencyHistogram = field(default_factory=LatencyHistogram)
     spans: SpanRecorder = field(default_factory=SpanRecorder)
+    commit_stall: LatencyHistogram = field(
+        default_factory=lambda: LatencyHistogram(min_ms=1e-5, max_ms=1e6))
 
     _COUNTERS = ("requests", "coalesced", "late_admitted", "dispatches", "dispatched_seeds",
-                 "padded_seeds", "dispatch_calls", "execute_calls", "request_errors")
+                 "padded_seeds", "dispatch_calls", "execute_calls", "request_errors",
+                 "graph_deltas", "delta_edges", "delta_tile_writes", "delta_tile_spills",
+                 "delta_cache_invalidated", "edges_deleted", "edges_expired", "tiles_reclaimed",
+                 "compactions")
 
     def merge(self, other: "ServeStats") -> "ServeStats":
         """Fold another engine's stats into this one (the fleet's merged
@@ -266,6 +348,7 @@ class ServeStats:
         self.cache.merge(other.cache)
         self.latency.merge(other.latency)
         self.spans.merge(other.spans)
+        self.commit_stall.merge(other.commit_stall)
         return self
 
     def snapshot(self) -> Dict[str, object]:
@@ -273,7 +356,8 @@ class ServeStats:
         out.update(inflight_peak=self.inflight_peak,
                    dispatch_buckets=dict(self.dispatch_buckets),
                    cache=self.cache.snapshot(), latency=self.latency.snapshot(),
-                   overlap=self.spans.overlap_summary())
+                   overlap=self.spans.overlap_summary(),
+                   commit_stall=self.commit_stall.snapshot())
         return out
 
 
@@ -283,7 +367,7 @@ class _Flush:
     until `ServeEngine._seal_assembled` closes the flush."""
 
     __slots__ = ("keys", "slots", "model", "bucket", "ds", "key", "binding", "padded", "extra",
-                 "error")
+                 "error", "graph_version")
 
     def __init__(self, keys, slots, model):
         self.keys = keys
@@ -296,6 +380,7 @@ class _Flush:
         self.padded = None
         self.extra: Tuple[np.ndarray, ...] = ()  # per-seed arrays padded like the seeds
         self.error: Optional[BaseException] = None
+        self.graph_version = 0  # the graph epoch the flush sealed against
 
 
 class ServeEngine:
@@ -349,7 +434,16 @@ class ServeEngine:
         self.stats = ServeStats()
         self.cache = EmbeddingCache(self.config.cache_entries, counters=self.stats.cache)
         self.params_version = 0
+        # graph commits: the version (guarded by _seq where flushes read it),
+        # the staged changes (guarded by _lock) and the retention clock
+        self.graph_version = 0
+        self.pending_delta = None
+        self.retention = (RetentionPolicy(self.config.stream_retention_window)
+                          if self.config.stream_retention_window > 0 else None)
         self.dispatch_log: List[tuple] = []
+        # the graph version each logged dispatch sealed against, aligned
+        # with dispatch_log
+        self.dispatch_graph_versions: List[int] = []
         self._pending: "OrderedDict[int, _Slot]" = OrderedDict()
         self._inflight: Dict[int, _Slot] = {}
         # the assembled flush that takes late admissions (guarded by _lock;
@@ -360,6 +454,8 @@ class ServeEngine:
         self._seq = threading.Lock()            # drain + dispatch log + key draw
         self._window = threading.BoundedSemaphore(self.config.max_in_flight)
         self._inflight_flushes = 0              # guarded by _lock
+        # one commit at a time (re-entrant: a commit's expiry); no flush takes it
+        self._commit_lock = threading.RLock()
         self._threads: List[threading.Thread] = []
         self._running = False
 
@@ -510,8 +606,12 @@ class ServeEngine:
             seeds, extras = self._flush_arrays(fl)
             padded = pad_seed_batch(seeds, fl.bucket)
             fl.extra = tuple(pad_seed_batch(e, fl.bucket) for e in extras)
+            # the epoch pin: a commit flips under _seq too, so the stamp, the
+            # binding below and the key are of one graph version
+            fl.graph_version = self.graph_version
             if self.config.record_dispatches:
                 self.dispatch_log.append(self._dispatch_log_entry(fl, padded))
+                self.dispatch_graph_versions.append(fl.graph_version)
             if self._programs is not None:
                 fl.key = draw_sample_key(self._sampler)
                 fl.padded = padded
@@ -560,7 +660,7 @@ class ServeEngine:
                 fresh = [(k, r) for k, r, s in zip(fl.keys, rows, fl.slots)
                          if s.version == self.params_version]
                 self.cache.put_many([k for k, _ in fresh], self.params_version,
-                                    [r for _, r in fresh])
+                                    [r for _, r in fresh], gv=fl.graph_version)
                 for slot, row in zip(fl.slots, rows):
                     slot.resolve(row)
                 self.stats.dispatches += 1
@@ -688,6 +788,342 @@ class ServeEngine:
                 self.cache.invalidate()
                 for slot in self._pending.values():
                     slot.version = self.params_version
+
+    # -- graph commits (quiver_tpu_torch.stream) ---------------------------
+
+    def _bound_stream(self, what: str):
+        stream = getattr(self._sampler, "stream", None)
+        if stream is None:
+            raise ValueError(f"{what} needs a stream-bound sampler — build a "
+                             "stream.StreamingTiledGraph over the topology and call "
+                             "sampler.bind_stream(stream) (or bind_temporal) before "
+                             "constructing the engine")
+        return stream
+
+    def _node_count(self) -> Optional[int]:
+        stream = getattr(self._sampler, "stream", None)
+        if stream is not None:
+            return stream.n
+        topo = getattr(self._sampler, "csr_topo", None)
+        return None if topo is None else topo.node_count
+
+    def _stage(self, add) -> int:
+        with self._lock:
+            if self.pending_delta is None:
+                self.pending_delta = GraphDelta()
+            add(self.pending_delta)
+            return len(self.pending_delta)
+
+    def stage_edges(self, src, dst, ts=None) -> int:
+        """Add edge arrivals to ``pending_delta`` (nothing moves until a
+        commit). Ids are checked here against the graph's node range, and a
+        temporal stream's timestamps (one an edge) too, so a bad arrival
+        raises here and never reaches the buffer. Returns the staged
+        operations."""
+        src, dst = validate_edge_ids(src, dst, self._node_count(), "staged")
+        stream = getattr(self._sampler, "stream", None)
+        if stream is not None:
+            if stream.temporal:
+                if ts is None or np.asarray(ts).reshape(-1).shape != src.shape:
+                    raise ValueError("temporal stream needs one ts per staged edge")
+            elif ts is not None:
+                raise ValueError("edge timestamps staged into a non-temporal stream — build "
+                                 "StreamingTiledGraph(edge_ts=...) to carry them")
+        return self._stage(lambda d: d.add_edges(src, dst, ts=ts))
+
+    def stage_removals(self, src, dst) -> int:
+        """Add edge deletions to ``pending_delta``; their existence is
+        checked at the commit (an edge appended in the same batch may be
+        removed). Returns the staged operations."""
+        src, dst = validate_edge_ids(src, dst, self._node_count(), "removed")
+        return self._stage(lambda d: d.remove_edges(src, dst))
+
+    def stage_updates(self, src, dst, ts) -> int:
+        """Add timestamp rewrites to ``pending_delta`` (temporal streams;
+        finite ``ts``). Returns the staged operations."""
+        stream = getattr(self._sampler, "stream", None)
+        if stream is not None and not stream.temporal:
+            raise ValueError("timestamp updates need a temporal stream "
+                             "(StreamingTiledGraph(edge_ts=...)) — plain streamed tiles carry "
+                             "no per-edge payload to rewrite")
+        src, dst = validate_edge_ids(src, dst, self._node_count(), "updated")
+        return self._stage(lambda d: d.update_edges(src, dst, ts))
+
+    def _hops(self) -> int:
+        hops = self.config.stream_invalidate_hops
+        return max(len(self._sampler.sizes) - 1, 0) if hops is None else hops
+
+    def _affected(self, stream, delta, n_edges, invalidate, expired) -> np.ndarray:
+        """The nodes whose cached rows a commit makes stale: the reverse
+        closure of its sources and its expired rows' sources (or
+        ``invalidate``, given, with the expired rows' closure)."""
+        if invalidate is not None:
+            affected = np.asarray(list(invalidate), np.int64)
+            if expired is not None:
+                affected = np.union1d(affected,
+                                      stream.affected_seeds(expired["sources"], self._hops()))
+            return affected
+        srcs = np.asarray(delta.sources(), np.int64) if n_edges else np.array([], np.int64)
+        if expired is not None:
+            srcs = np.union1d(srcs, expired["sources"])
+        if not srcs.size:
+            return np.array([], np.int64)
+        return stream.affected_seeds(srcs, self._hops())
+
+    def _expire_with(self, stream, delta, summary, defer: bool):
+        """The commit's retention expiry (a temporal stream with a window):
+        the stream's expiry summary when edges expired, else None."""
+        if self.retention is None or not stream.temporal:
+            return None
+        cut = self.retention.cutoff_for(delta.max_ts())
+        if cut is None:
+            return None
+        exp = stream.expire_edges(cut, defer_publish=defer)
+        self.retention.mark_expired(cut)
+        summary["edges_expired"] = exp["edges_expired"]
+        summary["retention_cutoff"] = cut
+        return exp if exp["edges_expired"] else None
+
+    def _count_commit(self, summary, n_edges, invalidated, expired, stall_us) -> None:
+        """A commit's stats (caller holds ``_lock``)."""
+        st = self.stats
+        if expired is not None:
+            st.edges_expired += expired["edges_expired"]
+        st.graph_deltas += 1
+        st.delta_edges += n_edges
+        st.delta_tile_writes += summary["pad_writes"]
+        st.delta_tile_spills += summary["tile_spills"]
+        st.delta_cache_invalidated += invalidated
+        st.edges_deleted += summary.get("edges_deleted", 0)
+        st.commit_stall.record_ms(stall_us / 1e3)
+
+    def update_graph(self, delta=None, *, installs=None, invalidate=None) -> Dict[str, object]:
+        """Commit a graph delta (``None``: ``pending_delta``, cleared) to the
+        bound stream, bump ``graph_version`` and drop the cached rows of
+        every node whose sample can reach a changed row (``invalidate``: a
+        set given instead). With ``stream_retention_window`` the commit also
+        expires the edges its clock has left behind. An empty commit does
+        nothing. The delta is visible to every flush sealed after this
+        returns; a flush sealed before it serves its own epoch and logs it
+        in ``dispatch_graph_versions``.
+
+        Zero-stall (default): the new arrays are built while flushes run,
+        then flipped under ``_seq`` (`StreamingTiledGraph.publish` and a
+        `BucketPrograms.rebind` that captures nothing), and the affected
+        nodes' cache floors rise after the flip. ``fenced_commits=True``
+        drains every in-flight flush first. A commit that needs more
+        reserve than is left takes the fenced path, provisioning when
+        ``stream_provision_tiles`` allows (one capture of every bucket). A
+        commit that fails before the stream changed re-stages a pending
+        delta."""
+        stream = self._bound_stream("update_graph")
+        from_pending = delta is None
+        with self._lock:
+            if delta is None:
+                delta, self.pending_delta = self.pending_delta, None
+        n_edges = 0 if delta is None else len(delta)
+        if n_edges == 0 and not installs:
+            return {"edges": 0, "installs": 0, "cache_invalidated": 0, "affected_seeds": 0,
+                    "graph_version": self.graph_version}
+        if self.config.fenced_commits:
+            return self._update_graph_fenced(stream, delta, installs, invalidate, n_edges,
+                                             from_pending)
+        return self._update_graph_zerostall(stream, delta, installs, invalidate, n_edges,
+                                            from_pending)
+
+    def _restage(self, delta, from_pending: bool, n_edges: int, applied: bool) -> None:
+        """A commit failed: a pending delta the stream never took goes back
+        ahead of anything staged since (arrival order is replay order)."""
+        if from_pending and n_edges and not applied:
+            with self._lock:
+                if self.pending_delta is not None:
+                    delta.extend(self.pending_delta)
+                self.pending_delta = delta
+
+    def _wait_inflight_locked(self) -> None:
+        """Wait for every in-flight flush to resolve (caller holds
+        ``_fence``)."""
+        while self._inflight_flushes:
+            self._fence.wait()
+
+    def _update_graph_fenced(self, stream, delta, installs, invalidate, n_edges,
+                             from_pending) -> Dict[str, object]:
+        applied = provisioned = False
+        try:
+            with self._commit_lock, self._seq:
+                t_stall0 = self._clock()
+                with self._fence:
+                    self._wait_inflight_locked()
+                    try:
+                        summary = stream.apply(delta, installs=installs)
+                    except StreamCapacityError:
+                        if self.config.stream_provision_tiles <= 0:
+                            raise
+                        # grow the bank once and retry the same batch; a
+                        # second failure propagates
+                        stream.provision_reserve(self.config.stream_provision_tiles)
+                        provisioned = True
+                        summary = stream.apply(delta, installs=installs)
+                    applied = True
+                    self.graph_version += 1
+                    expired = self._expire_with(stream, delta, summary, defer=False)
+                    if self._programs is not None:
+                        graph = self._sampler.fused_graph_arrays()
+                        if provisioned:  # the one shape change: capture anew
+                            self._programs.reprovision(graph, model=self._model)
+                        else:
+                            self._programs.rebind(graph=graph)
+                    affected = self._affected(stream, delta, n_edges, invalidate, expired)
+                    invalidated = self.cache.invalidate_nodes(affected)
+                    stall_us = (self._clock() - t_stall0) * 1e6
+                    self._count_commit(summary, n_edges, invalidated, expired, stall_us)
+        except BaseException:
+            self._restage(delta, from_pending, n_edges, applied)
+            raise
+        summary.update(cache_invalidated=invalidated, provisioned=provisioned,
+                       affected_seeds=int(affected.size), graph_version=self.graph_version)
+        return summary
+
+    def _update_graph_zerostall(self, stream, delta, installs, invalidate, n_edges,
+                                from_pending) -> Dict[str, object]:
+        applied = False
+        try:
+            with self._commit_lock:
+                try:
+                    summary = stream.apply(delta, installs=installs, defer_publish=True)
+                except StreamCapacityError:
+                    # nothing moved: the whole commit again, fenced (it
+                    # provisions and retries, or raises)
+                    return self._update_graph_fenced(stream, delta, installs, invalidate,
+                                                      n_edges, from_pending)
+                applied = True
+                new_version = self.graph_version + 1
+                expired = self._expire_with(stream, delta, summary, defer=True)
+                affected = self._affected(stream, delta, n_edges, invalidate, expired)
+                stall_us = self._flip(stream, new_version)
+                invalidated = self.cache.raise_floor(affected, new_version)
+                with self._lock:
+                    self._count_commit(summary, n_edges, invalidated, expired, stall_us)
+        except BaseException:
+            self._restage(delta, from_pending, n_edges, applied)
+            raise
+        summary.update(cache_invalidated=invalidated, provisioned=False,
+                       affected_seeds=int(affected.size), graph_version=self.graph_version,
+                       commit_stall_us=stall_us)
+        return summary
+
+    def _flip(self, stream, version: int) -> float:
+        """The zero-stall commit's one serving-visible moment, under
+        ``_seq``: the staged arrays go live, the version moves to
+        ``version`` and the programs bind the new arrays. Returns the hold
+        in microseconds."""
+        with self._seq:
+            t0 = self._clock()
+            stream.publish()
+            self.graph_version = version
+            if self._programs is not None:
+                self._programs.rebind(graph=self._sampler.fused_graph_arrays())
+            return (self._clock() - t0) * 1e6
+
+    def expire_edges(self, t_commit=None) -> Dict[str, object]:
+        """Run retention now: advance its clock to ``t_commit`` (None keeps
+        it) and expire every edge at or before ``clock - window``, one
+        version bump and an invalidation of the expired rows' closure, as
+        a commit of its own (zero-stall or fenced like `update_graph`).
+        Returns the stream's expiry summary with ``cache_invalidated``,
+        ``graph_version`` and ``retention_cutoff``."""
+        stream = self._bound_stream("retention expiry")
+        if not stream.temporal:
+            raise ValueError("retention expiry needs a temporal stream-bound sampler "
+                             "(StreamingTiledGraph(edge_ts=...) + bind_temporal)")
+        if self.retention is None:
+            raise ValueError("retention is off — set ServeConfig(stream_retention_window=W)")
+        cut = self.retention.cutoff_for(t_commit)
+        if cut is None:
+            return {"edges_expired": 0, "nodes": 0, "cache_invalidated": 0,
+                    "graph_version": self.graph_version}
+        invalidated = 0
+        if self.config.fenced_commits:
+            with self._commit_lock, self._seq:
+                with self._fence:
+                    self._wait_inflight_locked()
+                    exp = stream.expire_edges(cut)
+                    self.retention.mark_expired(cut)
+                    if exp["edges_expired"]:
+                        self.graph_version += 1
+                        if self._programs is not None:
+                            self._programs.rebind(graph=self._sampler.fused_graph_arrays())
+                        affected = stream.affected_seeds(exp["sources"], self._hops())
+                        invalidated = self.cache.invalidate_nodes(affected)
+                        self.stats.edges_expired += exp["edges_expired"]
+                        self.stats.delta_cache_invalidated += invalidated
+        else:
+            with self._commit_lock:
+                exp = stream.expire_edges(cut, defer_publish=True)
+                self.retention.mark_expired(cut)
+                if exp["edges_expired"]:
+                    new_version = self.graph_version + 1
+                    affected = stream.affected_seeds(exp["sources"], self._hops())
+                    stall_us = self._flip(stream, new_version)
+                    invalidated = self.cache.raise_floor(affected, new_version)
+                    with self._lock:
+                        self.stats.edges_expired += exp["edges_expired"]
+                        self.stats.delta_cache_invalidated += invalidated
+                        self.stats.commit_stall.record_ms(stall_us / 1e3)
+        exp.update(cache_invalidated=invalidated, graph_version=self.graph_version,
+                   retention_cutoff=cut)
+        return exp
+
+    def compact_graph(self, max_moves=None) -> Dict[str, object]:
+        """One compaction pass: the plan is read under the stream's lock
+        only, then applied (zero-stall: staged and flipped under ``_seq``;
+        fenced: behind the drain). It changes no draw: no version bump, no
+        invalidation. Returns the apply summary with ``graph_version``."""
+        stream = self._bound_stream("compaction")
+        if max_moves is None:
+            max_moves = self.config.stream_compact_max_moves
+        plan = stream.plan_compaction(max_moves=max_moves)
+        if self.config.fenced_commits:
+            with self._commit_lock, self._seq:
+                with self._fence:
+                    self._wait_inflight_locked()
+                    summary = stream.apply_compaction(plan)
+                    if self._programs is not None:
+                        self._programs.rebind(graph=self._sampler.fused_graph_arrays())
+                    self.stats.tiles_reclaimed += summary["tiles_reclaimed"]
+                    self.stats.compactions += 1
+        else:
+            with self._commit_lock:
+                summary = stream.apply_compaction(plan, defer_publish=True)
+                stall_us = self._flip(stream, self.graph_version)
+                with self._lock:
+                    self.stats.tiles_reclaimed += summary["tiles_reclaimed"]
+                    self.stats.compactions += 1
+                    self.stats.commit_stall.record_ms(stall_us / 1e3)
+        summary["graph_version"] = self.graph_version
+        return summary
+
+    def provision_reserve(self, tiles=None) -> Dict[str, object]:
+        """Grow the tile bank by ``tiles`` rows (default
+        ``stream_provision_tiles``) behind the fence, then capture every
+        warmed bucket anew at the new shapes (`BucketPrograms.
+        reprovision`), once, under the commit lock, so no zero-stall
+        commit is between its build and its flip. Served rows do not
+        change. Returns the reserve report."""
+        stream = self._bound_stream("provisioning")
+        if tiles is None:
+            tiles = self.config.stream_provision_tiles
+        if int(tiles) <= 0:
+            raise ValueError(f"provision_reserve needs a positive tile count, got {tiles} (set "
+                             "ServeConfig(stream_provision_tiles=...) or pass tiles=)")
+        with self._commit_lock, self._seq:
+            with self._fence:
+                self._wait_inflight_locked()
+                report = stream.provision_reserve(int(tiles))
+                if self._programs is not None:
+                    self._programs.reprovision(self._sampler.fused_graph_arrays(),
+                                               model=self._model)
+        return report
 
     # -- background flushers -----------------------------------------------
 

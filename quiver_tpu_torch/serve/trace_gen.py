@@ -1,11 +1,12 @@
 """Seeded synthetic request traces — the port of
 ``quiver_tpu/serve/trace_gen.py`` (`zipfian_trace`, `poisson_arrivals`,
-`temporal_trace`, `lp_trace`). Every trace is byte-equal to the JAX
-package's for the same arguments."""
+`DeltaTrace` and `delta_interleaved_trace`, `temporal_trace`,
+`lp_trace`). Every trace is byte-equal to the JAX package's for the same
+arguments."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterator, NamedTuple, Tuple
 
 import numpy as np
 
@@ -34,6 +35,56 @@ def poisson_arrivals(n_requests: int, qps: float, seed: int = 0) -> np.ndarray:
         raise ValueError("qps must be > 0")
     rng = np.random.default_rng(seed)
     return np.cumsum(rng.exponential(1.0 / qps, size=n_requests))
+
+
+class DeltaTrace(NamedTuple):
+    """A request trace with seeded edge arrivals woven in: ``requests`` is
+    the plain `zipfian_trace` at the same arguments, and arrival event
+    ``i`` commits edges ``(edge_src[i], edge_dst[i])`` just before request
+    ``edge_pos[i]`` is submitted."""
+
+    requests: np.ndarray   # [n_requests] int64 node ids
+    edge_pos: np.ndarray   # [n_events] int64 request index an event
+    edge_src: np.ndarray   # [n_events, edges_per_event] int64
+    edge_dst: np.ndarray   # [n_events, edges_per_event] int64
+
+    @property
+    def n_events(self) -> int:
+        return int(self.edge_pos.shape[0])
+
+    def events(self) -> Iterator[Tuple[str, object, object]]:
+        """The interleaved schedule in commit order: ``("edges", src_row,
+        dst_row)`` and ``("request", index, node)``."""
+        e = 0
+        for i, node in enumerate(self.requests):
+            while e < self.n_events and int(self.edge_pos[e]) == i:
+                yield ("edges", self.edge_src[e], self.edge_dst[e])
+                e += 1
+            yield ("request", i, int(node))
+
+
+def delta_interleaved_trace(n_nodes: int, n_requests: int, alpha: float = 0.99, seed: int = 0,
+                            edge_every: int = 32, edges_per_event: int = 4) -> DeltaTrace:
+    """A `zipfian_trace` with an arrival event every ``edge_every``
+    requests, ``edges_per_event`` new edges each: sources drawn from the
+    requests served so far (new edges land on nodes the traffic already
+    finds hot), destinations uniform, self-loops moved to the next node.
+    The events come from a generator of their own, so the requests equal
+    ``zipfian_trace(n_nodes, n_requests, alpha, seed)`` byte for byte."""
+    if edge_every <= 0 or edges_per_event <= 0:
+        raise ValueError("edge_every and edges_per_event must be > 0")
+    requests = zipfian_trace(n_nodes, n_requests, alpha=alpha, seed=seed)
+    rng = np.random.default_rng([int(seed), 0x5EED])
+    pos = np.arange(edge_every, n_requests, edge_every, dtype=np.int64)
+    src = np.zeros((pos.shape[0], edges_per_event), np.int64)
+    dst = np.zeros((pos.shape[0], edges_per_event), np.int64)
+    for i, p in enumerate(pos):
+        picks = rng.integers(0, int(p), edges_per_event)
+        src[i] = requests[picks]
+        dst[i] = rng.integers(0, n_nodes, edges_per_event)
+    loops = src == dst
+    dst[loops] = (dst[loops] + 1) % n_nodes
+    return DeltaTrace(requests=requests, edge_pos=pos, edge_src=src, edge_dst=dst)
 
 
 class TemporalTrace(NamedTuple):

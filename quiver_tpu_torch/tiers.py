@@ -259,6 +259,11 @@ class DiskShard:
         return pool.gather(self.read_block, ids)
 
 
+# the row scatter's dtypes: the feature tables' (`shard_tensor.STORE_DTYPES`)
+# and int32, the streaming graph's tile and (base, deg) tables (B1)
+SET_ROWS_DTYPES = (*STORE_DTYPES.values(), torch.int32)
+
+
 def set_rows_plain(table: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Plain torch version of `set_rows`, on ``table``'s device."""
     out = table.clone()
@@ -272,10 +277,13 @@ def set_rows(table: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> to
     """A new ``[H, D]`` table equal to ``table`` with row ``rows[i]`` in
     slot ``slots[i]`` (K6): slots outside ``[0, H)`` are padding and are
     dropped; ``table`` itself is left untouched (copy-on-write). Bit-equal
-    copies in the table's dtype (float32, int8 or bfloat16). On CUDA
-    tensors one call of ``csrc/gather.cu``'s ``qt_set_rows``, which writes
-    every slot of the new table once, from ``rows`` or from ``table``; on
-    CPU tensors `set_rows_plain`."""
+    copies in the table's dtype: float32, int8 or bfloat16 for a feature
+    table, and int32 for the streaming graph's tile and ``(base, deg)``
+    tables (B1, `stream.StreamingTiledGraph`'s commits, whose float32
+    timestamp tiles take the float32 form). On CUDA tensors one call of
+    ``csrc/gather.cu``'s ``qt_set_rows``, which writes every slot of the new
+    table once, from ``rows`` or from ``table``; on CPU tensors
+    `set_rows_plain`."""
     if table.dim() != 2 or slots.dim() != 1 or rows.dim() != 2:
         raise ValueError("set_rows takes table [H, D], slots [b] and rows [b, D]")
     if rows.shape[0] != slots.shape[0] or (rows.shape[0] and rows.shape[1] != table.shape[1]):
@@ -285,8 +293,9 @@ def set_rows(table: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> to
         raise ValueError(f"inputs span devices {devs}")
     if not table.is_cuda:
         return set_rows_plain(table, slots, rows)
-    if table.dtype not in STORE_DTYPES.values() or rows.dtype != table.dtype:
-        raise TypeError(f"the row scatter copies rows of one dtype of {', '.join(STORE_DTYPES)}")
+    if table.dtype not in SET_ROWS_DTYPES or rows.dtype != table.dtype:
+        raise TypeError("the row scatter copies rows of one dtype of "
+                        f"{', '.join(str(d).removeprefix('torch.') for d in SET_ROWS_DTYPES)}")
     if slots.dtype != torch.int64:
         raise TypeError(f"the row scatter takes int64 slots; got {slots.dtype}")
     if slots.shape[0] >= 2**31:

@@ -10,10 +10,12 @@
 - **Link-prediction serving** (retrieval): ``submit_pair(u, v, t=)`` looks
   both endpoints up through the engine and scores them with a `PairHead`.
 
-Waiting for later slices: the routed temporal engine and its fleet oracle
-(``serve/dist.py``, which ROADMAP A16 leaves after its single-host
-training half: it comes with the host axis, ``comm.py`` and ``DistFeature``)
-and streaming temporal graphs (A14).
+A temporal sampler may draw from a streaming graph with timestamps
+(`quiver_tpu_torch.stream.StreamingTiledGraph(edge_ts=)`), which the
+engine's commits change while it serves. Waiting for later slices: the
+routed temporal engine and its fleet oracle (``serve/dist.py``, which
+ROADMAP A16 leaves after its single-host training half: it comes with the
+host axis, ``comm.py`` and ``DistFeature``).
 """
 
 from .linkpred import LinkPredictor, PairHead, PairResult

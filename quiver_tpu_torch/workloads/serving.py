@@ -12,12 +12,18 @@ n_valid, padded_t)``, which `replay_temporal_log` replays through a fresh
 sampler. ``submit_pair``/``predict_pairs`` score candidate edges through
 `linkpred.LinkPredictor`.
 
+Over a streaming temporal graph (`GraphSageSampler.bind_temporal` of a
+`stream.StreamingTiledGraph` built with ``edge_ts=``) the engine takes the
+base engine's graph commits: a committed edge is drawn by the next query
+with ``t >= ts``, and ``stream_retention_window`` expires the edges a
+commit's clock leaves behind.
+
 Not ported yet: the routed temporal engine (``TemporalDistServeEngine`` in
 ``serve/dist.py``, which ROADMAP A16 leaves after the single-host training
 half of ``parallel/``: it needs the host axis, ``comm.py``'s exchanges and
-``DistFeature`` first), streaming temporal graphs (A14) and the vectorised
-whole-batch admission (this engine admits request by request, through the
-base engine's `_admit_locked`, late admission included).
+``DistFeature`` first) and the vectorised whole-batch admission (this
+engine admits request by request, through the base engine's
+`_admit_locked`, late admission included).
 """
 
 from __future__ import annotations

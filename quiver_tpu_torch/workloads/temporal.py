@@ -87,8 +87,11 @@ def temporal_sample_dense(graph, key, seeds: torch.Tensor, t_seed: torch.Tensor,
     only edges with ``ts <= t`` of the expanding seed's own query time.
     Keys split per hop as `pyg.sage_sampler.sample_dense_fused` does (or
     come as the hops' key words), so the draw replays from ``(key, seeds,
-    t_seed)``."""
+    t_seed)``. A ``graph`` with ``words`` (`inference.DeviceGraph`: a
+    streaming graph's staged addresses) draws through K8's device-graph
+    form on the card."""
     bd, tiles, ttiles = graph
+    words = getattr(graph, "words", None)
     B = seeds.shape[0]
     dev = seeds.device
     cur = seeds
@@ -98,7 +101,8 @@ def temporal_sample_dense(graph, key, seeds: torch.Tensor, t_seed: torch.Tensor,
     prev_count = torch.full((), B, dtype=torch.int32, device=dev)
     for k, sub in zip(sizes, qrandom.hop_keys(key, len(sizes))):
         nbrs, valid = tiled_temporal_sample_layer(bd, tiles, ttiles, cur, cur_valid, k, sub,
-                                                  cur_t, max_deg=max_deg, recency=recency)
+                                                  cur_t, max_deg=max_deg, recency=recency,
+                                                  graph_words=words)
         # neighbor (i, j) -> position w + j*w + i: its query time is cur_t[i]
         n_id = torch.cat([cur, nbrs.t().reshape(-1)])
         n_valid = torch.cat([cur_valid, valid.t().reshape(-1)])

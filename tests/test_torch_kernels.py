@@ -111,7 +111,14 @@ their plain versions, and both launched from four threads at once. The
 draws' device-key forms (K1, K1b, K7, K7 flat and K8 reading the hop's key
 words from a row of a [3, 2] uint32 buffer on the card, as a captured
 serve step does) bit-equal to their by-value forms at a B = 64 sample's
-three hops."""
+three hops. The streaming graph's row scatter (B1: K6's body on int32
+tile rows, float32 timestamp tiles and int32 (base, deg) rows, at a
+commit's bucketed positions) bit-equal to its plain version with its
+input untouched; K1's and K8's device-graph forms (the tables' addresses
+read from words on the card) bit-equal to their by-value forms; and a
+serve step over a streaming graph captured once, replaying a binding
+sealed before a commit bit for bit and the commit's epoch after it, with
+nothing captured anew."""
 
 import numpy as np
 import pytest
@@ -2171,3 +2178,133 @@ def test_device_key_forms_equal_the_by_value_forms(cuda_device, kind):
     assert counts[name] == 2 * len(HOPS) and counts[f"{name}/device_key"] == len(HOPS)
     with pytest.raises(ValueError):  # key words must lie on the seeds' device
         fn(*g, seeds, valid, 5, words[0].cpu(), *extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["tiles", "ttiles", "bd"])
+def test_stream_row_scatter_matches_plain_and_leaves_its_input(cuda_device, table):
+    """B1, a streaming graph's commit through K6's body: the int32 tile
+    rows [m_cap, 128], the float32 timestamp tiles and the int32 (base,
+    deg) rows [N, 2] (8-byte rows), at a commit's bucketed positions (the
+    padding, position = the row count, dropped), bit-equal to the plain
+    version on the card and the CPU, the input untouched."""
+    from quiver_tpu_torch.stream import _bucketed
+
+    rng = np.random.default_rng(19)
+    H, D, dt = {"tiles": (70001, 128, np.int32), "ttiles": (70001, 128, np.float32),
+                "bd": (60000, 2, np.int32)}[table]
+    host = (rng.integers(-2**31, 2**31 - 1, (H, D)).astype(dt) if dt == np.int32
+            else rng.uniform(0.0, 50.0, (H, D)).astype(dt))
+    for n_rows in (1, 37, 3000):
+        idx = np.sort(rng.choice(H, n_rows, replace=False))
+        new = host.copy()
+        new[idx] = rng.integers(0, 1000, (n_rows, D)).astype(dt)
+        pos, rows = _bucketed(idx, new[idx], H)
+        assert pos.shape[0] >= 64 and (pos[n_rows:] == H).all()
+        dev = [torch.from_numpy(a).to(cuda_device) for a in (host, pos, rows)]
+        keep = dev[0].clone()
+        name = f"set_rows/{'float32' if dt == np.float32 else 'int32'}"
+        before = _kernels.counts()[name]
+        got = set_rows(*dev)
+        want = set_rows_plain(*dev)
+        torch.cuda.synchronize()
+        assert _kernels.counts()[name] == before + 1
+        assert torch.equal(dev[0], keep) and got.data_ptr() != dev[0].data_ptr()
+        assert _same(got, want) and np.array_equal(got.cpu().numpy(), new)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["K1", "K8"])
+def test_device_graph_forms_equal_the_by_value_forms(cuda_device, kind):
+    """K1's and K8's device-graph forms read the tables' addresses from
+    uint64 words on the card (a captured serve step's staged inputs), with
+    placeholder tensors of the same shapes passed: bit-equal to the
+    by-value forms at a B = 64 sample's three hops; launches count under
+    ``name/device_graph``."""
+    topo, ts, n = _weighted_topo()
+    if kind == "K1":
+        name, fn, g = "sample_tiled", sample.tiled_sample_layer, topo.to_device_tiled(cuda_device)
+    else:
+        from quiver_tpu_torch.workloads import TemporalTiledGraph
+
+        name, fn = "temporal_sample_tiled", sample.tiled_temporal_sample_layer
+        g = TemporalTiledGraph(topo, ts, device=cuda_device).temporal_graph()
+    words = torch.tensor([t.data_ptr() for t in g], dtype=torch.int64, device=cuda_device)
+    blanks = [torch.zeros_like(t) for t in g]
+    rng = np.random.default_rng(5)
+    key = qrandom.fold_in(qrandom.key(12), 3)
+    keys = torch.from_numpy(qrandom.hop_key_words(key, len(HOPS)).view(np.int32))
+    keys = keys.to(cuda_device).view(torch.uint32)
+    _kernels.reset_counts()
+    for h, ((W, k), sub) in enumerate(zip(HOPS, qrandom.hop_keys(key, len(HOPS)))):
+        seeds, valid = (t.to(cuda_device) for t in _hop_seeds(rng, W, n))
+        extra = ()
+        if kind == "K8":
+            extra = (torch.from_numpy(rng.uniform(0.0, 60.0, W).astype(np.float32))
+                     .to(cuda_device), 512, 0.02)
+        by_value = fn(*g, seeds, valid, k, sub, *extra)
+        on_card = fn(*blanks, seeds, valid, k, keys[h], *extra, graph_words=words)
+        torch.cuda.synchronize()
+        for a, b in zip(by_value, on_card):
+            assert _same(a, b), (kind, W, k)
+    counts = _kernels.counts()
+    assert counts[f"{name}/device_graph"] == counts[f"{name}/device_key"] == len(HOPS)
+    with pytest.raises(TypeError):  # the graph form takes its keys from the card
+        fn(*blanks, seeds, valid, 5, sub, *extra, graph_words=words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal", [False, True])
+def test_captured_bucket_replays_two_epochs_without_capture(cuda_device, temporal):
+    """A serve step over a streaming graph, captured once: after a commit
+    and a rebind nothing is captured anew, a binding sealed before the
+    commit replays that epoch bit for bit, and the new binding serves the
+    commit's graph, bit-equal to programs over a table built afresh."""
+    from quiver_tpu_torch.inference import BucketPrograms
+    from quiver_tpu_torch.stream import GraphDelta, StreamingAdjacency, StreamingTiledGraph
+    from quiver_tpu_torch.workloads import TemporalTiledGraph
+
+    topo, ts, n = _weighted_topo()
+    topo = CSRTopo(indptr=topo.indptr, indices=topo.indices)
+    feat = torch.from_numpy(np.random.default_rng(2).standard_normal((n, 24))
+                            .astype(np.float32)).to(cuda_device)
+    model = bind_params(GraphSAGE(24, 32, 5, num_layers=2, dropout=0.0), None, cuda_device)
+
+    def sampler(graph):
+        if not temporal:
+            return GraphSageSampler(topo, [10, 5], seed=3, device=cuda_device).bind_stream(graph)
+        s = GraphSageSampler(topo, [10, 5], seed=3, device=cuda_device, dedup=False)
+        return s.bind_temporal(graph, recency=0.02)
+
+    st = StreamingTiledGraph(topo, reserve_frac=0.2, edge_ts=ts if temporal else None,
+                             device=cuda_device)
+    # the reverse CSR sorted on the card equals the CPU's, and so its closures
+    cpu_adj = StreamingAdjacency(topo)
+    assert torch.equal(st.adj.rev_indices.cpu(), cpu_adj.rev_indices)
+    assert np.array_equal(st.affected_seeds([5, 7, 11], 2), cpu_adj.reverse_closure([5, 7, 11], 2))
+    progs = BucketPrograms(sampler(st), feat)
+    progs.compile_bucket(64, model)
+    captured = progs.graph_stats()["captured"]
+    rng = np.random.default_rng(8)
+    seeds, key = rng.integers(0, n, 64), qrandom.key(4)
+    extra = (rng.uniform(40.0, 70.0, 64).astype(np.float32),) if temporal else ()
+    before = progs(64, model, key, seeds, *extra)
+    sealed = progs.binding()
+    src = np.r_[seeds[:8].repeat(200), [5] * 40]
+    st.apply(GraphDelta(src, rng.integers(0, n, src.shape[0]),
+                        ts=np.full(src.shape[0], 45.0, np.float32) if temporal else None))
+    rm = GraphDelta()
+    rm.remove_edges([5, 7], [st.neighbors(5)[0], st.neighbors(7)[0]])
+    st.apply(rm)
+    progs.rebind(graph=progs._sampler.fused_graph_arrays())
+    assert progs.graph_stats()["captured"] == captured
+    assert np.array_equal(progs(64, model, key, seeds, *extra, binding=sealed), before)
+    after = progs(64, model, key, seeds, *extra)
+    if temporal:
+        t2, ts2 = st.adj.to_temporal()
+        fresh = GraphSageSampler(t2, [10, 5], seed=3, device=cuda_device, dedup=False)
+        fresh.bind_temporal(TemporalTiledGraph(t2, ts2, device=cuda_device), recency=0.02)
+    else:
+        fresh = GraphSageSampler(st.to_csr_topo(), [10, 5], seed=3, device=cuda_device)
+    assert np.array_equal(BucketPrograms(fresh, feat)(64, model, key, seeds, *extra), after)
+    assert not np.array_equal(after, before)

@@ -50,6 +50,7 @@ from quiver_tpu_torch import pair_head_params_from_jax, sage_params_from_flax
 from quiver_tpu_torch import random as qrandom
 from quiver_tpu_torch.ops import sample as tsample
 from quiver_tpu_torch.serve import lp_trace, poisson_arrivals, temporal_trace
+from quiver_tpu_torch.stream import StreamingTiledGraph
 from quiver_tpu_torch.workloads import (
     LinkPredictor,
     PairHead,
@@ -273,12 +274,11 @@ def test_binding_validation():
     with pytest.raises(TypeError):  # the flat layout has no payload lanes
         GraphSageSampler(TOPO, SIZES, device="cpu", dedup=False, layout="flat").bind_temporal(tg)
     s = GraphSageSampler(TOPO, SIZES, device="cpu", seed=SEED, dedup=False)
-
-    class StreamingLike:
-        temporal = True
-
-    with pytest.raises(TypeError, match="A14"):  # streaming temporal graphs: not ported yet
-        s.bind_temporal(StreamingLike())
+    with pytest.raises(TypeError, match="edge_ts"):  # a stream without timestamps
+        s.bind_temporal(StreamingTiledGraph(TOPO, device="cpu"))
+    stream = StreamingTiledGraph(TOPO, edge_ts=BASE_TS, device="cpu")
+    bound = GraphSageSampler(TOPO, SIZES, device="cpu", seed=SEED, dedup=False)
+    assert bound.bind_temporal(stream).stream is stream  # a streaming temporal graph binds both
     with pytest.raises(TypeError):  # t on a non-temporal sampler
         s.sample_dense(np.arange(4), t=1.0)
     s.bind_temporal(tg)
