@@ -152,8 +152,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              on a train path). Losses must be finite and K1, K2, K4, K4b and
              K5 (fp32) or K9b (int8, bf16) or K9a must have launched;
 13. kernels-4 — the out-of-core slice's kernels against their plain
-             versions: the row scatter of a placement batch (K6: one pass
-             writing a new table from the rows or the old table) on the 20%
+             versions: the row scatter of a placement batch (K6: a flat
+             copy of the table, then a patch of the rows; at most two
+             kernels a call, logged with its queued ms) on the 20%
              cache's fp32 table (489,805 x 100) with 65,000 promoted rows
              padded to a bucket of 65,536, bit-equal and leaving its input
              untouched (copy-on-write); the probability propagation (K11) on
@@ -307,7 +308,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              batch uncapped (the widths legs (b) and (c) launch them at;
              checked, not timed): the sharded row gather's pack (K13a) per shard in
              float32 (the report row: shard 0) and bfloat16, bit-equal to its
-             plain version, the shards' partials summing to the rows;
+             plain version in one kernel a call (its queued ms logged), the
+             shards' partials summing to the rows;
              K9c's decode of the summed int8 partials, bit-equal to its
              plain version and to K9a on the whole payload, then
              sharded_dequant_gather on the four rank threads (the report
@@ -439,7 +441,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              scatters the tile and (base, deg) rows through B1 (K6's body at
              int32) and flips under ``_seq``, and the captured serve graphs
              read each flush's graph addresses from its staged inputs (K1's
-             device-graph form). Fails unless B1 launched 2 a commit, K1
+             device-graph form). Fails unless B1 was called twice a commit
+             (at most two kernels a call), K1
              launched only in its device-graph form and nothing eagerly, no
              graph was captured anew, the flushes saw more than one graph
              version, and 8 dispatches of several kept epochs, replayed
@@ -2236,11 +2239,17 @@ def kernel_phase_4(topo, tiered, train_idx, rows):
                     "k6_clone_ms": clone_ms}))
     # least bytes: the rows that keep their bytes and the promoted rows read,
     # the slots read, the new table written
+    k6_launches = kernel_launches(lambda: set_rows(table, slots, promo))
+    check(k6_launches <= 2, f"K6 launched {k6_launches} kernels a call (at most 2: copy, patch)")
     record(rows, "set_rows", 0.0, time_ms(lambda: set_rows(table, slots, promo)),
            time_ms(lambda: set_rows_plain(table, slots, promo), reps=5),
            bound((H - PROMOTE_ROWS) * DIM * 4 + PROMOTE_ROWS * DIM * 4 + b * 8 + H * DIM * 4),
            time_ms(lambda: torch.index_copy(table, 0, valid, promo[:PROMOTE_ROWS])),
-           shape=f"H={H} b={b} rows={PROMOTE_ROWS} D={DIM}")
+           shape=f"H={H} b={b} rows={PROMOTE_ROWS} D={DIM}",
+           queued_ms=time_ms_queued(lambda: set_rows(table, slots, promo)),
+           launches=k6_launches,
+           library_queued_ms=time_ms_queued(
+               lambda: torch.index_copy(table, 0, valid, promo[:PROMOTE_ROWS])))
 
     t0 = time.perf_counter()
     tr = topo.to_device_transposed(dev)
@@ -3675,12 +3684,16 @@ def kernel_phase_8(topo, table, mc, seeds, rows, seed):
                     continue
                 own = (lids >= p * R) & (lids < (p + 1) * R)
                 local = torch.clamp(lids.long() - p * R, 0, R - 1)
-                record(rows, "sharded_rows", 0.0, time_ms(lambda: partial_rows(stripes[p], lids, p)),
+                k13a = lambda: partial_rows(stripes[p], lids, p)  # noqa: E731
+                lib = lambda: torch.index_select(stripes[p], 0, local)  # noqa: E731
+                n = kernel_launches(k13a)
+                check(n == 1, f"K13a launched {n} kernels a call")
+                record(rows, "sharded_rows", 0.0, time_ms(k13a),
                        time_ms(lambda: partial_rows_plain(stripes[p], lids, p), reps=5),
                        bound(lw * 4 + torch.unique(lids[own]).numel() * DIM * es + lw * DIM * es),
-                       time_ms(lambda: torch.index_select(stripes[p], 0, local)),
-                       shape=f"shard {p} of {ici} W={lw} D={DIM} {str(dtype)[6:]}",
-                       report=dtype == torch.float32 and p == 0)
+                       time_ms(lib), shape=f"shard {p} of {ici} W={lw} D={DIM} {str(dtype)[6:]}",
+                       report=dtype == torch.float32 and p == 0, queued_ms=time_ms_queued(k13a),
+                       launches=n, library_queued_ms=time_ms_queued(lib))
             check(torch.equal(total[linr], full[lids[linr].long()]) and not total[~linr].any(),
                   f"K13a {dtype} ({tag} lanes): the shards' partials do not sum to the rows")
             del total, got
@@ -3708,11 +3721,14 @@ def kernel_phase_8(topo, table, mc, seeds, rows, seed):
            bound(W * DIM + W * 4 + W * 8 + W * DIM * 4), None, shape=f"int8 W={W} D={DIM}")
     own0 = (ids >= 0) & (ids < R)
     local0 = torch.clamp(ids.long(), 0, R - 1)
-    record(rows, "sharded_rows", 0.0, time_ms(lambda: partial_rows(pstripes[0], ids, 0)),
+    pack = lambda: partial_rows(pstripes[0], ids, 0)  # noqa: E731
+    lib = lambda: torch.index_select(pstripes[0], 0, local0)  # noqa: E731
+    record(rows, "sharded_rows", 0.0, time_ms(pack),
            time_ms(lambda: partial_rows_plain(pstripes[0], ids, 0), reps=5),
            bound(W * 4 + torch.unique(ids[own0]).numel() * DIM + W * DIM),
-           time_ms(lambda: torch.index_select(pstripes[0], 0, local0)),
-           shape=f"int8 pack shard 0 W={W}", report=False)
+           time_ms(lib), shape=f"int8 pack shard 0 W={W}", report=False,
+           queued_ms=time_ms_queued(pack), launches=kernel_launches(pack),
+           library_queued_ms=time_ms_queued(lib))
     del own0, local0
     torch.cuda.synchronize()
     _kernels.reset_counts()
@@ -4213,14 +4229,16 @@ def kernel_phase_9(topo, table, host, rows, seed):
                 all_ids = torch.cat(ids)
                 own = (all_ids >= 0) & (all_ids < R)
                 local = torch.clamp(all_ids.long(), 0, R - 1)
-                record(rows, "sharded_rows", 0.0,
-                       time_ms(lambda: partial_rows(stripes[0], all_ids, 0)),
+                pack = lambda: partial_rows(stripes[0], all_ids, 0)  # noqa: E731
+                lib = lambda: torch.index_select(stripes[0], 0, local)  # noqa: E731
+                record(rows, "sharded_rows", 0.0, time_ms(pack),
                        time_ms(lambda: partial_rows_plain(stripes[0], all_ids, 0), reps=5),
                        bound(G * W * 4 + torch.unique(all_ids[own]).numel() * DIM * es
                              + G * W * DIM * es),
-                       time_ms(lambda: torch.index_select(stripes[0], 0, local)),
-                       shape=f"K13c pack: shard (0, 0) at G*W={G * W} D={DIM} "
-                             f"{str(dtype)[6:]}", report=False)
+                       time_ms(lib), shape=f"K13c pack: shard (0, 0) at G*W={G * W} D={DIM} "
+                                           f"{str(dtype)[6:]}", report=False,
+                       queued_ms=time_ms_queued(pack), launches=kernel_launches(pack),
+                       library_queued_ms=time_ms_queued(lib))
                 del all_ids, own, local
             for h in range(G):
                 total = None
@@ -4859,8 +4877,9 @@ def b1_record(rows, st, prev, delta, tag, report):
     the rows ``delta``'s sources touch at least, scattered from the host
     mirrors into ``prev`` as one commit's calls. The result is bit-equal
     to the live arrays and to the plain version, differs from ``prev``,
-    and leaves ``prev`` untouched. Timed as one commit's calls (ms, queued
-    ms) beside the plain version and ``index_copy_`` on clones."""
+    and leaves ``prev`` untouched, in at most two kernels a table. Timed as
+    one commit's calls (ms, queued ms) beside the plain version and
+    ``index_copy_`` on clones."""
     dev = st.device
     live = st.temporal_graph() if st.temporal else st.graph()
     check(len(prev) == len(live) and all(p.shape == t.shape for p, t in zip(prev, live)),
@@ -4891,12 +4910,15 @@ def b1_record(rows, st, prev, delta, tag, report):
     n_bytes = sum(2 * t.numel() * t.element_size() + pos.numel() * 8
                   + new.numel() * new.element_size() for t, pos, new in calls)
     b = bound(n_bytes)
+    n_kernels = kernel_launches(lambda: [set_rows(*c) for c in calls])
+    check(n_kernels <= 2 * len(calls),
+          f"B1 ({tag}) launched {n_kernels} kernels over {len(calls)} tables (at most 2 each)")
     queued = time_ms_queued(lambda: [set_rows(*c) for c in calls])
     record(rows, "stream_row_scatter", 0.0, time_ms(lambda: [set_rows(*c) for c in calls]),
            time_ms(lambda: [set_rows_plain(*c) for c in calls], reps=5), b,
            lib_ms=time_ms(lambda: [t.clone().index_copy_(0, p, r) for t, p, r in valid]),
            shape=f"{tag}: {len(calls)} tables, rows {len(idx_tiles)} + {len(idx_bd)}, "
-                 f"m_cap={st.m_cap}", report=report, queued_ms=queued,
+                 f"m_cap={st.m_cap}", report=report, queued_ms=queued, launches=n_kernels,
            library_queued_ms=time_ms_queued(
                lambda: [t.clone().index_copy_(0, p, r) for t, p, r in valid]))
     return queued

@@ -14,6 +14,7 @@
 // row width and both base pointers allow it (D % 4 == 0), so a warp moves
 // a 400-byte row in one coalesced sweep and many rows are in flight.
 
+#include <cooperative_groups.h>
 #include <initializer_list>
 
 #include "common.cuh"
@@ -251,8 +252,9 @@ QT_EXPORT int qt_tiered_lookup(const void* hot, long long H, int row_bytes, cons
 // Replaces quiver_tpu/tiers.py:_set_rows (table.at[slots].set(rows,
 // mode="drop")), TierStore.apply's promotion of rows into HBM slots: row i
 // lands in slot slots[i] (int64) of the [H, D] table; slots outside
-// [0, H) are the bucket's padding and are dropped. Rows are copied as
-// bytes (float32, bfloat16 or int8 stores), so the result is bit-equal.
+// [0, H) are the bucket's padding and are dropped; a slot given twice takes
+// the later i, as a sequential scatter does. Rows are copied as bytes
+// (float32, bfloat16 or int8 stores), so the result is bit-equal.
 // B1: the same body replaces quiver_tpu/shard_tensor.py:_scatter_rows on
 // a streaming graph's commit (stream.py's _swap_rows): the int32 tile rows
 // [m_cap, 128], the float32 timestamp tiles and the int32 (base, deg)
@@ -262,96 +264,221 @@ QT_EXPORT int qt_tiered_lookup(const void* hot, long long H, int row_bytes, cons
 // an adaptive pipeline's pinned snapshot of the table relies on: this call
 // writes a new table `out` and only reads `table`.
 //
-// Bound on the card: bytes — the table's rows that keep their bytes read,
-// the b slots and the promoted rows read, and the H rows of the new table
-// written once (392 MB at the 20% products cache, D = 100 float32).
-// Design: one pass over the new table, not a clone followed by a scatter.
-// Two small launches first build the slot -> row map ([H] int32 scratch,
-// -1 for a slot that keeps its row; a slot given twice takes the last row
-// i, as a sequential scatter would). Then the new table is written as one
-// flat array of V-byte words (the widest access the row width and the
-// three base pointers allow), one word a thread, as a device memcpy would:
-// every lane busy and every warp's stores contiguous across row edges,
-// where a warp a row would leave lanes idle on a 400-byte row. Word c of
-// slot s = c / row_words comes from the promoted row slot_row[s] when
-// there is one, else from word c of the old table; the word index is
-// divided in 32 bits when the table has fewer than ~2^32 words.
+// Bound on the card: bytes — the table read and the new table written
+// once, the b slots and promoted rows read (B1's node commit: 2 x 1.46 GB
+// of tiles and 2 x 19.6 MB of (base, deg) rows; K6: 392 MB at the 20%
+// products cache, D = 100 float32, which counts only the rows that keep
+// their bytes as read). A commit touches 6-12 rows of 2.85M, so the call is
+// a copy of the table: it goes at the card's copy rate or not at all.
+// Design: two launches in stream order. (1) The table is copied to the new
+// one as flat bytes, whatever the row width, in the widest words (16, 8,
+// 4, 2 or 1 bytes) in which both base pointers agree, the unaligned head
+// and tail a byte a thread: a block a chunk of kCopyThreads x kCopyUnroll
+// words, each thread's loads issued before its stores. The blocks are
+// issued in order, so the words in flight at a time lie in one window that
+// moves down the table; on an H100 this copy runs at `clone`'s rate, where
+// a persistent grid walking the table in strides, blocks over contiguous
+// ranges and TMA bulk copies through shared memory were slower. The same
+// launch sets the [H] int32 scratch map to -1 at the b slots alone (no
+// entry outside them is written or read). (2) One cooperative launch
+// patches the b rows: each valid row i takes atomicMax(map[slots[i]], i);
+// one grid barrier; then each row whose map entry is its own i (no later i
+// names its slot) is copied into its slot by a team of up to 32 threads,
+// each with kPatchRows rows' words in flight, loaded before the check (a
+// patch that fits one block, as a commit's does, takes a plain launch and
+// the block's barrier). b = 0 makes the copy alone. The patch writes the b rows a second time:
+// nothing for a commit's few rows, but 13% more bytes for K6's 65,536-row
+// batch on its 196 MB table.
 
-__global__ void slot_map_fill_kernel(int32_t* __restrict__ slot_row, long long H) {
-  const long long s = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (s < H) slot_row[s] = -1;
-}
-
-__global__ void slot_map_mark_kernel(const int64_t* __restrict__ slots, long long b,
-                                     long long H, int32_t* __restrict__ slot_row) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= b) return;
-  const long long s = slots[i];
-  if (s >= 0 && s < H) atomicMax(slot_row + s, static_cast<int32_t>(i));
-}
-
-template <int V, typename I>
-__global__ void set_rows_kernel(const char* __restrict__ table, I n_words, I row_words,
-                                const int32_t* __restrict__ slot_row,
-                                const char* __restrict__ rows, char* __restrict__ out) {
-  using T = typename Bytes<V>::T;
-  const I c = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (c >= n_words) return;
-  const I s = c / row_words;
-  const int32_t r = __ldg(slot_row + s);
-  const T* src = r >= 0 ? reinterpret_cast<const T*>(rows) +
-                              (static_cast<long long>(r) * row_words + (c - s * row_words))
-                        : reinterpret_cast<const T*>(table) + c;
-  reinterpret_cast<T*>(out)[c] = __ldg(src);
-}
+constexpr int kCopyThreads = 256;
+constexpr int kCopyUnroll = 2;  // words a thread copies
+constexpr int kPatchThreads = 512;
+constexpr int kPatchRows = 4;  // rows a team has in flight
 
 template <int V>
-static void launch_set_rows(const void* table, long long H, long long row_bytes,
-                            const int32_t* slot_row, const void* rows, void* out,
-                            cudaStream_t stream) {
-  const int threads = 256;
-  const long long row_words = row_bytes / V, n_words = H * row_words;
-  const char* t = static_cast<const char*>(table);
-  const char* r = static_cast<const char*>(rows);
-  char* o = static_cast<char*>(out);
-  if (n_words + threads <= (1LL << 32)) {  // no 32-bit word index can wrap
-    qt_count_launch();
-    set_rows_kernel<V, uint32_t><<<qt_blocks(n_words, threads), threads, 0, stream>>>(
-        t, static_cast<uint32_t>(n_words), static_cast<uint32_t>(row_words), slot_row, r, o);
-  } else {
-    qt_count_launch();
-    set_rows_kernel<V, unsigned long long><<<qt_blocks(n_words, threads), threads, 0, stream>>>(
-        t, n_words, row_words, slot_row, r, o);
+__global__ void __launch_bounds__(kCopyThreads)
+    copy_table_kernel(const char* __restrict__ src, char* __restrict__ dst, long long head,
+                      long long n_words, long long tail, const int64_t* __restrict__ slots,
+                      long long b, long long H, int32_t* __restrict__ slot_row) {
+  using T = typename Bytes<V>::T;
+  const long long tid = blockIdx.x * static_cast<long long>(kCopyThreads) + threadIdx.x;
+  if (tid < b) {
+    const long long s = slots[tid];
+    if (s >= 0 && s < H) slot_row[s] = -1;
+  }
+  if (tid < 16 && tid < head) dst[tid] = src[tid];
+  if (tid >= 16 && tid < 16 + tail) {
+    const long long at = head + n_words * V + (tid - 16);
+    dst[at] = src[at];
+  }
+  const T* s = reinterpret_cast<const T*>(src + head);
+  T* d = reinterpret_cast<T*>(dst + head);
+  const long long c0 = blockIdx.x * static_cast<long long>(kCopyThreads) * kCopyUnroll +
+                       threadIdx.x;
+  T v[kCopyUnroll];
+#pragma unroll
+  for (int u = 0; u < kCopyUnroll; ++u) {
+    const long long c = c0 + static_cast<long long>(u) * kCopyThreads;
+    if (c < n_words) v[u] = __ldg(s + c);
+  }
+#pragma unroll
+  for (int u = 0; u < kCopyUnroll; ++u) {
+    const long long c = c0 + static_cast<long long>(u) * kCopyThreads;
+    if (c < n_words) d[c] = v[u];
   }
 }
 
-// `slot_row` is [H] int32 scratch; b < 2^31.
+template <int V>
+__global__ void __launch_bounds__(kPatchThreads)
+    patch_rows_kernel(const int64_t* __restrict__ slots, long long b, long long H,
+                      int32_t* __restrict__ slot_row, const char* __restrict__ rows,
+                      long long row_words, int lanes, char* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  using T = typename Bytes<V>::T;
+  cg::grid_group grid = cg::this_grid();
+  const long long tid = blockIdx.x * static_cast<long long>(kPatchThreads) + threadIdx.x;
+  const long long nth = static_cast<long long>(gridDim.x) * kPatchThreads;
+  // 1. the latest row each slot takes
+  for (long long i = tid; i < b; i += nth) {
+    const long long s = slots[i];
+    if (s >= 0 && s < H) atomicMax(slot_row + s, static_cast<int32_t>(i));
+  }
+  if (gridDim.x == 1) {
+    __syncthreads();
+  } else {
+    grid.sync();
+  }
+  // 2. each row that keeps its slot, a team of `lanes` threads a row; a
+  // row's first words are loaded before its slot's entry is checked
+  const long long team = tid / lanes, n_teams = nth / lanes;
+  const int sub = static_cast<int>(tid % lanes);
+  const T* r = reinterpret_cast<const T*>(rows);
+  T* o = reinterpret_cast<T*>(out);
+  for (long long i0 = team; i0 < b; i0 += n_teams * kPatchRows) {
+    long long s[kPatchRows];
+    T v[kPatchRows];
+#pragma unroll
+    for (int u = 0; u < kPatchRows; ++u) {
+      const long long i = i0 + u * n_teams;
+      s[u] = i < b ? __ldg(slots + i) : -1;
+      if (i < b && sub < row_words) v[u] = __ldg(r + i * row_words + sub);
+    }
+#pragma unroll
+    for (int u = 0; u < kPatchRows; ++u) {
+      const long long i = i0 + u * n_teams;
+      if (s[u] < 0 || s[u] >= H || __ldcg(slot_row + s[u]) != static_cast<int32_t>(i)) s[u] = -1;
+      if (s[u] >= 0 && sub < row_words) o[s[u] * row_words + sub] = v[u];
+    }
+    for (long long c = sub + lanes; c < row_words; c += lanes) {
+#pragma unroll
+      for (int u = 0; u < kPatchRows; ++u)
+        if (s[u] >= 0) v[u] = __ldg(r + (i0 + u * n_teams) * row_words + c);
+#pragma unroll
+      for (int u = 0; u < kPatchRows; ++u)
+        if (s[u] >= 0) o[s[u] * row_words + c] = v[u];
+    }
+  }
+}
+
+template <int V>
+static int launch_copy_table(const char* src, char* dst, long long n_bytes, const void* slots,
+                             long long b, long long H, int32_t* slot_row, cudaStream_t stream) {
+  long long head = (V - reinterpret_cast<uintptr_t>(dst) % V) % V;
+  if (head > n_bytes) head = n_bytes;
+  const long long n_words = (n_bytes - head) / V, tail = n_bytes - head - n_words * V;
+  const long long chunks = (n_words + kCopyThreads * kCopyUnroll - 1) / (kCopyThreads * kCopyUnroll);
+  const long long marks = (b + kCopyThreads - 1) / kCopyThreads;
+  long long blocks = chunks > marks ? chunks : marks;
+  if (blocks < 1) blocks = 1;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  qt_count_launch();
+  copy_table_kernel<V><<<static_cast<unsigned>(blocks), kCopyThreads, 0, stream>>>(
+      src, dst, head, n_words, tail, static_cast<const int64_t*>(slots), b, H, slot_row);
+  return qt_launch_status();
+}
+
+template <int V>
+static int launch_patch_rows(const void* slots, long long b, long long H, int32_t* slot_row,
+                             const void* rows, long long row_bytes, void* out,
+                             cudaStream_t stream) {
+  static int blocks_per_sm[64] = {};  // per device, from the occupancy API
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (blocks_per_sm[dev] == 0) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, patch_rows_kernel<V>,
+                                                        kPatchThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    blocks_per_sm[dev] = per_sm;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long most = static_cast<long long>(blocks_per_sm[dev]) * sms;
+  long long row_words = row_bytes / V;
+  int lanes = 1;
+  while (lanes < 32 && lanes < row_words) lanes <<= 1;
+  const long long teams = (b + kPatchRows - 1) / kPatchRows;
+  long long blocks = (teams * lanes + kPatchThreads - 1) / kPatchThreads;
+  if (blocks > most) blocks = most;
+  const auto* sl = static_cast<const int64_t*>(slots);
+  const auto* r = static_cast<const char*>(rows);
+  auto* o = static_cast<char*>(out);
+  qt_count_launch();
+  if (blocks == 1) {  // a block's barrier is the grid's: a plain launch
+    patch_rows_kernel<V><<<1, kPatchThreads, 0, stream>>>(sl, b, H, slot_row, r, row_words,
+                                                          lanes, o);
+    return qt_launch_status();
+  }
+  void* params[] = {&sl, &b, &H, &slot_row, &r, &row_words, &lanes, &o};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(patch_rows_kernel<V>),
+                                    dim3(static_cast<unsigned>(blocks)), dim3(kPatchThreads),
+                                    params, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return qt_launch_status();
+}
+
+// The widest word (16, 8, 4, 2 or 1 bytes) at which two addresses agree:
+// both are aligned to it after the same head of bytes.
+static int qt_common_vec_bytes(const void* a, const void* b) {
+  const uintptr_t x = reinterpret_cast<uintptr_t>(a) ^ reinterpret_cast<uintptr_t>(b);
+  for (int v = 16; v > 1; v >>= 1)
+    if (x % v == 0) return v;
+  return 1;
+}
+
+// `slot_row` is [H] int32 scratch, of which only the entries at the b
+// slots are written and read; b < 2^31. Two kernel launches (one when b is
+// 0): the copy, then the patch (cooperative when it spans several blocks).
 QT_EXPORT int qt_set_rows(const void* table, long long H, int row_bytes, const void* slots,
                           long long b, const void* rows, void* slot_row, void* out,
                           void* stream) {
   if (H <= 0 || row_bytes <= 0) return 0;
+  if (b < 0 || b >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
+  const char* src = static_cast<const char*>(table);
+  char* dst = static_cast<char*>(out);
+  const long long n_bytes = H * static_cast<long long>(row_bytes);
   int32_t* map = static_cast<int32_t*>(slot_row);
-  qt_count_launch();
-  slot_map_fill_kernel<<<qt_blocks(H, threads), threads, 0, s>>>(map, H);
-  int rc = qt_launch_status();
-  if (rc != 0) return rc;
-  if (b > 0) {
-    qt_count_launch();
-    slot_map_mark_kernel<<<qt_blocks(b, threads), threads, 0, s>>>(
-        static_cast<const int64_t*>(slots), b, H, map);
-    rc = qt_launch_status();
-    if (rc != 0) return rc;
+  int rc = 0;
+  switch (qt_common_vec_bytes(table, out)) {
+    case 16: rc = launch_copy_table<16>(src, dst, n_bytes, slots, b, H, map, s); break;
+    case 8: rc = launch_copy_table<8>(src, dst, n_bytes, slots, b, H, map, s); break;
+    case 4: rc = launch_copy_table<4>(src, dst, n_bytes, slots, b, H, map, s); break;
+    case 2: rc = launch_copy_table<2>(src, dst, n_bytes, slots, b, H, map, s); break;
+    default: rc = launch_copy_table<1>(src, dst, n_bytes, slots, b, H, map, s); break;
   }
-  switch (qt_vec_bytes(row_bytes, {table, rows, out})) {
-    case 16: launch_set_rows<16>(table, H, row_bytes, map, rows, out, s); break;
-    case 8: launch_set_rows<8>(table, H, row_bytes, map, rows, out, s); break;
-    case 4: launch_set_rows<4>(table, H, row_bytes, map, rows, out, s); break;
-    case 2: launch_set_rows<2>(table, H, row_bytes, map, rows, out, s); break;
-    default: launch_set_rows<1>(table, H, row_bytes, map, rows, out, s); break;
+  if (rc != 0 || b == 0) return rc;
+  switch (qt_vec_bytes(row_bytes, {rows, out})) {
+    case 16: return launch_patch_rows<16>(slots, b, H, map, rows, row_bytes, out, s);
+    case 8: return launch_patch_rows<8>(slots, b, H, map, rows, row_bytes, out, s);
+    case 4: return launch_patch_rows<4>(slots, b, H, map, rows, row_bytes, out, s);
+    case 2: return launch_patch_rows<2>(slots, b, H, map, rows, row_bytes, out, s);
+    default: return launch_patch_rows<1>(slots, b, H, map, rows, row_bytes, out, s);
   }
-  return qt_launch_status();
 }
 
 // The device pointer through which kernels read pinned host memory at
@@ -465,35 +592,75 @@ QT_EXPORT int qt_gather_src(const void* x, long long w_src, int F, int elem_byte
 // encoded payloads, and the copy is bit-equal.
 //
 // Bound on the card: bytes — W ids read, the owned lanes' rows read, and
-// the [W, D] partial written once (zero rows included). Design: K3's shape
-// (a warp a row) with K3t's widest access (16, 8, 4, 2 or 1 bytes dividing
-// the row width and both base pointers); a lane the shard does not own
-// writes its zero row without reading the block.
+// the [W, D] partial written once (zero rows included). Rows of 100-200
+// bytes (bfloat16 and int8 at D = 100) need many rows in flight a warp: a
+// warp a row, its id loaded before the row, holds 100-200 bytes in flight
+// and stays under half the bound on an H100. Design: a block takes a tile of
+// kRowsTile consecutive output rows, whose output is one contiguous span:
+// it loads the tile's ids once (a thread an id, coalesced) into shared
+// memory as source offsets (-1 for a row the shard does not own), then
+// walks the span as flat words of the widest access (16, 8, 4, 2 or 1
+// bytes) dividing the row width and both base pointers, a thread every
+// kRowsTile-th word with kRowsUnroll words in flight before its stores, so
+// every lane of a warp loads and stores across row edges, the stores are
+// contiguous, and an unowned row's words are zeros, never read. All three
+// widths at D = 100 are 25 words a row (16, 8 and 4 bytes).
+
+constexpr int kRowsTile = 256;   // output rows a block, an id a thread
+constexpr int kRowsUnroll = 16;  // words a thread has in flight
+
+// The tile's word indices are ints: rows of up to kRowsMaxWords words.
+constexpr long long kRowsMaxWords = ((1LL << 31) - 1) / (kRowsTile * (kRowsUnroll + 1));
+
 template <int V>
-__global__ void sharded_rows_kernel(const char* __restrict__ block, long long R,
-                                    long long row_bytes, const int32_t* __restrict__ ids,
-                                    long long n_ids, long long first, char* __restrict__ out) {
+__global__ void __launch_bounds__(kRowsTile)
+    sharded_rows_kernel(const char* __restrict__ block, long long R, int row_words,
+                        const int32_t* __restrict__ ids, long long n_ids, long long first,
+                        char* __restrict__ out) {
   using T = typename Bytes<V>::T;
-  const long long row = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= n_ids) return;
-  const long long local = static_cast<long long>(ids[row]) - first;
-  const T* src = local >= 0 && local < R
-                     ? reinterpret_cast<const T*>(block + local * row_bytes) : nullptr;
-  T* dst = reinterpret_cast<T*>(out + row * row_bytes);
-  const long long n_vec = row_bytes / V;
-  for (long long c = lane; c < n_vec; c += 32) dst[c] = src != nullptr ? src[c] : T{};
+  __shared__ long long s_src[kRowsTile];  // a row's first source word; -1: a zero row
+  const long long r0 = blockIdx.x * static_cast<long long>(kRowsTile);
+  const int rows = static_cast<int>(n_ids - r0 < kRowsTile ? n_ids - r0 : kRowsTile);
+  if (static_cast<int>(threadIdx.x) < rows) {
+    const long long local = static_cast<long long>(ids[r0 + threadIdx.x]) - first;
+    s_src[threadIdx.x] = local >= 0 && local < R ? local * row_words : -1;
+  }
+  __syncthreads();
+  const T* src = reinterpret_cast<const T*>(block);
+  T* dst = reinterpret_cast<T*>(out) + r0 * row_words;
+  const int n = rows * row_words;
+  const int step_rows = kRowsTile / row_words, step_cols = kRowsTile % row_words;
+  int row = threadIdx.x / row_words, col = threadIdx.x % row_words;
+  for (int c0 = threadIdx.x; c0 < n; c0 += kRowsTile * kRowsUnroll) {
+    T v[kRowsUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowsUnroll; ++u) {
+      v[u] = T{};
+      if (c0 + u * kRowsTile < n) {
+        const long long at = s_src[row];
+        if (at >= 0) v[u] = __ldg(src + at + col);
+      }
+      row += step_rows;
+      col += step_cols;
+      if (col >= row_words) {
+        col -= row_words;
+        ++row;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsUnroll; ++u)
+      if (c0 + u * kRowsTile < n) dst[c0 + u * kRowsTile] = v[u];
+  }
 }
 
 template <int V>
 static void launch_sharded_rows(const void* block, long long R, long long row_bytes,
                                 const void* ids, long long n_ids, long long first, void* out,
                                 cudaStream_t stream) {
-  const int threads = 256;  // 8 rows a block
   qt_count_launch();
-  sharded_rows_kernel<V><<<qt_blocks(n_ids * 32, threads), threads, 0, stream>>>(
-      static_cast<const char*>(block), R, row_bytes, static_cast<const int32_t*>(ids), n_ids,
-      first, static_cast<char*>(out));
+  sharded_rows_kernel<V><<<qt_blocks(n_ids, kRowsTile), kRowsTile, 0, stream>>>(
+      static_cast<const char*>(block), R, static_cast<int>(row_bytes / V),
+      static_cast<const int32_t*>(ids), n_ids, first, static_cast<char*>(out));
 }
 
 // block: [R, D] elements of elem_bytes (4, 2 or 1) bytes, rows [first, first
@@ -506,7 +673,9 @@ QT_EXPORT int qt_sharded_rows(const void* block, long long R, int D, int elem_by
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long row_bytes = static_cast<long long>(D) * elem_bytes;
-  switch (qt_vec_bytes(row_bytes, {block, out})) {
+  const int vec = qt_vec_bytes(row_bytes, {block, out});
+  if (row_bytes / vec > kRowsMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  switch (vec) {
     case 16: launch_sharded_rows<16>(block, R, row_bytes, ids, n_ids, first, out, s); break;
     case 8: launch_sharded_rows<8>(block, R, row_bytes, ids, n_ids, first, out, s); break;
     case 4: launch_sharded_rows<4>(block, R, row_bytes, ids, n_ids, first, out, s); break;

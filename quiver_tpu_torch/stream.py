@@ -244,9 +244,10 @@ class StreamingAdjacency:
     (the results are the same anywhere; on the card a products-sized graph
     sorts in well under a second, where numpy takes about half a minute,
     and a closure's passes over most of the graph release the
-    interpreter's lock while the serve engine's threads run)."""
+    interpreter's lock while the serve engine's threads run); the card
+    unless the caller asks for another (`utils.resolve_device`)."""
 
-    def __init__(self, csr_topo, edge_ts=None, device="cpu"):
+    def __init__(self, csr_topo, edge_ts=None, device=None):
         self.indptr = np.asarray(csr_topo.indptr, np.int64)
         self.indices = np.asarray(csr_topo.indices, np.int64)
         self.n = self.indptr.shape[0] - 1
@@ -263,7 +264,7 @@ class StreamingAdjacency:
         self._override_ts: Dict[int, np.ndarray] = {}
         # the reverse CSR (a stable sort of the edges by destination), and
         # the forward one once a forward closure asks, as tensors on device
-        self.device = dev = torch.device(device)
+        self.device = dev = resolve_device(device)
         dst = torch.from_numpy(self.indices).to(dev)
         rev_indptr = torch.zeros(self.n + 1, dtype=torch.int64, device=dev)
         torch.cumsum(torch.bincount(dst, minlength=self.n), 0, out=rev_indptr[1:])

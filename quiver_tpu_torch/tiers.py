@@ -265,11 +265,19 @@ SET_ROWS_DTYPES = (*STORE_DTYPES.values(), torch.int32)
 
 
 def set_rows_plain(table: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of `set_rows`, on ``table``'s device."""
+    """Plain torch version of `set_rows`, on ``table``'s device. A slot
+    given twice takes the later row, as the reference's scatter does on the
+    CPU; an index assignment leaves that undefined on the card, so only the
+    last row of each slot is assigned."""
     out = table.clone()
     s = slots.to(torch.int64)
-    keep = (s >= 0) & (s < table.shape[0])
-    out[s[keep]] = rows[keep]
+    i = ((s >= 0) & (s < table.shape[0])).nonzero().view(-1)
+    order = torch.sort(s[i], stable=True).indices  # equal slots keep their row order
+    si = s[i[order]]
+    last = torch.ones_like(si, dtype=torch.bool)
+    last[:-1] = si[1:] != si[:-1]
+    pick = i[order[last]]
+    out[s[pick]] = rows[pick]
     return out
 
 
@@ -281,8 +289,9 @@ def set_rows(table: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> to
     table, and int32 for the streaming graph's tile and ``(base, deg)``
     tables (B1, `stream.StreamingTiledGraph`'s commits, whose float32
     timestamp tiles take the float32 form). On CUDA tensors one call of
-    ``csrc/gather.cu``'s ``qt_set_rows``, which writes every slot of the new
-    table once, from ``rows`` or from ``table``; on CPU tensors
+    ``csrc/gather.cu``'s ``qt_set_rows``: two kernels, a flat copy of the
+    table, then the rows whose slot no later row takes written into it (a
+    slot given twice takes the later row); on CPU tensors
     `set_rows_plain`."""
     if table.dim() != 2 or slots.dim() != 1 or rows.dim() != 2:
         raise ValueError("set_rows takes table [H, D], slots [b] and rows [b, D]")
@@ -305,6 +314,7 @@ def set_rows(table: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> to
     if H == 0 or D == 0:
         return out
     table, slots, rows = table.contiguous(), slots.contiguous(), rows.contiguous()
+    # scratch of which the kernels write and read only the entries at the slots
     slot_row = torch.empty(H, dtype=torch.int32, device=table.device)
     _kernels.launch("set_rows", table.data_ptr(), H, D * table.element_size(), slots.data_ptr(),
                     slots.shape[0], rows.data_ptr(), slot_row.data_ptr(), out.data_ptr(),

@@ -118,7 +118,13 @@ input untouched; K1's and K8's device-graph forms (the tables' addresses
 read from words on the card) bit-equal to their by-value forms; and a
 serve step over a streaming graph captured once, replaying a binding
 sealed before a commit bit for bit and the commit's epoch after it, with
-nothing captured anew."""
+nothing captured anew. The redesigned B1/K6 (a flat copy of the table,
+then a cooperative patch of the rows) over int32 rows of 512 and 8 bytes
+and float32, bfloat16 and int8 rows of 400, 200 and 100 bytes, with
+duplicate slots, all padding, no rows, the edge slots and unaligned base
+pointers, bit-equal to its plain version in two kernels a call; and the
+tiled K13a at D = 1, 47 and 100 in each dtype, all, none and some ids
+owned, bit-equal in one kernel a call."""
 
 import numpy as np
 import pytest
@@ -2213,6 +2219,138 @@ def test_stream_row_scatter_matches_plain_and_leaves_its_input(cuda_device, tabl
         assert _same(got, want) and np.array_equal(got.cpu().numpy(), new)
 
 
+# -- the copy-and-patch row scatter (B1, K6) and the tiled K13a ----------------------
+
+# (dtype, D): int32 rows of 512 and 8 bytes (B1's tiles and (base, deg)
+# rows), float32, bfloat16 and int8 rows of 400, 200 and 100 bytes (K6)
+SET_ROWS_ROWS = [(torch.int32, 128), (torch.int32, 2), (torch.float32, 100),
+                 (torch.bfloat16, 100), (torch.int8, 100)]
+
+
+def _random_rows(rng, shape, dtype):
+    if dtype in (torch.int32, torch.int8):
+        info = torch.iinfo(dtype)
+        return torch.from_numpy(rng.integers(info.min, info.max, shape, endpoint=True)
+                                .astype(np.int64)).to(dtype)
+    return torch.from_numpy((rng.standard_normal(shape) * 30).astype(np.float32)).to(dtype)
+
+
+def _offset_view(x, k):
+    """``x``'s values in a contiguous view that starts ``k`` elements into
+    a larger buffer, so its base pointer is not 16-byte aligned for k > 0."""
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    view = buf[k:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", SET_ROWS_ROWS)
+@pytest.mark.parametrize("case", ["unique", "duplicates", "all_padding", "empty", "edge_slots",
+                                  "unaligned"])
+def test_set_rows_copy_and_patch_matches_plain(cuda_device, dtype, D, case):
+    """B1/K6 as a flat copy of the table and a patch of the rows: bit-equal
+    to its plain version on the card and on the CPU, with slots given twice
+    or more (the later row wins), every slot padding, no rows, slots 0 and
+    H - 1 beside slots past the table and negative ones, and a table and
+    rows whose base pointers are not 16-byte aligned; the input untouched;
+    two kernels a call (the copy alone when there are no rows), none of
+    them over an [H] map."""
+    rng = np.random.default_rng(D + len(case))
+    H, b = 20011, 256  # H a multiple of no copy stride
+    table = _random_rows(rng, (H, D), dtype)
+    rows = _random_rows(rng, (b, D), dtype)
+    slots = rng.permutation(H)[:b].astype(np.int64)
+    slots[-40:] = H  # the bucket's padding
+    if case == "duplicates":
+        slots[:200] = rng.integers(0, 50, 200)
+    elif case == "all_padding":
+        slots[:] = H
+    elif case == "empty":
+        slots, rows = slots[:0], rows[:0]
+    elif case == "edge_slots":
+        slots[:6] = [H - 1, 0, H + 7, -3, H - 1, 0]
+    slots = torch.from_numpy(slots)
+    dev = [t.to(cuda_device) for t in (table, slots, rows)]
+    if case == "unaligned":
+        dev[0], dev[2] = _offset_view(dev[0], 1), _offset_view(dev[2], 1)
+        assert dev[0].data_ptr() % 16 and dev[2].data_ptr() % 16
+    keep = dev[0].clone()
+    _kernels.reset_kernel_launches()
+    got = set_rows(*dev)
+    launches = _kernels.kernel_launches()
+    want = set_rows_plain(*dev)
+    torch.cuda.synchronize()
+    assert launches == (1 if case == "empty" else 2)
+    assert torch.equal(dev[0], keep) and got.data_ptr() != dev[0].data_ptr()
+    assert _same(got, want) and _same(got, set_rows_plain(table, slots, rows))
+    if case == "duplicates":  # the later of two rows given one slot
+        s = slots.numpy()
+        i = next(i for i in range(b) if s[i] in s[i + 1:])
+        j = b - 1 - int(np.nonzero(s[::-1] == s[i])[0][0])
+        assert _same(got[s[i]], rows[j]) and not _same(rows[i], rows[j])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("D", [1, 47, 100])
+@pytest.mark.parametrize("owned", ["all", "none", "mixed"])
+def test_sharded_rows_tiles_match_plain(cuda_device, dtype, D, owned):
+    """K13a by tiles of output rows: bit-equal to its plain version on the
+    card and on the CPU at D = 1, 47 and 100 in each dtype, with every id
+    owned by shard 1 (first > 0), none owned, and ids below, inside and past
+    each shard with the padding sentinel, over a count of ids that is no
+    multiple of the tile; one kernel a call; the shards' partials sum to the
+    rows."""
+    from quiver_tpu_torch.parallel.collectives import partial_rows, partial_rows_plain
+
+    rng = np.random.default_rng(D + 3 * len(owned))
+    N, shards, W = 3001, 3, 5003
+    R = -(-N // shards)
+    table = _random_rows(rng, (shards * R, D), dtype)
+    if owned == "all":
+        ids = rng.integers(R, 2 * R, W)
+    elif owned == "none":
+        ids = np.r_[rng.integers(-R, 0, W // 2), rng.integers(shards * R, 4 * R, W - W // 2)]
+    else:
+        ids = rng.integers(-5, N + 40, W)
+        ids[:2] = [np.iinfo(np.int32).max, -1]
+    ids = torch.from_numpy(ids.astype(np.int32))
+    total = torch.zeros((W, D), dtype=torch.float64)
+    for p in range(shards):
+        block = table[p * R:(p + 1) * R]
+        _kernels.reset_kernel_launches()
+        got = partial_rows(block.to(cuda_device), ids.to(cuda_device), p)
+        assert _kernels.kernel_launches() == 1
+        want = partial_rows_plain(block.to(cuda_device), ids.to(cuda_device), p)
+        torch.cuda.synchronize()
+        assert _same(got, want) and _same(got, partial_rows_plain(block, ids, p))
+        if owned == "all":
+            assert bool(got.any()) == (p == 1)
+        total += got.cpu().double()
+    inside = ((ids >= 0) & (ids < shards * R)).numpy()
+    want = np.where(inside[:, None],
+                    table.double().numpy()[np.clip(ids.numpy(), 0, shards * R - 1)], 0)
+    assert np.array_equal(total.numpy(), want)
+
+
+@pytest.mark.cuda
+def test_sharded_rows_refuses_rows_past_its_word_index(cuda_device):
+    """K13a indexes a tile's words with ints: a row of more than 493,447
+    words (an int8 row of an odd width, copied a byte a word) is refused
+    with an error, never copied wrong; the widest row it takes is copied."""
+    from quiver_tpu_torch.parallel.collectives import partial_rows, partial_rows_plain
+
+    ids = torch.tensor([0, 1, -1], dtype=torch.int32, device=cuda_device)
+    for D, ok in ((493_447, True), (493_449, False)):
+        block = torch.randint(-127, 128, (2, D), dtype=torch.int8, device=cuda_device)
+        if ok:
+            assert _same(partial_rows(block, ids, 0), partial_rows_plain(block, ids, 0))
+        else:
+            with pytest.raises(RuntimeError):
+                partial_rows(block, ids, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["K1", "K8"])
 def test_device_graph_forms_equal_the_by_value_forms(cuda_device, kind):
@@ -2279,7 +2417,7 @@ def test_captured_bucket_replays_two_epochs_without_capture(cuda_device, tempora
     st = StreamingTiledGraph(topo, reserve_frac=0.2, edge_ts=ts if temporal else None,
                              device=cuda_device)
     # the reverse CSR sorted on the card equals the CPU's, and so its closures
-    cpu_adj = StreamingAdjacency(topo)
+    cpu_adj = StreamingAdjacency(topo, device="cpu")
     assert torch.equal(st.adj.rev_indices.cpu(), cpu_adj.rev_indices)
     assert np.array_equal(st.affected_seeds([5, 7, 11], 2), cpu_adj.reverse_closure([5, 7, 11], 2))
     progs = BucketPrograms(sampler(st), feat)

@@ -134,7 +134,8 @@ def test_delta_interleaved_trace_matches_reference():
 def test_adjacency_closures_and_rebuild_match_reference(temporal):
     jt, tt = topos()
     ts = BASE_TS if temporal else None
-    ja, ta = JStreamingAdjacency(jt, edge_ts=ts), StreamingAdjacency(tt, edge_ts=ts)
+    ja = JStreamingAdjacency(jt, edge_ts=ts)
+    ta = StreamingAdjacency(tt, edge_ts=ts, device="cpu")
     rng = np.random.default_rng(3)
     for a in (ja, ta):
         src, dst = rng.integers(0, N_NODES, 40), rng.integers(0, N_NODES, 40)
@@ -282,6 +283,16 @@ def test_streamed_draws_equal_a_rebuilt_table():
         b = tiled_sample_layer(*rebuilt, seeds, valid, k, key)
         assert torch.equal(a[1], b[1]) and torch.equal(torch.where(a[1], a[0], 0),
                                                        torch.where(b[1], b[0], 0))
+
+
+def test_streaming_adjacency_takes_the_card_unless_cpu_is_asked(monkeypatch):
+    """`StreamingAdjacency`, a public entry point, runs on the card by
+    default: without one it raises the error that names device='cpu'."""
+    _, tt = topos()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingAdjacency(tt)
+    assert StreamingAdjacency(tt, device="cpu").device.type == "cpu"
 
 
 def test_stream_copies_on_write_and_refuses_wrong_arity():

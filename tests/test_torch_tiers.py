@@ -332,6 +332,25 @@ def test_set_rows_plain_matches_reference(dtype):
         tiers.set_rows(t_table, torch.from_numpy(slots[:3]), t_rows)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_set_rows_plain_takes_the_later_of_repeated_slots(dtype):
+    """A slot given two or more times takes the later row, as the JAX
+    package's scatter does, on tables of feature rows and of int32 tile
+    rows; padding slots past the table and negative ones are dropped."""
+    rng = np.random.default_rng(11)
+    H, b = 30, 400
+    table = (rng.standard_normal((H, DIM)) * 30).astype(dtype)
+    rows = (rng.standard_normal((b, DIM)) * 30).astype(dtype)
+    slots = rng.integers(-3, H + 3, b).astype(np.int64)
+    keep = (slots >= 0) & (slots < H)
+    want = np.asarray(jtiers._set_rows(jnp.asarray(table), jnp.asarray(np.where(keep, slots, H)),
+                                       jnp.asarray(rows)))
+    got = tiers.set_rows(torch.from_numpy(table), torch.from_numpy(slots), torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy(), want)
+    last = {int(s): i for i, s in enumerate(slots) if 0 <= s < H}
+    assert all(np.array_equal(got[s].numpy(), rows[i]) for s, i in last.items())
+
+
 def test_pinned_snapshot_keeps_the_victims_bytes_after_apply(tmp_path):
     """An adaptive pipeline built before an apply still reads the bytes its
     snapshot placed in the HBM slots the apply gave to promoted rows."""
