@@ -89,15 +89,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
              to end twice after a first run, its logits within 1e-4 of the
              same layers over K10's plain version; a ``full inference:``
              line;
-8. train   — 20 Adam steps at batch 1024 on each of four legs at full
-             width (sample_dense + lookup_padded on the resident table;
-             sample_dense + Feature[...] at a 20% cache; sample_and_gather_
-             fused; sample_and_gather_dedup), dropout 0.5 from a seeded
-             device generator, random labels from the seed: median step
-             ms, SEPS, first and last loss (finite), the leg's launches
-             (zeroed before its timed steps; every kernel of the leg must
-             have launched) and a profiled device-time split of 3 more
-             steps;
+8. train   — four legs at batch 1024 at full width (sample_dense +
+             lookup_padded on the resident table; sample_dense +
+             Feature[...] at a 20% cache; sample_and_gather_fused;
+             sample_and_gather_dedup), each through make_sample_train_step
+             (the whole leg one captured CUDA graph, the draws reading their
+             key words from the card) against its eager step in the same
+             call: both from the same weights and capturable Adam state,
+             seeds and keys at dropout 0 for 5 steps (losses and every
+             parameter bit-equal), then each form alone for 20 timed steps
+             at dropout 0.5 from a seeded device generator, random labels
+             from the seed: median step ms, SEPS, first and last loss
+             (finite), peak memory, the leg's launches (zeroed after 2
+             warm-up steps; the captured run's are each graph's captured
+             launches times its replays, and no port kernel may launch
+             eagerly beside the graph; every kernel of the leg must have
+             launched, the draws through their device-key form), a profiled
+             device-time split of 3 more steps (the idle share) and the
+             host's launches a step (torch.profiler's launch API calls,
+             graph launches and copies). Lines ``train:`` (captured),
+             ``train eager:`` and ``train graphs:`` (the two forms side by
+             side, captures, capture seconds, pool bytes, replays); each
+             leg's graphs are freed after it;
 9. caps    — bench.py's capped path (calibrate_bench_caps) on the
              products graph: GraphSageSampler.calibrate_caps over 24 probe
              batches of 1,024 from another shuffle of the train split
@@ -147,10 +160,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and bytes a batch, first and last loss, launches), a
              sequential pass over 20 batches (each stage alone, then the
              step, all timed to a synchronize) and one
-             measure_overlap epoch of 20; then 20 steps of sample_dense +
-             QuantizedFeature.lookup_padded on the resident int8 table (K9a
-             on a train path). Losses must be finite and K1, K2, K4, K4b and
-             K5 (fp32) or K9b (int8, bf16) or K9a must have launched;
+             measure_overlap epoch of 20, the step captured (one graph a
+             (W, C_b); the timed epochs may capture a new cold bucket, whose
+             one eager warm-up step is all the step kernels may launch
+             eagerly); then the step alone on 5 staged batches, eager
+             against captured from the same weights and Adam state at
+             dropout 0 (bit-equal), and each form timed over them at dropout
+             0.5 (a ``train graphs:`` line); for fp32 a checkpoint and
+             resume: 4 batches checkpointed every 2, the step resumed from
+             step 2 (TrainStep.load_state_dict captures anew) through a new
+             pipeline, the last 2 losses and the weights bit-equal; then 20
+             steps of sample_dense + QuantizedFeature.lookup_padded on the
+             resident int8 table (K9a on a train path, outside the graph
+             of make_train_step). Losses must be finite and K1, K2, K4, K4b
+             and K5 (fp32) or K9b (int8, bf16) or K9a must have launched;
 13. kernels-4 — the out-of-core slice's kernels against their plain
              versions: the row scatter of a placement batch (K6: a flat
              copy of the table, then a patch of the rows; at most two
@@ -266,9 +289,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              embedding_bag and index_add_ (K4, K4b bf16). The report rows of
              K14 and K14b are the float32 calls at GAT's widths (one GAT
              step's), K14c's its three hops;
-19. zoo    — path (c): 20 Adam steps at batch 1024 of sample_dense +
-             lookup_padded on the resident table, as the train legs (dropout
-             0.5 from a seeded generator, labels from the seed), on six
+19. zoo    — path (c): sample_dense + lookup_padded at batch 1024 on
+             the resident table, captured against eager as the train legs
+             (5 steps bit-equal at dropout 0, 20 timed steps of each form
+             at dropout 0.5 from a seeded generator, labels from the seed), on six
              models at products width: (a) GCN(100 -> 256 -> 256 -> 47,
              norm right), (b) the same with norm both, (c) GAT(hidden 256,
              4 heads, 3 layers -> 47), (d) GCN right in bfloat16, (e) GAT in
@@ -278,7 +302,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              have launched on (a)-(e) in the leg's dtype, K14c on (b), the
              bfloat16 K4/K4b on (f), and K14 not on (f). Lines start
              ``zoo: ``; the kernels line's K14, K14b and K14c launches are
-             the sums over the legs;
+             the sums over the captured legs; ``zoo eager:`` and ``train
+             graphs:`` lines as in 8;
 20. temporal-serve — path (b): TemporalServeEngine(max_batch=64,
              t_quantum=0.05) over GraphSageSampler(dedup=False).
              bind_temporal(TemporalTiledGraph, recency=0.02): the recency
@@ -494,6 +519,7 @@ import gc
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -511,6 +537,7 @@ import torch.nn.functional as F
 from quiver_tpu_torch import (GAT, GCN, Feature, GraphSAGE, GraphSageSampler, ServeConfig,
                               ServeEngine, _kernels)
 from quiver_tpu_torch import random as qrandom
+from quiver_tpu_torch.checkpoint import CheckpointManager
 from quiver_tpu_torch.datasets import PRODUCTS, powerlaw_csr
 from quiver_tpu_torch.feature import gather_rows, gather_rows_plain
 from quiver_tpu_torch.inference import (
@@ -518,6 +545,7 @@ from quiver_tpu_torch.inference import (
     bind_params,
     full_mean_aggregate,
     full_mean_aggregate_plain,
+    lookup_features,
     make_serve_step,
     make_temporal_serve_step,
     sage_full_inference,
@@ -623,6 +651,7 @@ from quiver_tpu_torch.tiers import (
 )
 from quiver_tpu_torch.stream import GraphDelta, StreamingTiledGraph, _bucketed
 from quiver_tpu_torch.trace import median_min_max, seps
+from quiver_tpu_torch.train_programs import descend, make_sample_train_step, make_train_step
 from quiver_tpu_torch.utils import CSRTopo, heat_reorder, round_up_pow2
 from quiver_tpu_torch.workloads import (
     TemporalServeEngine,
@@ -1786,46 +1815,217 @@ def redesign_line() -> dict:
 
 
 def train_phase(topo, table, resident, tiered, train_idx, seed):
-    """Four legs of TRAIN_STEPS Adam steps at batch 1024, full width;
-    returns the launches summed over the legs."""
+    """Four legs at batch 1024, full width, each its eager step and its
+    captured step (`captured_leg`); returns the launches summed over the
+    captured legs (the replays' launches and any eager ones)."""
     dev = table.device
     labels = train_labels(topo.node_count, dev)
-    sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5)
-    graph, bind, _ = sampler.fused_sample_spec()
 
-    def dense_resident(s):
-        ds = sampler.sample_dense(s)
-        return ds, resident.lookup_padded(ds.n_id)
-
-    def dense_tiered(s):
-        ds = sampler.sample_dense(s)
-        return ds, tiered[ds.n_id]
-
-    def fused(s):
-        return sample_and_gather_fused(None, None, table, sampler.next_key(), sampler.as_seeds(s),
-                                       SIZES, sample_fn=bind(graph))
-
-    def dedup(s):
-        return sample_and_gather_dedup(None, None, table, sampler.next_key(), sampler.as_seeds(s),
-                                       SIZES, sample_fn=bind(graph))
+    def sampler():
+        return GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5)
 
     legs = (
-        ("sample_dense+lookup_padded", dense_resident, ("local_reindex", "gather_rows",
-                                                        "masked_mean_backward/cols")),
-        ("sample_dense+Feature20%", dense_tiered, ("local_reindex", "tiered_gather",
-                                                   "masked_mean_backward/cols")),
-        ("sample_and_gather_fused", fused, ("gather_rows", "masked_mean_backward/structural")),
-        ("sample_and_gather_dedup", dedup, ("local_reindex", "gather_rows",
-                                            "masked_mean_backward/cols")),
+        ("sample_dense+lookup_padded", "dense", resident, ("local_reindex", "gather_rows",
+                                                           "masked_mean_backward/cols")),
+        ("sample_dense+Feature20%", "dense", tiered, ("local_reindex", "tiered_gather",
+                                                      "masked_mean_backward/cols")),
+        ("sample_and_gather_fused", "fused", table, ("gather_rows",
+                                                     "masked_mean_backward/structural")),
+        ("sample_and_gather_dedup", "dedup", table, ("local_reindex", "gather_rows",
+                                                     "masked_mean_backward/cols")),
     )
     total = {}
     port_names = port_kernel_names()
-    for leg, inputs, needs in legs:
-        counts, _ = train_leg(leg, inputs, ("sample_tiled", "masked_mean") + needs, labels,
-                              train_idx, seed, TRAIN_STEPS, port_names)
+    for leg, mode, source, needs in legs:
+        counts = captured_leg(leg, mode, sampler, source, ("sample_tiled", "masked_mean") + needs,
+                              labels, train_idx, seed, port_names)
         for name, v in counts.items():
             total[name] = total.get(name, 0) + v
     return total
+
+
+# -- captured training steps (train_programs) -------------------------------------
+
+COMPARE_STEPS = 5  # eager against captured steps at dropout 0, bit-equal
+
+
+def eager_sample_step(mode, sampler, source, labels, model, opt):
+    """The eager form of `make_sample_train_step`'s leg: the sampler's
+    draw (its key by value), the rows, `descend`. ``step(seeds, gen) ->
+    (loss, sampled edges)``."""
+    graph, bind, _ = sampler.fused_sample_spec()
+
+    def step(seeds, gen):
+        s = sampler.as_seeds(seeds)
+        if mode == "dense":
+            ds = sampler.sample_dense(seeds)
+            x = lookup_features(source, ds.n_id)
+        else:
+            fn = sample_and_gather_fused if mode == "fused" else sample_and_gather_dedup
+            ds, x = fn(None, None, source, sampler.next_key(), s, SIZES, sample_fn=bind(graph))
+        return (descend(model, opt, x, ds.adjs, labels[s.long()], gen),
+                sum(a.mask.sum() for a in ds.adjs))
+
+    return step
+
+
+def seeded_model(make_model, seed, dev, dropout=None):
+    """``make_model()`` with flax's init drawn from ``seed``, on ``dev``
+    (``dropout`` overrides its rate), and its capturable Adam."""
+    model = make_model()
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    if dropout is not None:
+        model.dropout = dropout
+    return model, torch.optim.Adam(model.parameters(), lr=1e-3, capturable=True)
+
+
+def check_bit_equal(what, pairs, models):
+    """Losses ``pairs`` [(eager, captured)] and two models' parameters bit
+    for bit."""
+    for i, (a, b) in enumerate(pairs):
+        check(torch.equal(a, b), f"{what}: captured step {i}'s loss {float(b)!r} differs from "
+                                 f"the eager step's {float(a)!r}")
+    for (n, p), q in zip(models[0].named_parameters(), models[1].parameters()):
+        check(torch.equal(p, q), f"{what}: parameter {n} differs after the eager and the "
+                                 "captured steps")
+
+
+def timed_form(step, it, drop, steps, port_names, programs=None, profile=True):
+    """``steps`` timed steps (each to a synchronize) of ``step(seeds, drop)
+    -> (loss, sampled edges)`` over the batches of ``it`` after 2 warm-up
+    steps (where a captured step captures), then, with ``profile``, a
+    profiled device split of 3 more and the host's launches a step; counts
+    (eager launches, plus the replays' for a captured step) zeroed after
+    the warm-up. The device's idle share comes from the profile's kernel
+    rows; where a captured step's profile shows no port kernel row, from
+    CUDA events around each step. Returns the summary, the eager launches
+    and all launches."""
+    for _ in range(2):
+        step(next(it), drop)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    if programs is not None:
+        programs.reset_replays()
+    times, losses, edges = [], [], 0
+    t_all = time.perf_counter()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, e = step(next(it), drop)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        edges += int(e)
+    wall = time.perf_counter() - t_all
+    eager = _kernels.counts()
+    counts = dict(eager)
+    if programs is not None:
+        for name, n in programs.replayed_launches().items():
+            counts[name] = counts.get(name, 0) + n
+    out = {"steps": steps, "step_ms": median_min_max(times), "seps": seps(edges, wall),
+           "sampled_edges": edges, "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": {k: v for k, v in counts.items() if v}}
+    check(np.isfinite(out["loss_first"]) and np.isfinite(out["loss_last"]), "loss not finite")
+    if not profile:
+        return out, eager, counts
+    prof = profile_steps(lambda s: step(s, drop), it, port_names)
+    busy = prof["port_ms"] + prof["other_ms"]
+    out.update(profile_per_step=prof, port_kernel_share=prof["port_ms"] / prof["step_ms"],
+               idle_by="profiler kernel rows")
+    if programs is not None and prof["port_ms"] == 0:
+        spans = []
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(next(it), drop)
+            b.record()
+            torch.cuda.synchronize()
+            spans.append(a.elapsed_time(b))
+        busy, out["idle_by"] = statistics.median(spans), "cuda events around each replay"
+    out["device_idle_share"] = 1.0 - busy / out["step_ms"]["median"]
+    out["host_launches_per_step"] = host_launches(lambda: step(next(it), drop))
+    return out, eager, counts
+
+
+def graphs_summary(programs) -> dict:
+    st = programs.graph_stats()
+    return {k: st[k] for k in ("graphs", "captured", "capture_s", "pool_bytes", "replays")}
+
+
+def captured_leg(leg, mode, make_sampler, source, needs, labels, train_idx, seed, port_names,
+                 make_model=None, tag="train"):
+    """One training leg at batch 1024 through `make_sample_train_step`,
+    against its eager step (`eager_sample_step`) in the same call: the
+    two from the same weights, capturable Adam state, seeds and keys at
+    dropout 0 for COMPARE_STEPS steps (losses and parameters bit-equal),
+    then each form alone at the model's dropout (0.5) for TRAIN_STEPS
+    timed steps (`timed_form`). Logs a ``{tag}:`` line (the captured run),
+    a ``{tag} eager:`` line and a ``train graphs:`` line; checks that the
+    captured run launched no port kernel eagerly and every kernel of
+    ``needs`` through its replays (the draws through their device-key
+    form); frees the leg's graphs (`TrainStep.reset`). Returns the captured
+    run's launches."""
+    make_model = make_model or sage_model
+    dev = labels.device
+    order = np.random.default_rng(seed + 2).permutation(train_idx)
+
+    def batches():
+        return iter(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                    for i in range(len(order) // TRAIN_BATCH))
+
+    # the eager steps first, then the captured ones: the two never hold
+    # their activations on the card at once (GAT's at products width)
+    me, oe = seeded_model(make_model, seed, dev, dropout=0.0)
+    eager = eager_sample_step(mode, make_sampler(), source, labels, me, oe)
+    it = batches()
+    want = [eager(next(it), None)[0] for _ in range(COMPARE_STEPS)]
+    del oe, eager
+    torch.cuda.empty_cache()
+    mc, oc = seeded_model(make_model, seed, dev, dropout=0.0)
+    step = make_sample_train_step(make_sampler(), source, labels, mc, oc, mode)
+    check(step.captures_sample, f"{leg}: the sample is not inside the graph")
+    it = batches()
+    check_bit_equal(f"{tag} {leg}", [(w, step(next(it), None)[0]) for w in want], (me, mc))
+    step.reset()
+    del me, mc, oc, step
+    torch.cuda.empty_cache()
+
+    drop = torch.Generator(device=dev).manual_seed(seed + 1)
+    model, opt = seeded_model(make_model, seed, dev)
+    e, _, _ = timed_form(eager_sample_step(mode, make_sampler(), source, labels, model, opt),
+                         batches(), drop, TRAIN_STEPS, port_names)
+    log(f"{tag} eager: " + json.dumps(dict(leg=leg, batch=TRAIN_BATCH, **e)))
+    del model, opt
+    torch.cuda.empty_cache()
+
+    drop = torch.Generator(device=dev).manual_seed(seed + 1)
+    model, opt = seeded_model(make_model, seed, dev)
+    step = make_sample_train_step(make_sampler(), source, labels, model, opt, mode)
+    c, eager_counts, counts = timed_form(step, batches(), drop, TRAIN_STEPS, port_names,
+                                         step.programs)
+    graphs = graphs_summary(step.programs)
+    log(f"{tag}: " + json.dumps(dict(leg=leg, batch=TRAIN_BATCH, captured=True, **c)))
+    keys = ("step_ms", "seps", "max_memory_allocated", "device_idle_share", "idle_by",
+            "host_launches_per_step")
+    log("train graphs: " + json.dumps({
+        "tag": tag, "leg": leg, "mode": mode, "compare_steps": COMPARE_STEPS,
+        "bit_equal_at_dropout_0": True, "eager": {k: e[k] for k in keys},
+        "captured": dict({k: c[k] for k in keys}, **graphs),
+        "launches_per_replay": step.programs.graph_stats()["launches_per_replay"]}))
+    stray = {k: v for k, v in eager_counts.items() if v and "/" not in k}
+    check(not stray, f"{tag} {leg}: port kernels launched eagerly beside the graph: {stray}")
+    check(graphs["graphs"] == 1 and graphs["captured"] == 1,
+          f"{tag} {leg}: {graphs['captured']} captures, one expected")
+    for name in needs:
+        check(counts[name] > 0, f"kernel {name} never launched on the {leg} leg")
+    check(counts["sample_tiled/device_key"] == counts["sample_tiled"],
+          f"{leg}: a draw launched without its device-key form")
+    step.reset()
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return counts
 
 
 def train_labels(n, dev):
@@ -1840,64 +2040,36 @@ def sage_model():
 
 def train_leg(leg, inputs, needs, labels, train_idx, seed, steps, port_names, profile=True,
               make_model=sage_model, tag="train"):
-    """``steps`` timed Adam steps at batch 1024 on ``inputs(seeds) -> (ds,
-    x)`` after 2 warm-up steps, then (with ``profile``) a profiled device
-    split of 3 more; logs a ``{tag}:`` line (with the peak device memory of
-    the timed steps), checks that the losses are finite and that every
-    kernel of ``needs`` launched in the timed steps, and returns their
-    launch counts and the logged summary. The model is ``make_model()``
-    with flax's init drawn from ``seed``."""
+    """`timed_form` of ``steps`` Adam steps at batch 1024 on ``inputs(seeds)
+    -> (ds, x)``: the sample and gather run eagerly and the step from ``x``
+    on is `make_train_step`'s captured graph (a graph a shape, as the JAX
+    example's jitted ``train_step``). Logs a ``{tag}:`` line (with the peak
+    device memory of the timed steps and the graphs), checks that every
+    kernel of ``needs`` launched in the timed steps (eagerly or through the
+    replays), and returns their launch counts and the logged summary; frees
+    the graphs. The model is ``make_model()`` with flax's init drawn from
+    ``seed``."""
     dev = labels.device
-    model = make_model()
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    model.to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    model, opt = seeded_model(make_model, seed, dev)
+    train = make_train_step(model, opt, dev)
     drop = torch.Generator(device=dev).manual_seed(seed + 1)
     order = np.random.default_rng(seed + 2).permutation(train_idx)
     batches = iter(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
                    for i in range(len(order) // TRAIN_BATCH))
 
-    def step(seeds):
+    def step(seeds, gen):
         ds, x = inputs(seeds)
-        y = labels[ds.n_id[:TRAIN_BATCH].long()]
-        loss = F.cross_entropy(model(x, ds.adjs, train=True, generator=drop), y)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        return loss.detach(), sum(a.mask.sum() for a in ds.adjs)
+        return (train(x, ds.adjs, labels[ds.n_id[:TRAIN_BATCH].long()], gen),
+                sum(a.mask.sum() for a in ds.adjs))
 
-    for _ in range(2):  # warm-up: allocator, cuBLAS handles
-        step(next(batches))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    _kernels.reset_counts()
-    times, losses, edges = [], [], 0
-    t_all = time.perf_counter()
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        loss, e = step(next(batches))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-        edges += int(e)
-    wall = time.perf_counter() - t_all
-    counts = _kernels.counts()
-    first, last = float(losses[0]), float(losses[-1])
-    summary = {"leg": leg, "steps": steps, "batch": TRAIN_BATCH,
-               "step_ms": median_min_max(times), "seps": seps(edges, wall),
-               "sampled_edges": edges, "loss_first": first, "loss_last": last,
-               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-               "launches": {k: v for k, v in counts.items() if v}}
-    if profile:
-        prof = profile_steps(step, batches, port_names)
-        summary.update(profile_per_step=prof,
-                       port_kernel_share=prof["port_ms"] / prof["step_ms"],
-                       device_idle_share=1.0 - (prof["port_ms"] + prof["other_ms"])
-                       / prof["step_ms"])
+    out, _, counts = timed_form(step, batches, drop, steps, port_names, train.programs, profile)
+    summary = dict(leg=leg, batch=TRAIN_BATCH, **out, graphs=graphs_summary(train.programs))
     log(f"{tag}: " + json.dumps(summary))
-    check(np.isfinite(first) and np.isfinite(last), f"{leg}: loss not finite")
     for name in needs:
         check(counts[name] > 0, f"kernel {name} never launched on the {leg} leg")
+    train.reset()
+    del model, opt, train
+    torch.cuda.empty_cache()
     return counts, summary
 
 
@@ -2026,24 +2198,154 @@ def kernel_phase_3(topo, tiered, qtiered, qresident, seeds, rows, rate, seed):
                shape=f"{name} rows n={mapped.numel()} host_rows={host_rows} D={DIM}")
 
 
-def pipeline_leg(name, topo, feature, labels, order, seed):
-    """TrainPipeline on one table: 6 warm-up batches, 20 timed batches at
-    depth 1 and at depth 2, a sequential pass (each stage alone, then the
-    step), a measure_overlap epoch. Returns the launches of the timed
-    epochs."""
-    dev = labels.device
-    model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    model.to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-    pipe = TieredFeaturePipeline(feature)
-    if name == "fp32":
-        step = make_tiered_train_step(model, opt, labels, pipe.hot_table)
-        lookup = "tiered_lookup"
-    else:
-        step = make_quantized_train_step(model, opt, labels, pipe.hot_table, feature.scale,
+def pipeline_step(name, model, opt, labels, pipe, feature, captured=True):
+    """The pipeline's step on ``pipe``'s table: `make_tiered_train_step`
+    (fp32) or `make_quantized_train_step` (int8, bf16), captured; or,
+    with ``captured=False``, its eager form (the lookup, then `descend`)."""
+    if captured:
+        if name == "fp32":
+            return make_tiered_train_step(model, opt, labels, pipe.hot_table)
+        return make_quantized_train_step(model, opt, labels, pipe.hot_table, feature.scale,
                                          feature.zero, codec=name)
-        lookup = f"quantized_tiered_lookup/{name}"
+    n = labels.shape[0]
+
+    def step(batch, gen):
+        if name == "fp32":
+            x = tiered_lookup(pipe.hot_table, batch.mapped, batch.cold_rows, batch.cold_pos)
+        else:
+            x = quantized_tiered_lookup(name, pipe.hot_table, batch.mapped, batch.cold_rows,
+                                        batch.cold_pos, feature.scale, feature.zero)
+        y = labels[torch.clamp(batch.seeds.long(), 0, n - 1)]
+        return descend(model, opt, x, batch.ds.adjs, y, gen)
+
+    return step
+
+
+def staged_step_runs(name, topo, feature, pipe, labels, order, seed, port_names):
+    """The pipeline step alone on COMPARE_STEPS staged batches: eager and
+    captured from the same weights and Adam state at dropout 0, bit-equal;
+    then each form at dropout 0.5 over the staged batches in turn for
+    TRAIN_STEPS timed steps (`timed_form`). Returns the ``eager`` and
+    ``captured`` summaries and the captured step's graphs."""
+    dev = labels.device
+    sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 6)
+    tp = TrainPipeline(sampler, feature, lambda b, g=None: None, tiered=pipe)
+    staged = [tp._stage_ds(sampler.sample_dense(s), s)
+              for s in (order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                        for i in range(COMPARE_STEPS))]
+    torch.cuda.synchronize()
+    me, oe = seeded_model(sage_model, seed, dev, dropout=0.0)
+    eager = pipeline_step(name, me, oe, labels, pipe, feature, captured=False)
+    want = [eager(b, None) for b in staged]
+    mc, oc = seeded_model(sage_model, seed, dev, dropout=0.0)
+    step = pipeline_step(name, mc, oc, labels, pipe, feature)
+    check_bit_equal(f"pipeline {name}", [(w, step(b, None)) for w, b in zip(want, staged)],
+                    (me, mc))
+    step.reset()
+    del me, oe, mc, oc, eager, step
+    edges = [sum(a.mask.sum() for a in b.ds.adjs) for b in staged]
+
+    def cycle():
+        i = 0
+        while True:
+            yield i % COMPARE_STEPS
+            i += 1
+
+    out = {}
+    for form in ("eager", "captured"):
+        drop = torch.Generator(device=dev).manual_seed(seed + 1)
+        model, opt = seeded_model(sage_model, seed, dev)
+        step = pipeline_step(name, model, opt, labels, pipe, feature, captured=form == "captured")
+        programs = getattr(step, "programs", None)
+        out[form], _, _ = timed_form(lambda i, g: (step(staged[i], g), edges[i]), cycle(), drop,
+                                     TRAIN_STEPS, port_names, programs)
+        if programs is not None:
+            out["graphs"] = graphs_summary(programs)
+            step.reset()
+        del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_resume_check(topo, feature, pipe, labels, order, seed):
+    """A captured fp32 pipeline at dropout 0 over 4 batches, checkpointed
+    every 2; its step resumed from step 2's checkpoint (`TrainStep.
+    load_state_dict`, which captures anew) through a new pipeline whose
+    sampler stands at the same key must give the last 2 losses and the
+    final weights again, bit for bit."""
+    dev = labels.device
+    batches = [order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for i in range(4)]
+    model, opt = seeded_model(sage_model, seed, dev, dropout=0.0)
+    step = make_tiered_train_step(model, opt, labels, pipe.hot_table)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, max_to_keep=2)
+        tp = TrainPipeline(GraphSageSampler(topo, SIZES, device=dev, seed=seed + 7), feature,
+                           step, tiered=pipe, checkpoint=mgr, checkpoint_every=2)
+        losses = tp.run_epoch(batches)
+        final = [p.detach().clone() for p in model.parameters()]
+        captured = step.programs.graph_stats()["captured"]
+        step.load_state_dict(mgr.restore(2))
+        sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 7)
+        for _ in range(2):
+            sampler.next_key()  # where the first pipeline's sampler stood after 2 batches
+        again = TrainPipeline(sampler, feature, step, tiered=pipe).run_epoch(batches[2:])
+        mgr.close()
+    recaptured = step.programs.graph_stats()["captured"] - captured
+    check(again == losses[2:], f"resumed losses {again} differ from {losses[2:]}")
+    check(all(torch.equal(a, b) for a, b in zip(final, model.parameters())),
+          "the resumed weights differ")
+    check(recaptured >= 1, "the resume did not capture anew")
+    line = {"batches": 4, "checkpoint_every": 2, "resumed_from": 2, "losses": losses,
+            "resumed_losses": again, "bit_equal": True, "recaptured": recaptured}
+    step.reset()
+    torch.cuda.empty_cache()
+    return line
+
+
+def pipeline_turns(name, sampler, feature, pipe, step, labels, batches, drop, seed):
+    """What capturing the step does to the staged batch: depth-1 epochs
+    over one list of ``batches`` with the captured ``step`` and with its
+    eager form (`pipeline_step(captured=False)`, a model of its own) in
+    turns, captured, eager, eager, captured. Each turn's batch interval
+    (between step dispatches), its time a batch, the host's share of the
+    step (the step's dispatch spans) and the captures it made."""
+    dev = labels.device
+    model, opt = seeded_model(sage_model, seed, dev)
+    eager = pipeline_step(name, model, opt, labels, pipe, feature, captured=False)
+    turns = []
+    for form in ("captured", "eager", "eager", "captured"):
+        captured0 = step.programs.graph_stats()["captured"]
+        tp = TrainPipeline(sampler, feature, step if form == "captured" else eager, tiered=pipe,
+                           depth=1)
+        t0 = time.perf_counter()
+        losses = tp.run_epoch(batches, drop)
+        wall = time.perf_counter() - t0
+        check(all(np.isfinite(losses)), f"{name} {form} turn: loss not finite")
+        spans = [(t, e) for s_, t, e in tp.stats.spans if s_ == "step_dispatch"]
+        starts = sorted(t for t, _ in spans)
+        turns.append({"form": form, "batch_ms": median_min_max(np.diff(starts) * 1e3),
+                      "epoch_ms_per_batch": wall / len(batches) * 1e3,
+                      "step_dispatch_ms": median_min_max([(e - t) * 1e3 for t, e in spans]),
+                      "captures": step.programs.graph_stats()["captured"] - captured0})
+    del model, opt, eager
+    torch.cuda.empty_cache()
+    return turns
+
+
+def pipeline_leg(name, topo, feature, labels, order, seed):
+    """TrainPipeline on one table, its step captured (a graph a (W, C_b)):
+    6 warm-up batches, 20 timed batches at depth 1 and at depth 2, the
+    captured and the eager step in turns at depth 1 (`pipeline_turns`), a
+    sequential pass (each stage alone, then the step), a measure_overlap
+    epoch; then the step alone, eager against captured (`staged_step_runs`),
+    and for fp32 a checkpoint and resume (`checkpoint_resume_check`). Logs a
+    ``pipeline:`` and a ``train graphs:`` line. Returns the launches of the
+    timed epochs (eager and replayed)."""
+    dev = labels.device
+    model, opt = seeded_model(sage_model, seed, dev)
+    pipe = TieredFeaturePipeline(feature)
+    step = pipeline_step(name, model, opt, labels, pipe, feature)
+    lookup = "tiered_lookup" if name == "fp32" else f"quantized_tiered_lookup/{name}"
     drop = torch.Generator(device=dev).manual_seed(seed + 1)
     sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5)
     batches = iter(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
@@ -2058,10 +2360,12 @@ def pipeline_leg(name, topo, feature, labels, order, seed):
     row_bytes = DIM * feature.shard_tensor.dtype.itemsize
     # warm-up at depth 2: its chains in flight allocate the pinned staging
     # blocks the timed epochs then reuse (a 105 MB first allocation can take
-    # hundreds of ms)
+    # hundreds of ms); the step captures a graph a cold bucket seen
     pipeline(depth=2).run_epoch(take(PIPE_WARMUP), drop)
     torch.cuda.synchronize()
     _kernels.reset_counts()
+    step.programs.reset_replays()
+    captured0 = step.programs.graph_stats()["captured"]
     out = {"leg": name, "batches": PIPE_BATCHES, "hot_rows": pipe.hot_rows,
            "hot_share": pipe.hot_rows / topo.node_count, "row_bytes": row_bytes}
     for depth in (1, 2):
@@ -2080,7 +2384,21 @@ def pipeline_leg(name, topo, feature, labels, order, seed):
             "cold_rows_per_batch": tp.stats.cold_rows / PIPE_BATCHES,
             "cold_bytes_per_batch": tp.stats.cold_rows / PIPE_BATCHES * row_bytes,
             "loss_first": losses[0], "loss_last": losses[-1]}
-    counts = _kernels.counts()
+    eager = _kernels.counts()
+    counts = dict(eager)
+    for k, v in step.programs.replayed_launches().items():
+        counts[k] = counts.get(k, 0) + v
+    # the captures the timed epochs made (a cold bucket not seen before):
+    # each ran the step once eagerly first, the capture itself went to its
+    # tally, so those warm-up steps are the only eager launches of the step
+    new = step.programs.graph_stats()["launches_per_replay"][captured0:]
+    step_kernels = (lookup, "masked_mean", "masked_mean_backward/cols")
+    for k in step_kernels:
+        check(eager[k] == sum(t.get(k, 0) for t in new),
+              f"{name} pipeline: {k} launched eagerly beside its graphs")
+    out["captures_in_timed_epochs"] = len(new)
+    out["turns_depth1"] = pipeline_turns(name, sampler, feature, pipe, step, labels,
+                                         take(PIPE_BATCHES), drop, seed)
     # the sequential reference: each stage alone, then the step, per batch
     tp = pipeline()
     alone = {"sample": 0.0, "gather": 0.0, "upload": 0.0, "step": 0.0}
@@ -2110,11 +2428,26 @@ def pipeline_leg(name, topo, feature, labels, order, seed):
                        "covered_ms_per_batch": ov["covered_wall_s"] / PIPE_BATCHES * 1e3,
                        "loss_last": losses[-1]}
     out["launches"] = {k: v for k, v in counts.items() if v}
+    graphs = graphs_summary(step.programs)
+    out["graphs"] = graphs
     log("pipeline: " + json.dumps(out))
     check(all(np.isfinite(losses)), f"{name} measured epoch: loss not finite")
-    for k in ("sample_tiled", "local_reindex", "masked_mean", "masked_mean_backward/cols", lookup):
+    for k in ("sample_tiled", "local_reindex") + step_kernels:
         check(counts[k] > 0, f"kernel {k} never launched on the {name} pipeline")
+    step.reset()
     del model, opt, step
+    torch.cuda.empty_cache()
+    runs = staged_step_runs(name, topo, feature, pipe, labels, order, seed, port_kernel_names())
+    keys = ("step_ms", "max_memory_allocated", "device_idle_share", "idle_by",
+            "host_launches_per_step")
+    line = {"tag": "pipeline", "leg": name, "compare_steps": COMPARE_STEPS,
+            "bit_equal_at_dropout_0": True, "eager": {k: runs["eager"][k] for k in keys},
+            "captured": dict({k: runs["captured"][k] for k in keys}, **runs["graphs"]),
+            "pipeline_graphs": graphs}
+    if name == "fp32":
+        line["checkpoint_resume"] = checkpoint_resume_check(topo, feature, pipe, labels, order,
+                                                            seed)
+    log("train graphs: " + json.dumps(line))
     return counts
 
 
@@ -2132,42 +2465,46 @@ def pipeline_phase(topo, tiered, qtiered, qresident, train_idx, seed):
         for k, v in pipeline_leg(name, topo, feature, labels, order, seed).items():
             total[k] = total.get(k, 0) + v
 
-    # K9a on a train path: the resident int8 table's fused lookup
+    # K9a on a train path: the resident int8 table's fused lookup, outside
+    # the graph of the step from x on (`make_train_step`)
     q = qresident["int8"]
     sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 6)
-    model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    model.to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    model, opt = seeded_model(sage_model, seed, dev)
+    train = make_train_step(model, opt, dev)
     drop = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def step(seeds):
         ds = sampler.sample_dense(seeds)
-        loss = F.cross_entropy(model(q.lookup_padded(ds.n_id), ds.adjs, train=True,
-                                     generator=drop), labels[ds.n_id[:TRAIN_BATCH].long()])
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        return loss.detach()
+        return train(q.lookup_padded(ds.n_id), ds.adjs, labels[ds.n_id[:TRAIN_BATCH].long()],
+                     drop)
 
     batches = [order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for i in range(2 + PIPE_BATCHES)]
     for s in batches[:2]:
         step(s)
     torch.cuda.synchronize()
     _kernels.reset_counts()
+    train.programs.reset_replays()
     times, losses = [], []
     for s in batches[2:]:
         t0 = time.perf_counter()
         losses.append(float(step(s)))
         times.append((time.perf_counter() - t0) * 1e3)
-    counts = _kernels.counts()
+    eager = _kernels.counts()
+    counts = dict(eager)
+    for k, v in train.programs.replayed_launches().items():
+        counts[k] = counts.get(k, 0) + v
     log("pipeline: " + json.dumps({"leg": "sample_dense+QuantizedFeature(int8).lookup_padded",
                                    "steps": PIPE_BATCHES, "step_ms": median_min_max(times),
                                    "loss_first": losses[0], "loss_last": losses[-1],
+                                   "graphs": graphs_summary(train.programs),
                                    "launches": {k: v for k, v in counts.items() if v}}))
     check(all(np.isfinite(losses)), "the K9a leg's loss is not finite")
+    check(eager["masked_mean"] == 0, "the K9a leg's step launched eagerly beside its graph")
     for k in ("sample_tiled", "local_reindex", "masked_mean", "gather_dequant/int8"):
         check(counts[k] > 0, f"kernel {k} never launched on the K9a leg")
+    train.reset()
+    del model, opt, train
+    torch.cuda.empty_cache()
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
     return total
@@ -2433,10 +2770,7 @@ def tiers_phase(topo, table_np, train_idx, seed, dev):
                       batches[TIER_WARMUP + TIER_BATCHES:])
 
     def epoch(feature, bs, keep_ids=False, quant=None, **kw):
-        model = GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=3, dropout=0.5)
-        model.reset_parameters(torch.Generator().manual_seed(seed))
-        model.to(dev)
-        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        model, opt = seeded_model(sage_model, seed, dev)
         pipe = TapPipeline(feature, keep_ids=keep_ids, prefetch=kw.pop("prefetch", False),
                            prefetch_max_rows=PREFETCH_ROWS)
         if quant is None:
@@ -2450,6 +2784,12 @@ def tiers_phase(topo, table_np, train_idx, seed, dev):
         losses = tp.run_epoch(bs, torch.Generator(device=dev).manual_seed(seed + 1))
         wall = time.perf_counter() - t0
         check(all(np.isfinite(losses)), "a tiers leg's loss is not finite")
+        # the step's launches: its graphs' replays and their captures' eager
+        # warm-up steps; the graphs are freed here
+        tp.step_counts = _kernels.counts()
+        for name, c in step.programs.replayed_launches().items():
+            tp.step_counts[name] += c
+        step.reset()
         return losses, wall, tp, pipe
 
     def report(leg, feature, losses, wall, tp, pipe, mode, row_bytes=DIM * 4, **extra):
@@ -2526,7 +2866,7 @@ def tiers_phase(topo, table_np, train_idx, seed, dev):
                 drop()
             _kernels.reset_counts()
             losses, wall, tp, pipe = epoch(static, b1, prefetch=prefetch)
-            counts = _kernels.counts()
+            counts = tp.step_counts
             check(counts["tiered_lookup"] > 0, f"K5 never launched on tiers leg {leg}")
             check(losses == ref, f"tiers leg {leg} ({mode}) losses differ from the all-DRAM epoch")
             out[(leg, mode)] = report(f"{leg}: static 4-tier, prefetch {'on' if prefetch else 'off'}",
@@ -2571,7 +2911,7 @@ def tiers_phase(topo, table_np, train_idx, seed, dev):
             drop()
         _kernels.reset_counts()
         losses2, wall, tp, pipe = epoch(adaptive, b1)
-        counts = _kernels.counts()
+        counts = tp.step_counts
         check(counts["tiered_lookup"] > 0, "K5 never launched on tiers leg c")
         check(losses2 == ref, "the adaptive second epoch's losses differ from the static run's")
         launches["tiered_lookup"] += counts["tiered_lookup"]
@@ -2590,7 +2930,7 @@ def tiers_phase(topo, table_np, train_idx, seed, dev):
             drop()
         _kernels.reset_counts()
         losses, wall, tp, pipe = epoch(q8, b1[:TIER_INT8_BATCHES], quant="int8")
-        counts = _kernels.counts()
+        counts = tp.step_counts
         check(counts["quantized_tiered_lookup/int8"] > 0, "K9b never launched on tiers leg d")
         launches["quantized_tiered_lookup"] = counts["quantized_tiered_lookup"]
         report("d: int8 QuantizedFeature, disk tail", q8, losses, wall, tp, pipe, mode_c,
@@ -3215,9 +3555,10 @@ def kernel_phase_7(topo, seeds, rows, seed):
 
 
 def zoo_phase(topo, resident, labels, train_idx, seed):
-    """Path (c): TRAIN_STEPS Adam steps at batch 1024 of sample_dense +
-    lookup_padded on each model of the zoo at products width, as the train
-    legs above; returns the launches summed over the legs."""
+    """Path (c): sample_dense + lookup_padded at batch 1024 on each model
+    of the zoo at products width, each leg captured against its eager step
+    as the train legs above (`captured_leg`); returns the launches summed
+    over the captured legs."""
     dev = labels.device
     port_names = port_kernel_names()
     bf16 = torch.bfloat16
@@ -3239,16 +3580,10 @@ def zoo_phase(topo, resident, labels, train_idx, seed):
     )
     total = {}
     for leg, make, needs in legs:
-        sampler = GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5)
-
-        def inputs(s, sampler=sampler):
-            ds = sampler.sample_dense(s)
-            return ds, resident.lookup_padded(ds.n_id)
-
-        counts, _ = train_leg(f"{leg} sample_dense+lookup_padded", inputs,
-                              ("sample_tiled", "local_reindex", "gather_rows") + needs, labels,
-                              train_idx, seed, TRAIN_STEPS, port_names, make_model=make,
-                              tag="zoo")
+        counts = captured_leg(f"{leg} sample_dense+lookup_padded", "dense",
+                              lambda: GraphSageSampler(topo, SIZES, device=dev, seed=seed + 5),
+                              resident, ("sample_tiled", "local_reindex", "gather_rows") + needs,
+                              labels, train_idx, seed, port_names, make_model=make, tag="zoo")
         if leg == "sage bf16":
             check(counts["gather_src"] == 0, "the SAGE leg launched K14")
         for name, v in counts.items():
@@ -5239,12 +5574,13 @@ def stream_phase(topo, table, model, params, ts_np, rows, seed):
           + STREAM_T_BANK, "stream temporal: not one provisioning commit")
     check(progs.graph_stats()["captured"] == tcaptured0 + n_buckets,
           "stream temporal: captures other than the provisioning's one a bucket")
-    # the only eager launches: the provisioning's captures, each after one eager run
+    # the only eager launches: the one eager run before each of the
+    # provisioning's captures (a capture's own launches are in its tally)
     recaptured = progs._tallies[tcaptured0:]
     eager = _kernels.counts()
     for name in ("temporal_sample_tiled", "gather_rows", "masked_mean"):
         check(tcounts[name] > 0, f"kernel {name} never launched on the stream temporal path")
-        check(eager[name] == 2 * sum(t.counts.get(name, 0) for t in recaptured),
+        check(eager[name] == sum(t.counts.get(name, 0) for t in recaptured),
               f"stream temporal: {name} launched eagerly {eager[name]} times beside the "
               "provisioning's captures")
     check(tcounts["temporal_sample_tiled/device_graph"] == tcounts["temporal_sample_tiled"],

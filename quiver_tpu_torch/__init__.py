@@ -13,7 +13,9 @@ data-parallel training on a mesh of ranks (`parallel`), routed fleet
 serving over the serve exchange (`serve.DistServeEngine` over `comm`) and
 serving over a graph that changes while it serves (`stream`, `lifecycle`:
 commits, deletions, expiry, compaction and reserve growth through the
-serve engine's ``update_graph``).
+serve engine's ``update_graph``). On the card the serve step and every
+single-card training step run as captured CUDA graphs (`inference.
+BucketPrograms`, `train_programs`).
 
 Imports torch and numpy only, never jax or quiver_tpu. Entry points run on
 CUDA unless ``device="cpu"`` is passed, where every kernel's plain torch

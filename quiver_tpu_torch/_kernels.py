@@ -165,11 +165,15 @@ _counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _counts.update({f"{name}/{v}": 0 for name, vs in VARIANTS.items() for v in vs})
 # every library adds its kernel launches here (csrc/common.cuh qt_count_launch)
 _kernel_launches = ctypes.c_ulonglong(0)
+# capturing stream handle -> the launches captured into it (`capture_tally`)
+_capture_tallies: Dict[int, Dict[str, int]] = {}
 build_log: Dict[str, str] = {}
 
 
 def counts() -> Dict[str, int]:
-    """Launch count of every kernel since the last `reset_counts`."""
+    """Launch count of every kernel since the last `reset_counts`: the
+    launches made eagerly (one captured into a graph under
+    `begin_capture_tally` is in that graph's tally instead)."""
     with _lock:
         return dict(_counts)
 
@@ -189,6 +193,25 @@ def kernel_launches() -> int:
 
 def reset_kernel_launches() -> None:
     _kernel_launches.value = 0
+
+
+def begin_capture_tally(stream: int) -> None:
+    """Count apart the launches that go into a CUDA graph being captured on
+    the stream with raw handle ``stream``: every launch made while that
+    stream is current and capturing, from any thread (the autograd engine
+    runs a captured backward on its own thread, on the forward's stream),
+    goes to the tally and not to `counts`, since nothing runs until the
+    graph is replayed. Launches other threads make on other streams
+    meanwhile stay in `counts`."""
+    with _lock:
+        _capture_tallies[int(stream)] = {}
+
+
+def end_capture_tally(stream: int) -> Dict[str, int]:
+    """The launches (by name and ``name/variant``) captured on ``stream``
+    since `begin_capture_tally`."""
+    with _lock:
+        return _capture_tallies.pop(int(stream))
 
 
 def _nvcc() -> str:
@@ -293,10 +316,14 @@ def launch(name: str, *args, variant=None) -> None:
         fn = DEVICE_GRAPH[name][0]
     elif "device_key" in variants:
         fn = DEVICE_KEY[name]
+    # a launch captured into a tallied graph runs nothing now: it goes to
+    # the graph's tally only, so `counts` holds launches that ran
+    into = _counts
+    if _capture_tallies and torch.cuda.is_current_stream_capturing():
+        into = _capture_tallies.get(torch.cuda.current_stream().cuda_stream, _counts)
     with _lock:
-        _counts[name] += 1
-        for v in variants:
-            _counts[f"{name}/{v}"] += 1
+        for n in (name,) + tuple(f"{name}/{v}" for v in variants):
+            into[n] = into.get(n, 0) + 1
     rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.qt_error_string(rc).decode()

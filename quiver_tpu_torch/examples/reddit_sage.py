@@ -11,7 +11,9 @@ that graph; without it, a synthetic power-law community graph stands in.
 ``--model gat`` trains a GAT with 4 heads of ``--hidden``, ``--model gcn``
 a GCN with norm "right"; ``--bf16`` computes in bfloat16 (float32
 parameters and logits). Runs on the card unless ``--device cpu`` asks for
-the plain torch versions. Not ported yet: ``--mode HOST/CPU/UVA``.
+the plain torch versions; on the card each training step is one captured
+CUDA graph (`train_programs.make_sample_train_step`, Adam with
+``capturable=True``). Not ported yet: ``--mode HOST/CPU/UVA``.
 """
 
 from __future__ import annotations
@@ -22,11 +24,11 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import GAT, GCN, CSRTopo, Feature, GraphSAGE, GraphSageSampler
-from ..inference import full_inference_accuracy, lookup_features, sampled_eval, strict_float32
+from ..inference import full_inference_accuracy, sampled_eval, strict_float32
 from ..trace import seps
+from ..train_programs import make_sample_train_step
 from ..utils import resolve_device
 
 
@@ -119,9 +121,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                           dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to(dev)
-    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    # on the card the step is one captured CUDA graph (its optimizer state
+    # lives there); a sampler that grows its caps or a feature with a disk
+    # tier keeps the sample and gather outside the graph
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr, capturable=dev.type == "cuda")
+    train_step = make_sample_train_step(sampler, feature, labels, model, opt)
     dropout_gen = torch.Generator(device=dev).manual_seed(1)
-    labels_dev = torch.from_numpy(labels.astype(np.int64)).to(dev)
 
     rng = np.random.default_rng(0)
     # small graphs can have fewer train nodes than the batch size; shrink the
@@ -135,15 +140,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         n_batches = 0
         model.train()
         for lo in range(0, len(perm) - batch_size + 1, batch_size):
-            ds = sampler.sample_dense(perm[lo: lo + batch_size])
-            x = lookup_features(feature, ds.n_id)
-            y = labels_dev[ds.n_id[:batch_size].to(torch.int64)]
-            logits = model(x, ds.adjs, train=True, generator=dropout_gen)
-            loss = F.cross_entropy(logits, y)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            edges += sum(a.mask.sum() for a in ds.adjs)
+            loss, sampled = train_step(perm[lo: lo + batch_size], dropout_gen)
+            edges += sampled
             n_batches += 1
         out["loss"] = float(loss.detach())  # waits for the epoch's last step
         dt = time.time() - t0

@@ -40,6 +40,7 @@ from torch import nn
 from . import _kernels
 from . import random as qrandom
 from .feature import Feature, gather_rows
+from .graphs import GraphBook, byte_fields, byte_views, capture, stage
 
 
 def strict_float32() -> None:
@@ -344,39 +345,18 @@ def _input_fields(bucket: int, hops: int, id_dtype: torch.dtype, temporal: bool,
         fields.append((torch.float32, (bucket,)))
     if graph_words:
         fields.append((torch.int64, (graph_words,)))
-    out, off = [], 0
-    for dtype, shape in fields:
-        n = int(np.prod(shape)) * dtype.itemsize
-        out.append((off, n, dtype, shape))
-        off += -(-n // 8) * 8
-    return out, off
-
-
-def _input_views(buf: torch.Tensor, fields):
-    """Typed views of a byte buffer laid out by `_input_fields`."""
-    return tuple(buf[o:o + n].view(dtype).view(shape) for o, n, dtype, shape in fields)
-
-
-class _Tally:
-    """What one captured graph launches and how often it ran: the
-    wrappers' launch counts and the kernels (`_kernels.kernel_launches`)
-    of its capture, the capture's seconds and the replays since."""
-
-    __slots__ = ("counts", "kernels", "seconds", "replays")
-
-    def __init__(self, counts, kernels, seconds):
-        self.counts, self.kernels, self.seconds, self.replays = counts, kernels, seconds, 0
+    return byte_fields(fields)
 
 
 class _Capture:
     """One bucket's captured serve step: the graph, its static input
     bytes (`_input_fields`) and output, the lock a call holds from its
-    input copy to its read-back's enqueue, and its `_Tally`."""
+    input copy to its read-back's enqueue, and its `graphs.Tally`."""
 
     __slots__ = ("graph", "static", "fields", "out", "lock", "tally")
 
 
-class BucketPrograms:
+class BucketPrograms(GraphBook):
     """The fused serve step, one program per bucket, with the hard miss
     after `seal()` (the JAX package's ``BucketPrograms``; its
     ahead-of-time executable a bucket is, on the card, one captured
@@ -418,6 +398,7 @@ class BucketPrograms:
     _WARM_KEY = qrandom.fold_in(qrandom.key(0), 0)
 
     def __init__(self, sampler, feature):
+        super().__init__()  # the tallies: one a graph captured, kept after the graph is gone
         self._temporal = getattr(sampler, "temporal", None) is not None
         make = make_temporal_serve_step if self._temporal else make_serve_step
         self._fn, graph, self._id_dtype = make(sampler)
@@ -436,7 +417,6 @@ class BucketPrograms:
         self._model = None  # the module the graphs were captured with
         self._lock = threading.Lock()  # captures and binding changes
         self._stream = torch.cuda.Stream(self._device) if self._cuda else None
-        self._tallies = []  # one a graph captured, kept after the graph is gone
 
     @property
     def buckets(self):
@@ -604,20 +584,16 @@ class BucketPrograms:
         """A host byte buffer holding a call's inputs: the seeds in the id
         dtype, the words of each hop's sub-key, the query times and the
         addresses of ``binding``'s graph tensors."""
-        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
-        raw = buf.numpy()
         values = [np.asarray(seeds).astype(np.int32 if self._id_dtype == torch.int32
                                            else np.int64),
                   qrandom.hop_key_words(key, self._hops)]
         values += [np.asarray(e, np.float32) for e in extra]
         if self._graph_words:
             values.append(np.asarray([g.data_ptr() for g in binding[2]], np.int64))
-        for (o, n, dtype, _), v in zip(fields, values):
-            raw[o:o + n].view(v.dtype)[:] = v.reshape(-1)
-        return buf
+        return stage(values, fields, nbytes, pin)
 
     def _step(self, model, binding, inputs) -> torch.Tensor:
-        """The step on ``inputs``, the views of `_input_fields`."""
+        """The step on ``inputs``, the `byte_views` of `_input_fields`."""
         strict_float32()
         table, index_map, graph = binding
         seeds, keys, *rest = inputs
@@ -629,7 +605,7 @@ class BucketPrograms:
     def _eager(self, bucket, model, binding, key, seeds, extra) -> np.ndarray:
         fields, nbytes = self._fields(bucket)
         staging = self._stage(fields, nbytes, key, seeds, extra, binding, pin=False)
-        return to_host(self._step(model, binding, _input_views(staging, fields)))
+        return to_host(self._step(model, binding, byte_views(staging, fields)))
 
     def _capture(self, bucket: int, binding: Binding, model: nn.Module) -> _Capture:
         """Capture ``bucket``'s step against ``binding`` (caller holds
@@ -643,7 +619,7 @@ class BucketPrograms:
         cap.static = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         cap.static.copy_(self._stage(cap.fields, nbytes, self._WARM_KEY,
                                      np.zeros(bucket, np.int64), warm_t, binding, pin=False))
-        inputs = _input_views(cap.static, cap.fields)
+        inputs = byte_views(cap.static, cap.fields)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         if binding.ready is not None:
@@ -652,40 +628,14 @@ class BucketPrograms:
             self._step(model, binding, inputs)
             side.synchronize()
             cap.graph = torch.cuda.CUDAGraph()
-            counts0, kernels0 = _kernels.counts(), _kernels.kernel_launches()
-            t0 = time.perf_counter()
-            # thread_local: a flush replaying on another thread meanwhile is
-            # not an error of this capture
-            cap.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                cap.out = self._step(model, binding, inputs)
-            except BaseException:
-                _end_failed_capture(cap.graph)
-                raise
-            cap.graph.capture_end()
-            seconds = time.perf_counter() - t0
-        counts = {n: c - counts0[n] for n, c in _kernels.counts().items() if c != counts0[n]}
-        cap.tally = _Tally(counts, _kernels.kernel_launches() - kernels0, seconds)
-        self._tallies.append(cap.tally)
+            cap.out, tally = capture(cap.graph, side,
+                                     lambda: self._step(model, binding, inputs))
+        cap.tally = self._record(tally)
         cap.lock = threading.Lock()
         torch.cuda.current_stream(dev).wait_stream(side)
         return cap
 
-    # -- what the graphs did -----------------------------------------------------
-
-    def replayed_launches(self) -> Dict[str, int]:
-        """Launches of each kernel the replays made since the last
-        `reset_replays`: each graph's capture counts times its replays
-        (the host counters see only a capture)."""
-        out: Dict[str, int] = {}
-        for t in self._tallies:
-            for name, c in t.counts.items():
-                out[name] = out.get(name, 0) + c * t.replays
-        return out
-
-    def reset_replays(self) -> None:
-        for t in self._tallies:
-            t.replays = 0
+    # -- what the graphs did (`replayed_launches`, `reset_replays`: GraphBook) ---
 
     def graph_stats(self) -> Dict[str, object]:
         """The bound graphs: how many, the kernels of each (by bucket), the
@@ -693,24 +643,11 @@ class BucketPrograms:
         (reserved segments), and every graph's replays since the last
         `reset_replays`; ``captured`` counts every capture made."""
         caps = self._binding.captures
-        pools = {tuple(c.graph.pool()) for c in caps.values()}
-        pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                         if tuple(seg.get("segment_pool_id", ())) in pools) if pools else 0
         return {"graphs": len(caps), "captured": len(self._tallies),
                 "kernels": {b: c.tally.kernels for b, c in sorted(caps.items())},
                 "capture_s": sum(c.tally.seconds for c in caps.values()),
-                "pool_bytes": pool_bytes,
+                "pool_bytes": self.pool_bytes(c.graph for c in caps.values()),
                 "replays": sum(t.replays for t in self._tallies)}
-
-
-def _end_failed_capture(graph) -> None:
-    """End a capture whose step raised; the step's error is the one the
-    caller sees, so the capture's own (an invalidated capture) is
-    dropped."""
-    try:
-        graph.capture_end()
-    except RuntimeError:
-        pass
 
 
 def time_eval_split(model: nn.Module, sampler, feature, padded_batch,

@@ -53,12 +53,12 @@ from typing import Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from . import _kernels
 from .pyg.sage_sampler import DenseSample
 from .shard_tensor import STORE_DTYPES, rows_from_numpy
 from .tiers import TIER_HOST, PrefetchBuffer
+from .train_programs import TrainPrograms, TrainStep, descend
 from .trace import SpanRecorder, export_chrome_trace, trace_scope
 from .utils import round_up_pow2
 
@@ -743,20 +743,27 @@ def make_tiered_train_step(model, optimizer, labels, hot_table: torch.Tensor):
     """``step(batch, generator=None) -> loss`` for `TrainPipeline`: the
     tiered lookup (K5), labels of the clamped seeds, the forward with
     ``train=True`` (dropout drawn from ``generator``), cross-entropy,
-    backward and ``optimizer.step()``, in place. The step carries
-    ``.model`` and ``.optimizer``."""
+    backward and ``optimizer.step()``, in place. On the card it is one
+    captured graph a ``(W, C_b)`` (`train_programs.TrainPrograms`; the
+    optimizer built with ``capturable=True``): a batch's tensors are copied
+    into the graph's static inputs on the caller's stream, then the graph
+    replays; on the CPU the step runs eagerly. The step carries ``.model``
+    and ``.optimizer``; resume through its ``load_state_dict``, which
+    captures anew."""
     labels = torch.as_tensor(labels).to(hot_table.device, torch.int64)
     n = labels.shape[0]
 
-    def step(batch: TieredBatch, generator: Optional[torch.Generator] = None):
-        x = tiered_lookup(hot_table, batch.mapped, batch.cold_rows, batch.cold_pos)
-        y = labels[torch.clamp(batch.seeds.to(torch.int64), 0, n - 1)]
-        loss = F.cross_entropy(model(x, batch.ds.adjs, train=True, generator=generator), y)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+    def body(inputs, host, generator):
+        adjs, mapped, cold_rows, cold_pos, seeds = inputs
+        x = tiered_lookup(hot_table, mapped, cold_rows, cold_pos)
+        y = labels[torch.clamp(seeds.to(torch.int64), 0, n - 1)]
+        return descend(model, optimizer, x, adjs, y, generator)
 
-    step.model = model
-    step.optimizer = optimizer
-    return step
+    programs = TrainPrograms(body, model, optimizer, hot_table.device,
+                             bound=lambda: (hot_table, labels))
+
+    def step(batch: TieredBatch, generator: Optional[torch.Generator] = None):
+        return programs((tuple(batch.ds.adjs), batch.mapped, batch.cold_rows, batch.cold_pos,
+                         batch.seeds), generator=generator)
+
+    return TrainStep(programs, step)

@@ -171,7 +171,8 @@ def sample_and_gather_fused(indptr, indices, table: torch.Tensor, key, seeds: to
     (invalid lanes carry rows that ``adj.mask`` gates out). The same key
     splits per hop as the sample alone; the rows come through the clipped
     row gather (K3), or ``gather_fn(table, ids) -> rows`` where given (the
-    sharded gather of `quiver_tpu_torch.parallel`)."""
+    sharded gather of `quiver_tpu_torch.parallel`). ``key`` as in
+    `sample_dense_fused`."""
     if gather_fn is None:
         gather_fn = gather_rows
     if sample_fn is None:
@@ -183,8 +184,7 @@ def sample_and_gather_fused(indptr, indices, table: torch.Tensor, key, seeds: to
     adjs: List[DenseAdj] = []
     xs = [gather_fn(table, seeds)]
     prev_count = torch.full((), B, dtype=torch.int32, device=dev)
-    for k in sizes:
-        key, sub = qrandom.split(key)
+    for k, sub in zip(sizes, qrandom.hop_keys(key, len(sizes))):
         nbrs, valid = sample_fn(cur, cur_valid, k, sub)
         flat = nbrs.t().reshape(-1)
         xs.append(gather_fn(table, flat))
@@ -206,7 +206,7 @@ def sample_and_gather_dedup(indptr, indices, table: torch.Tensor, key, seeds: to
     else the clipped row gather K3): the leaf aggregation reads the constant
     table, so no gradient flows into it. Returns ``(ds, x)``; ``ds.n_id`` is
     the hop L-1 unique frontier then the structural leaf block (not
-    globally unique)."""
+    globally unique). ``key`` as in `sample_dense_fused`."""
     if len(sizes) == 0:
         raise ValueError("sizes must name at least one hop")
     if gather_fn is None:
@@ -223,8 +223,8 @@ def sample_and_gather_dedup(indptr, indices, table: torch.Tensor, key, seeds: to
     raws: List[torch.Tensor] = []
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     prev_count = torch.full((), B, dtype=torch.int32, device=dev)
-    for l, k in enumerate(sizes[:-1]):
-        key, sub = qrandom.split(key)
+    subs = qrandom.hop_keys(key, len(sizes))
+    for l, (k, sub) in enumerate(zip(sizes[:-1], subs)):
         nbrs, valid = sample_fn(cur, cur_valid, k, sub)
         res = local_reindex(cur, cur_valid, nbrs, valid)
         n_id, count = res.n_id, res.count
@@ -240,9 +240,7 @@ def sample_and_gather_dedup(indptr, indices, table: torch.Tensor, key, seeds: to
         cur = n_id
         cur_valid = torch.arange(n_id.shape[0], dtype=torch.int32, device=dev) < count
         prev_count = count
-    k = sizes[-1]
-    key, sub = qrandom.split(key)
-    nbrs, valid = sample_fn(cur, cur_valid, k, sub)
+    nbrs, valid = sample_fn(cur, cur_valid, sizes[-1], subs[-1])
     flat = nbrs.t().reshape(-1)  # leaf (i, j) -> position W + j*W + i
     x = torch.cat([gather_fn(table, cur), gather_fn(table, flat)])
     n_src = prev_count + valid.sum(dtype=torch.int32)

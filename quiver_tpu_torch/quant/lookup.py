@@ -17,9 +17,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from .. import _kernels
+from ..train_programs import TrainPrograms, TrainStep, descend
 from .codecs import get_codec
 
 # codec name -> (the kernel's codec id, the payload dtype it decodes)
@@ -213,22 +213,24 @@ def make_quantized_train_step(model, optimizer, labels, hot_payload: torch.Tenso
                               scale=None, zero=None, codec="int8"):
     """The quantized twin of `pipeline.make_tiered_train_step`: the same
     ``step(batch, generator=None) -> loss`` over the same `TieredBatch`,
-    its rows assembled and decoded by `quantized_tiered_lookup` (K9b). The
-    step carries ``.model`` and ``.optimizer``."""
+    its rows assembled and decoded by `quantized_tiered_lookup` (K9b), one
+    captured graph a ``(W, C_b)`` on the card, eager on the CPU. The step
+    carries ``.model`` and ``.optimizer``."""
     codec = get_codec(codec)
     labels = torch.as_tensor(labels).to(hot_payload.device, torch.int64)
     n = labels.shape[0]
 
-    def step(batch, generator: Optional[torch.Generator] = None):
-        x = quantized_tiered_lookup(codec, hot_payload, batch.mapped, batch.cold_rows,
-                                    batch.cold_pos, scale, zero)
-        y = labels[torch.clamp(batch.seeds.to(torch.int64), 0, n - 1)]
-        loss = F.cross_entropy(model(x, batch.ds.adjs, train=True, generator=generator), y)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+    def body(inputs, host, generator):
+        adjs, mapped, cold_rows, cold_pos, seeds = inputs
+        x = quantized_tiered_lookup(codec, hot_payload, mapped, cold_rows, cold_pos, scale, zero)
+        y = labels[torch.clamp(seeds.to(torch.int64), 0, n - 1)]
+        return descend(model, optimizer, x, adjs, y, generator)
 
-    step.model = model
-    step.optimizer = optimizer
-    return step
+    programs = TrainPrograms(body, model, optimizer, hot_payload.device,
+                             bound=lambda: (hot_payload, scale, zero, labels))
+
+    def step(batch, generator: Optional[torch.Generator] = None):
+        return programs((tuple(batch.ds.adjs), batch.mapped, batch.cold_rows, batch.cold_pos,
+                         batch.seeds), generator=generator)
+
+    return TrainStep(programs, step)
