@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GraphSAGE serving, training,
 capped training, out-of-core training, weighted training, GCN and GAT
-training (float32 and bfloat16), temporal serving, (dp, ici) and
-(host, dp, ici) data-parallel training, routed fleet serving and
-streaming-graph serving paths on one card, with every tile table built on
-it.
+training (float32 and bfloat16), host-mode and mixed device + CPU
+sampled training, temporal serving, (dp, ici) and (host, dp, ici)
+data-parallel training, routed fleet serving and streaming-graph serving
+paths on one card, with every tile table built on it.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
 
@@ -266,6 +266,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
              their valid lanes; the weighted (tiled, flat) and temporal
              samplers at those sizes launching their kernel every hop. The
              kernels' times at k = 64 are logged;
+17c. host mode — GraphSageSampler(mode="HOST"), the graph in host memory
+             and the native engine (ops.cpu_kernels, built by g++) drawing
+             on the host: the first 3 batches of 1,024 bit-equal between a
+             sampler on the card, a device="cpu" twin and a "UVA" sampler
+             of one seed, no graph on the card (_graph None, allocated bytes
+             grown by less than the CSR's), the engine's thread start-up a
+             call; a leg of make_sample_train_step on the resident feature
+             (the sample and K3 eager, the step from the rows on the
+             captured graph), 5 steps at dropout 0 bit-equal to its eager
+             form, then 20 timed steps (host sample ms, step ms, idle share,
+             launches: K3, K4, K4b and no sampling kernel) beside train leg
+             1's step from this run; a weighted leg of 5 steps beside the
+             weighted tiled leg's; then tests/test_int64_ids.py's graph past
+             2^31 edges as a sparse memmap (in a temporary directory whose
+             filesystem keeps holes, checked by st_blocks or, where
+             st_blocks counts a file's whole size, by the filesystem's free
+             bytes; the phase fails if none does), sampled in HOST mode
+             without a copy, every n_id
+             in range, and one captured step on a [64, 100] table. Lines
+             start ``host mode``;
+17d. mixed — MixedGraphSageSampler(GPU_CPU_MIXED) with 2 spawned workers
+             (the CSR in /dev/shm; a power-law graph cut to fit where the
+             products CSR does not, the cut logged), 2 epochs of 16 tasks of
+             1,024 seeds through TrainPipeline.run_epoch_iter and the
+             captured tiered step: every task's sample equal to its replay
+             (device tasks a twin GPU-mode sampler's draws, CPU tasks the
+             engine in this process seeded as their worker), finite losses,
+             the pipeline's stats set from the sampler's; a ``mixed:`` line
+             (split, avg_device_time, avg_cpu_time, suggest_num_workers);
 18. kernels-7 — the model zoo's kernels at the shapes one dedup
              sample_dense of 1,024 train seeds gives them (hops 180,224 x 5,
              16,384 x 10 and 1,024 x 15): the hop-source gather (K14) at
@@ -519,6 +548,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -624,6 +654,7 @@ from quiver_tpu_torch.ops.gather_src import (
 from quiver_tpu_torch.pyg.sage_sampler import (
     caps_from_counts,
     dense_to_pyg,
+    host_dense_sample,
     probe_hop_counts,
     sample_and_gather_dedup,
     sample_and_gather_fused,
@@ -840,6 +871,15 @@ K11_QUEUED_MS_BEFORE = [1.0216, 1.0229, 1.0228]
 K14C_QUEUED_MS_BEFORE, K14C_LAUNCHES_BEFORE = [0.02576, 0.01338, 0.01110], 2
 K13D_COMPACT_QUEUED_MS_BEFORE, K13D_COMPACT_LAUNCHES_BEFORE = [0.01395, 0.02166], 3
 REDESIGN = {}  # this run's times of the redesigned kernels at those shapes
+TRAIN_LEGS = {}  # each captured leg's median step ms (eager, captured) and idle share
+# host sampling: the 2^31-edge graph's nodes, degree and tail base (the
+# sparse memmap of tests/test_int64_ids.py), the weighted host leg's steps,
+# the mixed sampler's workers, epochs and tasks an epoch, and the least
+# /dev/shm room that still holds a cut graph
+GIANT_NODES, GIANT_DEG, GIANT_BASE = 64, 4, 2**31
+HOST_WEIGHTED_STEPS, HOST_TWIN_BATCHES = 5, 3
+MIXED_WORKERS, MIXED_EPOCHS, MIXED_TASKS = 2, 2, 16
+MIXED_MIN_SHM = 16 << 20
 # the streaming graph: commits of the node run (appends a commit, and
 # removals of the edges two commits back), the requests of each run, the
 # node stream's reserve rows, the epochs whose arrays the replay keeps and
@@ -2007,6 +2047,9 @@ def captured_leg(leg, mode, make_sampler, source, needs, labels, train_idx, seed
                                          step.programs)
     graphs = graphs_summary(step.programs)
     log(f"{tag}: " + json.dumps(dict(leg=leg, batch=TRAIN_BATCH, captured=True, **c)))
+    TRAIN_LEGS[f"{tag} {leg}"] = {"eager_step_ms": e["step_ms"]["median"],
+                                  "captured_step_ms": c["step_ms"]["median"],
+                                  "captured_idle_share": c["device_idle_share"]}
     keys = ("step_ms", "seps", "max_memory_allocated", "device_idle_share", "idle_by",
             "host_launches_per_step")
     log("train graphs: " + json.dumps({
@@ -2065,6 +2108,8 @@ def train_leg(leg, inputs, needs, labels, train_idx, seed, steps, port_names, pr
     out, _, counts = timed_form(step, batches, drop, steps, port_names, train.programs, profile)
     summary = dict(leg=leg, batch=TRAIN_BATCH, **out, graphs=graphs_summary(train.programs))
     log(f"{tag}: " + json.dumps(summary))
+    TRAIN_LEGS[f"{tag} {leg}"] = {"captured_step_ms": out["step_ms"]["median"],
+                                  "captured_idle_share": out.get("device_idle_share")}
     for name in needs:
         check(counts[name] > 0, f"kernel {name} never launched on the {leg} leg")
     train.reset()
@@ -3379,6 +3424,413 @@ def weighted_train_phase(wtopo, resident, labels, train_idx, seed):
             (f"weighted_sample_{layout}", "local_reindex", "gather_rows", "masked_mean",
              "masked_mean_backward/cols"), labels, train_idx, seed, steps, port_names, profile)
     return out
+
+
+# -- host sampling: HOST mode, graphs past 2^31 edges, the mixed sampler ------------
+
+def timed_sampler(sampler, times):
+    """``sampler`` with its ``sample_dense`` timed on the host clock into
+    ``times`` (ms a call: the engine's draws, packing and the copy's
+    enqueue)."""
+    inner = sampler.sample_dense
+
+    def sample_dense(seeds, t=None):
+        t0 = time.perf_counter()
+        ds = inner(seeds, t)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return ds
+
+    sampler.sample_dense = sample_dense
+    return sampler
+
+
+def host_eager_step(sampler, source, labels, model, opt):
+    """The eager form of `make_sample_train_step` over a host-mode sampler:
+    ``step(seeds, gen) -> (loss, sampled edges)``."""
+    def step(seeds, gen):
+        ds = sampler.sample_dense(seeds)
+        y = labels[torch.clamp(ds.n_id[:ds.batch_size].long(), 0, labels.shape[0] - 1)]
+        return (descend(model, opt, lookup_features(source, ds.n_id), ds.adjs, y, gen),
+                sum(a.mask.sum() for a in ds.adjs))
+
+    return step
+
+
+def same_host_sample(a, b, what):
+    """Two samples' ``n_id``, ``count``, and each hop's ``cols``, masks and
+    counts equal bit for bit (on the host)."""
+    check(torch.equal(a.n_id.cpu(), b.n_id.cpu()) and int(a.count) == int(b.count),
+          f"{what}: n_id or count differs")
+    for l, (x, y) in enumerate(zip(a.adjs, b.adjs)):
+        check(torch.equal(x.cols.cpu(), y.cols.cpu()) and torch.equal(x.mask.cpu(), y.mask.cpu())
+              and (int(x.n_src), int(x.n_dst)) == (int(y.n_src), int(y.n_dst)),
+              f"{what}: hop {l} differs")
+
+
+def thread_startup_us(engine, reps=200) -> dict:
+    """The engine's cost a call that does no work: one out-of-range seed a
+    core, so as many threads started and joined as a full call starts, k =
+    1; median and least over ``reps`` calls, in us."""
+    seeds = np.full(os.cpu_count() or 1, -1, np.int64)
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        engine.sample_layer(seeds, 1, i)
+        times.append((time.perf_counter() - t0) * 1e6)
+    return {"threads": int(seeds.shape[0]), "median_us": statistics.median(times),
+            "min_us": min(times)}
+
+
+def fs_free_bytes(path: str) -> int:
+    st = os.statvfs(path)
+    return st.f_bfree * st.f_frsize
+
+
+def holds_holes(blocks: int, free_drop: int) -> bool:
+    """Whether a sparse file's zeros took no room: its st_blocks, or the
+    filesystem's free bytes over its making where st_blocks counts a
+    file's whole size (as some filesystems report it), within 1
+    MiB."""
+    return blocks <= 1 << 20 or abs(free_drop) <= 1 << 20
+
+
+def holes_dir():
+    """A new temporary directory on the first of $TMPDIR, /dev/shm, /var/tmp
+    and the working directory whose filesystem keeps a file's holes (a
+    1 GiB file with its last 4 KiB written takes at most 1 MiB,
+    `holds_holes`), and what was measured on each one tried. Fails if none
+    does."""
+    measured = {}
+    for base in (tempfile.gettempdir(), "/dev/shm", "/var/tmp", os.getcwd()):
+        try:
+            d = tempfile.mkdtemp(prefix="qt-holes-", dir=base)
+        except OSError as exc:
+            measured[base] = str(exc)
+            continue
+        probe = os.path.join(d, "probe")
+        free0 = fs_free_bytes(d)
+        try:
+            with open(probe, "wb") as f:
+                f.truncate(1 << 30)
+                f.seek((1 << 30) - 4096)
+                f.write(b"\x01" * 4096)
+            blocks, drop = os.stat(probe).st_blocks * 512, free0 - fs_free_bytes(d)
+        except OSError as exc:
+            blocks = drop = str(exc)
+        finally:
+            if os.path.exists(probe):
+                os.remove(probe)
+        measured[base] = {"fs": fs_type(base), "file_bytes": 1 << 30,
+                          "st_blocks_bytes": blocks, "free_bytes_drop": drop}
+        if isinstance(blocks, int) and holds_holes(blocks, drop):
+            return d, measured
+        shutil.rmtree(d, ignore_errors=True)
+    raise Failed(f"no temporary filesystem keeps holes: {measured}")
+
+
+def giant_graph(d):
+    """tests/test_int64_ids.py's graph in directory ``d``: an indices
+    memmap of 2^31 + n * deg int64 edges, zero but for its written tail,
+    node u's edges pointing at u + 1 .. u + deg (mod n)."""
+    n, deg = GIANT_NODES, GIANT_DEG
+    idx = np.memmap(os.path.join(d, "indices.i64"), dtype=np.int64, mode="w+",
+                    shape=(GIANT_BASE + n * deg,))
+    indptr = GIANT_BASE + deg * np.arange(n + 1, dtype=np.int64)
+    for u in range(n):
+        idx[GIANT_BASE + u * deg: GIANT_BASE + (u + 1) * deg] = (u + 1 + np.arange(deg)) % n
+    idx.flush()
+    return indptr, idx
+
+
+def giant_graph_step(dev, seed) -> dict:
+    """The 2^31-edge graph in HOST mode on a sparse file: one sample of its
+    64 nodes, every ``n_id`` in range, and one captured step on a [64, 100]
+    table through `make_sample_train_step`."""
+    d, measured = holes_dir()
+    try:
+        free0 = fs_free_bytes(d)
+        indptr, idx = giant_graph(d)
+        st = os.stat(os.path.join(d, "indices.i64"))
+        out = {"dir_fs": fs_type(d), "probes": measured, "file_bytes": st.st_size,
+               "st_blocks_bytes": st.st_blocks * 512, "free_bytes_drop": free0 - fs_free_bytes(d),
+               "edges": int(idx.shape[0])}
+        check(holds_holes(out["st_blocks_bytes"], out["free_bytes_drop"]),
+              f"the 2^31-edge file holds its zeros: {out}")
+        topo = CSRTopo(indptr=indptr, indices=idx)
+        check(np.shares_memory(topo.indices, idx), "CSRTopo copied the 2^31-edge memmap")
+        sampler = GraphSageSampler(topo, SIZES, mode="HOST", device=dev, seed=seed)
+        seeds = np.arange(GIANT_NODES)
+        ds = sampler.sample_dense(seeds)
+        ids = ds.n_id[: int(ds.count)].cpu().numpy()
+        check(((ids >= 0) & (ids < GIANT_NODES)).all() and int(ds.count) == GIANT_NODES,
+              f"2^31-edge graph: n_id out of range or incomplete ({int(ds.count)} ids)")
+        check(np.shares_memory(sampler._host().indices, idx), "the engine copied the memmap")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        table = torch.randn((GIANT_NODES, DIM), generator=gen, device=dev)
+        labels = torch.randint(0, CLASSES, (GIANT_NODES,), generator=gen, device=dev)
+        model, opt = seeded_model(sage_model, seed, dev)
+        step = make_sample_train_step(sampler, table, labels, model, opt)
+        t0 = time.perf_counter()
+        loss, edges = step(seeds, torch.Generator(device=dev).manual_seed(seed + 1))
+        torch.cuda.synchronize()
+        out.update(step_s=time.perf_counter() - t0, loss=float(loss), sampled_edges=int(edges),
+                   graphs=graphs_summary(step.programs), count=int(ds.count))
+        check(np.isfinite(out["loss"]) and out["graphs"]["captured"] == 1,
+              f"2^31-edge graph: no captured step ({out})")
+        step.reset()
+        del sampler, topo, idx, step
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def host_leg(tag, sampler_of, source, labels, train_idx, seed, steps, port_names, gpu_leg):
+    """One HOST training leg at batch 1024 through `make_sample_train_step`
+    (the engine samples on the host, the step from the rows on is the
+    captured graph): at dropout 0, COMPARE_STEPS steps against its eager
+    form (losses and weights bit-equal), then ``steps`` timed steps
+    (`timed_form`). Logs a ``host mode:`` line with the host's sample ms
+    (median), the step, idle share and launches (K3 eagerly, K4 and K4b in
+    the graph, no sampling kernel at all) beside ``gpu_leg``, the GPU-mode
+    leg's steps from this run; returns the line."""
+    dev = labels.device
+    order = np.random.default_rng(seed + 2).permutation(train_idx)
+
+    def batches():
+        return iter(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                    for i in range(len(order) // TRAIN_BATCH))
+
+    me, oe = seeded_model(sage_model, seed, dev, dropout=0.0)
+    eager = host_eager_step(sampler_of(), source, labels, me, oe)
+    it = batches()
+    want = [eager(next(it), None)[0] for _ in range(COMPARE_STEPS)]
+    mc, oc = seeded_model(sage_model, seed, dev, dropout=0.0)
+    step = make_sample_train_step(sampler_of(), source, labels, mc, oc)
+    check(not step.captures_sample, f"{tag}: a host sample inside the graph")
+    it = batches()
+    check_bit_equal(f"host mode {tag}", [(w, step(next(it), None)[0]) for w in want], (me, mc))
+    step.reset()
+    del me, mc, oe, oc, step, eager
+    torch.cuda.empty_cache()
+
+    times = []
+    sampler = timed_sampler(sampler_of(), times)
+    drop = torch.Generator(device=dev).manual_seed(seed + 1)
+    model, opt = seeded_model(sage_model, seed, dev)
+    step = make_sample_train_step(sampler, source, labels, model, opt)
+    c, eager_counts, counts = timed_form(step, batches(), drop, steps, port_names, step.programs)
+    line = dict(leg=tag, batch=TRAIN_BATCH, mode=sampler.mode, weighted=sampler.weighted,
+                host_sample_ms=median_min_max(times), sampled_batches=len(times), **c,
+                gpu_leg=gpu_leg, compare_steps=COMPARE_STEPS, bit_equal_at_dropout_0=True,
+                graphs=graphs_summary(step.programs))
+    log("host mode: " + json.dumps(line))
+    for name in ("gather_rows", "masked_mean", "masked_mean_backward"):
+        check(counts.get(name, 0) > 0, f"kernel {name} never launched on the {tag} leg")
+    check(eager_counts.get("gather_rows", 0) > 0, f"{tag}: K3 did not run outside the graph")
+    drawn = {k: v for k, v in counts.items() if v and k.split("/")[0] in (
+        "sample_tiled", "sample_flat", "local_reindex", "weighted_sample_tiled",
+        "weighted_sample_flat")}
+    check(not drawn, f"{tag}: the card sampled on a host-mode leg: {drawn}")
+    step.reset()
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def host_mode_phase(topo, wtopo, resident, labels, train_idx, seed):
+    """HOST mode at products width (`GraphSageSampler(mode="HOST")`, the
+    graph in host memory, the native engine drawing): the first
+    HOST_TWIN_BATCHES batches bit-equal between a card sampler, a
+    ``device="cpu"`` twin and a ``"UVA"`` sampler of one seed; no graph on
+    the card (``_graph`` None, allocated bytes grown by less than the
+    CSR's); the engine's thread start-up a call; the uniform leg
+    (`host_leg`, TRAIN_STEPS steps) and the weighted one
+    (HOST_WEIGHTED_STEPS steps, all of a row's edges weighted) on the
+    resident feature; the 2^31-edge graph (`giant_graph_step`). Lines start
+    ``host mode``."""
+    dev = labels.device
+    port_names = port_kernel_names()
+    order = np.random.default_rng(seed + 2).permutation(train_idx)
+    csr_bytes = topo.indptr.nbytes + topo.indices.nbytes
+
+    def host_sampler(mode="HOST", device=dev, t=topo, **kw):
+        return GraphSageSampler(t, SIZES, mode=mode, device=device, seed=seed + 5, **kw)
+
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    hs, twin, uva = host_sampler(), host_sampler(device="cpu"), host_sampler("UVA")
+    engine_ms = []
+    for i in range(HOST_TWIN_BATCHES):
+        seeds = order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+        ds = hs.sample_dense(seeds)
+        same_host_sample(ds, twin.sample_dense(seeds), f"host mode batch {i}: card vs cpu twin")
+        same_host_sample(ds, uva.sample_dense(seeds), f"host mode batch {i}: HOST vs UVA")
+        t0 = time.perf_counter()
+        hs._host().sample_multilayer(seeds.astype(np.int64), SIZES, i)
+        engine_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - m0
+    check(hs._graph is None and uva._graph is None and grown < csr_bytes,
+          f"a HOST sampler put the graph on the card: {grown} bytes against the CSR's {csr_bytes}")
+    log("host mode twins: " + json.dumps({
+        "batches": HOST_TWIN_BATCHES, "card_cpu_uva_bit_equal": True,
+        "memory_allocated_grown": grown, "csr_bytes": csr_bytes,
+        "engine_ms_a_batch": engine_ms, "cpu_count": os.cpu_count(),
+        "thread_startup": thread_startup_us(hs._host()),
+        "width": list(ds.n_id.shape), "count": int(ds.count)}))
+    del hs, twin, uva, ds
+    host_leg("HOST sample_dense+lookup_padded", host_sampler, resident, labels, train_idx, seed,
+             TRAIN_STEPS, port_names, TRAIN_LEGS.get("train sample_dense+lookup_padded"))
+    host_leg("HOST weighted sample_dense+lookup_padded",
+             lambda: host_sampler(t=wtopo, weighted=True), resident, labels, train_idx, seed,
+             HOST_WEIGHTED_STEPS, port_names,
+             TRAIN_LEGS.get("train weighted tiled sample_dense+lookup_padded"))
+    log("host mode giant: " + json.dumps(giant_graph_step(dev, seed)))
+
+
+class MixedTap:
+    """A `MixedGraphSageSampler` epoch whose samples are also kept on the
+    host (with the epoch and the device's task count) for the replay; its
+    measurements read through, as `TrainPipeline.run_epoch_iter` reads
+    them."""
+
+    def __init__(self, mixed):
+        self.mixed, self.records, self.device_tasks = mixed, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.mixed, name)
+
+    def __iter__(self):
+        epoch = len(self.device_tasks) + 1
+        for task, ds in self.mixed:
+            self.records.append((epoch, task, {
+                "n_id": ds.n_id.cpu(), "count": int(ds.count),
+                "adjs": [(a.cols.cpu(), a.mask.cpu(), int(a.n_src), int(a.n_dst))
+                         for a in ds.adjs]}))
+            yield task, ds
+        self.device_tasks.append(round(self.mixed.last_device_share * len(self.mixed.job)))
+
+
+def record_equals(rec, ds) -> bool:
+    return (torch.equal(rec["n_id"], ds.n_id.cpu()) and rec["count"] == int(ds.count)
+            and all(torch.equal(c, a.cols.cpu()) and torch.equal(m, a.mask.cpu())
+                    and (s, d) == (int(a.n_src), int(a.n_dst))
+                    for (c, m, s, d), a in zip(rec["adjs"], ds.adjs)))
+
+
+def mixed_graph(topo, seed):
+    """The graph the mixed phase shares with its workers: the products graph
+    where /dev/shm has room for its CSR (with a quarter to spare), else the
+    largest power-law graph of its shape that has (the cut logged)."""
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    need = topo.indptr.nbytes + topo.indices.nbytes
+    info = {"dev_shm_free": free, "products_csr_bytes": need}
+    if free >= need * 1.25:
+        return topo, info
+    check(free >= MIXED_MIN_SHM, f"/dev/shm has {free} bytes: too little for the mixed phase")
+    share = free * 0.8 / need
+    cut = CSRTopo(*powerlaw_csr(int(topo.node_count * share), int(topo.edge_count * share),
+                                seed=seed))
+    info.update(cut_to_nodes=cut.node_count, cut_to_edges=cut.edge_count, share=share)
+    return cut, info
+
+
+def mixed_phase(topo, resident, labels, seed):
+    """`MixedGraphSageSampler` in GPU_CPU_MIXED with MIXED_WORKERS spawned
+    workers, MIXED_EPOCHS epochs of MIXED_TASKS tasks of 1,024 seeds,
+    through `TrainPipeline.run_epoch_iter` and the captured tiered step
+    (`make_tiered_train_step`). Every task's sample equals its replay: a
+    device task a twin GPU-mode sampler's draw at the same call, a CPU task
+    a `HostSampler` in this process seeded as its worker (``seed + 7919 *
+    spawn + epoch * 1009 + task``). Logs a ``mixed:`` line: the split, the
+    averages, `suggest_num_workers`, the stats the pipeline took over."""
+    from quiver_tpu_torch.ops.cpu_kernels import HostSampler
+    from quiver_tpu_torch.pyg import MixedGraphSageSampler, TrainSampleJob
+
+    dev = labels.device
+    mtopo, shm = mixed_graph(topo, seed)
+    if mtopo is topo:
+        feature, mlabels = resident, labels
+    else:
+        feature = Feature(device_cache_size=mtopo.node_count * DIM * 4, device=dev)
+        feature.from_cpu_tensor(np.random.default_rng(seed + 40).standard_normal(
+            (mtopo.node_count, DIM), dtype=np.float32))
+        mlabels = train_labels(mtopo.node_count, dev)
+    idx = np.random.default_rng(seed + 41).choice(mtopo.node_count, MIXED_TASKS * TRAIN_BATCH,
+                                                  replace=False)
+    mseed, job_seed = seed + 42, seed + 43
+    mixed = MixedGraphSageSampler(TrainSampleJob(idx, TRAIN_BATCH, seed=job_seed), mtopo, SIZES,
+                                  num_workers=MIXED_WORKERS, device=dev,
+                                  mode="GPU_CPU_MIXED", seed=mseed)
+    tap = MixedTap(mixed)
+    model, opt = seeded_model(sage_model, seed, dev)
+    pipe = TieredFeaturePipeline(feature)
+    step = make_tiered_train_step(model, opt, mlabels, pipe.hot_table)
+    tp = TrainPipeline(GraphSageSampler(mtopo, SIZES, device=dev, seed=mseed), feature, step,
+                       tiered=pipe)
+    drop = torch.Generator(device=dev).manual_seed(seed + 1)
+    epochs = []
+    try:
+        for e in range(MIXED_EPOCHS):
+            t0 = time.perf_counter()
+            losses = tp.run_epoch_iter(tap, drop)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            epochs.append({"epoch": e + 1, "seconds": wall, "batch_ms": wall * 1e3 / len(losses),
+                           "device_tasks": tap.device_tasks[-1], "tasks": len(losses),
+                           "avg_device_time": mixed.avg_device_time,
+                           "avg_cpu_time": mixed.avg_cpu_time,
+                           "loss_first": losses[0], "loss_last": losses[-1]})
+            check(len(losses) == MIXED_TASKS and np.isfinite(losses).all(),
+                  f"mixed epoch {e + 1}: {len(losses)} finite losses of {MIXED_TASKS}")
+        spawned = mixed._spawn_count
+    finally:
+        mixed.shutdown()
+    stats = {k: getattr(tp.stats, k) for k in ("avg_device_sample_s", "avg_cpu_sample_s",
+                                                 "device_share")}
+    check(stats["device_share"] == mixed.last_device_share and stats["avg_cpu_sample_s"] > 0
+          and stats["avg_device_sample_s"] > 0, f"mixed: the pipeline's stats {stats}")
+
+    # the replay: device tasks through a twin GPU-mode sampler (its key
+    # stream runs on across epochs), CPU tasks through the engine here
+    t0 = time.perf_counter()
+    twin = GraphSageSampler(mtopo, SIZES, device=dev, seed=mseed)
+    engine = HostSampler(mtopo.indptr, mtopo.indices)
+    job = TrainSampleJob(idx, TRAIN_BATCH, seed=job_seed)
+    recs = {(e, t): r for e, t, r in tap.records}
+    check(len(recs) == MIXED_EPOCHS * MIXED_TASKS, f"mixed: {len(recs)} tasks recorded")
+    off_round_robin = 0
+    for e in range(1, MIXED_EPOCHS + 1):
+        job.shuffle()
+        d_num = tap.device_tasks[e - 1]
+        for t in range(MIXED_TASKS):
+            if t < d_num:
+                check(record_equals(recs[(e, t)], twin.sample_dense(job[t])),
+                      f"mixed epoch {e} device task {t} differs from its replay")
+                continue
+            seeds = np.asarray(job[t], np.int64)
+            first = (t - d_num) % MIXED_WORKERS + 1
+            ok = False
+            for spawn in [first] + [s for s in range(1, spawned + 1) if s != first]:
+                n_id, count, adjs = engine.sample_multilayer(
+                    seeds, SIZES, mseed + 7919 * spawn + e * 1009 + t)
+                if record_equals(recs[(e, t)], host_dense_sample(n_id, count, adjs,
+                                                                 seeds.shape[0], dev)):
+                    ok, off_round_robin = True, off_round_robin + (spawn != first)
+                    break
+            check(ok, f"mixed epoch {e} CPU task {t} matches no worker's replay")
+    log("mixed: " + json.dumps({
+        "mode": mixed.mode, "workers": MIXED_WORKERS, "spawned": spawned, "graph": shm,
+        "nodes": mtopo.node_count, "edges": mtopo.edge_count, "batch": TRAIN_BATCH,
+        "epochs": epochs, "avg_device_time": mixed.avg_device_time,
+        "avg_cpu_time": mixed.avg_cpu_time, "last_device_share": mixed.last_device_share,
+        "suggest_num_workers": mixed.suggest_num_workers(), "pipeline_stats": stats,
+        "replayed_tasks": len(recs), "cpu_tasks_off_round_robin": off_round_robin,
+        "replay_s": time.perf_counter() - t0}))
+    step.reset()
+    del tap, recs, step, model, opt
+    torch.cuda.empty_cache()
 
 
 # -- the model zoo slice: K14, K14b, K14c, bf16 K4/K4b; GCN and GAT training --------
@@ -5827,6 +6279,13 @@ def main() -> int:
     fanout_phase(topo, wtopo, tg, resident, train_labels(topo.node_count, dev), train_idx,
                  seeds_1024, args.seed)
     phase_done("fanout")
+
+    # -- host sampling: HOST mode, a graph past 2^31 edges, the mixed sampler --------
+    host_mode_phase(topo, wtopo, resident, train_labels(topo.node_count, dev), train_idx,
+                    args.seed)
+    phase_done("host mode")
+    mixed_phase(topo, resident, train_labels(topo.node_count, dev), args.seed)
+    phase_done("mixed")
 
     # -- the model zoo slice: K14, K14b, K14c; GCN, GAT and bf16 training -----------
     kernel_phase_7(topo, seeds_1024, rows, args.seed)

@@ -13,7 +13,9 @@ a GCN with norm "right"; ``--bf16`` computes in bfloat16 (float32
 parameters and logits). Runs on the card unless ``--device cpu`` asks for
 the plain torch versions; on the card each training step is one captured
 CUDA graph (`train_programs.make_sample_train_step`, Adam with
-``capturable=True``). Not ported yet: ``--mode HOST/CPU/UVA``.
+``capturable=True``). ``--mode HOST`` (or ``CPU``, or the reference's
+``UVA``) keeps the graph in host memory and samples it with the native host
+engine; the step from the gathered rows on is then the captured graph.
 """
 
 from __future__ import annotations
@@ -83,8 +85,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ``{"loss", "val_acc", "test_acc", "test_acc_full"}`` (those it
     computed)."""
     args = parse_args(argv)
-    if args.mode not in ("GPU", "TPU"):
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet")
     dev = resolve_device(args.device)
     strict_float32()
 
@@ -122,8 +122,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to(dev)
     # on the card the step is one captured CUDA graph (its optimizer state
-    # lives there); a sampler that grows its caps or a feature with a disk
-    # tier keeps the sample and gather outside the graph
+    # lives there); a host-mode sampler, a sampler that grows its caps or a
+    # feature with a disk tier keeps the sample and gather outside the graph
     opt = torch.optim.Adam(model.parameters(), lr=args.lr, capturable=dev.type == "cuda")
     train_step = make_sample_train_step(sampler, feature, labels, model, opt)
     dropout_gen = torch.Generator(device=dev).manual_seed(1)

@@ -639,8 +639,9 @@ def build_tiled_device(src: torch.Tensor, row_start: torch.Tensor,
     if not src.is_cuda:
         return build_tiled_device_plain(src, row_start, row_width)
     if src.element_size() != 4:
-        raise ValueError(f"the tile kernel copies 4-byte words; got {src.dtype} (node ids past "
-                         "2^31 are not ported yet: ROADMAP A3)")
+        raise ValueError(f"the tile kernel copies 4-byte words; got {src.dtype}: a graph "
+                         "whose ids need int64 samples on the host with mode='HOST', whose "
+                         "engine is int64 end to end (int64 ids on the card: ROADMAP B4)")
     src, row_start, row_width = src.contiguous(), row_start.contiguous(), row_width.contiguous()
     out = torch.empty((row_start.shape[0], LANE), dtype=src.dtype, device=src.device)
     _kernels.launch("build_tiles", src.data_ptr(), src.shape[0], row_start.data_ptr(),

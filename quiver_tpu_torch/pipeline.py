@@ -38,8 +38,12 @@ its disk rows from the flat file through the feature's `AsyncReadPool`
 sample stage, one stage before the gather takes them
 (`tiers.PrefetchBuffer`). The bytes are those of an all-DRAM epoch.
 
-Not ported yet: (A12) the metrics registry behind ``register_metrics``;
-(A9) the mixed sampler's feedback into `PipelineStats`.
+`TrainPipeline.run_epoch_iter` trains over a `pyg.MixedGraphSageSampler`
+epoch and copies its measured task times and split into `PipelineStats`.
+A host-mode sampler (``GraphSageSampler(mode="HOST")``) runs its draws on
+the sample stage's thread like any other.
+
+Not ported yet: (A12) the metrics registry behind ``register_metrics``.
 """
 
 from __future__ import annotations
@@ -462,7 +466,7 @@ class PipelineStats:
     batches: int = 0
     cold_rows: int = 0
     hot_rows: int = 0
-    # the mixed sampler's feedback (ROADMAP A9); stays unset here
+    # a MixedGraphSageSampler's measurements, set by run_epoch_iter
     avg_device_sample_s: float = 0.0
     avg_cpu_sample_s: float = 0.0
     device_share: Optional[float] = None
@@ -631,15 +635,25 @@ class TrainPipeline:
 
     def run_epoch_iter(self, samples: Iterable, generator: Optional[torch.Generator] = None):
         """Train over an iterator of `DenseSample`s (or ``(task, DenseSample)``
-        pairs) of one padded shape; the seeds are each sample's ``n_id``
-        prefix."""
+        pairs) of one padded shape, such as a `pyg.MixedGraphSageSampler`
+        epoch, whose workers then overlap the stages and the steps; the
+        seeds are each sample's ``n_id`` prefix. Afterwards the stats carry
+        a mixed sampler's ``avg_device_time``, ``avg_cpu_time`` and
+        ``last_device_share`` (``avg_device_sample_s``, ``avg_cpu_sample_s``,
+        ``device_share``)."""
 
         def pairs():
             for item in samples:
                 # a DenseSample is itself a (named) tuple: test it first
                 yield (item if isinstance(item, DenseSample) else item[1]), None
 
-        return self._run(pairs(), generator)
+        losses = self._run(pairs(), generator)
+        for attr, name in (("avg_device_time", "avg_device_sample_s"),
+                           ("avg_cpu_time", "avg_cpu_sample_s"),
+                           ("last_device_share", "device_share")):
+            if hasattr(samples, attr):
+                setattr(self.stats, name, getattr(samples, attr))
+        return losses
 
     def _run(self, sample_pairs, generator):
         """The staged loop. ``sample_pairs`` yields ``(DenseSample, seeds)``

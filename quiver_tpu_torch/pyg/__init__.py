@@ -1,3 +1,4 @@
+from .mixed_sampler import MixedGraphSageSampler, SampleJob, TrainSampleJob
 from .sage_sampler import (
     Adj,
     DenseAdj,
@@ -5,6 +6,7 @@ from .sage_sampler import (
     GraphSageSampler,
     caps_from_counts,
     dense_to_pyg,
+    host_dense_sample,
     probe_hop_counts,
     sample_and_gather_dedup,
     sample_and_gather_fused,
@@ -17,8 +19,12 @@ __all__ = [
     "DenseAdj",
     "DenseSample",
     "GraphSageSampler",
+    "MixedGraphSageSampler",
+    "SampleJob",
+    "TrainSampleJob",
     "caps_from_counts",
     "dense_to_pyg",
+    "host_dense_sample",
     "probe_hop_counts",
     "sample_and_gather_dedup",
     "sample_and_gather_fused",

@@ -11,14 +11,21 @@ flat layout) or temporal (`GraphSageSampler.bind_temporal`: K8, see
 (`GraphSageSampler.bind_stream`: every draw reads a
 `stream.StreamingTiledGraph`'s current arrays; the port's
 ``calibrate_caps`` keeps no probe cache, so a commit leaves nothing stale
-there)).
+there)), and its host modes (``mode="HOST"``, ``"CPU"``, and the
+reference's alias ``"UVA"``): the graph stays in host memory and the
+native engine (`ops.cpu_kernels.HostSampler`) draws each batch, which then
+lands on the sampler's device in one copy (`host_dense_sample`).
 
-The sampler draws one key per call from a deterministic stream
-(``fold_in(key(seed), call)``) and splits a sub-key per hop
-(``key, sub = split(key)``), exactly as the JAX package does, so the same
+In its device mode the sampler draws one key per call from a
+deterministic stream (``fold_in(key(seed), call)``) and splits a sub-key
+per hop (``key, sub = split(key)``), exactly as the JAX package does, so the same
 seed and call index give bit-equal ``n_id``, masks, ``cols`` and counts.
 Keys are derived on the host; only each hop's ``[k, W]`` uniforms are
-computed on the device, inside the sampling kernel.
+computed on the device, inside the sampling kernel. In a host mode call i
+draws with the engine's RNG seed ``(seed * 0x9E3779B1 + i) & 0x7FFFFFFF``
+(hop l adds ``l * 1000003``), as the JAX package's host modes do, so the
+same seed and call index give the same batch there too (on one machine:
+the engine's draws depend on its core count).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 
 from .. import random as qrandom
 from ..feature import gather_rows
+from ..graphs import byte_fields, byte_views, stage
 from ..ops.gather_src import gather_src, structural_view
 from ..ops.reindex import local_reindex, reindex_single
 from ..ops.sample import pad_widths
@@ -39,7 +47,9 @@ from ..ops.sample import sample_layer as _sample_layer_op
 from ..ops.sample import tiled_sample_layer as _tiled_sample_layer_op
 from ..ops.sample import tiled_weighted_sample_layer as _tiled_weighted_sample_layer_op
 from ..ops.sample import weighted_sample_layer as _weighted_sample_layer_op
-from ..utils import CSRTopo, resolve_device
+from ..utils import CSRTopo, _best_id_dtype, resolve_device
+
+HOST_MODES = ("HOST", "CPU")
 
 
 class Adj(NamedTuple):
@@ -304,12 +314,41 @@ def dense_to_pyg(ds: DenseSample):
     return n_id, ds.batch_size, adjs
 
 
+def host_dense_sample(n_id: np.ndarray, count: int, adjs, batch_size: int,
+                      device: torch.device) -> DenseSample:
+    """The `DenseSample` of a host multi-hop sample
+    (`ops.cpu_kernels.HostSampler.sample_multilayer`'s ``(n_id, count,
+    adjs)``) on ``device``: ``n_id`` int32 with -1 in its padding (the JAX
+    package's int64 padding after its int32 cast), ``cols`` int32, the
+    masks, ``n_src``/``n_dst`` 0-dim int32, outermost hop first; no
+    ``cap_overflow`` or ``raw_counts``. The arrays go to the card packed in
+    one pinned buffer, one copy on the current stream. The caller checks
+    that its node ids fit int32."""
+    ids = np.full(n_id.shape[0], -1, np.int32)
+    ids[:count] = n_id[:count]
+    values = [ids, np.int32(count)]
+    specs = [(torch.int32, ids.shape), (torch.int32, ())]
+    for a in adjs[::-1]:
+        values += [a["cols"], a["mask"], np.int32(a["n_src"]), np.int32(a["n_dst"])]
+        specs += [(torch.int32, a["cols"].shape), (torch.bool, a["mask"].shape),
+                  (torch.int32, ()), (torch.int32, ())]
+    fields, nbytes = byte_fields(specs)
+    buf = stage(values, fields, nbytes, pin=device.type == "cuda")
+    views = byte_views(buf.to(device, non_blocking=True), fields)
+    hops = tuple(DenseAdj(*views[i: i + 4]) for i in range(2, len(views), 4))
+    return DenseSample(n_id=views[0], count=views[1], batch_size=int(batch_size), adjs=hops)
+
+
 class GraphSageSampler:
     """K-hop sampler over a :class:`CSRTopo` on one device.
 
     ``sizes`` are fanouts outermost-first (e.g. ``[15, 10, 5]``);
-    ``mode`` is "GPU" (the graph lives on the device; "TPU" is accepted as
-    an alias); ``layout`` "tiled" (default) or "flat"; ``dedup`` True
+    ``mode`` is "GPU" (the graph lives on the device; "TPU" and "DMA" are
+    aliases), or "HOST" or "CPU" (the graph stays in host memory, which may
+    exceed the card's, and the native engine draws on the host: the
+    reference's "UVA" and "ZERO_COPY" are aliases of "HOST"; both modes
+    put their batches on ``device``); ``layout`` "tiled" (default) or
+    "flat", device mode only; ``dedup`` True
     (default) dedups every hop, False uses the structural no-dedup
     pipeline; ``caps`` optional per-hop static ``n_id`` budgets;
     ``seed`` fixes the key stream; ``device`` defaults to CUDA.
@@ -322,18 +361,29 @@ class GraphSageSampler:
     the ``cap_margin`` and ``cap_granule`` of the last `calibrate_caps`,
     and resamples with the next key, at most ``len(sizes) + 1`` times;
     ``cap_regrows`` counts those resamples.
+
+    A host-mode sampler binds nothing to the card: it draws every hop
+    through `ops.cpu_kernels.HostSampler` (uniform, or weighted over all
+    of a row's edges, ``max_deg`` playing no part), dedups every hop and
+    applies ``caps``, but has no ``auto_grow_caps`` ladder and no key
+    stream to hand out (`next_key` raises), and refuses the fused step,
+    streams and temporal binding, as the JAX package's host modes do. Its
+    node ids must fit int32 (its edge offsets may not: a graph past 2^31
+    edges samples here); larger id spaces wait for ROADMAP B4.
     """
 
-    MODE_ALIASES = {"TPU": "GPU"}
+    MODE_ALIASES = {"TPU": "GPU", "DMA": "GPU", "UVA": "HOST", "ZERO_COPY": "HOST"}
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
                  mode: str = "GPU", caps: Optional[Sequence[Optional[int]]] = None,
                  seed: int = 0, dedup: bool = True, layout: str = "tiled",
                  weighted: bool = False, max_deg: int = 512, auto_grow_caps: bool = False):
         mode = self.MODE_ALIASES.get(mode, mode)
-        if mode != "GPU":
-            raise ValueError(f"unsupported mode: {mode} (this port has GPU/TPU only; "
-                             "HOST and CPU sampling, weighted or not, wait for ROADMAP A9)")
+        if mode not in ("GPU",) + HOST_MODES:
+            raise ValueError(f"unsupported mode: {mode}")
+        if mode in HOST_MODES and _best_id_dtype(csr_topo.node_count + 1) != np.int32:
+            raise ValueError(f"a host-mode batch carries int32 node ids; this graph has "
+                             f"{csr_topo.node_count} nodes (int64 node ids: ROADMAP B4)")
         if layout not in ("tiled", "flat"):
             raise ValueError(f"unsupported layout: {layout}")
         if weighted and csr_topo.edge_weights is None:
@@ -357,13 +407,51 @@ class GraphSageSampler:
         self._graph = None
         self._temporal = None  # (source, recency) once bind_temporal ran
         self._stream = None    # the StreamingTiledGraph once bind_stream ran
-        self.lazy_init_quiver()
+        self._host_engine = None
+        if mode == "GPU":
+            self.lazy_init_quiver()
+
+    @property
+    def on_host(self) -> bool:
+        """Whether the graph stays in host memory (HOST and CPU modes)."""
+        return self.mode in HOST_MODES
+
+    def _refuse_host(self, what: str) -> None:
+        if self.on_host:
+            raise TypeError(f"{what} needs mode='GPU' (a device-resident graph); this "
+                            f"sampler samples on the host (mode={self.mode!r})")
+
+    def _host(self):
+        """The native engine over the host CSR (built at first use)."""
+        if self._host_engine is None:
+            from ..ops.cpu_kernels import HostSampler
+
+            self._host_engine = HostSampler(
+                self.csr_topo.indptr, self.csr_topo.indices,
+                weights=self.csr_topo.edge_weights if self.weighted else None)
+        return self._host_engine
+
+    def _host_seed(self) -> int:
+        """The engine's RNG seed of the next call (one call of the stream)."""
+        rng_seed = (self._seed * 0x9E3779B1 + self._call) & 0x7FFFFFFF
+        self._call += 1
+        return rng_seed
+
+    def _host_sample_dense(self, seeds) -> DenseSample:
+        if isinstance(seeds, torch.Tensor):
+            seeds = seeds.cpu().numpy()
+        seeds = np.asarray(seeds).astype(np.int64).reshape(-1)
+        n_id, count, adjs = self._host().sample_multilayer(seeds, self.sizes, self._host_seed(),
+                                                           self.caps)
+        return host_dense_sample(n_id, count, adjs, seeds.shape[0], self.device)
 
     def lazy_init_quiver(self):
         """Bind the graph to the device: ``(bd, tiles)`` under the tiled
         layout, ``(indptr, indices)`` under the flat one; a weighted
         sampler appends its weights (``wtiles [M, 128]`` or ``w [E]``). A
-        stream-bound sampler returns the stream's current ``(bd, tiles)``."""
+        stream-bound sampler returns the stream's current ``(bd, tiles)``.
+        A host-mode sampler has no device graph (TypeError)."""
+        self._refuse_host("a device graph")
         if self._stream is not None:
             return self._stream.graph()
         if self._graph is None:
@@ -387,6 +475,7 @@ class GraphSageSampler:
         return self._stream
 
     def _check_stream(self, stream) -> None:
+        self._refuse_host("a streaming graph")
         if self.layout != "tiled":
             raise TypeError("a streaming graph needs layout='tiled' — the flat CSR has no pad "
                             "lanes to append into")
@@ -427,6 +516,7 @@ class GraphSageSampler:
         layout."""
         from ..stream import StreamingTiledGraph
 
+        self._refuse_host("bind_temporal")
         if self.layout != "tiled":
             raise TypeError("bind_temporal needs layout='tiled' — timestamps ride the "
                             "tile payload lanes")
@@ -462,11 +552,18 @@ class GraphSageSampler:
 
     @property
     def id_dtype(self) -> torch.dtype:
+        if self.on_host:
+            return torch.int32  # checked at construction
         return self.lazy_init_quiver()[1].dtype
 
     def next_key(self) -> qrandom.Key:
         """Consume and return the next key of the stream without sampling:
-        key i is the key the i-th `sample_dense` call would draw."""
+        key i is the key the i-th `sample_dense` call would draw. A
+        host-mode sampler has no key stream (TypeError): its engine's RNG
+        seed comes from the seed and the call index inside `sample_dense`."""
+        if self.on_host:
+            raise TypeError("next_key() draws the device-mode key stream; a HOST/CPU sampler "
+                            "derives its engine's RNG seed inside sample_dense")
         key = qrandom.fold_in(qrandom.key(self._seed), self._call)
         self._call += 1
         return key
@@ -505,6 +602,7 @@ class GraphSageSampler:
         one-hop ``sample_fn`` over the graph tensors (``(bd, tiles)`` or
         ``(indptr, indices)``, with the weights last on a weighted
         sampler)."""
+        self._refuse_host("fused sampling")
         graph = self.lazy_init_quiver()
         return graph, self._bind, graph[1].dtype
 
@@ -552,6 +650,8 @@ class GraphSageSampler:
                                          recency=self._temporal[1], max_deg=self.max_deg)
         if t is not None:
             raise TypeError("t= is only meaningful on a temporal sampler (bind_temporal first)")
+        if self.on_host:
+            return self._host_sample_dense(seeds)
         seeds = self.as_seeds(seeds)
         sample_fn = self._bind(self.lazy_init_quiver())
         if not self.dedup:
@@ -596,13 +696,18 @@ class GraphSageSampler:
         sampler's own draw (layout, weights), with one key of its stream,
         then `caps_from_counts`. Keeps ``margin`` and ``granule`` for the
         ``auto_grow_caps`` ladder; installs the caps unless ``set_caps`` is
-        False. Returns them."""
+        False. Returns them. A host-mode sampler probes with an uncapped
+        host sample a batch, one call of its stream each."""
         batches = np.stack([np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b)
                             for b in probe_seeds])
         if batches.ndim != 2:
             raise ValueError(f"probe_seeds must be [m, B]; got {batches.shape}")
-        counts = probe_hop_counts(None, None, self.next_key(), self.as_seeds(batches),
-                                  self.sizes, sample_fn=self._bind(self.lazy_init_quiver()))
+        if self.on_host:
+            counts = np.asarray([[a["n_src"] for a in self._host().sample_multilayer(
+                b.astype(np.int64), self.sizes, self._host_seed())[2]] for b in batches])
+        else:
+            counts = probe_hop_counts(None, None, self.next_key(), self.as_seeds(batches),
+                                      self.sizes, sample_fn=self._bind(self.lazy_init_quiver()))
         caps = caps_from_counts(counts, batches.shape[1], self.sizes, margin=margin,
                                 granule=granule)
         self.cap_margin, self.cap_granule = float(margin), int(granule)
@@ -623,6 +728,8 @@ class GraphSageSampler:
         host tensors, one sync). Always the dedup pipeline, with this
         sampler's caps (and its ladder when ``dedup``): the ragged contract
         needs a unique, prefix-valid ``n_id``."""
+        if self.on_host:
+            return dense_to_pyg(self._host_sample_dense(input_nodes))
         sample_fn = self._plain_draws("sample()")
         if self.dedup:
             return dense_to_pyg(self.sample_dense(input_nodes))
@@ -633,7 +740,14 @@ class GraphSageSampler:
     def sample_layer(self, seeds, size: int):
         """One hop of ``size`` draws a seed with the next key: ``(neighbors,
         counts)``, the valid draws of each seed in order, ragged, on this
-        sampler's device."""
+        sampler's device (int64 ids from a host-mode sampler's engine)."""
+        if self.on_host:
+            if isinstance(seeds, torch.Tensor):
+                seeds = seeds.cpu().numpy()
+            nbrs, valid = self._host().sample_layer(np.asarray(seeds, np.int64), int(size),
+                                                    self._host_seed())
+            return (torch.from_numpy(nbrs[valid]).to(self.device),
+                    torch.from_numpy(valid.sum(axis=1)).to(self.device))
         sample_fn = self._plain_draws("sample_layer()")
         seeds = self.as_seeds(seeds)
         nbrs, valid = sample_fn(seeds, torch.ones(seeds.shape, dtype=torch.bool,

@@ -21,9 +21,10 @@ program a shape.
   ``train_step``.
 - `make_sample_train_step`: the whole sampled leg, sample (the draws read
   their hop key words from the card), gather, forward, backward and Adam,
-  in one graph a batch size; with ``auto_grow_caps`` or a feature that reads
-  rows on the host, the sample and gather stay outside and the rest is
-  `make_train_step`'s graph (the JAX example's split).
+  in one graph a batch size; with ``auto_grow_caps``, a host-mode sampler
+  or a feature that reads rows on the host, the sample and gather stay
+  outside and the rest is `make_train_step`'s graph (the JAX example's
+  split).
 
 The card needs an optimizer that keeps its state there (``torch.optim.
 Adam(..., capturable=True)``); others are refused. The graphs bake in the
@@ -381,13 +382,17 @@ def make_sample_train_step(sampler, source, labels, model: nn.Module, optimizer,
     sampler's next key) from the card, staged with the seeds in one copy,
     so the key stream advances as the eager path's and the draws are its
     draws. A "dense" step over a sampler with ``auto_grow_caps`` (the ladder
-    reads ``cap_overflow`` on the host and resamples) or a feature that
-    reads rows on the host samples and gathers eagerly and captures the
-    rest (`make_train_step`). The step runs where the sampler runs."""
+    reads ``cap_overflow`` on the host and resamples), a host-mode sampler
+    (the engine draws on the host) or a feature that reads rows on the host
+    samples and gathers eagerly and captures the rest (`make_train_step`).
+    The step runs where the sampler runs."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if sampler.temporal is not None or sampler.stream is not None:
         raise TypeError("make_sample_train_step takes a frozen, non-temporal sampler")
+    if sampler.on_host and mode != "dense":
+        raise TypeError(f"mode {mode!r} samples inside the step; a host-mode sampler "
+                        f"(mode={sampler.mode!r}) takes mode='dense'")
     dev = sampler.device
     labels = torch.as_tensor(labels).to(dev, torch.int64)
     n = labels.shape[0]
@@ -400,7 +405,8 @@ def make_sample_train_step(sampler, source, labels, model: nn.Module, optimizer,
     def edges(ds) -> torch.Tensor:
         return sum(a.mask.sum() for a in ds.adjs)
 
-    if mode == "dense" and (sampler.auto_grow_caps or not _in_step_rows(source)):
+    if mode == "dense" and (sampler.auto_grow_caps or sampler.on_host
+                            or not _in_step_rows(source)):
         inner = make_train_step(model, optimizer, dev)
 
         def split_step(seeds, generator: Optional[torch.Generator] = None):

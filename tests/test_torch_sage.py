@@ -94,7 +94,7 @@ def test_sampler_caps_and_modes():
     assert int(jds.cap_overflow) == int(tds.cap_overflow)
     assert np.array_equal(np.asarray(jds.raw_counts), tds.raw_counts.numpy())
     with pytest.raises(ValueError):
-        GraphSageSampler(_topos()[1], SIZES, device="cpu", mode="HOST")
+        GraphSageSampler(_topos()[1], SIZES, device="cpu", mode="BAD_MODE")
     with pytest.raises(ValueError):
         GraphSageSampler(_topos()[1], SIZES, device="cpu", layout="csr")
 
