@@ -3,7 +3,8 @@
 capped training, out-of-core training, weighted training, GCN and GAT
 training (float32 and bfloat16), host-mode and mixed device + CPU
 sampled training, temporal serving, (dp, ici) and (host, dp, ici)
-data-parallel training, routed fleet serving and streaming-graph serving
+data-parallel training, routed fleet serving, the hand-off to other
+processes with their multi-process exchanges, and streaming-graph serving
 paths on one card, with every tile table built on it.
 
     python3 chip_smoke.py [--scale 1.0] [--requests 2000] [--seed 0]
@@ -485,6 +486,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the block, then -1 pads), bit-equal to its plain version.
              Yardstick: index_select of the clamped ids, then masked_fill_
              of the -1 lanes;
+30b. processes — two spawned children, one process a host
+             (`quiver_tpu_torch.multiprocessing`): (a) the hand-off: each
+             child gets the resident feature, the 20% cache (its device rows
+             and its tail, copied into shared memory and registered with the
+             card in each process) and the serve path's tiled sampler with
+             its tile table, all through the port's reducers (CUDA IPC and
+             shared memory, no copy), and samples and gathers 8 batches of
+             1,024 seeds (K1, K2, K3, K3t); every batch's sha256 digest of
+             n_id, count, hops and both gathers must equal a twin built in
+             the parent from the same handles, and each child's allocated
+             bytes at its ready point must stay under 1% of the shared
+             device bytes (``processes a:``: seconds to ready, the handles'
+             pickled bytes, the shared bytes, allocations and the card's
+             used memory before the spawn and at ready); (b) the children
+             form a gloo world on the card and a multi-process TorchComm over
+             make_mesh(hosts=2, device=cuda:0), each registering only its
+             contiguous half of the table: 16 rounds of 1,024 mixed ids each
+             way (K13f on its own half), then DistFeature lookups, the rows
+             bit-equal to the single controller's exchange over rank threads
+             on the same requests (``processes b:``: ms a round, K13f's
+             launches per process); (c) each child's answerer a captured
+             ServeEngine(max_batch=64) over a fresh sampler of the handed
+             graph and the resident rows: 64 rounds of exchange_serve at
+             static budget 64 of Zipf(0.99) ids split by owner half, every
+             served row bit-equal to the parent replaying each owner's
+             engine in requester-major order (``processes c:``: rounds a
+             second, p50/p99 a round, each process's peak memory). The
+             kernels line adds these launches of K1, K2, K3, K3t, K4 and
+             K13f;
 31. stream — streaming graphs (`quiver_tpu_torch.stream`): the products
              graph as a StreamingTiledGraph (its tables built on the card by
              K12, 16,384 reserve rows) under ServeEngine(max_batch=64,
@@ -545,7 +575,10 @@ from __future__ import annotations
 import argparse
 import copy
 import gc
+import hashlib
 import json
+import multiprocessing
+import socket
 import os
 import re
 import shutil
@@ -555,6 +588,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import warnings
 from pathlib import Path
 
@@ -659,7 +693,9 @@ from quiver_tpu_torch.pyg.sage_sampler import (
     sample_and_gather_dedup,
     sample_and_gather_fused,
 )
-from quiver_tpu_torch.comm import exchange_rows, exchange_rows_plain
+from quiver_tpu_torch.comm import TorchComm, exchange_all, exchange_rows, exchange_rows_plain
+from quiver_tpu_torch.feature import DistFeature, PartitionInfo
+import quiver_tpu_torch.multiprocessing  # noqa: F401 (the reducers of the processes phase)
 from quiver_tpu_torch.parallel import train as ptrain
 from quiver_tpu_torch.serve import (DistServeConfig, DistServeEngine, contiguous_partition,
                                     delta_interleaved_trace, lp_trace, replay_shard_oracle,
@@ -825,6 +861,12 @@ HOST_JAX_EXAMPLE_ACC = 1.000
 # the ids past the block among K13f's received lanes
 FLEET_HOSTS, FLEET_EXCHANGE_REQUESTS, FLEET_REPLAY, FLEET_REPLAY_CPU = 2, 256, 8, 2
 FLEET_PAST_IDS = 64
+# the processes phase: spawned children (one a host), (a)'s batches, (b)'s
+# ids each way and timed rounds, (c)'s rounds and static budget, the share
+# of the handed bytes a child may allocate by its ready point, and the
+# seconds the parent waits for its children
+PROC_CHILDREN, PROC_BATCHES, PROC_EXCHANGE_IDS, PROC_EXCHANGE_ROUNDS = 2, 8, 1024, 16
+PROC_SERVE_ROUNDS, PROC_SERVE_BUDGET, PROC_ALLOC_SHARE, PROC_TIMEOUT_S = 64, 64, 0.01, 420
 # the kernels redesigned in the fanout slice, as PERF.md's table had them
 # before (K4b: the float32 cols layout's two calls of a step; K10: the two
 # passes at D = 100 and 256), logged beside this run's times; the fanout
@@ -5649,6 +5691,347 @@ def kernel_phase_10(topo, table, trace, rows, seed):
                  f"{FLEET_PAST_IDS} past the block")
 
 
+# -- processes: the hand-off by CUDA IPC and the multi-process exchanges ----------
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, in order (None adds nothing)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def handoff_batches(sampler, resident, tiered, batches) -> list:
+    """Sub-phase (a)'s work, in a child or on the parent's twin: each batch
+    sampled (K1, K2) and gathered from the resident feature (K3) and the
+    20% cache (K3t); one digest a batch of n_id, count, every hop's mask,
+    cols and counts, and both gathers."""
+    out = []
+    for seeds in batches:
+        ds = sampler.sample_dense(seeds)
+        hops = [t for a in ds.adjs for t in (a.cols, a.mask, a.n_src, a.n_dst)]
+        out.append(digest(ds.n_id, ds.count, *hops, resident.lookup_padded(ds.n_id),
+                          tiered[ds.n_id]))
+    return out
+
+
+def exchange_lists(ids: np.ndarray, g2h: np.ndarray, starts: np.ndarray) -> list:
+    """Global ``ids`` split by owner into owner-LOCAL rows, one list a host."""
+    return [ids[g2h[ids] == h] - starts[h] for h in range(len(starts) - 1)]
+
+
+def serve_answerer(engine, budget: int):
+    """An owner's serve answerer: each requester's valid ids through the
+    engine, requester-major."""
+    def answer(recv_ids):
+        out = np.zeros((recv_ids.shape[0], budget, CLASSES), np.float32)
+        for req in range(recv_ids.shape[0]):
+            valid = recv_ids[req] >= 0
+            if valid.any():
+                out[req, valid] = engine.predict(recv_ids[req][valid].astype(np.int64))
+        return out
+    return answer
+
+
+def processes_child(rank, feed, q):
+    """One host process of the processes phase (spawned). It takes ``(port,
+    payload, model, params, plan)`` from ``feed``: ``payload`` holds the
+    ``ForkingPickler`` bytes of the resident feature, the 20% cache and the
+    serve sampler, made for this child alone, which it loads through the
+    port's reducers (mapping the parent's memory). Puts ``(rank, "ok",
+    results)`` or ``(rank, "error", traceback)`` on ``q``, after releasing
+    what it mapped."""
+    try:
+        out = processes_child_body(rank, *feed.get(timeout=PROC_TIMEOUT_S))
+        gc.collect()  # the answerer and the engine hold each other
+        q.put((rank, "ok", out))
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def processes_child_body(rank, port, payload, model, params, plan) -> dict:
+    out = {"enter_wall": time.time()}
+    dev = torch.device(plan["device"])
+    torch.cuda.set_device(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+    out["card_used_before_load"] = total - free
+    out["context_wall"] = time.time()
+    resident, tiered, sampler = (multiprocessing.reduction.ForkingPickler.loads(payload[name])
+                                 for name in ("resident", "tiered", "sampler"))
+    torch.cuda.synchronize(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    out.update(ready_wall=time.time(), card_used_at_ready=total - free,
+               allocated_delta=torch.cuda.memory_allocated(dev) - allocated)
+    _kernels.reset_counts()
+    # (a) the hand-off: draws and gathers over the parent's memory
+    out["digests"] = handoff_batches(sampler, resident, tiered, plan["batches"])
+    torch.cuda.synchronize()
+    out["a_launches"] = _kernels.counts()
+    out["allocated_after_a"] = torch.cuda.memory_allocated(dev)
+    # (b) the multi-process exchange: this host's half of the table only
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=PROC_CHILDREN, rank=rank)
+    mesh = ptrain.make_mesh(hosts=PROC_CHILDREN, device=dev)
+    comm = TorchComm(rank, PROC_CHILDREN, meshes=[mesh])
+    lo, hi = plan["starts"][rank], plan["starts"][rank + 1]
+    table = resident.shard_tensor.device_rows
+    comm.register_local_table(rank, table[lo:hi])
+    comm.static_budget = PROC_EXCHANGE_IDS
+    ids = plan["exchange"][rank]
+    lists = exchange_lists(ids, plan["g2h"], plan["starts"])
+    _kernels.reset_counts()
+    got, round_ms = None, []
+    for _ in range(PROC_EXCHANGE_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = comm.exchange(lists)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        d = [None if r is None else digest(r) for r in rows]
+        check(got is None or d == got, f"child {rank}: an exchange round differs from the first")
+        got = d
+    out["exchange"] = {"digests": got, "round_ms": round_ms,
+                       "k13f_launches": _kernels.counts()["exchange_rows"]}
+    own = Feature(device=dev, device_cache_size=(hi - lo) * DIM * 4)
+    own.from_cpu_tensor(table[lo:hi].cpu())
+    own.set_local_order(np.arange(lo, hi))
+    info = PartitionInfo(dev, rank, PROC_CHILDREN, plan["g2h"])
+    looked = DistFeature(own, info, comm)[ids]
+    check(torch.equal(looked, table[torch.from_numpy(ids).to(dev)]),
+          f"child {rank}: DistFeature rows differ from the table's")
+    out["exchange"]["dist_feature"] = digest(looked)
+    out["exchange"]["k13f_launches_total"] = _kernels.counts()["exchange_rows"]
+    del own, looked
+    # (c) the multi-process serve exchange: this host's captured engine
+    # over a fresh sampler of the handed graph and the resident rows
+    fresh = GraphSageSampler.lazy_from_ipc_handle(sampler.share_ipc())
+    engine = ServeEngine(model, params, fresh, table,
+                         ServeConfig(max_batch=BATCH, record_dispatches=True))
+    engine.warmup()
+    comm.static_budget = PROC_SERVE_BUDGET
+    comm.register_serve_answerer(rank, serve_answerer(engine, PROC_SERVE_BUDGET))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_path_counts(engine)
+    served, serve_ms = [], []
+    t_all = time.perf_counter()
+    for owners in plan["serve"][rank]:
+        t0 = time.perf_counter()
+        served.append(comm.exchange_serve(owners, out_dim=CLASSES))
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_all
+    out["serve"] = {"rows": served, "round_ms": serve_ms, "wall_s": wall,
+                    "launches": path_counts(engine), "dispatches": len(engine.dispatch_log),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def processes_plan(n: int, seed: int) -> dict:
+    """The children's work, from the seed: (a)'s batches of 1,024 seeds;
+    the contiguous halves; (b)'s 1,024 mixed global ids a child; (c)'s
+    Zipf(0.99) rounds of PROC_SERVE_BUDGET ids a child, split by owner."""
+    rng = np.random.default_rng(seed + 230)
+    g2h = contiguous_partition(n, PROC_CHILDREN)
+    starts = np.searchsorted(g2h, np.arange(PROC_CHILDREN + 1)).astype(np.int64)
+    serve = []
+    for r in range(PROC_CHILDREN):
+        trace = zipfian_trace(n, PROC_SERVE_ROUNDS * PROC_SERVE_BUDGET, alpha=0.99,
+                              seed=seed + 231 + r).reshape(PROC_SERVE_ROUNDS, PROC_SERVE_BUDGET)
+        serve.append([[t[g2h[t] == h] for h in range(PROC_CHILDREN)] for t in trace])
+    return {"batches": rng.integers(0, n, (PROC_BATCHES, TRAIN_BATCH)).astype(np.int32),
+            "g2h": g2h, "starts": starts,
+            "exchange": [rng.integers(0, n, PROC_EXCHANGE_IDS) for _ in range(PROC_CHILDREN)],
+            "serve": serve}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(inputs):
+    """Spawn PROC_CHILDREN children of `processes_child`, feed child r
+    ``inputs[r]`` through a queue (the arguments of a spawn go down a pipe
+    that holds 64 KB, and a larger write waits for the child to import its
+    modules, which would start the children one after another), wait for
+    every result (at most PROC_TIMEOUT_S), then for the children to end;
+    kill them all on any failure. Returns ``(results in rank order, the wall
+    clock just before the spawn)``."""
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    feeds = [ctx.Queue() for _ in range(PROC_CHILDREN)]
+    t_spawn = time.time()
+    procs = [ctx.Process(target=processes_child, args=(r, feeds[r], q), daemon=True)
+             for r in range(PROC_CHILDREN)]
+    results = {}
+    try:
+        for p in procs:
+            p.start()
+        for feed, item in zip(feeds, inputs):
+            feed.put(item)
+        deadline = time.monotonic() + PROC_TIMEOUT_S
+        while len(results) < PROC_CHILDREN:
+            rank, status, body = q.get(timeout=max(deadline - time.monotonic(), 1.0))
+            check(status == "ok", f"processes: child {rank} failed:\n{body}")
+            results[rank] = body
+        for p in procs:
+            p.join(timeout=60)
+        check(all(p.exitcode == 0 for p in procs),
+              f"processes: child exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [results[r] for r in range(PROC_CHILDREN)], t_spawn
+
+
+def shared_bytes(resident, tiered, sampler) -> dict:
+    """Bytes the children map instead of copying: the resident table, the
+    20% cache's device rows and shared tail, its order on the card, and the
+    sampler's tile table."""
+    graph = sum(t.numel() * t.element_size() for t in sampler.lazy_init_quiver())
+    tb = tiered.tier_bytes()
+    out = {"resident": resident.tier_bytes()["device"], "tiered_device": tb["device"],
+           "tiered_order": tiered._order_dev.numel() * 4, "graph": graph}
+    out["device_total"] = sum(out.values())
+    out["tiered_host_tail"] = tb["host"]
+    return out
+
+
+def processes_phase(topo, table_np, tiered, sampler, model, params, seed) -> dict:
+    """Sub-phases (a)-(c) in PROC_CHILDREN spawned children, one a host (see
+    the module docstring); returns the launches of K1, K2, K3, K3t, K4 and
+    K13f the children made."""
+    dev = tiered.device
+    resident = Feature(device_cache_size=table_np.nbytes, device=dev)
+    resident.from_cpu_tensor(table_np)
+    plan = processes_plan(topo.node_count, seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    plan["device"] = str(dev)
+    # one payload a child: each CUDA IPC handle and shared file descriptor
+    # in it is taken once, by its child
+    payloads = [{name: bytes(multiprocessing.reduction.ForkingPickler.dumps(obj))
+                 for name, obj in (("resident", resident), ("tiered", tiered),
+                                   ("sampler", sampler))} for _ in range(PROC_CHILDREN)]
+    handles = {"resident": resident.share_ipc(), "tiered": tiered.share_ipc(),
+               "sampler": sampler.share_ipc()}
+    shared = shared_bytes(resident, tiered, sampler)
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info(dev)
+    used_before = total - free
+    port = free_port()
+    results, t_spawn = run_children([(port, payload, model, params, plan) for payload in payloads])
+    # (a) each child's digests against a twin built here from the same handles
+    twin_sampler = GraphSageSampler.lazy_from_ipc_handle(handles["sampler"])
+    twin_res = Feature.new_from_ipc_handle(0, handles["resident"])
+    twin_tier = Feature.new_from_ipc_handle(0, handles["tiered"])
+    want = handoff_batches(twin_sampler, twin_res, twin_tier, plan["batches"])
+    a_line = {"children": PROC_CHILDREN, "batches": PROC_BATCHES, "batch": TRAIN_BATCH,
+              "handle_pickled_bytes": {name: len(b) for name, b in payloads[0].items()},
+              "shared_bytes": shared, "card_used_before_spawn": used_before, "per_child": []}
+    for r, res in enumerate(results):
+        check(res["digests"] == want, f"processes (a): child {r}'s draws or rows differ from "
+                                      "the twin's")
+        check(res["allocated_delta"] < PROC_ALLOC_SHARE * shared["device_total"],
+              f"processes (a): child {r} allocated {res['allocated_delta']} bytes loading the "
+              f"handles, more than {PROC_ALLOC_SHARE:.0%} of the shared bytes")
+        for name in ("sample_tiled", "local_reindex", "gather_rows", "tiered_gather"):
+            check(res["a_launches"][name] > 0, f"processes (a): child {r} never launched {name}")
+        a_line["per_child"].append({
+            "ready_s": res["ready_wall"] - t_spawn,
+            "entered_s": res["enter_wall"] - t_spawn,
+            "cuda_context_s": res["context_wall"] - res["enter_wall"],
+            "load_s": res["ready_wall"] - res["context_wall"],
+            "allocated_delta": res["allocated_delta"],
+            "allocated_share_of_shared": res["allocated_delta"] / shared["device_total"],
+            "allocated_after_batches": res["allocated_after_a"],
+            "card_used_before_load": res["card_used_before_load"],
+            "card_used_at_ready": res["card_used_at_ready"],
+            "launches": {k: v for k, v in res["a_launches"].items() if v}})
+    log("processes a: " + json.dumps(a_line))
+    # (b) the rows each child got against the single controller over rank threads
+    lists = [exchange_lists(ids, plan["g2h"], plan["starts"]) for ids in plan["exchange"]]
+    req = np.full((PROC_CHILDREN, PROC_CHILDREN, PROC_EXCHANGE_IDS), -1, np.int64)
+    for i, per_host in enumerate(lists):
+        for j, ids in enumerate(per_host):
+            req[i, j, : len(ids)] = ids
+    starts = plan["starts"]
+    rows = int(np.diff(starts).max())
+    blocks = torch.zeros((PROC_CHILDREN, rows, DIM), device=dev)
+    for h in range(PROC_CHILDREN):
+        blocks[h, : starts[h + 1] - starts[h]] = twin_res.shard_tensor.device_rows[
+            starts[h]: starts[h + 1]]
+    ref = exchange_all(local_meshes(PROC_CHILDREN, hosts=PROC_CHILDREN, device=dev), req, blocks)
+    b_line = {"ids_each_way": PROC_EXCHANGE_IDS, "rounds": PROC_EXCHANGE_ROUNDS,
+              "backend": "gloo", "per_child": []}
+    for r, res in enumerate(results):
+        want_b = [digest(ref[r, j, : len(ids)]) if len(ids) else None
+                  for j, ids in enumerate(lists[r])]
+        check(res["exchange"]["digests"] == want_b,
+              f"processes (b): child {r}'s exchanged rows differ from the single controller's")
+        check(res["exchange"]["dist_feature"] == digest(
+            twin_res.shard_tensor.device_rows[torch.from_numpy(plan["exchange"][r]).to(dev)]),
+            f"processes (b): child {r}'s DistFeature rows differ")
+        check(res["exchange"]["k13f_launches"] > 0, f"processes (b): child {r} never launched "
+                                                    "exchange_rows")
+        ms = res["exchange"]["round_ms"]
+        b_line["per_child"].append({"round_ms": median_min_max(ms[1:]), "first_round_ms": ms[0],
+                                    "k13f_launches": res["exchange"]["k13f_launches"],
+                                    "k13f_launches_with_dist_feature":
+                                        res["exchange"]["k13f_launches_total"]})
+    log("processes b: " + json.dumps(b_line))
+    del blocks, ref
+    # (c) every served row against each owner's engine replayed here in
+    # requester-major order
+    table = twin_res.shard_tensor.device_rows
+    c_line = {"rounds": PROC_SERVE_ROUNDS, "static_budget": PROC_SERVE_BUDGET,
+              "max_batch": BATCH, "per_child": []}
+    for h in range(PROC_CHILDREN):
+        engine = ServeEngine(model, params, GraphSageSampler.lazy_from_ipc_handle(
+            handles["sampler"]), table, ServeConfig(max_batch=BATCH, record_dispatches=True))
+        engine.warmup()
+        for rnd in range(PROC_SERVE_ROUNDS):
+            for req_rank in range(PROC_CHILDREN):
+                ids = plan["serve"][req_rank][rnd][h]
+                if not len(ids):
+                    continue
+                got = results[req_rank]["serve"]["rows"][rnd][h]
+                check(got is not None and got.tobytes() == engine.predict(ids).tobytes(),
+                      f"processes (c): round {rnd}, requester {req_rank}'s rows from owner {h} "
+                      "differ from the owner's replay")
+        check(len(engine.dispatch_log) == results[h]["serve"]["dispatches"],
+              f"processes (c): owner {h}'s replay dispatched another number of flushes")
+        del engine
+    for r, res in enumerate(results):
+        srv = res["serve"]
+        for name in MAIN_PATH:
+            check(srv["launches"].get(name, 0) > 0, f"processes (c): child {r} never launched "
+                                                    f"{name}")
+        ms = sorted(srv["round_ms"])
+        c_line["per_child"].append({
+            "rounds_per_s": PROC_SERVE_ROUNDS / srv["wall_s"],
+            "round_ms_p50": float(np.percentile(ms, 50)),
+            "round_ms_p99": float(np.percentile(ms, 99)),
+            "dispatches": srv["dispatches"], "max_memory_allocated": srv["max_memory_allocated"],
+            "launches": {k: v for k, v in srv["launches"].items() if v}})
+    c_line["parent_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    log("processes c: " + json.dumps(c_line))
+    launches = {}
+    for res in results:
+        for name, n in list(res["a_launches"].items()) + list(res["serve"]["launches"].items()):
+            launches[name] = launches.get(name, 0) + n
+        launches["exchange_rows"] = (launches.get("exchange_rows", 0)
+                                     + res["exchange"]["k13f_launches_total"])
+    del twin_sampler, twin_res, twin_tier, resident, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- the streaming graph: commits while serving --------------------------------
 
 def epoch_indptr(bd: torch.Tensor) -> torch.Tensor:
@@ -6344,6 +6727,13 @@ def main() -> int:
     launches["exchange_rows"] = fleet_counts["exchange_rows"]
     kernel_phase_10(topo, table, trace, rows, args.seed)
     phase_done("kernels-10")
+
+    # -- processes: the hand-off by CUDA IPC and the multi-process exchanges --------
+    proc_counts = processes_phase(topo, table_np, tiered, sampler, model, params, args.seed)
+    for name in ("sample_tiled", "local_reindex", "gather_rows", "tiered_gather", "masked_mean",
+                 "exchange_rows"):
+        launches[name] += proc_counts[name]
+    phase_done("processes")
 
     # -- streaming graphs: commits while serving, B1, the device-graph draws ---------
     launches.update(stream_phase(topo, table, model, params, ts_np, rows, args.seed))

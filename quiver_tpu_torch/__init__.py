@@ -13,7 +13,10 @@ data-parallel training on a mesh of ranks (`parallel`), routed fleet
 serving over the serve exchange (`serve.DistServeEngine` over `comm`) and
 serving over a graph that changes while it serves (`stream`, `lifecycle`:
 commits, deletions, expiry, compaction and reserve growth through the
-serve engine's ``update_graph``). On the card the serve step and every
+serve engine's ``update_graph``), and processes: features and samplers
+handed to spawned children by CUDA IPC and shared memory
+(`multiprocessing`) and `comm.TorchComm`'s exchanges with one process a
+host. On the card the serve step and every
 single-card training step run as captured CUDA graphs (`inference.
 BucketPrograms`, `train_programs`).
 

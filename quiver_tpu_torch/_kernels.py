@@ -147,6 +147,8 @@ VARIANTS = {"masked_mean": ("float32", "bfloat16"),
             **{name: ("device_key", "device_graph") for name in DEVICE_GRAPH}}
 # C helpers that launch nothing: name -> (source stem, argtypes)
 HELPERS = {"qt_host_device_pointer": ("gather", [_P, ctypes.POINTER(ctypes.c_void_p)]),
+           "qt_host_register": ("gather", [_P, _LL, ctypes.POINTER(_I)]),
+           "qt_host_unregister": ("gather", [_P]),
            "qt_local_reindex_scratch": ("reindex", [_I, _I, ctypes.POINTER(_LL)]),
            "qt_masked_mean_backward_scratch": ("aggregate",
                                                [_LL, _I, _I, _I, ctypes.POINTER(_LL)]),
@@ -341,6 +343,30 @@ def host_device_pointer(t: torch.Tensor) -> int:
         msg = lib.qt_error_string(rc).decode() if rc else "null mapping"
         raise RuntimeError(f"host tensor is not mapped for device reads: error {rc} ({msg})")
     return out.value
+
+
+def host_register(t: torch.Tensor) -> bool:
+    """Register the memory of CPU tensor ``t`` (a shared-memory mapping)
+    with the card, mapped, so that `host_device_pointer` works on it.
+    Returns True when this call registered it (its caller then owns the
+    `host_unregister`), False when it was page-locked already. Raises with
+    the CUDA error when the registration fails."""
+    lib = _lib(HELPERS["qt_host_register"][0])
+    done = ctypes.c_int(0)
+    rc = lib.qt_host_register(t.data_ptr(), t.numel() * t.element_size(), ctypes.byref(done))
+    if rc != 0:
+        raise RuntimeError(f"cudaHostRegister of {t.numel() * t.element_size():,} host bytes "
+                           f"failed: error {rc} ({lib.qt_error_string(rc).decode()})")
+    return bool(done.value)
+
+
+def host_unregister(t: torch.Tensor) -> None:
+    """Undo a `host_register` of ``t`` that returned True."""
+    lib = _lib(HELPERS["qt_host_unregister"][0])
+    rc = lib.qt_host_unregister(t.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"cudaHostUnregister failed: error {rc} "
+                           f"({lib.qt_error_string(rc).decode()})")
 
 
 def masked_mean_backward_scratch_bytes(w_src: int, w_dst: int, k: int, D: int = 0) -> int:

@@ -18,9 +18,16 @@ residency): it runs on the thread that holds the process-wide collective
 lock, which is re-entrant, and each comm owns its own meshes, so a nested
 exchange never shares a gloo group with the one around it.
 
-Only the single-controller mode is ported: one process drives every host's
-rank. The multi-process paths (one process a host, each holding only its own
-block and answerer) raise ``NotImplementedError`` naming ROADMAP A16.
+A `TorchComm` runs in one of two modes. Single controller: one process
+drives every host's rank thread and registers every host's block and
+answerer. Multi-process: one process a host (``meshes=[make_mesh(hosts=H,
+device=...)]`` over ``torch.distributed``), each holding only its own block
+and answerer; its exchange all_to_alls this host's ``[H, L]`` request row,
+answers what it received from its own block (K13f) or answerer, and
+all_to_alls the answers back, so each process gets the rows addressed to
+it. Both modes give the same rows on the same requests. The multi-process
+mode needs a request budget every process agrees on without communicating
+(``static_budget`` or ``budget=``).
 """
 
 from __future__ import annotations
@@ -250,28 +257,39 @@ def exchange_serve_all(meshes, requests: np.ndarray, answer_fn, out_dim: int,
         L = recv.shape[2]
         rows = np.zeros((h, h, L, out_dim), np.float32)
         for host in range(h):
-            try:
-                ans = np.asarray(answer_fn(host, recv[host]), np.float32)
-            except OwnerAnswerError:
-                raise
-            except Exception as exc:
-                raise OwnerAnswerError(host, exc) from exc
-            if ans.shape != (h, L, out_dim):
-                raise ValueError(f"answer_fn(host={host}) returned {ans.shape}, expected "
-                                 f"{(h, L, out_dim)}")
-            rows[host] = ans
+            rows[host] = _owner_answer(lambda ids: answer_fn(host, ids), host, recv[host],
+                                       out_dim)
         return _all_to_all_ranks(meshes, axis, _on(rows, dev)).cpu().numpy()
+
+
+def _owner_answer(answer, host: int, recv: np.ndarray, out_dim: int) -> np.ndarray:
+    """Owner ``host``'s ``answer(recv)`` for its received ``[H, L]`` ids as
+    ``[H, L, out_dim]`` float32; an answerer that raises becomes
+    `OwnerAnswerError` naming the owner."""
+    try:
+        ans = np.asarray(answer(recv), np.float32)
+    except OwnerAnswerError:
+        raise
+    except Exception as exc:
+        raise OwnerAnswerError(host, exc) from exc
+    if ans.shape != recv.shape + (out_dim,):
+        raise ValueError(f"the serve answerer of host {host} returned {ans.shape}, expected "
+                         f"{recv.shape + (out_dim,)}")
+    return ans
 
 
 class TorchComm:
     """The port of ``TpuComm`` / the reference's ``NcclComm``: one handle
     per host process, whose ``exchange`` every host calls together. In the
-    single-controller mode ported here one process simulates the pod: it
-    registers every host's table block and serve answerer, and ``rank``
-    picks which host's answers a call returns. ``meshes`` default to
+    single-controller mode one process simulates the pod: it registers
+    every host's table block and serve answerer, and ``rank`` picks which
+    host's answers a call returns. ``meshes`` default to
     ``local_meshes(hosts, hosts=hosts, device=device)`` (the card unless the
     caller asks for the CPU): one rank thread a host, gloo groups of this
-    comm's own."""
+    comm's own. Given ``meshes=[make_mesh(hosts=H, device=...)]``, this
+    process's one rank of a host mesh over ``torch.distributed``, the comm
+    is multi-process: one process a host (host ``rank // ranks_per_host``),
+    each registering its own block and answerer only."""
 
     def __init__(self, rank: int, world_size: int, nccl_id=None, hosts: Optional[int] = None,
                  ranks_per_host: int = 1, meshes=None, axis: str = "host", device=None):
@@ -286,8 +304,12 @@ class TorchComm:
         self.axis = axis
         self.device = self.meshes[0].device
         # one process a host (make_mesh over torch.distributed): each holds
-        # only its own block and answerer — not ported
+        # only its own block and answerer
         self.multiprocess = len(self.meshes) < self.table.hosts
+        if self.multiprocess and (len(self.meshes) != 1
+                                  or self.meshes[0].index(axis) != self.host):
+            raise ValueError(f"a multi-process comm takes this process's one rank of the host "
+                             f"mesh: host {self.host}'s, got {len(self.meshes)} meshes")
         # a request budget every host agrees on without communicating
         self.static_budget: Optional[int] = None
         self._local_tables = {}
@@ -298,60 +320,84 @@ class TorchComm:
     def host(self) -> int:
         return self.table.rank2host(self.rank)
 
-    def _refuse_multiprocess(self, what: str) -> None:
-        if self.multiprocess:
-            raise NotImplementedError(f"multi-process {what} (one process a host) is not "
-                                      "ported yet (ROADMAP A16)")
-
-    def _budget(self, host2ids, budget: Optional[int]) -> int:
+    def _budget(self, host2ids, budget: Optional[int], what: str) -> int:
         if budget is not None:
             return budget
         if self.static_budget is not None:
             return self.static_budget
+        if self.multiprocess:
+            raise ValueError(f"multi-process {what} needs a budget every process agrees on: set "
+                             "comm.static_budget (or pass budget=); a bucket computed from this "
+                             "host's own lists can differ across hosts and desync the collective")
         return round_up_pow2(max((len(i) for i in host2ids), default=1))
 
     def _request(self, host2ids, budget: int, what: str) -> np.ndarray:
-        """The global ``[H, H, budget]`` request: this host's lists in row
-        ``self.host``, -1 elsewhere."""
-        h = self.table.hosts
-        req = np.full((h, h, budget), ID_PAD, np.int64)
+        """This host's ``[H, budget]`` request row: its list for host j in
+        row j, -1 padded."""
+        req = np.full((self.table.hosts, budget), ID_PAD, np.int64)
         for j, ids in enumerate(host2ids):
             ids = np.asarray(ids, np.int64)
             if ids.shape[0] > budget:
                 raise ValueError(f"{what} to host {j} ({ids.shape[0]} ids) exceeds the exchange "
                                  f"budget {budget}; raise static_budget")
-            req[self.host, j, : ids.shape[0]] = ids
+            req[j, : ids.shape[0]] = ids
         return req
+
+    def _global_request(self, row: np.ndarray) -> np.ndarray:
+        """The single controller's ``[H, H, L]`` request: ``row`` in row
+        ``self.host``, -1 elsewhere."""
+        h = self.table.hosts
+        req = np.full((h, h, row.shape[1]), ID_PAD, np.int64)
+        req[self.host] = row
+        return req
+
+    def _on_my_rank(self, fn):
+        """``fn(host group)`` on this process's rank (multi-process mode)."""
+        return _train.run_ranks(lambda m: fn(m.group(self.axis)), self.meshes)[0]
 
     def exchange(self, host2ids: Sequence[np.ndarray],
                  budget: Optional[int] = None) -> List[Optional[torch.Tensor]]:
         """Rows for per-host lists of owner-LOCAL row ids (`DistFeature`
         localizes global ids before calling), from the blocks registered with
         `register_local_table`: one ``[len(ids), D]`` tensor on the comm's
-        device per host, None where nothing was asked."""
+        device per host, None where nothing was asked. Collective: every
+        host calls it together."""
         rec = EXCHANGE_SPANS
         t_span0 = _EXCHANGE_CLOCK() if rec is not None else 0.0
-        self._refuse_multiprocess("exchange")
-        budget = self._budget(host2ids, budget)
-        req = self._request(host2ids, budget, "request")
+        budget = self._budget(host2ids, budget, "exchange")
+        row = self._request(host2ids, budget, "request")
         with _SC_COLLECTIVE_LOCK:
-            out = exchange_all(self.meshes, req, self._tables_for_exchange(self.table.hosts),
-                               self.axis)
-        mine = self._my_rows(out)
+            if self.multiprocess:
+                block = self._own_block()
+                req = _on(_ids_to_int32(row), self.device)
+                # the ids asked of this host, answered from its own block
+                # (K13f), then the rows back
+                mine = self._on_my_rank(lambda g: collectives.all_to_all(
+                    exchange_rows(block, collectives.all_to_all(req, g)), g))
+            else:
+                mine = exchange_all(self.meshes, self._global_request(row),
+                                    self._tables_for_exchange(self.table.hosts),
+                                    self.axis)[self.host]
         res: List[Optional[torch.Tensor]] = [mine[j, :len(ids)] if len(ids) else None
                                              for j, ids in enumerate(host2ids)]
         if rec is not None:
             rec.record("comm.exchange", t_span0, _EXCHANGE_CLOCK())
         return res
 
-    def _my_rows(self, out):
-        """This host's slice of an ``[H, H, L, ...]`` exchange result."""
-        return out[self.host]
+    def _own_block(self) -> torch.Tensor:
+        """This host's registered block on the comm's device (multi-process
+        mode), placed once and dropped by `register_local_table`."""
+        if self._table_stack_dev is None:
+            if self.host not in self._local_tables:
+                raise RuntimeError("register_local_table(self.host, rows) must be called before "
+                                   "a multi-process exchange")
+            self._table_stack_dev = self._local_tables[self.host].to(self.device)
+        return self._table_stack_dev
 
     def _tables_for_exchange(self, h: int) -> torch.Tensor:
         """The ``[H, R, D]`` float32 stack of the registered blocks on the
-        comm's device, zero-padded to the largest block; built once and
-        dropped by `register_local_table`."""
+        comm's device, zero-padded to the largest block (single-controller
+        mode); built once and dropped by `register_local_table`."""
         if self._table_stack_dev is not None:
             return self._table_stack_dev
         if not self._local_tables:
@@ -365,7 +411,9 @@ class TorchComm:
         return stack
 
     def register_local_table(self, host: int, rows) -> None:
-        """Host ``host``'s ``[R, D]`` row block (numpy or a tensor)."""
+        """Host ``host``'s ``[R, D]`` row block (numpy or a tensor; a
+        float32 tensor is kept, not copied). A multi-process comm registers
+        its own host's block only."""
         self._local_tables[host] = torch.as_tensor(rows, dtype=torch.float32)
         self._table_stack_dev = None
 
@@ -373,7 +421,8 @@ class TorchComm:
 
     def register_serve_answerer(self, host: int, fn) -> None:
         """``host``'s answer callback for `exchange_serve`: ``fn(recv_ids [H,
-        L] int32, -1-padded, requester-major) -> [H, L, C] float32``."""
+        L] int32, -1-padded, requester-major) -> [H, L, C] float32``. A
+        multi-process comm registers its own host's only."""
         self._serve_answerers[host] = fn
 
     def exchange_serve(self, host2ids: Sequence[np.ndarray], out_dim: int,
@@ -381,29 +430,44 @@ class TorchComm:
                        host2ts=None) -> List[Optional[np.ndarray]]:
         """Ship per-owner seed-id lists out, run each owner's registered
         answerer, get logits back: one ``[len(ids), out_dim]`` float32 array
-        per owner (None where nothing was asked), in ``host2ids`` order."""
+        per owner (None where nothing was asked), in ``host2ids`` order.
+        Collective: every host calls it together with the same ``budget``
+        and ``out_dim``. In multi-process mode this host's answerer runs in
+        this process between the two all_to_alls; ``host2tenants`` is
+        dropped there (owner quotas then hold at the router only, as in the
+        JAX package), and an answerer that raises becomes
+        `OwnerAnswerError`, while the other hosts fail at their next
+        collective within the groups' timeout."""
         rec = EXCHANGE_SPANS
         t_span0 = _EXCHANGE_CLOCK() if rec is not None else 0.0
-        if host2tenants is not None:
-            raise NotImplementedError("host2tenants (owner-side tenant quotas) is not ported "
-                                      "yet (ROADMAP A12)")
+        budget = self._budget(host2ids, budget, "exchange_serve")
         if host2ts is not None:
             raise NotImplementedError("host2ts (the temporal fleet) is not ported yet "
                                       "(ROADMAP A16)")
-        self._refuse_multiprocess("exchange_serve")
-        budget = self._budget(host2ids, budget)
-        h = self.table.hosts
-        missing = [j for j in range(h) if j not in self._serve_answerers]
-        if missing:
-            raise RuntimeError("single-controller exchange_serve needs every host's answerer "
-                               f"registered (missing {missing}); call register_serve_answerer "
-                               "per host")
-        req = self._request(host2ids, budget, "serve request")
+        if host2tenants is not None and not self.multiprocess:
+            raise NotImplementedError("host2tenants (owner-side tenant quotas) is not ported "
+                                      "yet (ROADMAP A12)")
         answerers = self._serve_answerers
-        out = exchange_serve_all(self.meshes, req,
-                                 lambda host, recv_ids: answerers[host](recv_ids), out_dim,
-                                 self.axis)
-        mine = self._my_rows(out)
+        row = self._request(host2ids, budget, "serve request")
+        if self.multiprocess:
+            if self.host not in answerers:
+                raise RuntimeError("register_serve_answerer(self.host, fn) must be called before "
+                                   "a multi-process exchange_serve")
+            req = _on(_ids_to_int32(row), self.device)
+            with _SC_COLLECTIVE_LOCK:
+                recv = self._on_my_rank(lambda g: collectives.all_to_all(req, g)).cpu().numpy()
+                ans = _on(_owner_answer(answerers[self.host], self.host, recv, out_dim),
+                          self.device)
+                mine = self._on_my_rank(lambda g: collectives.all_to_all(ans, g)).cpu().numpy()
+        else:
+            missing = [j for j in range(self.table.hosts) if j not in answerers]
+            if missing:
+                raise RuntimeError("single-controller exchange_serve needs every host's answerer "
+                                   f"registered (missing {missing}); call "
+                                   "register_serve_answerer per host")
+            mine = exchange_serve_all(self.meshes, self._global_request(row),
+                                      lambda host, recv_ids: answerers[host](recv_ids), out_dim,
+                                      self.axis)[self.host]
         res = [mine[j, :len(ids)] if len(ids) else None for j, ids in enumerate(host2ids)]
         if rec is not None:
             rec.record("comm.exchange_serve", t_span0, _EXCHANGE_CLOCK())
@@ -411,7 +475,13 @@ class TorchComm:
 
     # the reference's raw verbs
     def allreduce(self, x):
-        self._refuse_multiprocess("allreduce (sum inside the step: parallel.collectives)")
+        if self.multiprocess:
+            # a host-side identity would be silently wrong: each process
+            # holds only its own addends
+            raise NotImplementedError("TorchComm.allreduce is host-side and single-controller "
+                                      "only; in multi-process mode sum inside the step with "
+                                      "parallel.collectives.allreduce_sum over the mesh's group, "
+                                      "or use exchange()")
         return torch.as_tensor(x)  # single controller: already global
 
     def send(self, *_a, **_k):

@@ -494,6 +494,30 @@ QT_EXPORT int qt_host_device_pointer(const void* host, void** dev) {
   return 0;
 }
 
+// Register ``bytes`` of host memory at ``host`` (a shared-memory mapping of
+// another process's host tail) with the card, mapped and portable, so that
+// kernels read it through its UVA mapping as they read pinned memory. Sets
+// ``*registered`` to 1 when this call registered it, and to 0 when the
+// memory is already page-locked (pinned, or registered before in this
+// process), which leaves its registration to its owner.
+QT_EXPORT int qt_host_register(void* host, long long bytes, int* registered) {
+  *registered = 0;
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, host);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.type == cudaMemoryTypeHost) return 0;
+  err = cudaHostRegister(host, static_cast<size_t>(bytes),
+                         cudaHostRegisterMapped | cudaHostRegisterPortable);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registered = 1;
+  return 0;
+}
+
+// Undo qt_host_register: the memory at ``host`` is pageable again.
+QT_EXPORT int qt_host_unregister(void* host) {
+  return static_cast<int>(cudaHostUnregister(host));
+}
+
 // K14: gather_src — the hop-source gather of the dense adjacency.
 //
 // Replaces quiver_tpu/pyg/sage_sampler.py:DenseAdj.gather_src in the cols

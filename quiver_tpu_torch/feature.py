@@ -27,9 +27,13 @@ its own rows and maps global ids to them), `PartitionInfo` (which host owns
 each id) and `DistFeature` (dispatch ids by owner, exchange the remote ones
 over a `comm.TorchComm`, merge with the local gather).
 
+``Feature.share_ipc`` / ``new_from_ipc_handle`` hand a static store to
+another process (`shard_tensor.ShardTensor.share_ipc`; the reducers of
+`quiver_tpu_torch.multiprocessing` call them).
+
 Not ported yet: the ``p2p_clique_replicate`` policy, ``from_mmap`` and
-``set_mmap_file``, the observe-only taps (``tier_counter``, ``row_tap``)
-and the IPC handles.
+``set_mmap_file``, and the observe-only taps (``tier_counter``,
+``row_tap``).
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ import torch
 
 from . import _kernels
 from .shard_tensor import CPU_DEVICE, ShardTensor, ShardTensorConfig, _rows_of, normalize_dtype
-from .utils import CSRTopo, parse_size, reindex_feature, resolve_device
+from .utils import (CSRTopo, is_view_of, parse_size, reindex_feature, resolve_device,
+                    shared_tensor)
 
 
 def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -170,6 +175,7 @@ class Feature:
         self._local_order_applied = False
         self._order_dev: Optional[torch.Tensor] = None   # the same, int32 on the device
         self._inv_order: Optional[np.ndarray] = None
+        self._shared_order: Optional[torch.Tensor] = None  # feature_order's shared memory
         self.shard_tensor: Optional[ShardTensor] = None
         self._dim: Optional[int] = None
         self._n: int = 0
@@ -224,11 +230,7 @@ class Feature:
         if self.host_memory_budget > 0:
             host_rows = min(self.host_memory_budget // row_bytes, self._n - cache_rows)
         if self.read_pool is None:
-            from .pipeline import AsyncReadPool
-
-            self.read_pool = AsyncReadPool(self.disk_read_workers)
-            # a pool of the feature's own: its threads end with the feature
-            self._pool_finalizer = weakref.finalize(self, self.read_pool.shutdown, False)
+            self._own_read_pool()
         if self.adaptive_tiers:
             from .tiers import TierStore
 
@@ -247,12 +249,78 @@ class Feature:
                            read_pool=self.read_pool)
         self.shard_tensor = st
 
+    def _own_read_pool(self) -> None:
+        """A disk read pool of this feature's own: its threads end with the
+        feature."""
+        from .pipeline import AsyncReadPool
+
+        self.read_pool = AsyncReadPool(self.disk_read_workers)
+        self._pool_finalizer = weakref.finalize(self, self.read_pool.shutdown, False)
+
     def close(self) -> None:
         """Shut down the disk read pool this feature built and wait for its
-        threads (a pool handed in as ``read_pool`` stays its caller's)."""
+        threads (a pool handed in as ``read_pool`` stays its caller's), and
+        unregister a host tail this process registered with the card
+        (`ShardTensor.close`)."""
         fin = self._pool_finalizer
         if fin is not None and fin.detach() is not None:
             self.read_pool.shutdown(wait=True)
+        if self.shard_tensor is not None:
+            self.shard_tensor.close()
+
+    # -- the hand-off to another process (quiver_tpu_torch.multiprocessing) -------
+
+    def share_ipc(self) -> dict:
+        """A handle another process rebuilds this feature from
+        (`new_from_ipc_handle`): the shard handle (`ShardTensor.share_ipc`:
+        device rows by CUDA IPC, the host tail in shared memory, the disk
+        tier by path) beside ``feature_order`` (in shared memory), its copy
+        on the device, the shape, the policy and the cache size. Pickle it
+        with ``multiprocessing``'s ``ForkingPickler``. An adaptive store
+        moves rows between tiers as it runs and cannot be shared."""
+        if self.tier_store is not None:
+            raise NotImplementedError("an adaptive tier store moves rows as it runs; sharing it "
+                                      "with another process is not ported (ROADMAP A16)")
+        if self.shard_tensor is None:
+            raise ValueError("nothing to share: call from_cpu_tensor first")
+        order = self._shared_order
+        if self.feature_order is not None and not is_view_of(self.feature_order, order):
+            order = self._shared_order = shared_tensor(self.feature_order)
+            self.feature_order = order.numpy()
+        return dict(rank=self.rank, device=str(self.device), device_list=self.device_list,
+                    device_cache_size=self.device_cache_size, cache_policy=self.cache_policy,
+                    dtype=str(self.dtype).removeprefix("torch."), shape=(self._n, self._dim),
+                    feature_order=order, order_dev=self._order_dev,
+                    local_order=self._local_order_applied,
+                    host_memory_budget=self.host_memory_budget, disk_path=self.disk_path,
+                    disk_read_workers=self.disk_read_workers,
+                    shard_ipc=self.shard_tensor.share_ipc())
+
+    @classmethod
+    def new_from_ipc_handle(cls, rank: int, ipc_handle: dict) -> "Feature":
+        """The feature of a `share_ipc` handle in this process: on
+        ``cuda:rank`` (a CPU handle stays on the CPU), over the same memory
+        (`ShardTensor.new_from_share_ipc`); ``feat[ids]`` equals the
+        sharer's. A disk tier gets a read pool of its own."""
+        h = ipc_handle
+        device = "cpu" if h["device"] == "cpu" else f"cuda:{rank}"
+        self = cls(rank=rank, device_list=h["device_list"],
+                   device_cache_size=h["device_cache_size"], cache_policy=h["cache_policy"],
+                   dtype=h["dtype"], device=device, host_memory_budget=h["host_memory_budget"],
+                   disk_path=h["disk_path"], disk_read_workers=h["disk_read_workers"])
+        self._n, self._dim = h["shape"]
+        if h["feature_order"] is not None:
+            self._shared_order = h["feature_order"]
+            self.feature_order = self._shared_order.numpy()
+        self._order_dev = h["order_dev"]
+        self._local_order_applied = h["local_order"]
+        self.shard_tensor = ShardTensor.new_from_share_ipc(h["shard_ipc"], self.device)
+        if self.shard_tensor.disk_shard is not None:
+            self._own_read_pool()
+            self.shard_tensor.read_pool = self.read_pool
+        return self
+
+    lazy_from_ipc_handle = new_from_ipc_handle
 
     def _float32_only(self, what: str) -> None:
         if self.dtype != torch.float32:

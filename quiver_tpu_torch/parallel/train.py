@@ -242,11 +242,20 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
     ``init_process_group``). Every rank must call it, in the same order as
     its other ``new_group`` calls: it makes every group of every family
     (``dist.new_group`` is collective). ``device`` defaults to
-    ``cuda:LOCAL_RANK``. Unverified on several GPUs."""
+    ``cuda:LOCAL_RANK``, and raises where that card does not exist (several
+    processes on one card pass ``device="cuda:0"``). Unverified on several
+    GPUs."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed.init_process_group first; "
                            "use local_meshes for ranks in one process")
     world, rank = dist.get_world_size(), dist.get_rank()
+    if device is None:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        if local >= torch.cuda.device_count():
+            raise ValueError(f"make_mesh: LOCAL_RANK {local} names no card "
+                             f"({torch.cuda.device_count()} visible); pass device= (e.g. "
+                             "device='cuda:0' for several processes on one card, or 'cpu')")
+        device = f"cuda:{local}"
     n = world if n_devices is None else int(n_devices)
     if n != world:
         raise ValueError(f"make_mesh: requested {n} devices but the world has {world} ranks")
@@ -264,8 +273,6 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
             g = dist.new_group(ranks, timeout=timeout)
             if rank in ranks:
                 mine[fam] = g
-    if device is None:
-        device = f"cuda:{int(os.environ.get('LOCAL_RANK', rank))}"
     dev = resolve_device(device)
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     return Mesh(dp, ici, d, i, mine, dev, stream, timeout_s, hosts, h)

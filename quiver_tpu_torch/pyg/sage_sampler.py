@@ -15,6 +15,8 @@ there)), and its host modes (``mode="HOST"``, ``"CPU"``, and the
 reference's alias ``"UVA"``): the graph stays in host memory and the
 native engine (`ops.cpu_kernels.HostSampler`) draws each batch, which then
 lands on the sampler's device in one copy (`host_dense_sample`).
+`GraphSageSampler.share_ipc` / ``lazy_from_ipc_handle`` hand a sampler to
+another process (`quiver_tpu_torch.multiprocessing`).
 
 In its device mode the sampler draws one key per call from a
 deterministic stream (``fold_in(key(seed), call)``) and splits a sub-key
@@ -47,7 +49,7 @@ from ..ops.sample import sample_layer as _sample_layer_op
 from ..ops.sample import tiled_sample_layer as _tiled_sample_layer_op
 from ..ops.sample import tiled_weighted_sample_layer as _tiled_weighted_sample_layer_op
 from ..ops.sample import weighted_sample_layer as _weighted_sample_layer_op
-from ..utils import CSRTopo, _best_id_dtype, resolve_device
+from ..utils import CSRTopo, _best_id_dtype, refuse_unexportable_allocator, resolve_device
 
 HOST_MODES = ("HOST", "CPU")
 
@@ -754,6 +756,55 @@ class GraphSageSampler:
                                                   device=seeds.device), int(size),
                                 self.next_key())
         return nbrs[valid], valid.sum(dim=1)
+
+    # -- the hand-off to another process (quiver_tpu_torch.multiprocessing) -------
+
+    def share_ipc(self) -> tuple:
+        """A handle another process rebuilds this sampler from
+        (`lazy_from_ipc_handle`), with the reference's fields: the topology
+        (its host arrays moved into shared memory, `CSRTopo.share_memory_`),
+        sizes, device, mode, caps, seed, dedup, weighted, max_deg,
+        auto_grow_caps and layout, then the card graph when this sampler has
+        bound one (the tensors themselves: CUDA IPC, no copy). A host-mode
+        sampler builds the native engine here, before any child starts.
+        Stream- and temporal-bound samplers are refused: their bindings do
+        not cross processes yet."""
+        if self._stream is not None:
+            raise TypeError("a stream-bound sampler cannot be handed to another process: the "
+                            "child would sample the stale base graph (streaming graphs across "
+                            "processes: ROADMAP A14)")
+        if self._temporal is not None:
+            raise TypeError("a temporal-bound sampler cannot be handed to another process: "
+                            "the timestamp tiles do not cross yet (ROADMAP A16)")
+        self.csr_topo.share_memory_()
+        if self.on_host:
+            from ..ops.cpu_kernels import _load_native
+
+            _load_native()
+        elif self._graph is not None and self.device.type == "cuda":
+            refuse_unexportable_allocator()
+        return (self.csr_topo, self.sizes, str(self.device), self.mode, self.caps, self._seed,
+                self.dedup, self.weighted, self.max_deg, self.auto_grow_caps, self.layout,
+                self._graph)
+
+    @classmethod
+    def lazy_from_ipc_handle(cls, ipc_handle: tuple) -> "GraphSageSampler":
+        """The sampler of a `share_ipc` handle in this process. Its key
+        stream starts at call 0, as a fresh sampler's does, however many
+        batches the sharer drew. A handed card graph is bound as it is (no
+        K12 build, no second copy); without one the graph is bound at first
+        use, as by any new sampler."""
+        (csr_topo, sizes, device, mode, caps, seed, dedup, weighted, max_deg, auto_grow_caps,
+         layout, graph) = ipc_handle
+        if graph is not None:  # bound as the topology's own tables
+            tables, weights = tuple(graph[:2]), (graph[2] if weighted else None)
+            if layout == "tiled":
+                csr_topo.adopt_device_tables(tiled=tables, tiled_weights=weights)
+            else:
+                csr_topo.adopt_device_tables(flat=tables, weights=weights)
+        return cls(csr_topo, sizes, device=device, mode=mode, caps=caps, seed=seed,
+                   dedup=dedup, layout=layout, weighted=weighted, max_deg=max_deg,
+                   auto_grow_caps=auto_grow_caps)
 
     def reindex(self, inputs, outputs, counts):
         """The reference's reindex of a ragged one-hop result: ``(n_id, row,

@@ -20,12 +20,17 @@ bfloat16 stays a torch dtype end to end: numpy has no bfloat16 without
 converted with ``Tensor.to(torch.bfloat16)`` (round to nearest even, as
 ``ml_dtypes`` rounds); on disk a bfloat16 row is stored as its int16 bits.
 
-Not ported yet: a second device shard (the clique stripe) and the IPC
-handles.
+`ShardTensor.share_ipc` hands the tiers to another process: the device
+shard as the tensor itself (torch's CUDA IPC), the host tail in shared
+memory (registered with the card in every process that gathers from it),
+the disk tier by its path.
+
+Not ported yet: a second device shard (the clique stripe).
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
 
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .utils import parse_size, resolve_device
+from .utils import parse_size, refuse_unexportable_allocator, resolve_device
 
 CPU_DEVICE = -1  # the reference's device id of the pinned host shard
 
@@ -243,6 +248,8 @@ class ShardTensor:
         self._host_order = None  # (order tensor, its int64 numpy copy) for the disk reads
         self._n_rows = 0
         self._dim: Optional[int] = None
+        # unregisters the host tail this process registered with the card
+        self._host_registration: Optional[weakref.finalize] = None
 
     def append(self, tensor, device: int) -> None:
         """Place ``tensor`` as the next row range: on this handle's device
@@ -383,3 +390,87 @@ class ShardTensor:
         """Rows by global id on this handle's device; ids outside every
         shard give zero rows."""
         return self.gather(ids)
+
+    # -- the hand-off to another process (quiver_tpu_torch.multiprocessing) -------
+
+    def _share_host_tail(self) -> None:
+        """Copy the host tail into shared memory, once, and gather from the
+        copy from now on. On the card a pinned tail cannot cross processes
+        (torch's pinned allocator does not export it), so the copy is
+        registered with the card in its place, and this handle owns the
+        registration."""
+        t = self.cpu_tensor
+        if t is None or t.is_shared():
+            return
+        shared = torch.empty(t.shape, dtype=t.dtype).share_memory_().copy_(t)
+        if self.device.type == "cuda":
+            self._register_host(shared)
+        self.cpu_tensor = shared
+
+    def _register_host(self, t: torch.Tensor) -> None:
+        """Register the shared tail ``t`` with the card (raises with the
+        CUDA error if that fails); unregistered by `close` or when this
+        handle is collected, if this process registered it."""
+        if t.numel() and _kernels.host_register(t):
+            self._host_registration = weakref.finalize(self, _kernels.host_unregister, t)
+
+    def close(self) -> None:
+        """Unregister the host tail this handle registered with the card;
+        its gathers then fail. A no-op for a tail pinned by `append`."""
+        if self._host_registration is not None:
+            self._host_registration()
+
+    def share_ipc(self) -> dict:
+        """A handle another process rebuilds this tensor from
+        (`new_from_share_ipc`): the device shard as the tensor itself (CUDA
+        IPC: no copy and no host round trip), the host tail in shared memory
+        (moved there now, `_share_host_tail`), the disk tier by its path.
+        Pickle it with ``multiprocessing``'s ``ForkingPickler`` (a spawned
+        child's arguments, a queue): a plain pickle copies every tier."""
+        if self.device.type == "cuda":
+            refuse_unexportable_allocator()
+        self._share_host_tail()
+        disk = None
+        if self.disk_shard is not None:
+            disk = (self.disk_shard.path, self.disk_shard.direct)
+        return dict(device=str(self.device), config=self.config,
+                    dtype=str(self.dtype).removeprefix("torch."),
+                    device_rank=self.device_shards[0][0] if self.device_shards else None,
+                    device_rows=self.device_rows, host_rows=self.cpu_tensor, disk=disk,
+                    dim=self._dim)
+
+    @classmethod
+    def new_from_share_ipc(cls, ipc_handle: dict,
+                           current_device: Union[int, str, torch.device] = 0) -> "ShardTensor":
+        """The tensor of a `share_ipc` handle in this process, on
+        ``current_device`` (a CPU handle stays on the CPU): the device shard
+        is the handed tensor, mapped and not copied (it must lie on that
+        device), the shared host tail is registered with the card, and the
+        disk tier re-opens by path. Raises when a mapping or the
+        registration fails; nothing is copied in their place."""
+        if ipc_handle["device"] == "cpu":
+            current_device = "cpu"
+        self = cls(current_device, ipc_handle["config"], dtype=ipc_handle["dtype"])
+        self._dim = ipc_handle["dim"]
+        rows = ipc_handle["device_rows"]
+        if rows is not None:
+            if rows.device != self.device:
+                raise ValueError(f"the handed device shard lies on {rows.device}, not on "
+                                 f"{self.device}: CUDA IPC maps it where it was made")
+            self.device_shards.append((ipc_handle["device_rank"], rows, Offset(0, rows.shape[0])))
+            self._n_rows = rows.shape[0]
+        host = ipc_handle["host_rows"]
+        if host is not None:
+            if self.device.type == "cuda":
+                self._register_host(host)
+            self.cpu_tensor = host
+            self.cpu_offset = Offset(self._n_rows, self._n_rows + host.shape[0])
+            self._n_rows = self.cpu_offset.end
+        if ipc_handle["disk"] is not None:
+            from .tiers import DiskShard  # tiers imports this module
+
+            path, direct = ipc_handle["disk"]
+            self.disk_shard = DiskShard(path, direct=direct)
+            self.disk_offset = Offset(self._n_rows, self._n_rows + self.disk_shard.shape[0])
+            self._n_rows = self.disk_offset.end
+        return self

@@ -13,11 +13,16 @@ silently), int64 only for graphs whose ids do not fit.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Optional, Union
 
 import numpy as np
 import torch
+
+
+# the host arrays of a CSRTopo that `CSRTopo.share_memory_` moves into shared memory
+SHARED_ARRAYS = ("indptr", "indices", "edge_weights", "_feature_order")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,6 +65,31 @@ def round_up_pow2(n: int, floor: int = 16) -> int:
     while v < n:
         v <<= 1
     return v
+
+
+def shared_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A copy of ``arr`` as a CPU tensor in shared memory: a
+    `multiprocessing` pickle of it carries a file descriptor, not the
+    bytes."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).share_memory_()
+
+
+def is_view_of(arr, t: Optional[torch.Tensor]) -> bool:
+    """Whether numpy ``arr`` is the whole of tensor ``t``'s memory."""
+    return (t is not None and isinstance(arr, np.ndarray) and arr.size == t.numel()
+            and (arr.size == 0 or arr.ctypes.data == t.data_ptr()))
+
+
+def refuse_unexportable_allocator() -> None:
+    """Raise when the CUDA caching allocator is set to expandable segments,
+    whose blocks the port does not hand to another process (CUDA IPC
+    exports ``cudaMalloc`` blocks); nothing copies in their place."""
+    for var in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"):
+        conf = os.environ.get(var, "").replace(" ", "")
+        if "expandable_segments:true" in conf.lower():
+            raise RuntimeError(f"{var}={conf!r}: the port hands device tensors to other "
+                               "processes by CUDA IPC, which it does not do for expandable "
+                               "segments; unset expandable_segments")
 
 
 def _best_id_dtype(max_value: int) -> np.dtype:
@@ -121,19 +151,66 @@ class CSRTopo:
         self._transposed_cache = None
         self._tile_map = None  # (bd, row_start, row_width), host numpy
         self._feature_order: Optional[np.ndarray] = None
+        self._shared = {}  # name -> the shared tensor its array views (`share_memory_`)
 
     def __getstate__(self):
-        # device tensors stay in their process; a child binds its own
+        # device tensors and the host row map (a cache of indptr) stay in
+        # their process; an array moved by `share_memory_` travels as its
+        # shared tensor
         state = self.__dict__.copy()
         for name in ("_flat_cache", "_tiled_cache", "_wtiled_cache", "_weights_cache",
-                     "_transposed_cache"):
+                     "_transposed_cache", "_tile_map"):
             state[name] = None
+        for name in SHARED_ARRAYS:
+            t = self._shared.get(name)
+            if t is not None and is_view_of(state[name], t):
+                state[name] = t
         return state
 
+    def __setstate__(self, state):
+        shared = {}
+        for name in SHARED_ARRAYS:
+            if isinstance(state.get(name), torch.Tensor):
+                shared[name] = state[name]
+                state[name] = state[name].numpy()
+        self.__dict__.update(state)
+        self._shared = shared
+
     def share_memory_(self) -> "CSRTopo":
-        """No-op: the topology is host numpy, which worker processes get
-        by fork or pickle (device tensors are dropped, `__getstate__`)."""
+        """Move the host arrays (``indptr``, ``indices``, ``edge_weights``
+        and ``feature_order``) into shared memory: each becomes a numpy view
+        of a shared-memory torch tensor. A `multiprocessing` pickle
+        (``ForkingPickler``: a spawned child's arguments, a queue) then
+        carries their file descriptors, not their bytes, and the child maps
+        the same pages; a plain pickle still carries the bytes. Device
+        tensors never travel (`__getstate__`). Idempotent; returns self."""
+        for name in SHARED_ARRAYS:
+            arr = getattr(self, name)
+            if arr is None or is_view_of(arr, self._shared.get(name)):
+                continue
+            t = shared_tensor(arr)
+            self._shared[name] = t
+            setattr(self, name, t.numpy())
         return self
+
+    def adopt_device_tables(self, flat=None, tiled=None, weights=None,
+                            tiled_weights=None) -> None:
+        """Take device tables made elsewhere (another process's, mapped by
+        CUDA IPC) as this topology's: ``flat`` ``(indptr, indices)``,
+        ``tiled`` ``(bd, tiles)``, ``weights`` ``[E]``, ``tiled_weights``
+        ``[M, 128]``. `to_device`, `to_device_tiled`, `to_device_weights`
+        and `to_device_tiled_weights` then return them on their device and
+        dtype instead of building their own."""
+        if flat is not None:
+            name = str(flat[1].dtype).removeprefix("torch.")
+            self._flat_cache = ((str(flat[1].device), name), tuple(flat))
+        if tiled is not None:
+            name = str(tiled[1].dtype).removeprefix("torch.")
+            self._tiled_cache = (("tiled", str(tiled[1].device), name), tuple(tiled))
+        if weights is not None:
+            self._weights_cache = (str(weights.device), weights)
+        if tiled_weights is not None:
+            self._wtiled_cache = (str(tiled_weights.device), tiled_weights)
 
     @property
     def feature_order(self) -> Optional[np.ndarray]:

@@ -227,8 +227,18 @@ def test_torch_comm_exchange_serve_and_refusals(ranks):
         tcomm.exchange_serve(host2ids, 3, host2ts=[[0.0, 0.0, 0.0], []])
     with pytest.raises(NotImplementedError):
         tcomm.send()
-    with pytest.raises(NotImplementedError, match="A16"):
-        TorchComm(rank=0, world_size=2, hosts=2, meshes=meshes[:1]).exchange(host2ids)
+    # one rank mesh of two hosts: the multi-process mode, which refuses before
+    # any collective when it has no agreed budget or no block of its own
+    mp_comm = TorchComm(rank=0, world_size=2, hosts=2, meshes=meshes[:1])
+    assert mp_comm.multiprocess
+    with pytest.raises(ValueError, match="budget"):
+        mp_comm.exchange(host2ids)
+    with pytest.raises(RuntimeError, match="register_local_table"):
+        mp_comm.exchange(host2ids, budget=4)
+    with pytest.raises(NotImplementedError, match="parallel.collectives"):
+        mp_comm.allreduce([1.0])
+    with pytest.raises(ValueError, match="host 1's"):
+        TorchComm(rank=1, world_size=2, hosts=2, meshes=meshes[:1])
     assert torch.equal(tcomm.allreduce([1.0, 2.0]), torch.tensor([1.0, 2.0]))
 
 

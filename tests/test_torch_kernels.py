@@ -124,7 +124,12 @@ and float32, bfloat16 and int8 rows of 400, 200 and 100 bytes, with
 duplicate slots, all padding, no rows, the edge slots and unaligned base
 pointers, bit-equal to its plain version in two kernels a call; and the
 tiled K13a at D = 1, 47 and 100 in each dtype, all, none and some ids
-owned, bit-equal in one kernel a call."""
+owned, bit-equal in one kernel a call. In a spawned child (the hand-off of
+`quiver_tpu_torch.multiprocessing`): K3t over a device shard mapped by
+CUDA IPC and a shared host tail registered with the card there, bit-equal
+to its plain version, and K1/K2's first draw over a mapped tile table,
+bit-equal to the parent's, with no tile table built in the child; a
+child started by ``fork`` instead fails at its first gather."""
 
 import numpy as np
 import pytest
@@ -174,7 +179,7 @@ from quiver_tpu_torch.ops.gather_src import (
 )
 
 from torch_fixtures import cuda_device  # noqa: F401 (fixture)
-from torch_fixtures import prob_kernel_order
+from torch_fixtures import prob_kernel_order, run_in_child
 
 # tiny shapes: one intra-op thread leaves the cores to the other test workers
 torch.set_num_threads(1)
@@ -2446,3 +2451,82 @@ def test_captured_bucket_replays_two_epochs_without_capture(cuda_device, tempora
         fresh = GraphSageSampler(st.to_csr_topo(), [10, 5], seed=3, device=cuda_device)
     assert np.array_equal(BucketPrograms(fresh, feat)(64, model, key, seeds, *extra), after)
     assert not np.array_equal(after, before)
+
+
+# -- the hand-off to a spawned child (quiver_tpu_torch.multiprocessing) ----------------
+
+@pytest.mark.cuda
+def test_spawned_child_k3t_over_a_registered_shared_tail(cuda_device):
+    """A ShardTensor handed to a spawned child: the device rows by CUDA IPC,
+    the host tail copied into shared memory and registered with the card in
+    both processes. The child's K3t gather equals its plain version over the
+    same tiers and the plain gather of the table; so does the parent's."""
+    import quiver_tpu_torch.multiprocessing  # noqa: F401 (torch's reducers too)
+    import torch_mp_children as children
+    from quiver_tpu_torch.shard_tensor import CPU_DEVICE, ShardTensor
+
+    table = torch.randn((20_000, 100), generator=torch.Generator().manual_seed(5))
+    st = ShardTensor(cuda_device)
+    st.append(table[:4_000], 0)
+    st.append(table[4_000:], CPU_DEVICE)
+    handle = st.share_ipc()
+    assert st.cpu_tensor.is_shared() and st.cpu_tensor.is_pinned()
+    ids = np.random.default_rng(5).integers(-8, 20_008, 16_384)
+    got, want, pinned = run_in_child(children.cuda_tiered_gather, handle, ids)
+    expect = tiered_gather_plain(table[:4_000], table[4_000:], torch.from_numpy(ids), 20_000)
+    assert pinned
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.array_equal(got.view(np.int32), expect.numpy().view(np.int32))
+    mine = st.gather(torch.as_tensor(ids, dtype=torch.int32, device=cuda_device)).cpu()
+    assert torch.equal(mine.view(torch.int32), expect.view(torch.int32))
+    st.close()
+
+
+@pytest.mark.cuda
+def test_spawned_child_k1_draws_over_an_ipc_mapped_tile_table(cuda_device):
+    """A tiled sampler handed to a spawned child after the parent drew: the
+    child's first draw (K1, K2) over the mapped tile table equals the
+    parent's first draw through a sampler of the same handle, and the child
+    built no tile table (no K12 launch)."""
+    import quiver_tpu_torch.multiprocessing  # noqa: F401
+    import torch_mp_children as children
+
+    ei = np.random.default_rng(3).integers(0, 5_000, (2, 200_000))
+    sampler = GraphSageSampler(CSRTopo(edge_index=ei), [15, 10, 5], device=cuda_device, seed=7)
+    sampler.sample_dense(np.arange(64))
+    seeds = np.random.default_rng(4).integers(0, 5_000, 64)
+    n_id, count, masks, cols, counts = run_in_child(children.cuda_tiled_draw,
+                                                    {"sampler": sampler}, seeds)
+    ds = GraphSageSampler.lazy_from_ipc_handle(sampler.share_ipc()).sample_dense(seeds)
+    assert counts["build_tiles"] == 0 and counts["sample_tiled"] == 3
+    assert np.array_equal(n_id, ds.n_id.cpu().numpy()) and count == int(ds.count)
+    for m, c, a in zip(masks, cols, ds.adjs):
+        assert np.array_equal(m, a.mask.cpu().numpy())
+        assert np.array_equal(c, a.cols.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_a_forked_child_fails_loudly_on_a_handed_feature(cuda_device):
+    """A child started by ``fork`` after the parent touched CUDA cannot use
+    the card: its first gather from an inherited feature raises (torch's
+    forked-subprocess error) instead of reading anything. Hand-offs use
+    ``spawn``."""
+    import multiprocessing as mp
+
+    import torch_mp_children as children
+
+    feat = Feature(device=cuda_device, device_cache_size=100 * 8 * 4)
+    feat.from_cpu_tensor(np.ones((100, 8), np.float32))
+    feat[np.arange(4)]
+    ctx = mp.get_context("fork")
+    q = ctx.Queue()
+    p = ctx.Process(target=children.feature_rows, args=({"feature": feat}, np.arange(4), q))
+    p.start()
+    try:
+        status, out = q.get(timeout=60)
+    finally:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+    assert status == "error" and "forked subprocess" in out, out

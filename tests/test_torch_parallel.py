@@ -647,7 +647,8 @@ def test_parallel_modules_load_no_jax_or_reference_package():
         "import sys; before = set(sys.modules); import quiver_tpu_torch.parallel, "
         "quiver_tpu_torch.parallel.train, quiver_tpu_torch.parallel.topology, "
         "quiver_tpu_torch.parallel.collectives, quiver_tpu_torch.quant.lookup, "
-        "quiver_tpu_torch.examples.products_multichip; "
+        "quiver_tpu_torch.examples.products_multichip, quiver_tpu_torch.multiprocessing, "
+        "quiver_tpu_torch.comm; "
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'quiver_tpu', 'quiver')); print(repr(bad))"
     )

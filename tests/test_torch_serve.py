@@ -240,7 +240,8 @@ def test_import_loads_no_jax_or_reference_package():
         "quiver_tpu_torch.checkpoint, quiver_tpu_torch.quant, quiver_tpu_torch.tiers, "
         "quiver_tpu_torch.partition, quiver_tpu_torch.workloads, quiver_tpu_torch.models.gcn, "
         "quiver_tpu_torch.models.gat, quiver_tpu_torch.ops.gather_src, "
-        "quiver_tpu_torch.comm, quiver_tpu_torch.serve.dist; "
+        "quiver_tpu_torch.comm, quiver_tpu_torch.serve.dist, "
+        "quiver_tpu_torch.multiprocessing, quiver_tpu_torch.multiprocessing.reductions; "
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'quiver_tpu', 'quiver')); print(repr(bad))"
     )

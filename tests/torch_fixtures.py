@@ -17,6 +17,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def run_in_child(target, *args, timeout=120):
+    """Run ``target(*args, queue)`` in one ``spawn`` child (its arguments
+    travel through ``ForkingPickler``: the port's reducers where imported)
+    and return what it put as ``("ok", value)``; fail with the traceback it
+    put as ``("error", text)``. Every wait has a timeout, and a child still
+    alive after its join is killed."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=target, args=(*args, q))
+    p.start()
+    try:
+        status, out = q.get(timeout=timeout)
+    finally:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+    assert not p.is_alive() and p.exitcode == 0, p.exitcode
+    assert status == "ok", out
+    return out
+
+
 def prob_kernel_order(tindptr, tsrc, w, lane_items, seq_span):
     """``csrc/prob.cu``'s additions (K11) replayed in numpy float32 over
     the transposed graph (``tindptr [N+1]``, ``tsrc [E]``) and the weights
